@@ -11,18 +11,28 @@ printing its result lines):
 1. Card: name and power limit (nvidia-smi).
 2. Build: compile every kernel source in nerfsys_tpu_torch/csrc with nvcc
    (one process per source, all at once) and report the seconds.
-3. Kernels: hold each kernel against its plain PyTorch version on the card
-   at one full serve chunk (65,536 rays, S=32 samples, P=128 probes; K=4
-   experts at bench width; R=128, L=4 occupancy grids half occupied) and
-   time both with CUDA events.
+3. Kernels: hold each forward kernel against its plain PyTorch version on
+   the card at one full serve chunk (65,536 rays, S=32 samples, P=128
+   probes; K=4 experts at bench width; R=128, L=4 occupancy grids half
+   occupied), and each backward kernel at one full inner step of one
+   bench-width expert (4,000 rays x 32 samples), and time both with CUDA
+   events.
 4. Serve: a soft-occupancy chunk renderer at bench width renders one
    warm-up frame and then 3 requests of 800x800 frames through
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
-   every kernel's launch counter must have moved during the 3 requests, and
-   one chunk rendered through the kernels must match the same chunk
-   rendered through the plain versions.
-5. A JSON line listing every kernel (launches, error, times, bound).
-6. The card line, then the last line:
+   every serving kernel's launch counter must have moved during the 3
+   requests, and one chunk rendered through the kernels must match the
+   same chunk rendered through the plain versions.
+5. Train: bench.py's FoMAML configuration (K=4, B=3 tasks, 4,000 support
+   and 2,000 query rays, 8 inner steps, 32 soft-occupancy samples, the
+   light encoder backward) through `make_train_step`: one warm-up step,
+   3 timed outer steps, then one step with the encoder's default exact
+   backward (pos_grad=True). Loss finite, no step skipped, params moved,
+   every kernel's launch counter moved; one task's gradients through the
+   kernels match the same task through the plain versions; one step is
+   profiled.
+6. A JSON line listing every kernel (launches, error, times, bound).
+7. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -105,7 +115,7 @@ def bench_setup(device):
         hidden=64, sigma_depth=2, color_hidden=64, color_depth=2,
         geo_feat_dim=15, sh_levels=4,
         planes=PlaneEncodingConfig(levels=3, base_res=128, growth=2.0,
-                                   features=8))
+                                   features=8, pos_grad=False))
     cfg = ContainerConfig(num_experts=4, expert=expert, boundary_margin=1.1,
                           bg_hidden=32)
     cents = torch.tensor([[0.0, -1, -1], [0.0, -1, 1], [0.0, 1, -1],
@@ -243,6 +253,306 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
     return results
 
 
+TRAIN_K, TRAIN_B, TRAIN_S, TRAIN_Q, TRAIN_INNER = 4, 3, 4000, 2000, 8
+
+
+def train_batch(device):
+    """bench.py's synthetic episode (numpy seed 0), on the card."""
+    import numpy as np
+    import torch
+
+    K, B = TRAIN_K, TRAIN_B
+    rng = np.random.default_rng(0)
+
+    def rays(n):
+        o = rng.normal(size=(K, B, n, 3)).astype(np.float32) * 0.3
+        d = rng.normal(size=(K, B, n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        nf = np.tile(np.array([0.1, 2.5], np.float32), (K, B, n, 1))
+        return np.concatenate([o, d, nf], -1)
+
+    batch = {
+        "support_rays": rays(TRAIN_S),
+        "support_rgbs": rng.uniform(size=(K, B, TRAIN_S, 3)).astype(
+            np.float32),
+        "query_rays": rays(TRAIN_Q),
+        "query_rgbs": rng.uniform(size=(K, B, TRAIN_Q, 3)).astype(
+            np.float32),
+        "valid": np.ones((K, B), np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_meta():
+    from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
+
+    return MetaConfig(algo="fomaml", inner_iter=TRAIN_INNER, inner_lr=0.015,
+                      ray_samples=32, occ_importance=True,
+                      occ_hard_mask=False)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (the gradient's own scale)."""
+    return max_err(got, want) / max(float(want.double().abs().max()), 1e-30)
+
+
+def check_train_kernels(cfg, statics, params, occ, batch, device, results):
+    """Phase 3, backward kernels: at one full inner step of one bench-width
+    expert (expert 0's first support set: 4,000 rays x 32 samples, its
+    K=1 probe, randomized samples), each against its plain version."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.container import background_color
+    from nerfsys_tpu_torch.models.ngp import ngp_apply, world_to_unit
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import planes as PL
+    from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.utils.tree import tree_map
+
+    S = 32
+    rays = batch["support_rays"][0, 0]
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    near, far = rays[:, 6].contiguous(), rays[:, 7].contiguous()
+    N = rays.shape[0]
+    grid = (occ["occs"][0:1], occ["binary"][0:1], statics.expert_aabbs[0:1])
+    cdf = O.occupancy_probe_cdf(*grid, o, d, near, far, 128, importance=True,
+                                ray_floor=0.25)
+    gen = torch.Generator(device=device).manual_seed(3)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S, generator=gen,
+                                        randomized=True)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    expert = tree_map(lambda t: t[0], params["experts"])
+    aabb = statics.expert_aabbs[0]
+
+    def report(kern, checks, why, ms, plain_ms, n_bytes, n_ops):
+        """checks: (label, got, want, tol on max error / max |want|)."""
+        b_ms, b_by = bound(n_bytes, n_ops)
+        rels = [(label, rel_err(a, b), tol) for label, a, b, tol in checks]
+        abs_err = max(max_err(a, b) for _, a, b, _ in checks)
+        text = (" ".join(f"{label}_err/max={r:.3e} tol={tol:g}"
+                         for label, r, tol in rels)
+                + f" max_abs_err={abs_err:.3e} ({why}) kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bytes={n_bytes} "
+                f"bound_ms={b_ms:.4f} ({b_by}) at "
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+        if not all(r <= tol for _, r, tol in rels):
+            print(f"kernel {kern.name}: {text}", flush=True)
+            raise SystemExit(f"kernel {kern.name} disagrees with its plain "
+                             f"version: {rels}")
+        results[kern.name] = dict(max_abs_err=abs_err, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, text=text)
+
+    # kernel 4's VJP, rgb the only upstream (as on the loss path)
+    with torch.no_grad():
+        rgb, sigma = ngp_apply(expert, cfg.expert, aabb, pts,
+                               d[:, None, :].expand(N, S, 3).reshape(-1, 3))
+        bg = background_color(params, cfg, d).contiguous()
+    rgb_sigma = torch.cat([rgb.reshape(N, S, 3), sigma.reshape(N, S, 1)],
+                          dim=-1).contiguous()
+    g_rgb = torch.randn((N, 3), device=device, generator=gen)
+    grads = (g_rgb, None, None, None)
+    k_rs, k_bg = V.volume_render_bwd_kernel(rgb_sigma, t_vals, bg, grads)
+    p_rs, p_bg = V.volume_render_bwd_plain(rgb_sigma, t_vals, bg, grads)
+    report(kernels.VOLREND_BWD,
+           [("rgb_sigma", k_rs, p_rs, 1e-5), ("bg", k_bg, p_bg, 1e-5)],
+           "relative to each gradient's max: a division-free reverse scan vs "
+           "torch's cumprod backward, other summation orders",
+           cuda_ms(lambda: V.volume_render_bwd_kernel(rgb_sigma, t_vals, bg,
+                                                      grads), 20),
+           cuda_ms(lambda: V.volume_render_bwd_plain(rgb_sigma, t_vals, bg,
+                                                     grads), 5),
+           nbytes(rgb_sigma, t_vals, bg, g_rgb, k_rs, k_bg), N * S * 40)
+
+    # kernels 5 and 6: the encoder VJPs, one expert's tables (3 levels)
+    enc = expert["planes_enc"]
+    x01 = world_to_unit(pts, aabb, cfg.expert.enc_eps).contiguous()
+    P = x01.shape[0]
+    ct = torch.randn((P, cfg.expert.planes.out_dim), device=device,
+                     generator=gen)
+    tables = list(enc["planes"]) + list(enc["lines"])
+    for kern, pos_grad, tol, why in (
+            (kernels.PLANES_BWD_LIGHT, False, 2.0**-8,
+             "relative to each table's max; bf16 residuals round alike "
+             "(--fmad=false), fp32 atomics add in another order; a residual "
+             "one bf16 ulp off would move one point's share by 2^-8"),
+            (kernels.PLANES_BWD, True, 1e-4,
+             "relative to each gradient's max; fp32 atomics add up to "
+             "thousands of cancelling shares per line row, and the position "
+             "gradient sums 9 blocks of differences times R-1, in another "
+             "order than index_add_ and torch.sum: ~5e-6 measured")):
+        pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
+        got = PL.plane_encode_bwd_kernel(enc, x01, ct, pc)
+        want = PL.plane_encode_bwd_plain(enc, x01, ct, pc)
+        checks = [(f"{key}{l}", a, b, tol) for key, i in (("plane", 0),
+                                                        ("line", 1))
+                  for l, (a, b) in enumerate(zip(got[i], want[i]))]
+        if pos_grad:
+            checks.append(("x", got[2], want[2], tol))
+        n_out = sum(t.numel() for t in got[0] + got[1])
+        report(kern, checks, why,
+               cuda_ms(lambda: PL.plane_encode_bwd_kernel(enc, x01, ct, pc),
+                       10),
+               cuda_ms(lambda: PL.plane_encode_bwd_plain(enc, x01, ct, pc),
+                       3),
+               nbytes(x01, ct, tables, got[0], got[1],
+                      got[2] if pos_grad else None),
+               P * 9 * cfg.expert.planes.features * (30 if pos_grad else 24)
+               + n_out)
+        del got, want, checks
+
+
+def grads_through_plain_match(meta, cfg, statics, params, occ, batch,
+                              device):
+    """One task's accumulated gradients through the kernels against the
+    same task through the plain versions, both on the card, from the same
+    random draws (one generator seed each)."""
+    import torch
+
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        _occ_on,
+        _task,
+        task_value_and_grad,
+    )
+    from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    out = []
+    total_n = batch["valid"].sum()
+    for use_kernels in (True, False):
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        gen = torch.Generator(device=device).manual_seed(7)
+        contrib, _ = task_value_and_grad(
+            meta, cfg, leaves, statics, _task(batch, 0), gen, total_n, occ,
+            _occ_on(occ), use_kernels)
+        out.append((float(contrib), [t.grad for t in tree_leaves(leaves)]))
+    (lk, gk), (lp, gp) = out
+    errs = [rel_err(a, b) for a, b in zip(gk, gp)]
+    tol = 2.0**-8
+    print(f"train: one task through kernels vs plain: loss {lk:.7f} vs "
+          f"{lp:.7f}; gradient error / leaf max: worst {max(errs):.3e} "
+          f"median {sorted(errs)[len(errs) // 2]:.3e} over {len(errs)} "
+          f"leaves (tol {tol:g}: 8 inner SGD steps carry encoder rounding "
+          f"and bf16 residual flips, 2^-8 each, into the query gradients)",
+          flush=True)
+    if abs(lk - lp) > 1e-4 * abs(lp) or not max(errs) <= tol:
+        raise SystemExit("train: kernel path gradients disagree with the "
+                         "plain path")
+
+
+def profile_step(step, args):
+    """Where one outer step's time goes: device time by kernel under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, aux = step(*args)
+        float(aux["loss_out"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if busy_ms > 0:
+        print(f"profile: train step wall_ms={wall_ms:.2f} (profiled) "
+              f"device_busy_ms={busy_ms:.2f} "
+              f"idle_share={1 - busy_ms / wall_ms:.3f}", flush=True)
+        for dev_ms, key, count in rows[:12]:
+            print(f"profile: {dev_ms:9.3f} ms {count:6d}x {key[:90]}")
+    else:
+        print(f"profile: device time not measured (the profiler saw no "
+              f"device events); train step wall_ms={wall_ms:.2f}",
+              flush=True)
+
+
+def train(cfg, statics, params, occ, batch, device):
+    """Phase 5: bench.py's FoMAML step through the port's entry point, the
+    counters zeroed just before the timed steps and read just after the
+    exact-backward step."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.container import param_group_labels
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+    from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    meta = train_meta()
+    opt = build_optimizer(OptimConfig(outer_steps=10000),
+                          param_group_labels(params))
+    step = make_train_step(meta, cfg, opt)
+    gen = torch.Generator(device=device).manual_seed(1)
+    state = opt.init(params)
+    p, state, aux = step(params, state, statics, batch, gen, occ)  # warm-up
+    float(aux["loss_out"])
+
+    kernels.reset_launches()
+    times, losses = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        p, state, aux = step(p, state, statics, batch, gen, occ)
+        losses.append(float(aux["loss_out"]))  # host sync ends the step
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(losses[-1]) or float(
+                aux["skipped_nonfinite"]) != 0.0:
+            raise SystemExit(f"train: step not finite: {aux}")
+    light = kernels.launches()
+    # the encoder's default exact backward (pos_grad=True), one step
+    cfg_exact = dataclasses.replace(cfg, expert=dataclasses.replace(
+        cfg.expert, planes=dataclasses.replace(cfg.expert.planes,
+                                               pos_grad=True)))
+    _, _, aux_x = make_train_step(meta, cfg_exact, opt)(
+        p, state, statics, batch, gen, occ)
+    loss_x = float(aux_x["loss_out"])
+    launches = kernels.launches()
+    print(f"train: launches during 3 bench steps {light}", flush=True)
+    print(f"train: launches after the exact-backward step {launches}",
+          flush=True)
+    if not math.isfinite(loss_x) or float(aux_x["skipped_nonfinite"]):
+        raise SystemExit("train: exact-backward step not finite")
+    for name, n in launches.items():
+        if n <= 0:
+            raise SystemExit(f"train: kernel {name} never launched")
+    moved = [float((a - b).abs().max()) > 0
+             for a, b in zip(tree_leaves(p), tree_leaves(params))]
+    if not all(moved):
+        raise SystemExit(f"train: {moved.count(False)} param leaves did not "
+                         f"move")
+
+    grads_through_plain_match(meta, cfg, statics, params, occ, batch, device)
+    profile_step(step, (p, state, statics, batch, gen, occ))
+
+    ms = [1e3 * t for t in times]
+    n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
+    print(f"train: fomaml K={TRAIN_K} B={TRAIN_B} S={TRAIN_S} Q={TRAIN_Q} "
+          f"inner={TRAIN_INNER} samples=32 ms_per_step="
+          f"{[round(x, 2) for x in ms]} mean_ms={sum(ms) / 3:.2f} "
+          f"rays_per_s={n_rays / (sum(times) / 3):.1f} "
+          f"(rays/step {n_rays}) loss_out={losses} "
+          f"grad_norm={float(aux['grad_norm']):.4f} "
+          f"exact_step_loss_out={loss_x:.6f}", flush=True)
+    return light, launches
+
+
 def profile_frame(renderer, params, statics, md, aabb, chunk):
     """Where one served frame's time goes: host ray generation, and the
     device time by kernel under torch.profiler (one extra frame, after the
@@ -286,6 +596,10 @@ def profile_frame(renderer, params, statics, md, aabb, chunk):
         print(f"profile: device time not measured (the profiler saw no "
               f"device events); frame wall_ms={wall_ms:.2f} "
               f"host_raygen_ms={raygen_ms:.2f}", flush=True)
+
+
+SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
+                 "sample_tvals_from_cdf", "volume_render_fwd")
 
 
 def serve(cfg, statics, params, occ, device):
@@ -332,9 +646,9 @@ def serve(cfg, statics, params, occ, device):
             raise SystemExit(f"serve: rgb shape {rgb.shape}")
     launches = kernels.launches()
     print(f"serve: launches during 3 requests {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise SystemExit(f"serve: kernel {name} never launched")
+    for k in SERVE_KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"serve: kernel {k} never launched")
 
     # one chunk through the kernels vs through the plain versions
     plain = make_chunk_renderer(cfg, ray_samples=S, occ_state=occ,
@@ -396,20 +710,27 @@ def main() -> int:
     md = pose((0.0, 0.0, 2.0))
     rays, _ = frame_rays(md.H, md.W, md.intrinsics, md.c2w,
                          aabb=statics.global_aabb.cpu().numpy())
-    results = check_kernels(cfg, statics, params, occ, rays[:CHECK_RAYS], device)
-    launches = serve(cfg, statics, params, occ, device)
+    results = check_kernels(cfg, statics, params, occ, rays[:CHECK_RAYS],
+                            device)
+    batch = train_batch(device)
+    check_train_kernels(cfg, statics, params, occ, batch, device, results)
+    served = serve(cfg, statics, params, occ, device)
+    light, trained = train(cfg, statics, params, occ, batch, device)
 
+    launches = {k: served[k] + trained[k] for k in served}
     for k in kernels.KERNELS:  # one line per kernel, with its launches
-        print(f"kernel {k.name}: launches={launches[k.name]} "
-              f"{results[k.name].pop('text')}")
+        print(f"kernel {k.name}: launches={launches[k.name]} (serve "
+              f"{served[k.name]}, train {trained[k.name]}; per bench train "
+              f"step {light[k.name] / 3:g}) {results[k.name].pop('text')}")
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
          **results[k.name], "library_ms": None}
         for k in kernels.KERNELS]}
     print("library_ms: null for every kernel: no single PyTorch call "
-          "computes the plane encoder, the union probe + CDF, the "
-          "inverse-CDF sampler or the compositor")
+          "computes the plane encoder or its table gradient with the "
+          "interpolation weights, the union probe + CDF, the inverse-CDF "
+          "sampler, or the compositor or its VJP")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

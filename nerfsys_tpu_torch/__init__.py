@@ -8,15 +8,22 @@ copy. The layout mirrors the reference (`ops/`, `models/`,
 find.
 
 Ported so far: the soft-occupancy mixture-of-experts render path
-(`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`).
-The four TPU-specialised ops on that path are hand-written CUDA C++ kernels
-for `sm_90a` (`csrc/*.cu`, built at first use by `kernels/`), each with a
-plain PyTorch version beside it in the same module:
+(`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`)
+and the first-order meta-training step
+(`pipelines.offline.meta_train_step.make_train_step`, fomaml and reptile,
+with `make_eval_step`). The TPU-specialised ops on those paths are
+hand-written CUDA C++ kernels for `sm_90a` (`csrc/*.cu`, built at first use
+by `kernels/`), each with a plain PyTorch version beside it in the same
+module:
 
-  - `ops.planes.plane_encode`                (plane/line encoder forward)
+  - `ops.planes.plane_encode`                (plane/line encoder forward,
+                                              and its light and exact
+                                              backwards via `PlaneEncode`)
   - `ops.occupancy.occupancy_probe_cdf`      (union occupancy probe + CDF)
   - `ops.occupancy.sample_tvals_from_cdf`    (inverse-CDF sampler)
-  - `ops.volrend.volume_render`              (volume compositor forward)
+  - `ops.volrend.volume_render`              (volume compositor forward,
+                                              and its VJP via
+                                              `VolumeRender`)
 
 A kernel wrapper uses the plain version only for a tensor on the CPU; given
 a CUDA tensor it launches its kernel or raises. Entry points default to

@@ -39,12 +39,17 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # library stem -> (source file, extra nvcc flags). The probe and sampler
 # compile with --fmad=false so that no multiply-add is contracted: their
 # cell selection, interval counts and lerps then round exactly like the
-# plain PyTorch versions, which run one elementwise op per kernel.
+# plain PyTorch versions, which run one elementwise op per kernel. The
+# encoder backward does too: its light mode rounds the recomputed plane and
+# line values to bfloat16, and a value one float32 ulp away can round to
+# the neighbouring bfloat16.
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "planes": ("planes.cu", ()),
     "occ_probe": ("occ_probe.cu", ("--fmad=false",)),
     "occ_sample": ("occ_sample.cu", ("--fmad=false",)),
     "volrend": ("volrend.cu", ()),
+    "volrend_bwd": ("volrend_bwd.cu", ()),
+    "planes_bwd": ("planes_bwd.cu", ("--fmad=false",)),
 }
 
 _P = ctypes.c_void_p
@@ -171,6 +176,14 @@ class PlaneLevels(ctypes.Structure):
     ]
 
 
+class PlaneGrads(ctypes.Structure):
+    """Per-level gradient table pointers (csrc/planes_bwd.cu PlaneGrads)."""
+    _fields_ = [
+        ("planes", _P * 8),
+        ("lines", _P * 8),
+    ]
+
+
 PLANES_FWD = Kernel(
     "plane_encode_fwd", "planes", "plane_encode_fwd",
     # x, out, levels (by value), K, N, F, stream
@@ -199,7 +212,29 @@ VOLREND_FWD = Kernel(
              "volume_render)",
 )
 
-KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD)
+VOLREND_BWD = Kernel(
+    "volume_render_bwd", "volrend_bwd", "volume_render_bwd",
+    # rgb_sigma, t_vals, bg, g_rgb, g_depth, g_weights, g_acc (the last
+    # five nullable), g_rgb_sigma, g_bg (nullable), N, S, scale_on,
+    # sigma_scale, stream
+    [_P] * 9 + [_I] * 3 + [_F, _P],
+    replaces="nerfsys_tpu/ops/volrend.py:81 (volume_render, its VJP)",
+)
+PLANES_BWD_LIGHT = Kernel(
+    "plane_encode_bwd_light", "planes_bwd", "plane_encode_bwd_light",
+    # x, ct, levels, grads (by value), K, N, F, stream
+    [_P, _P, PlaneLevels, PlaneGrads, _I, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/planes.py:565 (_plane_encode_mm_light_bwd)",
+)
+PLANES_BWD = Kernel(
+    "plane_encode_bwd", "planes_bwd", "plane_encode_bwd",
+    # x, ct, levels, grads (by value), gx, K, N, F, stream
+    [_P, _P, PlaneLevels, PlaneGrads, _P, _I, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/planes.py:449 (_plane_encode_mm_bwd)",
+)
+
+KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
+           PLANES_BWD_LIGHT, PLANES_BWD)
 
 
 def reset_launches() -> None:
@@ -209,6 +244,19 @@ def reset_launches() -> None:
 
 def launches() -> Dict[str, int]:
     return {k.name: k.launches for k in KERNELS}
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise when a kernel wrapper is reached with grad mode on and an input
+    that requires grad: its output would carry no grad_fn, so a loss built
+    on it would drop those gradients silently. Differentiable callers go
+    through the op's autograd Function, whose forward runs without grad."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel wrapper has no backward; call the op's "
+            f"differentiable entry point (or run under torch.no_grad())")
 
 
 def check_cuda_tensors(name: str, device: torch.device, **tensors) -> None:

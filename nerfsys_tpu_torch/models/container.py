@@ -4,8 +4,8 @@ Port of nerfsys_tpu/models/container.py (`ContainerConfig`,
 `ContainerStatics`, `init_container_params` :128, `_routing_dist` :158,
 `routing_weights` :175, the dense `_eval_all_experts` :256,
 `container_apply` :419, `background_color` :502, `container_field_fn`,
-`container_bg_fn`). The K experts' parameters are stacked on a leading axis
-and evaluated as ONE batched call over that axis (batched matmuls, one
+`container_bg_fn`, `_expert_apply_fn` :235, `param_group_labels` :545).
+The K experts' parameters are stacked on a leading axis and evaluated as ONE batched call over that axis (batched matmuls, one
 encoder launch), then blended with the dense (N, K) routing weights before
 integration. Bucketed top-E dispatch is not ported yet.
 """
@@ -21,10 +21,12 @@ from nerfsys_tpu_torch.models.ngp import (
     _linear_init,
     init_ngp_params,
     ngp_apply,
+    ngp_density,
     tree_to,
 )
 from nerfsys_tpu_torch.ops.encodings import sh_encode, sh_out_dim
 from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.tree import tree_map
 
 Params = Dict
 
@@ -116,14 +118,7 @@ def routing_weights(statics: ContainerStatics, cfg: ContainerConfig,
 
 
 def _expert_params(params: Params, k: int) -> Params:
-    def take(t):
-        if isinstance(t, dict):
-            return {key: take(v) for key, v in t.items()}
-        if isinstance(t, list):
-            return [take(v) for v in t]
-        return t[k]
-
-    return take(params["experts"])
+    return tree_map(lambda t: t[k], params["experts"])
 
 
 def _eval_all_experts(params: Params, cfg: ContainerConfig,
@@ -193,3 +188,26 @@ def container_bg_fn(params: Params, cfg: ContainerConfig):
         return background_color(params, cfg, dirs)
 
     return bg
+
+
+def _expert_apply_fn(cfg: ContainerConfig):
+    """(apply, density) of one expert: 'instant' is the only variant
+    ported (ContainerConfig refuses the others)."""
+    return ngp_apply, ngp_density
+
+
+def param_group_labels(params: Params) -> Params:
+    """Label every leaf with its optimizer group, in the params' nesting:
+    'encoding' (plane/line tables), 'sigma' (density trunk and heads),
+    'color' (color MLP), 'background' (the bg MLP)."""
+
+    def label(tree, name):
+        return tree_map(lambda _: name, tree)
+
+    labels: Params = {"experts": {
+        k: label(v, "encoding" if k in ("hash_table", "planes_enc") else
+                 "color" if k == "color_mlp" else "sigma")
+        for k, v in params["experts"].items()}}
+    if "bg" in params:
+        labels["bg"] = label(params["bg"], "background")
+    return labels

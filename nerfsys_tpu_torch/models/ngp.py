@@ -31,6 +31,7 @@ from nerfsys_tpu_torch.ops.planes import (
     plane_encoding_init,
 )
 from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.tree import tree_map
 
 Params = Dict
 
@@ -106,11 +107,7 @@ def init_ngp_params(cfg: NGPConfig, generator: torch.Generator,
 
 def tree_to(tree, device):
     """Move every tensor of a nested dict/list to `device`."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to(v, device) for v in tree)
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def world_to_unit(x: torch.Tensor, aabb: torch.Tensor,

@@ -1,6 +1,7 @@
 """Occupancy-guided MoE rendering (soft mode).
 
-Port of nerfsys_tpu/models/occupancy.py (`_ray_validity` :307,
+Port of nerfsys_tpu/models/occupancy.py (`occ_ready` :188,
+`_ray_validity` :307,
 `union_pair_fn` :92, `expert_pair_fn` :110, `render_rays_occ` :436) for
 the soft mode: the union of the experts' occupancy grids steers sample
 PLACEMENT (probe CDF with a whole-ray floor) and never deletes density.
@@ -52,6 +53,16 @@ def expert_pair_fn(occ_state: Dict, statics: ContainerStatics, k: int):
                           statics.expert_aabbs[k], pts)
 
     return query
+
+
+def occ_ready(occ_state: Dict, min_updates: int = 1) -> torch.Tensor:
+    """Grid usable for rendering once warmup-many updates have run AND any
+    cell is occupied -> bool scalar tensor on the grid's device."""
+    thresh = occ_state.get("ready_after")
+    if thresh is None:
+        thresh = torch.tensor(min_updates, dtype=torch.int32,
+                              device=occ_state["binary"].device)
+    return (occ_state["num_updates"] >= thresh) & occ_state["binary"].any()
 
 
 def _ray_validity(rays: torch.Tensor):

@@ -1,6 +1,7 @@
 """Numerically hardened activations for NeRF density heads.
 
-Port of nerfsys_tpu/ops/activations.py. `trunc_exp` is an exp whose input
+Port of nerfsys_tpu/ops/activations.py, and `clip`, the port's
+`jnp.clip`. `trunc_exp` is an exp whose input
 AND gradient are taken at the clamped input, so a runaway logit never gives
 inf in either pass. The clamp bound is dtype-aware (log of the dtype max,
 shaved so exp() rounding cannot overflow), with the reference's table.
@@ -37,3 +38,10 @@ class _TruncExp(torch.autograd.Function):
 
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
     return _TruncExp.apply(x)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip with JAX's gradient: 1 inside, 1/2 at a bound (where
+    jnp.maximum / jnp.minimum tie), 0 outside. torch.clamp would pass all
+    of it at a bound; torch.maximum / torch.minimum pass half, as JAX."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))

@@ -2,8 +2,9 @@
 
 Port of nerfsys_tpu/ops/occupancy.py (`OccGridConfig` :42, `init_occ_state`
 :69, `level_aabbs` :90, `_finest_level_index` :121, `query_pair` :196,
-`occupancy_probe_cdf` :394, `sample_tvals_from_cdf` :468). Grid updates are
-not ported yet.
+`occupancy_probe_cdf` :394, `sample_tvals_from_cdf` :468,
+`render_rays_occ_field` :556 in soft mode). Grid updates are not ported
+yet.
 
 The grids of the K experts are stacked: occs (K, L, R, R, R) float EMA
 values and binary (K, L, R, R, R) bool. Level l of an expert covers its box
@@ -251,14 +252,15 @@ def occupancy_probe_cdf(
 
 
 def _sample_targets(N: int, S: int, device, generator, randomized: bool):
-    """(S,) midpoint targets, or (N, S) jittered ones when randomized."""
+    """(S,) midpoint targets, or (N, S) jittered ones when randomized. The
+    jitter is drawn on `device` by `generator`, which must live there (a
+    CUDA generator for the card: no host draw, no copy)."""
     u = (torch.arange(S, dtype=torch.float32, device=device) + 0.5) / S
     if not randomized:
         return u
     if generator is None:
         raise ValueError("randomized occupancy sampling requires a generator")
-    noise = torch.rand((N, S), generator=generator,
-                       device=generator.device).to(device)
+    noise = torch.rand((N, S), generator=generator, device=device)
     jit = (noise - 0.5) / S
     return torch.clamp(u + jit, 0.0, 1.0 - 1e-6)
 
@@ -328,3 +330,78 @@ def sample_tvals_from_cdf(
                         randomized)
     fn = sample_tvals_kernel if use_kernels else sample_tvals_plain
     return fn(cdf, near, far, u.contiguous()), cdf_state["alive"]
+
+
+def render_rays_occ_field(
+    field_fn,  # (pts (M, 3), dirs (M, 3)) -> (rgb (M, 3), sigma (M,))
+    occ_grid,  # (occs (1, L, R, R, R), binary, aabbs (1, 2, 3)): one expert
+    rays: torch.Tensor,  # (N, 8)
+    n_samples: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    randomized: bool = False,
+    n_probes: int = 128,
+    bg_policy: str = "white",
+    bg_fn=None,
+    sigma_scale: float = 1.0,
+    importance: bool = False,  # probe (occ, EMA value) pairs (pair_fn)
+    uniform_frac: float = 0.25,
+    cdf_state: Optional[Dict[str, torch.Tensor]] = None,
+    mask_from_probes: bool = False,
+    hard_mask: bool = True,
+    ray_floor: Optional[float] = None,
+    use_kernels: bool = True,
+):
+    """Occupancy-guided dense render of ONE field (no routing), soft mode:
+    the grid steers sample PLACEMENT and never deletes density. Used by the
+    meta inner loop, which trains each expert alone -> (rgb (N, 3),
+    depth (N,), weights (N, S), acc (N,)).
+
+    Probe + CDF (kernel 2 on the K=1 grid slice, skipped when `cdf_state`
+    is given) -> inverse-CDF samples (kernel 3) -> field -> compositor
+    (kernel 4 and its backward). Hard-mask rendering and probe-bit masks
+    are not ported."""
+    from nerfsys_tpu_torch.ops.volrend import (
+        background_rgb,
+        t_to_points,
+        volume_render,
+    )
+
+    if hard_mask or mask_from_probes:
+        raise NotImplementedError(
+            "hard-mask occupancy rendering (and mask_from_probes) is not "
+            "ported; pass hard_mask=False (the soft mode)")
+    o = rays[:, 0:3].contiguous()
+    d = rays[:, 3:6].contiguous()
+    near, far = rays[:, 6], rays[:, 7]
+    n_rays = o.shape[0]
+    valid = (torch.isfinite(near) & torch.isfinite(far) & (far > near)
+             & (far < 1e9))
+    near_s = torch.where(valid, near, torch.zeros_like(near))
+    far_s = torch.where(valid, far, torch.ones_like(far))
+    if ray_floor is None:
+        ray_floor = 0.25  # soft mode: unmarked space stays reachable
+    if cdf_state is None:
+        occs, binary, aabbs = occ_grid
+        cdf_state = occupancy_probe_cdf(
+            occs, binary, aabbs, o, d, near_s, far_s, n_probes,
+            importance=importance, uniform_frac=uniform_frac,
+            ray_floor=ray_floor, use_kernels=use_kernels)
+    t_vals, _ = sample_tvals_from_cdf(
+        cdf_state, near_s, far_s, n_samples, generator=generator,
+        randomized=randomized, use_kernels=use_kernels)
+    pts = t_to_points(o, d, t_vals)
+    dirs = d[:, None, :].expand(pts.shape)
+    rgb, sigma = field_fn(pts.reshape(-1, 3), dirs.reshape(-1, 3))
+    rgb = rgb.reshape(n_rays, n_samples, 3)
+    sigma = sigma.reshape(n_rays, n_samples)
+    sigma = torch.where(valid[:, None], sigma, torch.zeros_like(sigma))
+    if bg_fn is not None:
+        bg = bg_fn(d)
+    else:
+        bg = background_rgb(bg_policy, n_rays, generator=generator,
+                            last_sample_rgb=rgb[:, -1, :], dtype=rgb.dtype)
+    rgb_sigma = torch.cat([rgb, sigma[..., None]], dim=-1)
+    return volume_render(rgb_sigma, t_vals,
+                         bg_rgb=None if bg is None else bg.contiguous(),
+                         sigma_scale=sigma_scale, use_kernels=use_kernels)

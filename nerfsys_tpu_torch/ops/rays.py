@@ -13,12 +13,15 @@ from typing import Optional, Tuple
 import torch
 
 from nerfsys_tpu_torch.ops.scene_box import SceneBox
+from nerfsys_tpu_torch.utils.device import resolve_device
 
 
 def get_ray_directions(H: int, W: int, fx: float, fy: float, cx: float,
                        cy: float, center_pixels: bool = True,
-                       dtype=torch.float32, device="cpu") -> torch.Tensor:
-    """Unit camera-frame (RUB) directions (H, W, 3)."""
+                       dtype=torch.float32, device="cuda") -> torch.Tensor:
+    """Unit camera-frame (RUB) directions (H, W, 3), on the card unless
+    `device` says otherwise."""
+    device = resolve_device(device)
     j = torch.arange(H, dtype=dtype, device=device)[:, None]
     i = torch.arange(W, dtype=dtype, device=device)[None, :]
     if center_pixels:

@@ -6,7 +6,12 @@ Port of nerfsys_tpu/ops/volrend.py (`stratified_t_vals` :26, `t_to_points`
 (N, S); empty space is masked by zero sigma.
 
 Kernel 4 (`csrc/volrend.cu`) is the compositor forward on the card;
-`volume_render_plain` is the same function in plain PyTorch.
+`volume_render_plain` is the same function in plain PyTorch. Gradients go
+through `VolumeRender`, whose backward is kernel 4's VJP
+(`csrc/volrend_bwd.cu`) or autograd through the plain version. Every clip follows JAX's gradient
+rule at a tie (`jnp.clip` and `jnp.maximum` pass half the gradient where
+the operands are equal, `torch.clamp` all of it), so the plain version
+clips with `torch.maximum` / `torch.minimum`, which pass half too.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from nerfsys_tpu_torch import kernels
+from nerfsys_tpu_torch.ops.activations import clip
 from nerfsys_tpu_torch.ops.occupancy import linspace01
+from nerfsys_tpu_torch.utils.device import resolve_device
 
 Render = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -34,7 +41,7 @@ def stratified_t_vals(near: torch.Tensor, far: torch.Tensor,
         low = torch.cat([t_vals[:, :1], mids], dim=1)
         high = torch.cat([mids, t_vals[:, -1:]], dim=1)
         u = torch.rand(t_vals.shape, generator=generator,
-                       device=generator.device).to(t_vals)
+                       device=t_vals.device, dtype=t_vals.dtype)
         t_vals = low + (high - low) * u
     return t_vals
 
@@ -50,7 +57,7 @@ def render_weights(sigma: torch.Tensor, t_vals: torch.Tensor):
     (1 - alpha + 1e-10)."""
     d = torch.clamp(t_vals[:, 1:] - t_vals[:, :-1], min=1e-4)
     dists = torch.cat([d, d[:, -1:]], dim=1)
-    alpha = torch.clamp(1.0 - torch.exp(-sigma * dists), 0.0, 1.0 - 1e-7)
+    alpha = clip(1.0 - torch.exp(-sigma * dists), 0.0, 1.0 - 1e-7)
     one_m = 1.0 - alpha + 1e-10
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[:, :1]), one_m], dim=1), dim=1
@@ -63,8 +70,8 @@ def volume_render_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                         sigma_scale: float = 1.0) -> Render:
     """Plain PyTorch version of kernel 4 -> (rgb (N,3), depth (N,),
     weights (N,S), acc (N,))."""
-    rgb = torch.clamp(rgb_sigma[..., :3], 0.0, 1.0)
-    sigma = torch.clamp(rgb_sigma[..., 3], min=0.0)
+    rgb = clip(rgb_sigma[..., :3], 0.0, 1.0)
+    sigma = torch.maximum(rgb_sigma[..., 3], rgb_sigma.new_zeros(()))
     if sigma_scale != 1.0:
         sigma = sigma * float(sigma_scale)
     weights, _, _ = render_weights(sigma, t_vals)
@@ -81,7 +88,9 @@ def volume_render_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                          bg_rgb: Optional[torch.Tensor] = None, *,
                          sigma_scale: float = 1.0) -> Render:
     """Kernel 4's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `volume_render_fwd` or raises."""
+    tensors it launches `volume_render_fwd` or raises. Not differentiable:
+    it raises under grad mode with inputs that require grad."""
+    kernels.check_no_grad("volume_render", rgb_sigma, t_vals, bg_rgb)
     if rgb_sigma.device.type == "cpu":
         return volume_render_plain(rgb_sigma, t_vals, bg_rgb,
                                    sigma_scale=sigma_scale)
@@ -89,11 +98,7 @@ def volume_render_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
         raise ValueError(f"volume_render: unsupported device "
                          f"{rgb_sigma.device}")
     dev = rgb_sigma.device
-    N, S = t_vals.shape
-    if tuple(rgb_sigma.shape) != (N, S, 4) or S < 2:
-        raise ValueError("volume_render: rgb_sigma must be (N, S, 4), S >= 2")
-    if bg_rgb is not None and tuple(bg_rgb.shape) != (N, 3):
-        raise ValueError("volume_render: bg_rgb must be (N, 3)")
+    N, S = _check_shapes("volume_render", rgb_sigma, t_vals, bg_rgb)
     kernels.check_cuda_tensors("volume_render", dev, rgb_sigma=rgb_sigma,
                                t_vals=t_vals, bg_rgb=bg_rgb)
     rgb = torch.empty((N, 3), dtype=torch.float32, device=dev)
@@ -109,16 +114,107 @@ def volume_render_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
     return rgb, depth, weights, acc
 
 
+def _check_shapes(name, rgb_sigma, t_vals, bg_rgb):
+    N, S = t_vals.shape
+    if tuple(rgb_sigma.shape) != (N, S, 4) or S < 2:
+        raise ValueError(f"{name}: rgb_sigma must be (N, S, 4), S >= 2")
+    if bg_rgb is not None and tuple(bg_rgb.shape) != (N, 3):
+        raise ValueError(f"{name}: bg_rgb must be (N, 3)")
+    return N, S
+
+
+Grads = Tuple[Optional[torch.Tensor], ...]
+
+
+def volume_render_bwd_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
+                            bg_rgb: Optional[torch.Tensor], grads: Grads, *,
+                            sigma_scale: float = 1.0):
+    """Plain PyTorch version of kernel 4's VJP: autograd through
+    `volume_render_plain` for the upstream (d rgb, d depth, d weights,
+    d acc), any of them None -> (d rgb_sigma, d bg or None)."""
+    with torch.enable_grad():
+        rs = rgb_sigma.detach().requires_grad_(True)
+        bg = None if bg_rgb is None else bg_rgb.detach().requires_grad_(True)
+        outs = volume_render_plain(rs, t_vals, bg, sigma_scale=sigma_scale)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        inputs = [rs] if bg is None else [rs, bg]
+        if not pairs:
+            return torch.zeros_like(rs), (None if bg is None
+                                          else torch.zeros_like(bg))
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  inputs, [g for _, g in pairs])
+    return got[0], (None if bg is None else got[1])
+
+
+def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
+                             bg_rgb: Optional[torch.Tensor], grads: Grads, *,
+                             sigma_scale: float = 1.0):
+    """Kernel 4's VJP wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `volume_render_bwd` or raises."""
+    kernels.check_no_grad("volume_render_bwd", rgb_sigma, t_vals, bg_rgb,
+                          *grads)
+    if rgb_sigma.device.type == "cpu":
+        return volume_render_bwd_plain(rgb_sigma, t_vals, bg_rgb, grads,
+                                       sigma_scale=sigma_scale)
+    if rgb_sigma.device.type != "cuda":
+        raise ValueError(f"volume_render_bwd: unsupported device "
+                         f"{rgb_sigma.device}")
+    dev = rgb_sigma.device
+    N, S = _check_shapes("volume_render_bwd", rgb_sigma, t_vals, bg_rgb)
+    g_rgb, g_depth, g_w, g_acc = (None if g is None else g.contiguous()
+                                  for g in grads)
+    for g, shape in ((g_rgb, (N, 3)), (g_depth, (N,)), (g_w, (N, S)),
+                     (g_acc, (N,))):
+        if g is not None and tuple(g.shape) != shape:
+            raise ValueError("volume_render_bwd: upstream gradient shapes do "
+                             "not match the outputs")
+    kernels.check_cuda_tensors("volume_render_bwd", dev, rgb_sigma=rgb_sigma,
+                               t_vals=t_vals, bg_rgb=bg_rgb, g_rgb=g_rgb,
+                               g_depth=g_depth, g_weights=g_w, g_acc=g_acc)
+    g_rs = torch.empty_like(rgb_sigma)
+    g_bg = None if bg_rgb is None else torch.empty_like(bg_rgb)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    kernels.VOLREND_BWD(
+        rgb_sigma.data_ptr(), t_vals.data_ptr(), ptr(bg_rgb), ptr(g_rgb),
+        ptr(g_depth), ptr(g_w), ptr(g_acc), g_rs.data_ptr(), ptr(g_bg), N, S,
+        int(sigma_scale != 1.0), float(sigma_scale),
+        kernels.stream_ptr(rgb_sigma))
+    return g_rs, g_bg
+
+
+class VolumeRender(torch.autograd.Function):
+    """volume_render with its VJP: forward kernel 4, backward its VJP
+    kernel (the plain versions for CPU tensors). Gradients reach rgb_sigma
+    and bg_rgb; t_vals gets none. Unused outputs send no gradient (None
+    counts as zero)."""
+
+    @staticmethod
+    def forward(ctx, rgb_sigma, t_vals, bg_rgb, sigma_scale):
+        ctx.set_materialize_grads(False)
+        ctx.sigma_scale = sigma_scale
+        ctx.save_for_backward(rgb_sigma, t_vals, bg_rgb)
+        return volume_render_kernel(rgb_sigma, t_vals, bg_rgb,
+                                    sigma_scale=sigma_scale)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        rgb_sigma, t_vals, bg_rgb = ctx.saved_tensors
+        g_rs, g_bg = volume_render_bwd_kernel(
+            rgb_sigma, t_vals, bg_rgb, grads, sigma_scale=ctx.sigma_scale)
+        return g_rs, None, g_bg, None
+
+
 def volume_render(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                   bg_rgb: Optional[torch.Tensor] = None, *,
                   sigma_scale: float = 1.0,
                   use_kernels: bool = True) -> Render:
     """Standard NeRF compositing over dense (N, S) samples of rgb in [0, 1]
-    and sigma >= 0 (clipped). use_kernels=False runs the plain version on
-    any device; otherwise kernel 4's wrapper."""
+    and sigma >= 0 (clipped), differentiable in rgb_sigma and bg_rgb.
+    use_kernels=False runs the plain version (autograd) on any device;
+    otherwise `VolumeRender`, kernel 4 and its VJP."""
     if use_kernels:
-        return volume_render_kernel(rgb_sigma, t_vals, bg_rgb,
-                                    sigma_scale=sigma_scale)
+        return VolumeRender.apply(rgb_sigma, t_vals, bg_rgb,
+                                  float(sigma_scale))
     return volume_render_plain(rgb_sigma, t_vals, bg_rgb,
                                sigma_scale=sigma_scale)
 
@@ -126,9 +222,14 @@ def volume_render(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
 def background_rgb(policy: str, n_rays: int,
                    generator: Optional[torch.Generator] = None,
                    last_sample_rgb: Optional[torch.Tensor] = None,
-                   dtype=torch.float32, device="cpu"):
+                   dtype=torch.float32, device=None):
     """Constant background policies: 'white', 'black', 'random',
-    'last_sample', 'none' -> (N, 3) or None."""
+    'last_sample', 'none' -> (N, 3) or None. The device defaults to that of
+    `last_sample_rgb`, else to the card."""
+    if device is None:
+        device = (last_sample_rgb.device if last_sample_rgb is not None
+                  else "cuda")
+    device = resolve_device(device)
     p = str(policy).lower()
     if p == "white":
         return torch.ones((n_rays, 3), dtype=dtype, device=device)
@@ -137,9 +238,8 @@ def background_rgb(policy: str, n_rays: int,
     if p == "random":
         if generator is None:
             raise ValueError("random background requires a generator")
-        return torch.rand((n_rays, 3), generator=generator,
-                          device=generator.device).to(device=device,
-                                                      dtype=dtype)
+        return torch.rand((n_rays, 3), generator=generator, device=device,
+                          dtype=dtype)
     if p == "last_sample":
         if last_sample_rgb is None:
             raise ValueError("last_sample background requires sample colors")

@@ -167,12 +167,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'nerfsys_tpu' or n.startswith('nerfsys_tpu.')]\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith("
-        "'nerfsys_tpu_torch')]))\n")
+        "mods = [n for n in sys.modules\n"
+        "        if n.startswith('nerfsys_tpu_torch')]\n"
+        "need = {'nerfsys_tpu_torch.' + m for m in ("
+        "'pipelines.offline.meta_core', 'pipelines.offline.meta_train_step',"
+        " 'utils.optim', 'utils.tree', 'ops.losses', 'ops.color_space')}\n"
+        "assert need <= set(mods), need - set(mods)\n"
+        "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 21
 
 
 def test_kernel_registry_covers_every_source():

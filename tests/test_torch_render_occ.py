@@ -125,7 +125,8 @@ def test_render_rays_occ_soft_matches_jax():
 
 def test_ray_ops_match_jax():
     dirs_j = JRo.get_ray_directions(6, 5, 4.0, 4.5, 2.5, 3.0)
-    dirs_t = TRo.get_ray_directions(6, 5, 4.0, 4.5, 2.5, 3.0)
+    dirs_t = TRo.get_ray_directions(6, 5, 4.0, 4.5, 2.5, 3.0,
+                                    device="cpu")
     np.testing.assert_allclose(dirs_t.numpy(), np.asarray(dirs_j), rtol=0,
                                atol=1e-7)
     c2w = np.array([[0.0, -1, 0, 0.3], [1, 0, 0, -0.2], [0, 0, 1, 2.5]],

@@ -75,12 +75,16 @@ def test_render_weights_and_stratified_t_vals_match_jax():
 
 
 def test_background_policies():
-    assert TV.background_rgb("white", 4).sum() == 12
-    assert TV.background_rgb("none", 4) is None
+    assert TV.background_rgb("white", 4, device="cpu").sum() == 12
+    assert TV.background_rgb("none", 4, device="cpu") is None
     with pytest.raises(ValueError):
-        TV.background_rgb("random", 4)
+        TV.background_rgb("random", 4, device="cpu")
     with pytest.raises(ValueError):
-        TV.background_rgb("sky", 4)
+        TV.background_rgb("sky", 4, device="cpu")
+    # the device follows the sample colors when they are given
+    last = torch.rand(4, 3)
+    assert TV.background_rgb("black", 4, last_sample_rgb=last).device == \
+        last.device
 
 
 def test_sh_encode_matches_jax():
