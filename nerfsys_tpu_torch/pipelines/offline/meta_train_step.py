@@ -209,8 +209,7 @@ def make_train_step(meta: MetaConfig, cfg: ContainerConfig,
     return reptile_step if meta.algo == "reptile" else fomaml_step
 
 
-def make_eval_step(meta: MetaConfig, cfg: ContainerConfig, tto: int, *,
-                   use_kernels: bool = True):
+def make_eval_step(meta: MetaConfig, cfg: ContainerConfig, tto: int):
     """Episodic eval: adapt `tto` inner steps on the support set, score the
     query set -> (params, statics, batch, generator, occ_state=None) ->
     metrics."""
@@ -227,8 +226,7 @@ def make_eval_step(meta: MetaConfig, cfg: ContainerConfig, tto: int, *,
             with torch.no_grad():
                 _, qloss, _, inner_last = _per_task_slice(
                     meta, cfg, experts, statics, bg, slice_b, generator,
-                    tto=tto, occ_state=occ_state, occ_on=occ_on,
-                    use_kernels=use_kernels)
+                    tto=tto, occ_state=occ_state, occ_on=occ_on)
             v = slice_b["valid"].to(torch.float32)
             m_acc = [a + x for a, x in zip(
                 m_acc, (_masked(qloss, v) * v, _masked(inner_last, v) * v,

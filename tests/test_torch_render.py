@@ -163,7 +163,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import nerfsys_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, serve_ab\n"
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'nerfsys_tpu' or n.startswith('nerfsys_tpu.')]\n"
         "assert not bad, bad\n"

@@ -215,6 +215,29 @@ def test_fomaml_steps_match_jax():
     assert {int(c) for c in ts["count"].values()} == {2}
 
 
+def test_train_step_plain_path_matches_kernel_path():
+    """make_train_step(use_kernels=False), the card's reference for the
+    kernel path, takes the same randomized step as the kernel wrappers (on
+    CPU tensors their plain versions, behind the autograd Functions)."""
+    cfg, params, statics, occ, batch = _setup(seed=4)
+    _, (tcfg, tp, tst, tocc, tb) = _sides(cfg, params, statics, occ, batch)
+    meta = interop.meta_config_from_jax(_meta(randomized=True))
+    out = []
+    for use_kernels in (True, False):
+        opt = _Recording(TO.build_optimizer(TO.OptimConfig(),
+                                            TCo.param_group_labels(tp)))
+        _, _, m = TS.make_train_step(meta, tcfg, opt,
+                                     use_kernels=use_kernels)(
+            tp, opt.init(tp), tst, tb, torch.Generator().manual_seed(0),
+            tocc)
+        out.append((float(m["loss_out_meta"]), tree_leaves(opt.grads[0])))
+    (lk, gk), (lp, gp) = out
+    assert lk == pytest.approx(lp, rel=1e-6)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    assert all(float(g.abs().max()) > 0 for g in gk)
+
+
 def test_reptile_step_matches_jax():
     cfg, params, statics, occ, batch = _setup(seed=2)
     meta = _meta(algo="reptile", reptile_lr=0.5)
