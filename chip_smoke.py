@@ -23,7 +23,20 @@ printing its result lines):
    every serving kernel's launch counter must have moved during the 3
    requests, and one chunk rendered through the kernels must match the
    same chunk rendered through the plain versions.
-5. Train: bench.py's FoMAML configuration (K=4, B=3 tasks, 4,000 support
+5. Baked: bake the bench-width container into the serve snapshot (256³,
+   SH-3, 32 directions, pack 8, sparse blocks of 8³, bf16, occupancy-aware
+   on a synthetic R=64 L=2 grid, 2 dilations) through `bake_field`; hold
+   kernel 8 (the packed-corner trilinear lookup) against its plain version
+   at one full serve chunk on four tables (the serve table, 256³ pack-4
+   dense bf16, 64³ pack-2 dense bf16, 128³ pack-4 sparse f32) and time it
+   beside one `grid_sample` over the dense volume; then serve one warm-up
+   and 3 800x800 uint8 frames through `make_baked_camera_renderer` (rays
+   generated on the card). Kernels 8 and 4 must have launched during the
+   3 requests; the same frame through `use_kernels=False` must lie within
+   1 level in >= 99.9% of pixels, and one chunk through
+   `make_baked_chunk_renderer` within 1e-4 (rgb, acc) / 1e-3 (depth) of
+   the plain path; one frame is profiled.
+6. Train: bench.py's FoMAML configuration (K=4, B=3 tasks, 4,000 support
    and 2,000 query rays, 8 inner steps, 32 soft-occupancy samples, the
    light encoder backward) through `make_train_step`: one warm-up step,
    3 timed outer steps, then one step with the encoder's default exact
@@ -31,8 +44,8 @@ printing its result lines):
    every kernel's launch counter moved; one step's gradients through the
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one step is profiled.
-6. A JSON line listing every kernel (launches, error, times, bound).
-7. The card line, then the last line:
+7. A JSON line listing every kernel (launches, error, times, bound).
+8. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -254,6 +267,10 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
 
 
 TRAIN_K, TRAIN_B, TRAIN_S, TRAIN_Q, TRAIN_INNER = 4, 3, 4000, 2000, 8
+TRAIN_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
+                 "sample_tvals_from_cdf", "volume_render_fwd",
+                 "volume_render_bwd", "plane_encode_bwd_light",
+                 "plane_encode_bwd")
 
 
 def train_batch(device):
@@ -465,9 +482,9 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
                          "plain path")
 
 
-def profile_step(step, args):
-    """Where one outer step's time goes: device time by kernel under
-    torch.profiler."""
+def profile_device(label: str, fn, extra: str = "") -> None:
+    """Where one call's time goes: device time by kernel under
+    torch.profiler, the device busy share of the (profiled) wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -475,14 +492,13 @@ def profile_step(step, args):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, aux = step(*args)
-        float(aux["loss_out"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
-            continue
+            continue  # host-side ops carry their kernels' time too
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -491,14 +507,14 @@ def profile_step(step, args):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms > 0:
-        print(f"profile: train step wall_ms={wall_ms:.2f} (profiled) "
+        print(f"profile: {label} wall_ms={wall_ms:.2f} (profiled) "
               f"device_busy_ms={busy_ms:.2f} "
-              f"idle_share={1 - busy_ms / wall_ms:.3f}", flush=True)
+              f"idle_share={1 - busy_ms / wall_ms:.3f}{extra}", flush=True)
         for dev_ms, key, count in rows[:12]:
             print(f"profile: {dev_ms:9.3f} ms {count:6d}x {key[:90]}")
     else:
         print(f"profile: device time not measured (the profiler saw no "
-              f"device events); train step wall_ms={wall_ms:.2f}",
+              f"device events); {label} wall_ms={wall_ms:.2f}{extra}",
               flush=True)
 
 
@@ -552,8 +568,8 @@ def train(cfg, statics, params, occ, batch, device):
           flush=True)
     if not math.isfinite(loss_x) or float(aux_x["skipped_nonfinite"]):
         raise SystemExit("train: exact-backward step not finite")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in TRAIN_KERNELS:
+        if launches[name] <= 0:
             raise SystemExit(f"train: kernel {name} never launched")
     moved = [float((a - b).abs().max()) > 0
              for a, b in zip(tree_leaves(p), tree_leaves(params))]
@@ -563,7 +579,8 @@ def train(cfg, statics, params, occ, batch, device):
 
     grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
                               device)
-    profile_step(step, (p, state, statics, batch, gen, occ))
+    profile_device("train step", lambda: float(
+        step(p, state, statics, batch, gen, occ)[2]["loss_out"]))
 
     ms = [1e3 * t for t in times]
     n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
@@ -579,47 +596,17 @@ def train(cfg, statics, params, occ, batch, device):
 
 def profile_frame(renderer, params, statics, md, aabb, chunk):
     """Where one served frame's time goes: host ray generation, and the
-    device time by kernel under torch.profiler (one extra frame, after the
-    launch counts were read)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    device time by kernel (one extra frame, after the launch counts were
+    read)."""
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
     from nerfsys_tpu_torch.pipelines.online.runtime_adapt import render_image
 
     t0 = time.perf_counter()
     frame_rays(md.H, md.W, md.intrinsics, md.c2w, aabb=aabb)
     raygen_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render_image(renderer, params, statics, md, scene_aabb=aabb,
-                     chunk_rays=chunk)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host-side ops carry their kernels' time too
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    if busy_ms > 0:
-        print(f"profile: frame wall_ms={wall_ms:.2f} (profiled) "
-              f"device_busy_ms={busy_ms:.2f} "
-              f"idle_share={1 - busy_ms / wall_ms:.3f} "
-              f"host_raygen_ms={raygen_ms:.2f}", flush=True)
-        for dev_ms, key, count in rows[:12]:
-            print(f"profile: {dev_ms:9.3f} ms {count:5d}x {key[:90]}")
-    else:
-        print(f"profile: device time not measured (the profiler saw no "
-              f"device events); frame wall_ms={wall_ms:.2f} "
-              f"host_raygen_ms={raygen_ms:.2f}", flush=True)
+    profile_device("frame", lambda: render_image(
+        renderer, params, statics, md, scene_aabb=aabb, chunk_rays=chunk),
+        extra=f" host_raygen_ms={raygen_ms:.2f}")
 
 
 SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
@@ -702,6 +689,301 @@ def serve(cfg, statics, params, occ, device):
     return launches
 
 
+BAKE_R = 256  # the serve bake: 256³ SH-3, pack 8, sparse blocks of 8³
+SMALL_R, F32_R = 64, 128  # the other two tables of kernel 8's check
+
+
+def synthetic_occ(statics, device):
+    """A ready occupancy state (K=4, R=64, L=2) whose cells in the bottom
+    35% of each expert's level box (along z) are alive: the serve
+    configuration of the reference's baked-serve measurement
+    (`_synthetic_occ_state(geometry=True, alive_frac=0.35)`)."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.ops.occupancy import (
+        OccGridConfig,
+        init_occ_state,
+        level_aabbs,
+    )
+
+    occ = init_occ_state(OccGridConfig(resolution=64, levels=2,
+                                       warmup_steps=0), 4, device=device)
+    K, L, R = occ["binary"].shape[:3]
+    binary = np.zeros(occ["binary"].shape, bool)
+    for k in range(K):
+        la = level_aabbs(statics.expert_aabbs[k].cpu(), L).numpy()
+        for lv in range(L):
+            lo, hi = la[lv, 0, 2], la[lv, 1, 2]
+            zc = lo + (np.arange(R) + 0.5) * (hi - lo) / R
+            binary[k, lv, :, :, zc <= lo + 0.35 * (hi - lo)] = True
+    occ["binary"] = torch.from_numpy(binary).to(device)
+    occ["num_updates"] = torch.tensor(1000, dtype=torch.int32, device=device)
+    return occ
+
+
+def unpack_cells(baked, bcfg):
+    """(R³, C) payload of every cell, read back from a pack-8 table (corner
+    block 0 of the cell's own row), in the table dtype."""
+    import torch
+
+    from nerfsys_tpu_torch.models.baked import table_rows
+
+    R, C = bcfg.resolution, bcfg.channels
+    cells = torch.arange(R**3, device=baked["table"].device)
+    rows = table_rows(R, baked.get("block_index"), bcfg.sparse_block)(
+        cells // (R * R), (cells // R) % R, cells % R)
+    return baked["table"][rows, :C]
+
+
+def lookup_bytes(baked, bcfg, pts) -> int:
+    """Bytes one lookup at `pts` must move on this run's data: every
+    distinct payload row it reads (its used channels), every distinct
+    block-index entry (4 bytes) of a sparse table, each once; the points
+    read and the values written once."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.models.baked import table_rows
+
+    R, C, Cp = bcfg.resolution, bcfg.channels, bcfg.padded_channels
+    table, index = baked["table"], baked.get("block_index")
+    pack = table.shape[1] // Cp
+    lo, hi = baked["aabb"][0], baked["aabb"][1]
+    g = torch.clamp((pts - lo) / ((hi - lo) / R) - 0.5, 0.0,
+                    float(np.float32(R - 1.000001)))
+    ix, iy, iz = torch.floor(g).long().unbind(1)
+    xs = [ix] if pack == 8 else [ix, torch.clamp(ix + 1, max=R - 1)]
+    ys = [iy] if pack >= 4 else [iy, torch.clamp(iy + 1, max=R - 1)]
+    row_of = table_rows(R, index, bcfg.sparse_block)
+    rows = torch.unique(torch.cat([row_of(x, y, iz) for x in xs
+                                   for y in ys]))
+    n = rows.numel() * pack * C * table.element_size()
+    if index is not None:
+        B, Rb = bcfg.sparse_block, R // bcfg.sparse_block
+        n += 4 * torch.unique(torch.cat([
+            ((x // B) * Rb + y // B) * Rb + iz // B
+            for x in xs for y in ys])).numel()
+    return n + pts.shape[0] * (12 + 4 * C)
+
+
+def check_baked_kernel(tables, pts, results):
+    """Kernel 8 against its plain version at one full serve chunk
+    (65,536 rays x 32 samples), for each (label, table, bcfg); the first
+    is the serve table, whose numbers go into the kernel line. The
+    library yardstick is one grid_sample over the dense volume of the
+    serve table's values."""
+    import torch
+    import torch.nn.functional as F
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.baked import (
+        baked_trilerp_kernel,
+        baked_trilerp_plain,
+    )
+
+    N = pts.shape[0]
+    tol = 1e-5
+    for i, (label, baked, bcfg) in enumerate(tables):
+        table, box = baked["table"], baked["aabb"]
+        index = baked.get("block_index")
+        R, C, Cp = bcfg.resolution, bcfg.channels, bcfg.padded_channels
+        pack = table.shape[1] // Cp
+        args = (table, box, pts, R, C, Cp, pack, index, bcfg.sparse_block)
+        ker = baked_trilerp_kernel(*args)
+        pln = baked_trilerp_plain(*args)
+        torch.cuda.synchronize()
+        scale = max(float(t.abs().max()) for t in table.split(1 << 20))
+        err = max_err(ker, pln) / scale
+        ms = cuda_ms(lambda: baked_trilerp_kernel(*args), 10)
+        plain_ms = cuda_ms(lambda: baked_trilerp_plain(*args), 3)
+        n_bytes = lookup_bytes(baked, bcfg, pts)
+        b_ms, b_by = bound(n_bytes, N * C * 21)
+        text = (f"table {label}: err/payload_max={err:.3e} tol={tol:g} "
+                f"(cell selection and lerps round alike, --fmad=false) "
+                f"max_abs_err={max_err(ker, pln):.3e} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bytes={n_bytes} "
+                f"bound_ms={b_ms:.4f} ({b_by}) at "
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+        print(f"kernel {kernels.BAKED_TRILERP.name}: {text}", flush=True)
+        if not err <= tol:
+            raise SystemExit(f"kernel baked_trilerp disagrees with its plain "
+                             f"version on the {label} table: {err} > {tol}")
+        if i == 0:
+            vol = (unpack_cells(baked, bcfg).float().reshape(R, R, R, C)
+                   .permute(3, 0, 1, 2)[None].contiguous())
+            u = (pts - box[0]) / (box[1] - box[0]) * 2.0 - 1.0
+            grid = u[:, [2, 1, 0]].reshape(1, N, 1, 1, 3).contiguous()
+
+            def lib():
+                return F.grid_sample(vol, grid, mode="bilinear",
+                                     padding_mode="border",
+                                     align_corners=False)
+
+            lib_err = max_err(lib().reshape(C, N).T, pln)
+            lib_ms = cuda_ms(lib, 10)
+            del vol, grid
+            print(f"library baked_trilerp: grid_sample(bilinear, border, "
+                  f"align_corners=False) over the dense (1, {C}, {R}, {R}, "
+                  f"{R}) float32 volume at the same points: ms={lib_ms:.4f} "
+                  f"max_abs_err_vs_plain={lib_err:.3e}", flush=True)
+            results[kernels.BAKED_TRILERP.name] = dict(
+                max_abs_err=max_err(ker, pln), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, text=text)
+        del ker, pln
+
+
+BAKED_KERNELS = ("baked_trilerp", "volume_render_fwd")
+
+
+def baked(cfg, statics, params, device, results):
+    """Phase: baked snapshot serving. Bake the serve configuration
+    (256³, SH-3, 32 directions, pack 8, sparse blocks of 8³, bf16,
+    occupancy-aware with 2 dilations) through `bake_field`, check kernel 8
+    on four tables, then serve 3 800x800 uint8 frames through
+    `make_baked_camera_renderer`, the counters zeroed just before them and
+    read just after."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+    from nerfsys_tpu_torch.models.baked import (
+        BakedConfig,
+        bake_field,
+        make_baked_camera_renderer,
+        make_baked_chunk_renderer,
+        pack_dense,
+    )
+    from nerfsys_tpu_torch.ops.rays import frame_chunk_rays
+    from nerfsys_tpu_torch.ops.scene_box import SceneBox
+    from nerfsys_tpu_torch.ops.volrend import stratified_t_vals, t_to_points
+
+    S = 32
+    chunk = CHECK_RAYS
+    aabb = statics.global_aabb.cpu().numpy()
+    bcfg = BakedConfig(resolution=BAKE_R, sh_levels=3, n_dirs=32,
+                       corner_pack=8, sparse_block=8, dtype="bfloat16")
+    occ = synthetic_occ(statics, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_table = bake_field(params, cfg, statics, bcfg, occ_state=occ,
+                             occ_dilate=2, device=device)
+    torch.cuda.synchronize()
+    bake_s = time.perf_counter() - t0
+    vals = unpack_cells(serve_table, bcfg)
+    R, B = bcfg.resolution, bcfg.sparse_block
+    cells = int((vals != 0).any(dim=1).sum())
+    blocks = serve_table["table"].shape[0] // B**3 - 1
+    table_gb = (serve_table["table"].numel() * 2
+                + serve_table["block_index"].numel() * 4) / 1e9
+    print(f"baked: bake_s={bake_s:.2f} ({R}^3 SH-3 n_dirs=32 pack 8 sparse "
+          f"8 bf16, occupancy R=64 L=2 alive_frac 0.35, dilate 2) "
+          f"nonzero_cells={cells}/{R**3} ({cells / R**3:.4f}) "
+          f"alive_blocks={blocks}/{(R // B)**3} ({blocks / (R // B)**3:.4f}) "
+          f"table_gb={table_gb:.3f} (dense pack-8 "
+          f"{R**3 * 8 * bcfg.padded_channels * 2 / 1e9:.3f})", flush=True)
+
+    # kernel 8 at one full serve chunk of the first pose, four tables
+    md = pose((0.0, 0.0, 2.0))
+    sb = SceneBox(statics.global_aabb)
+    rays = frame_chunk_rays(
+        torch.from_numpy(md.c2w).to(device),
+        torch.from_numpy(md.intrinsics).to(device), 0, chunk, SIDE, SIDE,
+        scene_box=sb)
+    valid = torch.isfinite(rays[:, 6])
+    t_vals = stratified_t_vals(torch.where(valid, rays[:, 6], 0.0),
+                               torch.where(valid, rays[:, 7], 1.0), S)
+    pts = t_to_points(rays[:, :3], rays[:, 3:6], t_vals).reshape(-1, 3)
+    pack4 = dataclasses.replace(bcfg, corner_pack=4, sparse_block=0)
+    dense4 = {"table": pack_dense(vals, R, bcfg.padded_channels, 4),
+              "aabb": serve_table["aabb"], "corner_pack": 4}
+    small = BakedConfig(resolution=SMALL_R, sh_levels=3, n_dirs=32,
+                        corner_pack=2, dtype="bfloat16")
+    f32 = BakedConfig(resolution=F32_R, sh_levels=3, n_dirs=32,
+                      corner_pack=4, sparse_block=8, dtype="float32")
+    tables = [
+        (f"{R}^3 pack-8 sparse-8 bf16 (serve)", serve_table, bcfg),
+        (f"{R}^3 pack-4 dense bf16", dense4, pack4),
+        (f"{SMALL_R}^3 pack-2 dense bf16", bake_field(
+            params, cfg, statics, small, device=device), small),
+        (f"{F32_R}^3 pack-4 sparse-8 f32", bake_field(
+            params, cfg, statics, f32, occ_state=occ, device=device), f32),
+    ]
+    del vals
+    check_baked_kernel(tables, pts, results)
+    del tables, dense4, pts, t_vals, rays
+
+    renderer = make_baked_camera_renderer(
+        serve_table, bcfg, cfg, H=SIDE, W=SIDE, ray_samples=S,
+        chunk_rays=chunk, scene_aabb=aabb, out_u8=True, device=device)
+    poses = [pose((0.0, 0.0, 2.0)), pose((0.1, 0.0, 2.0)),
+             pose((0.0, -0.1, 2.1))]
+    renderer(params, statics, poses[0].c2w, poses[0].intrinsics)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    times, frames = [], []
+    for p in poses:
+        t0 = time.perf_counter()
+        img = renderer(params, statics, p.c2w, p.intrinsics)
+        times.append(time.perf_counter() - t0)
+        frames.append(img)
+        if img.dtype != np.uint8 or img.shape != (SIDE, SIDE, 3):
+            raise SystemExit(f"baked: frame {img.dtype} {img.shape}")
+        if not np.isfinite(img.astype(np.float64).mean()):
+            raise SystemExit("baked: frame mean not finite")
+    launches = kernels.launches()
+    print(f"baked: launches during 3 requests {launches}", flush=True)
+    for k in BAKED_KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"baked: kernel {k} never launched")
+
+    # the same frame through the plain versions
+    plain = make_baked_camera_renderer(
+        serve_table, bcfg, cfg, H=SIDE, W=SIDE, ray_samples=S,
+        chunk_rays=chunk, scene_aabb=aabb, out_u8=True, device=device,
+        use_kernels=False)
+    ref = plain(params, statics, poses[0].c2w, poses[0].intrinsics)
+    diff = np.abs(frames[0].astype(np.int16) - ref.astype(np.int16)).max(-1)
+    within = float((diff <= 1).mean())
+    print(f"baked: kernels vs plain frame: max level diff {int(diff.max())}, "
+          f"share of pixels within 1 level {within:.6f} (need >= 0.999: the "
+          f"compositor sums in another order, and a 1e-7 change can cross "
+          f"a level of the truncating tonemap)", flush=True)
+    if within < 0.999:
+        raise SystemExit("baked: kernel frame disagrees with the plain path")
+
+    # one chunk through make_baked_chunk_renderer, kernels vs plain
+    host_rays, _ = frame_rays(SIDE, SIDE, poses[0].intrinsics,
+                              poses[0].c2w, aabb=aabb)
+    chunk_rays = torch.from_numpy(host_rays[:chunk]).to(device)
+    got, want = (make_baked_chunk_renderer(
+        serve_table, bcfg, cfg, ray_samples=S, device=device,
+        use_kernels=use)(params, statics, chunk_rays) for use in (True,
+                                                                  False))
+    errs = [max_err(a, b) for a, b in zip(got, want)]
+    print(f"baked: chunk renderer kernels vs plain: rgb {errs[0]:.3e} depth "
+          f"{errs[1]:.3e} acc {errs[2]:.3e} (tol rgb/acc 1e-4, depth 1e-3)",
+          flush=True)
+    if errs[0] > 1e-4 or errs[2] > 1e-4 or errs[1] > 1e-3:
+        raise SystemExit("baked: chunk renderer disagrees with the plain "
+                         "path")
+
+    profile_device("baked frame", lambda: renderer(
+        params, statics, poses[0].c2w, poses[0].intrinsics))
+
+    ms = [1e3 * t for t in times]
+    n = SIDE * SIDE
+    print(f"baked: {SIDE}x{SIDE} uint8 frames ms={[round(x, 2) for x in ms]} "
+          f"mean_ms={sum(ms) / 3:.2f} rays_per_s={n / (sum(times) / 3):.1f} "
+          f"chunk_rays={chunk} samples={S} "
+          f"mean_level={float(frames[-1].mean()):.3f}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -739,22 +1021,24 @@ def main() -> int:
     batch = train_batch(device)
     check_train_kernels(cfg, statics, params, occ, batch, device, results)
     served = serve(cfg, statics, params, occ, device)
+    baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
 
-    launches = {k: served[k] + trained[k] for k in served}
+    launches = {k: served[k] + baked_n[k] + trained[k] for k in served}
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         print(f"kernel {k.name}: launches={launches[k.name]} (serve "
-              f"{served[k.name]}, train {trained[k.name]}; per bench train "
-              f"step {light[k.name] / 3:g}) {results[k.name].pop('text')}")
+              f"{served[k.name]}, baked {baked_n[k.name]}, train "
+              f"{trained[k.name]}; per bench train step "
+              f"{light[k.name] / 3:g}) {results[k.name].pop('text')}")
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
-         **results[k.name], "library_ms": None}
+         "library_ms": None, **results[k.name]}
         for k in kernels.KERNELS]}
-    print("library_ms: null for every kernel: no single PyTorch call "
-          "computes the plane encoder or its table gradient with the "
-          "interpolation weights, the union probe + CDF, the inverse-CDF "
-          "sampler, or the compositor or its VJP")
+    print("library_ms: grid_sample for baked_trilerp; null for the others: "
+          "no single PyTorch call computes the plane encoder or its table "
+          "gradient with the interpolation weights, the union probe + CDF, "
+          "the inverse-CDF sampler, or the compositor or its VJP")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ copy. The layout mirrors the reference (`ops/`, `models/`,
 find.
 
 Ported so far: the soft-occupancy mixture-of-experts render path
-(`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`)
-and the first-order meta-training step
+(`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`),
+baked snapshot serving (`models.baked.bake_field` ->
+`make_baked_camera_renderer` / `make_baked_chunk_renderer`) and the
+first-order meta-training step
 (`pipelines.offline.meta_train_step.make_train_step`, fomaml and reptile,
 with `make_eval_step`). The TPU-specialised ops on those paths are
 hand-written CUDA C++ kernels for `sm_90a` (`csrc/*.cu`, built at first use
@@ -24,6 +26,8 @@ module:
   - `ops.volrend.volume_render`              (volume compositor forward,
                                               and its VJP via
                                               `VolumeRender`)
+  - `models.baked.baked_trilerp`             (packed-corner trilinear
+                                              lookup in the baked grid)
 
 A kernel wrapper uses the plain version only for a tensor on the CPU; given
 a CUDA tensor it launches its kernel or raises. Entry points default to

@@ -42,7 +42,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # plain PyTorch versions, which run one elementwise op per kernel. The
 # encoder backward does too: its light mode rounds the recomputed plane and
 # line values to bfloat16, and a value one float32 ulp away can round to
-# the neighbouring bfloat16.
+# the neighbouring bfloat16. So does the baked lookup, whose cell selection
+# and lerp tree then match the plain version bit for bit.
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "planes": ("planes.cu", ()),
     "occ_probe": ("occ_probe.cu", ("--fmad=false",)),
@@ -50,6 +51,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "volrend": ("volrend.cu", ()),
     "volrend_bwd": ("volrend_bwd.cu", ()),
     "planes_bwd": ("planes_bwd.cu", ("--fmad=false",)),
+    "baked": ("baked.cu", ("--fmad=false",)),
 }
 
 _P = ctypes.c_void_p
@@ -233,8 +235,16 @@ PLANES_BWD = Kernel(
     replaces="nerfsys_tpu/ops/planes.py:449 (_plane_encode_mm_bwd)",
 )
 
+BAKED_TRILERP = Kernel(
+    "baked_trilerp", "baked", "baked_trilerp",
+    # pts, table, table_bf16, aabb, block_index (nullable), out,
+    # N, R, C, Cp, pack, Bs, stream
+    [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
+    replaces="nerfsys_tpu/models/baked.py:647 (baked_trilerp)",
+)
+
 KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
-           PLANES_BWD_LIGHT, PLANES_BWD)
+           PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP)
 
 
 def reset_launches() -> None:
@@ -259,9 +269,18 @@ def check_no_grad(name: str, *tensors) -> None:
             f"differentiable entry point (or run under torch.no_grad())")
 
 
+# inputs the kernels read in another dtype than float32, by keyword
+_DTYPES = {
+    "binary": (torch.bool,),
+    "table": (torch.float32, torch.bfloat16),
+    "block_index": (torch.int32,),
+}
+
+
 def check_cuda_tensors(name: str, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on `device`
-    with the dtype the kernel reads (float32, or bool/uint8 where named)."""
+    with a dtype the kernel reads (float32, or those of `_DTYPES` for the
+    keywords named there)."""
     for key, t in tensors.items():
         if t is None:
             continue
@@ -270,7 +289,7 @@ def check_cuda_tensors(name: str, device: torch.device, **tensors) -> None:
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        want = (torch.bool,) if key in ("binary",) else (torch.float32,)
+        want = _DTYPES.get(key, (torch.float32,))
         if t.dtype not in want:
             raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected "
-                            f"{want[0]}")
+                            f"one of {want}")

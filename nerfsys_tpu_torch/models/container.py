@@ -3,7 +3,8 @@
 Port of nerfsys_tpu/models/container.py (`ContainerConfig`,
 `ContainerStatics`, `init_container_params` :128, `_routing_dist` :158,
 `routing_weights` :175, the dense `_eval_all_experts` :256,
-`container_apply` :419, `background_color` :502, `container_field_fn`,
+`container_apply` :419, `container_apply_multidir` :447,
+`background_color` :502, `container_field_fn`,
 `container_bg_fn`, `_expert_apply_fn` :235, `param_group_labels` :545).
 The K experts' parameters are stacked on a leading axis and evaluated as ONE batched call over that axis (batched matmuls, one
 encoder launch), then blended with the dense (N, K) routing weights before
@@ -21,6 +22,7 @@ from nerfsys_tpu_torch.models.ngp import (
     _linear_init,
     init_ngp_params,
     ngp_apply,
+    ngp_color,
     ngp_density,
     tree_to,
 )
@@ -147,6 +149,30 @@ def container_apply(params: Params, cfg: ContainerConfig,
     w = routing_weights(statics, cfg, pts)  # (N, K)
     sigma = (w.T * sigma_k).sum(dim=0)
     rgb = (w.T[..., None] * rgb_k).sum(dim=0)
+    return rgb, sigma
+
+
+def container_apply_multidir(params: Params, cfg: ContainerConfig,
+                             statics: ContainerStatics, pts: torch.Tensor,
+                             dirs_m: torch.Tensor, *,
+                             use_kernels: bool = True
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Routed field at N points under M shared view directions -> (rgb
+    (M, N, 3), sigma (N,)). The encoder, sigma trunk, geometry head and
+    routing weights run once for all K experts; only the color head sweeps
+    the M directions (one direction at a time, as the reference maps
+    them)."""
+    if cfg.bucketed:
+        raise NotImplementedError("bucketed expert dispatch is not ported")
+    sigma_k, geo_k = ngp_density(params["experts"], cfg.expert,
+                                 statics.expert_aabbs, pts,
+                                 return_feats=True, use_kernels=use_kernels)
+    w = routing_weights(statics, cfg, pts)  # (N, K)
+    sigma = (w.T * sigma_k).sum(dim=0)
+    rgb = torch.stack([
+        torch.einsum("nk,knc->nc", w,
+                     ngp_color(params["experts"], cfg.expert, d, geo_k))
+        for d in dirs_m])
     return rgb, sigma
 
 

@@ -1,7 +1,7 @@
 """Occupancy-guided MoE rendering (soft mode).
 
 Port of nerfsys_tpu/models/occupancy.py (`occ_ready` :188,
-`_ray_validity` :307,
+`_ray_validity` :307, `union_binary_fn` :47,
 `union_pair_fn` :92, `expert_pair_fn` :110, `render_rays_occ` :436) for
 the soft mode: the union of the experts' occupancy grids steers sample
 PLACEMENT (probe CDF with a whole-ray floor) and never deletes density.
@@ -22,6 +22,7 @@ from nerfsys_tpu_torch.models.container import (
 )
 from nerfsys_tpu_torch.ops.occupancy import (
     occupancy_probe_cdf,
+    query_binary,
     query_pair,
     sample_tvals_from_cdf,
     union_pair,
@@ -33,6 +34,19 @@ from nerfsys_tpu_torch.ops.volrend import (
 )
 
 Render = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def union_binary_fn(occ_state: Dict, statics: ContainerStatics):
+    """pts (M, 3) -> (M,) bool: occupied under ANY expert's grid."""
+
+    def query(pts):
+        binary = occ_state["binary"]
+        occ = query_binary(binary[0], statics.expert_aabbs[0], pts)
+        for k in range(1, binary.shape[0]):
+            occ = occ | query_binary(binary[k], statics.expert_aabbs[k], pts)
+        return occ
+
+    return query
 
 
 def union_pair_fn(occ_state: Dict, statics: ContainerStatics):

@@ -1,7 +1,8 @@
 """Multi-level occupancy grids: state, queries, probe CDF and sampler.
 
 Port of nerfsys_tpu/ops/occupancy.py (`OccGridConfig` :42, `init_occ_state`
-:69, `level_aabbs` :90, `_finest_level_index` :121, `query_pair` :196,
+:69, `level_aabbs` :90, `_finest_level_index` :121, `query_binary` :159,
+`query_pair` :196,
 `occupancy_probe_cdf` :394, `sample_tvals_from_cdf` :468,
 `render_rays_occ_field` :556 in soft mode). Grid updates are not ported
 yet.
@@ -100,6 +101,15 @@ def _finest_level_index(aabb: torch.Tensor, L: int, R: int,
     ijk = torch.clamp((rel_sel * R).to(torch.int32).long(), 0, R - 1)
     flat_idx = ((level * R + ijk[..., 0]) * R + ijk[..., 1]) * R + ijk[..., 2]
     return decided, flat_idx
+
+
+def query_binary(binary: torch.Tensor, aabb: torch.Tensor,
+                 pts: torch.Tensor) -> torch.Tensor:
+    """One expert's occupancy (...,) bool at world points: the finest level
+    containing each point decides; False outside every level."""
+    L, R = binary.shape[0], binary.shape[1]
+    decided, flat_idx = _finest_level_index(aabb, L, R, pts)
+    return binary.reshape(-1)[flat_idx] & decided
 
 
 def query_pair(occs: torch.Tensor, binary: torch.Tensor, aabb: torch.Tensor,

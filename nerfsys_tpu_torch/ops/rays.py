@@ -1,9 +1,10 @@
 """Ray generation and near/far clamping.
 
 Port of nerfsys_tpu/ops/rays.py (`get_ray_directions` :41, `get_rays` :81,
-`clamp_rays_near_far` :120). Conventions: RUB cameras (pixel (i, j) ->
-[(i - cx)/fx, -(j - cy)/fy, -1], unit-normalised), DRB world, packed rays
-(..., 8) = [ox, oy, oz, dx, dy, dz, near, far], invalid rays inf-tagged.
+`clamp_rays_near_far` :120, `frame_chunk_rays` :150). Conventions: RUB
+cameras (pixel (i, j) -> [(i - cx)/fx, -(j - cy)/fy, -1], unit-normalised),
+DRB world, packed rays (..., 8) = [ox, oy, oz, dx, dy, dz, near, far],
+invalid rays inf-tagged.
 """
 from __future__ import annotations
 
@@ -88,3 +89,41 @@ def clamp_rays_near_far(
     rays[:, 6] = torch.where(valid, near, inv)
     rays[:, 7] = torch.where(valid, far, inv)
     return rays, valid
+
+
+def frame_chunk_rays(
+    c2w: torch.Tensor,  # (3, 4) or (4, 4)
+    intrinsics: torch.Tensor,  # (4,) [fx, fy, cx, cy]
+    start: int,  # first flattened pixel index
+    count: int,
+    H: int,
+    W: int,
+    *,
+    scene_box: Optional[SceneBox] = None,
+    near: Optional[float] = None,
+    far: Optional[float] = None,
+    near_override: Optional[float] = None,
+    far_override: Optional[float] = None,
+    center_pixels: bool = True,
+) -> torch.Tensor:
+    """Packed rays (count, 8) for flattened pixels [start, start+count) of
+    one pinhole frame, generated on the device of `c2w`: a frame's upload
+    is the pose and intrinsics, not H*W*8 floats. Same directions, box test
+    and clamp policy as `data.ram_rays.frame_rays`; indices past H*W-1
+    clamp to the last pixel (callers drop the padded tail)."""
+    idx = torch.arange(count, dtype=torch.int32, device=c2w.device) + start
+    idx = torch.clamp(idx, 0, H * W - 1)
+    jj = torch.div(idx, W, rounding_mode="floor").to(torch.float32)
+    ii = (idx % W).to(torch.float32)
+    if center_pixels:
+        ii = ii + 0.5
+        jj = jj + 0.5
+    x = (ii - intrinsics[2]) / intrinsics[0]
+    y = -(jj - intrinsics[3]) / intrinsics[1]
+    z = -torch.ones_like(x)
+    dirs = torch.stack([x, y, z], dim=-1)
+    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True),
+                              min=1e-12)
+    rays = get_rays(dirs, c2w, scene_box=scene_box, near=near, far=far)
+    rays, _ = clamp_rays_near_far(rays, near_override, far_override)
+    return rays

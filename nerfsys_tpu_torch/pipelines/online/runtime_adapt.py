@@ -3,11 +3,13 @@
 Port of nerfsys_tpu/pipelines/online/runtime_adapt.py (`make_chunk_renderer`
 :532, `default_chunk_rays` :909, `render_image` :919, `render_rays_chunked`
 :1598 with the plain chunk loop of `two_wave_dispatch` :1480-1491,
-`_pad_chunk`, `_pack5`). Two renderer kinds are ported: the soft-occupancy
-one-shot renderer (how soft-trained checkpoints render) and the stratified
-renderer without an occupancy grid. Test-time adaptation, the two-wave,
-early-stop, union-probe and coherent dispatchers, and mesh sharding are not
-ported yet.
+`_pad_chunk`, `_pack5`, and the camera-renderer helpers `_fog_stats` :522,
+`frame_chunk_rays_biased` :948, `shape_frame_outputs` :971). Two renderer
+kinds are ported here: the soft-occupancy one-shot renderer (how
+soft-trained checkpoints render) and the stratified renderer without an
+occupancy grid; the baked renderers are in models/baked.py. Test-time
+adaptation, the two-wave, early-stop, union-probe and coherent
+dispatchers, and mesh sharding are not ported yet.
 """
 from __future__ import annotations
 
@@ -24,21 +26,23 @@ from nerfsys_tpu_torch.models.container import (
     container_field_fn,
 )
 from nerfsys_tpu_torch.models.occupancy import render_rays_occ
+from nerfsys_tpu_torch.ops.rays import clamp_rays_near_far, frame_chunk_rays
 from nerfsys_tpu_torch.ops.volrend import render_rays_stratified
 from nerfsys_tpu_torch.utils.device import resolve_device
 
 
 class ChunkRenderer:
-    """(params, statics, rays (C, 8) tensor) -> (rgb (C,3), depth, acc) on
-    `device`; chunks are rendered without autograd."""
+    """(params, statics, rays (C, 8) tensor, *extra) -> (rgb (C,3), depth,
+    acc) on `device` (or what the renderer's output mapping makes of them);
+    chunks are rendered without autograd."""
 
     def __init__(self, fn, device: torch.device):
         self._fn = fn
         self.device = device
 
-    def __call__(self, params, statics, rays):
+    def __call__(self, params, statics, rays, *extra):
         with torch.no_grad():
-            return self._fn(params, statics, rays)
+            return self._fn(params, statics, rays, *extra)
 
 
 def make_chunk_renderer(
@@ -168,3 +172,50 @@ def render_image(
     return (out[:, 0:3].reshape(H, W, 3).copy(),
             out[:, 3].reshape(H, W).copy(),
             out[:, 4].reshape(H, W).copy())
+
+
+def _fog_stats(weights: torch.Tensor):
+    """Per-ray (wmax, entropy) of the compositing weights (the haze
+    signals of the video path), computed on the device."""
+    wsum = torch.clamp(weights.sum(dim=1, keepdim=True), min=1e-12)
+    p = weights / wsum
+    entropy = -(p * torch.log(torch.clamp(p, min=1e-12))).sum(dim=1)
+    return weights.amax(dim=1), entropy
+
+
+def frame_chunk_rays_biased(c2w, intr, start, chunk_rays, H, W, *,
+                            scene_box, near, far, near_override,
+                            far_override, near_bias):
+    """On-device frame ray generation plus the video path's near shift:
+    t_near = max(near, 0) + bias, capped at far - 1e-4 (miss tags stay
+    inf)."""
+    rays = frame_chunk_rays(
+        c2w, intr, start, chunk_rays, H, W, scene_box=scene_box, near=near,
+        far=far, near_override=near_override, far_override=far_override)
+    if float(near_bias) != 0.0:
+        t_near = (torch.clamp(rays[:, 6], min=0.0)
+                  + float(np.float32(near_bias)))
+        rays = rays.clone()
+        rays[:, 6] = torch.minimum(t_near, rays[:, 7] - 1e-4)
+        rays, _ = clamp_rays_near_far(rays)
+    return rays
+
+
+def shape_frame_outputs(rays, rgb, depth, weights, acc, *extra, fog_stats,
+                        invalid_black, map_outputs, out_u8):
+    """Camera-renderer output shaping on the device: the fog signals,
+    zeroed box-miss rays (invalid_black), then `map_outputs`, the uint8
+    quantisation, or the stacked (C, 5[+2]) float planes."""
+    outs = [rgb, depth, acc]
+    if fog_stats:
+        outs += list(_fog_stats(weights))
+    if invalid_black:
+        ok = torch.isfinite(rays[:, 6])
+        outs = [torch.where(ok[:, None] if o.dim() == 2 else ok, o, 0.0)
+                for o in outs]
+    if map_outputs is not None:
+        return map_outputs(*outs, *extra)
+    if out_u8:
+        return torch.clamp(outs[0] * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+    return torch.cat([o if o.dim() == 2 else o[:, None] for o in outs],
+                     dim=1)

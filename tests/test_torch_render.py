@@ -171,13 +171,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        if n.startswith('nerfsys_tpu_torch')]\n"
         "need = {'nerfsys_tpu_torch.' + m for m in ("
         "'pipelines.offline.meta_core', 'pipelines.offline.meta_train_step',"
-        " 'utils.optim', 'utils.tree', 'ops.losses', 'ops.color_space')}\n"
+        " 'utils.optim', 'utils.tree', 'ops.losses', 'ops.color_space',"
+        " 'models.baked')}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 21
+    assert int(out.stdout.strip()) >= 22
 
 
 def test_kernel_registry_covers_every_source():
@@ -187,6 +188,8 @@ def test_kernel_registry_covers_every_source():
 
     srcs = {p.name for p in Path(kernels.CSRC).glob("*.cu")}
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
+    assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
+    assert "--fmad=false" in kernels.SOURCES["baked"][1]
     assert {k.stem for k in kernels.KERNELS} == set(kernels.SOURCES)
     for k in kernels.KERNELS:
         assert Path(REPO, k.source).is_file()
