@@ -771,8 +771,8 @@ def check_baked_kernel(tables, pts, results):
     """Kernel 8 against its plain version at one full serve chunk
     (65,536 rays x 32 samples), for each (label, table, bcfg); the first
     is the serve table, whose numbers go into the kernel line. The
-    library yardstick is one grid_sample over the dense volume of the
-    serve table's values."""
+    library yardstick is one grid_sample over the dense volume of each
+    table's values (corner block 0 of every cell's row)."""
     import torch
     import torch.nn.functional as F
 
@@ -799,34 +799,33 @@ def check_baked_kernel(tables, pts, results):
         plain_ms = cuda_ms(lambda: baked_trilerp_plain(*args), 3)
         n_bytes = lookup_bytes(baked, bcfg, pts)
         b_ms, b_by = bound(n_bytes, N * C * 21)
+
+        vol = (unpack_cells(baked, bcfg).float().reshape(R, R, R, C)
+               .permute(3, 0, 1, 2)[None].contiguous())
+        u = (pts - box[0]) / (box[1] - box[0]) * 2.0 - 1.0
+        grid = u[:, [2, 1, 0]].reshape(1, N, 1, 1, 3).contiguous()
+
+        def lib():
+            return F.grid_sample(vol, grid, mode="bilinear",
+                                 padding_mode="border", align_corners=False)
+
+        lib_err = max_err(lib().reshape(C, N).T, pln)
+        lib_ms = cuda_ms(lib, 10)
+        del vol, grid
         text = (f"table {label}: err/payload_max={err:.3e} tol={tol:g} "
                 f"(cell selection and lerps round alike, --fmad=false) "
                 f"max_abs_err={max_err(ker, pln):.3e} kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} bytes={n_bytes} "
                 f"bound_ms={b_ms:.4f} ({b_by}) at "
-                f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s library_ms={lib_ms:.4f} "
+                f"(grid_sample bilinear, border, align_corners=False, over "
+                f"the dense (1, {C}, {R}, {R}, {R}) float32 volume; "
+                f"max_abs_err vs plain {lib_err:.3e})")
         print(f"kernel {kernels.BAKED_TRILERP.name}: {text}", flush=True)
         if not err <= tol:
             raise SystemExit(f"kernel baked_trilerp disagrees with its plain "
                              f"version on the {label} table: {err} > {tol}")
         if i == 0:
-            vol = (unpack_cells(baked, bcfg).float().reshape(R, R, R, C)
-                   .permute(3, 0, 1, 2)[None].contiguous())
-            u = (pts - box[0]) / (box[1] - box[0]) * 2.0 - 1.0
-            grid = u[:, [2, 1, 0]].reshape(1, N, 1, 1, 3).contiguous()
-
-            def lib():
-                return F.grid_sample(vol, grid, mode="bilinear",
-                                     padding_mode="border",
-                                     align_corners=False)
-
-            lib_err = max_err(lib().reshape(C, N).T, pln)
-            lib_ms = cuda_ms(lib, 10)
-            del vol, grid
-            print(f"library baked_trilerp: grid_sample(bilinear, border, "
-                  f"align_corners=False) over the dense (1, {C}, {R}, {R}, "
-                  f"{R}) float32 volume at the same points: ms={lib_ms:.4f} "
-                  f"max_abs_err_vs_plain={lib_err:.3e}", flush=True)
             results[kernels.BAKED_TRILERP.name] = dict(
                 max_abs_err=max_err(ker, pln), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, text=text)
