@@ -26,6 +26,9 @@ printing its result lines):
 5. Baked: bake the bench-width container into the serve snapshot (256³,
    SH-3, 32 directions, pack 8, sparse blocks of 8³, bf16, occupancy-aware
    on a synthetic R=64 L=2 grid, 2 dilations) through `bake_field`; hold
+   a 128³ f32 sparse bake through the kernels against the same bake
+   through `use_kernels=False` (same block index, values within 1e-5 of
+   the table's max); hold
    kernel 8 (the packed-corner trilinear lookup) against its plain version
    at one full serve chunk on four tables (the serve table, 256³ pack-4
    dense bf16, 64³ pack-2 dense bf16, 128³ pack-4 sparse f32) and time it
@@ -741,20 +744,14 @@ def lookup_bytes(baked, bcfg, pts) -> int:
     distinct payload row it reads (its used channels), every distinct
     block-index entry (4 bytes) of a sparse table, each once; the points
     read and the values written once."""
-    import numpy as np
     import torch
 
-    from nerfsys_tpu_torch.models.baked import table_rows
+    from nerfsys_tpu_torch.models.baked import lookup_cells, table_rows
 
     R, C, Cp = bcfg.resolution, bcfg.channels, bcfg.padded_channels
     table, index = baked["table"], baked.get("block_index")
     pack = table.shape[1] // Cp
-    lo, hi = baked["aabb"][0], baked["aabb"][1]
-    g = torch.clamp((pts - lo) / ((hi - lo) / R) - 0.5, 0.0,
-                    float(np.float32(R - 1.000001)))
-    ix, iy, iz = torch.floor(g).long().unbind(1)
-    xs = [ix] if pack == 8 else [ix, torch.clamp(ix + 1, max=R - 1)]
-    ys = [iy] if pack >= 4 else [iy, torch.clamp(iy + 1, max=R - 1)]
+    _, xs, ys, iz = lookup_cells(baked["aabb"], pts, R, pack)
     row_of = table_rows(R, index, bcfg.sparse_block)
     rows = torch.unique(torch.cat([row_of(x, y, iz) for x in xs
                                    for y in ys]))
@@ -832,14 +829,46 @@ def check_baked_kernel(tables, pts, results):
         del ker, pln
 
 
+def bake_matches_plain(cfg, statics, params, bcfg, occ, got, device):
+    """The bake through kernel 1 (`got`) against the same bake through the
+    plain versions (`bake_field(..., use_kernels=False)`): the same block
+    index, and every table value within 1e-5 of the table's max (an f32
+    table, so no cast hides a difference; kernel 1 sums the plane features
+    in another order, and the MLPs and the SH projection carry the ulps)."""
+    import torch
+
+    from nerfsys_tpu_torch.models.baked import bake_field
+
+    t0 = time.perf_counter()
+    want = bake_field(params, cfg, statics, bcfg, occ_state=occ,
+                      device=device, use_kernels=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(got["block_index"], want["block_index"]) \
+            or got["table"].shape != want["table"].shape:
+        raise SystemExit("baked: the bake through the kernels keeps other "
+                         "blocks than the plain bake")
+    pairs = list(zip(got["table"].split(1 << 18), want["table"].split(1 << 18)))
+    scale = max(float(w.abs().max()) for _, w in pairs)
+    err = max(float((g - w).abs().max()) for g, w in pairs) / scale
+    tol = 1e-5
+    print(f"baked: {bcfg.resolution}^3 f32 sparse bake through the kernels vs "
+          f"plain: same block index, err/table_max={err:.3e} tol={tol:g} "
+          f"(plain bake {plain_s:.2f} s)", flush=True)
+    if not err <= tol:
+        raise SystemExit("baked: the bake through the kernels disagrees with "
+                         "the plain bake")
+
+
 BAKED_KERNELS = ("baked_trilerp", "volume_render_fwd")
 
 
 def baked(cfg, statics, params, device, results):
     """Phase: baked snapshot serving. Bake the serve configuration
     (256³, SH-3, 32 directions, pack 8, sparse blocks of 8³, bf16,
-    occupancy-aware with 2 dilations) through `bake_field`, check kernel 8
-    on four tables, then serve 3 800x800 uint8 frames through
+    occupancy-aware with 2 dilations) through `bake_field`, hold a bake
+    through the kernels against the plain bake, check kernel 8 on four
+    tables, then serve 3 800x800 uint8 frames through
     `make_baked_camera_renderer`, the counters zeroed just before them and
     read just after."""
     import dataclasses
@@ -903,17 +932,19 @@ def baked(cfg, statics, params, device, results):
                         corner_pack=2, dtype="bfloat16")
     f32 = BakedConfig(resolution=F32_R, sh_levels=3, n_dirs=32,
                       corner_pack=4, sparse_block=8, dtype="float32")
+    f32_table = bake_field(params, cfg, statics, f32, occ_state=occ,
+                           device=device)
+    bake_matches_plain(cfg, statics, params, f32, occ, f32_table, device)
     tables = [
         (f"{R}^3 pack-8 sparse-8 bf16 (serve)", serve_table, bcfg),
         (f"{R}^3 pack-4 dense bf16", dense4, pack4),
         (f"{SMALL_R}^3 pack-2 dense bf16", bake_field(
             params, cfg, statics, small, device=device), small),
-        (f"{F32_R}^3 pack-4 sparse-8 f32", bake_field(
-            params, cfg, statics, f32, occ_state=occ, device=device), f32),
+        (f"{F32_R}^3 pack-4 sparse-8 f32", f32_table, f32),
     ]
     del vals
     check_baked_kernel(tables, pts, results)
-    del tables, dense4, pts, t_vals, rays
+    del tables, dense4, f32_table, pts, t_vals, rays
 
     renderer = make_baked_camera_renderer(
         serve_table, bcfg, cfg, H=SIDE, W=SIDE, ray_samples=S,

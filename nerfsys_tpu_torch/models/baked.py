@@ -331,7 +331,9 @@ def bake_field(params, cfg: ContainerConfig, statics: ContainerStatics,
     sigma to >= 0 first). With a ready `occ_state`, only cells alive under
     the union grid (dilated `occ_dilate` times) are evaluated; the rest
     stay zero. The values are cast to the table dtype before anything tests
-    them for zero, then packed dense or block-sparse."""
+    them for zero, then packed dense or block-sparse. use_kernels=False
+    evaluates the field through the plain versions on any device (the
+    card's reference for the bake)."""
     dev = resolve_device(device)
     params = tree_to(params, dev)
     statics = statics.to(dev)
@@ -541,6 +543,22 @@ def table_rows(R: int, block_index: Optional[torch.Tensor] = None,
     return row_of
 
 
+def lookup_cells(aabb: torch.Tensor, pts: torch.Tensor, R: int, pack: int):
+    """Cell selection of a lookup at pts (N, 3) -> (w (N, 3) lerp weights,
+    xs, ys, iz): the lookup reads the rows of cells (x, y, iz) for x in xs
+    and y in ys. xs is [ix] for pack 8, else [ix, ix+1 clamped at R-1]; ys
+    is [iy] for packs 8 and 4, else [iy, iy+1 clamped]."""
+    lo, hi = aabb[0], aabb[1]
+    h = (hi - lo) / R
+    g = (pts - lo) / h - 0.5
+    g = torch.clamp(g, 0.0, _clip_hi(R))
+    f = torch.floor(g)
+    ix, iy, iz = f[:, 0].long(), f[:, 1].long(), f[:, 2].long()
+    xs = [ix] if pack == 8 else [ix, torch.clamp(ix + 1, max=R - 1)]
+    ys = [iy] if pack >= 4 else [iy, torch.clamp(iy + 1, max=R - 1)]
+    return g - f, xs, ys, iz
+
+
 def baked_trilerp_plain(table: torch.Tensor, aabb: torch.Tensor,
                         pts: torch.Tensor, R: int, C: int, Cp: int,
                         pack: int, block_index: Optional[torch.Tensor] = None,
@@ -550,14 +568,8 @@ def baked_trilerp_plain(table: torch.Tensor, aabb: torch.Tensor,
     with the sparse slot read by direct indexing. Each corner block is
     sliced to its C used channels before the lerps (the padding is never
     part of the result)."""
-    lo, hi = aabb[0], aabb[1]
-    h = (hi - lo) / R
     row_of = table_rows(R, block_index, block)
-    g = (pts - lo) / h - 0.5
-    g = torch.clamp(g, 0.0, _clip_hi(R))
-    f = torch.floor(g)
-    w = g - f
-    ix, iy, iz = f[:, 0].long(), f[:, 1].long(), f[:, 2].long()
+    w, xs, ys, iz = lookup_cells(aabb, pts, R, pack)
     wx, wy, wz = w[:, 0:1], w[:, 1:2], w[:, 2:3]
 
     def blocks(jx, jy, jz):
@@ -566,24 +578,22 @@ def baked_trilerp_plain(table: torch.Tensor, aabb: torch.Tensor,
                 for i in range(pack)]
 
     if pack == 8:
-        b = blocks(ix, iy, iz)
+        b = blocks(xs[0], ys[0], iz)
         x0 = ((b[0] * (1 - wz) + b[1] * wz) * (1 - wy)
               + (b[2] * (1 - wz) + b[3] * wz) * wy)
         x1 = ((b[4] * (1 - wz) + b[5] * wz) * (1 - wy)
               + (b[6] * (1 - wz) + b[7] * wz) * wy)
         return x0 * (1 - wx) + x1 * wx
     if pack == 4:
-        ix1 = torch.clamp(ix + 1, max=R - 1)
 
         def row4(jx):
-            r = blocks(jx, iy, iz)
+            r = blocks(jx, ys[0], iz)
             z0 = r[0] * (1 - wz) + r[1] * wz
             z1 = r[2] * (1 - wz) + r[3] * wz
             return z0 * (1 - wy) + z1 * wy
 
-        return row4(ix) * (1 - wx) + row4(ix1) * wx
-    ix1 = torch.clamp(ix + 1, max=R - 1)
-    iy1 = torch.clamp(iy + 1, max=R - 1)
+        return row4(xs[0]) * (1 - wx) + row4(xs[1]) * wx
+    (ix, ix1), (iy, iy1) = xs, ys
 
     def row2(jx, jy):
         r = blocks(jx, jy, iz)
@@ -652,10 +662,10 @@ def baked_trilerp(baked: Dict, bcfg: BakedConfig, pts: torch.Tensor, *,
 
 
 def baked_query(baked: Dict, bcfg: BakedConfig, pts: torch.Tensor,
-                dirs: torch.Tensor, *, use_kernels: bool = True):
+                dirs: torch.Tensor):
     """Trilinear (rgb (N, 3), sigma (N,)) at pts viewed along dirs."""
     B = bcfg.n_bases
-    val = baked_trilerp(baked, bcfg, pts, use_kernels=use_kernels)
+    val = baked_trilerp(baked, bcfg, pts)
     sigma = torch.clamp(val[:, 0], min=0.0)
     sh = sh_encode(dirs, levels=int(bcfg.sh_levels))  # (N, B)
     rgb = torch.einsum("nb,nbc->nc", sh, val[:, 1:].reshape(-1, B, 3))
