@@ -23,7 +23,23 @@ printing its result lines):
    every serving kernel's launch counter must have moved during the 3
    requests, and one chunk rendered through the kernels must match the
    same chunk rendered through the plain versions.
-5. Baked: bake the bench-width container into the serve snapshot (256³,
+5. Early stop: kernel row 8 (segmented compositing with a carried
+   transmittance) against its plain version at one serve chunk's first
+   segment (65,536 rays x 8 samples, fresh carry) and one resume slice
+   (16,384 x 24, that carry), fog off and on, at two densities, timed
+   with CUDA events beside its byte bound; the 8 + 24 split against
+   kernel 4's one-shot. Then the soft-mode early-stop renderer (eps 1e-4,
+   32 samples split 8 + 24) serves one warm-up and 3 requests of 800x800
+   through `render_image` at sigma_scale 1 and at the opaque scale, each
+   against the same frames through the one-shot program (within the eps
+   bound; at the opaque scale rays must terminate); row 8 must have
+   launched and kernel 4 not, during those requests. Then measure_perf's
+   half-sky frame (640,000 rays) on its sky grid through
+   `render_rays_chunked` with the hard-mask two-wave renderer (within
+   1e-5 of the one-shot, chunks skipped or packed, a dead chunk through
+   the background program equal to the one-shot) and the hard-mask
+   early-stop renderer at the opaque scale; one frame is profiled.
+6. Baked: bake the bench-width container into the serve snapshot (256³,
    SH-3, 32 directions, pack 8, sparse blocks of 8³, bf16, occupancy-aware
    on a synthetic R=64 L=2 grid, 2 dilations) through `bake_field`; hold
    a 128³ f32 sparse bake through the kernels against the same bake
@@ -39,7 +55,7 @@ printing its result lines):
    1 level in >= 99.9% of pixels, and one chunk through
    `make_baked_chunk_renderer` within 1e-4 (rgb, acc) / 1e-3 (depth) of
    the plain path; one frame is profiled.
-6. Train: bench.py's FoMAML configuration (K=4, B=3 tasks, 4,000 support
+7. Train: bench.py's FoMAML configuration (K=4, B=3 tasks, 4,000 support
    and 2,000 query rays, 8 inner steps, 32 soft-occupancy samples, the
    light encoder backward) through `make_train_step`: one warm-up step,
    3 timed outer steps, then one step with the encoder's default exact
@@ -47,8 +63,8 @@ printing its result lines):
    every kernel's launch counter moved; one step's gradients through the
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one step is profiled.
-7. A JSON line listing every kernel (launches, error, times, bound).
-8. The card line, then the last line:
+8. A JSON line listing every kernel (launches, error, times, bound).
+9. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -597,7 +613,8 @@ def train(cfg, statics, params, occ, batch, device):
     return light, launches
 
 
-def profile_frame(renderer, params, statics, md, aabb, chunk):
+def profile_frame(renderer, params, statics, md, aabb, chunk,
+                  label="frame"):
     """Where one served frame's time goes: host ray generation, and the
     device time by kernel (one extra frame, after the launch counts were
     read)."""
@@ -607,7 +624,7 @@ def profile_frame(renderer, params, statics, md, aabb, chunk):
     t0 = time.perf_counter()
     frame_rays(md.H, md.W, md.intrinsics, md.c2w, aabb=aabb)
     raygen_ms = 1e3 * (time.perf_counter() - t0)
-    profile_device("frame", lambda: render_image(
+    profile_device(label, lambda: render_image(
         renderer, params, statics, md, scene_aabb=aabb, chunk_rays=chunk),
         extra=f" host_raygen_ms={raygen_ms:.2f}")
 
@@ -619,7 +636,6 @@ SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
 def serve(cfg, statics, params, occ, device):
     """Phase 4: 3 requests of 800x800 frames through the port's entry
     points, the counters zeroed just before them and read just after."""
-    import numpy as np
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -649,15 +665,7 @@ def serve(cfg, statics, params, occ, device):
         rgb, depth, acc = render_image(renderer, params, statics, md,
                                        scene_aabb=aabb, chunk_rays=chunk)
         times.append(time.perf_counter() - t0)
-        for name, a in (("rgb", rgb), ("depth", depth), ("acc", acc)):
-            if not np.isfinite(a).all():
-                raise SystemExit(f"serve: non-finite {name}")
-        for name, a in (("rgb", rgb), ("acc", acc)):
-            if a.min() < -1e-5 or a.max() > 1 + 1e-5:
-                raise SystemExit(f"serve: {name} outside [0, 1]: "
-                                 f"[{a.min()}, {a.max()}]")
-        if rgb.shape != (SIDE, SIDE, 3):
-            raise SystemExit(f"serve: rgb shape {rgb.shape}")
+        check_frame("serve", rgb, depth, acc, (SIDE, SIDE, 3))
     launches = kernels.launches()
     print(f"serve: launches during 3 requests {launches}", flush=True)
     for k in SERVE_KERNELS:
@@ -692,15 +700,384 @@ def serve(cfg, statics, params, occ, device):
     return launches
 
 
+ES_EPS = 1e-4  # nerfacc's default early_stop_eps
+ES_SEG = 8  # the first segment: ray_samples // 4
+# sigma_scale at which the random-init field reaches trained-scene opacity
+# (measure_perf.py:491-494): at 25 most valid rays of the serve frames end
+# after the first segment; the early-stop phase prints that share and
+# requires at least half
+OPAQUE = 25.0
+SKY = 0.5  # the share of sky rays in the hard-mask frame
+ES_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
+              "sample_tvals_from_cdf", "composite_segment")
+
+
+def check_segment_kernel(cfg, statics, params, occ, rays_np, device,
+                         results):
+    """Kernel row 8 against its plain version on the card: one serve chunk's
+    first segment (65,536 rays x 8 samples, fresh carry) and one resume
+    slice (16,384 rays x 24 samples, the first segment's carry), fog off
+    and on, at the random-init density and the opaque one. The inputs come
+    from the slice's own probe (soft, importance), sampler and field; t and
+    dt are column slices of the (N, 32) sample arrays. Then the 8 + 24
+    split, finalized, against kernel 4's one-shot volume_render on the same
+    samples."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.container import container_apply
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.ops.activations import clip
+
+    S, s1, cap = 32, ES_SEG, CHECK_RAYS // 4
+    rays = torch.from_numpy(rays_np).to(device)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    valid, near, far = _ray_validity(rays)
+    N = rays.shape[0]
+    cdf = O.occupancy_probe_cdf(occ["occs"], occ["binary"],
+                                statics.expert_aabbs, o, d, near, far, 128,
+                                importance=True, ray_floor=0.25)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S)
+    dists = V.full_dists(t_vals)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    with torch.no_grad():
+        rgb, sigma = container_apply(params, cfg, statics, pts,
+                                     d[:, None, :].expand(N, S, 3)
+                                     .reshape(-1, 3))
+    rgb = clip(rgb.reshape(N, S, 3), 0.0, 1.0)
+    sigma = torch.clamp(torch.where(valid[:, None], sigma.reshape(N, S),
+                                    0.0), min=0.0)
+    bg = torch.rand((N, 3), device=device)
+    ids = torch.arange(cap, device=device)
+    tol, worst, timed = 1e-5, 0.0, None
+    for scale in (1.0, OPAQUE):
+        sig = sigma * scale
+        seg1 = (rgb[:, :s1].contiguous(), sig[:, :s1].contiguous(),
+                t_vals[:, :s1], dists[:, :s1])
+        seg2 = (rgb[:cap, s1:].contiguous(), sig[:cap, s1:].contiguous(),
+                t_vals[:cap, s1:], dists[:cap, s1:])
+        for fog in (False, True):
+            fresh = V.composite_init(N, fog=fog, device=device)
+            first = V.composite_segment(fresh, *seg1)
+            want = V.composite_segment_plain(fresh, *seg1)
+            carry = {k: v.index_select(0, ids) for k, v in first.items()}
+            rest = V.composite_segment(carry, *seg2)
+            rest_want = V.composite_segment_plain(carry, *seg2)
+            torch.cuda.synchronize()
+            errs = [max(max_err(a[k], b[k]) for k in a)
+                    for a, b in ((first, want), (rest, rest_want))]
+            # the 8 + 24 split against kernel 4's one-shot, every ray
+            full = V.composite_segment(first, rgb[:, s1:].contiguous(),
+                                       sig[:, s1:].contiguous(),
+                                       t_vals[:, s1:], dists[:, s1:])
+            split = V.composite_finalize(full, bg)
+            one = V.volume_render_kernel(
+                torch.cat([rgb, sigma[..., None]], dim=-1), t_vals, bg,
+                sigma_scale=scale)
+            split_err = (max_err(split[0], one[0]), max_err(split[2], one[3]),
+                         rel_err(split[1], one[1]))
+            print(f"kernel composite_segment: sigma_scale={scale:g} "
+                  f"fog={fog} first segment {N}x{s1} max_abs_err="
+                  f"{errs[0]:.3e}, resume slice {cap}x{S - s1} max_abs_err="
+                  f"{errs[1]:.3e} (tol {tol:g}); 8+24 split vs "
+                  f"volume_render_fwd one-shot: rgb {split_err[0]:.3e} acc "
+                  f"{split_err[1]:.3e} depth/max {split_err[2]:.3e} (tol "
+                  f"{tol:g})", flush=True)
+            if not max(errs) <= tol:
+                raise SystemExit(f"kernel composite_segment disagrees with "
+                                 f"its plain version: {errs} > {tol}")
+            if not max(split_err) <= tol:
+                raise SystemExit("the 8 + 24 segment split disagrees with "
+                                 f"kernel 4's one-shot: {split_err}")
+            worst = max(worst, *errs)
+            if scale == 1.0 and not fog:
+                timed = (seg1, fresh, first, seg2, carry, rest)
+    seg1, fresh, first, seg2, carry, rest = timed
+    rows = []
+    for label, c, args, out, n in (("first segment", fresh, seg1, first, N),
+                                   ("resume slice", carry, seg2, rest, cap)):
+        ms = cuda_ms(lambda: V.composite_segment(c, *args), 20)
+        plain_ms = cuda_ms(lambda: V.composite_segment_plain(c, *args), 5)
+        n_bytes = nbytes(list(c.values()), args, list(out.values()))
+        b_ms, b_by = bound(n_bytes, n * args[1].shape[1] * 24)
+        rows.append((label, ms, plain_ms, n_bytes, b_ms, b_by))
+        print(f"kernel composite_segment: {label} {n}x{args[1].shape[1]} "
+              f"fog=False kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
+              f"{HBM_BYTES_PER_S / 1e12:g} TB/s", flush=True)
+    label, ms, plain_ms, n_bytes, b_ms, b_by = rows[0]
+    results[kernels.COMPOSITE_SEG.name] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by,
+        text=(f"max_abs_err={worst:.3e} tol={tol:g} (both shapes, fog off "
+              f"and on, two densities; sums of 8-24 products in another "
+              f"order than torch.sum) kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) "
+              f"at {HBM_BYTES_PER_S / 1e12:g} TB/s (the first segment, "
+              f"{N}x{s1}; resume slice kernel_ms={rows[1][1]:.4f} "
+              f"bound_ms={rows[1][4]:.4f})"))
+
+
+def check_frame(label, rgb, depth, acc, shape):
+    import numpy as np
+
+    for name, a in (("rgb", rgb), ("depth", depth), ("acc", acc)):
+        if not np.isfinite(a).all():
+            raise SystemExit(f"{label}: non-finite {name}")
+    for name, a in (("rgb", rgb), ("acc", acc)):
+        if a.min() < -1e-5 or a.max() > 1 + 1e-5:
+            raise SystemExit(f"{label}: {name} outside [0, 1]: "
+                             f"[{a.min()}, {a.max()}]")
+    if rgb.shape != shape:
+        raise SystemExit(f"{label}: rgb shape {rgb.shape}")
+
+
+def eps_errs(label, got, want, far_max):
+    """Max differences (rgb, depth, acc) of an early-stop output from the
+    one-shot's, held to the reference's bound for a terminated ray: rgb
+    within 2 eps (the dropped tail and the background-weight shift, each
+    <= eps), acc within eps, depth within eps * far; plus float32 slack."""
+    errs = [float(abs(g - w).max()) for g, w in zip(got, want)]
+    tols = (2 * ES_EPS + 1e-4, ES_EPS * far_max + 1e-3, ES_EPS + 1e-4)
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise SystemExit(f"{label}: early-stop output outside the eps bound "
+                         f"of the one-shot: {errs} > {tols}")
+    return errs, tols
+
+
+def eps_text(errs, tols) -> str:
+    return " ".join(f"{k} {e:.3e} (tol {t:.2e})"
+                    for k, e, t in zip(("rgb", "depth", "acc"), errs, tols))
+
+
+def sky_frame(n: int):
+    """The hard-mask frame of measure_perf.measure_render (sky=0.5): rays
+    from (0, 0, 2) in random downward directions, the last half from z=3
+    pointing up, near/far 0.1/4.5 (scripts/measure_perf.py:497-527)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    o = np.tile(np.array([0.0, 0.0, 2.0], np.float32), (n, 1))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] = -np.abs(d[:, 2]) - 0.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    i0 = int(n * (1.0 - SKY))
+    o[i0:, 2] = 3.0
+    d[i0:, 2] = np.abs(d[i0:, 2]) + 0.5
+    d[i0:] /= np.linalg.norm(d[i0:], axis=1, keepdims=True)
+    nf = np.tile(np.array([0.1, 4.5], np.float32), (n, 1))
+    return np.concatenate([o, d, nf], 1)
+
+
+def soft_early_stop(cfg, statics, params, occ, device, scale):
+    """3 requests of 800x800 through `render_image` with the soft-mode
+    early-stop renderer at `scale`, the counters zeroed just before them and
+    read just after; then the same frames through the one-shot program."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        EarlyStopOccRenderer,
+        make_chunk_renderer,
+        render_image,
+    )
+
+    S = 32
+    chunk = CHUNK or CHECK_RAYS
+    aabb = statics.global_aabb.cpu().numpy()
+    renderer = make_chunk_renderer(
+        cfg, ray_samples=S, occ_state=occ, occ_importance=True,
+        occ_hard_mask=False, early_stop_eps=ES_EPS, sigma_scale=scale,
+        device=device)
+    if not isinstance(renderer, EarlyStopOccRenderer) or (
+            renderer.probe is not None):
+        raise SystemExit("early-stop: expected the soft early-stop renderer")
+    poses = [pose((0.0, 0.0, 2.0)), pose((0.1, 0.0, 2.0)),
+             pose((0.0, -0.1, 2.1))]
+    kw = dict(scene_aabb=aabb, chunk_rays=chunk)
+    render_image(renderer, params, statics, poses[0], **kw)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    times, frames, stats = [], [], []
+    for md in poses:
+        st = {}
+        t0 = time.perf_counter()
+        frames.append(render_image(renderer, params, statics, md, stats=st,
+                                   **kw))
+        times.append(time.perf_counter() - t0)
+        stats.append(st)
+        check_frame("early-stop", *frames[-1], (SIDE, SIDE, 3))
+    launches = kernels.launches()
+    print(f"early-stop: soft sigma_scale={scale:g} launches during 3 "
+          f"requests {launches}", flush=True)
+    for k in ES_KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"early-stop: kernel {k} never launched")
+    if launches["volume_render_fwd"] != 0:
+        raise SystemExit("early-stop: the one-shot compositor ran during "
+                         "the early-stop requests")
+
+    full_times, worst, n_valid = [], [0.0, 0.0, 0.0], 0
+    for md, got in zip(poses, frames):
+        t0 = time.perf_counter()
+        want = render_image(renderer.full, params, statics, md, **kw)
+        full_times.append(time.perf_counter() - t0)
+        check_frame("early-stop one-shot", *want, (SIDE, SIDE, 3))
+        rays, valid = frame_rays(SIDE, SIDE, md.intrinsics, md.c2w,
+                                 aabb=aabb)
+        n_valid += int(valid.sum())
+        errs, tols = eps_errs("early-stop", got, want,
+                              float(rays[valid, 7].max()))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    # invalid rays always end after the partial: count the valid ones
+    term = (sum(s["n_terminated"] for s in stats)
+            - (len(poses) * SIDE * SIDE - n_valid))
+    if scale == OPAQUE and not term >= 0.5 * n_valid:
+        raise SystemExit(f"early-stop: {term} of {n_valid} valid rays ended "
+                         f"after the first segment at the opaque scale; "
+                         f"need at least half")
+    ms, full_ms = [1e3 * t for t in times], [1e3 * t for t in full_times]
+    counts = " ".join(f"{k}={[s[k] for s in stats]}" for k in (
+        "n_terminated", "n_resumed", "resume_calls"))
+    print(f"early-stop: soft sigma_scale={scale:g} eps={ES_EPS:g} seg="
+          f"{ES_SEG} {SIDE}x{SIDE} frames ms={[round(x, 2) for x in ms]} "
+          f"mean_ms={sum(ms) / 3:.2f} one-shot ms="
+          f"{[round(x, 2) for x in full_ms]} mean_ms={sum(full_ms) / 3:.2f} "
+          f"skip_speedup={sum(full_ms) / sum(ms):.3f} mode="
+          f"{stats[0]['mode']} {counts} terminated_share_of_valid="
+          f"{term / max(n_valid, 1):.4f}", flush=True)
+    print(f"early-stop: soft sigma_scale={scale:g} vs one-shot, worst of 3 "
+          f"frames: {eps_text(worst, tols)}", flush=True)
+    return renderer, launches
+
+
+def hard_early_stop(cfg, statics, params, device):
+    """The sky frame (640,000 rays, half sky) on measure_perf's sky grid
+    through `render_rays_chunked` with the hard-mask two-wave renderer and
+    the hard-mask early-stop renderer at the opaque scale, 3 requests each,
+    the counters zeroed just before them and read just after."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        EarlyStopOccRenderer,
+        TwoWaveOccRenderer,
+        make_chunk_renderer,
+        render_rays_chunked,
+    )
+
+    S = 32
+    chunk = CHUNK or CHECK_RAYS
+    occ = synthetic_occ(statics, device, alive_frac=None)
+    rays = sky_frame(SIDE * SIDE)
+    far_max = float(rays[:, 7].max())
+    total = {}
+    for kind, scale, eps, cls in (
+            ("two-wave", 1.0, 0.0, TwoWaveOccRenderer),
+            ("early-stop", OPAQUE, ES_EPS, EarlyStopOccRenderer)):
+        renderer = make_chunk_renderer(
+            cfg, ray_samples=S, occ_state=occ, occ_importance=True,
+            early_stop_eps=eps, sigma_scale=scale, device=device)
+        if not isinstance(renderer, cls):
+            raise SystemExit(f"hard mask: expected a {cls.__name__}")
+        render_rays_chunked(renderer, params, statics, rays, chunk)  # warm
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        times, outs, stats = [], [], []
+        for _ in range(3):
+            st = {}
+            t0 = time.perf_counter()
+            outs.append(render_rays_chunked(renderer, params, statics, rays,
+                                            chunk, stats=st))
+            times.append(time.perf_counter() - t0)
+            stats.append(st)
+        launches = kernels.launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        t0 = time.perf_counter()
+        want = render_rays_chunked(renderer.full, params, statics, rays,
+                                   chunk)
+        full_ms = 1e3 * (time.perf_counter() - t0)
+        got = outs[-1]
+        check_frame(f"hard {kind}", got[:, :3], got[:, 3], got[:, 4],
+                    want[:, :3].shape)
+        st = stats[-1]
+        if st["chunks_skipped"] <= 0 and st.get("packed_chunks") is None:
+            raise SystemExit(f"hard {kind}: no chunk skipped or packed: {st}")
+        if kind == "two-wave":
+            err = float(abs(got - want).max())
+            text = f"max_abs_err vs one-shot {err:.3e} (tol 1e-5)"
+            if not err <= 1e-5:
+                raise SystemExit(f"hard two-wave: disagrees with the "
+                                 f"one-shot: {err}")
+        else:
+            text = eps_text(*eps_errs(
+                "hard early-stop", (got[:, :3], got[:, 3], got[:, 4]),
+                (want[:, :3], want[:, 3], want[:, 4]), far_max))
+            text += (f" n_terminated={st['n_terminated']} n_resumed="
+                     f"{st['n_resumed']} resume_calls={st['resume_calls']}")
+        ms = [1e3 * t for t in times]
+        print(f"early-stop: hard {kind} sigma_scale={scale:g} sky frame "
+              f"{rays.shape[0]} rays ms={[round(x, 2) for x in ms]} "
+              f"mean_ms={sum(ms) / 3:.2f} one-shot_ms={full_ms:.2f} mode="
+              f"{st['mode']} chunks_skipped={st['chunks_skipped']} n_alive="
+              f"{st['n_alive']} packed_chunks={st.get('packed_chunks')} "
+              f"launches {launches}; {text}", flush=True)
+
+        if kind == "two-wave":  # one dead chunk: background program vs full
+            sky = torch.from_numpy(rays[-chunk:]).to(device)
+            dead_out = renderer.render_dead(params, statics, sky)
+            full_out = renderer.full(params, statics, sky)
+            err = max(max_err(a, b) for a, b in zip(dead_out, full_out))
+            print(f"early-stop: dead chunk ({chunk} sky rays) through "
+                  f"render_dead vs the one-shot max_abs_err={err:.3e} (tol "
+                  f"1e-6, 0 expected)", flush=True)
+            if not err <= 1e-6:
+                raise SystemExit("hard two-wave: the dead program disagrees "
+                                 "with the one-shot on a dead chunk")
+    return total
+
+
+def early_stop(cfg, statics, params, occ, rays_np, device, results):
+    """Phase: live serving with early ray termination, and the hard-mask
+    two-wave dispatch (kernel row 8 check, soft early-stop serve at two
+    densities, the hard-mask sky frame, one profiled frame)."""
+    t0 = time.perf_counter()
+    check_segment_kernel(cfg, statics, params, occ, rays_np, device,
+                         results)
+    total = {}
+    renderer = None
+    for scale in (1.0, OPAQUE):
+        renderer, launches = soft_early_stop(cfg, statics, params, occ,
+                                             device, scale)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    for k, v in hard_early_stop(cfg, statics, params, device).items():
+        total[k] += v
+    profile_frame(renderer, params, statics, pose((0.0, 0.0, 2.0)),
+                  statics.global_aabb.cpu().numpy(), CHUNK or CHECK_RAYS,
+                  label=f"early-stop frame (soft, sigma_scale={OPAQUE:g})")
+    print(f"early-stop: phase took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return total
+
+
 BAKE_R = 256  # the serve bake: 256³ SH-3, pack 8, sparse blocks of 8³
 SMALL_R, F32_R = 64, 128  # the other two tables of kernel 8's check
 
 
-def synthetic_occ(statics, device):
+def synthetic_occ(statics, device, alive_frac=0.35):
     """A ready occupancy state (K=4, R=64, L=2) whose cells in the bottom
-    35% of each expert's level box (along z) are alive: the serve
+    `alive_frac` of each expert's level box (along z) are alive: the serve
     configuration of the reference's baked-serve measurement
-    (`_synthetic_occ_state(geometry=True, alive_frac=0.35)`)."""
+    (`_synthetic_occ_state(geometry=True, alive_frac=0.35)`). alive_frac
+    None: the cells whose centres lie at z <= 2.2, below the level-0 box
+    tops, the grid of its sky frame (`_synthetic_occ_state(geometry=True)`,
+    scripts/measure_perf.py:416-452)."""
     import numpy as np
     import torch
 
@@ -719,7 +1096,8 @@ def synthetic_occ(statics, device):
         for lv in range(L):
             lo, hi = la[lv, 0, 2], la[lv, 1, 2]
             zc = lo + (np.arange(R) + 0.5) * (hi - lo) / R
-            binary[k, lv, :, :, zc <= lo + 0.35 * (hi - lo)] = True
+            cut = 2.2 if alive_frac is None else lo + alive_frac * (hi - lo)
+            binary[k, lv, :, :, zc <= cut] = True
     occ["binary"] = torch.from_numpy(binary).to(device)
     occ["num_updates"] = torch.tensor(1000, dtype=torch.int32, device=device)
     return occ
@@ -1051,15 +1429,18 @@ def main() -> int:
     batch = train_batch(device)
     check_train_kernels(cfg, statics, params, occ, batch, device, results)
     served = serve(cfg, statics, params, occ, device)
+    early = early_stop(cfg, statics, params, occ, rays[:CHECK_RAYS], device,
+                       results)
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
 
-    launches = {k: served[k] + baked_n[k] + trained[k] for k in served}
+    launches = {k: served[k] + early[k] + baked_n[k] + trained[k]
+                for k in served}
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         print(f"kernel {k.name}: launches={launches[k.name]} (serve "
-              f"{served[k.name]}, baked {baked_n[k.name]}, train "
-              f"{trained[k.name]}; per bench train step "
-              f"{light[k.name] / 3:g}) {results[k.name].pop('text')}")
+              f"{served[k.name]}, early-stop {early[k.name]}, baked "
+              f"{baked_n[k.name]}, train {trained[k.name]}; per bench train "
+              f"step {light[k.name] / 3:g}) {results[k.name].pop('text')}")
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
@@ -1068,7 +1449,8 @@ def main() -> int:
     print("library_ms: grid_sample for baked_trilerp; null for the others: "
           "no single PyTorch call computes the plane encoder or its table "
           "gradient with the interpolation weights, the union probe + CDF, "
-          "the inverse-CDF sampler, or the compositor or its VJP")
+          "the inverse-CDF sampler, the compositor or its VJP, or "
+          "segmented compositing with a carried transmittance")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,10 @@ copy. The layout mirrors the reference (`ops/`, `models/`,
 `pipelines/online/`, `data/`, `utils/`) so that each counterpart is easy to
 find.
 
-Ported so far: the soft-occupancy mixture-of-experts render path
-(`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`),
+Ported so far: the occupancy-guided mixture-of-experts render path
+(`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`:
+the soft one-shot renderer, the hard-mask two-wave renderer and the
+early-stop renderer),
 baked snapshot serving (`models.baked.bake_field` ->
 `make_baked_camera_renderer` / `make_baked_chunk_renderer`) and the
 first-order meta-training step
@@ -28,6 +30,8 @@ module:
                                               `VolumeRender`)
   - `models.baked.baked_trilerp`             (packed-corner trilinear
                                               lookup in the baked grid)
+  - `ops.volrend.composite_segment`          (segmented compositing with a
+                                              carried transmittance)
 
 A kernel wrapper uses the plain version only for a tensor on the CPU; given
 a CUDA tensor it launches its kernel or raises. Entry points default to

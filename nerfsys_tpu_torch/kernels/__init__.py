@@ -52,6 +52,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "volrend_bwd": ("volrend_bwd.cu", ()),
     "planes_bwd": ("planes_bwd.cu", ("--fmad=false",)),
     "baked": ("baked.cu", ("--fmad=false",)),
+    "composite_seg": ("composite_seg.cu", ()),
 }
 
 _P = ctypes.c_void_p
@@ -243,8 +244,17 @@ BAKED_TRILERP = Kernel(
     replaces="nerfsys_tpu/models/baked.py:647 (baked_trilerp)",
 )
 
+COMPOSITE_SEG = Kernel(
+    "composite_segment", "composite_seg", "composite_segment_fwd",
+    # carry rgb, depth, acc, trans, wmax, wlogw (the last two nullable),
+    # rgb, sigma, t, dt, out rgb, depth, acc, trans, wmax, wlogw (nullable),
+    # N, s, t_stride, d_stride, fog, stream
+    [_P] * 16 + [_I] * 5 + [_P],
+    replaces="nerfsys_tpu/ops/volrend.py:153 (composite_segment)",
+)
+
 KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
-           PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP)
+           PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG)
 
 
 def reset_launches() -> None:

@@ -1,12 +1,21 @@
-"""Occupancy-guided MoE rendering (soft mode).
+"""Occupancy-guided MoE rendering: soft and hard mask, probe, dead program,
+early ray termination.
 
-Port of nerfsys_tpu/models/occupancy.py (`occ_ready` :188,
-`_ray_validity` :307, `union_binary_fn` :47,
-`union_pair_fn` :92, `expert_pair_fn` :110, `render_rays_occ` :436) for
-the soft mode: the union of the experts' occupancy grids steers sample
-PLACEMENT (probe CDF with a whole-ray floor) and never deletes density.
-Hard-mask rendering and the two-wave, early-stop and union-probe-grid
-dispatchers are not ported yet and raise NotImplementedError.
+Port of nerfsys_tpu/models/occupancy.py (`union_binary_fn` :47,
+`expert_binary_fn` :60, `union_pair_fn` :92, `expert_pair_fn` :110,
+`occ_ready` :188, `_ray_validity` :307, `_occ_query_fns` :315,
+`probe_rays_occ` :345, `render_rays_occ_dead` :389, `render_rays_occ` :436,
+`_occ_keep_mask` :613, `render_rays_occ_et_partial` :625,
+`render_rays_occ_et_resume` :753). In soft mode (hard_mask=False) the union
+of the experts' occupancy grids steers sample PLACEMENT (probe CDF with a
+whole-ray floor) and never deletes density; in hard mode sigma is also
+zeroed outside the union at the final sample points.
+
+The probe takes the stacked grids, not query functions: the grid slice of
+`active_expert` (or all K for the union) goes to kernel 2. Probe-bit masks
+(`mask_from_probes`), probe-function overrides (union-probe grids) and
+`field_expert` (coherent dispatch) are not ported and raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ from nerfsys_tpu_torch.models.container import (
     container_apply,
     container_bg_fn,
 )
+from nerfsys_tpu_torch.ops.activations import clip
 from nerfsys_tpu_torch.ops.occupancy import (
     occupancy_probe_cdf,
     query_binary,
@@ -29,6 +39,11 @@ from nerfsys_tpu_torch.ops.occupancy import (
 )
 from nerfsys_tpu_torch.ops.volrend import (
     background_rgb,
+    composite_finalize,
+    composite_init,
+    composite_segment,
+    composite_segment_plain,
+    full_dists,
     t_to_points,
     volume_render,
 )
@@ -45,6 +60,16 @@ def union_binary_fn(occ_state: Dict, statics: ContainerStatics):
         for k in range(1, binary.shape[0]):
             occ = occ | query_binary(binary[k], statics.expert_aabbs[k], pts)
         return occ
+
+    return query
+
+
+def expert_binary_fn(occ_state: Dict, statics: ContainerStatics, k: int):
+    """pts (M, 3) -> (M,) bool: occupied under expert k's grid alone."""
+
+    def query(pts):
+        return query_binary(occ_state["binary"][k], statics.expert_aabbs[k],
+                            pts)
 
     return query
 
@@ -80,13 +105,134 @@ def occ_ready(occ_state: Dict, min_updates: int = 1) -> torch.Tensor:
 
 
 def _ray_validity(rays: torch.Tensor):
-    """(valid, near_s, far_s): sanitized bounds shared by probe and render."""
+    """(valid, near_s, far_s): sanitized bounds shared by the probe, render
+    and dead programs, so all three see the same ray bounds."""
     near, far = rays[:, 6], rays[:, 7]
     valid = (torch.isfinite(near) & torch.isfinite(far) & (far > near)
              & (far < 1e9))
     near_s = torch.where(valid, near, torch.zeros_like(near))
     far_s = torch.where(valid, far, torch.ones_like(far))
     return valid, near_s, far_s
+
+
+def _occ_query_fns(occ_state: Dict, statics: ContainerStatics,
+                   active_expert: Optional[int]):
+    """(bin_fn, grids): the exact mask query of the hard mode, and the
+    (occs, binary, aabbs) stack the probe reads (expert k's K=1 slice, or
+    all K for the union)."""
+    occs, binary, aabbs = (occ_state["occs"], occ_state["binary"],
+                           statics.expert_aabbs)
+    if active_expert is None:
+        return union_binary_fn(occ_state, statics), (occs, binary, aabbs)
+    k = int(active_expert)
+    return (expert_binary_fn(occ_state, statics, k),
+            (occs[k:k + 1], binary[k:k + 1], aabbs[k:k + 1]))
+
+
+def _not_ported(probe_fns=None, mask_from_probes=False, field_expert=None):
+    if probe_fns is not None or mask_from_probes or field_expert is not None:
+        raise NotImplementedError(
+            "probe_fns (union-probe grids), mask_from_probes and "
+            "field_expert (coherent dispatch) are not ported")
+
+
+def _split_rays(rays: torch.Tensor):
+    return rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+
+
+def _background(params, cfg: ContainerConfig, use_bg_fn: bool,
+                bg_policy: str, d: torch.Tensor, rgb: torch.Tensor,
+                generator=None, last_sample_rgb=None):
+    """The learned background MLP when live, else the policy's color."""
+    if use_bg_fn and cfg.use_bg_nerf and "bg" in params:
+        return container_bg_fn(params, cfg)(d)
+    return background_rgb(bg_policy, d.shape[0], generator=generator,
+                          last_sample_rgb=last_sample_rgb, dtype=rgb.dtype,
+                          device=rgb.device)
+
+
+def probe_rays_occ(
+    statics: ContainerStatics,
+    occ_state: Dict,
+    rays: torch.Tensor,  # (N, 8)
+    *,
+    n_probes: int = 128,
+    active_expert: Optional[int] = None,
+    importance: bool = False,
+    uniform_frac: float = 0.25,
+    probe_fns=None,
+    ray_floor: float = 0.0,  # MUST match the consuming render's floor
+    use_kernels: bool = True,
+) -> Tuple[Dict, torch.Tensor]:
+    """Wave 1 of chunked occupancy rendering: the probe/CDF pass alone ->
+    (cdf_state, chunk_alive). cdf_state also holds `alive_valid` (N,) bool,
+    the rays that are valid and hit occupied space, computed here so the
+    host dispatch shares the device's validity predicate; chunk_alive is a
+    bool scalar tensor, True iff any ray is alive_valid."""
+    _not_ported(probe_fns)
+    o, d = _split_rays(rays)
+    valid, near_s, far_s = _ray_validity(rays)
+    state = _probe_cdf(occ_state, statics, active_expert, o, d, near_s, far_s,
+                       n_probes, importance, uniform_frac, ray_floor,
+                       use_kernels)
+    state = {**state, "alive_valid": state["alive"] & valid}
+    return state, state["alive_valid"].any()
+
+
+def dead_grid(occ_state: Dict) -> Dict:
+    """An all-False grid of the occupancy grids' shape, for
+    `render_rays_occ_dead` (build it once per renderer)."""
+    binary = occ_state["binary"]
+    return {"occs": torch.zeros(binary.shape, dtype=torch.float32,
+                                device=binary.device),
+            "binary": torch.zeros_like(binary)}
+
+
+def render_rays_occ_dead(
+    params,
+    cfg: ContainerConfig,
+    statics: ContainerStatics,
+    rays: torch.Tensor,  # (N, 8)
+    n_samples: int,
+    *,
+    dead: Dict,  # dead_grid(occ_state)
+    n_probes: int = 128,
+    bg_policy: str = "white",
+    use_bg_fn: bool = True,
+    sigma_scale: float = 1.0,
+    use_kernels: bool = True,
+) -> Render:
+    """The exact render_rays_occ output for a chunk with NO alive ray, with
+    no field evaluation. A dead ray's probe weights are all 1e-12 (zero
+    occupancy mass), its sigma is zeroed by the alive mask, and its color is
+    the background. The dead CDF comes from the same probe (kernel 2) on the
+    all-False grid `dead`, so the probe, sampler and compositor run the same
+    float pipeline as the full program's dead rays and the outputs match it
+    bit for bit. Only backgrounds that read no field colors qualify
+    (white / black / none, or the learned background MLP)."""
+    o, d = _split_rays(rays)
+    n_rays = o.shape[0]
+    _, near_s, far_s = _ray_validity(rays)
+    state = occupancy_probe_cdf(dead["occs"], dead["binary"],
+                                statics.expert_aabbs, o, d, near_s, far_s,
+                                n_probes, use_kernels=use_kernels)
+    t_vals, _ = sample_tvals_from_cdf(state, near_s, far_s, n_samples,
+                                      use_kernels=use_kernels)
+    rgb_sigma = torch.zeros((n_rays, n_samples, 4), dtype=o.dtype,
+                            device=o.device)
+    bg = _background(params, cfg, use_bg_fn, bg_policy, d, rgb_sigma)
+    return volume_render(rgb_sigma, t_vals,
+                         bg_rgb=None if bg is None else bg.contiguous(),
+                         sigma_scale=sigma_scale, use_kernels=use_kernels)
+
+
+def _probe_cdf(occ_state, statics, active_expert, o, d, near_s, far_s,
+               n_probes, importance, uniform_frac, ray_floor, use_kernels):
+    _, grids = _occ_query_fns(occ_state, statics, active_expert)
+    return occupancy_probe_cdf(
+        *grids, o, d, near_s, far_s, n_probes, importance=importance,
+        uniform_frac=uniform_frac, ray_floor=ray_floor,
+        use_kernels=use_kernels)
 
 
 def render_rays_occ(
@@ -106,7 +252,7 @@ def render_rays_occ(
     sigma_scale: float = 1.0,
     importance: bool = False,
     uniform_frac: float = 0.25,
-    cdf_state: Optional[Dict] = None,
+    cdf_state: Optional[Dict] = None,  # a probe_rays_occ wave 1 result
     probe_fns=None,
     hard_mask: bool = True,
     ray_floor: Optional[float] = None,
@@ -114,57 +260,198 @@ def render_rays_occ(
     field_expert=None,
     use_kernels: bool = True,
 ) -> Render:
-    """Dense occupancy-guided MoE render, soft mode (hard_mask=False) ->
-    (rgb (N,3), depth (N,), weights (N,S), acc (N,)).
+    """Dense occupancy-guided MoE render -> (rgb (N,3), depth (N,),
+    weights (N,S), acc (N,)).
 
-    Probe (kernel 2) -> inverse-CDF placement (kernel 3) -> routed field
-    (encoder kernel 1 + MLPs) -> compositing (kernel 4)."""
-    if hard_mask:
-        raise NotImplementedError(
-            "hard-mask occupancy rendering is not ported; pass "
-            "hard_mask=False (the soft mode)")
-    if (cdf_state is not None or probe_fns is not None or mask_from_probes
-            or field_expert is not None):
-        raise NotImplementedError(
-            "cdf_state / probe_fns / mask_from_probes / field_expert are not "
-            "ported")
-    o = rays[:, 0:3].contiguous()
-    d = rays[:, 3:6].contiguous()
+    Probe (kernel 2, skipped when `cdf_state` from probe_rays_occ on the
+    same rays and grid is given) -> inverse-CDF placement (kernel 3) ->
+    routed field (encoder kernel 1 + MLPs) -> hard mode: sigma zeroed
+    outside the union at the sample points and on dead rays (point-exact,
+    one grid query per sample per expert) -> compositing (kernel 4)."""
+    _not_ported(probe_fns, mask_from_probes, field_expert)
+    o, d = _split_rays(rays)
     n_rays = o.shape[0]
     valid, near_s, far_s = _ray_validity(rays)
     if ray_floor is None:
-        ray_floor = 0.25  # soft mode: unmarked space stays reachable
-
-    occs, binary, aabbs = (occ_state["occs"], occ_state["binary"],
-                           statics.expert_aabbs)
-    if active_expert is not None:
-        k = int(active_expert)
-        occs, binary, aabbs = occs[k:k + 1], binary[k:k + 1], aabbs[k:k + 1]
-    cdf_state = occupancy_probe_cdf(
-        occs, binary, aabbs, o, d, near_s, far_s, n_probes,
-        importance=importance, uniform_frac=uniform_frac,
-        ray_floor=ray_floor, use_kernels=use_kernels)
-    t_vals, _ = sample_tvals_from_cdf(
+        # hard mode zeroes floor-placed samples anyway; soft mode needs
+        # unmarked space reachable
+        ray_floor = 0.0 if hard_mask else 0.25
+    if cdf_state is None:
+        cdf_state = _probe_cdf(occ_state, statics, active_expert, o, d,
+                               near_s, far_s, n_probes, importance,
+                               uniform_frac, ray_floor, use_kernels)
+    t_vals, alive = sample_tvals_from_cdf(
         cdf_state, near_s, far_s, n_samples, generator=generator,
         randomized=randomized, use_kernels=use_kernels)
 
-    pts = t_to_points(o, d, t_vals)
-    dirs = d[:, None, :].expand(pts.shape)
-    rgb, sigma = container_apply(params, cfg, statics, pts.reshape(-1, 3),
-                                 dirs.reshape(-1, 3), active_expert,
-                                 use_kernels=use_kernels)
+    pts = t_to_points(o, d, t_vals).reshape(-1, 3)
+    dirs = d[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
+    rgb, sigma = container_apply(params, cfg, statics, pts, dirs,
+                                 active_expert, use_kernels=use_kernels)
     rgb = rgb.reshape(n_rays, n_samples, 3)
     sigma = sigma.reshape(n_rays, n_samples)
-    # soft: the grid steered placement only; density is never deleted
-    sigma = torch.where(valid[:, None], sigma, torch.zeros_like(sigma))
+    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
+                          valid, hard_mask, n_rays, n_samples)
+    sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
 
-    if use_bg_fn and cfg.use_bg_nerf and "bg" in params:
-        bg = container_bg_fn(params, cfg)(d)
-    else:
-        bg = background_rgb(bg_policy, n_rays, generator=generator,
-                            last_sample_rgb=rgb[:, -1, :], dtype=rgb.dtype,
-                            device=rgb.device)
+    bg = _background(params, cfg, use_bg_fn, bg_policy, d, rgb,
+                     generator=generator, last_sample_rgb=rgb[:, -1, :])
     rgb_sigma = torch.cat([rgb, sigma[..., None]], dim=-1)
     return volume_render(rgb_sigma, t_vals,
                          bg_rgb=None if bg is None else bg.contiguous(),
                          sigma_scale=sigma_scale, use_kernels=use_kernels)
+
+
+# --------------------------- early ray termination ----------------------------
+# A ray stops paying for samples once its transmittance is below
+# early_stop_eps (nerfacc's OccGridEstimator early_stop_eps). The partial
+# program composites the first seg_samples of every ray and reports its
+# transmittance; the host compacts the rays still alive and the resume
+# program finishes only those (pipelines/online/runtime_adapt early-stop
+# dispatch). All sample positions come from ONE sample_tvals_from_cdf call
+# whose full-sample step sizes (ops.volrend.full_dists) are sliced per
+# segment, so resuming every ray reproduces render_rays_occ up to the order
+# of the products and sums.
+
+
+def _occ_keep_mask(occ_state, statics, active_expert, pts_flat, alive, valid,
+                   hard_mask, n_rays, s):
+    """The sigma keep-mask of render_rays_occ for (n_rays, s) samples at
+    pts_flat: hard mode keeps occupied samples of alive valid rays (point
+    exact); soft mode keeps every sample of a valid ray."""
+    if hard_mask:
+        bin_fn, _ = _occ_query_fns(occ_state, statics, active_expert)
+        occ_mask = bin_fn(pts_flat).reshape(n_rays, s)
+        return occ_mask & alive[:, None] & valid[:, None]
+    return valid[:, None].expand(n_rays, s)
+
+
+def _masked_segment(sigma, keep, rgb, sigma_scale):
+    """The partial's and resume's compositor inputs: sigma masked, clipped
+    at 0 and scaled; rgb clipped to [0, 1] (the segment compositor takes its
+    inputs as they are, unlike volume_render)."""
+    sigma = torch.clamp(torch.where(keep, sigma, torch.zeros_like(sigma)),
+                        min=0.0)
+    if sigma_scale != 1.0:
+        sigma = sigma * float(sigma_scale)
+    return clip(rgb, 0.0, 1.0), sigma
+
+
+def render_rays_occ_et_partial(
+    params,
+    cfg: ContainerConfig,
+    statics: ContainerStatics,
+    occ_state: Dict,
+    rays: torch.Tensor,  # (N, 8)
+    n_samples: int,
+    *,
+    seg_samples: int,
+    n_probes: int = 128,
+    bg_policy: str = "white",
+    use_bg_fn: bool = True,
+    active_expert: Optional[int] = None,
+    sigma_scale: float = 1.0,
+    importance: bool = False,
+    uniform_frac: float = 0.25,
+    cdf_state: Optional[Dict] = None,
+    probe_fns=None,
+    hard_mask: bool = True,
+    ray_floor: Optional[float] = None,
+    mask_from_probes: bool = False,
+    early_stop_eps: float = 1e-4,
+    fog: bool = False,
+    use_kernels: bool = True,
+):
+    """Wave A of early-stop occupancy rendering: the first seg_samples
+    samples of every ray -> (outputs, et_alive, resume_state).
+
+    outputs: (rgb, depth, acc[, wmax, entropy]) finalized as if every ray
+    ended here (exact for rays whose remaining transmittance is below
+    early_stop_eps, up to that eps); et_alive: (N,) bool, the rays that need
+    the remaining samples; resume_state: what render_rays_occ_et_resume
+    reads (the carry, the remaining t and dt, masks, the background).
+    Backgrounds that read field colors ('last_sample') or need a generator
+    ('random') are refused; the caller gates on that."""
+    if bg_policy in ("last_sample", "random"):
+        raise ValueError(f"early-stop rendering does not support "
+                         f"bg_policy={bg_policy!r}")
+    _not_ported(probe_fns, mask_from_probes)
+    o, d = _split_rays(rays)
+    n_rays = o.shape[0]
+    valid, near_s, far_s = _ray_validity(rays)
+    if ray_floor is None:
+        ray_floor = 0.0 if hard_mask else 0.25
+    if cdf_state is None:
+        cdf_state = _probe_cdf(occ_state, statics, active_expert, o, d,
+                               near_s, far_s, n_probes, importance,
+                               uniform_frac, ray_floor, use_kernels)
+    t_vals, alive = sample_tvals_from_cdf(cdf_state, near_s, far_s,
+                                          n_samples, use_kernels=use_kernels)
+    dists = full_dists(t_vals)
+    s1 = int(seg_samples)
+    t_seg, d_seg = t_vals[:, :s1], dists[:, :s1]
+    pts = t_to_points(o, d, t_seg).reshape(-1, 3)
+    dirs = d[:, None, :].expand(n_rays, s1, 3).reshape(-1, 3)
+    rgb, sigma = container_apply(params, cfg, statics, pts, dirs,
+                                 active_expert, use_kernels=use_kernels)
+    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
+                          valid, hard_mask, n_rays, s1)
+    rgb, sigma = _masked_segment(sigma.reshape(n_rays, s1), keep,
+                                 rgb.reshape(n_rays, s1, 3), sigma_scale)
+    segment = composite_segment if use_kernels else composite_segment_plain
+    carry = segment(composite_init(n_rays, t_vals.dtype, fog=fog,
+                                   device=o.device), rgb, sigma, t_seg, d_seg)
+
+    bg = _background(params, cfg, use_bg_fn, bg_policy, d, rgb)
+    outputs = composite_finalize(carry, bg)
+    # a ray fully masked by occupancy (hard mode) keeps trans == 1, but all
+    # its remaining sigma is zeroed too: its partial is final
+    needs_more = carry["trans"] > early_stop_eps
+    if hard_mask:
+        needs_more = needs_more & alive
+    et_alive = needs_more & valid
+    state = {"o": o, "d": d, "t_rest": t_vals[:, s1:],
+             "d_rest": dists[:, s1:], "alive": alive, "valid": valid,
+             "carry": carry, "bg": bg}
+    return outputs, et_alive, state
+
+
+def render_rays_occ_et_resume(
+    params,
+    cfg: ContainerConfig,
+    statics: ContainerStatics,
+    occ_state: Dict,
+    state: Dict,  # resume_state of render_rays_occ_et_partial
+    ids: torch.Tensor,  # (cap,) row indices into the partial chunk
+    *,
+    active_expert: Optional[int] = None,
+    sigma_scale: float = 1.0,
+    hard_mask: bool = True,
+    use_kernels: bool = True,
+):
+    """Wave B: finish the remaining samples of the rows `ids` of a partial
+    chunk -> (rgb, depth, acc[, wmax, entropy]); row i is ids[i] (padded,
+    duplicate ids compute rows the dispatcher discards). The reference's
+    row_gather is `index_select` here."""
+
+    def take(t):
+        return t.index_select(0, ids)
+
+    o, d = take(state["o"]), take(state["d"])
+    t_rest, d_rest = take(state["t_rest"]), take(state["d_rest"])
+    alive, valid = take(state["alive"]), take(state["valid"])
+    carry = {k: take(v) for k, v in state["carry"].items()}
+    n_rays, s2 = t_rest.shape
+
+    pts = t_to_points(o, d, t_rest).reshape(-1, 3)
+    dirs = d[:, None, :].expand(n_rays, s2, 3).reshape(-1, 3)
+    rgb, sigma = container_apply(params, cfg, statics, pts, dirs,
+                                 active_expert, use_kernels=use_kernels)
+    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
+                          valid, hard_mask, n_rays, s2)
+    rgb, sigma = _masked_segment(sigma.reshape(n_rays, s2), keep,
+                                 rgb.reshape(n_rays, s2, 3), sigma_scale)
+    segment = composite_segment if use_kernels else composite_segment_plain
+    carry = segment(carry, rgb, sigma, t_rest, d_rest)
+    bg = None if state["bg"] is None else take(state["bg"])
+    return composite_finalize(carry, bg)

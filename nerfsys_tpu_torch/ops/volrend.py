@@ -1,9 +1,14 @@
 """Dense volume rendering: stratified sampling and compositing.
 
 Port of nerfsys_tpu/ops/volrend.py (`stratified_t_vals` :26, `t_to_points`
-:51, `render_weights` :57, `volume_render` :81, `background_rgb` :216,
-`render_rays_stratified` :252). Every ray carries exactly S samples laid out
-(N, S); empty space is masked by zero sigma.
+:51, `render_weights` :57, `volume_render` :81, `composite_init` :134,
+`composite_segment` :153, `composite_finalize` :183, `full_dists` :207,
+`background_rgb` :216, `render_rays_stratified` :252). Every ray carries
+exactly S samples laid out (N, S); empty space is masked by zero sigma.
+
+Kernel row 8 (`csrc/composite_seg.cu`) composites one segment of samples
+into a carried state for the early-stop renderer;
+`composite_segment_plain` is the same function in plain PyTorch.
 
 Kernel 4 (`csrc/volrend.cu`) is the compositor forward on the card;
 `volume_render_plain` is the same function in plain PyTorch. Gradients go
@@ -15,7 +20,7 @@ clips with `torch.maximum` / `torch.minimum`, which pass half too.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -217,6 +222,142 @@ def volume_render(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                                   float(sigma_scale))
     return volume_render_plain(rgb_sigma, t_vals, bg_rgb,
                                sigma_scale=sigma_scale)
+
+
+# --------------------------- segmented compositing --------------------------
+# The early-stop renderer composites a ray's samples in segments with a
+# carried transmittance (models/occupancy.py render_rays_occ_et_*): the
+# weights of a segment's samples are alpha * exclusive-cumprod-in-segment *
+# T_carry, the one-shot products in the same left-to-right order.
+
+Carry = Dict[str, torch.Tensor]
+_CARRY_KEYS = ("rgb", "depth", "acc", "trans")
+_FOG_KEYS = ("wmax", "wlogw")
+
+
+def composite_init(n_rays: int, dtype=torch.float32, fog: bool = False,
+                   device="cuda") -> Carry:
+    """Fresh per-ray carry. fog=True also carries the haze statistics
+    (wmax and sum w log w: the weight entropy decomposes over segments as
+    -(sum w log w)/W + log W with W = sum w)."""
+    dev = resolve_device(device)
+    carry = {
+        "rgb": torch.zeros((n_rays, 3), dtype=dtype, device=dev),
+        "depth": torch.zeros((n_rays,), dtype=dtype, device=dev),
+        "acc": torch.zeros((n_rays,), dtype=dtype, device=dev),
+        "trans": torch.ones((n_rays,), dtype=dtype, device=dev),
+    }
+    if fog:
+        carry["wmax"] = torch.zeros((n_rays,), dtype=dtype, device=dev)
+        carry["wlogw"] = torch.zeros((n_rays,), dtype=dtype, device=dev)
+    return carry
+
+
+def composite_segment_plain(carry: Carry, rgb: torch.Tensor,
+                            sigma: torch.Tensor, t_seg: torch.Tensor,
+                            dists_seg: torch.Tensor) -> Carry:
+    """Plain PyTorch version of kernel row 8: composite one segment of
+    rgb (N, s, 3) in [0, 1] and sigma (N, s) >= 0 (masked and scaled by the
+    caller) at t_seg, dists_seg (N, s) into the carry -> a new carry.
+    dists_seg are slices of `full_dists` over the whole sample set, so the
+    boundary interval spans the segments."""
+    alpha = clip(1.0 - torch.exp(-sigma * dists_seg), 0.0, 1.0 - 1e-7)
+    one_m = 1.0 - alpha + 1e-10
+    trans_local = torch.cumprod(
+        torch.cat([torch.ones_like(alpha[:, :1]), one_m], dim=1), dim=1
+    )[:, :-1]
+    w = alpha * trans_local * carry["trans"][:, None]
+    out = {
+        "rgb": carry["rgb"] + (w[..., None] * rgb).sum(dim=1),
+        "depth": carry["depth"] + (w * t_seg).sum(dim=1),
+        "acc": carry["acc"] + w.sum(dim=1),
+        "trans": carry["trans"] * torch.prod(one_m, dim=1),
+    }
+    if "wmax" in carry:
+        out["wmax"] = torch.maximum(carry["wmax"], w.amax(dim=1))
+        out["wlogw"] = carry["wlogw"] + (
+            w * torch.log(torch.clamp(w, min=1e-12))).sum(dim=1)
+    return out
+
+
+def composite_segment(carry: Carry, rgb: torch.Tensor, sigma: torch.Tensor,
+                      t_seg: torch.Tensor, dists_seg: torch.Tensor) -> Carry:
+    """Kernel row 8's wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `composite_segment_fwd` or raises. t_seg and
+    dists_seg may be column slices of (N, S) tensors (unit column stride):
+    the kernel reads them through their row stride. No backward: it raises
+    under grad mode with inputs that require grad."""
+    kernels.check_no_grad("composite_segment", rgb, sigma, t_seg, dists_seg,
+                          *carry.values())
+    if rgb.device.type == "cpu":
+        return composite_segment_plain(carry, rgb, sigma, t_seg, dists_seg)
+    if rgb.device.type != "cuda":
+        raise ValueError(f"composite_segment: unsupported device "
+                         f"{rgb.device}")
+    dev = rgb.device
+    N, s = sigma.shape
+    fog = "wmax" in carry
+    if tuple(rgb.shape) != (N, s, 3) or s < 1:
+        raise ValueError("composite_segment: rgb must be (N, s, 3), sigma "
+                         "(N, s), s >= 1")
+    strides = []
+    for name, t in (("t_seg", t_seg), ("dists_seg", dists_seg)):
+        if (tuple(t.shape) != (N, s) or t.device != dev
+                or t.dtype != torch.float32 or (s > 1 and t.stride(1) != 1)
+                or (N > 1 and t.stride(0) < s)):
+            raise ValueError(f"composite_segment: {name} must be a float32 "
+                             f"(N, s) tensor on {dev} with unit column "
+                             f"stride")
+        strides.append(t.stride(0) if N > 1 else s)
+    keys = _CARRY_KEYS + (_FOG_KEYS if fog else ())
+    for key in keys:
+        shape = (N, 3) if key == "rgb" else (N,)
+        if tuple(carry[key].shape) != shape:
+            raise ValueError(f"composite_segment: carry[{key!r}] must be "
+                             f"{shape}")
+    kernels.check_cuda_tensors("composite_segment", dev, rgb=rgb,
+                               sigma=sigma,
+                               **{f"carry_{k}": carry[k] for k in keys})
+    out = {k: torch.empty_like(carry[k]) for k in keys}
+    ptr = lambda key, d: d[key].data_ptr() if fog else None  # noqa: E731
+    kernels.COMPOSITE_SEG(
+        carry["rgb"].data_ptr(), carry["depth"].data_ptr(),
+        carry["acc"].data_ptr(), carry["trans"].data_ptr(),
+        ptr("wmax", carry), ptr("wlogw", carry), rgb.data_ptr(),
+        sigma.data_ptr(), t_seg.data_ptr(), dists_seg.data_ptr(),
+        out["rgb"].data_ptr(), out["depth"].data_ptr(),
+        out["acc"].data_ptr(), out["trans"].data_ptr(), ptr("wmax", out),
+        ptr("wlogw", out), N, s, strides[0], strides[1], int(fog),
+        kernels.stream_ptr(rgb))
+    return out
+
+
+def composite_finalize(carry: Carry, bg_rgb: Optional[torch.Tensor]):
+    """(rgb_map, depth_map, acc_map[, wmax, entropy]) from a carry, with
+    volume_render's background blend. For a ray terminated early the
+    dropped tail radiance and the background-weight shift are each bounded
+    by its carried transmittance (the early-stop eps)."""
+    rgb_map = carry["rgb"]
+    if bg_rgb is not None:
+        rgb_map = rgb_map + (1.0 - carry["acc"][..., None]) * bg_rgb.to(
+            rgb_map.dtype)
+    if "wmax" not in carry:
+        return rgb_map, carry["depth"], carry["acc"]
+    # entropy of p = w / W: -(sum w log w) / W + log W; a ray with
+    # (near-)zero weight has no distribution and reports 0, like _fog_stats
+    wsum = torch.clamp(carry["acc"], min=1e-12)
+    entropy = -carry["wlogw"] / wsum + torch.log(wsum)
+    entropy = torch.where(carry["acc"] > 1e-9, entropy,
+                          torch.zeros_like(entropy))
+    return rgb_map, carry["depth"], carry["acc"], carry["wmax"], entropy
+
+
+def full_dists(t_vals: torch.Tensor) -> torch.Tensor:
+    """The (N, S) step sizes volume_render derives from t_vals (consecutive
+    diffs clamped >= 1e-4, the last repeated), once over the whole sample
+    set, so that segment slices see the true boundary intervals."""
+    d = torch.clamp(t_vals[:, 1:] - t_vals[:, :-1], min=1e-4)
+    return torch.cat([d, d[:, -1:]], dim=1)
 
 
 def background_rgb(policy: str, n_rays: int,

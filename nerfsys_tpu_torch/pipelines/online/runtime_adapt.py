@@ -1,15 +1,21 @@
 """Online stage: chunked full-frame rendering (the serving path).
 
-Port of nerfsys_tpu/pipelines/online/runtime_adapt.py (`make_chunk_renderer`
-:532, `default_chunk_rays` :909, `render_image` :919, `render_rays_chunked`
-:1598 with the plain chunk loop of `two_wave_dispatch` :1480-1491,
-`_pad_chunk`, `_pack5`, and the camera-renderer helpers `_fog_stats` :522,
-`frame_chunk_rays_biased` :948, `shape_frame_outputs` :971). Two renderer
-kinds are ported here: the soft-occupancy one-shot renderer (how
-soft-trained checkpoints render) and the stratified renderer without an
-occupancy grid; the baked renderers are in models/baked.py. Test-time
-adaptation, the two-wave, early-stop, union-probe and coherent
-dispatchers, and mesh sharding are not ported yet.
+Port of nerfsys_tpu/pipelines/online/runtime_adapt.py
+(`TwoWaveOccRenderer` :275 with `map_outputs` :319, `EarlyStopOccRenderer`
+:342, `_pad_ids` :389, `_early_stop_dispatch` :395, `_fog_stats` :522,
+`make_chunk_renderer` :532, `default_chunk_rays` :909, `render_image` :919,
+`frame_chunk_rays_biased` :948, `shape_frame_outputs` :971, `_pad_chunk`,
+`_pack5`, `_pack7` :1411-1425, `two_wave_dispatch` :1428,
+`render_rays_chunked` :1598). The renderer kinds of the occupancy path:
+the one-shot program (soft mode, or a hard mask whose background reads
+field colors), the hard-mask two-wave renderer (probe, then skip or pack
+chunks whose rays are all dead), and the early-stop renderer in soft and
+hard mode; without an occupancy grid, the stratified renderer. The baked
+renderers are in models/baked.py.
+
+Every renderer program runs without autograd on its `device`. Test-time
+adaptation, union-probe grids, probe masks, the coherent dispatcher and
+mesh sharding are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,24 +31,143 @@ from nerfsys_tpu_torch.models.container import (
     container_bg_fn,
     container_field_fn,
 )
-from nerfsys_tpu_torch.models.occupancy import render_rays_occ
+from nerfsys_tpu_torch.models.occupancy import (
+    dead_grid,
+    probe_rays_occ,
+    render_rays_occ,
+    render_rays_occ_dead,
+    render_rays_occ_et_partial,
+    render_rays_occ_et_resume,
+)
 from nerfsys_tpu_torch.ops.rays import clamp_rays_near_far, frame_chunk_rays
 from nerfsys_tpu_torch.ops.volrend import render_rays_stratified
 from nerfsys_tpu_torch.utils.device import resolve_device
 
 
 class ChunkRenderer:
-    """(params, statics, rays (C, 8) tensor, *extra) -> (rgb (C,3), depth,
-    acc) on `device` (or what the renderer's output mapping makes of them);
-    chunks are rendered without autograd."""
+    """One render program: (params, statics, rays (C, 8) tensor, *extra) ->
+    (rgb (C,3), depth, acc[, wmax, entropy]) on `device` (or what an output
+    mapping makes of them), run without autograd."""
 
     def __init__(self, fn, device: torch.device):
         self._fn = fn
         self.device = device
 
-    def __call__(self, params, statics, rays, *extra):
+    def __call__(self, *args):
         with torch.no_grad():
-            return self._fn(params, statics, rays, *extra)
+            return self._fn(*args)
+
+
+class TwoWaveOccRenderer:
+    """Chunk renderer with exact empty-chunk skipping (hard-mask occupancy
+    path). Callable like the one-shot program (`full`), plus the two-wave
+    surface the dispatcher uses: `probe` runs the occupancy probe/CDF pass
+    alone and reports which valid rays are alive; `render_from_cdf`
+    finishes an alive chunk from that CDF (no second probe); `render_dead`
+    gives the bit-exact background fill of a chunk with no alive ray
+    without evaluating the field. `packable`: per-ray outputs do not depend
+    on the chunk's other rays, so alive rays may be re-batched across
+    chunks (not under bucketed routing). `pack_cost_ratio`: the probe's cost
+    as a fraction of a chunk's field and mask cost, which a packed chunk
+    pays again (the dispatcher's mode decision)."""
+
+    def __init__(self, full, probe, render_from_cdf, render_dead, device,
+                 packable=True, pack_cost_ratio=0.0):
+        self.full = full
+        self.probe = probe
+        self.render_from_cdf = render_from_cdf
+        self.render_dead = render_dead
+        self.device = device
+        self.packable = packable
+        self.pack_cost_ratio = pack_cost_ratio
+
+    def __call__(self, params, statics, rays):
+        return self.full(params, statics, rays)
+
+    def map_outputs(self, fn):
+        """The same renderer with fn(rgb, depth, acc, *extra) applied on the
+        device to every render program's outputs (e.g. packing them into one
+        fetch); `extra` are per-call args threaded through the render
+        calls, and the probe is shared. Cache the result."""
+        full, rcdf, dead = self.full, self.render_from_cdf, self.render_dead
+        dev = self.device
+        return TwoWaveOccRenderer(
+            full=ChunkRenderer(lambda p, s, r, *ex: fn(*full(p, s, r), *ex),
+                               dev),
+            probe=self.probe,
+            render_from_cdf=ChunkRenderer(
+                lambda p, s, r, c, *ex: fn(*rcdf(p, s, r, c), *ex), dev),
+            render_dead=ChunkRenderer(
+                lambda p, s, r, *ex: fn(*dead(p, s, r), *ex), dev),
+            device=dev, packable=self.packable,
+            pack_cost_ratio=self.pack_cost_ratio)
+
+
+class EarlyStopOccRenderer:
+    """Chunk renderer with early ray termination (occupancy path), the
+    counterpart of nerfacc's early_stop_eps: a ray stops paying for samples
+    once its transmittance is below eps. The render splits into programs
+    and the dispatcher compacts between them on the host:
+
+      partial          first seg samples of every ray -> a packed
+                       (C, ncols+1) output (rows finalized as if terminated,
+                       then a needs-more flag column) and a resume state;
+      partial_from_cdf the same from a wave-1 probe CDF (hard mask);
+      resume           the remaining samples of `cap` gathered rows of a
+                       partial chunk -> packed (cap, ncols);
+      render_dead      packed background program for occupancy-dead chunks
+                       (hard mask only, else None);
+      full             the one-shot unpacked program (never used by the
+                       early-stop dispatch).
+
+    Outputs are within 2*eps per channel of the one-shot render: the
+    dropped tail radiance and the background-weight shift are each bounded
+    by the carried transmittance (<= eps), and a terminated ray pays both.
+    Not built for bucketed routing (capacity depends on the chunk's rays)."""
+
+    def __init__(self, full, partial, partial_from_cdf, resume, render_dead,
+                 probe, ncols, eps, device, pack_cost_ratio=0.0):
+        self.full = full
+        self.et_partial = partial
+        self.et_partial_from_cdf = partial_from_cdf
+        self.et_resume = resume
+        self.render_dead = render_dead
+        self.probe = probe
+        self.ncols = ncols
+        self.et_eps = eps
+        self.device = device
+        # early stop repacks per ray anyway; this gates only the exclusion
+        # of occupancy-dead rays before the partial wave
+        self.packable = probe is not None
+        self.pack_cost_ratio = pack_cost_ratio
+
+    def __call__(self, params, statics, rays):
+        return self.full(params, statics, rays)
+
+
+def _fog_stats(weights: torch.Tensor):
+    """Per-ray (wmax, entropy) of the compositing weights (the haze
+    signals of the video path), computed on the device."""
+    wsum = torch.clamp(weights.sum(dim=1, keepdim=True), min=1e-12)
+    p = weights / wsum
+    entropy = -(p * torch.log(torch.clamp(p, min=1e-12))).sum(dim=1)
+    return weights.amax(dim=1), entropy
+
+
+def _pack_cost_ratio(cfg: ContainerConfig, ray_samples: int,
+                     active_expert: Optional[int], hard_mask: bool) -> float:
+    """The reference's probe-to-field cost ratio that decides between chunk
+    skipping and ray packing (runtime_adapt.py:614-632 over
+    `analytic_render_gather_rows_per_ray`, utils/flops.py:157, at its
+    defaults: 3 plane levels of packed corners, gathered lines, 128
+    probes). It counts gather rows per ray; the port keeps it so that its
+    dispatcher picks the reference's mode, not as a model of the H100."""
+    g = 1 if active_expert is not None else cfg.num_experts
+    probe_rows = 128.0 * g
+    rows = float(ray_samples * 3 * (3 + 3) * g) + probe_rows
+    if hard_mask:
+        rows += ray_samples * g
+    return probe_rows / max(rows - probe_rows, 1.0)
 
 
 def make_chunk_renderer(
@@ -59,52 +184,145 @@ def make_chunk_renderer(
     mesh=None,
     occ_probe_grid_res: int = 0,
     occ_probe_mask: bool = False,
-    fog_stats: bool = False,
-    early_stop_eps: float = 0.0,
+    fog_stats: bool = False,  # append per-ray (wmax, entropy)
+    early_stop_eps: float = 0.0,  # > 0: early ray termination, outputs
+    # within 2*eps per channel of the one-shot render
+    early_stop_seg: int = 0,  # first-segment samples (0 = ray_samples // 4)
     device="cuda",
     use_kernels: bool = True,
-) -> ChunkRenderer:
-    """Fixed-size ray-chunk renderer. With occ_state and
-    occ_hard_mask=False: the soft-occupancy one-shot renderer; without
-    occ_state: the stratified renderer. `occ_state` is moved to `device`.
-    use_kernels=False renders through the plain versions of the kernels
-    (the card's own reference)."""
+):
+    """Fixed-size ray-chunk renderer: (params, statics, rays (C, 8)) ->
+    (rgb (C,3), depth (C,), acc (C,)[, wmax, entropy]), the kind the
+    reference builds for the same arguments:
+
+    - with occ_state, hard mask and a background that reads no field colors
+      (white / black / none): a `TwoWaveOccRenderer`;
+    - with occ_state otherwise: the one-shot program (soft mode: the grid
+      steers placement and never zeroes sigma, so dead rays still composite
+      the field and nothing is skipped);
+    - early_stop_eps > 0 with occ_state: an `EarlyStopOccRenderer`, hard
+      (with probe and dead programs) or soft, unless bucketed routing,
+      ray_samples <= 8 or a 'last_sample' / 'random' background rule it out
+      (then the renderer above, with the reference's message);
+    - without occ_state: the stratified renderer.
+
+    fog_stats=True appends (wmax, entropy) of the compositing weights to
+    every program's outputs (the dead program's are zeros). `occ_state` is
+    moved to `device`; use_kernels=False renders through the plain versions
+    of the kernels (the card's own reference)."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError("mesh-sharded rendering is not ported")
-    if occ_probe_grid_res or occ_probe_mask or fog_stats or early_stop_eps:
+    if occ_probe_grid_res or occ_probe_mask:
         raise NotImplementedError(
-            "union-probe grids, probe masks, fog stats and early stop are "
-            "not ported")
+            "union-probe grids and probe-bit masks are not ported")
 
-    if occ_state is not None:
-        if occ_hard_mask:
-            raise NotImplementedError(
-                "hard-mask occupancy rendering (two-wave dispatch) is not "
-                "ported; soft-trained checkpoints render with "
-                "occ_hard_mask=False")
-        occ_dev = {k: v.to(dev) for k, v in occ_state.items()}
+    def _with_stats(rgb, depth, weights, acc):
+        if fog_stats:
+            return (rgb, depth, acc) + _fog_stats(weights)
+        return rgb, depth, acc
 
-        def render_fn(params, statics, rays):
-            rgb, depth, _, acc = render_rays_occ(
-                params, cfg, statics, occ_dev, rays, ray_samples,
-                randomized=False, bg_policy=bg_policy,
-                active_expert=active_expert, importance=occ_importance,
-                hard_mask=False, use_bg_fn=use_bg_fn,
-                sigma_scale=sigma_scale, use_kernels=use_kernels)
-            return rgb, depth, acc
-    else:
+    if occ_state is None:
+        if float(early_stop_eps) > 0.0:
+            print("[render] early_stop_eps ignored: early ray termination "
+                  "exists on the occupancy path only (checkpoint has no "
+                  "occ state / --use_occ off)")
+
         def render_fn(params, statics, rays):
             field = container_field_fn(params, cfg, statics, active_expert,
                                        use_kernels=use_kernels)
-            rgb, depth, _, acc = render_rays_stratified(
+            rgb, depth, w, acc = render_rays_stratified(
                 field, rays, ray_samples, randomized=False,
                 bg_policy=bg_policy,
                 bg_fn=container_bg_fn(params, cfg) if use_bg_fn else None,
                 sigma_scale=sigma_scale, use_kernels=use_kernels)
-            return rgb, depth, acc
+            return _with_stats(rgb, depth, w, acc)
 
-    return ChunkRenderer(render_fn, dev)
+        return ChunkRenderer(render_fn, dev)
+
+    occ = {k: v.to(dev) for k, v in occ_state.items()}
+    common = dict(active_expert=active_expert, sigma_scale=sigma_scale,
+                  use_kernels=use_kernels)
+
+    def render_fn(params, statics, rays, cdf_state=None):
+        rgb, depth, w, acc = render_rays_occ(
+            params, cfg, statics, occ, rays, ray_samples, randomized=False,
+            bg_policy=bg_policy, importance=occ_importance,
+            hard_mask=occ_hard_mask, use_bg_fn=use_bg_fn,
+            cdf_state=cdf_state, **common)
+        return _with_stats(rgb, depth, w, acc)
+
+    full = ChunkRenderer(render_fn, dev)
+    # dead chunks reduce to the background only when the background reads
+    # no field colors ('last_sample' does; 'random' needs a generator the
+    # serving renderer never has) AND sigma is hard-masked (soft mode
+    # composites the field on dead rays too)
+    skippable_bg = occ_hard_mask and bg_policy in ("white", "black", "none")
+    pack_ratio = _pack_cost_ratio(cfg, ray_samples, active_expert,
+                                  occ_hard_mask)
+    probe = dead = None
+    if skippable_bg:
+        no_occ = dead_grid(occ)  # once per renderer, not per chunk
+
+        def probe_fn(statics, rays):
+            return probe_rays_occ(statics, occ, rays,
+                                  active_expert=active_expert,
+                                  importance=occ_importance,
+                                  use_kernels=use_kernels)
+
+        def dead_fn(params, statics, rays):
+            rgb, depth, w, acc = render_rays_occ_dead(
+                params, cfg, statics, rays, ray_samples, dead=no_occ,
+                bg_policy=bg_policy, use_bg_fn=use_bg_fn,
+                sigma_scale=sigma_scale, use_kernels=use_kernels)
+            return _with_stats(rgb, depth, w, acc)
+
+        probe = ChunkRenderer(probe_fn, dev)
+        dead = ChunkRenderer(dead_fn, dev)
+
+    et_on = (float(early_stop_eps) > 0.0 and not cfg.bucketed
+             and int(ray_samples) > 8
+             and bg_policy not in ("last_sample", "random"))
+    if float(early_stop_eps) > 0.0 and not et_on:
+        print("[render] early_stop_eps ignored: needs an unsharded, "
+              "non-bucketed renderer with > 8 samples and a background "
+              "that reads no field colors")
+    if et_on:
+        seg = int(early_stop_seg) or max(int(ray_samples) // 4, 8)
+        pack = _pack7 if fog_stats else _pack5
+
+        def partial_fn(params, statics, rays, cdf_state=None):
+            outs, et_alive, state = render_rays_occ_et_partial(
+                params, cfg, statics, occ, rays, ray_samples,
+                seg_samples=seg, bg_policy=bg_policy, use_bg_fn=use_bg_fn,
+                importance=occ_importance, cdf_state=cdf_state,
+                hard_mask=occ_hard_mask,
+                early_stop_eps=float(early_stop_eps), fog=fog_stats,
+                **common)
+            flag = et_alive.to(outs[0].dtype)[:, None]
+            return torch.cat([pack(*outs), flag], dim=1), state
+
+        def resume_fn(params, statics, state, ids):
+            return pack(*render_rays_occ_et_resume(
+                params, cfg, statics, occ, state, ids,
+                hard_mask=occ_hard_mask, **common))
+
+        partial = ChunkRenderer(partial_fn, dev)
+        return EarlyStopOccRenderer(
+            full=full, partial=partial,
+            partial_from_cdf=partial if probe is not None else None,
+            resume=ChunkRenderer(resume_fn, dev),
+            render_dead=(None if dead is None else ChunkRenderer(
+                lambda p, s, r: pack(*dead(p, s, r)), dev)),
+            probe=probe, ncols=7 if fog_stats else 5,
+            eps=float(early_stop_eps), device=dev,
+            pack_cost_ratio=pack_ratio)
+    if skippable_bg:
+        return TwoWaveOccRenderer(
+            full=full, probe=probe, render_from_cdf=full, render_dead=dead,
+            device=dev, packable=not cfg.bucketed,
+            pack_cost_ratio=pack_ratio)
+    return full
 
 
 def default_chunk_rays(ray_samples: int, budget_pts: int = 3_145_728) -> int:
@@ -121,38 +339,327 @@ def _pad_chunk(chunk: np.ndarray, chunk_rays: int) -> np.ndarray:
     return chunk
 
 
+def _pad_ids(ids: np.ndarray, cap: int) -> np.ndarray:
+    out = np.zeros(cap, np.int64)
+    out[: len(ids)] = ids
+    return out
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `dev`; to the card through pinned memory (a
+    pageable upload would wait for the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _chunk(rays: np.ndarray, chunk_rays: int, dev: torch.device):
+    """Host rays (m <= chunk_rays, 8) -> one zero-padded chunk on `dev`."""
+    return _upload(_pad_chunk(rays, chunk_rays), dev)
+
+
+def _fetch(out) -> np.ndarray:
+    return out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+
+
 def _pack5(rgb, depth, acc):
     return torch.cat([rgb, depth[:, None], acc[:, None]], dim=1)
 
 
+def _pack7(rgb, depth, acc, wmax, entropy):
+    return torch.cat([rgb, depth[:, None], acc[:, None], wmax[:, None],
+                      entropy[:, None]], dim=1)
+
+
+def _spans(n: int, chunk_rays: int):
+    return [(s, min(chunk_rays, n - s)) for s in range(0, n, chunk_rays)]
+
+
+def _early_stop_dispatch(r: EarlyStopOccRenderer, params, statics,
+                         rays: np.ndarray, chunk_rays: int, stats: dict):
+    """two_wave_dispatch's early-termination mode (EarlyStopOccRenderer).
+
+    Wave 1 (hard-mask renderers only): probe the chunks, then pack the
+    occupancy-alive rays into dense chunks or skip the dead chunks to the
+    background program, as the two-wave renderer does. Wave A: the partial
+    program over every live chunk, all dispatched before the first fetch.
+    Wave B: fetch each chunk's packed partial output, keep the terminated
+    rays' rows as final, and resume the rays still alive in cap-sized
+    slices (cap = chunk/4, the compaction granularity)."""
+    n = rays.shape[0]
+    dev = r.device
+    spans = _spans(n, chunk_rays)
+    stats.update(chunks_total=len(spans), mode="early_stop",
+                 chunks_skipped=0, n_resumed=0, n_terminated=0,
+                 resume_calls=0)
+    cap = max(chunk_rays // 4, 1024)
+
+    # big frames: in segments, so that at most SEG resume states are live
+    SEG = 16
+    if len(spans) > SEG:
+        pending = []
+        totals = {"chunks_total": 0, "chunks_skipped": 0, "n_resumed": 0,
+                  "n_terminated": 0, "resume_calls": 0}
+        for s0 in range(0, n, SEG * chunk_rays):
+            seg_stats: dict = {}
+            for ids, out in _early_stop_dispatch(
+                    r, params, statics, rays[s0:s0 + SEG * chunk_rays],
+                    chunk_rays, seg_stats):
+                pending.append((ids + s0, out))
+            for k in totals:
+                totals[k] += int(seg_stats.get(k, 0))
+        stats.update(segments=-(-len(spans) // SEG), **totals)
+        return pending
+
+    pending = []
+    partials = []  # (global ids (m,), packed partial output, resume state)
+    if r.probe is not None:
+        # wave 1: occupancy probe -> pack alive rays / skip dead chunks
+        probed = []
+        for s, m in spans:
+            chunk = _chunk(rays[s:s + m], chunk_rays, dev)
+            probed.append((s, m, chunk, r.probe(statics, chunk)))
+        alive = np.zeros(n, bool)
+        for s, m, _, (cdf_state, _) in probed:
+            alive[s:s + m] = _fetch(cdf_state["alive_valid"])[:m]
+        n_alive = int(alive.sum())
+        alive_chunks = sum(1 for s, m in spans if alive[s:s + m].any())
+        packed_chunks = -(-n_alive // chunk_rays) if n_alive else 0
+        if packed_chunks * (1.0 + r.pack_cost_ratio) < alive_chunks:
+            stats.update(mode="early_stop+packed", n_alive=n_alive,
+                         alive_chunks=alive_chunks,
+                         packed_chunks=packed_chunks)
+            probed = None  # release the CDFs; packed partials re-probe
+            idx_alive = np.flatnonzero(alive)
+            for s in range(0, len(idx_alive), chunk_rays):
+                gids = idx_alive[s:s + chunk_rays]
+                packed, state = r.et_partial(
+                    params, statics, _chunk(rays[gids], chunk_rays, dev))
+                partials.append((gids, packed, state))
+            idx_dead = np.flatnonzero(~alive)
+            for s in range(0, len(idx_dead), chunk_rays):
+                gids = idx_dead[s:s + chunk_rays]
+                pending.append((gids, r.render_dead(
+                    params, statics, _chunk(rays[gids], chunk_rays, dev))))
+        else:
+            skipped = 0
+            for i in range(len(probed)):
+                s, m, chunk, (cdf_state, _) = probed[i]
+                probed[i] = None
+                gids = np.arange(s, s + m)
+                if alive[s:s + m].any():
+                    packed, state = r.et_partial_from_cdf(
+                        params, statics, chunk, cdf_state)
+                    partials.append((gids, packed, state))
+                else:
+                    skipped += 1
+                    pending.append((gids, r.render_dead(params, statics,
+                                                        chunk)))
+                del cdf_state
+            stats.update(mode="early_stop+two_wave", chunks_skipped=skipped,
+                         n_alive=n_alive, alive_chunks=alive_chunks)
+    else:
+        # soft mode: no occupancy-dead rays, every chunk goes partial
+        for s, m in spans:
+            packed, state = r.et_partial(
+                params, statics, _chunk(rays[s:s + m], chunk_rays, dev))
+            partials.append((np.arange(s, s + m), packed, state))
+
+    # wave B: fetch the partial outputs (every partial is already
+    # dispatched), split terminated / alive, resume the alive
+    nc = r.ncols
+    for i in range(len(partials)):
+        gids, packed, state = partials[i]
+        partials[i] = None
+        h = _fetch(packed)
+        m = len(gids)
+        flags = h[:m, nc] > 0.5
+        idx_term = np.flatnonzero(~flags)
+        idx_alive = np.flatnonzero(flags)
+        if len(idx_term):
+            pending.append((gids[idx_term], h[idx_term, :nc]))
+        for s in range(0, len(idx_alive), cap):
+            sl = idx_alive[s:s + cap]
+            ids = _upload(_pad_ids(sl, cap), dev)
+            pending.append((gids[sl], r.et_resume(params, statics, state,
+                                                  ids)))
+            stats["resume_calls"] += 1
+        stats["n_resumed"] += int(len(idx_alive))
+        stats["n_terminated"] += int(len(idx_term))
+        del state
+    return pending
+
+
+def two_wave_dispatch(chunk_renderer, params, statics: ContainerStatics,
+                      rays: np.ndarray,  # (n, 8) float32, host
+                      chunk_rays: int, *extra,
+                      stats: Optional[dict] = None,
+                      probe_cache: Optional[dict] = None):
+    """Dispatch a host ray batch through fixed-size zero-padded chunks ->
+    [(ids (m,), output), ...], every chunk dispatched before the caller's
+    first fetch so the card runs ahead of the readbacks. `extra` per-call
+    args go to the render programs (not the probe).
+
+    With a two-wave renderer, wave 1 probes every chunk and fetches the
+    per-ray alive bits; wave 2 then either packs the alive rays of the
+    whole frame into dense chunks (when the renderer is packable and that
+    saves field-eval chunks after the probe it pays again) or skips: alive
+    chunks render from the wave-1 CDF, dead chunks from the background
+    program (bit-exact). `probe_cache` (a caller-owned dict) keeps wave 1
+    across calls on the SAME rays and grid; the caller invalidates it.
+    Early-stop renderers take `_early_stop_dispatch`."""
+    n = rays.shape[0]
+    if stats is None:
+        stats = {}
+    dev = chunk_renderer.device
+    if getattr(chunk_renderer, "et_resume", None) is not None:
+        # probe_cache does not apply: resume states depend on params
+        if extra:
+            raise ValueError("early-stop renderers pack their outputs on the "
+                             "device and do not thread extra per-call args")
+        return _early_stop_dispatch(chunk_renderer, params, statics, rays,
+                                    chunk_rays, stats)
+    spans = _spans(n, chunk_rays)
+    stats.update(chunks_total=len(spans), mode="plain", chunks_skipped=0)
+
+    if getattr(chunk_renderer, "probe", None) is None:
+        return [(np.arange(s, s + m), chunk_renderer(
+                    params, statics, _chunk(rays[s:s + m], chunk_rays, dev),
+                    *extra))
+                for s, m in spans]
+
+    # huge frames: in segments, so that at most SEG probe CDFs are live;
+    # the mode is decided per segment
+    SEG = 16
+    if len(spans) > SEG:
+        pending = []
+        totals = {"chunks_total": 0, "chunks_skipped": 0, "n_alive": 0,
+                  "alive_chunks": 0}
+        modes = set()
+        for s0 in range(0, n, SEG * chunk_rays):
+            seg_stats: dict = {}
+            for ids, out in two_wave_dispatch(
+                    chunk_renderer, params, statics,
+                    rays[s0:s0 + SEG * chunk_rays], chunk_rays, *extra,
+                    stats=seg_stats):
+                pending.append((ids + s0, out))
+            modes.add(seg_stats.get("mode"))
+            for k in totals:
+                totals[k] += int(seg_stats.get(k, 0))
+        stats.update(mode="+".join(sorted(m for m in modes if m)),
+                     segments=-(-len(spans) // SEG), **totals)
+        return pending
+
+    # wave 1: probe every chunk, fetch the per-ray alive bits
+    if probe_cache is not None and probe_cache.get("chunk_rays") == chunk_rays:
+        probed, alive = probe_cache["probed"], probe_cache["alive"]
+        stats.update(probe_cached=True)
+    else:
+        probed = []
+        for s, m in spans:
+            chunk = _chunk(rays[s:s + m], chunk_rays, dev)
+            probed.append((s, m, chunk, chunk_renderer.probe(statics, chunk)))
+        alive = np.zeros(n, bool)
+        for s, m, _, (cdf_state, _) in probed:
+            alive[s:s + m] = _fetch(cdf_state["alive_valid"])[:m]
+        if probe_cache is not None:
+            probe_cache.update(probed=probed, alive=alive,
+                               chunk_rays=chunk_rays)
+
+    alive_chunks = sum(1 for s, m in spans if alive[s:s + m].any())
+    n_alive = int(alive.sum())
+    packed_chunks = -(-n_alive // chunk_rays) if n_alive else 0
+
+    pending = []
+    ratio = getattr(chunk_renderer, "pack_cost_ratio", 0.0)
+    if getattr(chunk_renderer, "packable", False) and (
+            packed_chunks * (1.0 + ratio) < alive_chunks):
+        # ray packing: field-eval chunks = ceil(alive / chunk)
+        stats.update(mode="packed", packed_chunks=packed_chunks,
+                     alive_chunks=alive_chunks, n_alive=n_alive)
+        if probe_cache is None:
+            probed = None  # release every chunk's probe CDF
+        idx_alive = np.flatnonzero(alive)
+        idx_dead = np.flatnonzero(~alive)
+        for s in range(0, len(idx_alive), chunk_rays):
+            ids = idx_alive[s:s + chunk_rays]
+            pending.append((ids, chunk_renderer.full(
+                params, statics, _chunk(rays[ids], chunk_rays, dev), *extra)))
+        for s in range(0, len(idx_dead), chunk_rays):
+            ids = idx_dead[s:s + chunk_rays]
+            pending.append((ids, chunk_renderer.render_dead(
+                params, statics, _chunk(rays[ids], chunk_rays, dev), *extra)))
+        return pending
+
+    # chunk skipping from the wave-1 CDFs
+    skipped = 0
+    for i in range(len(probed)):
+        s, m, chunk, (cdf_state, _) = probed[i]
+        if probe_cache is None:
+            probed[i] = None  # free the CDF once its render is dispatched
+        if alive[s:s + m].any():
+            out = chunk_renderer.render_from_cdf(params, statics, chunk,
+                                                 cdf_state, *extra)
+        else:
+            skipped += 1
+            out = chunk_renderer.render_dead(params, statics, chunk, *extra)
+        del cdf_state
+        pending.append((np.arange(s, s + m), out))
+    stats.update(mode="two_wave", chunks_skipped=skipped,
+                 alive_chunks=alive_chunks, n_alive=n_alive)
+    return pending
+
+
 def render_rays_chunked(
-    chunk_renderer: ChunkRenderer,
+    chunk_renderer,
     params,
     statics: ContainerStatics,
     rays: np.ndarray,  # (n, 8) float32, host
     chunk_rays: int,
+    stats: Optional[dict] = None,
+    fog_stats: bool = False,  # renderer built with fog_stats=True -> (n, 7)
 ) -> np.ndarray:
     """Render a host ray batch through fixed-size zero-padded chunks ->
-    (n, 5) float32 [rgb, depth, acc] on the host. Every chunk is dispatched
-    before the first fetch, so the card runs ahead of the readbacks."""
-    n = rays.shape[0]
-    spans = [(s, min(chunk_rays, n - s)) for s in range(0, n, chunk_rays)]
-    dev = chunk_renderer.device
-    pending = []
-    for s, m in spans:
-        chunk = torch.from_numpy(_pad_chunk(rays[s:s + m], chunk_rays))
-        if dev.type == "cuda":  # a pageable upload would wait for the card
-            chunk = chunk.pin_memory().to(dev, non_blocking=True)
-        pending.append((s, m, _pack5(*chunk_renderer(params, statics,
-                                                     chunk))))
-    out = np.zeros((n, 5), np.float32)
-    for s, m, dev_out in pending:
-        out[s:s + m] = dev_out[:m].cpu().numpy()
+    (n, 5) float32 [rgb, depth, acc] on the host (with fog_stats (n, 7)
+    [..., wmax, entropy]): `two_wave_dispatch` with the outputs packed on
+    the device into one fetch per chunk. `stats` receives the dispatch's
+    mode and counts."""
+    pack, ncols, attr = ((_pack7, 7, "_pack7_cache") if fog_stats
+                         else (_pack5, 5, "_pack5_cache"))
+    if getattr(chunk_renderer, "et_resume", None) is not None:
+        if chunk_renderer.ncols != ncols:
+            raise ValueError(
+                f"early-stop renderer packs {chunk_renderer.ncols} output "
+                f"columns but the caller expects {ncols}: build it with the "
+                f"matching fog_stats flag")
+        packed = chunk_renderer  # its programs pack on the device already
+    elif getattr(chunk_renderer, "probe", None) is not None:
+        packed = getattr(chunk_renderer, attr, None)
+        if packed is None:
+            packed = chunk_renderer.map_outputs(pack)
+            setattr(chunk_renderer, attr, packed)
+        packed.packable = chunk_renderer.packable  # may be toggled later
+    else:
+        base = chunk_renderer
+        packed = ChunkRenderer(lambda p, s, c: pack(*base(p, s, c)),
+                               base.device)
+    out = np.zeros((rays.shape[0], ncols), np.float32)
+    for ids, dev_out in two_wave_dispatch(packed, params, statics, rays,
+                                          chunk_rays, stats=stats):
+        rows = _fetch(dev_out)[:len(ids)]
+        # the dispatchers give strictly increasing ids: a span as long as
+        # the count is a contiguous range, copied as a slice (numpy's index
+        # assignment is far slower on a whole chunk)
+        if len(ids) and ids[-1] - ids[0] == len(ids) - 1:
+            out[ids[0]:ids[-1] + 1] = rows
+        else:
+            out[ids] = rows
     return out
 
 
 def render_image(
-    chunk_renderer: ChunkRenderer,
+    chunk_renderer,
     params,
     statics: ContainerStatics,
     md,  # any object with H, W, intrinsics (fx, fy, cx, cy) and c2w (3, 4)
@@ -161,26 +668,19 @@ def render_image(
     near: Optional[float] = None,
     far: Optional[float] = None,
     chunk_rays: int = 65536,
+    stats: Optional[dict] = None,
 ):
     """Full-frame render -> (rgb (H,W,3) linear, depth (H,W), acc (H,W))
-    as numpy."""
+    as numpy. `stats` (not in the reference's signature) receives the
+    dispatch's mode and counts."""
     H, W = md.H, md.W
     rays, _ = frame_rays(H, W, md.intrinsics, md.c2w, aabb=scene_aabb,
                          near=near, far=far)
     out = render_rays_chunked(chunk_renderer, params, statics, rays,
-                              chunk_rays)
+                              chunk_rays, stats=stats)
     return (out[:, 0:3].reshape(H, W, 3).copy(),
             out[:, 3].reshape(H, W).copy(),
             out[:, 4].reshape(H, W).copy())
-
-
-def _fog_stats(weights: torch.Tensor):
-    """Per-ray (wmax, entropy) of the compositing weights (the haze
-    signals of the video path), computed on the device."""
-    wsum = torch.clamp(weights.sum(dim=1, keepdim=True), min=1e-12)
-    p = weights / wsum
-    entropy = -(p * torch.log(torch.clamp(p, min=1e-12))).sum(dim=1)
-    return weights.amax(dim=1), entropy
 
 
 def frame_chunk_rays_biased(c2w, intr, start, chunk_rays, H, W, *,

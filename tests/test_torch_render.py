@@ -132,15 +132,18 @@ def test_stratified_branch_matches_jax():
 
 def test_unported_paths_raise():
     cfg, tcfg, _, (tp, tst, tocc) = _setup()
-    with pytest.raises(NotImplementedError):  # hard mask = two-wave
-        TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
-                               device="cpu")
+    for kw in (dict(occ_probe_grid_res=32), dict(occ_probe_mask=True),
+               dict(mesh=object())):  # union probe, probe masks, meshes
+        with pytest.raises(NotImplementedError):
+            TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
+                                   device="cpu", **kw)
+    rays = torch.zeros(4, 8)
+    for kw in (dict(mask_from_probes=True), dict(probe_fns=(None, None)),
+               dict(field_expert=0)):
+        with pytest.raises(NotImplementedError):
+            TMO.render_rays_occ(tp, tcfg, tst, tocc, rays, 8, **kw)
     with pytest.raises(NotImplementedError):
-        TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
-                               occ_hard_mask=False, early_stop_eps=1e-3,
-                               device="cpu")
-    with pytest.raises(NotImplementedError):
-        TMO.render_rays_occ(tp, tcfg, tst, tocc, torch.zeros(4, 8), 8)
+        TMO.probe_rays_occ(tst, tocc, rays, probe_fns=(None, None))
 
 
 def test_entry_points_raise_without_cuda():
@@ -172,7 +175,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "need = {'nerfsys_tpu_torch.' + m for m in ("
         "'pipelines.offline.meta_core', 'pipelines.offline.meta_train_step',"
         " 'utils.optim', 'utils.tree', 'ops.losses', 'ops.color_space',"
-        " 'models.baked')}\n"
+        " 'models.baked', 'models.occupancy', 'ops.volrend',"
+        " 'pipelines.online.runtime_adapt')}\n"
+        "from nerfsys_tpu_torch.models import occupancy as mo\n"
+        "from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra\n"
+        "assert all(hasattr(mo, f) for f in ('probe_rays_occ',"
+        " 'render_rays_occ_dead', 'render_rays_occ_et_partial',"
+        " 'render_rays_occ_et_resume'))\n"
+        "assert all(hasattr(ra, f) for f in ('TwoWaveOccRenderer',"
+        " 'EarlyStopOccRenderer', 'two_wave_dispatch'))\n"
         "assert need <= set(mods), need - set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -190,6 +201,11 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 9
+    assert kernels.KERNELS[-1] is kernels.COMPOSITE_SEG
+    assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
+    assert kernels.COMPOSITE_SEG.replaces.startswith(
+        "nerfsys_tpu/ops/volrend.py:153")
     assert {k.stem for k in kernels.KERNELS} == set(kernels.SOURCES)
     for k in kernels.KERNELS:
         assert Path(REPO, k.source).is_file()
