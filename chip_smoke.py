@@ -63,8 +63,24 @@ printing its result lines):
    every kernel's launch counter moved; one step's gradients through the
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one step is profiled.
-8. A JSON line listing every kernel (launches, error, times, bound).
-9. The card line, then the last line:
+8. Hash: the runner's default experts (`container_config_from_args` with
+   the flag defaults: K=4 Instant-NGP experts, hash L=16 F=2
+   log2_hashmap_size 20, 16-4096, Linear, floor layout, fp32; 512 MiB of
+   tables) on the same statics and occupancy grid. Kernel row 7 against
+   its plain versions: 7a (`hash_encode_fwd`) at one full serve chunk and
+   in Smoothstep, Nearest and the tcnn layout at 262,144 points of it, 7b
+   (`hash_encode_fwd_packed`) at the full chunk (both within 1e-6 of the
+   output's max), 7c (`hash_encode_bwd`, the table gradient) at one inner
+   step (within 1e-4 of the gradient's max), timed beside a byte bound
+   that counts each distinct table row once. Then one warm-up and 3
+   requests of 800x800 (7a, 2, 3, 4 launched, 7b and 7c not; one chunk
+   against the plain path; one profiled frame), one chunk through the
+   packed experts (7b alone) against the plain path, and the train phase
+   below with the hash experts and a packed step in place of the
+   exact-backward one (7a, 7b, 7c launched; gradients against the plain
+   step; one profiled step).
+9. A JSON line listing every kernel (launches, error, times, bound).
+10. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -145,7 +161,7 @@ def bench_setup(device):
 
     expert = NGPConfig(
         hidden=64, sigma_depth=2, color_hidden=64, color_depth=2,
-        geo_feat_dim=15, sh_levels=4,
+        geo_feat_dim=15, sh_levels=4, xyz_encoding="planes",
         planes=PlaneEncodingConfig(levels=3, base_res=128, growth=2.0,
                                    features=8, pos_grad=False))
     cfg = ContainerConfig(num_experts=4, expert=expert, boundary_margin=1.1,
@@ -469,7 +485,7 @@ class GradRecorder:
 
 
 def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
-                              device):
+                              device, label="train"):
     """One outer step's gradients (all B tasks) through the kernels against
     the same step through the plain versions, both through `make_train_step`
     on the card, from the same random draws (one generator seed each)."""
@@ -490,15 +506,15 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
     (lk, gk), (lp, gp) = out
     errs = [rel_err(a, b) for a, b in zip(gk, gp)]
     tol = 2.0**-8
-    print(f"train: one step through kernels vs plain: loss {lk:.7f} vs "
+    print(f"{label}: one step through kernels vs plain: loss {lk:.7f} vs "
           f"{lp:.7f}; gradient error / leaf max: worst {max(errs):.3e} "
           f"median {sorted(errs)[len(errs) // 2]:.3e} over {len(errs)} "
           f"leaves (tol {tol:g}: 8 inner SGD steps carry encoder rounding "
           f"and bf16 residual flips, 2^-8 each, into the query gradients)",
           flush=True)
     if abs(lk - lp) > 1e-4 * abs(lp) or not max(errs) <= tol:
-        raise SystemExit("train: kernel path gradients disagree with the "
-                         "plain path")
+        raise SystemExit(f"{label}: kernel path gradients disagree with "
+                         f"the plain path")
 
 
 def profile_device(label: str, fn, extra: str = "") -> None:
@@ -537,11 +553,20 @@ def profile_device(label: str, fn, extra: str = "") -> None:
               flush=True)
 
 
-def train(cfg, statics, params, occ, batch, device):
-    """Phase 5: bench.py's FoMAML step through the port's entry point, the
-    counters zeroed just before the timed steps and read just after the
-    exact-backward step."""
+def exact_backward(cfg):
+    """The planes experts with the encoder's default exact backward."""
     import dataclasses
+
+    return dataclasses.replace(cfg, expert=dataclasses.replace(
+        cfg.expert, planes=dataclasses.replace(cfg.expert.planes,
+                                               pos_grad=True)))
+
+
+def train(cfg, statics, params, occ, batch, device, label="train",
+          extra=(exact_backward, "exact-backward"), need=TRAIN_KERNELS):
+    """Phase 5: bench.py's FoMAML step through the port's entry point, the
+    counters zeroed just before the timed steps and read just after one
+    more step with the variant `extra` = (cfg -> cfg, its name)."""
     import math
 
     import torch
@@ -572,44 +597,40 @@ def train(cfg, statics, params, occ, batch, device):
         times.append(time.perf_counter() - t0)
         if not math.isfinite(losses[-1]) or float(
                 aux["skipped_nonfinite"]) != 0.0:
-            raise SystemExit(f"train: step not finite: {aux}")
+            raise SystemExit(f"{label}: step not finite: {aux}")
     light = kernels.launches()
-    # the encoder's default exact backward (pos_grad=True), one step
-    cfg_exact = dataclasses.replace(cfg, expert=dataclasses.replace(
-        cfg.expert, planes=dataclasses.replace(cfg.expert.planes,
-                                               pos_grad=True)))
-    _, _, aux_x = make_train_step(meta, cfg_exact, opt)(
+    variant, name = extra
+    _, _, aux_x = make_train_step(meta, variant(cfg), opt)(
         p, state, statics, batch, gen, occ)
     loss_x = float(aux_x["loss_out"])
     launches = kernels.launches()
-    print(f"train: launches during 3 bench steps {light}", flush=True)
-    print(f"train: launches after the exact-backward step {launches}",
-          flush=True)
+    print(f"{label}: launches during 3 bench steps {light}", flush=True)
+    print(f"{label}: launches after the {name} step {launches}", flush=True)
     if not math.isfinite(loss_x) or float(aux_x["skipped_nonfinite"]):
-        raise SystemExit("train: exact-backward step not finite")
-    for name in TRAIN_KERNELS:
-        if launches[name] <= 0:
-            raise SystemExit(f"train: kernel {name} never launched")
+        raise SystemExit(f"{label}: {name} step not finite")
+    for k in need:
+        if launches[k] <= 0:
+            raise SystemExit(f"{label}: kernel {k} never launched")
     moved = [float((a - b).abs().max()) > 0
              for a, b in zip(tree_leaves(p), tree_leaves(params))]
     if not all(moved):
-        raise SystemExit(f"train: {moved.count(False)} param leaves did not "
-                         f"move")
+        raise SystemExit(f"{label}: {moved.count(False)} param leaves did "
+                         f"not move")
 
     grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
-                              device)
-    profile_device("train step", lambda: float(
+                              device, label)
+    profile_device(f"{label} step", lambda: float(
         step(p, state, statics, batch, gen, occ)[2]["loss_out"]))
 
     ms = [1e3 * t for t in times]
     n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
-    print(f"train: fomaml K={TRAIN_K} B={TRAIN_B} S={TRAIN_S} Q={TRAIN_Q} "
+    print(f"{label}: fomaml K={TRAIN_K} B={TRAIN_B} S={TRAIN_S} Q={TRAIN_Q} "
           f"inner={TRAIN_INNER} samples=32 ms_per_step="
           f"{[round(x, 2) for x in ms]} mean_ms={sum(ms) / 3:.2f} "
           f"rays_per_s={n_rays / (sum(times) / 3):.1f} "
           f"(rays/step {n_rays}) loss_out={losses} "
           f"grad_norm={float(aux['grad_norm']):.4f} "
-          f"exact_step_loss_out={loss_x:.6f}", flush=True)
+          f"{name}_step_loss_out={loss_x:.6f}", flush=True)
     return light, launches
 
 
@@ -633,9 +654,24 @@ SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
                  "sample_tvals_from_cdf", "volume_render_fwd")
 
 
-def serve(cfg, statics, params, occ, device):
+def chunk_matches_plain(label, got, ref):
+    """One served chunk (rgb, depth, acc) through the kernels against the
+    same chunk through the plain versions."""
+    errs = [max_err(a, b) for a, b in zip(got, ref)]
+    print(f"{label}: kernels vs plain on one chunk: rgb {errs[0]:.3e} "
+          f"depth {errs[1]:.3e} acc {errs[2]:.3e} (tol rgb/acc 1e-4, depth "
+          f"1e-3: encoder and cdf rounding move t by ulps through the "
+          f"MLPs)", flush=True)
+    if errs[0] > 1e-4 or errs[2] > 1e-4 or errs[1] > 1e-3:
+        raise SystemExit(f"{label}: kernel path disagrees with the plain "
+                         f"path")
+
+
+def serve(cfg, statics, params, occ, device, label="serve",
+          need=SERVE_KERNELS, idle=()):
     """Phase 4: 3 requests of 800x800 frames through the port's entry
-    points, the counters zeroed just before them and read just after."""
+    points, the counters zeroed just before them and read just after:
+    every kernel of `need` must have launched and none of `idle`."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -667,10 +703,13 @@ def serve(cfg, statics, params, occ, device):
         times.append(time.perf_counter() - t0)
         check_frame("serve", rgb, depth, acc, (SIDE, SIDE, 3))
     launches = kernels.launches()
-    print(f"serve: launches during 3 requests {launches}", flush=True)
-    for k in SERVE_KERNELS:
+    print(f"{label}: launches during 3 requests {launches}", flush=True)
+    for k in need:
         if launches[k] <= 0:
-            raise SystemExit(f"serve: kernel {k} never launched")
+            raise SystemExit(f"{label}: kernel {k} never launched")
+    for k in idle:
+        if launches[k] != 0:
+            raise SystemExit(f"{label}: kernel {k} launched")
 
     # one chunk through the kernels vs through the plain versions
     plain = make_chunk_renderer(cfg, ray_samples=S, occ_state=occ,
@@ -681,19 +720,14 @@ def serve(cfg, statics, params, occ, device):
     chunk_rays = torch.from_numpy(rays[:chunk]).to(device)
     got = renderer(params, statics, chunk_rays)
     ref = plain(params, statics, chunk_rays)
-    errs = [max_err(a, b) for a, b in zip(got, ref)]
-    print(f"serve: kernels vs plain on one chunk: rgb {errs[0]:.3e} "
-          f"depth {errs[1]:.3e} acc {errs[2]:.3e} (tol rgb/acc 1e-4, depth "
-          f"1e-3: encoder and cdf rounding move t by ulps through the "
-          f"MLPs)", flush=True)
-    if errs[0] > 1e-4 or errs[2] > 1e-4 or errs[1] > 1e-3:
-        raise SystemExit("serve: kernel path disagrees with the plain path")
+    chunk_matches_plain(label, got, ref)
 
-    profile_frame(renderer, params, statics, poses[0], aabb, chunk)
+    profile_frame(renderer, params, statics, poses[0], aabb, chunk,
+                  label=f"{label} frame")
 
     ms = [1e3 * t for t in times]
     n = SIDE * SIDE
-    print(f"serve: {SIDE}x{SIDE} frames ms={[round(x, 2) for x in ms]} "
+    print(f"{label}: {SIDE}x{SIDE} frames ms={[round(x, 2) for x in ms]} "
           f"mean_ms={sum(ms) / 3:.2f} rays_per_s={n / (sum(times) / 3):.1f} "
           f"chunk_rays={chunk} mean_rgb={float(rgb.mean()):.4f} "
           f"mean_acc={float(acc.mean()):.4f}", flush=True)
@@ -1392,6 +1426,252 @@ def baked(cfg, statics, params, device, results):
     return launches
 
 
+HASH_SMALL = 262_144  # points of the Smoothstep / Nearest / tcnn checks
+HASH_SERVE_KERNELS = ("hash_encode_fwd", "occupancy_probe_cdf",
+                      "sample_tvals_from_cdf", "volume_render_fwd")
+HASH_TRAIN_KERNELS = ("hash_encode_fwd", "hash_encode_fwd_packed",
+                      "hash_encode_bwd", "occupancy_probe_cdf",
+                      "sample_tvals_from_cdf", "volume_render_fwd",
+                      "volume_render_bwd")
+
+
+def hash_setup(device):
+    """The runner's default experts (`container_config_from_args` with the
+    flag defaults): K=4 Instant-NGP experts, hash L=16 F=2 T=20 min_res 16
+    max_res 4096 Linear floor layout fp32, hidden 64, sigma depth 2, color
+    hidden 64 depth 2, geo 15, SH-4, bg hidden 32, margin 1.1; random
+    weights from the seed (4 x 16 x 2^20 x 2 float32 tables, 512 MiB)."""
+    from nerfsys_tpu_torch.models.container import (
+        ContainerConfig,
+        init_container_params,
+    )
+    from nerfsys_tpu_torch.models.ngp import NGPConfig
+    from nerfsys_tpu_torch.ops.encodings import HashGridConfig
+
+    expert = NGPConfig(
+        hidden=64, sigma_depth=2, color_hidden=64, color_depth=2,
+        geo_feat_dim=15, sh_levels=4, xyz_encoding="hash",
+        hash=HashGridConfig(levels=16, min_res=16, max_res=4096,
+                            log2_hashmap_size=20, features_per_level=2))
+    cfg = ContainerConfig(num_experts=4, expert=expert, boundary_margin=1.1,
+                          bg_hidden=32)
+    return cfg, init_container_params(cfg, seed=SEED, device=device)
+
+
+def with_hash(cfg, **kw):
+    """`cfg` with its experts' hash config changed by `kw`."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, expert=dataclasses.replace(
+        cfg.expert, hash=dataclasses.replace(cfg.expert.hash, **kw)))
+
+
+def hash_rows_read(x01, hc) -> int:
+    """Distinct table rows (expert, row) an encode at x01 (K, N, 3) reads,
+    each counted once (a bitmap over the K x L x 2^T rows)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import encodings as E
+
+    K = x01.shape[0]
+    seen = torch.zeros(K * hc.levels * hc.table_size, dtype=torch.bool,
+                       device=x01.device)
+    for level in range(hc.levels):
+        base = E._level_rows(K, hc, level, x01.device)
+        for row, _ in E.level_corners(x01, hc, level):
+            seen[(base + row).reshape(-1)] = True
+    return int(seen.sum())
+
+
+def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
+                       results):
+    """Kernel row 7 against its plain versions on the card: 7a (fp32) at
+    one full serve chunk (65,536 rays x 32 samples, K=4) in the runner's
+    Linear floor layout, and in Smoothstep, Nearest and the tcnn layout at
+    262,144 points of it; 7b (packed bf16 pairs) at the full chunk; 7c
+    (the table gradient) at one inner step of one expert (expert 0's first
+    support set, 4,000 rays x 32 samples, randomized). Bytes: points read,
+    output written, each distinct table row read once (7c: read and
+    written)."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.ngp import world_to_unit
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.ops import encodings as E
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    S = 32
+    hc = cfg.expert.hash
+    table = params["experts"]["hash_table"]
+    rays = torch.from_numpy(rays_np).to(device)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    _, near, far = _ray_validity(rays)
+    cdf = O.occupancy_probe_cdf(occ["occs"], occ["binary"],
+                                statics.expert_aabbs, o, d, near, far, 128,
+                                importance=True, ray_floor=0.25)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    x01 = world_to_unit(pts, statics.expert_aabbs, cfg.expert.enc_eps)
+    del cdf, t_vals, pts
+    tol = 1e-6
+    why = ("relative to the output's max; the kernel rounds every "
+           "operation as the plain version does (--fmad=false), corners "
+           "summed in the same order")
+
+    def fwd(label, x, c, packed, kern):
+        ker = E.hash_encode_kernel(table, x, c, packed)
+        pln = (E.hash_encode_packed_plain if packed else E.hash_encode_plain)(
+            table, x, c)
+        torch.cuda.synchronize()
+        err = rel_err(ker, pln)
+        ms = cuda_ms(lambda: E.hash_encode_kernel(table, x, c, packed), 10)
+        plain_ms = cuda_ms(
+            lambda: (E.hash_encode_packed_plain if packed
+                     else E.hash_encode_plain)(table, x, c), 3)
+        rows = hash_rows_read(x, c)
+        n_bytes = nbytes(x, ker) + rows * hc.features_per_level * 4
+        # per corner: 3 index multiplies, 2 xors, a mask, 2 weight
+        # multiplies, F multiply-adds; per axis ~6 for the cell
+        n_ops = x.shape[0] * x.shape[1] * hc.levels * (
+            18 + 8 * (8 + 2 * hc.features_per_level))
+        b_ms, b_by = bound(n_bytes, n_ops)
+        text = (f"{label}: err/max={err:.3e} tol={tol:g} ({why}) "
+                f"max_abs_err={max_err(ker, pln):.3e} kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} bytes={n_bytes} (distinct rows "
+                f"{rows}) bound_ms={b_ms:.4f} ({b_by}) at "
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+        print(f"kernel {kern.name}: {text}", flush=True)
+        if not err <= tol:
+            raise SystemExit(f"kernel {kern.name} disagrees with its plain "
+                             f"version ({label}): {err} > {tol}")
+        return dict(max_abs_err=max_err(ker, pln), ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, text=text), ker
+
+    K, N = x01.shape[0], x01.shape[1]
+    results[kernels.HASH_FWD.name], fp32 = fwd(
+        f"Linear floor layout {K}x{N} points", x01, hc, False,
+        kernels.HASH_FWD)
+    small = x01[:, :HASH_SMALL].contiguous()
+    for label, kw in (("Smoothstep", dict(interpolation="Smoothstep")),
+                      ("Nearest", dict(interpolation="Nearest")),
+                      ("tcnn layout Linear", dict(tcnn_layout=True))):
+        fwd(f"{label} {K}x{HASH_SMALL} points", small,
+            with_hash(cfg, **kw).expert.hash, False, kernels.HASH_FWD)
+    pc = with_hash(cfg, packed=True).expert.hash
+    results[kernels.HASH_FWD_PACKED.name], packed = fwd(
+        f"packed {K}x{N} points", x01, pc, True, kernels.HASH_FWD_PACKED)
+    print(f"kernel hash_encode_fwd_packed: packed vs fp32 output "
+          f"err/max={rel_err(packed, fp32):.3e} (the bf16 rounding)",
+          flush=True)
+    del fp32, packed, small, x01
+
+    # 7c at one inner step of expert 0
+    rays = batch["support_rays"][0, 0]
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    near, far = rays[:, 6].contiguous(), rays[:, 7].contiguous()
+    grid = (occ["occs"][0:1], occ["binary"][0:1], statics.expert_aabbs[0:1])
+    cdf = O.occupancy_probe_cdf(*grid, o, d, near, far, 128, importance=True,
+                                ray_floor=0.25)
+    gen = torch.Generator(device=device).manual_seed(3)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S, generator=gen,
+                                        randomized=True)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    x1 = world_to_unit(pts, statics.expert_aabbs[0],
+                       cfg.expert.enc_eps).contiguous()
+    dout = torch.randn((x1.shape[0], hc.out_dim), device=device,
+                       generator=gen)
+    shape = table[0].shape
+    got = E.hash_encode_bwd_kernel(x1, dout, hc, shape)
+    want = E.hash_encode_bwd_plain(x1, dout, hc, shape)
+    torch.cuda.synchronize()
+    err, tol_b = rel_err(got, want), 1e-4
+    ms = cuda_ms(lambda: E.hash_encode_bwd_kernel(x1, dout, hc, shape), 10)
+    plain_ms = cuda_ms(lambda: E.hash_encode_bwd_plain(x1, dout, hc, shape),
+                       3)
+    rows = hash_rows_read(x1[None], hc)
+    n_bytes = nbytes(x1, dout) + 2 * rows * hc.features_per_level * 4
+    b_ms, b_by = bound(n_bytes, x1.shape[0] * hc.levels * (
+        18 + 8 * (8 + 2 * hc.features_per_level)))
+    text = (f"one inner step {x1.shape[0]} points: err/max={err:.3e} "
+            f"tol={tol_b:g} (relative to the gradient's max; fp32 atomics "
+            f"add in another order than index_add_) max_abs_err="
+            f"{max_err(got, want):.3e} kernel_ms={ms:.4f} (the zeroed "
+            f"{nbytes(got)}-byte buffer included) plain_ms={plain_ms:.4f} "
+            f"bytes={n_bytes} (distinct rows {rows}, read and written) "
+            f"bound_ms={b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} "
+            f"TB/s")
+    print(f"kernel {kernels.HASH_BWD.name}: {text}", flush=True)
+    if not err <= tol_b or not bool((want != 0).any()):
+        raise SystemExit(f"kernel hash_encode_bwd disagrees with its plain "
+                         f"version: {err} > {tol_b}")
+    results[kernels.HASH_BWD.name] = dict(
+        max_abs_err=max_err(got, want), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, text=text)
+
+
+def packed_chunk(cfg, statics, params, occ, device):
+    """One serve chunk through the packed-pair experts (the runner's
+    --packed_gather), kernels against plain, the counters zeroed just
+    before the kernel path and read just after."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        make_chunk_renderer,
+    )
+
+    pcfg = with_hash(cfg, packed=True)
+    md = pose((0.0, 0.0, 2.0))
+    rays, _ = frame_rays(SIDE, SIDE, md.intrinsics, md.c2w,
+                         aabb=statics.global_aabb.cpu().numpy())
+    chunk = torch.from_numpy(rays[:CHECK_RAYS]).to(device)
+    out = []
+    for use in (True, False):
+        renderer = make_chunk_renderer(pcfg, ray_samples=32, occ_state=occ,
+                                       occ_importance=True,
+                                       occ_hard_mask=False, device=device,
+                                       use_kernels=use)
+        torch.cuda.synchronize()
+        if use:
+            kernels.reset_launches()
+        out.append(renderer(params, statics, chunk))
+        torch.cuda.synchronize()
+        if use:
+            launches = kernels.launches()
+    print(f"hash serve packed: launches for one chunk {launches}",
+          flush=True)
+    if launches["hash_encode_fwd_packed"] <= 0 or launches[
+            "hash_encode_fwd"] != 0:
+        raise SystemExit("hash serve packed: the chunk did not go through "
+                         "hash_encode_fwd_packed alone")
+    chunk_matches_plain("hash serve packed", *out)
+    return launches
+
+
+def hash_phase(statics, occ, rays_np, batch, device, results):
+    """Phase: the runner's default hash-grid experts served and trained
+    (kernel row 7 checks, 3 live 800x800 frames, one packed chunk, 3 bench
+    FoMAML steps and one packed step) -> launches per part."""
+    t0 = time.perf_counter()
+    cfg, params = hash_setup(device)
+    check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
+                       results)
+    served = serve(cfg, statics, params, occ, device, label="hash serve",
+                   need=HASH_SERVE_KERNELS,
+                   idle=("hash_encode_fwd_packed", "hash_encode_bwd"))
+    packed = packed_chunk(cfg, statics, params, occ, device)
+    light, trained = train(
+        cfg, statics, params, occ, batch, device, label="hash train",
+        extra=(lambda c: with_hash(c, packed=True), "packed"),
+        need=HASH_TRAIN_KERNELS)
+    print(f"hash: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    served = {k: v + packed[k] for k, v in served.items()}
+    return served, light, trained
+
+
 def main() -> int:
     import torch
 
@@ -1433,24 +1713,32 @@ def main() -> int:
                        results)
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
+    hash_served, hash_light, hash_trained = hash_phase(
+        statics, occ, rays[:CHECK_RAYS], batch, device, results)
 
-    launches = {k: served[k] + early[k] + baked_n[k] + trained[k]
-                for k in served}
+    parts = (("serve", served), ("early-stop", early), ("baked", baked_n),
+             ("train", trained), ("hash serve", hash_served),
+             ("hash train", hash_trained))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
-        print(f"kernel {k.name}: launches={launches[k.name]} (serve "
-              f"{served[k.name]}, early-stop {early[k.name]}, baked "
-              f"{baked_n[k.name]}, train {trained[k.name]}; per bench train "
-              f"step {light[k.name] / 3:g}) {results[k.name].pop('text')}")
+        n = k.name
+        print(f"kernel {n}: launches={sum(p[n] for _, p in parts)} ("
+              + ", ".join(f"{label} {p[n]}" for label, p in parts)
+              + f"; per bench train step: planes {light[n] / 3:g}, hash "
+              f"{hash_light[n] / 3:g}) {results[n].pop('text')}")
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
+         "replaces": k.replaces,
+         "launches": sum(p[k.name] for _, p in parts),
          "library_ms": None, **results[k.name]}
         for k in kernels.KERNELS]}
     print("library_ms: grid_sample for baked_trilerp; null for the others: "
           "no single PyTorch call computes the plane encoder or its table "
-          "gradient with the interpolation weights, the union probe + CDF, "
-          "the inverse-CDF sampler, the compositor or its VJP, or "
-          "segmented compositing with a carried transmittance")
+          "gradient with the interpolation weights, the hash encoder (its "
+          "corner rows and weights from the points; embedding_bag would "
+          "only sum rows already indexed and weighted) or its table "
+          "gradient, the union probe + CDF, the inverse-CDF sampler, the "
+          "compositor or its VJP, or segmented compositing with a carried "
+          "transmittance")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

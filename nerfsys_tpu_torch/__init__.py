@@ -7,7 +7,8 @@ copy. The layout mirrors the reference (`ops/`, `models/`,
 `pipelines/online/`, `data/`, `utils/`) so that each counterpart is easy to
 find.
 
-Ported so far: the occupancy-guided mixture-of-experts render path
+Ported so far: the occupancy-guided mixture-of-experts render path over
+hash-grid (the reference's default) or plane/line experts
 (`pipelines.online.runtime_adapt.make_chunk_renderer` -> `render_image`:
 the soft one-shot renderer, the hard-mask two-wave renderer and the
 early-stop renderer),
@@ -32,6 +33,10 @@ module:
                                               lookup in the baked grid)
   - `ops.volrend.composite_segment`          (segmented compositing with a
                                               carried transmittance)
+  - `ops.encodings.hash_encode`              (multiresolution hash-grid
+                                              encoder, fp32 and packed
+                                              bf16 pairs, and its table
+                                              gradient via `HashEncode`)
 
 A kernel wrapper uses the plain version only for a tensor on the CPU; given
 a CUDA tensor it launches its kernel or raises. Entry points default to

@@ -43,7 +43,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # encoder backward does too: its light mode rounds the recomputed plane and
 # line values to bfloat16, and a value one float32 ulp away can round to
 # the neighbouring bfloat16. So does the baked lookup, whose cell selection
-# and lerp tree then match the plain version bit for bit.
+# and lerp tree then match the plain version bit for bit. So does the hash
+# grid: a contracted x * scale + 0.5 or corner weight can move a point into
+# the neighbouring cell, at a hashed level an unrelated row.
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "planes": ("planes.cu", ()),
     "occ_probe": ("occ_probe.cu", ("--fmad=false",)),
@@ -53,6 +55,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "planes_bwd": ("planes_bwd.cu", ("--fmad=false",)),
     "baked": ("baked.cu", ("--fmad=false",)),
     "composite_seg": ("composite_seg.cu", ()),
+    "hash_grid": ("hash_grid.cu", ("--fmad=false",)),
 }
 
 _P = ctypes.c_void_p
@@ -253,8 +256,50 @@ COMPOSITE_SEG = Kernel(
     replaces="nerfsys_tpu/ops/volrend.py:153 (composite_segment)",
 )
 
+
+class HashLevels(ctypes.Structure):
+    """Per-level scales, resolutions and dense flags of the hash grid, and
+    its layout (csrc/hash_grid.cu HashLevels)."""
+    MAX_LEVELS = 32
+    _fields_ = [
+        ("scale", _F * 32),
+        ("res", _I * 32),
+        ("dense", _I * 32),
+        ("levels", _I),
+        ("log2_size", _I),
+        ("tcnn", _I),
+        ("mode", _I),  # 0 Linear, 1 Smoothstep, 2 Nearest
+    ]
+
+
+HASH_FEATURES = (1, 2, 4, 8)  # features per level the hash kernels take
+
+HASH_FWD = Kernel(
+    "hash_encode_fwd", "hash_grid", "hash_encode_fwd",
+    # x, table, out, levels (by value), K, N, F, stream
+    [_P, _P, _P, HashLevels, _I, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/encodings.py:345 (hash_grid_encode_fused with "
+             "_encode_indices_weights :406; hash_grid_encode :256 for "
+             "Nearest)",
+)
+HASH_FWD_PACKED = Kernel(
+    "hash_encode_fwd_packed", "hash_grid", "hash_encode_fwd_packed",
+    # x, table, out, levels (by value), K, N, stream
+    [_P, _P, _P, HashLevels, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/encodings.py:491 (hash_grid_encode_packed, "
+             "_packed_fwd :506)",
+)
+HASH_BWD = Kernel(
+    "hash_encode_bwd", "hash_grid", "hash_encode_bwd",
+    # x, dout, dtable, levels (by value), K, N, F, stream
+    [_P, _P, _P, HashLevels, _I, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/encodings.py:511 (_packed_bwd, and the "
+             "row_gather transpose of hash_grid_encode_fused :345)",
+)
+
 KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
-           PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG)
+           PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG,
+           HASH_FWD, HASH_FWD_PACKED, HASH_BWD)
 
 
 def reset_launches() -> None:

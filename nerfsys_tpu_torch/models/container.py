@@ -224,8 +224,8 @@ def _expert_apply_fn(cfg: ContainerConfig):
 
 def param_group_labels(params: Params) -> Params:
     """Label every leaf with its optimizer group, in the params' nesting:
-    'encoding' (plane/line tables), 'sigma' (density trunk and heads),
-    'color' (color MLP), 'background' (the bg MLP)."""
+    'encoding' (the hash table or the plane/line tables), 'sigma' (density
+    trunk and heads), 'color' (color MLP), 'background' (the bg MLP)."""
 
     def label(tree, name):
         return tree_map(lambda _: name, tree)

@@ -1,11 +1,13 @@
-"""Instant-NGP-style radiance field expert with the plane/line encoder.
+"""Instant-NGP-style radiance field expert.
 
 Port of nerfsys_tpu/models/ngp.py (`NGPConfig` :54, `init_ngp_params`
 :105, `world_to_unit` :148, `_mlp` :154, `encode_dir` :168, `ngp_density`
-:175, `ngp_color` :206, `ngp_apply` :221) for `xyz_encoding='planes'` and
-spherical-harmonics directions.
+:175, `ngp_color` :206, `ngp_apply` :221) for both position encoders,
+`xyz_encoding='hash'` (the reference's default: the multiresolution hash
+grid, fp32 or packed bfloat16 pairs) and 'planes', with spherical-harmonics
+directions.
 
-    x (world) -> [0,1]^3 via the expert box -> planes encoding
+    x (world) -> [0,1]^3 via the expert box -> hash grid or planes encoding
       -> sigma trunk: sigma_depth x [Linear(hidden) + ReLU]
       -> sigma head: Linear(1), trunc_exp; geo head: Linear(geo_feat_dim)
     [geo_feat, SH(d)] -> color_depth x [Linear + ReLU] -> Linear(3) -> sigmoid
@@ -24,7 +26,13 @@ from typing import Dict, Tuple
 import torch
 
 from nerfsys_tpu_torch.ops.activations import trunc_exp
-from nerfsys_tpu_torch.ops.encodings import sh_encode, sh_out_dim
+from nerfsys_tpu_torch.ops.encodings import (
+    HashGridConfig,
+    hash_encode,
+    hash_grid_init,
+    sh_encode,
+    sh_out_dim,
+)
 from nerfsys_tpu_torch.ops.planes import (
     PlaneEncodingConfig,
     plane_encode,
@@ -48,15 +56,16 @@ class NGPConfig:
     use_sigmoid_rgb: bool = True
     dir_encoding: str = "spherical"
     sh_levels: int = 4
-    xyz_encoding: str = "planes"
+    xyz_encoding: str = "hash"  # 'hash' | 'planes'
+    hash: HashGridConfig = dataclasses.field(default_factory=HashGridConfig)
     planes: PlaneEncodingConfig = dataclasses.field(
         default_factory=PlaneEncodingConfig)
     enc_eps: float = 1e-6
 
     def __post_init__(self):
-        if self.xyz_encoding != "planes":
-            raise NotImplementedError(
-                f"xyz_encoding={self.xyz_encoding!r}: only 'planes' is ported")
+        if self.xyz_encoding not in ("hash", "planes"):
+            raise ValueError(f"xyz_encoding={self.xyz_encoding!r}: expected "
+                             f"'hash' or 'planes'")
         if self.dir_encoding != "spherical":
             raise NotImplementedError(
                 f"dir_encoding={self.dir_encoding!r}: only 'spherical' is "
@@ -64,7 +73,9 @@ class NGPConfig:
 
     @property
     def xyz_enc_dim(self) -> int:
-        return self.planes.out_dim
+        if self.xyz_encoding == "planes":
+            return self.planes.out_dim
+        return self.hash.out_dim
 
     @property
     def dir_enc_dim(self) -> int:
@@ -85,8 +96,12 @@ def init_ngp_params(cfg: NGPConfig, generator: torch.Generator,
     when num_experts > 0. Drawn on the CPU from `generator`, then moved."""
     dev = resolve_device(device)
     lead = (num_experts,) if num_experts else ()
-    params: Params = {"planes_enc": plane_encoding_init(
-        cfg.planes, generator, device="cpu", num_experts=num_experts)}
+    if cfg.xyz_encoding == "planes":
+        params: Params = {"planes_enc": plane_encoding_init(
+            cfg.planes, generator, device="cpu", num_experts=num_experts)}
+    else:
+        params = {"hash_table": hash_grid_init(
+            cfg.hash, generator, device="cpu", num_experts=num_experts)}
     trunk, last = [], cfg.xyz_enc_dim
     for _ in range(max(cfg.sigma_depth, 0)):
         trunk.append(_linear_init(generator, last, cfg.hidden, lead))
@@ -147,11 +162,20 @@ def _flat_points(x: torch.Tensor, aabb: torch.Tensor):
 def ngp_density(params: Params, cfg: NGPConfig, aabb: torch.Tensor,
                 x: torch.Tensor, return_feats: bool = False, *,
                 use_kernels: bool = True):
-    """Density (and optionally geometry features)."""
+    """Density (and optionally geometry features). The encoder is the
+    reference's three-way choice: planes; the packed hash encode when
+    hash.packed with F == 2 and not Nearest; else the fp32 hash encode."""
     xf, lead = _flat_points(x, aabb)
     x01 = world_to_unit(xf, aabb, cfg.enc_eps)
-    h = plane_encode(params["planes_enc"], x01, cfg.planes,
-                     use_kernels=use_kernels)
+    if cfg.xyz_encoding == "planes":
+        h = plane_encode(params["planes_enc"], x01, cfg.planes,
+                         use_kernels=use_kernels)
+    else:
+        hc = cfg.hash
+        packed = (hc.packed and hc.features_per_level == 2
+                  and hc.interpolation != "Nearest")
+        h = hash_encode(params["hash_table"], x01, hc, packed=packed,
+                        use_kernels=use_kernels)
     h = _mlp(h, params["sigma_trunk"], activate_last=True)
     sh = params["sigma_head"]
     sigma_raw = torch.matmul(h, sh["w"]) + sh["b"].unsqueeze(-2)

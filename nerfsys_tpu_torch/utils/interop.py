@@ -5,8 +5,9 @@ arrays (the caller runs `jax.tree_util.tree_map(np.asarray, tree)` first),
 and any object exposing the attributes of the reference's config
 dataclasses. Optimizer state arrives as optax's state tree with its arrays
 converted the same way (its NamedTuples survive `tree_map`). The
-container params keep the reference layout: 'experts' holds the K experts stacked on a leading axis, with per-level plane and
-line lists (nerfsys_tpu/models/ngp.py:105-136,
+container params keep the reference layout: 'experts' holds the K experts
+stacked on a leading axis, with the (K, L * 2^T, F) 'hash_table' or the
+per-level plane and line lists (nerfsys_tpu/models/ngp.py:105-136,
 nerfsys_tpu/models/container.py:128-154); 'bg' holds the background MLP.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from nerfsys_tpu_torch.models.container import ContainerConfig, ContainerStatics
 from nerfsys_tpu_torch.models.ngp import NGPConfig
+from nerfsys_tpu_torch.ops.encodings import HashGridConfig
 from nerfsys_tpu_torch.ops.planes import PlaneEncodingConfig
 from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
 from nerfsys_tpu_torch.utils.device import resolve_device
@@ -85,12 +87,13 @@ def _fields(obj: Any, cls) -> Dict:
 
 def container_config_from_jax(cfg: Any) -> ContainerConfig:
     """The port's ContainerConfig with the architecture keys of a reference
-    ContainerConfig, pos_grad included (its TPU execution knobs have no
-    counterpart)."""
-    planes = PlaneEncodingConfig(**_fields(cfg.expert.planes,
-                                           PlaneEncodingConfig))
+    ContainerConfig: the position encoder, the plane config with pos_grad,
+    the whole hash config (packed, tcnn_layout and interpolation included);
+    its TPU execution knobs have no counterpart."""
     ek = _fields(cfg.expert, NGPConfig)
-    ek["planes"] = planes
+    ek["planes"] = PlaneEncodingConfig(**_fields(cfg.expert.planes,
+                                                 PlaneEncodingConfig))
+    ek["hash"] = HashGridConfig(**_fields(cfg.expert.hash, HashGridConfig))
     ck = _fields(cfg, ContainerConfig)
     ck["expert"] = NGPConfig(**ek)
     return ContainerConfig(**ck)

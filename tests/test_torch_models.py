@@ -169,7 +169,7 @@ def test_interop_round_trip_and_port_init():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        TN.NGPConfig(xyz_encoding="hash")
+        TN.NGPConfig(dir_encoding="frequency")
     with pytest.raises(NotImplementedError):
         TCo.ContainerConfig(num_experts=2, nerf_variant="vanilla")
     _, _, _, _, tcfg, tst, tparams = _setup()

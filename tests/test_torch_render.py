@@ -176,7 +176,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pipelines.offline.meta_core', 'pipelines.offline.meta_train_step',"
         " 'utils.optim', 'utils.tree', 'ops.losses', 'ops.color_space',"
         " 'models.baked', 'models.occupancy', 'ops.volrend',"
-        " 'pipelines.online.runtime_adapt')}\n"
+        " 'pipelines.online.runtime_adapt', 'ops.encodings')}\n"
         "from nerfsys_tpu_torch.models import occupancy as mo\n"
         "from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra\n"
         "assert all(hasattr(mo, f) for f in ('probe_rays_occ',"
@@ -184,6 +184,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'render_rays_occ_et_resume'))\n"
         "assert all(hasattr(ra, f) for f in ('TwoWaveOccRenderer',"
         " 'EarlyStopOccRenderer', 'two_wave_dispatch'))\n"
+        "from nerfsys_tpu_torch.ops import encodings as enc\n"
+        "assert all(hasattr(enc, f) for f in ('HashGridConfig', 'HashEncode',"
+        " 'hash_encode_plain', 'hash_encode_packed_plain',"
+        " 'hash_encode_bwd_plain'))\n"
         "assert need <= set(mods), need - set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -201,9 +205,15 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 9
-    assert kernels.KERNELS[-1] is kernels.COMPOSITE_SEG
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 12
+    assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
+    assert kernels.KERNELS[9:] == (kernels.HASH_FWD, kernels.HASH_FWD_PACKED,
+                                   kernels.HASH_BWD)
+    assert "--fmad=false" in kernels.SOURCES["hash_grid"][1]
+    for k in kernels.KERNELS[9:]:
+        assert k.source.endswith("csrc/hash_grid.cu")
+        assert k.replaces.startswith("nerfsys_tpu/ops/encodings.py:")
     assert kernels.COMPOSITE_SEG.replaces.startswith(
         "nerfsys_tpu/ops/volrend.py:153")
     assert {k.stem for k in kernels.KERNELS} == set(kernels.SOURCES)
