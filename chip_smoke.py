@@ -79,8 +79,27 @@ printing its result lines):
    below with the hash experts and a packed step in place of the
    exact-backward one (7a, 7b, 7c launched; gradients against the plain
    step; one profiled step).
-9. A JSON line listing every kernel (launches, error, times, bound).
-10. The card line, then the last line:
+9. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
+   at the runner's default hash width (the hash phase's experts). Kernel
+   row 10 against its plain versions at one full serve chunk (2,097,152
+   points, K=4): 10a-i (`bucket_dispatch`) for E=1 and 2, soft and hard
+   (integer outputs equal, weights within 1e-6), 10a-ii / 10a-iii (the
+   blend and its transpose, within 1e-6 of the output's max, with
+   `embedding_bag` timed beside the blend), 10b (`coherent_expert`, ids
+   equal), and kernel 2 on the res-128 union probe grid. Then
+   `--render_fast` (bucketed top-1, cf 1.5, the union grid): one warm-up
+   and 3 requests of 800x800 through `render_image` (bucket_dispatch and
+   the serve kernels launched; the dense-fallback count printed; one chunk
+   against the plain path; one profiled frame) and the half-sky frame
+   through the hard two-wave renderer with the union grid; the coherent
+   renderer on measure_perf's skew-0.9 frame (640,000 rays) without and
+   with the union grid against its full routed program (coherent_expert
+   launched); and measure_perf's K=16 arm (bench-width planes experts,
+   1,572,864 points in 8 chunks), dense against bucketed E=2 cf 1.5, with
+   times, peak memory and the dense-fallback count, and one chunk's
+   gradient through the bucketed container against the plain path.
+10. A JSON line listing every kernel (launches, error, times, bound).
+11. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -146,17 +165,10 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def bench_setup(device):
-    """The bench-width soft-occupancy serve configuration (K=4)."""
-    import torch
-
-    from nerfsys_tpu_torch.models.container import (
-        ContainerConfig,
-        ContainerStatics,
-        init_container_params,
-    )
+def bench_setup_cfg():
+    """The bench-width planes container config (bench.py:85-160)."""
+    from nerfsys_tpu_torch.models.container import ContainerConfig
     from nerfsys_tpu_torch.models.ngp import NGPConfig
-    from nerfsys_tpu_torch.ops.occupancy import OccGridConfig, init_occ_state
     from nerfsys_tpu_torch.ops.planes import PlaneEncodingConfig
 
     expert = NGPConfig(
@@ -164,8 +176,21 @@ def bench_setup(device):
         geo_feat_dim=15, sh_levels=4, xyz_encoding="planes",
         planes=PlaneEncodingConfig(levels=3, base_res=128, growth=2.0,
                                    features=8, pos_grad=False))
-    cfg = ContainerConfig(num_experts=4, expert=expert, boundary_margin=1.1,
-                          bg_hidden=32)
+    return ContainerConfig(num_experts=4, expert=expert, boundary_margin=1.1,
+                           bg_hidden=32)
+
+
+def bench_setup(device):
+    """The bench-width soft-occupancy serve configuration (K=4)."""
+    import torch
+
+    from nerfsys_tpu_torch.models.container import (
+        ContainerStatics,
+        init_container_params,
+    )
+    from nerfsys_tpu_torch.ops.occupancy import OccGridConfig, init_occ_state
+
+    cfg = bench_setup_cfg()
     cents = torch.tensor([[0.0, -1, -1], [0.0, -1, 1], [0.0, 1, -1],
                           [0.0, 1, 1]])
     boxes = torch.stack([torch.stack([c - 1.2, c + 1.2]) for c in cents])
@@ -547,6 +572,10 @@ def profile_device(label: str, fn, extra: str = "") -> None:
               f"idle_share={1 - busy_ms / wall_ms:.3f}{extra}", flush=True)
         for dev_ms, key, count in rows[:12]:
             print(f"profile: {dev_ms:9.3f} ms {count:6d}x {key[:90]}")
+        dtoh = [r for r in rows if "DtoH" in r[1]]
+        print(f"profile: device-to-host copies {sum(r[2] for r in dtoh)}x "
+              f"{sum(r[0] for r in dtoh):.3f} ms (each a host sync)",
+              flush=True)
     else:
         print(f"profile: device time not measured (the profiler saw no "
               f"device events); {label} wall_ms={wall_ms:.2f}{extra}",
@@ -654,15 +683,27 @@ SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
                  "sample_tvals_from_cdf", "volume_render_fwd")
 
 
-def chunk_matches_plain(label, got, ref):
+def chunk_matches_plain(label, got, ref, flip_share=0.0):
     """One served chunk (rgb, depth, acc) through the kernels against the
-    same chunk through the plain versions."""
-    errs = [max_err(a, b) for a, b in zip(got, ref)]
+    same chunk through the plain versions. flip_share: the share of rays
+    allowed outside the tolerance, for hard-mask chunks, where a sample
+    moved by an ulp across the exact occupancy boundary gains or loses
+    its whole sigma."""
+    rgb, depth, acc = (g.double() - r.double() for g, r in zip(got, ref))
+    bad = ((rgb.abs() > 1e-4).any(dim=1) | (acc.abs() > 1e-4)
+           | (depth.abs() > 1e-3))
+    n_bad, n = int(bad.sum()), bad.shape[0]
+    ok = ~bad
+    errs = [float(x[ok].abs().max()) if bool(ok.any()) else 0.0
+            for x in (rgb, depth, acc)]
+    worst = [float(x.abs().max()) for x in (rgb, depth, acc)]
     print(f"{label}: kernels vs plain on one chunk: rgb {errs[0]:.3e} "
           f"depth {errs[1]:.3e} acc {errs[2]:.3e} (tol rgb/acc 1e-4, depth "
           f"1e-3: encoder and cdf rounding move t by ulps through the "
-          f"MLPs)", flush=True)
-    if errs[0] > 1e-4 or errs[2] > 1e-4 or errs[1] > 1e-3:
+          f"MLPs) on {n - n_bad} of {n} rays; {n_bad} rays beyond (allowed "
+          f"{int(flip_share * n)}), worst rgb {worst[0]:.3e} depth "
+          f"{worst[1]:.3e} acc {worst[2]:.3e}", flush=True)
+    if n_bad > flip_share * n:
         raise SystemExit(f"{label}: kernel path disagrees with the plain "
                          f"path")
 
@@ -1672,6 +1713,609 @@ def hash_phase(statics, occ, rays_np, batch, device, results):
     return served, light, trained
 
 
+MOE_CF = 1.5  # capacity factor of --render_fast and measure_moe
+UNION_RES = 128  # --render_fast's --occ_union_probe_res
+SKEW = 0.9  # the share of rays aimed into expert 0 in the coherent frame
+K16_PTS, K16_CHUNKS = 1_572_864, 8  # measure_moe's shape
+FAST_KERNELS = ("bucket_dispatch", "hash_encode_fwd", "occupancy_probe_cdf",
+                "sample_tvals_from_cdf", "volume_render_fwd")
+COHERENT_KERNELS = ("coherent_expert", "hash_encode_fwd",
+                    "occupancy_probe_cdf", "sample_tvals_from_cdf",
+                    "volume_render_fwd")
+K16_KERNELS = ("bucket_dispatch", "bucket_combine_fwd", "plane_encode_fwd")
+
+
+def fast_cfg(cfg):
+    """--render_fast's routing on `cfg`: bucketed top-1, cf 1.5."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, bucketed=True, experts_per_point=1,
+                               capacity_factor=MOE_CF)
+
+
+def chunk_samples(statics, occ, rays_np, device):
+    """The serve chunk's sample points (N, 32, 3) and per-point directions
+    (N * 32, 3), from the soft importance probe and the sampler."""
+    import torch
+
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    rays = torch.from_numpy(rays_np).to(device)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    _, near, far = _ray_validity(rays)
+    cdf = O.occupancy_probe_cdf(occ["occs"], occ["binary"],
+                                statics.expert_aabbs, o, d, near, far, 128,
+                                importance=True, ray_floor=0.25)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, 32)
+    pts = V.t_to_points(o, d, t_vals).contiguous()
+    dirs = d[:, None, :].expand(pts.shape).reshape(-1, 3).contiguous()
+    return pts, dirs
+
+
+def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
+    """Kernel row 10 against its plain versions on the card at one full
+    serve chunk (65,536 rays x 32 samples = 2,097,152 points, K=4): 10a-i
+    for E=1 and 2, soft (margin 1.1) and hard (1.0), cf 1.5 (idx, dest,
+    counts, bucket rows and gathered rows equal, w within 1e-6); 10a-ii and
+    10a-iii on the E=2 soft dispatch with random bucket results (within
+    1e-6 of the output's max), `embedding_bag` timed beside 10a-ii; 10b on
+    the chunk's (65,536, 32, 3) samples (ids equal); kernel 2 on the
+    res-128 union probe grid of the bench occupancy."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.models import occupancy as MO
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    pts_ns, dirs = chunk_samples(statics, occ, rays_np, device)
+    pts = pts_ns.reshape(-1, 3).contiguous()
+    cents = statics.centroids.contiguous()
+    N, K = pts.shape[0], cents.shape[0]
+    f32_ops = N * K * 12  # distances: 5 products, 4 sums, max, sqrt
+    worst_w, timed, soft2 = 0.0, {}, None
+    for E in (1, 2):
+        for margin in (1.1, 1.0):
+            C = CO.bucket_capacity(N, K, E, MOE_CF)
+            ker = CO.bucket_dispatch_kernel(pts, dirs, cents, True, margin,
+                                            E, C)
+            pln = CO.bucket_dispatch_plain(pts, dirs, cents, True, margin,
+                                           E, C)
+            torch.cuda.synchronize()
+            for key in ("idx", "dest", "counts", "bucket_rows", "rows"):
+                if not torch.equal(ker[key], pln[key]):
+                    raise SystemExit(f"kernel bucket_dispatch: {key} differs "
+                                     f"from the plain version (E={E}, margin "
+                                     f"{margin})")
+            w_err = max_err(ker["w"], pln["w"])
+            worst_w = max(worst_w, w_err)
+            if not w_err <= 1e-6:
+                raise SystemExit(f"kernel bucket_dispatch: w error {w_err}")
+            counts = ker["counts"].tolist()
+            ms = cuda_ms(lambda: CO.bucket_dispatch_kernel(
+                pts, dirs, cents, True, margin, E, C), 10)
+            plain_ms = cuda_ms(lambda: CO.bucket_dispatch_plain(
+                pts, dirs, cents, True, margin, E, C), 2)
+            n_bytes = nbytes(pts, dirs, ker["idx"], ker["w"], ker["dest"],
+                             ker["counts"], ker["bucket_rows"], ker["rows"])
+            b_ms, b_by = bound(n_bytes, f32_ops)
+            print(f"kernel bucket_dispatch: E={E} margin={margin:g} {N} "
+                  f"points K={K} C={C} demand={counts} overflow="
+                  f"{max(counts) > C} idx/dest/counts/bucket_rows/rows equal, "
+                  f"w max_abs_err={w_err:.3e} (tol 1e-6) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bytes={n_bytes} bound_ms="
+                  f"{b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} TB/s",
+                  flush=True)
+            timed[(E, margin)] = (ms, plain_ms, b_ms, b_by, n_bytes)
+            if E == 2 and margin > 1.0:
+                soft2 = (ker, C)
+            del ker, pln
+    ms, plain_ms, b_ms, b_by, n_bytes = timed[(1, 1.1)]
+    results[kernels.BUCKET_DISPATCH.name] = dict(
+        max_abs_err=worst_w, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by,
+        text=(f"E=1 margin 1.1 (--render_fast) at {N} points: kernel_ms="
+              f"{ms:.4f} plain_ms={plain_ms:.4f} bytes={n_bytes} bound_ms="
+              f"{b_ms:.4f} ({b_by}); E=2 margin 1.1 kernel_ms="
+              f"{timed[(2, 1.1)][0]:.4f}; integer outputs equal in all four "
+              f"configurations, w max_abs_err={worst_w:.3e} (tol 1e-6)"))
+
+    # 10a-ii / 10a-iii on the E=2 soft dispatch
+    dsp, C = soft2
+    w, dest = dsp["w"], dsp["dest"]
+    gen = torch.Generator(device=device).manual_seed(11)
+    sb = torch.randn((K * C,), device=device, generator=gen)
+    rb = torch.rand((K * C, 3), device=device, generator=gen)
+    got = CO.bucket_combine_kernel(w, dest, sb, rb)
+    want = CO.bucket_combine_plain(w, dest, sb, rb)
+    torch.cuda.synchronize()
+    err = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
+    table = torch.cat([torch.cat([rb, sb[:, None]], 1),
+                       torch.zeros((1, 4), device=device)])
+    bags = dest.view(N, 2).long()
+    psw = torch.where(dest < K * C, w.reshape(-1), 0.0).view(N, 2)
+    lib = torch.nn.functional.embedding_bag(bags, table,
+                                            per_sample_weights=psw,
+                                            mode="sum")
+    lib_err = max(max_err(lib[:, 3], want[0]), max_err(lib[:, :3], want[1]))
+    ms = cuda_ms(lambda: CO.bucket_combine_kernel(w, dest, sb, rb), 20)
+    plain_ms = cuda_ms(lambda: CO.bucket_combine_plain(w, dest, sb, rb), 3)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        bags, table, per_sample_weights=psw, mode="sum"), 20)
+    n_bytes = N * 2 * (4 + 4 + 16) + N * 16
+    b_ms, b_by = bound(n_bytes, N * 2 * 8)
+    text = (f"E=2 margin 1.1 at {N} points: err/max={err:.3e} tol=1e-6 "
+            f"(2-term sums in e order, as the plain version) kernel_ms="
+            f"{ms:.4f} plain_ms={plain_ms:.4f} embedding_bag_ms={lib_ms:.4f} "
+            f"(max_abs_err vs plain {lib_err:.3e}) bytes={n_bytes} bound_ms="
+            f"{b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} TB/s")
+    print(f"kernel bucket_combine_fwd: {text}", flush=True)
+    if not err <= 1e-6:
+        raise SystemExit(f"kernel bucket_combine_fwd disagrees: {err}")
+    results[kernels.BUCKET_COMBINE_FWD.name] = dict(
+        max_abs_err=max(max_err(got[0], want[0]), max_err(got[1], want[1])),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, text=text)
+
+    g_s = torch.randn((N,), device=device, generator=gen)
+    g_r = torch.randn((N, 3), device=device, generator=gen)
+    got = CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, K * C)
+    want = CO.bucket_combine_bwd_plain(w, dest, g_s, g_r, K * C)
+    torch.cuda.synchronize()
+    err = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
+    ms = cuda_ms(lambda: CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r,
+                                                      K * C), 20)
+    plain_ms = cuda_ms(lambda: CO.bucket_combine_bwd_plain(w, dest, g_s, g_r,
+                                                           K * C), 3)
+    n_bytes = N * 2 * (4 + 4) + N * 16 + K * C * 16
+    b_ms, b_by = bound(n_bytes, N * 2 * 4)
+    text = (f"E=2 margin 1.1 at {N} points into {K}x{C} slots: err/max="
+            f"{err:.3e} tol=1e-6 (one product per kept slot) kernel_ms="
+            f"{ms:.4f} (the zeroed buffers included) plain_ms={plain_ms:.4f} "
+            f"bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+    print(f"kernel bucket_combine_bwd: {text}", flush=True)
+    if not err <= 1e-6:
+        raise SystemExit(f"kernel bucket_combine_bwd disagrees: {err}")
+    results[kernels.BUCKET_COMBINE_BWD.name] = dict(
+        max_abs_err=max(max_err(got[0], want[0]), max_err(got[1], want[1])),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, text=text)
+    del dsp, soft2, got, want, lib, table
+
+    # 10b on the chunk's samples
+    margin = float(cfg.boundary_margin)
+    ker = CO.coherent_expert_kernel(cents, pts_ns, True, margin)
+    pln = CO.coherent_expert_plain(cents, pts_ns, True, margin)
+    torch.cuda.synchronize()
+    if not torch.equal(ker, pln):
+        raise SystemExit(f"kernel coherent_expert: {int((ker != pln).sum())} "
+                         f"ids differ from the plain version")
+    R, S = pts_ns.shape[0], pts_ns.shape[1]
+    ms = cuda_ms(lambda: CO.coherent_expert_kernel(cents, pts_ns, True,
+                                                   margin), 20)
+    plain_ms = cuda_ms(lambda: CO.coherent_expert_plain(cents, pts_ns, True,
+                                                        margin), 3)
+    n_bytes = nbytes(pts_ns, ker)
+    b_ms, b_by = bound(n_bytes, R * S * K * 14)
+    text = (f"margin {margin:g} at {R}x{S} samples, K={K}: ids equal "
+            f"(coherent share {float((ker >= 0).float().mean()):.4f}) "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bytes={n_bytes} "
+            f"bound_ms={b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} "
+            f"TB/s")
+    print(f"kernel coherent_expert: {text}", flush=True)
+    results[kernels.COHERENT_EXPERT.name] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, text=text)
+    del pts_ns, pts, dirs, ker, pln
+
+    # kernel 2 over the union probe grid (a K=1, L=1 stack)
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+
+    t0 = time.perf_counter()
+    grid = MO.build_union_probe_grid(occ, statics, res=UNION_RES,
+                                     importance=True)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    pf = MO.union_probe_fns(grid)
+    rays = torch.from_numpy(rays_np).to(device)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    _, near, far = _ray_validity(rays)
+    kw = dict(n_probes=128, importance=pf.importance, ray_floor=0.25)
+    ker = O.occupancy_probe_cdf_kernel(pf.occs, pf.binary, pf.aabbs, o, d,
+                                       near, far, **kw)
+    pln = O.occupancy_probe_cdf(pf.occs, pf.binary, pf.aabbs, o, d, near,
+                                far, **kw, use_kernels=False)
+    torch.cuda.synchronize()
+    flips = int((ker["occ"] != pln["occ"]).sum())
+    err = max_err(ker["cdf"], pln["cdf"])
+    ms = cuda_ms(lambda: O.occupancy_probe_cdf_kernel(
+        pf.occs, pf.binary, pf.aabbs, o, d, near, far, **kw), 10)
+    n_bytes = nbytes(pf.occs, pf.binary, o, d, near, far, ker["cdf"],
+                     ker["alive"], ker["occ"])
+    b_ms, b_by = bound(n_bytes, o.shape[0] * 128 * 23 + o.shape[0] * 128 * 12)
+    exact_ms = cuda_ms(lambda: O.occupancy_probe_cdf_kernel(
+        occ["occs"], occ["binary"], statics.expert_aabbs, o, d, near, far,
+        **kw), 10)
+    print(f"kernel occupancy_probe_cdf: union grid res {UNION_RES} (marked "
+          f"share {float(grid['binary'].float().mean()):.4f}, built in "
+          f"{build_ms:.1f} ms) at {o.shape[0]} rays x 128 probes: "
+          f"max_abs_err={err:.3e} tol=1e-5 occ_bit_flips={flips} "
+          f"kernel_ms={ms:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} "
+          f"({b_by}) vs the exact K={K} L={occ['occs'].shape[1]} union "
+          f"{exact_ms:.4f}", flush=True)
+    if flips or not err <= 1e-5:
+        raise SystemExit("kernel occupancy_probe_cdf disagrees on the union "
+                         "probe grid")
+
+
+def render_fast(cfg, statics, params, occ, device):
+    """--render_fast at the runner's default widths: bucketed top-1 (cf
+    1.5) hash experts, the res-128 union probe grid, soft importance
+    occupancy, S=32, 65,536-ray chunks: one warm-up and 3 requests of
+    800x800 through `render_image`, the counters zeroed just before them
+    and read just after; one chunk against the plain path; one profiled
+    frame. Then measure_perf's half-sky frame on the sky grid through the
+    hard two-wave renderer with the union grid (its probe is
+    `_union_probe_wrap`'s): one warm-up and 2 requests, one alive chunk
+    against the plain path."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        TwoWaveOccRenderer,
+        make_chunk_renderer,
+        render_image,
+        render_rays_chunked,
+    )
+
+    S, chunk = 32, CHUNK or CHECK_RAYS
+    fcfg = fast_cfg(cfg)
+    aabb = statics.global_aabb.cpu().numpy()
+    kw = dict(ray_samples=S, occ_state=occ, occ_importance=True,
+              occ_hard_mask=False, occ_probe_grid_res=UNION_RES,
+              device=device)
+    renderer = make_chunk_renderer(fcfg, **kw)
+    poses = [pose((0.0, 0.0, 2.0)), pose((0.1, 0.0, 2.0)),
+             pose((0.0, -0.1, 2.1))]
+    render_image(renderer, params, statics, poses[0], scene_aabb=aabb,
+                 chunk_rays=chunk)  # warm-up (builds the union grid)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    CO.bucket_stats.update(calls=0, dense=0)
+    times = []
+    for md in poses:
+        t0 = time.perf_counter()
+        rgb, depth, acc = render_image(renderer, params, statics, md,
+                                       scene_aabb=aabb, chunk_rays=chunk)
+        times.append(time.perf_counter() - t0)
+        check_frame("render_fast", rgb, depth, acc, (SIDE, SIDE, 3))
+    launches = kernels.launches()
+    dense = dict(CO.bucket_stats)
+    print(f"render_fast: launches during 3 requests {launches}", flush=True)
+    for k in FAST_KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"render_fast: kernel {k} never launched")
+    plain = make_chunk_renderer(fcfg, use_kernels=False, **kw)
+    rays, _ = frame_rays(SIDE, SIDE, poses[0].intrinsics, poses[0].c2w,
+                         aabb=aabb)
+    c = torch.from_numpy(rays[:chunk]).to(device)
+    chunk_matches_plain("render_fast", renderer(params, statics, c),
+                        plain(params, statics, c))
+    profile_frame(renderer, params, statics, poses[0], aabb, chunk,
+                  label="render_fast frame")
+    ms = [1e3 * t for t in times]
+    print(f"render_fast: {SIDE}x{SIDE} frames ms={[round(x, 2) for x in ms]} "
+          f"mean_ms={sum(ms) / 3:.2f} rays_per_s="
+          f"{SIDE * SIDE / (sum(times) / 3):.1f} container calls "
+          f"{dense['calls']}, dense fallbacks {dense['dense']} (a bucket "
+          f"overflowed: the exact dense blend) mean_rgb="
+          f"{float(rgb.mean()):.4f} mean_acc={float(acc.mean()):.4f}",
+          flush=True)
+
+    # the half-sky frame, hard mask, union grid, two-wave
+    socc = synthetic_occ(statics, device, alive_frac=None)
+    hkw = dict(kw, occ_state=socc, occ_hard_mask=True)
+    ren = make_chunk_renderer(fcfg, **hkw)
+    if not isinstance(ren, TwoWaveOccRenderer) or ren.packable:
+        raise SystemExit("render_fast sky: expected an unpackable two-wave "
+                         "renderer")
+    sky = sky_frame(SIDE * SIDE)
+    render_rays_chunked(ren, params, statics, sky, chunk)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    CO.bucket_stats.update(calls=0, dense=0)
+    times, st = [], {}
+    for _ in range(2):
+        st = {}
+        t0 = time.perf_counter()
+        out = render_rays_chunked(ren, params, statics, sky, chunk, stats=st)
+        times.append(time.perf_counter() - t0)
+    sky_launches = kernels.launches()
+    check_frame("render_fast sky", out[:, :3], out[:, 3], out[:, 4],
+                out[:, :3].shape)
+    if st["chunks_skipped"] <= 0 or st["mode"] != "two_wave":
+        raise SystemExit(f"render_fast sky: no chunk skipped: {st}")
+    for k in ("bucket_dispatch", "occupancy_probe_cdf"):
+        if sky_launches[k] <= 0:
+            raise SystemExit(f"render_fast sky: kernel {k} never launched")
+    hplain = make_chunk_renderer(fcfg, use_kernels=False, **hkw)
+    c = torch.from_numpy(sky[:chunk]).to(device)
+    chunk_matches_plain(
+        "render_fast sky (alive chunk from the union probe's CDF)",
+        ren.render_from_cdf(params, statics, c, ren.probe(statics, c)[0]),
+        hplain.render_from_cdf(params, statics, c,
+                               hplain.probe(statics, c)[0]),
+        flip_share=1e-4)
+    est = {}
+    exact = render_rays_chunked(make_chunk_renderer(
+        fcfg, **{k: v for k, v in hkw.items()
+                 if k != "occ_probe_grid_res"}), params, statics, sky, chunk,
+        stats=est)
+    ms = [1e3 * t for t in times]
+    print(f"render_fast sky: {sky.shape[0]} rays ms="
+          f"{[round(x, 2) for x in ms]} mode={st['mode']} chunks_skipped="
+          f"{st['chunks_skipped']} n_alive={st['n_alive']} (exact-union "
+          f"probe: {est['n_alive']}) dense fallbacks "
+          f"{CO.bucket_stats['dense']} of {CO.bucket_stats['calls']} calls; "
+          f"vs the exact-probe two-wave frame max_abs_diff="
+          f"{float(abs(out - exact).max()):.3e} (the union grid moves "
+          f"sample placement; not a tolerance) launches {sky_launches}",
+          flush=True)
+    return {k: launches[k] + sky_launches[k] for k in launches}
+
+
+def skew_frame(n: int):
+    """measure_perf's skewed frame (skew=0.9, scripts/measure_perf.py:
+    497-527): rays from (0, 0, 2) in random downward directions, the first
+    90% along -x from x=2 with (y, z) near (-1, -1), expert 0's region."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    o = np.tile(np.array([0.0, 0.0, 2.0], np.float32), (n, 1))
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 2] = -np.abs(d[:, 2]) - 0.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    i1 = int(n * SKEW)
+    o[:i1, 0] = 2.0
+    o[:i1, 1] = -1.0 + rng.normal(scale=0.15, size=i1)
+    o[:i1, 2] = -1.0 + rng.normal(scale=0.15, size=i1)
+    d[:i1] = np.array([-1.0, 0.0, 0.0], np.float32)
+    d[:i1, 1:] = rng.normal(scale=0.02, size=(i1, 2))
+    d[:i1] /= np.linalg.norm(d[:i1], axis=1, keepdims=True)
+    nf = np.tile(np.array([0.1, 4.5], np.float32), (n, 1))
+    return np.concatenate([o, d, nf], 1).astype(np.float32)
+
+
+def full_occ(device):
+    """measure_perf's occupancy for frames without sky: every cell of K=4,
+    R=64, L=2 grids occupied, values 0 (scripts/measure_perf.py:416-452)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops.occupancy import OccGridConfig, init_occ_state
+
+    occ = init_occ_state(OccGridConfig(resolution=64, levels=2,
+                                       warmup_steps=0), 4, device=device)
+    occ["binary"] = torch.ones_like(occ["binary"])
+    occ["num_updates"] = torch.tensor(1000, dtype=torch.int32, device=device)
+    return occ
+
+
+def coherent_frames(cfg, statics, params, device):
+    """The skew-0.9 frame (640,000 rays) through `make_coherent_renderer`,
+    occupancy-guided (soft, importance, measure_perf's all-occupied grid),
+    without and with the res-128 union grid, via `render_rays_chunked`: one
+    warm-up and 3 requests each, the counters zeroed just before them and
+    read just after; then the same rays through the bundle's full routed
+    program."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        make_coherent_renderer,
+        render_rays_chunked,
+    )
+
+    S, chunk = 32, CHUNK or CHECK_RAYS
+    occ = full_occ(device)
+    rays = skew_frame(SIDE * SIDE)
+    total = {}
+    for res in (0, UNION_RES):
+        ren = make_coherent_renderer(cfg, ray_samples=S, occ_state=occ,
+                                     occ_importance=True, occ_hard_mask=False,
+                                     occ_probe_grid_res=res, device=device)
+        render_rays_chunked(ren, params, statics, rays, chunk)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        times, st = [], {}
+        for _ in range(3):
+            st = {}
+            t0 = time.perf_counter()
+            got = render_rays_chunked(ren, params, statics, rays, chunk,
+                                      stats=st)
+            times.append(time.perf_counter() - t0)
+        launches = kernels.launches()
+        for k in COHERENT_KERNELS:
+            if launches[k] <= 0:
+                raise SystemExit(f"coherent: kernel {k} never launched")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        t0 = time.perf_counter()
+        want = render_rays_chunked(ren.full, params, statics, rays, chunk)
+        full_ms = 1e3 * (time.perf_counter() - t0)
+        check_frame("coherent", got[:, :3], got[:, 3], got[:, 4],
+                    want[:, :3].shape)
+        errs = [float(abs(got[:, c] - want[:, c]).max())
+                for c in (slice(0, 3), 3, 4)]
+        ms = [1e3 * t for t in times]
+        print(f"coherent: union grid res {res} skew {SKEW:g} frame "
+              f"{rays.shape[0]} rays ms={[round(x, 2) for x in ms]} "
+              f"mean_ms={sum(ms) / 3:.2f} full routed program ms="
+              f"{full_ms:.2f} n_coherent={st['n_coherent']} n_boundary="
+              f"{st['n_boundary']} rays_padded={st['rays_padded']} chunks="
+              f"{st['chunks_total']} vs the full routed program: rgb "
+              f"{errs[0]:.3e} depth {errs[1]:.3e} acc {errs[2]:.3e} (tol "
+              f"rgb/acc 1e-4, depth 1e-3: one expert's matmuls vs the "
+              f"K-batched ones round differently on the card) launches "
+              f"{launches}", flush=True)
+        if errs[0] > 1e-4 or errs[2] > 1e-4 or errs[1] > 1e-3:
+            raise SystemExit("coherent: the dispatch disagrees with the full "
+                             "routed program")
+        if not st["n_coherent"] >= 0.5 * rays.shape[0]:
+            raise SystemExit(f"coherent: only {st['n_coherent']} coherent "
+                             f"rays in the skewed frame")
+    return total
+
+
+def k16_setup(device):
+    """measure_moe's K=16 shape: bench-width planes experts on a 4x4
+    centroid grid in (y, z), boxes +-1.3, 1,572,864 points uniform in the
+    global box, unit directions (scripts/measure_perf.py:649-700)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.models.container import (
+        ContainerStatics,
+        init_container_params,
+    )
+
+    bench_cfg = bench_setup_cfg()
+    dense = dataclasses.replace(bench_cfg, num_experts=16)
+    cents = np.stack([[0.0, (i % 4) * 2.0 - 3.0, (i // 4) * 2.0 - 3.0]
+                      for i in range(16)]).astype(np.float32)
+    boxes = np.stack([np.stack([c - 1.3, c + 1.3]) for c in cents])
+    glob = np.stack([cents.min(0) - 1.5, cents.max(0) + 1.5])
+    statics = ContainerStatics(*(torch.tensor(a, dtype=torch.float32)
+                                 for a in (cents, boxes, glob))).to(device)
+    params = init_container_params(dense, seed=SEED, device=device)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(glob[0], glob[1], (K16_PTS, 3)).astype(np.float32)
+    dirs = rng.normal(size=(K16_PTS, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return (dense, statics, params, torch.from_numpy(pts).to(device),
+            torch.from_numpy(dirs).to(device))
+
+
+def k16_moe(device):
+    """Dense vs bucketed (E=2, cf 1.5) container_apply at K=16 over
+    1,572,864 points in 8 sequential chunks: one warm-up and 3 timed calls
+    per arm, the counters zeroed just before the bucketed arm's calls and
+    read just after; peak memory; the two arms against each other on the
+    points whose margin support fits in E=2. Then the gradient of one
+    chunk through the bucketed container (dispatch, buckets, the encoder's
+    and the blend's VJPs) against the plain path."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    dense, statics, params, pts, dirs = k16_setup(device)
+    buck = dataclasses.replace(dense, bucketed=True, experts_per_point=2,
+                               capacity_factor=MOE_CF)
+    n = K16_PTS // K16_CHUNKS
+    xs, ds = pts.split(n), dirs.split(n)
+
+    def run(cfg):
+        with torch.no_grad():
+            outs = [CO.container_apply(params, cfg, statics, x, d)
+                    for x, d in zip(xs, ds)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+    arms, launches = {}, {}
+    for label, cfg in (("dense", dense), ("bucketed", buck)):
+        run(cfg)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        CO.bucket_stats.update(calls=0, dense=0)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out = run(cfg)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 3
+        arms[label] = (out, ms, torch.cuda.max_memory_allocated(),
+                       dict(CO.bucket_stats))
+        if label == "bucketed":
+            launches = kernels.launches()
+    for k in K16_KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"K=16 bucketed: kernel {k} never launched")
+    (d_out, d_ms, d_mem, _), (b_out, b_ms, b_mem, b_st) = (arms["dense"],
+                                                           arms["bucketed"])
+    if b_st["dense"]:
+        raise SystemExit(f"K=16 bucketed: {b_st['dense']} of "
+                         f"{b_st['calls']} calls took the dense branch")
+    ok = torch.cat([(CO.routing_weights(statics, dense, x) > 0).sum(1) <= 2
+                    for x in xs])
+    errs = [max_err(b_out[i][ok], d_out[i][ok])
+            / max(float(d_out[i][ok].abs().max()), 1e-30) for i in (0, 1)]
+    C = CO.bucket_capacity(n, 16, 2, MOE_CF)
+    print(f"K=16 moe: {K16_PTS} points in {K16_CHUNKS} chunks of {n}: dense "
+          f"container_apply ms={d_ms:.2f} peak_bytes={d_mem} | bucketed E=2 "
+          f"cf {MOE_CF:g} (buckets 16x{C}, the experts evaluated on 16*{C}="
+          f"{16 * C} rows per chunk instead of 16*{n}={16 * n}) ms={b_ms:.2f}"
+          f" peak_bytes={b_mem} dense fallbacks {b_st['dense']} of "
+          f"{b_st['calls']} calls; speedup {d_ms / b_ms:.3f}x; bucketed vs "
+          f"dense on the {int(ok.sum())} of {K16_PTS} points whose margin "
+          f"support fits in E=2: rgb err/max {errs[0]:.3e} sigma err/max "
+          f"{errs[1]:.3e} (tol 1e-4: the experts' matmuls run on other batch "
+          f"shapes) launches {launches}", flush=True)
+    if not max(errs) <= 1e-4:
+        raise SystemExit("K=16: bucketed and dense disagree where the margin "
+                         "support fits in E")
+
+    # the gradient through the bucketed container on one chunk
+    grads = []
+    kernels.reset_launches()
+    for use in (True, False):
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          params)
+        rgb, sigma = CO.container_apply(leaves, buck, statics, xs[0], ds[0],
+                                        use_kernels=use)
+        (rgb.sum() + sigma.sum()).backward()
+        grads.append([t.grad for t in tree_leaves(leaves["experts"])])
+        if use:
+            grad_launches = kernels.launches()
+            torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in zip(*grads)]
+    print(f"K=16 moe: gradient of sum(rgb) + sum(sigma) through the bucketed "
+          f"container on {n} points, kernels vs plain: worst leaf err/max "
+          f"{max(errs):.3e} (tol 1e-4: fp32 atomics in the encoder's table "
+          f"gradient add in another order) launches {grad_launches}",
+          flush=True)
+    if not max(errs) <= 1e-4 or grad_launches["bucket_combine_bwd"] <= 0:
+        raise SystemExit("K=16: the bucketed gradient disagrees with the "
+                         "plain path or skipped bucket_combine_bwd")
+    return {k: launches[k] + grad_launches[k] for k in launches}
+
+
+def moe_phase(statics, occ, rays_np, device, results):
+    """Phase: bucketed top-E MoE, union-probe grids and coherent dispatch
+    (kernel row 10 checks, --render_fast frames and the sky frame, the
+    coherent skew frame, the K=16 dense vs bucketed arm) -> launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg, params = hash_setup(device)
+    check_moe_kernels(cfg, statics, occ, rays_np, device, results)
+    parts = [render_fast(cfg, statics, params, occ, device),
+             coherent_frames(cfg, statics, params, device)]
+    del params
+    torch.cuda.empty_cache()
+    parts.append(k16_moe(device))
+    print(f"moe: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
 def main() -> int:
     import torch
 
@@ -1715,10 +2359,11 @@ def main() -> int:
     light, trained = train(cfg, statics, params, occ, batch, device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
+    moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
 
     parts = (("serve", served), ("early-stop", early), ("baked", baked_n),
              ("train", trained), ("hash serve", hash_served),
-             ("hash train", hash_trained))
+             ("hash train", hash_trained), ("moe", moe))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         n = k.name
         print(f"kernel {n}: launches={sum(p[n] for _, p in parts)} ("
@@ -1731,14 +2376,19 @@ def main() -> int:
          "launches": sum(p[k.name] for _, p in parts),
          "library_ms": None, **results[k.name]}
         for k in kernels.KERNELS]}
-    print("library_ms: grid_sample for baked_trilerp; null for the others: "
-          "no single PyTorch call computes the plane encoder or its table "
-          "gradient with the interpolation weights, the hash encoder (its "
-          "corner rows and weights from the points; embedding_bag would "
-          "only sum rows already indexed and weighted) or its table "
-          "gradient, the union probe + CDF, the inverse-CDF sampler, the "
-          "compositor or its VJP, or segmented compositing with a carried "
-          "transmittance")
+    print("library_ms: grid_sample for baked_trilerp, embedding_bag (a "
+          "weighted sum of the bucket rows each point's pairs index) for "
+          "bucket_combine_fwd; null for the others: no single PyTorch call "
+          "computes the plane encoder or its table gradient with the "
+          "interpolation weights, the hash encoder (its corner rows and "
+          "weights from the points; embedding_bag would only sum rows "
+          "already indexed and weighted) or its table gradient, the union "
+          "probe + CDF, the inverse-CDF sampler, the compositor or its VJP, "
+          "segmented compositing with a carried transmittance, the bucket "
+          "dispatch (top-E routing and a stable counting sort; torch.sort "
+          "and cumsum are several calls), the blend's transpose (a scatter "
+          "whose indices are unique: index_copy_ would need the products "
+          "formed first) or the coherent-expert test")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # the neighbouring bfloat16. So does the baked lookup, whose cell selection
 # and lerp tree then match the plain version bit for bit. So does the hash
 # grid: a contracted x * scale + 0.5 or corner weight can move a point into
-# the neighbouring cell, at a hashed level an unrelated row.
+# the neighbouring cell, at a hashed level an unrelated row. So do the
+# bucket dispatch and the coherent-expert test: their routing distances
+# must round as the plain versions' do, or a near tie picks another expert.
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "planes": ("planes.cu", ()),
     "occ_probe": ("occ_probe.cu", ("--fmad=false",)),
@@ -56,6 +58,8 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "baked": ("baked.cu", ("--fmad=false",)),
     "composite_seg": ("composite_seg.cu", ()),
     "hash_grid": ("hash_grid.cu", ("--fmad=false",)),
+    "bucket": ("bucket.cu", ("--fmad=false",)),
+    "coherent": ("coherent.cu", ("--fmad=false",)),
 }
 
 _P = ctypes.c_void_p
@@ -297,9 +301,41 @@ HASH_BWD = Kernel(
              "row_gather transpose of hash_grid_encode_fused :345)",
 )
 
+BUCKET_DISPATCH = Kernel(
+    "bucket_dispatch", "bucket", "bucket_dispatch",
+    # pts, dirs (nullable), centroids, idx, w, dest, counts, bucket_rows,
+    # rows, block-count scratch, N, K, E, C, cluster_2d, margin, stream
+    [_P] * 10 + [_I] * 5 + [_F, _P],
+    replaces="nerfsys_tpu/models/container.py:279 (_bucketed_eval: top-E "
+             "routing, the counting sort into buckets, the row gather "
+             ":301-350)",
+)
+BUCKET_COMBINE_FWD = Kernel(
+    "bucket_combine_fwd", "bucket", "bucket_combine_fwd",
+    # w, dest, sigma_b, rgb_b (nullable), sigma, rgb (nullable), N, E,
+    # n_slots, stream
+    [_P] * 6 + [_I] * 3 + [_P],
+    replaces="nerfsys_tpu/models/container.py:363 (_bucketed_eval's "
+             "reshape-sum blend)",
+)
+BUCKET_COMBINE_BWD = Kernel(
+    "bucket_combine_bwd", "bucket", "bucket_combine_bwd",
+    # w, dest, g_sigma, g_rgb (nullable), g_sigma_b, g_rgb_b (nullable),
+    # N, E, n_slots, stream
+    [_P] * 6 + [_I] * 3 + [_P],
+    replaces="nerfsys_tpu/models/container.py:363 (the blend's VJP)",
+)
+COHERENT_EXPERT = Kernel(
+    "coherent_expert", "coherent", "coherent_expert",
+    # pts (N, S, 3), centroids, out, N, S, K, cluster_2d, margin, stream
+    [_P] * 3 + [_I] * 4 + [_F, _P],
+    replaces="nerfsys_tpu/models/container.py:198 (routing_coherent_expert)",
+)
+
 KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
            PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG,
-           HASH_FWD, HASH_FWD_PACKED, HASH_BWD)
+           HASH_FWD, HASH_FWD_PACKED, HASH_BWD, BUCKET_DISPATCH,
+           BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT)
 
 
 def reset_launches() -> None:
@@ -329,6 +365,7 @@ _DTYPES = {
     "binary": (torch.bool,),
     "table": (torch.float32, torch.bfloat16),
     "block_index": (torch.int32,),
+    "dest": (torch.int32,),
 }
 
 

@@ -2,21 +2,39 @@
 
 Port of nerfsys_tpu/models/container.py (`ContainerConfig`,
 `ContainerStatics`, `init_container_params` :128, `_routing_dist` :158,
-`routing_weights` :175, the dense `_eval_all_experts` :256,
-`container_apply` :419, `container_apply_multidir` :447,
-`background_color` :502, `container_field_fn`,
-`container_bg_fn`, `_expert_apply_fn` :235, `param_group_labels` :545).
-The K experts' parameters are stacked on a leading axis and evaluated as ONE batched call over that axis (batched matmuls, one
-encoder launch), then blended with the dense (N, K) routing weights before
-integration. Bucketed top-E dispatch is not ported yet.
+`routing_weights` :175, `routing_coherent_expert` :198, the dense
+`_eval_all_experts` :256, the bucketed `_bucketed_eval` :279,
+`container_density` :400, `container_apply` :419,
+`container_apply_multidir` :447, `background_color` :502,
+`container_field_fn`, `container_bg_fn`, `_expert_apply_fn` :235,
+`param_group_labels` :545). The K experts' parameters are stacked on a
+leading axis and evaluated as ONE batched call over that axis (batched
+matmuls, one encoder launch), then blended with the dense (N, K) routing
+weights before integration.
+
+Bucketed top-E dispatch (`cfg.bucketed`, kernel row 10a): each point goes
+to its E nearest experts only; the (point, expert) pairs are counting-sorted
+into (K, C) buckets, the experts run batched over the buckets, and each
+point blends its E pair results back. `csrc/bucket.cu` holds the dispatch
+(top-E, weights, the stable counting sort, the packed row gather) and the
+blend with its transpose; `bucket_dispatch_plain`, `bucket_combine_plain`
+and `bucket_combine_bwd_plain` are the same functions in plain PyTorch.
+`routing_coherent_expert` (row 10b, `csrc/coherent.cu`) finds the rays
+whose every sample routes to one expert alone.
+
+The routing distance is computed elementwise, left to right, in the order
+the reference writes it (sum x^2 - 2 x.c + sum c^2, clamp, sqrt), so that
+the kernels, built with --fmad=false, pick the same experts bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from nerfsys_tpu_torch import kernels
 from nerfsys_tpu_torch.models.ngp import (
     NGPConfig,
     _linear_init,
@@ -32,6 +50,9 @@ from nerfsys_tpu_torch.utils.tree import tree_map
 
 Params = Dict
 
+MAX_EXPERTS = 64  # the routing kernels keep the centroids in shared memory
+BUCKET_THREADS = 256  # points per block of the dispatch's passes 1 and 3
+
 
 @dataclasses.dataclass(frozen=True)
 class ContainerConfig:
@@ -45,7 +66,15 @@ class ContainerConfig:
     bg_hidden: int = 32
     bg_encoding: str = "spherical"
     expert: NGPConfig = dataclasses.field(default_factory=NGPConfig)
+    # bucketed top-E dispatch: each point evaluates its E nearest experts,
+    # batched per expert in buckets of C = ceil(N * E / K * capacity_factor)
+    # rows; a call whose demand overflows a bucket takes the exact dense
+    # blend instead when bucket_overflow_dense (else the overflow pairs
+    # read the trash slot, sigma 0)
     bucketed: bool = False
+    experts_per_point: int = 2
+    capacity_factor: float = 1.5
+    bucket_overflow_dense: bool = True
 
     def __post_init__(self):
         if self.nerf_variant != "instant":
@@ -90,16 +119,36 @@ def init_container_params(cfg: ContainerConfig, seed: int = 0,
     return tree_to(params, dev)
 
 
+def _sum_sq(v: torch.Tensor) -> torch.Tensor:
+    """sum_j v[..., j]^2, left to right, one rounding per operation."""
+    out = v[..., 0] * v[..., 0]
+    for j in range(1, v.shape[-1]):
+        out = out + v[..., j] * v[..., j]
+    return out
+
+
+def _centroid_dist(centroids: torch.Tensor, cluster_2d: bool,
+                   pts: torch.Tensor) -> torch.Tensor:
+    """(N, K) centroid distances in the routing subspace (YZ if
+    cluster_2d): sqrt(max(sum x^2 - 2 x.c + sum c^2, 0)), each sum taken
+    left to right over the coordinates."""
+    sl = slice(1, 3) if cluster_2d else slice(0, 3)
+    x = pts[:, sl].to(torch.float32)
+    c = centroids[:, sl].to(torch.float32)
+    x2 = 2.0 * x
+    dot = x2[:, None, 0] * c[None, :, 0]
+    for j in range(1, x.shape[1]):
+        dot = dot + x2[:, None, j] * c[None, :, j]
+    d2 = (_sum_sq(x)[:, None] - dot) + _sum_sq(c)[None, :]
+    # the correctly rounded float32 square root (the kernels' sqrtf, XLA's
+    # sqrt): PyTorch's vectorised float32 sqrt on the CPU is off by an ulp
+    # in ~0.5% of inputs, and a float64 root rounded once to float32 is exact
+    return torch.sqrt(torch.clamp(d2, min=0.0).double()).float()
+
+
 def _routing_dist(statics: ContainerStatics, cfg: ContainerConfig,
                   pts: torch.Tensor) -> torch.Tensor:
-    """(N, K) centroid distances in the routing subspace (YZ if
-    cluster_2d)."""
-    sl = slice(1, 3) if cfg.cluster_2d else slice(0, 3)
-    x = pts[:, sl].to(torch.float32)
-    c = statics.centroids[:, sl].to(torch.float32)
-    return torch.sqrt(torch.clamp(
-        (x**2).sum(-1)[:, None] - torch.matmul(2.0 * x, c.T)
-        + (c**2).sum(-1)[None, :], min=0.0))
+    return _centroid_dist(statics.centroids, cfg.cluster_2d, pts)
 
 
 def routing_weights(statics: ContainerStatics, cfg: ContainerConfig,
@@ -119,16 +168,380 @@ def routing_weights(statics: ContainerStatics, cfg: ContainerConfig,
     return torch.nn.functional.one_hot(hard, cfg.num_experts).to(pts.dtype)
 
 
+# --------------------------- coherent expert (row 10b) -----------------------
+def coherent_expert_plain(centroids: torch.Tensor, pts_ns: torch.Tensor,
+                          cluster_2d: bool, margin: float) -> torch.Tensor:
+    """Plain PyTorch version of kernel 10b: per-ray coherent expert id
+    (N,) int32, or -1. The argmin (first index on ties) must be the same
+    at every sample; under soft routing (margin > 1) the second-nearest
+    clamped distance must also exceed margin times the nearest at every
+    sample."""
+    N, S = pts_ns.shape[0], pts_ns.shape[1]
+    K = centroids.shape[0]
+    dist = _centroid_dist(centroids, cluster_2d,
+                          pts_ns.reshape(N * S, 3)).reshape(N, S, K)
+    a1 = torch.argmin(dist, dim=-1)  # (N, S), first index on ties
+    same = (a1 == a1[:, :1]).all(dim=1)
+    if margin > 1.0 and K > 1:
+        # the 1e-6 clamp of routing_weights: its margin mask is built on
+        # clamped distances, so the singleton test reads them too
+        top2 = torch.sort(torch.clamp(dist, min=1e-6), dim=-1).values
+        singleton = (top2[..., 1] > margin * top2[..., 0]).all(dim=1)
+        same = same & singleton
+    return torch.where(same, a1[:, 0], -1).to(torch.int32)
+
+
+def coherent_expert_kernel(centroids: torch.Tensor, pts_ns: torch.Tensor,
+                           cluster_2d: bool, margin: float) -> torch.Tensor:
+    """Kernel 10b's wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `coherent_expert` or raises."""
+    if pts_ns.device.type == "cpu":
+        return coherent_expert_plain(centroids, pts_ns, cluster_2d, margin)
+    if pts_ns.device.type != "cuda":
+        raise ValueError(f"coherent_expert: unsupported device "
+                         f"{pts_ns.device}")
+    dev = pts_ns.device
+    N, S, K = pts_ns.shape[0], pts_ns.shape[1], centroids.shape[0]
+    if K > MAX_EXPERTS:
+        raise ValueError(f"coherent_expert: the kernel takes K <= "
+                         f"{MAX_EXPERTS}")
+    kernels.check_cuda_tensors("coherent_expert", dev, pts=pts_ns,
+                               centroids=centroids)
+    out = torch.empty((N,), dtype=torch.int32, device=dev)
+    kernels.COHERENT_EXPERT(pts_ns.data_ptr(), centroids.data_ptr(),
+                            out.data_ptr(), N, S, K, int(cluster_2d),
+                            float(margin), kernels.stream_ptr(pts_ns))
+    return out
+
+
+def routing_coherent_expert(statics: ContainerStatics, cfg: ContainerConfig,
+                            pts_ns: torch.Tensor, *,
+                            use_kernels: bool = True) -> torch.Tensor:
+    """Per-ray coherent expert id (N,) int32, or -1 for boundary rays: a ray
+    is coherent on expert k iff at EVERY sample the routed blend is expert k
+    alone (argmin k everywhere and, under soft routing, no other expert
+    inside the margin support). For such rays the full routed render and
+    the single-expert render are the same function."""
+    fn = coherent_expert_kernel if use_kernels else coherent_expert_plain
+    return fn(statics.centroids.contiguous(), pts_ns.contiguous(),
+              cfg.cluster_2d, float(cfg.boundary_margin))
+
+
+# --------------------------- expert evaluation -------------------------------
 def _expert_params(params: Params, k: int) -> Params:
     return tree_map(lambda t: t[k], params["experts"])
 
 
 def _eval_all_experts(params: Params, cfg: ContainerConfig,
                       statics: ContainerStatics, pts: torch.Tensor,
-                      dirs: torch.Tensor, *, use_kernels: bool = True):
-    """All K experts at once -> (rgb (K, N, 3), sigma (K, N))."""
+                      dirs: Optional[torch.Tensor], *,
+                      use_kernels: bool = True):
+    """All K experts at once -> (rgb (K, N, 3) or None, sigma (K, N)).
+    pts and dirs are (N, 3) shared by the experts, or (K, C, 3) per
+    expert (the buckets)."""
+    if dirs is None:
+        return None, ngp_density(params["experts"], cfg.expert,
+                                 statics.expert_aabbs, pts,
+                                 use_kernels=use_kernels)
     return ngp_apply(params["experts"], cfg.expert, statics.expert_aabbs,
                      pts, dirs, use_kernels=use_kernels)
+
+
+def _dense_eval(params: Params, cfg: ContainerConfig,
+                statics: ContainerStatics, pts: torch.Tensor,
+                dirs: Optional[torch.Tensor], use_kernels: bool):
+    """The dense blend -> (rgb (N, 3) or None, sigma (N,))."""
+    rgb_k, sigma_k = _eval_all_experts(params, cfg, statics, pts, dirs,
+                                       use_kernels=use_kernels)
+    w = routing_weights(statics, cfg, pts)  # (N, K)
+    sigma = (w.T * sigma_k).sum(dim=0)
+    if rgb_k is None:
+        return None, sigma
+    return (w.T[..., None] * rgb_k).sum(dim=0), sigma
+
+
+# --------------------------- bucketed dispatch (row 10a) ---------------------
+def bucket_capacity(n: int, k: int, e: int, capacity_factor: float) -> int:
+    """Rows per bucket: ceil(N * E / K * cf), rounded up to a multiple of
+    128, at least 128 (the reference's lane-aligned rule)."""
+    c = int(math.ceil(n * e / k * capacity_factor))
+    return max(128, (c + 127) // 128 * 128)
+
+
+def _top_e(dist: torch.Tensor, E: int):
+    """The E nearest experts, nearest first; on equal distances the lower
+    expert index first (as lax.top_k orders ties) -> (d (N, E), idx)."""
+    d, idx = torch.sort(dist, dim=1, stable=True)
+    return d[:, :E], idx[:, :E]
+
+
+def bucket_dispatch_plain(pts: torch.Tensor, dirs: Optional[torch.Tensor],
+                          centroids: torch.Tensor, cluster_2d: bool,
+                          margin: float, E: int, C: int):
+    """Plain PyTorch version of kernel 10a-i -> dict of idx (N, E) int32,
+    w (N, E) f32, dest (N*E,) int32, counts (K,) int32, bucket_rows (K, C)
+    int32 and rows (K, C, 6) f32 (pts|dirs; (K, C, 3) without dirs).
+
+    Top-E with margin weights renormalised over E (hard routing: w = [1,
+    0, ...]); the pairs n*E+e with w > 0 are counting-sorted into their
+    expert's bucket in pair order (an exclusive one-hot cumsum, the
+    reference's); a pair whose rank reaches C, or whose weight is 0, goes
+    to the trash slot K*C. Empty bucket slots hold point 0. counts is each
+    expert's demand (its pairs with w > 0), which the overflow test
+    reads."""
+    N, K = pts.shape[0], centroids.shape[0]
+    dist = _centroid_dist(centroids, cluster_2d, pts)  # (N, K)
+    dsel, idx = _top_e(dist, E)
+    if margin > 1.0:
+        dsel = torch.clamp(dsel, min=1e-6)
+        mind = dsel[:, :1]  # top-1 IS the global min distance
+        invd = (1.0 / dsel) * (dsel <= margin * mind)
+        tot = invd[:, 0]
+        for e in range(1, E):
+            tot = tot + invd[:, e]
+        w = invd / torch.clamp(tot, min=1e-6)[:, None]
+    else:
+        w = torch.zeros((N, E), dtype=torch.float32, device=pts.device)
+        w[:, 0] = 1.0
+    k_flat = idx.reshape(-1)
+    w_flat = w.reshape(-1)
+    live = (w_flat > 0).to(torch.int32)
+    onehot = torch.nn.functional.one_hot(k_flat, K).to(torch.int32)
+    onehot = onehot * live[:, None]
+    rank = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    slot = (rank * onehot).sum(dim=1, dtype=torch.int32)
+    keep = (slot < C) & (live > 0)
+    trash = K * C
+    dest = torch.where(keep, k_flat * C + slot,
+                       torch.full_like(k_flat, trash)).to(torch.int32)
+    n_flat = torch.arange(N, dtype=torch.int32,
+                          device=pts.device).repeat_interleave(E)
+    buf = torch.zeros(trash + 1, dtype=torch.int32, device=pts.device)
+    buf[dest[keep].long()] = n_flat[keep]
+    bucket_rows = buf[:trash].reshape(K, C)
+    src = pts if dirs is None else torch.cat([pts, dirs], dim=1)
+    return {"idx": idx.to(torch.int32), "w": w.to(torch.float32),
+            "dest": dest, "counts": onehot.sum(dim=0, dtype=torch.int32),
+            "bucket_rows": bucket_rows, "rows": src[bucket_rows.long()]}
+
+
+def bucket_dispatch_kernel(pts: torch.Tensor, dirs: Optional[torch.Tensor],
+                           centroids: torch.Tensor, cluster_2d: bool,
+                           margin: float, E: int, C: int):
+    """Kernel 10a-i's wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `bucket_dispatch` (its passes in sequence on the
+    current stream) or raises."""
+    if pts.device.type == "cpu":
+        return bucket_dispatch_plain(pts, dirs, centroids, cluster_2d,
+                                     margin, E, C)
+    if pts.device.type != "cuda":
+        raise ValueError(f"bucket_dispatch: unsupported device {pts.device}")
+    dev = pts.device
+    N, K = pts.shape[0], centroids.shape[0]
+    if K > MAX_EXPERTS or not 1 <= E <= K:
+        raise ValueError(f"bucket_dispatch: the kernel takes 1 <= E <= K <= "
+                         f"{MAX_EXPERTS}, got E={E} K={K}")
+    kernels.check_cuda_tensors("bucket_dispatch", dev, pts=pts, dirs=dirs,
+                               centroids=centroids)
+    width = 3 if dirs is None else 6
+    threads = BUCKET_THREADS
+    n_blocks = max(1, -(-N // threads))
+    idx = torch.empty((N, E), dtype=torch.int32, device=dev)
+    w = torch.empty((N, E), dtype=torch.float32, device=dev)
+    dest = torch.empty((N * E,), dtype=torch.int32, device=dev)
+    counts = torch.empty((K,), dtype=torch.int32, device=dev)
+    bucket_rows = torch.empty((K, C), dtype=torch.int32, device=dev)
+    rows = torch.empty((K, C, width), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_blocks * K,), dtype=torch.int32, device=dev)
+    kernels.BUCKET_DISPATCH(
+        pts.data_ptr(), 0 if dirs is None else dirs.data_ptr(),
+        centroids.data_ptr(), idx.data_ptr(), w.data_ptr(), dest.data_ptr(),
+        counts.data_ptr(), bucket_rows.data_ptr(), rows.data_ptr(),
+        scratch.data_ptr(), N, K, E, C, int(cluster_2d), float(margin),
+        kernels.stream_ptr(pts))
+    return {"idx": idx, "w": w, "dest": dest, "counts": counts,
+            "bucket_rows": bucket_rows, "rows": rows}
+
+
+def bucket_combine_plain(w: torch.Tensor, dest: torch.Tensor,
+                         sigma_b: torch.Tensor,
+                         rgb_b: Optional[torch.Tensor]):
+    """Plain PyTorch version of kernel 10a-ii: sigma (N,) = sum over e, in
+    e order, of wk[n, e] * sigma_b[dest[n, e]], where wk is w on kept pairs
+    and 0 on the trash slot (which reads 0); the same for rgb (N, 3)."""
+    N, E = w.shape
+    trash = sigma_b.shape[0]
+    d = dest.reshape(N, E).long()
+    keep = d < trash
+    wk = torch.where(keep, w, torch.zeros_like(w))
+    s_flat = torch.cat([sigma_b, sigma_b.new_zeros(1)])
+    sigma = wk[:, 0] * s_flat[d[:, 0]]
+    for e in range(1, E):
+        sigma = sigma + wk[:, e] * s_flat[d[:, e]]
+    if rgb_b is None:
+        return sigma, None
+    r_flat = torch.cat([rgb_b, rgb_b.new_zeros(1, 3)])
+    rgb = wk[:, 0, None] * r_flat[d[:, 0]]
+    for e in range(1, E):
+        rgb = rgb + wk[:, e, None] * r_flat[d[:, e]]
+    return sigma, rgb
+
+
+def bucket_combine_bwd_plain(w: torch.Tensor, dest: torch.Tensor,
+                             g_sigma: torch.Tensor,
+                             g_rgb: Optional[torch.Tensor], n_slots: int):
+    """Plain PyTorch version of kernel 10a-iii, the transpose of the blend:
+    g_sigma_b[dest[n, e]] = wk[n, e] * g_sigma[n] (each kept slot is the
+    destination of exactly one pair), zero elsewhere; the same for rgb."""
+    N, E = w.shape
+    d = dest.long()
+    keep = d < n_slots
+    wk = torch.where(keep, w.reshape(-1), torch.zeros_like(w.reshape(-1)))
+    n_flat = torch.arange(N, device=w.device).repeat_interleave(E)
+    g_s = g_sigma.new_zeros(n_slots + 1)
+    g_s.index_add_(0, d, wk * g_sigma[n_flat])
+    g_r = None
+    if g_rgb is not None:
+        g_r = g_rgb.new_zeros((n_slots + 1, 3))
+        g_r.index_add_(0, d, wk[:, None] * g_rgb[n_flat])
+        g_r = g_r[:n_slots]
+    return g_s[:n_slots], g_r
+
+
+def bucket_combine_kernel(w, dest, sigma_b, rgb_b):
+    """Kernel 10a-ii's wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `bucket_combine_fwd` or raises."""
+    if w.device.type == "cpu":
+        return bucket_combine_plain(w, dest, sigma_b, rgb_b)
+    if w.device.type != "cuda":
+        raise ValueError(f"bucket_combine: unsupported device {w.device}")
+    dev = w.device
+    N, E = w.shape
+    kernels.check_no_grad("bucket_combine_fwd", sigma_b, rgb_b)
+    kernels.check_cuda_tensors("bucket_combine_fwd", dev, w=w, dest=dest,
+                               sigma_b=sigma_b, rgb_b=rgb_b)
+    sigma = torch.empty((N,), dtype=torch.float32, device=dev)
+    rgb = (None if rgb_b is None
+           else torch.empty((N, 3), dtype=torch.float32, device=dev))
+    kernels.BUCKET_COMBINE_FWD(
+        w.data_ptr(), dest.data_ptr(), sigma_b.data_ptr(),
+        0 if rgb_b is None else rgb_b.data_ptr(), sigma.data_ptr(),
+        0 if rgb is None else rgb.data_ptr(), N, E, sigma_b.shape[0],
+        kernels.stream_ptr(w))
+    return sigma, rgb
+
+
+def bucket_combine_bwd_kernel(w, dest, g_sigma, g_rgb, n_slots: int):
+    """Kernel 10a-iii's wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `bucket_combine_bwd` or raises."""
+    if w.device.type == "cpu":
+        return bucket_combine_bwd_plain(w, dest, g_sigma, g_rgb, n_slots)
+    if w.device.type != "cuda":
+        raise ValueError(f"bucket_combine_bwd: unsupported device "
+                         f"{w.device}")
+    dev = w.device
+    N, E = w.shape
+    kernels.check_cuda_tensors("bucket_combine_bwd", dev, w=w, dest=dest,
+                               g_sigma=g_sigma, g_rgb=g_rgb)
+    g_s = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+    g_r = (None if g_rgb is None
+           else torch.zeros((n_slots, 3), dtype=torch.float32, device=dev))
+    kernels.BUCKET_COMBINE_BWD(
+        w.data_ptr(), dest.data_ptr(), g_sigma.data_ptr(),
+        0 if g_rgb is None else g_rgb.data_ptr(), g_s.data_ptr(),
+        0 if g_r is None else g_r.data_ptr(), N, E, n_slots,
+        kernels.stream_ptr(w))
+    return g_s, g_r
+
+
+class BucketCombine(torch.autograd.Function):
+    """The blend of the bucket results back to the points (10a-ii), with
+    its transpose (10a-iii) as the backward. Gradients reach the bucket
+    results only: the weights are functions of the sample positions, which
+    nothing differentiated moves."""
+
+    @staticmethod
+    def forward(ctx, w, dest, sigma_b, rgb_b, use_kernels):
+        fn = bucket_combine_kernel if use_kernels else bucket_combine_plain
+        sigma, rgb = fn(w, dest, sigma_b, rgb_b)
+        ctx.save_for_backward(w, dest)
+        ctx.use_kernels = use_kernels
+        ctx.n_slots = sigma_b.shape[0]
+        ctx.has_rgb = rgb_b is not None
+        if rgb is None:
+            return sigma
+        return sigma, rgb
+
+    @staticmethod
+    def backward(ctx, g_sigma, g_rgb=None):
+        w, dest = ctx.saved_tensors
+        fn = (bucket_combine_bwd_kernel if ctx.use_kernels
+              else bucket_combine_bwd_plain)
+        if g_sigma is None:
+            g_sigma = w.new_zeros(w.shape[0])
+        if ctx.has_rgb and g_rgb is None:
+            g_rgb = w.new_zeros((w.shape[0], 3))
+        g_s, g_r = fn(w, dest, g_sigma.contiguous(),
+                      None if g_rgb is None else g_rgb.contiguous(),
+                      ctx.n_slots)
+        return None, None, g_s, g_r, None
+
+
+# Calls of the bucketed container and how many took the dense branch
+# because a bucket overflowed (read by chip_smoke and the tests).
+bucket_stats = {"calls": 0, "dense": 0}
+
+
+def _bucketed_eval(params: Params, cfg: ContainerConfig,
+                   statics: ContainerStatics, pts: torch.Tensor,
+                   dirs: Optional[torch.Tensor], use_kernels: bool):
+    """Top-E block-sparse expert dispatch -> (rgb (N, 3) or None,
+    sigma (N,)): dispatch (10a-i), the K experts batched over their (K, C)
+    buckets, blend (10a-ii). When any expert's demand exceeds C and
+    cfg.bucket_overflow_dense, the call takes the exact dense blend
+    instead: the host reads `counts` (one small device-to-host copy per
+    call) where the reference branches with lax.cond."""
+    N, K = pts.shape[0], cfg.num_experts
+    E = min(cfg.experts_per_point, K)
+    C = bucket_capacity(N, K, E, cfg.capacity_factor)
+    dispatch = bucket_dispatch_kernel if use_kernels else bucket_dispatch_plain
+    pts_c = pts.contiguous()
+    dirs_c = None if dirs is None else dirs.contiguous()
+    dsp = dispatch(pts_c, dirs_c, statics.centroids.contiguous(),
+                   cfg.cluster_2d, float(cfg.boundary_margin), E, C)
+    bucket_stats["calls"] += 1
+    if cfg.bucket_overflow_dense and bool((dsp["counts"] > C).any()):
+        bucket_stats["dense"] += 1
+        return _dense_eval(params, cfg, statics, pts, dirs, use_kernels)
+    rows = dsp["rows"]
+    rgb_b, sigma_b = _eval_all_experts(
+        params, cfg, statics, rows[..., 0:3],
+        None if dirs is None else rows[..., 3:6], use_kernels=use_kernels)
+    sigma_b = sigma_b.reshape(-1).contiguous()
+    if rgb_b is None:
+        return None, BucketCombine.apply(dsp["w"], dsp["dest"], sigma_b,
+                                         None, use_kernels)
+    sigma, rgb = BucketCombine.apply(dsp["w"], dsp["dest"], sigma_b,
+                                     rgb_b.reshape(-1, 3).contiguous(),
+                                     use_kernels)
+    return rgb, sigma
+
+
+# --------------------------- public API --------------------------------------
+def container_density(params: Params, cfg: ContainerConfig,
+                      statics: ContainerStatics, pts: torch.Tensor,
+                      active_expert: Optional[int] = None, *,
+                      use_kernels: bool = True) -> torch.Tensor:
+    """Routed density (N,): one expert's, the bucketed blend, or the dense
+    blend."""
+    if active_expert is not None:
+        return ngp_density(_expert_params(params, active_expert), cfg.expert,
+                           statics.expert_aabbs[active_expert], pts,
+                           use_kernels=use_kernels)
+    if cfg.bucketed:
+        return _bucketed_eval(params, cfg, statics, pts, None,
+                              use_kernels)[1]
+    return _dense_eval(params, cfg, statics, pts, None, use_kernels)[1]
 
 
 def container_apply(params: Params, cfg: ContainerConfig,
@@ -143,13 +556,8 @@ def container_apply(params: Params, cfg: ContainerConfig,
                          statics.expert_aabbs[active_expert], pts, dirs,
                          use_kernels=use_kernels)
     if cfg.bucketed:
-        raise NotImplementedError("bucketed expert dispatch is not ported")
-    rgb_k, sigma_k = _eval_all_experts(params, cfg, statics, pts, dirs,
-                                       use_kernels=use_kernels)
-    w = routing_weights(statics, cfg, pts)  # (N, K)
-    sigma = (w.T * sigma_k).sum(dim=0)
-    rgb = (w.T[..., None] * rgb_k).sum(dim=0)
-    return rgb, sigma
+        return _bucketed_eval(params, cfg, statics, pts, dirs, use_kernels)
+    return _dense_eval(params, cfg, statics, pts, dirs, use_kernels)
 
 
 def container_apply_multidir(params: Params, cfg: ContainerConfig,
@@ -161,9 +569,15 @@ def container_apply_multidir(params: Params, cfg: ContainerConfig,
     (M, N, 3), sigma (N,)). The encoder, sigma trunk, geometry head and
     routing weights run once for all K experts; only the color head sweeps
     the M directions (one direction at a time, as the reference maps
-    them)."""
+    them). Bucketed routing falls back to one container_apply per
+    direction (its buckets depend on the call's points), as the reference
+    does."""
+    n = pts.shape[0]
     if cfg.bucketed:
-        raise NotImplementedError("bucketed expert dispatch is not ported")
+        outs = [container_apply(params, cfg, statics, pts,
+                                d[None, :].expand(n, 3),
+                                use_kernels=use_kernels) for d in dirs_m]
+        return torch.stack([o[0] for o in outs]), outs[0][1]
     sigma_k, geo_k = ngp_density(params["experts"], cfg.expert,
                                  statics.expert_aabbs, pts,
                                  return_feats=True, use_kernels=use_kernels)

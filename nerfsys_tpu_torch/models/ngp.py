@@ -128,10 +128,12 @@ def tree_to(tree, device):
 def world_to_unit(x: torch.Tensor, aabb: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
     """World coords -> the expert's [eps, 1-eps]^3. With stacked boxes
-    (K, 2, 3), points (N, 3) map to (K, N, 3)."""
+    (K, 2, 3), shared points (N, 3) map to (K, N, 3), and per-expert points
+    (K, C, 3) (the buckets of bucketed routing) each through their own
+    expert's box."""
     if aabb.dim() == 3:
         lo, hi = aabb[:, None, 0, :], aabb[:, None, 1, :]
-        x01 = (x[None] - lo) / (hi - lo)
+        x01 = ((x if x.dim() == 3 else x[None]) - lo) / (hi - lo)
     else:
         x01 = (x - aabb[0]) / (aabb[1] - aabb[0])
     return torch.clamp(x01, eps, 1.0 - eps)

@@ -2,24 +2,29 @@
 early ray termination.
 
 Port of nerfsys_tpu/models/occupancy.py (`union_binary_fn` :47,
-`expert_binary_fn` :60, `union_pair_fn` :92, `expert_pair_fn` :110,
-`occ_ready` :188, `_ray_validity` :307, `_occ_query_fns` :315,
+`expert_binary_fn` :60, `union_value_fn` :69, `union_pair_fn` :92,
+`expert_pair_fn` :110, `occ_ready` :188, `build_union_probe_grid` :200,
+`union_probe_fns` :289, `_ray_validity` :307, `_occ_query_fns` :315,
 `probe_rays_occ` :345, `render_rays_occ_dead` :389, `render_rays_occ` :436,
-`_occ_keep_mask` :613, `render_rays_occ_et_partial` :625,
-`render_rays_occ_et_resume` :753). In soft mode (hard_mask=False) the union
-of the experts' occupancy grids steers sample PLACEMENT (probe CDF with a
-whole-ray floor) and never deletes density; in hard mode sigma is also
-zeroed outside the union at the final sample points.
+`occ_sample_positions` :558, `_occ_keep_mask` :613,
+`render_rays_occ_et_partial` :625, `render_rays_occ_et_resume` :753). In
+soft mode (hard_mask=False) the union of the experts' occupancy grids
+steers sample PLACEMENT (probe CDF with a whole-ray floor) and never deletes
+density; in hard mode sigma is also zeroed outside the union at the final
+sample points.
 
-The probe takes the stacked grids, not query functions: the grid slice of
-`active_expert` (or all K for the union) goes to kernel 2. Probe-bit masks
-(`mask_from_probes`), probe-function overrides (union-probe grids) and
-`field_expert` (coherent dispatch) are not ported and raise
-NotImplementedError.
+The probe takes grid stacks, not query functions: the grid slice of
+`active_expert` (or all K for the union) goes to kernel 2, or, with
+`probe_fns` (`union_probe_fns` of a `build_union_probe_grid` result), the
+ONE resampled union grid as a K=1, L=1 stack. The hard sigma mask always
+reads the exact per-expert union. `field_expert` narrows the field
+evaluation to one expert while probing and masking keep the union (the
+coherent dispatch). Probe-bit masks (`mask_from_probes`) are not ported
+and raise NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,9 +36,11 @@ from nerfsys_tpu_torch.models.container import (
 )
 from nerfsys_tpu_torch.ops.activations import clip
 from nerfsys_tpu_torch.ops.occupancy import (
+    level_aabbs,
     occupancy_probe_cdf,
     query_binary,
     query_pair,
+    query_values,
     sample_tvals_from_cdf,
     union_pair,
 )
@@ -74,6 +81,21 @@ def expert_binary_fn(occ_state: Dict, statics: ContainerStatics, k: int):
     return query
 
 
+def union_value_fn(occ_state: Dict, statics: ContainerStatics):
+    """pts (M, 3) -> (M,) max EMA value over the experts."""
+
+    def query(pts):
+        occs = occ_state["occs"]
+        val = query_values(occs[0], statics.expert_aabbs[0], pts)
+        for k in range(1, occs.shape[0]):
+            val = torch.maximum(val, query_values(occs[k],
+                                                  statics.expert_aabbs[k],
+                                                  pts))
+        return val
+
+    return query
+
+
 def union_pair_fn(occ_state: Dict, statics: ContainerStatics):
     """pts (M, 3) -> (occ under ANY expert (M,), max EMA value (M,))."""
 
@@ -104,6 +126,93 @@ def occ_ready(occ_state: Dict, min_updates: int = 1) -> torch.Tensor:
     return (occ_state["num_updates"] >= thresh) & occ_state["binary"].any()
 
 
+# --------------------------- union probe grid -------------------------------
+_GRID_CHUNK = 1 << 20  # lattice points queried at once
+
+
+def _chunked(fn, pts: torch.Tensor) -> torch.Tensor:
+    return torch.cat([fn(pts[i:i + _GRID_CHUNK])
+                      for i in range(0, pts.shape[0], _GRID_CHUNK)])
+
+
+def build_union_probe_grid(occ_state: Dict, statics: ContainerStatics,
+                           res: int = 128, importance: bool = False,
+                           dilate: int = 1) -> Dict:
+    """Resample the K experts' occupancy union into ONE single-level grid
+    for PROBING only -> {"binary": (1, res, res, res) bool, "values":
+    (1, res, res, res) f32 or None, "aabb": (2, 3)}.
+
+    The box encloses every expert's every level, unioned with the global
+    box. A cell is marked when its center or any of its 8 corners is
+    occupied under the exact union, then the marked set is dilated `dilate`
+    times by one cell (3x3x3, zero-padded edges). With importance, the
+    values are the max EMA value over experts at the cell centers. An
+    approximation for placement and the dead-ray gate (the reference's
+    docstring, nerfsys_tpu/models/occupancy.py:207-232); the hard sigma
+    mask stays exact."""
+    L = occ_state["binary"].shape[1]
+    la = level_aabbs(statics.expert_aabbs, L)  # (K, L, 2, 3)
+    lo = torch.minimum(la[:, :, 0].amin(dim=(0, 1)), statics.global_aabb[0])
+    hi = torch.maximum(la[:, :, 1].amax(dim=(0, 1)), statics.global_aabb[1])
+    aabb = torch.stack([lo, hi])
+    bin_fn = union_binary_fn(occ_state, statics)
+    dev = aabb.device
+
+    def grid_pts(n, offset_half):
+        # corner lattice (n+1 per axis) or cell centers (n per axis)
+        if offset_half:
+            xs = (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) / n
+        else:
+            xs = torch.arange(n + 1, dtype=torch.float32, device=dev) / n
+        gx, gy, gz = torch.meshgrid(xs, xs, xs, indexing="ij")
+        rel = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
+        return aabb[0] + rel * (aabb[1] - aabb[0])
+
+    c = _chunked(bin_fn, grid_pts(res, False)).reshape(res + 1, res + 1,
+                                                       res + 1)
+    centers = grid_pts(res, True)
+    cell = (_chunked(bin_fn, centers).reshape(res, res, res)
+            | c[:-1, :-1, :-1] | c[1:, :-1, :-1] | c[:-1, 1:, :-1]
+            | c[:-1, :-1, 1:] | c[1:, 1:, :-1] | c[1:, :-1, 1:]
+            | c[:-1, 1:, 1:] | c[1:, 1:, 1:])
+    for _ in range(max(int(dilate), 0)):
+        p = torch.zeros((res + 2,) * 3, dtype=torch.bool, device=dev)
+        p[1:-1, 1:-1, 1:-1] = cell
+        cell = torch.zeros_like(cell)
+        for dx in (0, 1, 2):
+            for dy in (0, 1, 2):
+                for dz in (0, 1, 2):
+                    cell = cell | p[dx:dx + res, dy:dy + res, dz:dz + res]
+    out = {"binary": cell[None], "values": None, "aabb": aabb}
+    if importance:
+        vals = _chunked(union_value_fn(occ_state, statics), centers)
+        out["values"] = vals.reshape(1, res, res, res)
+    return out
+
+
+class ProbeGrids(NamedTuple):
+    """A grid stack kernel 2 probes in place of the experts' grids: occs
+    and binary (K, L, R, R, R), aabbs (K, 2, 3), and whether the values
+    weight the probe pdf (the reference's val_fn)."""
+
+    occs: torch.Tensor
+    binary: torch.Tensor
+    aabbs: torch.Tensor
+    importance: bool
+
+
+def union_probe_fns(probe_grid: Dict) -> ProbeGrids:
+    """The probe override of a build_union_probe_grid result: its grid as a
+    K=1, L=1 stack (values, or zeros without them, for the pdf)."""
+    binary = probe_grid["binary"][None]
+    values = probe_grid.get("values")
+    occs = (torch.zeros(binary.shape, dtype=torch.float32,
+                        device=binary.device) if values is None
+            else values[None])
+    return ProbeGrids(occs, binary, probe_grid["aabb"][None],
+                      values is not None)
+
+
 def _ray_validity(rays: torch.Tensor):
     """(valid, near_s, far_s): sanitized bounds shared by the probe, render
     and dead programs, so all three see the same ray bounds."""
@@ -129,11 +238,10 @@ def _occ_query_fns(occ_state: Dict, statics: ContainerStatics,
             (occs[k:k + 1], binary[k:k + 1], aabbs[k:k + 1]))
 
 
-def _not_ported(probe_fns=None, mask_from_probes=False, field_expert=None):
-    if probe_fns is not None or mask_from_probes or field_expert is not None:
-        raise NotImplementedError(
-            "probe_fns (union-probe grids), mask_from_probes and "
-            "field_expert (coherent dispatch) are not ported")
+def _not_ported(mask_from_probes=False):
+    if mask_from_probes:
+        raise NotImplementedError("mask_from_probes (interval-bit sigma "
+                                  "masks) is not ported")
 
 
 def _split_rays(rays: torch.Tensor):
@@ -168,13 +276,13 @@ def probe_rays_occ(
     (cdf_state, chunk_alive). cdf_state also holds `alive_valid` (N,) bool,
     the rays that are valid and hit occupied space, computed here so the
     host dispatch shares the device's validity predicate; chunk_alive is a
-    bool scalar tensor, True iff any ray is alive_valid."""
-    _not_ported(probe_fns)
+    bool scalar tensor, True iff any ray is alive_valid. `probe_fns` (a
+    union_probe_fns result) probes the resampled union grid instead."""
     o, d = _split_rays(rays)
     valid, near_s, far_s = _ray_validity(rays)
     state = _probe_cdf(occ_state, statics, active_expert, o, d, near_s, far_s,
                        n_probes, importance, uniform_frac, ray_floor,
-                       use_kernels)
+                       use_kernels, probe_fns)
     state = {**state, "alive_valid": state["alive"] & valid}
     return state, state["alive_valid"].any()
 
@@ -227,8 +335,15 @@ def render_rays_occ_dead(
 
 
 def _probe_cdf(occ_state, statics, active_expert, o, d, near_s, far_s,
-               n_probes, importance, uniform_frac, ray_floor, use_kernels):
-    _, grids = _occ_query_fns(occ_state, statics, active_expert)
+               n_probes, importance, uniform_frac, ray_floor, use_kernels,
+               probe_fns: Optional[ProbeGrids] = None):
+    """Kernel 2 over the experts' grids, or over `probe_fns`'s stack (whose
+    own importance flag then decides, as the reference's val_fn does)."""
+    if probe_fns is not None:
+        grids = (probe_fns.occs, probe_fns.binary, probe_fns.aabbs)
+        importance = probe_fns.importance
+    else:
+        _, grids = _occ_query_fns(occ_state, statics, active_expert)
     return occupancy_probe_cdf(
         *grids, o, d, near_s, far_s, n_probes, importance=importance,
         uniform_frac=uniform_frac, ray_floor=ray_floor,
@@ -257,18 +372,21 @@ def render_rays_occ(
     hard_mask: bool = True,
     ray_floor: Optional[float] = None,
     mask_from_probes: bool = False,
-    field_expert=None,
+    field_expert: Optional[int] = None,
     use_kernels: bool = True,
 ) -> Render:
     """Dense occupancy-guided MoE render -> (rgb (N,3), depth (N,),
     weights (N,S), acc (N,)).
 
-    Probe (kernel 2, skipped when `cdf_state` from probe_rays_occ on the
-    same rays and grid is given) -> inverse-CDF placement (kernel 3) ->
-    routed field (encoder kernel 1 + MLPs) -> hard mode: sigma zeroed
-    outside the union at the sample points and on dead rays (point-exact,
-    one grid query per sample per expert) -> compositing (kernel 4)."""
-    _not_ported(probe_fns, mask_from_probes, field_expert)
+    Probe (kernel 2, over `probe_fns`'s union grid when given; skipped when
+    `cdf_state` from probe_rays_occ on the same rays and grid is given) ->
+    inverse-CDF placement (kernel 3) -> routed field (the encoder kernel +
+    MLPs; through expert `field_expert` alone when given, while probing and
+    masking keep `active_expert`'s semantics) -> hard mode: sigma zeroed
+    outside the exact union at the sample points and on dead rays
+    (point-exact, one grid query per sample per expert) -> compositing
+    (kernel 4)."""
+    _not_ported(mask_from_probes)
     o, d = _split_rays(rays)
     n_rays = o.shape[0]
     valid, near_s, far_s = _ray_validity(rays)
@@ -279,15 +397,18 @@ def render_rays_occ(
     if cdf_state is None:
         cdf_state = _probe_cdf(occ_state, statics, active_expert, o, d,
                                near_s, far_s, n_probes, importance,
-                               uniform_frac, ray_floor, use_kernels)
+                               uniform_frac, ray_floor, use_kernels,
+                               probe_fns)
     t_vals, alive = sample_tvals_from_cdf(
         cdf_state, near_s, far_s, n_samples, generator=generator,
         randomized=randomized, use_kernels=use_kernels)
 
     pts = t_to_points(o, d, t_vals).reshape(-1, 3)
     dirs = d[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
-    rgb, sigma = container_apply(params, cfg, statics, pts, dirs,
-                                 active_expert, use_kernels=use_kernels)
+    rgb, sigma = container_apply(
+        params, cfg, statics, pts, dirs,
+        active_expert if field_expert is None else field_expert,
+        use_kernels=use_kernels)
     rgb = rgb.reshape(n_rays, n_samples, 3)
     sigma = sigma.reshape(n_rays, n_samples)
     keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
@@ -300,6 +421,37 @@ def render_rays_occ(
     return volume_render(rgb_sigma, t_vals,
                          bg_rgb=None if bg is None else bg.contiguous(),
                          sigma_scale=sigma_scale, use_kernels=use_kernels)
+
+
+def occ_sample_positions(
+    occ_state: Dict,
+    statics: ContainerStatics,
+    rays: torch.Tensor,  # (N, 8)
+    n_samples: int,
+    *,
+    active_expert: Optional[int] = None,
+    importance: bool = False,
+    hard_mask: bool = True,
+    n_probes: int = 128,
+    uniform_frac: float = 0.25,
+    probe_fns: Optional[ProbeGrids] = None,  # MUST match the render's
+    use_kernels: bool = True,
+):
+    """Deterministic occupancy sample positions -> (pts (N, S, 3), t_vals
+    (N, S), alive (N,)), without evaluating the field: exactly
+    render_rays_occ's randomized=False placement (the same probe through
+    probe_rays_occ, the same ray_floor policy, the same sampler). The
+    coherent dispatch tests the routing at these positions."""
+    o, d = _split_rays(rays)
+    _, near_s, far_s = _ray_validity(rays)
+    cdf_state, _ = probe_rays_occ(
+        statics, occ_state, rays, n_probes=n_probes,
+        active_expert=active_expert, importance=importance,
+        uniform_frac=uniform_frac, probe_fns=probe_fns,
+        ray_floor=0.0 if hard_mask else 0.25, use_kernels=use_kernels)
+    t_vals, alive = sample_tvals_from_cdf(cdf_state, near_s, far_s,
+                                          n_samples, use_kernels=use_kernels)
+    return t_to_points(o, d, t_vals), t_vals, alive
 
 
 # --------------------------- early ray termination ----------------------------
@@ -375,7 +527,7 @@ def render_rays_occ_et_partial(
     if bg_policy in ("last_sample", "random"):
         raise ValueError(f"early-stop rendering does not support "
                          f"bg_policy={bg_policy!r}")
-    _not_ported(probe_fns, mask_from_probes)
+    _not_ported(mask_from_probes)
     o, d = _split_rays(rays)
     n_rays = o.shape[0]
     valid, near_s, far_s = _ray_validity(rays)
@@ -384,7 +536,8 @@ def render_rays_occ_et_partial(
     if cdf_state is None:
         cdf_state = _probe_cdf(occ_state, statics, active_expert, o, d,
                                near_s, far_s, n_probes, importance,
-                               uniform_frac, ray_floor, use_kernels)
+                               uniform_frac, ray_floor, use_kernels,
+                               probe_fns)
     t_vals, alive = sample_tvals_from_cdf(cdf_state, near_s, far_s,
                                           n_samples, use_kernels=use_kernels)
     dists = full_dists(t_vals)

@@ -2,7 +2,7 @@
 
 Port of nerfsys_tpu/ops/occupancy.py (`OccGridConfig` :42, `init_occ_state`
 :69, `level_aabbs` :90, `_finest_level_index` :121, `query_binary` :159,
-`query_pair` :196,
+`query_values` :179, `query_pair` :196,
 `occupancy_probe_cdf` :394, `sample_tvals_from_cdf` :468,
 `render_rays_occ_field` :556 in soft mode). Grid updates are not ported
 yet.
@@ -110,6 +110,18 @@ def query_binary(binary: torch.Tensor, aabb: torch.Tensor,
     L, R = binary.shape[0], binary.shape[1]
     decided, flat_idx = _finest_level_index(aabb, L, R, pts)
     return binary.reshape(-1)[flat_idx] & decided
+
+
+def query_values(occs: torch.Tensor, aabb: torch.Tensor,
+                 pts: torch.Tensor) -> torch.Tensor:
+    """One expert's EMA occupancy value (...,) at world points from the
+    finest containing level, clamped at 0 (invisible -1 tags read 0); 0
+    outside every level."""
+    L, R = occs.shape[0], occs.shape[1]
+    decided, flat_idx = _finest_level_index(aabb, L, R, pts)
+    val = torch.where(decided, occs.reshape(-1)[flat_idx],
+                      torch.zeros((), dtype=occs.dtype, device=occs.device))
+    return torch.clamp(val, min=0.0)
 
 
 def query_pair(occs: torch.Tensor, binary: torch.Tensor, aabb: torch.Tensor,

@@ -1,21 +1,31 @@
 """Online stage: chunked full-frame rendering (the serving path).
 
 Port of nerfsys_tpu/pipelines/online/runtime_adapt.py
-(`TwoWaveOccRenderer` :275 with `map_outputs` :319, `EarlyStopOccRenderer`
-:342, `_pad_ids` :389, `_early_stop_dispatch` :395, `_fog_stats` :522,
-`make_chunk_renderer` :532, `default_chunk_rays` :909, `render_image` :919,
-`frame_chunk_rays_biased` :948, `shape_frame_outputs` :971, `_pad_chunk`,
+(`_union_probe_wrap` :232, `TwoWaveOccRenderer` :275 with `map_outputs`
+:319, `EarlyStopOccRenderer` :342, `_pad_ids` :389, `_early_stop_dispatch`
+:395, `_fog_stats` :522, `make_chunk_renderer` :532, `default_chunk_rays`
+:909, `render_image` :919, `frame_chunk_rays_biased` :948,
+`shape_frame_outputs` :971, `CoherentExpertRenderer` :1145,
+`make_coherent_renderer` :1165, `coherent_dispatch` :1339, `_pad_chunk`,
 `_pack5`, `_pack7` :1411-1425, `two_wave_dispatch` :1428,
 `render_rays_chunked` :1598). The renderer kinds of the occupancy path:
 the one-shot program (soft mode, or a hard mask whose background reads
 field colors), the hard-mask two-wave renderer (probe, then skip or pack
 chunks whose rays are all dead), and the early-stop renderer in soft and
-hard mode; without an occupancy grid, the stratified renderer. The baked
-renderers are in models/baked.py.
+hard mode; without an occupancy grid, the stratified renderer. With
+`occ_probe_grid_res` the probes read ONE resampled union grid
+(`build_union_probe_grid`, built once per statics). The coherent-expert
+renderer renders rays whose every sample routes to one expert through that
+expert alone. The baked renderers are in models/baked.py.
+
+The runner's fast live modes map here: `--render_fast` is
+`ContainerConfig(bucketed=True, experts_per_point=1)` with
+`make_chunk_renderer(..., occ_probe_grid_res=128)`; `--render_coherent` is
+`make_coherent_renderer` (with `occ_probe_grid_res` when the union grid is
+on) through `render_rays_chunked`.
 
 Every renderer program runs without autograd on its `device`. Test-time
-adaptation, union-probe grids, probe masks, the coherent dispatcher and
-mesh sharding are not ported yet.
+adaptation, probe masks and mesh sharding are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,17 +40,26 @@ from nerfsys_tpu_torch.models.container import (
     ContainerStatics,
     container_bg_fn,
     container_field_fn,
+    routing_coherent_expert,
 )
 from nerfsys_tpu_torch.models.occupancy import (
+    _ray_validity,
+    build_union_probe_grid,
     dead_grid,
+    occ_sample_positions,
     probe_rays_occ,
     render_rays_occ,
     render_rays_occ_dead,
     render_rays_occ_et_partial,
     render_rays_occ_et_resume,
+    union_probe_fns,
 )
 from nerfsys_tpu_torch.ops.rays import clamp_rays_near_far, frame_chunk_rays
-from nerfsys_tpu_torch.ops.volrend import render_rays_stratified
+from nerfsys_tpu_torch.ops.volrend import (
+    render_rays_stratified,
+    stratified_t_vals,
+    t_to_points,
+)
 from nerfsys_tpu_torch.utils.device import resolve_device
 
 
@@ -155,19 +174,55 @@ def _fog_stats(weights: torch.Tensor):
 
 
 def _pack_cost_ratio(cfg: ContainerConfig, ray_samples: int,
-                     active_expert: Optional[int], hard_mask: bool) -> float:
+                     active_expert: Optional[int], hard_mask: bool,
+                     union_probe: bool = False) -> float:
     """The reference's probe-to-field cost ratio that decides between chunk
     skipping and ray packing (runtime_adapt.py:614-632 over
     `analytic_render_gather_rows_per_ray`, utils/flops.py:157, at its
     defaults: 3 plane levels of packed corners, gathered lines, 128
-    probes). It counts gather rows per ray; the port keeps it so that its
-    dispatcher picks the reference's mode, not as a model of the H100."""
+    probes; the union grid probes one row per probe point). It counts
+    gather rows per ray; the port keeps it so that its dispatcher picks
+    the reference's mode, not as a model of the H100."""
     g = 1 if active_expert is not None else cfg.num_experts
-    probe_rows = 128.0 * g
+    probe_rows = 128.0 * (1 if union_probe else g)
     rows = float(ray_samples * 3 * (3 + 3) * g) + probe_rows
     if hard_mask:
         rows += ray_samples * g
     return probe_rows / max(rows - probe_rows, 1.0)
+
+
+def _union_grid_for(occ: Dict, occ_importance: bool, res: int):
+    """statics -> the union probe grid of `occ` at `res`, built once per
+    statics object (the reference's id(statics) cache; the entry keeps the
+    statics alive, so its id cannot be reused while cached)."""
+    cache: Dict = {}
+
+    def grid_for(statics):
+        key = id(statics)
+        if key not in cache:
+            cache.clear()
+            with torch.no_grad():
+                cache[key] = (statics, build_union_probe_grid(
+                    occ, statics, res=res, importance=occ_importance))
+        return cache[key][1]
+
+    return grid_for
+
+
+def _union_probe_wrap(occ: Dict, occ_importance: bool, res: int,
+                      use_kernels: bool, device):
+    """The wave-1 probe over ONE resampled union grid. Only the probe
+    switches grids: alive chunks sample from its CDF, while the one-shot
+    `full` program (packing mode, direct calls) keeps exact per-expert
+    probing."""
+    grid_for = _union_grid_for(occ, occ_importance, res)
+
+    def probe(statics, rays):
+        return probe_rays_occ(statics, occ, rays, importance=occ_importance,
+                              probe_fns=union_probe_fns(grid_for(statics)),
+                              use_kernels=use_kernels)
+
+    return ChunkRenderer(probe, device)
 
 
 def make_chunk_renderer(
@@ -206,6 +261,12 @@ def make_chunk_renderer(
       (then the renderer above, with the reference's message);
     - without occ_state: the stratified renderer.
 
+    occ_probe_grid_res > 0 (full-MoE renderers only: active_expert None)
+    probes ONE resampled union grid instead of every expert's every level:
+    the two-wave and hard early-stop renderers' wave-1 probe, or the soft
+    one-shot program's probe. The hard sigma mask and the `full` program of
+    the two-wave renderer keep the exact per-expert union.
+
     fog_stats=True appends (wmax, entropy) of the compositing weights to
     every program's outputs (the dead program's are zeros). `occ_state` is
     moved to `device`; use_kernels=False renders through the plain versions
@@ -213,9 +274,8 @@ def make_chunk_renderer(
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError("mesh-sharded rendering is not ported")
-    if occ_probe_grid_res or occ_probe_mask:
-        raise NotImplementedError(
-            "union-probe grids and probe-bit masks are not ported")
+    if occ_probe_mask:
+        raise NotImplementedError("probe-bit masks are not ported")
 
     def _with_stats(rgb, depth, weights, acc):
         if fog_stats:
@@ -243,6 +303,11 @@ def make_chunk_renderer(
     occ = {k: v.to(dev) for k, v in occ_state.items()}
     common = dict(active_expert=active_expert, sigma_scale=sigma_scale,
                   use_kernels=use_kernels)
+    union_probe = bool(occ_probe_grid_res) and active_expert is None
+    if bool(occ_probe_grid_res) and not union_probe:
+        print("[render] --occ_union_probe_res ignored: union-grid probing "
+              "applies to the unsharded full-MoE path only "
+              "(active_expert=None, no mesh)")
 
     def render_fn(params, statics, rays, cdf_state=None):
         rgb, depth, w, acc = render_rays_occ(
@@ -259,7 +324,7 @@ def make_chunk_renderer(
     # composites the field on dead rays too)
     skippable_bg = occ_hard_mask and bg_policy in ("white", "black", "none")
     pack_ratio = _pack_cost_ratio(cfg, ray_samples, active_expert,
-                                  occ_hard_mask)
+                                  occ_hard_mask, union_probe)
     probe = dead = None
     if skippable_bg:
         no_occ = dead_grid(occ)  # once per renderer, not per chunk
@@ -277,7 +342,9 @@ def make_chunk_renderer(
                 sigma_scale=sigma_scale, use_kernels=use_kernels)
             return _with_stats(rgb, depth, w, acc)
 
-        probe = ChunkRenderer(probe_fn, dev)
+        probe = (_union_probe_wrap(occ, occ_importance,
+                                   int(occ_probe_grid_res), use_kernels, dev)
+                 if union_probe else ChunkRenderer(probe_fn, dev))
         dead = ChunkRenderer(dead_fn, dev)
 
     et_on = (float(early_stop_eps) > 0.0 and not cfg.bucketed
@@ -322,6 +389,21 @@ def make_chunk_renderer(
             full=full, probe=probe, render_from_cdf=full, render_dead=dead,
             device=dev, packable=not cfg.bucketed,
             pack_cost_ratio=pack_ratio)
+    if union_probe:
+        # the one-shot program with the union grid steering placement
+        grid_for = _union_grid_for(occ, occ_importance,
+                                   int(occ_probe_grid_res))
+
+        def render_union_fn(params, statics, rays):
+            rgb, depth, w, acc = render_rays_occ(
+                params, cfg, statics, occ, rays, ray_samples,
+                randomized=False, bg_policy=bg_policy,
+                importance=occ_importance, hard_mask=occ_hard_mask,
+                use_bg_fn=use_bg_fn,
+                probe_fns=union_probe_fns(grid_for(statics)), **common)
+            return _with_stats(rgb, depth, w, acc)
+
+        return ChunkRenderer(render_union_fn, dev)
     return full
 
 
@@ -330,6 +412,184 @@ def default_chunk_rays(ray_samples: int, budget_pts: int = 3_145_728) -> int:
     rays x samples <= budget_pts, within [4096, 65536]."""
     c = budget_pts // max(int(ray_samples), 1)
     return int(max(4096, min(65536, (c // 1024) * 1024)))
+
+
+class CoherentExpertRenderer:
+    """The coherent dispatch's programs: `full(params, statics, rays)`
+    renders a routed chunk, `single(params, statics, rays, k)` a chunk
+    through expert k alone, and `probe(statics, rays)` gives each ray's
+    coherent expert id or -1 (kernel 10b)."""
+
+    def __init__(self, full, single, probe, num_experts, device,
+                 fog_stats=False):
+        self.full = full
+        self.single = single
+        self.probe = probe
+        self.num_experts = int(num_experts)
+        self.device = device
+        self.fog_stats = bool(fog_stats)
+
+    def __call__(self, params, statics, rays):
+        return self.full(params, statics, rays)
+
+
+def make_coherent_renderer(
+    cfg: ContainerConfig,
+    *,
+    ray_samples: int,
+    bg_policy: str = "white",
+    use_bg_fn: bool = True,
+    fog_stats: bool = False,
+    occ_state: Optional[Dict] = None,  # occupancy-guided coherent mode
+    occ_importance: bool = False,
+    occ_hard_mask: bool = True,
+    occ_probe_mask: bool = False,
+    sigma_scale: float = 1.0,
+    occ_probe_grid_res: int = 0,  # every program probes ONE union grid
+    device="cuda",
+    use_kernels: bool = True,
+) -> CoherentExpertRenderer:
+    """Coherent-expert live renderer (`--render_coherent`): rays whose every
+    sample routes to one expert alone render through that expert (1/K the
+    field evaluations); the others through the full routed program. Exact
+    by construction: for such rays the routed blend IS the single expert's
+    field.
+
+    Without occ_state the programs sample stratified. With it every program
+    probes the union grids (or, with occ_probe_grid_res, the one resampled
+    union grid shared by all three programs) for placement, so all see the
+    same CDF, sample positions and hard mask, and only the field narrows to
+    one expert (`field_expert`); the probe tests the routing at those
+    positions. In hard mode a dead ray's sigma is masked to zero in every
+    program, so the probe sends dead rays to expert 0.
+
+    The single-expert program evaluates one expert's MLPs where the full
+    program evaluates the K-batched ones; the matmuls may round differently
+    on the card (a few float32 ulps through the MLPs)."""
+    dev = resolve_device(device)
+    if occ_probe_mask:
+        raise NotImplementedError("probe-bit masks are not ported")
+
+    def _stats(rgb, depth, weights, acc):
+        if fog_stats:
+            return (rgb, depth, acc) + _fog_stats(weights)
+        return rgb, depth, acc
+
+    if occ_state is not None:
+        occ = {k: v.to(dev) for k, v in occ_state.items()}
+        grid_for = (_union_grid_for(occ, occ_importance,
+                                    int(occ_probe_grid_res))
+                    if int(occ_probe_grid_res) > 0 else None)
+
+        def pfns(statics):
+            return None if grid_for is None else union_probe_fns(
+                grid_for(statics))
+
+        def render_k(params, statics, rays, k):
+            return _stats(*render_rays_occ(
+                params, cfg, statics, occ, rays, ray_samples,
+                randomized=False, bg_policy=bg_policy,
+                importance=occ_importance, hard_mask=occ_hard_mask,
+                use_bg_fn=use_bg_fn, sigma_scale=sigma_scale, field_expert=k,
+                probe_fns=pfns(statics), use_kernels=use_kernels))
+
+        def probe_fn(statics, rays):
+            pts, _, alive = occ_sample_positions(
+                occ, statics, rays, ray_samples, importance=occ_importance,
+                hard_mask=occ_hard_mask, probe_fns=pfns(statics),
+                use_kernels=use_kernels)
+            kid = routing_coherent_expert(statics, cfg, pts,
+                                          use_kernels=use_kernels)
+            if occ_hard_mask:
+                # dead rays are hard-masked to zero sigma in every program,
+                # so any expert renders them identically: pack them with
+                # expert 0 (soft mode composites the field on dead rays, so
+                # there the routing test keeps deciding)
+                kid = torch.where(alive, kid, torch.zeros_like(kid))
+            return kid
+
+        return CoherentExpertRenderer(
+            full=ChunkRenderer(lambda p, s, r: render_k(p, s, r, None), dev),
+            single=ChunkRenderer(render_k, dev),
+            probe=ChunkRenderer(probe_fn, dev),
+            num_experts=cfg.num_experts, device=dev, fog_stats=fog_stats)
+
+    def render_strat(params, statics, rays, k):
+        field = container_field_fn(params, cfg, statics, k,
+                                   use_kernels=use_kernels)
+        return _stats(*render_rays_stratified(
+            field, rays, ray_samples, randomized=False, bg_policy=bg_policy,
+            bg_fn=container_bg_fn(params, cfg) if use_bg_fn else None,
+            sigma_scale=sigma_scale, use_kernels=use_kernels))
+
+    def probe_strat(statics, rays):
+        _, near_s, far_s = _ray_validity(rays)
+        # exactly the render's sample positions (render_rays_stratified);
+        # invalid rays composite the background under every program
+        t_vals = stratified_t_vals(near_s, far_s, ray_samples, False)
+        pts = t_to_points(rays[:, 0:3], rays[:, 3:6], t_vals)
+        return routing_coherent_expert(statics, cfg, pts,
+                                       use_kernels=use_kernels)
+
+    return CoherentExpertRenderer(
+        full=ChunkRenderer(lambda p, s, r: render_strat(p, s, r, None), dev),
+        single=ChunkRenderer(render_strat, dev),
+        probe=ChunkRenderer(probe_strat, dev),
+        num_experts=cfg.num_experts, device=dev, fog_stats=fog_stats)
+
+
+def coherent_dispatch(renderer: CoherentExpertRenderer, params,
+                      statics: ContainerStatics,
+                      rays: np.ndarray,  # (n, 8) float32, host
+                      chunk_rays: int, stats: Optional[dict] = None):
+    """Two-wave coherent-expert dispatch -> [(ids, device output), ...].
+
+    Wave 1 probes every chunk's per-ray coherent expert (all chunks
+    dispatched before the first fetch); wave 2 packs each expert's rays
+    into dense chunks through the single-expert program and sends the
+    boundary rays (-1) through the full program. A tail packs into the
+    smallest fitting shape of a halving ladder (chunk_rays, chunk/2, ...
+    down to 1024, at most 6 shapes). stats: mode, n_coherent, n_boundary,
+    chunks_total and rays_padded (rows rendered beyond the n rays)."""
+    n = rays.shape[0]
+    if stats is None:
+        stats = {}
+    dev = renderer.device
+    sizes = [chunk_rays]  # descending halving ladder of bucket shapes
+    while sizes[-1] > 1024 and len(sizes) < 6:
+        sizes.append(sizes[-1] // 2)
+
+    def fit(m):
+        return next((z for z in reversed(sizes) if z >= m), chunk_rays)
+
+    spans = _spans(n, chunk_rays)
+    probed = [(s, m, renderer.probe(statics, _chunk(rays[s:s + m],
+                                                    chunk_rays, dev)))
+              for s, m in spans]
+    kid = np.empty(n, np.int32)
+    for s, m, out in probed:
+        kid[s:s + m] = _fetch(out)[:m]
+    del probed
+
+    pending = []
+
+    def emit(ids_all, run):
+        for s in range(0, len(ids_all), chunk_rays):
+            ids = ids_all[s:s + chunk_rays]
+            pending.append((ids, run(_chunk(rays[ids], fit(len(ids)), dev))))
+
+    coherent = 0
+    for k in range(renderer.num_experts):
+        ids_k = np.flatnonzero(kid == k)
+        coherent += len(ids_k)
+        emit(ids_k, lambda c, k=k: renderer.single(params, statics, c, k))
+    emit(np.flatnonzero(kid < 0),
+         lambda c: renderer.full(params, statics, c))
+    rays_padded = sum(fit(len(ids)) for ids, _ in pending) - n
+    stats.update(mode="coherent", n_coherent=int(coherent),
+                 n_boundary=int(n - coherent), chunks_total=len(pending),
+                 rays_padded=int(max(rays_padded, 0)))
+    return pending
 
 
 def _pad_chunk(chunk: np.ndarray, chunk_rays: int) -> np.ndarray:
@@ -627,6 +887,29 @@ def render_rays_chunked(
     mode and counts."""
     pack, ncols, attr = ((_pack7, 7, "_pack7_cache") if fog_stats
                          else (_pack5, 5, "_pack5_cache"))
+    if isinstance(chunk_renderer, CoherentExpertRenderer):
+        # coherent_dispatch with the outputs packed on the device
+        if chunk_renderer.fog_stats != fog_stats:
+            raise ValueError(
+                f"coherent renderer built with fog_stats="
+                f"{chunk_renderer.fog_stats} but the caller expects "
+                f"fog_stats={fog_stats}: build it with the matching flag")
+        packed = getattr(chunk_renderer, attr, None)
+        if packed is None:
+            base, dev = chunk_renderer, chunk_renderer.device
+            packed = CoherentExpertRenderer(
+                full=ChunkRenderer(
+                    lambda p, s, c: pack(*base.full(p, s, c)), dev),
+                single=ChunkRenderer(
+                    lambda p, s, c, k: pack(*base.single(p, s, c, k)), dev),
+                probe=base.probe, num_experts=base.num_experts, device=dev,
+                fog_stats=base.fog_stats)
+            setattr(chunk_renderer, attr, packed)
+        out = np.zeros((rays.shape[0], ncols), np.float32)
+        for ids, dev_out in coherent_dispatch(packed, params, statics, rays,
+                                              chunk_rays, stats=stats):
+            out[ids] = _fetch(dev_out)[:len(ids)]
+        return out
     if getattr(chunk_renderer, "et_resume", None) is not None:
         if chunk_renderer.ncols != ncols:
             raise ValueError(

@@ -85,16 +85,65 @@ def _fields(obj: Any, cls) -> Dict:
             if hasattr(obj, f.name)}
 
 
+# Reference config keys dropped on purpose: TPU execution strategies that the
+# reference documents as computing the same function (nerfsys_tpu/models/
+# container.py:79-88 expert_map: lax.map vs vmap over the expert axis;
+# nerfsys_tpu/ops/planes.py:56-115: the matmul backward and its chunking,
+# zero-padded gather rows, the scatter backward, packed corner rows, float32
+# line matmuls and their chunking). Every other key the port lacks must hold
+# the reference's default, or the import raises: it would change the math.
+DROPPED_KEYS = {
+    "ContainerConfig": ("expert_map",),
+    "NGPConfig": (),
+    "PlaneEncodingConfig": ("matmul_bwd", "bwd_chunk", "pad_plane_rows",
+                            "pad_line_rows", "bwd_scatter_min_res",
+                            "packed_corners", "lines_matmul",
+                            "lines_mm_chunk"),
+    "HashGridConfig": (),
+}
+
+
+def _ported_fields(obj: Any, cls, path: str) -> Dict:
+    """_fields, raising ValueError for a key of the reference config `obj`
+    that the port's `cls` lacks, that is not in DROPPED_KEYS, and whose
+    value differs from the reference class's own default."""
+    have = {f.name for f in dataclasses.fields(cls)}
+    dropped = DROPPED_KEYS[cls.__name__]
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            if f.name in have or f.name in dropped:
+                continue
+            if f.default is not dataclasses.MISSING:
+                default = f.default
+            elif f.default_factory is not dataclasses.MISSING:
+                default = f.default_factory()
+            else:
+                default = dataclasses.MISSING
+            value = getattr(obj, f.name)
+            if value != default:
+                raise ValueError(
+                    f"{path}.{f.name}={value!r}: the port has no counterpart "
+                    f"(the reference's default is {default!r}); importing "
+                    f"it would change what the model computes")
+    return _fields(obj, cls)
+
+
 def container_config_from_jax(cfg: Any) -> ContainerConfig:
-    """The port's ContainerConfig with the architecture keys of a reference
+    """The port's ContainerConfig with the keys of a reference
     ContainerConfig: the position encoder, the plane config with pos_grad,
-    the whole hash config (packed, tcnn_layout and interpolation included);
-    its TPU execution knobs have no counterpart."""
-    ek = _fields(cfg.expert, NGPConfig)
-    ek["planes"] = PlaneEncodingConfig(**_fields(cfg.expert.planes,
-                                                 PlaneEncodingConfig))
-    ek["hash"] = HashGridConfig(**_fields(cfg.expert.hash, HashGridConfig))
-    ck = _fields(cfg, ContainerConfig)
+    the whole hash config (packed, tcnn_layout and interpolation included),
+    bucketed routing with experts_per_point, capacity_factor and
+    bucket_overflow_dense. Raises ValueError, naming the key, for a key
+    the port lacks whose value is not the reference's default (e.g.
+    expert.use_bf16=True, expert.planes.lines_mm_dtype='bfloat16'), except
+    the execution knobs of DROPPED_KEYS (expert_map among them), which
+    are dropped on purpose."""
+    ek = _ported_fields(cfg.expert, NGPConfig, "expert")
+    ek["planes"] = PlaneEncodingConfig(**_ported_fields(
+        cfg.expert.planes, PlaneEncodingConfig, "expert.planes"))
+    ek["hash"] = HashGridConfig(**_ported_fields(
+        cfg.expert.hash, HashGridConfig, "expert.hash"))
+    ck = _ported_fields(cfg, ContainerConfig, "cfg")
     ck["expert"] = NGPConfig(**ek)
     return ContainerConfig(**ck)
 

@@ -196,10 +196,18 @@ def test_container_apply_multidir_matches_jax():
                                rtol=1e-5, atol=1e-6)
     import dataclasses
 
-    with pytest.raises(NotImplementedError):  # bucketed dispatch
-        TCo.container_apply_multidir(
-            tp, dataclasses.replace(tcfg, bucketed=True), tst,
-            torch.from_numpy(pts), torch.from_numpy(dirs))
+    # bucketed dispatch falls back to one container_apply per direction
+    with jax.disable_jit():
+        jb_rgb, jb_sigma = JCo.container_apply_multidir(
+            jp, dataclasses.replace(cfg, bucketed=True), jst,
+            jnp.asarray(pts), jnp.asarray(dirs[:3]))
+    tb_rgb, tb_sigma = TCo.container_apply_multidir(
+        tp, dataclasses.replace(tcfg, bucketed=True), tst,
+        torch.from_numpy(pts), torch.from_numpy(dirs[:3]))
+    np.testing.assert_allclose(tb_rgb.numpy(), np.asarray(jb_rgb), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(tb_sigma.numpy(), np.asarray(jb_sigma),
+                               rtol=1e-5, atol=1e-6)
 
 
 def _bf16_ulp(x: np.ndarray) -> np.ndarray:

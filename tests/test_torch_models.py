@@ -7,8 +7,6 @@ then evaluate the same numpy points. The MLPs are float32 matmuls
 summed in another order by XLA and PyTorch (and XLA may fuse a multiply
 and an add into one rounding inside jit), so the tolerance is 1e-5.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,9 +170,14 @@ def test_unported_options_raise():
         TN.NGPConfig(dir_encoding="frequency")
     with pytest.raises(NotImplementedError):
         TCo.ContainerConfig(num_experts=2, nerf_variant="vanilla")
-    _, _, _, _, tcfg, tst, tparams = _setup()
-    bcfg = dataclasses.replace(tcfg, bucketed=True)
-    x, d = _pts(8)
+    # bucketed routing is ported; second-order MAML still raises
+    from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+    from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
+
+    _, _, _, _, tcfg, _, tparams = _setup()
     with pytest.raises(NotImplementedError):
-        TCo.container_apply(tparams, bcfg, tst, torch.tensor(x),
-                            torch.tensor(d))
+        make_train_step(MetaConfig(algo="maml"), tcfg, build_optimizer(
+            OptimConfig(), TCo.param_group_labels(tparams)))

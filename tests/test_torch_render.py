@@ -132,18 +132,22 @@ def test_stratified_branch_matches_jax():
 
 def test_unported_paths_raise():
     cfg, tcfg, _, (tp, tst, tocc) = _setup()
-    for kw in (dict(occ_probe_grid_res=32), dict(occ_probe_mask=True),
-               dict(mesh=object())):  # union probe, probe masks, meshes
+    # union-probe grids, probe_fns and field_expert are ported; probe-bit
+    # masks and meshes still raise, in every renderer that takes them
+    for kw in (dict(occ_probe_mask=True), dict(mesh=object()),
+               dict(occ_probe_mask=True, occ_hard_mask=False)):
         with pytest.raises(NotImplementedError):
             TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
                                    device="cpu", **kw)
     rays = torch.zeros(4, 8)
-    for kw in (dict(mask_from_probes=True), dict(probe_fns=(None, None)),
-               dict(field_expert=0)):
+    for kw in (dict(mask_from_probes=True),
+               dict(mask_from_probes=True, hard_mask=False),
+               dict(mask_from_probes=True, field_expert=0)):
         with pytest.raises(NotImplementedError):
             TMO.render_rays_occ(tp, tcfg, tst, tocc, rays, 8, **kw)
     with pytest.raises(NotImplementedError):
-        TMO.probe_rays_occ(tst, tocc, rays, probe_fns=(None, None))
+        TR.make_coherent_renderer(tcfg, ray_samples=8, occ_state=tocc,
+                                  occ_probe_mask=True, device="cpu")
 
 
 def test_entry_points_raise_without_cuda():
@@ -181,9 +185,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra\n"
         "assert all(hasattr(mo, f) for f in ('probe_rays_occ',"
         " 'render_rays_occ_dead', 'render_rays_occ_et_partial',"
-        " 'render_rays_occ_et_resume'))\n"
+        " 'render_rays_occ_et_resume', 'build_union_probe_grid',"
+        " 'union_probe_fns', 'occ_sample_positions'))\n"
         "assert all(hasattr(ra, f) for f in ('TwoWaveOccRenderer',"
-        " 'EarlyStopOccRenderer', 'two_wave_dispatch'))\n"
+        " 'EarlyStopOccRenderer', 'two_wave_dispatch',"
+        " 'CoherentExpertRenderer', 'make_coherent_renderer',"
+        " 'coherent_dispatch'))\n"
+        "from nerfsys_tpu_torch.models import container as co\n"
+        "assert all(hasattr(co, f) for f in ('bucket_dispatch_plain',"
+        " 'bucket_combine_plain', 'bucket_combine_bwd_plain',"
+        " 'coherent_expert_plain', 'routing_coherent_expert',"
+        " 'container_density'))\n"
         "from nerfsys_tpu_torch.ops import encodings as enc\n"
         "assert all(hasattr(enc, f) for f in ('HashGridConfig', 'HashEncode',"
         " 'hash_encode_plain', 'hash_encode_packed_plain',"
@@ -205,13 +217,27 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 12
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 16
+    assert len(kernels.SOURCES) == 11
     assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
-    assert kernels.KERNELS[9:] == (kernels.HASH_FWD, kernels.HASH_FWD_PACKED,
-                                   kernels.HASH_BWD)
+    assert kernels.KERNELS[9:12] == (kernels.HASH_FWD,
+                                     kernels.HASH_FWD_PACKED,
+                                     kernels.HASH_BWD)
     assert "--fmad=false" in kernels.SOURCES["hash_grid"][1]
-    for k in kernels.KERNELS[9:]:
+    assert kernels.KERNELS[12:] == (kernels.BUCKET_DISPATCH,
+                                    kernels.BUCKET_COMBINE_FWD,
+                                    kernels.BUCKET_COMBINE_BWD,
+                                    kernels.COHERENT_EXPERT)
+    for k in kernels.KERNELS[12:15]:
+        assert k.source.endswith("csrc/bucket.cu")
+        assert k.replaces.startswith("nerfsys_tpu/models/container.py:")
+    assert kernels.COHERENT_EXPERT.source.endswith("csrc/coherent.cu")
+    assert kernels.COHERENT_EXPERT.replaces.startswith(
+        "nerfsys_tpu/models/container.py:198")
+    for stem in ("bucket", "coherent"):
+        assert "--fmad=false" in kernels.SOURCES[stem][1]
+    for k in kernels.KERNELS[9:12]:
         assert k.source.endswith("csrc/hash_grid.cu")
         assert k.replaces.startswith("nerfsys_tpu/ops/encodings.py:")
     assert kernels.COMPOSITE_SEG.replaces.startswith(
