@@ -16,7 +16,13 @@ printing its result lines):
    probes; K=4 experts at bench width; R=128, L=4 occupancy grids half
    occupied), and each backward kernel at one full inner step of one
    bench-width expert (4,000 rays x 32 samples), and time both with CUDA
-   events.
+   events. Kernels 1 and 5 (the plane encoder and its light backward) are
+   also held to their plain versions on adversarial inputs at those
+   shapes: every point in one cell, coordinates of exactly 0 and 1 and
+   outside [0, 1], a tail tile, no lines, F=2 (the scalar variant), K=4
+   stacked experts, L=5 base 128, and kernel 5's line-gradient variants
+   (the coarsest level private, all levels private, none); each line
+   prints the launch plan.
 4. Serve: a soft-occupancy chunk renderer at bench width renders one
    warm-up frame and then 3 requests of 800x800 frames through
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
@@ -301,8 +307,11 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
            cuda_ms(lambda: PL.plane_encode_kernel(enc_p, x01, pc), 10),
            cuda_ms(lambda: PL.plane_encode_plain(enc_p, x01, pc), 3),
            nbytes(x01, enc_p["planes"], enc_p["lines"], e_ker),
-           n_out * 15 + (n_out // pc.features) * 20)
+           n_out * 15 + (n_out // pc.features) * 20,
+           extra=" plan " + plan_text(PL.plane_fwd_plan(
+               x01.shape[1], pc.level_resolutions(), pc.features)))
     del e_ker, e_pln
+    plane_fwd_edges(pc, enc_p, x01, device)
 
     # kernel 4: the compositor on the chunk's routed field values
     dirs = d[:, None, :].expand(N, S, 3).reshape(-1, 3)
@@ -493,6 +502,157 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
                + n_out)
         del got, want, checks
     del exact
+    plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device)
+
+
+def plan_text(plan) -> str:
+    return (f"tile={plan.tile} threads={plan.threads} blocks={plan.blocks} "
+            f"smem={plan.smem} vec={int(plan.vec)}"
+            + (f" private_line_levels={plan.private_levels}"
+               if plan.line_ofs else ""))
+
+
+def edge_points(kind: str, k: int, n: int, device):
+    """Adversarial unit-cube points (k, n, 3) from numpy seed 5: "one
+    cell" puts every point at one interior point (every lane of every warp
+    on the same rows); "bounds" mixes coordinates of exactly 0, exactly 1,
+    -0.25 and 1.5 (clipped) with uniform ones."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    if kind == "one cell":
+        x = np.empty((k, n, 3), np.float32)
+        x[...] = np.array([0.31731, 0.60213, 0.44897], np.float32)
+    else:
+        x = rng.uniform(size=(k, n, 3)).astype(np.float32)
+        pick = rng.integers(0, 5, size=(k, n, 3))
+        special = np.array([0.0, 1.0, -0.25, 1.5], np.float32)
+        x = np.where(pick < 4, special[np.minimum(pick, 3)], x)
+    return torch.from_numpy(x).to(device)
+
+
+def edge_tables(pc, k: int, device):
+    import torch
+
+    from nerfsys_tpu_torch.ops import planes as PL
+
+    return PL.plane_encoding_init(pc, torch.Generator().manual_seed(6),
+                                  device=device, num_experts=k)
+
+
+def plane_fwd_edges(pc, enc_p, x01, device):
+    """Kernel 1 against its plain version on adversarial inputs at the serve
+    chunk (K=4, 2,097,152 points an expert unless stated): one cell,
+    coordinates on and outside the bounds, a tail tile (N - 37), no lines,
+    F=2 (the scalar variant), and L=5 base 128 (K=1, 120 output floats a
+    point)."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch.ops import planes as PL
+
+    K, N = x01.shape[:2]
+    no_lines = dataclasses.replace(pc, include_lines=False)
+    f2 = dataclasses.replace(pc, features=2)
+    l5 = dataclasses.replace(pc, levels=5)
+    cases = (
+        ("one cell", pc, enc_p, edge_points("one cell", K, N, device)),
+        ("bounds", pc, enc_p, edge_points("bounds", K, N, device)),
+        ("tail N-37", pc, enc_p, x01[:, :N - 37].contiguous()),
+        ("no lines", no_lines, {"planes": enc_p["planes"]}, x01),
+        ("F=2 scalar", f2, edge_tables(f2, K, device), x01),
+        ("L=5 base 128 K=1", l5, edge_tables(l5, 1, device),
+         x01[:1].contiguous()))
+    for label, c, tab, x in cases:
+        got = PL.plane_encode_kernel(tab, x, c)
+        want = PL.plane_encode_plain(tab, x, c)
+        err = max_err(got, want)
+        ms = cuda_ms(lambda: PL.plane_encode_kernel(tab, x, c), 3)
+        plan = PL.plane_fwd_plan(x.shape[1], c.level_resolutions(),
+                                 c.features)
+        print(f"edge plane_encode_fwd {label}: K={x.shape[0]} "
+              f"N={x.shape[1]} max_abs_err={err:.3e} tol=1e-05 "
+              f"kernel_ms={ms:.4f} plan {plan_text(plan)}", flush=True)
+        if not err <= 1e-5:
+            raise SystemExit(f"kernel plane_encode_fwd disagrees with its "
+                             f"plain version on {label}: {err}")
+        del got, want
+    torch.cuda.empty_cache()
+
+
+def plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device):
+    """Kernel 5 against its plain version on adversarial inputs at the inner
+    step (one expert, 128,000 points unless stated), each table within
+    1e-4 of its max: one cell (every lane of a warp on the same rows: the
+    deepest aggregation), coordinates on and outside the bounds, a tail
+    tile (P - 37), no lines, F=2 (the scalar variant), the K=4 experts
+    stacked, L=5 base 128 (level 0 private, 1-4 on the global line path),
+    and bench width with all three line levels private and with none
+    (the global line path alone)."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch.models.ngp import world_to_unit
+    from nerfsys_tpu_torch.ops import planes as PL
+
+    pc = cfg.expert.planes
+    P = x01.shape[0]
+    gen = torch.Generator(device=device).manual_seed(8)
+
+    def cot(c, *lead):
+        return torch.randn((*lead, c.out_dim), device=device, generator=gen)
+
+    no_lines = dataclasses.replace(pc, include_lines=False)
+    f2 = dataclasses.replace(pc, features=2)
+    l5 = dataclasses.replace(pc, levels=5)
+    xk = world_to_unit(pts, statics.expert_aabbs,
+                       cfg.expert.enc_eps).contiguous()
+    sms = PL._num_sms(x01.device)
+    res = pc.level_resolutions()
+    l5_plan = PL.plane_bwd_light_plan(P, 1, l5.level_resolutions(), 8, True,
+                                      sms)
+    if not (l5_plan.private_levels and len(l5_plan.private_levels) < 5):
+        raise SystemExit(f"L=5 plan does not split the line levels: "
+                         f"{l5_plan}")
+    cases = (
+        ("one cell", pc, enc, edge_points("one cell", 1, P, device)[0], ct,
+         None),
+        ("bounds", pc, enc, edge_points("bounds", 1, P, device)[0], ct, None),
+        ("tail P-37", pc, enc, x01[:P - 37].contiguous(),
+         ct[:P - 37].contiguous(), None),
+        ("no lines", no_lines, {"planes": enc["planes"]}, x01,
+         cot(no_lines, P), None),
+        ("F=2 scalar", f2, edge_tables(f2, 0, device), x01, cot(f2, P), None),
+        ("stacked K=4", pc, params["experts"]["planes_enc"], xk,
+         cot(pc, xk.shape[0], P), None),
+        ("L=5 base 128", l5, edge_tables(l5, 0, device), x01, cot(l5, P),
+         l5_plan),
+        ("every line level private", pc, enc, x01, ct,
+         PL.plane_bwd_light_plan(P, 1, res, 8, True, sms, line_budget=None)),
+        ("global line path", pc, enc, x01, ct,
+         PL.plane_bwd_light_plan(P, 1, res, 8, True, sms, line_budget=0)))
+    for label, c, tab, x, g, plan in cases:
+        got = PL.plane_encode_bwd_planned(tab, x, g, c, plan)
+        want = PL.plane_encode_bwd_plain(tab, x, g, c)
+        errs = [rel_err(a, b) for a, b in zip(got[0] + (got[1] or []),
+                                              want[0] + (want[1] or []))]
+        ms = cuda_ms(lambda: PL.plane_encode_bwd_planned(tab, x, g, c, plan),
+                     3)
+        K = x.shape[0] if x.dim() == 3 else 1
+        shown = plan or PL.plane_bwd_light_plan(
+            x.shape[-2], K, c.level_resolutions(), c.features,
+            c.include_lines, sms)
+        print(f"edge plane_encode_bwd_light {label}: K={K} N={x.shape[-2]} "
+              f"table_err/max={max(errs):.3e} tol=0.0001 kernel_ms={ms:.4f} "
+              f"plan {plan_text(shown)}", flush=True)
+        if not max(errs) <= 1e-4:
+            raise SystemExit(f"kernel plane_encode_bwd_light disagrees with "
+                             f"its plain version on {label}: {errs}")
+        del got, want
+    torch.cuda.empty_cache()
 
 
 class GradRecorder:
@@ -2338,8 +2498,9 @@ def main() -> int:
     print(f"build: {len(kernels.SOURCES)} libraries in {build_s:.2f} s",
           flush=True)
     for stem, log in kernels.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+        for line in log.splitlines():  # ptxas -v, each entry's kernel first
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"build[{stem}]: {line.strip()}")
 
     device = torch.device("cuda", 0)

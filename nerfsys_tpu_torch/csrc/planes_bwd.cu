@@ -4,9 +4,9 @@
 //   `_plane_encode_mm_light_bwd` (:565), the pos_grad=False VJP: table
 //     gradients from the plane and line values ROUNDED TO BFLOAT16 (the
 //     reference saves them as bf16 residuals, :556-560), zero position
-//     gradients -> `plane_encode_bwd_light`;
+//     gradients -> `plane_encode_bwd_light` (kernel 5);
 //   `_plane_encode_mm_bwd` (:449), the exact VJP: float32 table gradients
-//     and position gradients -> `plane_encode_bwd`.
+//     and position gradients -> `plane_encode_bwd` (kernel 6).
 // Both compute the table gradient that `_scatter_grads_mm` (:326-384)
 // forms as one-hot matmul contractions: for each point, the cotangent g of
 // one (level, orientation) feature block adds
@@ -14,34 +14,64 @@
 //   line[w0+k]        += ww_k * (g * plane)           (2 nodes)
 // with the bilinear / linear weights wu = (1-fu, fu) etc. The reference's
 // contraction runs in float32 on the CPU (bwd_dtype=bfloat16 is forced to
-// float32 there, :576-578); so does this kernel.
+// float32 there, :576-578); so do these kernels.
 //
 // Residuals: the plane and line values are RECOMPUTED here from the tables
-// (4 + 2 row reads per thread, the forward's own arithmetic) rather than
-// written by kernel 1. Kernel 1 then stays exactly the serving kernel, and
-// no (P, 2 * 72) residual buffer lives between an inner step's forward and
-// backward. One expert's tables are ~33 MB at bench width (L=3, base 128,
-// F=8), under the 50 MB L2, but the gradient tables double that.
-// This file compiles with --fmad=false, so the recomputed values round
-// exactly like the plain PyTorch version (one op at a time) before the
-// bfloat16 rounding (round to nearest even, __float2bfloat16_rn).
+// (4 + 2 row reads per point and block, the forward's own arithmetic)
+// rather than written by kernel 1. Kernel 1 then stays exactly the serving
+// kernel, and no (P, 2 * 72) residual buffer lives between an inner step's
+// forward and backward. This file compiles with --fmad=false, so the
+// recomputed values round exactly like the plain PyTorch version (one op at
+// a time) before the bfloat16 rounding (round to nearest even,
+// __float2bfloat16_rn); only the order of the float sums differs.
 //
 // Edge: the reference's one-hot profile drops column R when u0 = R-1
 // (:319-322); here the neighbour index is clamped to R-1 as in kernel 1,
 // and its weight there is fu = 0, so the add is a harmless zero.
-// Position gradients: d feature / d frac times (R-1), masked per
-// coordinate by the INCLUSIVE test 0 <= x <= 1 (:531).
 //
-// Bound on the H100: bytes, the cotangent (K*N*72 floats) read once and
-// the gradient tables written; each point's 6 row updates are fp32
-// atomicAdd into L2-resident tables. Design: one thread per (expert,
-// point, level x orientation), as kernel 1; the wrapper zeroes the
-// (K, 3, R^2, F) and (K, 3, R, F) gradient tables (and gx) first.
+// Kernel 5 (light). Its byte bound (the cotangent read once, the tables
+// read and the gradient tables written once) is ~0.03 ms at one inner
+// step; what sets its floor in practice is the number of read-modify-write
+// transactions the L2 must perform on the gradient tables (the first
+// design made 48 scalar atomics per point and block, ~55 M per inner
+// step, and ~2,000 adds per call landed on every level-0 line feature).
+// The design cuts those transactions:
+//   - persistent blocks, grid (blocks, K): each block walks tiles of
+//     `tile` consecutive points of one expert; 32-bit indexing in a tile;
+//   - the tile's cotangent (tile, 3*L*F), one contiguous span, and its
+//     points arrive in shared memory by cp.async (16-byte pieces),
+//     double-buffered so the next tile's copy overlaps this tile's work;
+//   - a warp takes 32 consecutive points (samples of one ray) at one
+//     (level, orientation); per corner, `__match_any_sync` groups the
+//     lanes that hit the same row, a shuffle tree sums each group's
+//     contributions, and the group's first lane adds the row with 16-byte
+//     vector reductions (`red.global.add.v4.f32`, sm_90): 4x fewer
+//     transactions from the vectors alone, more where samples share cells;
+//   - line gradients are privatised: the levels the host plan picks
+//     (ops/planes.py `plane_bwd_light_plan`: from the coarsest level up,
+//     within a byte budget and the 227 KB of dynamic shared memory the
+//     block opts into) accumulate per block in shared memory and are
+//     flushed once, when the block ends, with vector atomics (all-zero
+//     vectors skipped). The other levels take the warp-aggregated global
+//     path above. Float adds to shared memory compile to compare-and-swap
+//     loops on sm_90 (ATOMS.CAST.SPIN in the SASS), while the L2 adds
+//     vectors natively, so the default budget privatises only the coarsest
+//     level, where the most adds meet the fewest rows; privatising every
+//     level at bench width was slower on an H100 (fewer resident blocks,
+//     more spinning).
+// A scalar variant (VEC=1) serves F % 4 != 0 and unaligned tables.
+//
+// Kernel 6 (exact) keeps its first design: one thread per (expert, point,
+// level x orientation), 3 x F scalar atomics per row. Position gradients:
+// d feature / d frac times (R-1), masked per coordinate by the INCLUSIVE
+// test 0 <= x <= 1 (:531). The wrapper zeroes the (K, 3, R^2, F) and
+// (K, 3, R, F) gradient tables (and gx) before either kernel.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
 
 #define PLANES_MAX_LEVELS 8
+#define FULL_MASK 0xffffffffu
 
 struct PlaneLevels {  // same layout as csrc/planes.cu
     const float* planes[PLANES_MAX_LEVELS];  // (K, 3, R*R, F) per level
@@ -57,16 +87,29 @@ struct PlaneGrads {
     float* lines[PLANES_MAX_LEVELS];   // (K, 3, R, F) per level, zeroed
 };
 
+struct PlanePlan {  // same layout as csrc/planes.cu
+    int tile;      // points per tile, a multiple of 32
+    int threads;   // per block, a multiple of 32
+    int blocks;    // persistent blocks per expert (grid x)
+    int smem;      // dynamic shared-memory bytes
+    int vec;       // 1: 16-byte rows and copies (F % 4 == 0, aligned)
+    int line_ofs[PLANES_MAX_LEVELS];  // float offset of a level's private
+                                      // line gradients in shared memory,
+                                      // -1: the global path
+};
+
 __device__ __forceinline__ float bf16_round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <bool EXACT>
-__global__ void plane_encode_bwd_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ ct,
-                                        PlaneLevels lv, PlaneGrads gr,
-                                        float* __restrict__ gx, int K, int N,
-                                        int F) {
+// ---------------------------------------------------------------------------
+// Kernel 6: the exact VJP (the first design, unchanged).
+
+__global__ void plane_encode_bwd_exact_kernel(const float* __restrict__ x,
+                                              const float* __restrict__ ct,
+                                              PlaneLevels lv, PlaneGrads gr,
+                                              float* __restrict__ gx, int K,
+                                              int N, int F) {
     const int LO = lv.levels * 3;
     const long long total = (long long)K * N * LO;
     const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -138,14 +181,8 @@ __global__ void plane_encode_bwd_kernel(const float* __restrict__ x,
         float lval = 1.0f;
         if (has_lines) {
             lval = l0[f] * aw + l1[f] * fw;
-            float gl;
-            if (EXACT) {
-                gp = gf * lval;
-                gl = gf * bv;
-            } else {
-                gp = gf * bf16_round(lval);
-                gl = gf * bf16_round(bv);
-            }
+            gp = gf * lval;
+            const float gl = gf * bv;
             atomicAdd(gl0 + f, aw * gl);
             atomicAdd(gl1 + f, fw * gl);
         }
@@ -153,38 +190,318 @@ __global__ void plane_encode_bwd_kernel(const float* __restrict__ x,
         atomicAdd(gt + r01 + f, au * (fv * gp));
         atomicAdd(gt + r10 + f, fu * (av * gp));
         atomicAdd(gt + r11 + f, fu * (fv * gp));
-        if (EXACT) {
-            const float db_dfu = (t10 - t00) * av + (t11 - t01) * fv;
-            const float db_dfv = (t01 - t00) * au + (t11 - t10) * fu;
-            dfu += gf * lval * db_dfu;
-            dfv += gf * lval * db_dfv;
-            if (has_lines) dfw += gf * bv * (l1[f] - l0[f]);
-        }
+        const float db_dfu = (t10 - t00) * av + (t11 - t01) * fv;
+        const float db_dfv = (t01 - t00) * au + (t11 - t10) * fu;
+        dfu += gf * lval * db_dfu;
+        dfv += gf * lval * db_dfv;
+        if (has_lines) dfw += gf * bv * (l1[f] - l0[f]);
     }
-    if (EXACT) {
-        float* gxp = gx + kn * 3;
-        if (xp[a] >= 0.0f && xp[a] <= 1.0f) atomicAdd(gxp + a, dfu * R1);
-        if (xp[b] >= 0.0f && xp[b] <= 1.0f) atomicAdd(gxp + b, dfv * R1);
-        if (has_lines && xp[c] >= 0.0f && xp[c] <= 1.0f)
-            atomicAdd(gxp + c, dfw * R1);
+    float* gxp = gx + kn * 3;
+    if (xp[a] >= 0.0f && xp[a] <= 1.0f) atomicAdd(gxp + a, dfu * R1);
+    if (xp[b] >= 0.0f && xp[b] <= 1.0f) atomicAdd(gxp + b, dfv * R1);
+    if (has_lines && xp[c] >= 0.0f && xp[c] <= 1.0f)
+        atomicAdd(gxp + c, dfw * R1);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 5: the light VJP.
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    if (bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                     "l"(gmem));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                     "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
+    if (VEC == 4) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) v[i] = __ldg(p + i);
     }
 }
 
-static int launch_bwd(bool exact, const float* x, const float* ct,
-                      PlaneLevels lv, PlaneGrads gr, float* gx, int K, int N,
-                      int F, cudaStream_t stream) {
-    const long long total = (long long)K * N * lv.levels * 3;
-    if (total > 0) {
-        const int threads = 256;
-        if (exact)
-            plane_encode_bwd_kernel<true><<<nerf_blocks(total, threads),
-                                            threads, 0, stream>>>(
-                x, ct, lv, gr, gx, K, N, F);
-        else
-            plane_encode_bwd_kernel<false><<<nerf_blocks(total, threads),
-                                             threads, 0, stream>>>(
-                x, ct, lv, gr, gx, K, N, F);
+// Sum v over the lanes of `peers` (the lanes of this warp with the same
+// key, this one included) into the group's lowest lane; every lane of the
+// warp must call it. A tree over each group's ranks: at step j the lanes
+// whose rank has bit j set hand their partial sum to the next lower
+// remaining peer and drop out, so a group of n lanes takes ceil(log2 n)
+// steps (at most 5) and singleton groups none.
+template <int VEC>
+__device__ __forceinline__ void reduce_peers(unsigned peers, float (&v)[VEC],
+                                             int lane) {
+    unsigned rank = __popc(peers & ((1u << lane) - 1u));
+    unsigned higher = peers & (0xfffffffeu << lane);
+    while (__any_sync(FULL_MASK, higher != 0u)) {
+        const int next = __ffs(higher);  // 1 + the next remaining peer
+        const int src = next ? next - 1 : lane;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+            const float t = __shfl_sync(FULL_MASK, v[i], src);
+            if (next) v[i] += t;
+        }
+        higher &= ~__ballot_sync(FULL_MASK, rank & 1u);
+        rank >>= 1;
     }
+}
+
+// A vector reduction in the L2 (no value returned, unlike atomicAdd on a
+// float4, which compiles to a returning ATOM); 16-byte aligned `dst`.
+__device__ __forceinline__ void red_add4(float* dst, float a, float b,
+                                         float c, float d) {
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst),
+                 "f"(a), "f"(b), "f"(c), "f"(d)
+                 : "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void add_global(float* dst, const float (&v)[VEC]) {
+    if (VEC == 4)
+        red_add4(dst, v[0], v[1], v[2], v[3]);
+    else
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, v[i]);
+}
+
+// One row's contribution: group the lanes by row, sum, and let the group's
+// first lane add it to the block's private lines in shared memory (`priv`,
+// at float offset `sofs` of `lsm`) or to the gradient table at `gdst`.
+template <int VEC>
+__device__ __forceinline__ void add_row(unsigned peers, float (&v)[VEC],
+                                        float* gdst, float* lsm, int sofs,
+                                        bool priv, bool active, int lane) {
+    reduce_peers<VEC>(peers, v, lane);
+    if (!active || (peers & ((1u << lane) - 1u))) return;  // not the leader
+    if (priv) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) atomicAdd(lsm + sofs + i, v[i]);
+    } else {
+        add_global<VEC>(gdst, v);
+    }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(512)
+plane_encode_bwd_light_kernel(const float* __restrict__ x,
+                              const float* __restrict__ ct, PlaneLevels lv,
+                              PlaneGrads gr, int N, int F, PlanePlan plan) {
+    extern __shared__ float4 smem4[];
+    const int tile = plan.tile;
+    const int LO = lv.levels * 3;
+    const int D = LO * F;
+    const int k = blockIdx.y;
+    float* cbuf = reinterpret_cast<float*>(smem4);  // 2 x (tile, D)
+    float* xbuf = cbuf + 2 * tile * D;               // 2 x (tile, 3)
+    float* lsm = xbuf + 2 * tile * 3;                // private line grads
+    const int lane = threadIdx.x & 31;
+    const int warps = blockDim.x >> 5;
+    const int groups = tile >> 5;
+    const int ntiles = (N + tile - 1) / tile;
+
+    int line_floats = 0;
+    for (int l = 0; l < lv.levels; ++l)
+        if (plan.line_ofs[l] >= 0) line_floats += 3 * lv.res[l] * F;
+    for (int i = threadIdx.x; i < line_floats; i += blockDim.x) lsm[i] = 0.0f;
+
+    // copy tile t's cotangent and points into buffer `buf` (cp.async)
+    auto load_tile = [&](int t, int buf) {
+        const int p0 = t * tile;
+        const int np = min(tile, N - p0);
+        const long long base = (long long)k * N + p0;
+        const float* cg = ct + base * D;
+        float* cs = cbuf + buf * tile * D;
+        if (VEC == 4) {
+            for (int i = threadIdx.x; i < (np * D) >> 2; i += blockDim.x)
+                cp_async(cs + 4 * i, cg + 4 * i, 16);
+        } else {
+            for (int i = threadIdx.x; i < np * D; i += blockDim.x)
+                cp_async(cs + i, cg + i, 4);
+        }
+        const float* xg = x + base * 3;
+        float* xs = xbuf + buf * tile * 3;
+        for (int i = threadIdx.x; i < np * 3; i += blockDim.x)
+            cp_async(xs + i, xg + i, 4);
+    };
+
+    int buf = 0;
+    if ((int)blockIdx.x < ntiles) load_tile(blockIdx.x, 0);
+    cp_async_commit();
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x, buf ^= 1) {
+        if (t + (int)gridDim.x < ntiles) load_tile(t + gridDim.x, buf ^ 1);
+        cp_async_commit();
+        cp_async_wait_one();  // this thread's copies of tile t have landed
+        __syncthreads();      // and everyone's (and the line zeroing)
+        const int np = min(tile, N - t * tile);
+        const float* cs = cbuf + buf * tile * D;
+        const float* xs = xbuf + buf * tile * 3;
+        for (int task = threadIdx.x >> 5; task < LO * groups; task += warps) {
+            const int lo = task / groups;  // level * 3 + orientation
+            const int p = (task - lo * groups) * 32 + lane;
+            const bool active = p < np;
+            const int l = lo / 3;
+            const int o = lo - 3 * l;
+            const int a = (o == 2) ? 1 : 0;
+            const int b = (o == 0) ? 1 : 2;
+            const int c = (o == 0) ? 2 : ((o == 1) ? 1 : 0);
+            const int R = lv.res[l];
+            const float R1 = (float)(R - 1);
+            const float hi = lv.clip_hi[l];
+            const float* xp = xs + (active ? p : 0) * 3;
+            const float xa = active ? xp[a] : 0.0f;
+            const float xb = active ? xp[b] : 0.0f;
+            const float u = fminf(fmaxf(xa, 0.0f), 1.0f) * R1;
+            const float v = fminf(fmaxf(xb, 0.0f), 1.0f) * R1;
+            const float u0f = floorf(fminf(fmaxf(u, 0.0f), hi));
+            const float v0f = floorf(fminf(fmaxf(v, 0.0f), hi));
+            const float fu = u - u0f;
+            const float fv = v - v0f;
+            const int u0 = (int)u0f;
+            const int v0 = (int)v0f;
+            const int u1 = min(u0 + 1, R - 1);
+            const int v1 = min(v0 + 1, R - 1);
+            const float au = 1.0f - fu;
+            const float av = 1.0f - fv;
+            const int rows[4] = {u0 * R + v0, u0 * R + v1, u1 * R + v0,
+                                 u1 * R + v1};
+            const int dead = -1 - lane;  // a key no other lane holds
+            unsigned pm[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                pm[j] = __match_any_sync(FULL_MASK, active ? rows[j] : dead);
+            const long long pofs = ((long long)k * 3 + o) * R * R * F;
+            const float* tp = lv.planes[l] + pofs;
+            float* gtp = gr.planes[l] + pofs;
+
+            const bool has_lines = lv.has_lines;
+            int w0 = 0, w1 = 0;
+            float fw = 0.0f;
+            unsigned lm0 = 0u, lm1 = 0u;
+            const float* lp = nullptr;
+            float* glp = nullptr;  // global path: this orientation's grads
+            int sl = 0;            // private path: their offset in lsm
+            const bool priv = has_lines && plan.line_ofs[l] >= 0;
+            if (has_lines) {
+                const float xc = active ? xp[c] : 0.0f;
+                const float w = fminf(fmaxf(xc, 0.0f), 1.0f) * R1;
+                const float w0f = floorf(fminf(fmaxf(w, 0.0f), hi));
+                fw = w - w0f;
+                w0 = (int)w0f;
+                w1 = min(w0 + 1, R - 1);
+                lm0 = __match_any_sync(FULL_MASK, active ? w0 : dead);
+                lm1 = __match_any_sync(FULL_MASK, active ? w1 : dead);
+                const long long lofs = ((long long)k * 3 + o) * R * F;
+                lp = lv.lines[l] + lofs;
+                glp = gr.lines[l] + lofs;
+                sl = plan.line_ofs[l] + o * R * F;
+            }
+            const float aw = 1.0f - fw;
+
+            const float* g = cs + (active ? p : 0) * D + lo * F;
+            for (int f0 = 0; f0 < F; f0 += VEC) {
+                float t00[VEC], t01[VEC], t10[VEC], t11[VEC], gv[VEC];
+                load_row<VEC>(tp + rows[0] * F + f0, t00);
+                load_row<VEC>(tp + rows[1] * F + f0, t01);
+                load_row<VEC>(tp + rows[2] * F + f0, t10);
+                load_row<VEC>(tp + rows[3] * F + f0, t11);
+#pragma unroll
+                for (int i = 0; i < VEC; ++i)
+                    gv[i] = active ? g[f0 + i] : 0.0f;
+                float gp[VEC];
+                if (has_lines) {
+                    float m0[VEC], m1[VEC], c0[VEC], c1[VEC];
+                    load_row<VEC>(lp + w0 * F + f0, m0);
+                    load_row<VEC>(lp + w1 * F + f0, m1);
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        const float bv = t00[i] * au * av + t01[i] * au * fv
+                                       + t10[i] * fu * av + t11[i] * fu * fv;
+                        const float lval = m0[i] * aw + m1[i] * fw;
+                        gp[i] = gv[i] * bf16_round(lval);
+                        const float gl = gv[i] * bf16_round(bv);
+                        c0[i] = aw * gl;
+                        c1[i] = fw * gl;
+                    }
+                    add_row<VEC>(lm0, c0, glp + w0 * F + f0, lsm,
+                                 sl + w0 * F + f0, priv, active, lane);
+                    add_row<VEC>(lm1, c1, glp + w1 * F + f0, lsm,
+                                 sl + w1 * F + f0, priv, active, lane);
+                } else {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) gp[i] = gv[i];
+                }
+                const float wu[4] = {au, au, fu, fu};
+                const float wv[4] = {av, fv, av, fv};
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float cj[VEC];
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i)
+                        cj[i] = wu[j] * (wv[j] * gp[i]);
+                    add_row<VEC>(pm[j], cj, gtp + rows[j] * F + f0, lsm, 0,
+                                 false, active, lane);
+                }
+            }
+        }
+        __syncthreads();  // all done with `buf`: the next tile refills it
+    }
+    __syncthreads();
+
+    // flush the private line gradients of this block's expert, once
+    for (int l = 0; l < lv.levels; ++l) {
+        if (plan.line_ofs[l] < 0) continue;
+        const int n = 3 * lv.res[l] * F;
+        const float* src = lsm + plan.line_ofs[l];
+        float* dst = gr.lines[l] + (long long)k * n;
+        if (VEC == 4) {
+            for (int i = threadIdx.x; i < (n >> 2); i += blockDim.x) {
+                const float4 q = reinterpret_cast<const float4*>(src)[i];
+                if (q.x != 0.0f || q.y != 0.0f || q.z != 0.0f || q.w != 0.0f)
+                    red_add4(dst + 4 * i, q.x, q.y, q.z, q.w);
+            }
+        } else {
+            for (int i = threadIdx.x; i < n; i += blockDim.x)
+                if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
+        }
+    }
+}
+
+template <int VEC>
+static int launch_light(const float* x, const float* ct, PlaneLevels lv,
+                        PlaneGrads gr, int K, int N, int F, PlanePlan plan,
+                        cudaStream_t stream) {
+    auto kern = plane_encode_bwd_light_kernel<VEC>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (e != cudaSuccess) return (int)e;
+    // persistent blocks: no more per expert than can be resident at once
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+        return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kern, plan.threads, plan.smem)) != cudaSuccess)
+        return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const int resident = (int)((long long)sms * per_sm / K);
+    const int blocks = max(1, min(plan.blocks, resident));
+    kern<<<dim3(blocks, K), plan.threads, plan.smem, stream>>>(x, ct, lv, gr,
+                                                               N, F, plan);
     return (int)cudaGetLastError();
 }
 
@@ -192,14 +509,29 @@ static int launch_bwd(bool exact, const float* x, const float* ct,
 // Adds into the zeroed gradient tables of `gr`.
 NERF_API int plane_encode_bwd_light(const float* x, const float* ct,
                                     PlaneLevels lv, PlaneGrads gr, int K,
-                                    int N, int F, cudaStream_t stream) {
-    return launch_bwd(false, x, ct, lv, gr, nullptr, K, N, F, stream);
+                                    int N, int F, PlanePlan plan,
+                                    cudaStream_t stream) {
+    if ((long long)K * N == 0 || lv.levels == 0)
+        return (int)cudaGetLastError();
+    if (plan.tile % 32 || plan.threads % 32 || plan.threads > 512 ||
+        plan.blocks < 1 || (plan.vec && F % 4))
+        return (int)cudaErrorInvalidValue;
+    return plan.vec ? launch_light<4>(x, ct, lv, gr, K, N, F, plan, stream)
+                    : launch_light<1>(x, ct, lv, gr, K, N, F, plan, stream);
 }
 
-// As above, and adds the position gradient into the zeroed gx (K, N, 3).
+// As kernel 5's inputs, and adds the position gradient into the zeroed gx
+// (K, N, 3).
 NERF_API int plane_encode_bwd(const float* x, const float* ct,
                               PlaneLevels lv, PlaneGrads gr, float* gx, int K,
                               int N, int F, cudaStream_t stream) {
     if (gx == nullptr) return (int)cudaErrorInvalidValue;
-    return launch_bwd(true, x, ct, lv, gr, gx, K, N, F, stream);
+    const long long total = (long long)K * N * lv.levels * 3;
+    if (total > 0) {
+        const int threads = 256;
+        plane_encode_bwd_exact_kernel<<<nerf_blocks(total, threads), threads,
+                                        0, stream>>>(x, ct, lv, gr, gx, K, N,
+                                                     F);
+    }
+    return (int)cudaGetLastError();
 }

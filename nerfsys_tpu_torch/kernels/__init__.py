@@ -186,6 +186,19 @@ class PlaneLevels(ctypes.Structure):
     ]
 
 
+class PlanePlan(ctypes.Structure):
+    """A launch plan of kernels 1 and 5 (csrc/planes.cu PlanePlan; filled
+    from ops/planes.py `PlaneLaunchPlan`)."""
+    _fields_ = [
+        ("tile", _I),
+        ("threads", _I),
+        ("blocks", _I),
+        ("smem", _I),
+        ("vec", _I),
+        ("line_ofs", _I * 8),
+    ]
+
+
 class PlaneGrads(ctypes.Structure):
     """Per-level gradient table pointers (csrc/planes_bwd.cu PlaneGrads)."""
     _fields_ = [
@@ -196,8 +209,8 @@ class PlaneGrads(ctypes.Structure):
 
 PLANES_FWD = Kernel(
     "plane_encode_fwd", "planes", "plane_encode_fwd",
-    # x, out, levels (by value), K, N, F, stream
-    [_P, _P, PlaneLevels, _I, _I, _I, _P],
+    # x, out, levels (by value), K, N, F, plan (by value), stream
+    [_P, _P, PlaneLevels, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:269 (_plane_encode_parts)",
 )
 OCC_PROBE_CDF = Kernel(
@@ -232,8 +245,8 @@ VOLREND_BWD = Kernel(
 )
 PLANES_BWD_LIGHT = Kernel(
     "plane_encode_bwd_light", "planes_bwd", "plane_encode_bwd_light",
-    # x, ct, levels, grads (by value), K, N, F, stream
-    [_P, _P, PlaneLevels, PlaneGrads, _I, _I, _I, _P],
+    # x, ct, levels, grads (by value), K, N, F, plan (by value), stream
+    [_P, _P, PlaneLevels, PlaneGrads, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:565 (_plane_encode_mm_light_bwd)",
 )
 PLANES_BWD = Kernel(

@@ -16,11 +16,13 @@ Kernel 1 (`csrc/planes.cu`) computes this on the card;
 `plane_encode_plain` is the same function in plain PyTorch. Gradients go
 through `PlaneEncode`, whose backward is `csrc/planes_bwd.cu` (light mode
 when `pos_grad=False`, exact otherwise) or `plane_encode_bwd_plain`.
+Kernels 1 and 5 take their launch geometry from `plane_fwd_plan` and
+`plane_bwd_light_plan`, plain functions of the shapes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -135,6 +137,143 @@ def plane_encode_plain(params: Dict, x01: torch.Tensor,
     return out if stacked else out[0].reshape(*lead, cfg.out_dim)
 
 
+# Shared memory on an H100: what one block may opt into as dynamic shared
+# memory (227 KB), and what one SM holds (228 KB, 1 KB of it reserved per
+# resident block).
+SMEM_BLOCK_BYTES = 232_448
+SMEM_SM_BYTES = 233_472
+TILE, FWD_THREADS = 128, 384  # kernel 1's points per tile (4 rays of 32
+# samples) and threads: 12 warps take a tile's 36 (level x orientation,
+# 32-point) tasks at bench width in 3 rounds
+BWD_TILE, BWD_THREADS = 64, 256  # kernel 5's: 2 rays, 8 warps
+# Kernel 5's shared memory for private line gradients, by default. Float
+# adds to shared memory are compare-and-swap loops on Hopper, so a private
+# level pays only where many adds meet few rows: the coarsest level at
+# bench width (12,288 bytes). Privatising all three levels (86,016 bytes)
+# also leaves room for one block an SM, not two.
+LINE_BUDGET = 16_384
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneLaunchPlan:
+    """Launch geometry of kernel 1 or 5 (csrc/planes.cu `PlanePlan`)."""
+
+    tile: int  # consecutive points of one expert per tile (multiple of 32)
+    threads: int  # per block (multiple of 32)
+    blocks: int  # per expert: one per tile (kernel 1), persistent (kernel 5)
+    smem: int  # dynamic shared-memory bytes per block
+    vec: bool  # 16-byte row access; False: the scalar variant
+    # kernel 5, per level: float offset of its private line gradients in
+    # shared memory, or -1 for the warp-aggregated global path
+    line_ofs: Tuple[int, ...] = ()
+
+    @property
+    def private_levels(self) -> List[int]:
+        return [l for l, o in enumerate(self.line_ofs) if o >= 0]
+
+    def as_struct(self) -> "kernels.PlanePlan":
+        s = kernels.PlanePlan()
+        s.tile, s.threads, s.blocks, s.smem = (self.tile, self.threads,
+                                               self.blocks, self.smem)
+        s.vec = int(self.vec)
+        for l in range(kernels.PlaneLevels.MAX_LEVELS):
+            s.line_ofs[l] = (self.line_ofs[l] if l < len(self.line_ofs)
+                             else -1)
+        return s
+
+
+def _check_shapes(res: Sequence[int], features: int) -> None:
+    if not 0 < len(res) <= kernels.PlaneLevels.MAX_LEVELS:
+        raise ValueError(f"plane kernels take 1 to "
+                         f"{kernels.PlaneLevels.MAX_LEVELS} levels, got "
+                         f"{len(res)}")
+    if max(res) ** 2 * features >= 2**31:  # in-tile offsets are 32-bit
+        raise ValueError(f"plane table too large for the kernels: R={max(res)}"
+                         f", F={features}")
+
+
+def plane_fwd_plan(n: int, res: Sequence[int], features: int,
+                   vec_ok: bool = True) -> PlaneLaunchPlan:
+    """Kernel 1's plan for N points per expert: one block per tile of
+    TILE points (halved while the tile's points and (tile, 3*L*F) output
+    exceed a block's shared memory); the 16-byte variant when F % 4 == 0
+    and `vec_ok` (the tables are 16-byte aligned)."""
+    _check_shapes(res, features)
+    d = 3 * len(res) * features
+    tile = TILE
+    while tile > 32 and 4 * tile * (3 + d) > SMEM_BLOCK_BYTES:
+        tile //= 2
+    smem = 4 * tile * (3 + d)
+    if smem > SMEM_BLOCK_BYTES:
+        raise ValueError(f"plane_encode: a 32-point tile of {d} features "
+                         f"exceeds {SMEM_BLOCK_BYTES} bytes of shared memory")
+    return PlaneLaunchPlan(tile=tile, threads=FWD_THREADS,
+                           blocks=max(1, -(-n // tile)), smem=smem,
+                           vec=vec_ok and features % 4 == 0)
+
+
+def plane_bwd_light_plan(n: int, k: int, res: Sequence[int], features: int,
+                         has_lines: bool, num_sms: int, vec_ok: bool = True,
+                         line_budget: Optional[int] = LINE_BUDGET
+                         ) -> PlaneLaunchPlan:
+    """Kernel 5's plan for K experts of N points each.
+
+    Shared memory holds two (tile, 3*L*F) cotangent buffers and two
+    (tile, 3) point buffers (BWD_TILE points, halved while they exceed half
+    a block's shared memory), then the private line gradients: levels are
+    taken from the coarsest up while their 3*R*F floats fit in
+    `line_budget` bytes (None: all that is left of the block's 227 KB); the
+    others take the global path. Blocks per expert: as many as can be
+    resident on `num_sms` SMs by shared memory and threads, at most one per
+    tile (the entry point lowers it to what the occupancy calculator,
+    registers included, allows)."""
+    _check_shapes(res, features)
+    d = 3 * len(res) * features
+    tile = BWD_TILE
+    while tile > 32 and 8 * tile * (d + 3) > SMEM_BLOCK_BYTES // 2:
+        tile //= 2
+    buffers = 8 * tile * (d + 3)
+    if buffers > SMEM_BLOCK_BYTES:
+        raise ValueError(f"plane_encode_bwd: a 32-point tile of {d} features "
+                         f"exceeds {SMEM_BLOCK_BYTES} bytes of shared memory")
+    room = SMEM_BLOCK_BYTES - buffers
+    if line_budget is not None:
+        room = min(room, line_budget)
+    line_ofs = [-1] * len(res)
+    used = 0  # floats
+    if has_lines:
+        for l in sorted(range(len(res)), key=lambda l: res[l]):
+            size = 3 * res[l] * features
+            if 4 * (used + size) <= room:
+                line_ofs[l] = used
+                used += size
+    smem = buffers + 4 * used
+    per_sm = max(1, min(SMEM_SM_BYTES // (smem + 1024),
+                        2048 // BWD_THREADS))
+    blocks = max(1, min(-(-n // tile), num_sms * per_sm // max(k, 1)))
+    return PlaneLaunchPlan(tile=tile, threads=BWD_THREADS, blocks=blocks,
+                           smem=smem, vec=vec_ok and features % 4 == 0,
+                           line_ofs=tuple(line_ofs))
+
+
+def _aligned(*tensors) -> bool:
+    """Every tensor starts on a 16-byte boundary (the kernels' vector
+    loads, stores and atomics)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+_NUM_SMS: Dict[int, int] = {}
+
+
+def _num_sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _NUM_SMS:
+        _NUM_SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _NUM_SMS[idx]
+
+
 def plane_encode_kernel(params: Dict, x01: torch.Tensor,
                         cfg: PlaneEncodingConfig) -> torch.Tensor:
     """Kernel 1's wrapper: the plain version for a CPU tensor; on a CUDA
@@ -152,8 +291,10 @@ def plane_encode_kernel(params: Dict, x01: torch.Tensor,
     lv = _level_table(planes, lines, cfg, K, x01.device, "plane_encode")
     out = torch.empty((K, N, cfg.out_dim), dtype=torch.float32,
                       device=x01.device)
+    plan = plane_fwd_plan(N, cfg.level_resolutions(), cfg.features,
+                          vec_ok=_aligned(*planes, *(lines or ())))
     kernels.PLANES_FWD(x.data_ptr(), out.data_ptr(), lv, K, N, cfg.features,
-                       kernels.stream_ptr(x))
+                       plan.as_struct(), kernels.stream_ptr(x))
     return out if stacked else out[0].reshape(*lead, cfg.out_dim)
 
 
@@ -289,11 +430,21 @@ def _unstack_grads(g_planes, g_lines, gx, x01, stacked: bool) -> GradTables:
 def plane_encode_bwd_kernel(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
                             cfg: PlaneEncodingConfig) -> GradTables:
     """Kernels 5/6's wrapper: the plain version for a CPU tensor; on a CUDA
-    tensor it launches `plane_encode_bwd_light` (pos_grad=False) or
-    `plane_encode_bwd` (pos_grad=True) or raises."""
+    tensor it launches `plane_encode_bwd_light` (pos_grad=False, with
+    `plane_bwd_light_plan`'s plan) or `plane_encode_bwd` (pos_grad=True) or
+    raises."""
     kernels.check_no_grad("plane_encode_bwd", x01, ct, *_tables(params))
     if x01.device.type == "cpu":
         return plane_encode_bwd_plain(params, x01, ct, cfg)
+    return plane_encode_bwd_planned(params, x01, ct, cfg, plan=None)
+
+
+def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
+                             ct: torch.Tensor, cfg: PlaneEncodingConfig,
+                             plan: Optional[PlaneLaunchPlan]) -> GradTables:
+    """The CUDA half of `plane_encode_bwd_kernel`; in light mode `plan`
+    (None: `plane_bwd_light_plan`'s) sets kernel 5's launch, so a caller
+    can run either line-gradient variant at any shape."""
     if x01.device.type != "cuda":
         raise ValueError(f"plane_encode_bwd: unsupported device {x01.device}")
     planes, lines, x, stacked = _as_stacked(params, x01)
@@ -314,8 +465,17 @@ def plane_encode_bwd_kernel(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
         kernels.PLANES_BWD(x.data_ptr(), ct.data_ptr(), lv, gr, gx.data_ptr(),
                            K, N, cfg.features, stream)
     else:
+        aligned = _aligned(ct, *planes, *(lines or ()), *g_planes,
+                           *(g_lines or ()))
+        if plan is None:
+            plan = plane_bwd_light_plan(
+                N, K, cfg.level_resolutions(), cfg.features,
+                lines is not None, _num_sms(dev), vec_ok=aligned)
+        elif plan.vec and not aligned:
+            raise ValueError("plane_encode_bwd: a 16-byte plan needs 16-byte "
+                             "aligned tables and cotangent")
         kernels.PLANES_BWD_LIGHT(x.data_ptr(), ct.data_ptr(), lv, gr, K, N,
-                                 cfg.features, stream)
+                                 cfg.features, plan.as_struct(), stream)
     return _unstack_grads(g_planes, g_lines, gx, x01, stacked)
 
 
