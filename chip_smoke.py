@@ -78,13 +78,19 @@ printing its result lines):
    (`hash_encode_fwd_packed`) at the full chunk (both within 1e-6 of the
    output's max), 7c (`hash_encode_bwd`, the table gradient) at one inner
    step (within 1e-4 of the gradient's max), timed beside a byte bound
-   that counts each distinct table row once. Then one warm-up and 3
-   requests of 800x800 (7a, 2, 3, 4 launched, 7b and 7c not; one chunk
-   against the plain path; one profiled frame), one chunk through the
-   packed experts (7b alone) against the plain path, and the train phase
-   below with the hash experts and a packed step in place of the
-   exact-backward one (7a, 7b, 7c launched; gradients against the plain
-   step; one profiled step).
+   that counts each distinct table row once (7c's: its inputs and the
+   dense gradient it zeroes and fills, written once); 7a and 7c also on adversarial inputs under both lane maps
+   (every point in one cell, many in one cell of the finest level, the
+   clip bounds and exactly 0 and 1, tails, a single point; 7a at F = 1,
+   4, 8 and the other level grouping; 7c with K=4 stacked experts, one
+   level group of persistent blocks, and groups of 4 levels), and 7a at
+   the step's shapes with its device time. Then one
+   warm-up and 3 requests of 800x800 (7a, 2, 3, 4 launched, 7b and 7c
+   not; one chunk against the plain path; one profiled frame), one chunk
+   through the packed experts (7b alone) against the plain path, and the
+   train phase below with the hash experts and a packed step in place of
+   the exact-backward one (7a, 7b, 7c launched; gradients against the
+   plain step; one profiled step).
 9. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
    at the runner's default hash width (the hash phase's experts). Kernel
    row 10 against its plain versions at one full serve chunk (2,097,152
@@ -143,6 +149,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time per call of fn: the calls are enqueued while the
+    card sleeps (~10 ms), so the events around them time the device alone,
+    where back-to-back CUDA events also take in the host's launch time
+    whenever the host is slower than the kernels."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -597,6 +623,7 @@ def plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device):
 
     from nerfsys_tpu_torch.models.ngp import world_to_unit
     from nerfsys_tpu_torch.ops import planes as PL
+    from nerfsys_tpu_torch.utils.device import num_sms
 
     pc = cfg.expert.planes
     P = x01.shape[0]
@@ -610,7 +637,7 @@ def plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device):
     l5 = dataclasses.replace(pc, levels=5)
     xk = world_to_unit(pts, statics.expert_aabbs,
                        cfg.expert.enc_eps).contiguous()
-    sms = PL._num_sms(x01.device)
+    sms = num_sms(x01.device)
     res = pc.level_resolutions()
     l5_plan = PL.plane_bwd_light_plan(P, 1, l5.level_resolutions(), 8, True,
                                       sms)
@@ -1689,11 +1716,15 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     """Kernel row 7 against its plain versions on the card: 7a (fp32) at
     one full serve chunk (65,536 rays x 32 samples, K=4) in the runner's
     Linear floor layout, and in Smoothstep, Nearest and the tcnn layout at
-    262,144 points of it; 7b (packed bf16 pairs) at the full chunk; 7c
-    (the table gradient) at one inner step of one expert (expert 0's first
-    support set, 4,000 rays x 32 samples, randomized). Bytes: points read,
-    output written, each distinct table row read once (7c: read and
-    written)."""
+    262,144 points of it, and on the adversarial inputs of
+    `hash_fwd_edges`; 7a timed at the step's shapes too (one inner step and
+    one query set of expert 0, 128,000 and 64,000 points); 7b (packed bf16
+    pairs) at the full chunk; 7c (the table gradient) at one inner step of
+    one expert (expert 0's first support set, 4,000 rays x 32 samples,
+    randomized), and on the adversarial inputs of `hash_bwd_edges`. Bytes:
+    points read, output written, each distinct table row read once (7c:
+    points and cotangent read, the dense table-shaped gradient written
+    once)."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -1701,6 +1732,7 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     from nerfsys_tpu_torch.models.occupancy import _ray_validity
     from nerfsys_tpu_torch.ops import encodings as E
     from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.utils.device import num_sms
     from nerfsys_tpu_torch.ops import volrend as V
 
     S = 32
@@ -1754,6 +1786,9 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     results[kernels.HASH_FWD.name], fp32 = fwd(
         f"Linear floor layout {K}x{N} points", x01, hc, False,
         kernels.HASH_FWD)
+    sms = num_sms(device)
+    print(f"kernel hash_encode_fwd: plan "
+          f"{hash_plan_text(E.hash_fwd_plan(N, hc, K, sms))}", flush=True)
     small = x01[:, :HASH_SMALL].contiguous()
     for label, kw in (("Smoothstep", dict(interpolation="Smoothstep")),
                       ("Nearest", dict(interpolation="Nearest")),
@@ -1766,21 +1801,32 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     print(f"kernel hash_encode_fwd_packed: packed vs fp32 output "
           f"err/max={rel_err(packed, fp32):.3e} (the bf16 rounding)",
           flush=True)
-    del fp32, packed, small, x01
+    del fp32, packed, small
 
-    # 7c at one inner step of expert 0
-    rays = batch["support_rays"][0, 0]
-    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
-    near, far = rays[:, 6].contiguous(), rays[:, 7].contiguous()
-    grid = (occ["occs"][0:1], occ["binary"][0:1], statics.expert_aabbs[0:1])
-    cdf = O.occupancy_probe_cdf(*grid, o, d, near, far, 128, importance=True,
-                                ray_floor=0.25)
+    hash_fwd_edges(hc, table, x01, device)
+    del x01
+
+    # 7a at the step's shapes, 7c at one inner step of expert 0
     gen = torch.Generator(device=device).manual_seed(3)
-    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S, generator=gen,
-                                        randomized=True)
-    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
-    x1 = world_to_unit(pts, statics.expert_aabbs[0],
-                       cfg.expert.enc_eps).contiguous()
+    x1, pts = step_points(cfg, statics, occ, batch["support_rays"][0, 0],
+                          gen)
+    xq, _ = step_points(cfg, statics, occ, batch["query_rays"][0, 0], gen)
+    steps = []
+    for label, x in (("one inner step", x1), ("a query set", xq)):
+        ker = E.hash_encode_kernel(table[0], x, hc)
+        err = rel_err(ker, E.hash_encode_plain(table[0], x, hc))
+        ms = cuda_ms(lambda: E.hash_encode_kernel(table[0], x, hc), 10)
+        dev_ms = device_ms(lambda: E.hash_encode_kernel(table[0], x, hc))
+        plan = E.hash_fwd_plan(x.shape[0], hc, 1, sms)
+        steps.append(f"{label} 1x{x.shape[0]} points kernel_ms={ms:.4f} "
+                     f"(back to back) device_ms={dev_ms:.4f} "
+                     f"err/max={err:.3e} plan {hash_plan_text(plan)}")
+        if not err <= tol:
+            raise SystemExit(f"kernel hash_encode_fwd disagrees with its "
+                             f"plain version at {label}: {err} > {tol}")
+    fwd_step = "; ".join(steps)
+    print(f"kernel hash_encode_fwd: step shapes: {fwd_step}", flush=True)
+    results[kernels.HASH_FWD.name]["text"] += f"; step shapes: {fwd_step}"
     dout = torch.randn((x1.shape[0], hc.out_dim), device=device,
                        generator=gen)
     shape = table[0].shape
@@ -1789,20 +1835,29 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     torch.cuda.synchronize()
     err, tol_b = rel_err(got, want), 1e-4
     ms = cuda_ms(lambda: E.hash_encode_bwd_kernel(x1, dout, hc, shape), 10)
+    zero_ms = cuda_ms(lambda: torch.zeros(shape, device=device), 10)
+    dev_ms = device_ms(lambda: E.hash_encode_bwd_kernel(x1, dout, hc, shape))
+    zero_dev_ms = device_ms(lambda: torch.zeros(shape, device=device))
     plain_ms = cuda_ms(lambda: E.hash_encode_bwd_plain(x1, dout, hc, shape),
                        3)
     rows = hash_rows_read(x1[None], hc)
-    n_bytes = nbytes(x1, dout) + 2 * rows * hc.features_per_level * 4
+    # points and cotangent read, the dense table-shaped gradient written
+    # once (the rows' read-modify-writes in the L2 are a cost of the
+    # atomic design, not of the function)
+    n_bytes = nbytes(x1, dout) + nbytes(got)
     b_ms, b_by = bound(n_bytes, x1.shape[0] * hc.levels * (
         18 + 8 * (8 + 2 * hc.features_per_level)))
+    plan = E.hash_bwd_plan(x1.shape[0], 1, hc, sms)
     text = (f"one inner step {x1.shape[0]} points: err/max={err:.3e} "
             f"tol={tol_b:g} (relative to the gradient's max; fp32 atomics "
             f"add in another order than index_add_) max_abs_err="
             f"{max_err(got, want):.3e} kernel_ms={ms:.4f} (the zeroed "
-            f"{nbytes(got)}-byte buffer included) plain_ms={plain_ms:.4f} "
-            f"bytes={n_bytes} (distinct rows {rows}, read and written) "
-            f"bound_ms={b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} "
-            f"TB/s")
+            f"{nbytes(got)}-byte buffer included; the zero fill alone "
+            f"{zero_ms:.4f}; device time {dev_ms:.4f}, of it the zero fill "
+            f"{zero_dev_ms:.4f}) plain_ms={plain_ms:.4f} bytes={n_bytes} "
+            f"(points and cotangent read, the dense gradient written once; "
+            f"distinct rows {rows}) bound_ms={b_ms:.4f} ({b_by}) at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s; plan {hash_plan_text(plan)}")
     print(f"kernel {kernels.HASH_BWD.name}: {text}", flush=True)
     if not err <= tol_b or not bool((want != 0).any()):
         raise SystemExit(f"kernel hash_encode_bwd disagrees with its plain "
@@ -1810,6 +1865,176 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     results[kernels.HASH_BWD.name] = dict(
         max_abs_err=max_err(got, want), ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, text=text)
+    del got, want
+    xk = world_to_unit(pts, statics.expert_aabbs,
+                       cfg.expert.enc_eps).contiguous()
+    hash_bwd_edges(hc, table, x1, xk, dout, device)
+
+
+def step_points(cfg, statics, occ, rays, gen):
+    """Expert 0's unit-cube points of one support or query set of the
+    bench step (rays (R, 8): 32 randomized samples each, from its
+    probe-CDF), and the world points."""
+    from nerfsys_tpu_torch.models.ngp import world_to_unit
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    near, far = rays[:, 6].contiguous(), rays[:, 7].contiguous()
+    grid = (occ["occs"][0:1], occ["binary"][0:1], statics.expert_aabbs[0:1])
+    cdf = O.occupancy_probe_cdf(*grid, o, d, near, far, 128, importance=True,
+                                ray_floor=0.25)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, 32, generator=gen,
+                                        randomized=True)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    return world_to_unit(pts, statics.expert_aabbs[0],
+                         cfg.expert.enc_eps).contiguous(), pts
+
+
+def hash_plan_text(plan) -> str:
+    return (f"tile={plan.tile} threads={plan.threads} blocks={plan.blocks} "
+            f"smem={plan.smem} lane_map={plan.lane_map} vec={int(plan.vec)} "
+            f"level_group={plan.level_group}")
+
+
+def hash_edge_points(kind: str, k: int, n: int, device, fine_scale=None):
+    """Adversarial unit-cube points (k, n, 3) of the hash encoder, from
+    numpy seed 5: "one cell" puts every point at one interior point (every
+    lane of every warp on the same rows at every level); "fine cell"
+    spreads them inside one cell of the level with scale `fine_scale` (many
+    lanes on one row where no ray spacing would share it); "bounds" mixes
+    coordinates at world_to_unit's clip bounds (1e-6 and 1 - 1e-6) and of
+    exactly 0 and 1 with uniform ones."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    if kind == "one cell":
+        x = np.empty((k, n, 3), np.float32)
+        x[...] = np.array([0.31731, 0.60213, 0.44897], np.float32)
+    elif kind == "fine cell":
+        cell = np.array([1234.0, 2345.0, 3456.0], np.float64)
+        u = rng.uniform(0.25, 0.75, size=(k, n, 3))
+        x = ((cell + u) / fine_scale).astype(np.float32)
+    else:
+        x = rng.uniform(size=(k, n, 3)).astype(np.float32)
+        pick = rng.integers(0, 6, size=(k, n, 3))
+        special = np.array([1e-6, 1 - 1e-6, 0.0, 1.0], np.float32)
+        x = np.where(pick < 4, special[np.minimum(pick, 3)], x)
+    return torch.from_numpy(x).to(device)
+
+
+def hash_fwd_edges(hc, table, x01, device):
+    """Kernel 7a against its plain version on adversarial inputs, within
+    1e-6 of the output's max, under both lane maps: at the serve chunk (K=4,
+    2,097,152 points an expert) every point in one cell, many points in one
+    cell of the finest level, the bounds, a tail (N - 37) and a single
+    point; at 262,144 points F = 1, 4 and 8 (tables of their own) and the
+    other level grouping (one group if the plan splits the levels, groups
+    of 4 if it does not)."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch.ops import encodings as E
+    from nerfsys_tpu_torch.utils.device import num_sms
+
+    K, N = x01.shape[:2]
+    sms = num_sms(device)
+    small = x01[:, :HASH_SMALL].contiguous()
+    default_lg = E.hash_fwd_plan(N, hc, K, sms).level_group
+    other_lg = 4 if default_lg == hc.levels else hc.levels
+    cases = [
+        ("one cell", hc, table, hash_edge_points("one cell", K, N, device),
+         {}),
+        ("fine cell", hc, table, hash_edge_points(
+            "fine cell", K, N, device, float(hc.level_scales()[-1])), {}),
+        ("bounds", hc, table, hash_edge_points("bounds", K, N, device), {}),
+        ("tail N-37", hc, table, x01[:, :N - 37].contiguous(), {}),
+        ("N=1", hc, table, x01[:, :1].contiguous(), {})]
+    for F in (1, 4, 8):
+        c = dataclasses.replace(hc, features_per_level=F)
+        cases.append((f"F={F}", c, E.hash_grid_init(
+            c, torch.Generator().manual_seed(6), device=device,
+            num_experts=K), small, {}))
+    cases.append((f"level groups of {other_lg}", hc, table, small,
+                  dict(level_group=other_lg)))
+    for label, c, tab, x, kw in cases:
+        want = E.hash_encode_plain(tab, x, c)
+        for lane_map in E.LANE_MAPS:
+            plan = E.hash_fwd_plan(x.shape[1], c, K, sms, lane_map=lane_map,
+                                   **kw)
+            got = E.hash_encode_planned(tab, x, c, plan=plan)
+            err = rel_err(got, want)
+            ms = cuda_ms(lambda: E.hash_encode_planned(tab, x, c, plan=plan),
+                         3)
+            print(f"edge hash_encode_fwd {label}: K={K} N={x.shape[1]} "
+                  f"F={c.features_per_level} err/max={err:.3e} tol=1e-06 "
+                  f"kernel_ms={ms:.4f} plan {hash_plan_text(plan)}",
+                  flush=True)
+            if not err <= 1e-6:
+                raise SystemExit(f"kernel hash_encode_fwd disagrees with its "
+                                 f"plain version on {label} ({lane_map}): "
+                                 f"{err}")
+            del got
+        del want
+    torch.cuda.empty_cache()
+
+
+def hash_bwd_edges(hc, table, x1, xk, dout, device):
+    """Kernel 7c against its plain version on adversarial inputs at one
+    inner step (one expert, 128,000 points unless stated), within 1e-4 of
+    the gradient's max with the gradient nonzero, under both lane maps:
+    every point in one cell (every lane of a warp on one row: the deepest
+    aggregation), many points in one cell of the finest level, the bounds,
+    a tail (P - 37) and a single point, the K=4 experts stacked; one level
+    group of persistent blocks, and groups of 4 levels."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import encodings as E
+    from nerfsys_tpu_torch.utils.device import num_sms
+
+    P = x1.shape[0]
+    sms = num_sms(device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    cases = (
+        ("one cell", hash_edge_points("one cell", 1, P, device)[0], dout,
+         {}),
+        ("fine cell", hash_edge_points(
+            "fine cell", 1, P, device, float(hc.level_scales()[-1]))[0],
+         dout, {}),
+        ("bounds", hash_edge_points("bounds", 1, P, device)[0], dout, {}),
+        ("tail P-37", x1[:P - 37].contiguous(), dout[:P - 37].contiguous(),
+         {}),
+        ("N=1", x1[:1].contiguous(), dout[:1].contiguous(), {}),
+        ("stacked K=4", xk, torch.randn((4, P, hc.out_dim), device=device,
+                                        generator=gen), {}),
+        ("one level group of persistent blocks", x1, dout,
+         dict(level_group=None)),
+        ("level groups of 4", x1, dout, dict(level_group=4)))
+    for label, x, g, kw in cases:
+        K = x.shape[0] if x.dim() == 3 else 1
+        shape = table.shape if x.dim() == 3 else table[0].shape
+        want = E.hash_encode_bwd_plain(x, g, hc, shape)
+        if not bool((want != 0).any()):
+            raise SystemExit(f"hash_encode_bwd edge {label}: zero gradient")
+        for lane_map in E.LANE_MAPS:
+            plan = E.hash_bwd_plan(x.shape[-2], K, hc, sms,
+                                   lane_map=lane_map, **kw)
+            got = E.hash_encode_bwd_planned(x, g, hc, shape, plan=plan)
+            err = rel_err(got, want)
+            ms = cuda_ms(lambda: E.hash_encode_bwd_planned(
+                x, g, hc, shape, plan=plan), 3)
+            print(f"edge hash_encode_bwd {label}: K={K} N={x.shape[-2]} "
+                  f"err/max={err:.3e} tol=0.0001 kernel_ms={ms:.4f} plan "
+                  f"{hash_plan_text(plan)}", flush=True)
+            if not err <= 1e-4:
+                raise SystemExit(f"kernel hash_encode_bwd disagrees with its "
+                                 f"plain version on {label} ({lane_map}): "
+                                 f"{err}")
+            del got
+        del want
+    torch.cuda.empty_cache()
 
 
 def packed_chunk(cfg, statics, params, occ, device):

@@ -71,7 +71,6 @@
 #include <cuda_bf16.h>
 
 #define PLANES_MAX_LEVELS 8
-#define FULL_MASK 0xffffffffu
 
 struct PlaneLevels {  // same layout as csrc/planes.cu
     const float* planes[PLANES_MAX_LEVELS];  // (K, 3, R*R, F) per level
@@ -206,25 +205,6 @@ __global__ void plane_encode_bwd_exact_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // Kernel 5: the light VJP.
 
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
-                                         int bytes) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-    if (bytes == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                     "l"(gmem));
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                     "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 template <int VEC>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
     if (VEC == 4) {
@@ -234,39 +214,6 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
 #pragma unroll
         for (int i = 0; i < VEC; ++i) v[i] = __ldg(p + i);
     }
-}
-
-// Sum v over the lanes of `peers` (the lanes of this warp with the same
-// key, this one included) into the group's lowest lane; every lane of the
-// warp must call it. A tree over each group's ranks: at step j the lanes
-// whose rank has bit j set hand their partial sum to the next lower
-// remaining peer and drop out, so a group of n lanes takes ceil(log2 n)
-// steps (at most 5) and singleton groups none.
-template <int VEC>
-__device__ __forceinline__ void reduce_peers(unsigned peers, float (&v)[VEC],
-                                             int lane) {
-    unsigned rank = __popc(peers & ((1u << lane) - 1u));
-    unsigned higher = peers & (0xfffffffeu << lane);
-    while (__any_sync(FULL_MASK, higher != 0u)) {
-        const int next = __ffs(higher);  // 1 + the next remaining peer
-        const int src = next ? next - 1 : lane;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-            const float t = __shfl_sync(FULL_MASK, v[i], src);
-            if (next) v[i] += t;
-        }
-        higher &= ~__ballot_sync(FULL_MASK, rank & 1u);
-        rank >>= 1;
-    }
-}
-
-// A vector reduction in the L2 (no value returned, unlike atomicAdd on a
-// float4, which compiles to a returning ATOM); 16-byte aligned `dst`.
-__device__ __forceinline__ void red_add4(float* dst, float a, float b,
-                                         float c, float d) {
-    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(dst),
-                 "f"(a), "f"(b), "f"(c), "f"(d)
-                 : "memory");
 }
 
 template <int VEC>

@@ -289,12 +289,26 @@ class HashLevels(ctypes.Structure):
     ]
 
 
+class HashPlan(ctypes.Structure):
+    """A launch plan of kernels 7a and 7c (csrc/hash_grid.cu HashPlan;
+    filled from ops/encodings.py `HashLaunchPlan`)."""
+    _fields_ = [
+        ("tile", _I),
+        ("threads", _I),
+        ("blocks", _I),
+        ("smem", _I),
+        ("lane_map", _I),  # 0 "samples", 1 "rays"
+        ("vec", _I),
+        ("level_group", _I),
+    ]
+
+
 HASH_FEATURES = (1, 2, 4, 8)  # features per level the hash kernels take
 
 HASH_FWD = Kernel(
     "hash_encode_fwd", "hash_grid", "hash_encode_fwd",
-    # x, table, out, levels (by value), K, N, F, stream
-    [_P, _P, _P, HashLevels, _I, _I, _I, _P],
+    # x, table, out, levels (by value), K, N, F, plan (by value), stream
+    [_P, _P, _P, HashLevels, _I, _I, _I, HashPlan, _P],
     replaces="nerfsys_tpu/ops/encodings.py:345 (hash_grid_encode_fused with "
              "_encode_indices_weights :406; hash_grid_encode :256 for "
              "Nearest)",
@@ -308,8 +322,8 @@ HASH_FWD_PACKED = Kernel(
 )
 HASH_BWD = Kernel(
     "hash_encode_bwd", "hash_grid", "hash_encode_bwd",
-    # x, dout, dtable, levels (by value), K, N, F, stream
-    [_P, _P, _P, HashLevels, _I, _I, _I, _P],
+    # x, dout, dtable, levels (by value), K, N, F, plan (by value), stream
+    [_P, _P, _P, HashLevels, _I, _I, _I, HashPlan, _P],
     replaces="nerfsys_tpu/ops/encodings.py:511 (_packed_bwd, and the "
              "row_gather transpose of hash_grid_encode_fused :345)",
 )

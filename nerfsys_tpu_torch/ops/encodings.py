@@ -35,6 +35,7 @@ geometry here, and the reference's packed VJP returns zeros for them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -42,7 +43,13 @@ import numpy as np
 import torch
 
 from nerfsys_tpu_torch import kernels
-from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.device import (
+    SMEM_BLOCK_BYTES,
+    SMEM_SM_BYTES,
+    aligned,
+    num_sms,
+    resolve_device,
+)
 
 MAX_SH_DEGREE = 4
 
@@ -410,9 +417,11 @@ def hash_encode_bwd_plain(x01: torch.Tensor, dout: torch.Tensor,
     return dtable.reshape(table_shape)
 
 
+@functools.lru_cache(maxsize=64)
 def _level_table(cfg: HashGridConfig) -> "kernels.HashLevels":
     """The kernels' per-level struct: the same float32 scales, integer
-    resolutions and dense flags the plain versions use."""
+    resolutions and dense flags the plain versions use (built once per
+    config: the numpy level helpers cost tens of microseconds a launch)."""
     if not 1 <= cfg.levels <= kernels.HashLevels.MAX_LEVELS:
         raise ValueError(f"hash kernels take 1-{kernels.HashLevels.MAX_LEVELS}"
                          f" levels, not {cfg.levels}")
@@ -445,19 +454,178 @@ def _device_of(name: str, x01: torch.Tensor) -> bool:
     return x01.device.type == "cuda"
 
 
+# Launch plans of kernels 7a and 7c (csrc/hash_grid.cu `HashPlan`).
+LANE_MAPS = ("samples", "rays")  # kernel lane_map 0, 1
+HASH_FWD_TILE, HASH_FWD_THREADS = 256, 512  # 7a: 8 rays of 32 samples
+HASH_FWD_SMEM = 49_152  # 7a's tile is halved while its staging exceeds it
+# 7a's shape thresholds in tiles of 256 points per SM (see `_fwd_shape`)
+HASH_FWD_ONE_GROUP, HASH_FWD_SMALL_TILES = 3, 24
+HASH_BWD_TILE, HASH_BWD_THREADS = 64, 256  # 7c: 2 rays of 32 samples
+HASH_BWD_LEVELS = 2  # 7c's levels per block: 2 slabs (16 MiB) in the L2
+
+
+@dataclasses.dataclass(frozen=True)
+class HashLaunchPlan:
+    """Launch geometry of kernel 7a or 7c (csrc/hash_grid.cu `HashPlan`)."""
+
+    tile: int  # consecutive points of one expert per tile: 32 x 2^j <= 1024
+    threads: int  # per block (multiple of 32)
+    blocks: int  # per expert: one per tile (7a), persistent (7c)
+    smem: int  # dynamic shared-memory bytes per block
+    lane_map: str  # "rays": lanes across the tile's runs of 32; "samples"
+    vec: bool  # 16-byte output stores (7a) / cotangent copies (7c)
+    level_group: int = 0  # levels per block; grid y takes the groups
+
+    def as_struct(self) -> "kernels.HashPlan":
+        return kernels.HashPlan(
+            self.tile, self.threads, self.blocks, self.smem,
+            LANE_MAPS.index(self.lane_map), int(self.vec), self.level_group)
+
+
+def _check_lane_map(lane_map: str) -> None:
+    if lane_map not in LANE_MAPS:
+        raise ValueError(f"lane_map={lane_map!r}: expected one of "
+                         f"{LANE_MAPS}")
+
+
+def _level_group(cfg: HashGridConfig, level_group: Optional[int]) -> int:
+    lg = cfg.levels if level_group is None else level_group
+    if not 1 <= lg <= cfg.levels or cfg.levels % lg:
+        raise ValueError(f"hash encode: level_group={lg} does not divide "
+                         f"{cfg.levels} levels")
+    return lg
+
+
+def _fwd_shape(n: int, k: int, levels: int, num_sms: int):
+    """7a's (tile, levels per block) by the work per SM, in tiles of 256
+    points: up to HASH_FWD_ONE_GROUP, tiles of 256 in one group of all
+    levels; up to HASH_FWD_SMALL_TILES, tiles of 128 in groups of 4
+    levels; beyond, tiles of 512 in groups of 4. The thresholds fit what
+    was fastest on an H100 at the runner's width (L=16, F=2) at the three
+    shapes the paths use: a query set (64,000 points, 1.9 tiles an SM),
+    an inner step (128,000, 3.8) and a serve chunk (4 x 2,097,152, 248)."""
+    per_sm = k * -(-n // 256) / num_sms
+    four = 4 if levels % 4 == 0 else levels
+    if per_sm <= HASH_FWD_ONE_GROUP:
+        return 256, levels
+    return (128 if per_sm <= HASH_FWD_SMALL_TILES else 512), four
+
+
+def hash_fwd_plan(n: int, cfg: HashGridConfig, k: int = 1,
+                  num_sms: int = 132, lane_map: str = "rays",
+                  level_group: Optional[int] = None,
+                  vec_ok: bool = True) -> HashLaunchPlan:
+    """Kernel 7a's plan for K experts of N points each: one block per tile
+    of consecutive points of one expert and level group (`level_group`
+    levels, a divisor of L), with at most one warp per (level, run of 32)
+    task; tile and group chosen by `_fwd_shape` unless a group is given
+    (then tiles of HASH_FWD_TILE), the tile halved while its points and
+    staged (tile, level_group * F) output exceed HASH_FWD_SMEM; 16-byte
+    stores when a group's span is whole float4s and `vec_ok` (the output
+    is 16-byte aligned)."""
+    _check_lane_map(lane_map)
+    L, F = cfg.levels, cfg.features_per_level
+    if level_group is None:
+        tile, level_group = _fwd_shape(n, k, L, num_sms)
+    else:
+        tile = HASH_FWD_TILE
+    lg = _level_group(cfg, level_group)
+
+    def smem(t):  # points, output rows of lg*F + 1 floats, run shifts
+        return 4 * (3 * t + t * (lg * F + 1) + 32)
+
+    while tile > 32 and smem(tile) > HASH_FWD_SMEM:
+        tile //= 2
+    if smem(tile) > SMEM_BLOCK_BYTES:
+        raise ValueError(f"hash_encode: a 32-point tile of {lg * F} "
+                         f"features exceeds {SMEM_BLOCK_BYTES} bytes of "
+                         f"shared memory")
+    return HashLaunchPlan(
+        tile=tile, threads=min(HASH_FWD_THREADS, tile * lg),
+        blocks=max(1, -(-n // tile)), smem=smem(tile), lane_map=lane_map,
+        vec=vec_ok and (lg * F) % 4 == 0, level_group=lg)
+
+
+def hash_bwd_plan(n: int, k: int, cfg: HashGridConfig, num_sms: int,
+                  lane_map: str = "samples",
+                  level_group: Optional[int] = HASH_BWD_LEVELS,
+                  vec_ok: bool = True) -> HashLaunchPlan:
+    """Kernel 7c's plan for K experts of N points each.
+
+    Levels go in groups of `level_group` (None: all; a group that does not
+    divide L falls back to all). Shared memory holds two (tile,
+    level_group * F) cotangent buffers and two (tile, 3) point buffers
+    (HASH_BWD_TILE points, halved while they exceed half a block's shared
+    memory). With one level group the blocks are persistent: per expert as
+    many as can be resident on `num_sms` SMs by shared memory and threads,
+    at most one per tile (the entry point lowers it to what the occupancy
+    calculator, registers included, allows). With several, each block
+    takes one tile of one group (one warp per (level, run of 32) task), and
+    the groups run one after the other, so that the slabs they add into
+    stay in the L2."""
+    _check_lane_map(lane_map)
+    L, F = cfg.levels, cfg.features_per_level
+    if level_group is not None and L % level_group:
+        level_group = None
+    lg = _level_group(cfg, level_group)
+    d = lg * F
+    tile = HASH_BWD_TILE
+    while tile > 32 and 8 * tile * (d + 3) > SMEM_BLOCK_BYTES // 2:
+        tile //= 2
+    smem = 8 * tile * (d + 3)
+    if smem > SMEM_BLOCK_BYTES:
+        raise ValueError(f"hash_encode_bwd: a 32-point tile of {d} features "
+                         f"exceeds {SMEM_BLOCK_BYTES} bytes of shared memory")
+    tiles = -(-n // tile)
+    threads = min(HASH_BWD_THREADS, tile * lg)
+    per_sm = max(1, min(SMEM_SM_BYTES // (smem + 1024), 2048 // threads))
+    blocks = tiles if lg < L else max(1, min(tiles,
+                                             num_sms * per_sm // max(k, 1)))
+    return HashLaunchPlan(
+        tile=tile, threads=threads, blocks=blocks, smem=smem,
+        lane_map=lane_map, vec=vec_ok and d % 4 == 0, level_group=lg)
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_struct(n: int, k: int, cfg: HashGridConfig, num_sms: int,
+                vec_ok: bool) -> "kernels.HashPlan":
+    """`hash_fwd_plan`'s default plan as the kernel's struct, per shape."""
+    return hash_fwd_plan(n, cfg, k, num_sms, vec_ok=vec_ok).as_struct()
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_struct(n: int, k: int, cfg: HashGridConfig, num_sms: int,
+                vec_ok: bool) -> "kernels.HashPlan":
+    """`hash_bwd_plan`'s default plan as the kernel's struct, per shape."""
+    return hash_bwd_plan(n, k, cfg, num_sms, vec_ok=vec_ok).as_struct()
+
+
 def hash_encode_kernel(table: torch.Tensor, x01: torch.Tensor,
                        cfg: HashGridConfig,
                        packed: bool = False) -> torch.Tensor:
     """Kernels 7a / 7b's wrapper: the plain version for a CPU tensor; on a
-    CUDA tensor it launches `hash_encode_fwd` (or `hash_encode_fwd_packed`
-    when `packed`) or raises. Not differentiable: it raises under grad mode
-    with inputs that require grad."""
+    CUDA tensor it launches `hash_encode_fwd` (with `hash_fwd_plan`'s plan)
+    or, when `packed`, `hash_encode_fwd_packed`, or raises. Not
+    differentiable: it raises under grad mode with inputs that require
+    grad."""
     kernels.check_no_grad("hash_encode", x01, table)
     if packed:
         _check_packed(cfg)
     if not _device_of("hash_encode", x01):
         return (hash_encode_packed_plain if packed else hash_encode_plain)(
             table, x01, cfg)
+    return hash_encode_planned(table, x01, cfg, packed=packed)
+
+
+def hash_encode_planned(table: torch.Tensor, x01: torch.Tensor,
+                        cfg: HashGridConfig, packed: bool = False,
+                        plan: Optional[HashLaunchPlan] = None
+                        ) -> torch.Tensor:
+    """The CUDA half of `hash_encode_kernel`; `plan` (None:
+    `hash_fwd_plan`'s) sets 7a's launch, so a caller can run either lane
+    map, tile or level grouping at any shape."""
+    if x01.device.type != "cuda":
+        raise ValueError(f"hash_encode: unsupported device {x01.device}")
     tab, x, lead = _as_stacked(table, x01, cfg)
     K, N = x.shape[0], x.shape[1]
     kernels.check_cuda_tensors("hash_encode", x01.device, x=x, hash_table=tab)
@@ -468,9 +636,14 @@ def hash_encode_kernel(table: torch.Tensor, x01: torch.Tensor,
     if packed:
         kernels.HASH_FWD_PACKED(x.data_ptr(), tab.data_ptr(), out.data_ptr(),
                                 lv, K, N, stream)
-    else:
-        kernels.HASH_FWD(x.data_ptr(), tab.data_ptr(), out.data_ptr(), lv,
-                         K, N, cfg.features_per_level, stream)
+        return _unstack(out, lead, cfg)
+    if not aligned(tab):
+        raise ValueError("hash_encode: the table must start on a 16-byte "
+                         "boundary (the kernel reads rows as vectors)")
+    st = (_fwd_struct(N, K, cfg, num_sms(x.device), aligned(out))
+          if plan is None else plan.as_struct())
+    kernels.HASH_FWD(x.data_ptr(), tab.data_ptr(), out.data_ptr(), lv, K, N,
+                     cfg.features_per_level, st, stream)
     return _unstack(out, lead, cfg)
 
 
@@ -478,11 +651,23 @@ def hash_encode_bwd_kernel(x01: torch.Tensor, dout: torch.Tensor,
                            cfg: HashGridConfig,
                            table_shape: torch.Size) -> torch.Tensor:
     """Kernel 7c's wrapper: the plain version for a CPU tensor; on a CUDA
-    tensor it launches `hash_encode_bwd` (fp32 atomics into a zeroed
-    table-shaped buffer) or raises."""
+    tensor it launches `hash_encode_bwd` (with `hash_bwd_plan`'s plan, into
+    a zeroed table-shaped buffer) or raises."""
     kernels.check_no_grad("hash_encode_bwd", x01, dout)
     if not _device_of("hash_encode_bwd", x01):
         return hash_encode_bwd_plain(x01, dout, cfg, table_shape)
+    return hash_encode_bwd_planned(x01, dout, cfg, table_shape)
+
+
+def hash_encode_bwd_planned(x01: torch.Tensor, dout: torch.Tensor,
+                            cfg: HashGridConfig, table_shape: torch.Size,
+                            plan: Optional[HashLaunchPlan] = None
+                            ) -> torch.Tensor:
+    """The CUDA half of `hash_encode_bwd_kernel`; `plan` (None:
+    `hash_bwd_plan`'s) sets 7c's launch, so a caller can run either lane
+    map or level grouping at any shape."""
+    if x01.device.type != "cuda":
+        raise ValueError(f"hash_encode_bwd: unsupported device {x01.device}")
     if tuple(table_shape[-2:]) != (cfg.levels * cfg.table_size,
                                    cfg.features_per_level):
         raise ValueError("hash_encode_bwd: table shape does not match cfg")
@@ -493,8 +678,10 @@ def hash_encode_bwd_kernel(x01: torch.Tensor, dout: torch.Tensor,
     kernels.check_cuda_tensors("hash_encode_bwd", x01.device, x=x, dout=g)
     lv = _level_table(cfg)
     dtable = torch.zeros(table_shape, dtype=torch.float32, device=x.device)
+    st = (_bwd_struct(N, K, cfg, num_sms(x.device), aligned(g))
+          if plan is None else plan.as_struct())
     kernels.HASH_BWD(x.data_ptr(), g.data_ptr(), dtable.data_ptr(), lv, K, N,
-                     cfg.features_per_level, kernels.stream_ptr(x))
+                     cfg.features_per_level, st, kernels.stream_ptr(x))
     return dtable
 
 

@@ -28,7 +28,13 @@ import numpy as np
 import torch
 
 from nerfsys_tpu_torch import kernels
-from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.device import (
+    SMEM_BLOCK_BYTES,
+    SMEM_SM_BYTES,
+    aligned,
+    num_sms,
+    resolve_device,
+)
 
 # plane axes (a, b) and the complementary line axis c per orientation
 _ORIENTATIONS = ((0, 1, 2), (0, 2, 1), (1, 2, 0))
@@ -137,11 +143,6 @@ def plane_encode_plain(params: Dict, x01: torch.Tensor,
     return out if stacked else out[0].reshape(*lead, cfg.out_dim)
 
 
-# Shared memory on an H100: what one block may opt into as dynamic shared
-# memory (227 KB), and what one SM holds (228 KB, 1 KB of it reserved per
-# resident block).
-SMEM_BLOCK_BYTES = 232_448
-SMEM_SM_BYTES = 233_472
 TILE, FWD_THREADS = 128, 384  # kernel 1's points per tile (4 rays of 32
 # samples) and threads: 12 warps take a tile's 36 (level x orientation,
 # 32-point) tasks at bench width in 3 rounds
@@ -256,24 +257,6 @@ def plane_bwd_light_plan(n: int, k: int, res: Sequence[int], features: int,
                            line_ofs=tuple(line_ofs))
 
 
-def _aligned(*tensors) -> bool:
-    """Every tensor starts on a 16-byte boundary (the kernels' vector
-    loads, stores and atomics)."""
-    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
-
-
-_NUM_SMS: Dict[int, int] = {}
-
-
-def _num_sms(device: torch.device) -> int:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _NUM_SMS:
-        _NUM_SMS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    return _NUM_SMS[idx]
-
-
 def plane_encode_kernel(params: Dict, x01: torch.Tensor,
                         cfg: PlaneEncodingConfig) -> torch.Tensor:
     """Kernel 1's wrapper: the plain version for a CPU tensor; on a CUDA
@@ -292,7 +275,7 @@ def plane_encode_kernel(params: Dict, x01: torch.Tensor,
     out = torch.empty((K, N, cfg.out_dim), dtype=torch.float32,
                       device=x01.device)
     plan = plane_fwd_plan(N, cfg.level_resolutions(), cfg.features,
-                          vec_ok=_aligned(*planes, *(lines or ())))
+                          vec_ok=aligned(*planes, *(lines or ())))
     kernels.PLANES_FWD(x.data_ptr(), out.data_ptr(), lv, K, N, cfg.features,
                        plan.as_struct(), kernels.stream_ptr(x))
     return out if stacked else out[0].reshape(*lead, cfg.out_dim)
@@ -465,13 +448,13 @@ def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
         kernels.PLANES_BWD(x.data_ptr(), ct.data_ptr(), lv, gr, gx.data_ptr(),
                            K, N, cfg.features, stream)
     else:
-        aligned = _aligned(ct, *planes, *(lines or ()), *g_planes,
-                           *(g_lines or ()))
+        vec_ok = aligned(ct, *planes, *(lines or ()), *g_planes,
+                         *(g_lines or ()))
         if plan is None:
             plan = plane_bwd_light_plan(
                 N, K, cfg.level_resolutions(), cfg.features,
-                lines is not None, _num_sms(dev), vec_ok=aligned)
-        elif plan.vec and not aligned:
+                lines is not None, num_sms(dev), vec_ok=vec_ok)
+        elif plan.vec and not vec_ok:
             raise ValueError("plane_encode_bwd: a 16-byte plan needs 16-byte "
                              "aligned tables and cotangent")
         kernels.PLANES_BWD_LIGHT(x.data_ptr(), ct.data_ptr(), lv, gr, K, N,

@@ -1,25 +1,34 @@
 #!/usr/bin/env python3
-"""A/B timing of the port's serve phase: this checkout against another one.
+"""A/B timing of the port's serve or train phase: this checkout against
+another one.
 
-    python3 serve_ab.py OTHER_CHECKOUT [--pairs 10]
+    python3 serve_ab.py OTHER_CHECKOUT [--pairs 10] [--experts planes|hash]
+                        [--phase frame|step]
 
 OTHER_CHECKOUT is a second copy of the repository, for example the parent
 commit unpacked with `git archive`. One worker process per checkout imports
 that checkout's own `chip_smoke.py` and `nerfsys_tpu_torch`, builds its
-kernels, sets up chip_smoke's bench-width soft-occupancy serve configuration
-(K=4, seed 0) and renders one warm-up frame. Then the workers take rounds in
-the order other, this, this, other, other, this, ... (`--pairs` pairs). A
-round renders chip_smoke's three 800x800 poses through `render_image` and
-reports each frame's ms on the host clock, ending with the frame on the
-host, and the host ms of `frame_rays` for the first pose. A worker waits on
-its pipe between rounds, so one renders at a time.
+kernels, sets up chip_smoke's bench-width soft-occupancy configuration
+(K=4, seed 0; `--experts hash` swaps in chip_smoke's `hash_setup`, the
+runner's default hash-grid experts, in place of the bench-width planes
+experts) and runs one warm-up frame or step. Then the workers take rounds
+in the order other, this, this, other, other, this, ... (`--pairs` pairs).
+A `--phase frame` round (the default) renders chip_smoke's three 800x800
+poses through `render_image` and reports each frame's ms on the host
+clock, ending with the frame on the host, and the host ms of `frame_rays`
+for the first pose. A `--phase step` round takes three of chip_smoke's
+bench FoMAML steps (`make_train_step`, K=4 B=3, 8 inner steps of 4,000
+rays), each ending with its loss on the host, from the same parameters
+and generator seed every round. A worker waits on its pipe between
+rounds, so one runs at a time.
 
 Prints every round, then for each side the median, quartiles and range of
 the round means; the difference of the medians against the other side's
 quartile spread, whether this median lies inside the other's range, and
 in how many pairs this side was faster; and the card's name and power
-limit. Exits non-zero if the two checkouts render
-different images. Needs one CUDA card.
+limit. Exits non-zero if the two checkouts render different images or
+reach different losses (the mean colour, or the last step's loss, apart
+by more than 1e-4 of its size). Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -34,12 +43,27 @@ from pathlib import Path
 SIDES = ("other", "this")
 
 
-def worker(root: Path) -> int:
+def worker(root: Path, experts: str, phase: str) -> int:
     sys.path[0] = str(root)  # that checkout's modules, not this script's
     import torch
 
     import chip_smoke as cs
     from nerfsys_tpu_torch import kernels
+
+    kernels.build_all()
+    device = torch.device("cuda", 0)
+    torch.manual_seed(cs.SEED)
+    cfg, statics, params, occ = cs.bench_setup(device)
+    if experts == "hash":
+        cfg, params = cs.hash_setup(device)
+    if phase == "step":
+        return step_rounds(cs, cfg, statics, params, occ, device)
+    return frame_rounds(cs, cfg, statics, params, occ, device)
+
+
+def frame_rounds(cs, cfg, statics, params, occ, device) -> int:
+    import torch
+
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
     from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
         default_chunk_rays,
@@ -47,10 +71,6 @@ def worker(root: Path) -> int:
         render_image,
     )
 
-    kernels.build_all()
-    device = torch.device("cuda", 0)
-    torch.manual_seed(cs.SEED)
-    cfg, statics, params, occ = cs.bench_setup(device)
     S = 32
     chunk = default_chunk_rays(S)
     aabb = statics.global_aabb.cpu().numpy()
@@ -62,7 +82,7 @@ def worker(root: Path) -> int:
     render_image(renderer, params, statics, poses[0], scene_aabb=aabb,
                  chunk_rays=chunk)  # warm-up
     torch.cuda.synchronize()
-    print(json.dumps({"ready": str(root)}), flush=True)
+    print(json.dumps({"ready": "frame"}), flush=True)
     for line in sys.stdin:
         if line.strip() != "run":
             break
@@ -77,7 +97,39 @@ def worker(root: Path) -> int:
                    poses[0].c2w, aabb=aabb)
         raygen_ms = 1e3 * (time.perf_counter() - t0)
         print(json.dumps({"ms": ms, "raygen_ms": raygen_ms,
-                          "mean_rgb": float(rgb.mean())}), flush=True)
+                          "check": float(rgb.mean())}), flush=True)
+    return 0
+
+
+def step_rounds(cs, cfg, statics, params, occ, device) -> int:
+    import torch
+
+    from nerfsys_tpu_torch.models.container import param_group_labels
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+    from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
+
+    batch = cs.train_batch(device)
+    opt = build_optimizer(OptimConfig(outer_steps=10000),
+                          param_group_labels(params))
+    step = make_train_step(cs.train_meta(), cfg, opt)
+    state0 = opt.init(params)
+    gen = torch.Generator(device=device).manual_seed(1)
+    float(step(params, state0, statics, batch, gen, occ)[2]["loss_out"])
+    print(json.dumps({"ready": "step"}), flush=True)
+    for line in sys.stdin:
+        if line.strip() != "run":
+            break
+        gen = torch.Generator(device=device).manual_seed(1)
+        p, state, ms = params, state0, []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            p, state, aux = step(p, state, statics, batch, gen, occ)
+            loss = float(aux["loss_out"])  # the host sync ends the step
+            ms.append(1e3 * (time.perf_counter() - t0))
+        print(json.dumps({"ms": ms, "raygen_ms": 0.0, "check": loss}),
+              flush=True)
     return 0
 
 
@@ -105,7 +157,7 @@ def summarize(rounds, roots):
             "min_ms": min(means), "max_ms": max(means),
             "raygen_median_ms": statistics.median(
                 r["raygen_ms"] for r in rounds[name]),
-            "mean_rgb": rounds[name][-1]["mean_rgb"]}
+            "check": rounds[name][-1]["check"]}
     o, t = summary["other"], summary["this"]
     verdict = {
         "median_diff_ms": t["median_ms"] - o["median_ms"],
@@ -122,10 +174,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="the other checkout's root")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--experts", choices=("planes", "hash"),
+                    default="planes")
+    ap.add_argument("--phase", choices=("frame", "step"), default="frame")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.other.resolve())
+        return worker(args.other.resolve(), args.experts, args.phase)
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
     import torch
@@ -145,8 +200,9 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     procs = {name: subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--worker",
-         str(root)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-        text=True) for name, root in roots.items()}
+         "--experts", args.experts, "--phase", args.phase, str(root)],
+        stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, text=True) for name, root in roots.items()}
     try:
         for name in SIDES:
             _reply(procs[name])
@@ -158,7 +214,7 @@ def main() -> int:
                 r = _reply(procs[name])
                 r["mean_ms"] = sum(r["ms"]) / len(r["ms"])
                 rounds[name].append(r)
-                print(f"round {i} {name}: ms_per_frame="
+                print(f"round {i} {name}: ms_per_{args.phase}="
                       f"{[round(x, 2) for x in r['ms']]} mean_ms="
                       f"{r['mean_ms']:.2f} raygen_ms={r['raygen_ms']:.2f}",
                       flush=True)
@@ -184,11 +240,14 @@ def main() -> int:
           f"other's quartile spread {verdict['other_quartile_spread_ms']:.2f}"
           f" ms; this faster in {verdict['pairs_this_faster']} of "
           f"{args.pairs} pairs")
-    print(json.dumps({"serve_ab": summary, "verdict": verdict}))
+    print(json.dumps({"serve_ab": summary, "verdict": verdict,
+                      "experts": args.experts, "phase": args.phase}))
     print(card)
-    if abs(summary["this"]["mean_rgb"] - summary["other"]["mean_rgb"]) > 1e-4:
-        print("serve_ab: the two checkouts render different images",
-              file=sys.stderr)
+    a, b = summary["this"]["check"], summary["other"]["check"]
+    if abs(a - b) > 1e-4 * max(1.0, abs(b)):
+        print(f"serve_ab: the two checkouts differ: "
+              f"{'mean colour' if args.phase == 'frame' else 'loss'} "
+              f"{a} against {b}", file=sys.stderr)
         return 1
     return 0
 
