@@ -16,13 +16,13 @@ printing its result lines):
    probes; K=4 experts at bench width; R=128, L=4 occupancy grids half
    occupied), and each backward kernel at one full inner step of one
    bench-width expert (4,000 rays x 32 samples), and time both with CUDA
-   events. Kernels 1 and 5 (the plane encoder and its light backward) are
-   also held to their plain versions on adversarial inputs at those
-   shapes: every point in one cell, coordinates of exactly 0 and 1 and
-   outside [0, 1], a tail tile, no lines, F=2 (the scalar variant), K=4
-   stacked experts, L=5 base 128, and kernel 5's line-gradient variants
-   (the coarsest level private, all levels private, none); each line
-   prints the launch plan.
+   events. Kernels 1, 5 and 6 (the plane encoder and its light and exact
+   backward) are also held to their plain versions on adversarial inputs
+   at those shapes: every point in one cell, coordinates of exactly 0 and
+   1 and outside [0, 1], a tail tile, a single point (5, 6), no lines,
+   F=2 (the scalar variant), K=4 stacked experts, L=5 base 128, and the
+   backward's line-gradient variants (the coarsest level private, all
+   levels private, none); each line prints the launch plan.
 4. Serve: a soft-occupancy chunk renderer at bench width renders one
    warm-up frame and then 3 requests of 800x800 frames through
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
@@ -54,7 +54,11 @@ printing its result lines):
    kernel 8 (the packed-corner trilinear lookup) against its plain version
    at one full serve chunk on four tables (the serve table, 256³ pack-4
    dense bf16, 64³ pack-2 dense bf16, 128³ pack-4 sparse f32) and time it
-   beside one `grid_sample` over the dense volume; then serve one warm-up
+   beside one `grid_sample` over the dense volume, and on adversarial
+   points on each table (the box's top faces, exactly lo and outside the
+   box, one cell, both sides of sparse block and super-block edges, a
+   tail of 13 points past whole warps, a single point; error 0
+   expected, each line with its launch plan); then serve one warm-up
    and 3 800x800 uint8 frames through `make_baked_camera_renderer` (rays
    generated on the card). Kernels 8 and 4 must have launched during the
    3 requests; the same frame through `use_kernels=False` must lie within
@@ -68,7 +72,9 @@ printing its result lines):
    backward (pos_grad=True). Loss finite, no step skipped, params moved,
    every kernel's launch counter moved; one step's gradients through the
    kernels match the same step through the plain versions
-   (`make_train_step(..., use_kernels=False)`); one step is profiled.
+   (`make_train_step(..., use_kernels=False)`); one light and one exact
+   step are profiled (device busy ms, idle share, kernel 6's launches x
+   ms).
 8. Hash: the runner's default experts (`container_config_from_args` with
    the flag defaults: K=4 Instant-NGP experts, hash L=16 F=2
    log2_hashmap_size 20, 16-4096, Linear, floor layout, fp32; 512 MiB of
@@ -422,6 +428,7 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
     from nerfsys_tpu_torch.ops import occupancy as O
     from nerfsys_tpu_torch.ops import planes as PL
     from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.utils.device import num_sms
     from nerfsys_tpu_torch.utils.tree import tree_map
 
     S = 32
@@ -496,10 +503,11 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
              "(--fmad=false), fp32 atomics add in another order: ~6e-6 "
              "measured; the tolerance must stay below the light-exact gap"),
             (kernels.PLANES_BWD, True, 1e-4,
-             "relative to each gradient's max; fp32 atomics add up to "
-             "thousands of cancelling shares per line row, and the position "
-             "gradient sums 9 blocks of differences times R-1, in another "
-             "order than index_add_ and torch.sum: ~5e-6 measured")):
+             "relative to each gradient's max; warp-aggregated fp32 "
+             "reductions add up to thousands of cancelling shares per line "
+             "row in another order than index_add_, and each block's "
+             "position partial sums its F products in another order than "
+             "torch.sum")):
         pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
         got = PL.plane_encode_bwd_kernel(enc, x01, ct, pc)
         want = PL.plane_encode_bwd_plain(enc, x01, ct, pc)
@@ -517,6 +525,11 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
                                  f"within {gap} of the exact ones, so its "
                                  f"check at {tol} cannot tell them apart")
         n_out = sum(t.numel() for t in got[0] + got[1])
+        dev_ms = device_ms(lambda: PL.plane_encode_bwd_kernel(enc, x01, ct,
+                                                              pc))
+        plan = PL.plane_bwd_plan(P, 1, pc.level_resolutions(), pc.features,
+                                 True, num_sms(device), exact=pos_grad)
+        why += f"; device_ms={dev_ms:.4f}; plan {plan_text(plan)}"
         report(kern, checks, why,
                cuda_ms(lambda: PL.plane_encode_bwd_kernel(enc, x01, ct, pc),
                        10),
@@ -535,7 +548,8 @@ def plan_text(plan) -> str:
     return (f"tile={plan.tile} threads={plan.threads} blocks={plan.blocks} "
             f"smem={plan.smem} vec={int(plan.vec)}"
             + (f" private_line_levels={plan.private_levels}"
-               if plan.line_ofs else ""))
+               if plan.line_ofs else "")
+            + (" exact" if plan.exact else ""))
 
 
 def edge_points(kind: str, k: int, n: int, device):
@@ -609,14 +623,15 @@ def plane_fwd_edges(pc, enc_p, x01, device):
 
 
 def plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device):
-    """Kernel 5 against its plain version on adversarial inputs at the inner
-    step (one expert, 128,000 points unless stated), each table within
+    """Kernels 5 (light) and 6 (exact, pos_grad=True) against their plain
+    versions on adversarial inputs at the inner step (one expert, 128,000
+    points unless stated), each table and the position gradient within
     1e-4 of its max: one cell (every lane of a warp on the same rows: the
     deepest aggregation), coordinates on and outside the bounds, a tail
-    tile (P - 37), no lines, F=2 (the scalar variant), the K=4 experts
-    stacked, L=5 base 128 (level 0 private, 1-4 on the global line path),
-    and bench width with all three line levels private and with none
-    (the global line path alone)."""
+    tile (P - 37), a single point, no lines, F=2 (the scalar variant), the
+    K=4 experts stacked, L=5 base 128 (level 0 private, 1-4 on the global
+    line path), and bench width with all three line levels private and
+    with none (the global line path alone)."""
     import dataclasses
 
     import torch
@@ -625,60 +640,71 @@ def plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device):
     from nerfsys_tpu_torch.ops import planes as PL
     from nerfsys_tpu_torch.utils.device import num_sms
 
-    pc = cfg.expert.planes
     P = x01.shape[0]
     gen = torch.Generator(device=device).manual_seed(8)
 
     def cot(c, *lead):
         return torch.randn((*lead, c.out_dim), device=device, generator=gen)
 
-    no_lines = dataclasses.replace(pc, include_lines=False)
-    f2 = dataclasses.replace(pc, features=2)
-    l5 = dataclasses.replace(pc, levels=5)
     xk = world_to_unit(pts, statics.expert_aabbs,
                        cfg.expert.enc_eps).contiguous()
     sms = num_sms(x01.device)
-    res = pc.level_resolutions()
-    l5_plan = PL.plane_bwd_light_plan(P, 1, l5.level_resolutions(), 8, True,
-                                      sms)
-    if not (l5_plan.private_levels and len(l5_plan.private_levels) < 5):
-        raise SystemExit(f"L=5 plan does not split the line levels: "
-                         f"{l5_plan}")
-    cases = (
-        ("one cell", pc, enc, edge_points("one cell", 1, P, device)[0], ct,
-         None),
-        ("bounds", pc, enc, edge_points("bounds", 1, P, device)[0], ct, None),
-        ("tail P-37", pc, enc, x01[:P - 37].contiguous(),
-         ct[:P - 37].contiguous(), None),
-        ("no lines", no_lines, {"planes": enc["planes"]}, x01,
-         cot(no_lines, P), None),
-        ("F=2 scalar", f2, edge_tables(f2, 0, device), x01, cot(f2, P), None),
-        ("stacked K=4", pc, params["experts"]["planes_enc"], xk,
-         cot(pc, xk.shape[0], P), None),
-        ("L=5 base 128", l5, edge_tables(l5, 0, device), x01, cot(l5, P),
-         l5_plan),
-        ("every line level private", pc, enc, x01, ct,
-         PL.plane_bwd_light_plan(P, 1, res, 8, True, sms, line_budget=None)),
-        ("global line path", pc, enc, x01, ct,
-         PL.plane_bwd_light_plan(P, 1, res, 8, True, sms, line_budget=0)))
-    for label, c, tab, x, g, plan in cases:
-        got = PL.plane_encode_bwd_planned(tab, x, g, c, plan)
-        want = PL.plane_encode_bwd_plain(tab, x, g, c)
-        errs = [rel_err(a, b) for a, b in zip(got[0] + (got[1] or []),
-                                              want[0] + (want[1] or []))]
-        ms = cuda_ms(lambda: PL.plane_encode_bwd_planned(tab, x, g, c, plan),
-                     3)
-        K = x.shape[0] if x.dim() == 3 else 1
-        shown = plan or PL.plane_bwd_light_plan(
-            x.shape[-2], K, c.level_resolutions(), c.features,
-            c.include_lines, sms)
-        print(f"edge plane_encode_bwd_light {label}: K={K} N={x.shape[-2]} "
-              f"table_err/max={max(errs):.3e} tol=0.0001 kernel_ms={ms:.4f} "
-              f"plan {plan_text(shown)}", flush=True)
-        if not max(errs) <= 1e-4:
-            raise SystemExit(f"kernel plane_encode_bwd_light disagrees with "
-                             f"its plain version on {label}: {errs}")
-        del got, want
+    for exact in (False, True):
+        name = "plane_encode_bwd" if exact else "plane_encode_bwd_light"
+        pc = dataclasses.replace(cfg.expert.planes, pos_grad=exact)
+        no_lines = dataclasses.replace(pc, include_lines=False)
+        f2 = dataclasses.replace(pc, features=2)
+        l5 = dataclasses.replace(pc, levels=5)
+        res = pc.level_resolutions()
+        l5_plan = PL.plane_bwd_plan(P, 1, l5.level_resolutions(), 8, True,
+                                    sms, exact=exact)
+        if not (l5_plan.private_levels and len(l5_plan.private_levels) < 5):
+            raise SystemExit(f"L=5 plan does not split the line levels: "
+                             f"{l5_plan}")
+        cases = (
+            ("one cell", pc, enc, edge_points("one cell", 1, P, device)[0],
+             ct, None),
+            ("bounds", pc, enc, edge_points("bounds", 1, P, device)[0], ct,
+             None),
+            ("tail P-37", pc, enc, x01[:P - 37].contiguous(),
+             ct[:P - 37].contiguous(), None),
+            ("single point", pc, enc, x01[:1].contiguous(),
+             ct[:1].contiguous(), None),
+            ("no lines", no_lines, {"planes": enc["planes"]}, x01,
+             cot(no_lines, P), None),
+            ("F=2 scalar", f2, edge_tables(f2, 0, device), x01, cot(f2, P),
+             None),
+            ("stacked K=4", pc, params["experts"]["planes_enc"], xk,
+             cot(pc, xk.shape[0], P), None),
+            ("L=5 base 128", l5, edge_tables(l5, 0, device), x01,
+             cot(l5, P), l5_plan),
+            ("every line level private", pc, enc, x01, ct,
+             PL.plane_bwd_plan(P, 1, res, 8, True, sms, line_budget=None,
+                               exact=exact)),
+            ("global line path", pc, enc, x01, ct,
+             PL.plane_bwd_plan(P, 1, res, 8, True, sms, line_budget=0,
+                               exact=exact)))
+        for label, c, tab, x, g, plan in cases:
+            got = PL.plane_encode_bwd_planned(tab, x, g, c, plan)
+            want = PL.plane_encode_bwd_plain(tab, x, g, c)
+            errs = [rel_err(a, b) for a, b in zip(
+                got[0] + (got[1] or []), want[0] + (want[1] or []))]
+            x_err = rel_err(got[2], want[2]) if exact else 0.0
+            ms = cuda_ms(lambda: PL.plane_encode_bwd_planned(tab, x, g, c,
+                                                             plan), 3)
+            K = x.shape[0] if x.dim() == 3 else 1
+            shown = plan or PL.plane_bwd_plan(
+                x.shape[-2], K, c.level_resolutions(), c.features,
+                c.include_lines, sms, exact=exact)
+            print(f"edge {name} {label}: K={K} N={x.shape[-2]} "
+                  f"table_err/max={max(errs):.3e}"
+                  + (f" x_err/max={x_err:.3e}" if exact else "")
+                  + f" tol=0.0001 kernel_ms={ms:.4f} plan "
+                  + plan_text(shown), flush=True)
+            if not max(errs + [x_err]) <= 1e-4:
+                raise SystemExit(f"kernel {name} disagrees with its plain "
+                                 f"version on {label}: {errs} x {x_err}")
+            del got, want
     torch.cuda.empty_cache()
 
 
@@ -729,9 +755,10 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
                          f"the plain path")
 
 
-def profile_device(label: str, fn, extra: str = "") -> None:
+def profile_device(label: str, fn, extra: str = "", watch=()) -> None:
     """Where one call's time goes: device time by kernel under
-    torch.profiler, the device busy share of the (profiled) wall time."""
+    torch.profiler, the device busy share of the (profiled) wall time;
+    also the rows whose names contain every word of one `watch` entry."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -759,6 +786,12 @@ def profile_device(label: str, fn, extra: str = "") -> None:
               f"idle_share={1 - busy_ms / wall_ms:.3f}{extra}", flush=True)
         for dev_ms, key, count in rows[:12]:
             print(f"profile: {dev_ms:9.3f} ms {count:6d}x {key[:90]}")
+        for words in watch:
+            for dev_ms, key, count in rows:
+                if all(w in key for w in words):
+                    print(f"profile: {label} watch {count}x {key[:60]}: "
+                          f"{dev_ms:.3f} ms ({dev_ms / count:.4f} ms each)",
+                          flush=True)
         dtoh = [r for r in rows if "DtoH" in r[1]]
         print(f"profile: device-to-host copies {sum(r[2] for r in dtoh)}x "
               f"{sum(r[0] for r in dtoh):.3f} ms (each a host sync)",
@@ -816,8 +849,8 @@ def train(cfg, statics, params, occ, batch, device, label="train",
             raise SystemExit(f"{label}: step not finite: {aux}")
     light = kernels.launches()
     variant, name = extra
-    _, _, aux_x = make_train_step(meta, variant(cfg), opt)(
-        p, state, statics, batch, gen, occ)
+    step_x = make_train_step(meta, variant(cfg), opt)
+    _, _, aux_x = step_x(p, state, statics, batch, gen, occ)
     loss_x = float(aux_x["loss_out"])
     launches = kernels.launches()
     print(f"{label}: launches during 3 bench steps {light}", flush=True)
@@ -837,6 +870,10 @@ def train(cfg, statics, params, occ, batch, device, label="train",
                               device, label)
     profile_device(f"{label} step", lambda: float(
         step(p, state, statics, batch, gen, occ)[2]["loss_out"]))
+    profile_device(f"{label} {name} step", lambda: float(
+        step_x(p, state, statics, batch, gen, occ)[2]["loss_out"]),
+        watch=(("plane_encode_bwd_kernel", "true"),
+               ("plane_encode_bwd_kernel", "false")))
 
     ms = [1e3 * t for t in times]
     n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
@@ -1415,6 +1452,7 @@ def check_baked_kernel(tables, pts, results):
 
     from nerfsys_tpu_torch import kernels
     from nerfsys_tpu_torch.models.baked import (
+        baked_plan,
         baked_trilerp_kernel,
         baked_trilerp_plain,
     )
@@ -1457,7 +1495,9 @@ def check_baked_kernel(tables, pts, results):
                 f"{HBM_BYTES_PER_S / 1e12:g} TB/s library_ms={lib_ms:.4f} "
                 f"(grid_sample bilinear, border, align_corners=False, over "
                 f"the dense (1, {C}, {R}, {R}, {R}) float32 volume; "
-                f"max_abs_err vs plain {lib_err:.3e})")
+                f"max_abs_err vs plain {lib_err:.3e}); plan "
+                + baked_plan_text(baked_plan(N, pack, C, Cp,
+                                             table.element_size())))
         print(f"kernel {kernels.BAKED_TRILERP.name}: {text}", flush=True)
         if not err <= tol:
             raise SystemExit(f"kernel baked_trilerp disagrees with its plain "
@@ -1467,6 +1507,91 @@ def check_baked_kernel(tables, pts, results):
                 max_abs_err=max_err(ker, pln), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, text=text)
         del ker, pln
+
+
+BAKED_EDGE_N = 2048 * 32 + 13  # a tail of 13 points past whole warps
+
+
+def baked_edge_points(kind: str, baked, bcfg, device):
+    """Adversarial lookup points (BAKED_EDGE_N, 3) from numpy seed 9 in a
+    table's box: "top faces" puts coordinates exactly on the box's top
+    faces (the clip to float32(R - 1.000001) gives R-1, weight 0, for
+    R >= 64); "lo and outside" exactly at lo, one and three cells outside
+    the box; "one cell" every point at one interior point; "block edges"
+    cells on both sides of the sparse blocks' and super-blocks' edges
+    (8-cell blocks for a dense table); "single point" one of them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(9)
+    box = baked["aabb"].cpu().numpy().astype(np.float32)
+    lo, hi = box[0], box[1]
+    R = bcfg.resolution
+    h = (hi - lo) / np.float32(R)
+    n = 1 if kind == "single point" else BAKED_EDGE_N
+    u = rng.uniform(size=(n, 3)).astype(np.float32)
+    p = lo + u * (hi - lo)
+    pick = rng.integers(0, 3, size=(n, 3))
+    if kind == "top faces":
+        p = np.where(pick == 0, hi, p)
+        p[:4] = [hi, [hi[0], lo[1], hi[2]], [lo[0], hi[1], hi[2]], lo]
+    elif kind == "lo and outside":
+        out = np.stack([lo - h, lo - 3 * h, hi + h, hi + 3 * h])
+        p = np.where(pick == 0, lo, np.where(
+            pick == 1, out[rng.integers(0, 4, size=(n, 3)), [0, 1, 2]], p))
+    elif kind == "one cell":
+        p[:] = lo + np.float32(0.41) * (hi - lo)
+    elif kind in ("block edges", "single point"):
+        B = bcfg.sparse_block or 8
+        edges = np.unique(np.concatenate([
+            np.arange(B, R, B) - 1, np.arange(B, R, B),
+            np.arange(4 * B, R, 4 * B) - 1, np.arange(4 * B, R, 4 * B)]))
+        cell = edges[rng.integers(0, edges.size, size=(n, 3))]
+        p = lo + (cell + np.float32(0.5) + u).astype(np.float32) * h
+    return torch.from_numpy(p.astype(np.float32)).to(device)
+
+
+def baked_plan_text(plan) -> str:
+    return (f"lanes={plan.lanes} sets={plan.sets} pieces={plan.pieces} "
+            f"teams={plan.teams} warps={plan.warps} blocks={plan.blocks} "
+            f"smem={plan.smem}")
+
+
+def baked_edges(tables, device):
+    """Kernel 8 against its plain version on adversarial points (see
+    `baked_edge_points`), on each table of `check_baked_kernel`; error 0
+    expected (cell selection and lerp tree round alike), 1e-5 of the
+    table's payload max allowed."""
+    import torch
+
+    from nerfsys_tpu_torch.models.baked import (
+        baked_plan,
+        baked_trilerp_kernel,
+        baked_trilerp_plain,
+    )
+
+    tol = 1e-5
+    for label, baked, bcfg in tables:
+        table = baked["table"]
+        R, C, Cp = bcfg.resolution, bcfg.channels, bcfg.padded_channels
+        pack = table.shape[1] // Cp
+        scale = max(float(t.abs().max()) for t in table.split(1 << 20))
+        for kind in ("top faces", "lo and outside", "one cell",
+                     "block edges", "single point"):
+            pts = baked_edge_points(kind, baked, bcfg, device)
+            args = (table, baked["aabb"], pts, R, C, Cp, pack,
+                    baked.get("block_index"), bcfg.sparse_block)
+            err = max_err(baked_trilerp_kernel(*args),
+                          baked_trilerp_plain(*args))
+            plan = baked_plan(pts.shape[0], pack, C, Cp,
+                              table.element_size())
+            print(f"edge baked_trilerp {label} {kind}: N={pts.shape[0]} "
+                  f"max_abs_err={err:.3e} err/payload_max={err / scale:.3e} "
+                  f"tol={tol:g} plan {baked_plan_text(plan)}", flush=True)
+            if not err / scale <= tol:
+                raise SystemExit(f"kernel baked_trilerp disagrees with its "
+                                 f"plain version on {label}, {kind}: {err}")
+    torch.cuda.empty_cache()
 
 
 def bake_matches_plain(cfg, statics, params, bcfg, occ, got, device):
@@ -1584,6 +1709,7 @@ def baked(cfg, statics, params, device, results):
     ]
     del vals
     check_baked_kernel(tables, pts, results)
+    baked_edges(tables, device)
     del tables, dense4, f32_table, pts, t_vals, rays
 
     renderer = make_baked_camera_renderer(

@@ -54,13 +54,14 @@ struct PlaneLevels {
     int has_lines;
 };
 
-struct PlanePlan {  // ops/planes.py PlaneLaunchPlan; line_ofs unused here
+struct PlanePlan {  // ops/planes.py PlaneLaunchPlan; line_ofs, sms unused
     int tile;      // points per tile, a multiple of 32
     int threads;   // per block, a multiple of 32
     int blocks;    // tiles per expert (grid x)
     int smem;      // dynamic shared-memory bytes
     int vec;       // 1: 16-byte rows (F % 4 == 0, aligned), 0: scalar
     int line_ofs[PLANES_MAX_LEVELS];
+    int sms;
 };
 
 template <int VEC>

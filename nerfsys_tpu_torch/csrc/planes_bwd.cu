@@ -29,13 +29,13 @@
 // (:319-322); here the neighbour index is clamped to R-1 as in kernel 1,
 // and its weight there is fu = 0, so the add is a harmless zero.
 //
-// Kernel 5 (light). Its byte bound (the cotangent read once, the tables
-// read and the gradient tables written once) is ~0.03 ms at one inner
-// step; what sets its floor in practice is the number of read-modify-write
-// transactions the L2 must perform on the gradient tables (the first
-// design made 48 scalar atomics per point and block, ~55 M per inner
-// step, and ~2,000 adds per call landed on every level-0 line feature).
-// The design cuts those transactions:
+// Both kernels are one body, templated on EXACT. Its byte bound (the
+// cotangent read once, the tables read and the gradient tables written
+// once) is ~0.03 ms at one inner step; what sets its floor in practice is
+// the number of read-modify-write transactions the L2 must perform on the
+// gradient tables (the first designs made 48 scalar atomics per point and
+// block, ~55 M per inner step, and ~2,000 adds per call landed on every
+// level-0 line feature). The design cuts those transactions:
 //   - persistent blocks, grid (blocks, K): each block walks tiles of
 //     `tile` consecutive points of one expert; 32-bit indexing in a tile;
 //   - the tile's cotangent (tile, 3*L*F), one contiguous span, and its
@@ -48,12 +48,12 @@
 //     vector reductions (`red.global.add.v4.f32`, sm_90): 4x fewer
 //     transactions from the vectors alone, more where samples share cells;
 //   - line gradients are privatised: the levels the host plan picks
-//     (ops/planes.py `plane_bwd_light_plan`: from the coarsest level up,
-//     within a byte budget and the 227 KB of dynamic shared memory the
-//     block opts into) accumulate per block in shared memory and are
-//     flushed once, when the block ends, with vector atomics (all-zero
-//     vectors skipped). The other levels take the warp-aggregated global
-//     path above. Float adds to shared memory compile to compare-and-swap
+//     (ops/planes.py `plane_bwd_plan`: from the coarsest level up, within
+//     a byte budget and the 227 KB of dynamic shared memory the block
+//     opts into) accumulate per block in shared memory and are flushed
+//     once, when the block ends, with vector atomics (all-zero vectors
+//     skipped). The other levels take the warp-aggregated global path
+//     above. Float adds to shared memory compile to compare-and-swap
 //     loops on sm_90 (ATOMS.CAST.SPIN in the SASS), while the L2 adds
 //     vectors natively, so the default budget privatises only the coarsest
 //     level, where the most adds meet the fewest rows; privatising every
@@ -61,14 +61,22 @@
 //     more spinning).
 // A scalar variant (VEC=1) serves F % 4 != 0 and unaligned tables.
 //
-// Kernel 6 (exact) keeps its first design: one thread per (expert, point,
-// level x orientation), 3 x F scalar atomics per row. Position gradients:
-// d feature / d frac times (R-1), masked per coordinate by the INCLUSIVE
-// test 0 <= x <= 1 (:531). The wrapper zeroes the (K, 3, R^2, F) and
-// (K, 3, R, F) gradient tables (and gx) before either kernel.
+// EXACT (kernel 6) keeps the recomputed plane and line values in float32
+// (the light mode rounds them to bfloat16) and also forms the position
+// gradient: each warp writes its 32 points' partials d/dfu, d/dfv, d/dfw
+// times R-1 of its block into a per-tile shared buffer (tile, 3*L, 3), one
+// writer per slot; after the tile's tasks one pass sums each point's 3*L
+// partials in (level, orientation) order, the plain version's order,
+// applies the INCLUSIVE mask 0 <= x <= 1 per coordinate (:531) and stores
+// gx once per point, coalesced: no atomics and no zero fill. The wrapper
+// zeroes the (K, 3, R^2, F) and (K, 3, R, F) gradient tables.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #define PLANES_MAX_LEVELS 8
 
@@ -95,6 +103,7 @@ struct PlanePlan {  // same layout as csrc/planes.cu
     int line_ofs[PLANES_MAX_LEVELS];  // float offset of a level's private
                                       // line gradients in shared memory,
                                       // -1: the global path
+    int sms;       // the card's SMs (the persistent-block cap)
 };
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -102,108 +111,7 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 6: the exact VJP (the first design, unchanged).
-
-__global__ void plane_encode_bwd_exact_kernel(const float* __restrict__ x,
-                                              const float* __restrict__ ct,
-                                              PlaneLevels lv, PlaneGrads gr,
-                                              float* __restrict__ gx, int K,
-                                              int N, int F) {
-    const int LO = lv.levels * 3;
-    const long long total = (long long)K * N * LO;
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (tid >= total) return;
-    const int lo = (int)(tid % LO);       // level * 3 + orientation
-    const long long kn = tid / LO;        // expert * N + point
-    const int k = (int)(kn / N);
-    const int l = lo / 3;
-    const int o = lo - 3 * l;
-    const int a = (o == 2) ? 1 : 0;
-    const int b = (o == 0) ? 1 : 2;
-    const int c = (o == 0) ? 2 : ((o == 1) ? 1 : 0);
-
-    const int R = lv.res[l];
-    const float R1 = (float)(R - 1);
-    const float hi = lv.clip_hi[l];
-    const float* xp = x + kn * 3;
-    const float u = fminf(fmaxf(xp[a], 0.0f), 1.0f) * R1;
-    const float v = fminf(fmaxf(xp[b], 0.0f), 1.0f) * R1;
-    const float u0f = floorf(fminf(fmaxf(u, 0.0f), hi));
-    const float v0f = floorf(fminf(fmaxf(v, 0.0f), hi));
-    const float fu = u - u0f;
-    const float fv = v - v0f;
-    const int u0 = (int)u0f;
-    const int v0 = (int)v0f;
-    const int u1 = min(u0 + 1, R - 1);
-    const int v1 = min(v0 + 1, R - 1);
-
-    const long long RR = (long long)R * R;
-    const long long pofs = ((long long)k * 3 + o) * RR * F;
-    const long long r00 = ((long long)u0 * R + v0) * F;
-    const long long r01 = ((long long)u0 * R + v1) * F;
-    const long long r10 = ((long long)u1 * R + v0) * F;
-    const long long r11 = ((long long)u1 * R + v1) * F;
-    const float* t = lv.planes[l] + pofs;
-    float* gt = gr.planes[l] + pofs;
-    const float au = 1.0f - fu;
-    const float av = 1.0f - fv;
-
-    const int has_lines = lv.has_lines;
-    const float* l0 = nullptr;
-    const float* l1 = nullptr;
-    float* gl0 = nullptr;
-    float* gl1 = nullptr;
-    float fw = 0.0f;
-    if (has_lines) {
-        const float w = fminf(fmaxf(xp[c], 0.0f), 1.0f) * R1;
-        const float w0f = floorf(fminf(fmaxf(w, 0.0f), hi));
-        fw = w - w0f;
-        const int w0 = (int)w0f;
-        const int w1 = min(w0 + 1, R - 1);
-        const long long lofs = ((long long)k * 3 + o) * R * F;
-        l0 = lv.lines[l] + lofs + (long long)w0 * F;
-        l1 = lv.lines[l] + lofs + (long long)w1 * F;
-        gl0 = gr.lines[l] + lofs + (long long)w0 * F;
-        gl1 = gr.lines[l] + lofs + (long long)w1 * F;
-    }
-    const float aw = 1.0f - fw;
-
-    const float* g = ct + kn * (long long)(LO * F) + (long long)lo * F;
-    float dfu = 0.0f, dfv = 0.0f, dfw = 0.0f;
-    for (int f = 0; f < F; ++f) {
-        const float gf = g[f];
-        const float t00 = t[r00 + f], t01 = t[r01 + f];
-        const float t10 = t[r10 + f], t11 = t[r11 + f];
-        const float bv = t00 * au * av + t01 * au * fv + t10 * fu * av
-                       + t11 * fu * fv;
-        float gp = gf;
-        float lval = 1.0f;
-        if (has_lines) {
-            lval = l0[f] * aw + l1[f] * fw;
-            gp = gf * lval;
-            const float gl = gf * bv;
-            atomicAdd(gl0 + f, aw * gl);
-            atomicAdd(gl1 + f, fw * gl);
-        }
-        atomicAdd(gt + r00 + f, au * (av * gp));
-        atomicAdd(gt + r01 + f, au * (fv * gp));
-        atomicAdd(gt + r10 + f, fu * (av * gp));
-        atomicAdd(gt + r11 + f, fu * (fv * gp));
-        const float db_dfu = (t10 - t00) * av + (t11 - t01) * fv;
-        const float db_dfv = (t01 - t00) * au + (t11 - t10) * fu;
-        dfu += gf * lval * db_dfu;
-        dfv += gf * lval * db_dfv;
-        if (has_lines) dfw += gf * bv * (l1[f] - l0[f]);
-    }
-    float* gxp = gx + kn * 3;
-    if (xp[a] >= 0.0f && xp[a] <= 1.0f) atomicAdd(gxp + a, dfu * R1);
-    if (xp[b] >= 0.0f && xp[b] <= 1.0f) atomicAdd(gxp + b, dfv * R1);
-    if (has_lines && xp[c] >= 0.0f && xp[c] <= 1.0f)
-        atomicAdd(gxp + c, dfw * R1);
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 5: the light VJP.
+// Kernels 5 and 6: one body.
 
 template <int VEC>
 __device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
@@ -242,11 +150,19 @@ __device__ __forceinline__ void add_row(unsigned peers, float (&v)[VEC],
     }
 }
 
-template <int VEC>
+// Floats of EXACT's position partials in shared memory, after the
+// double-buffered cotangent and points, before the private lines.
+static __host__ __device__ __forceinline__ int partials_floats(
+    bool exact, int tile, int LO) {
+    return exact ? tile * LO * 3 : 0;
+}
+
+template <int VEC, bool EXACT>
 __global__ void __launch_bounds__(512)
-plane_encode_bwd_light_kernel(const float* __restrict__ x,
-                              const float* __restrict__ ct, PlaneLevels lv,
-                              PlaneGrads gr, int N, int F, PlanePlan plan) {
+plane_encode_bwd_kernel(const float* __restrict__ x,
+                        const float* __restrict__ ct, PlaneLevels lv,
+                        PlaneGrads gr, float* __restrict__ gx, int N, int F,
+                        PlanePlan plan) {
     extern __shared__ float4 smem4[];
     const int tile = plan.tile;
     const int LO = lv.levels * 3;
@@ -254,7 +170,8 @@ plane_encode_bwd_light_kernel(const float* __restrict__ x,
     const int k = blockIdx.y;
     float* cbuf = reinterpret_cast<float*>(smem4);  // 2 x (tile, D)
     float* xbuf = cbuf + 2 * tile * D;               // 2 x (tile, 3)
-    float* lsm = xbuf + 2 * tile * 3;                // private line grads
+    float* pbuf = xbuf + 2 * tile * 3;               // EXACT: (tile, LO, 3)
+    float* lsm = pbuf + partials_floats(EXACT, tile, LO);  // private lines
     const int lane = threadIdx.x & 31;
     const int warps = blockDim.x >> 5;
     const int groups = tile >> 5;
@@ -359,6 +276,7 @@ plane_encode_bwd_light_kernel(const float* __restrict__ x,
             const float aw = 1.0f - fw;
 
             const float* g = cs + (active ? p : 0) * D + lo * F;
+            float dfu = 0.0f, dfv = 0.0f, dfw = 0.0f;  // EXACT: d/dfrac
             for (int f0 = 0; f0 < F; f0 += VEC) {
                 float t00[VEC], t01[VEC], t10[VEC], t11[VEC], gv[VEC];
                 load_row<VEC>(tp + rows[0] * F + f0, t00);
@@ -378,10 +296,11 @@ plane_encode_bwd_light_kernel(const float* __restrict__ x,
                         const float bv = t00[i] * au * av + t01[i] * au * fv
                                        + t10[i] * fu * av + t11[i] * fu * fv;
                         const float lval = m0[i] * aw + m1[i] * fw;
-                        gp[i] = gv[i] * bf16_round(lval);
-                        const float gl = gv[i] * bf16_round(bv);
+                        gp[i] = gv[i] * (EXACT ? lval : bf16_round(lval));
+                        const float gl = gv[i] * (EXACT ? bv : bf16_round(bv));
                         c0[i] = aw * gl;
                         c1[i] = fw * gl;
+                        if (EXACT) dfw += gl * (m1[i] - m0[i]);
                     }
                     add_row<VEC>(lm0, c0, glp + w0 * F + f0, lsm,
                                  sl + w0 * F + f0, priv, active, lane);
@@ -390,6 +309,15 @@ plane_encode_bwd_light_kernel(const float* __restrict__ x,
                 } else {
 #pragma unroll
                     for (int i = 0; i < VEC; ++i) gp[i] = gv[i];
+                }
+                if (EXACT) {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        dfu += gp[i] * ((t10[i] - t00[i]) * av
+                                        + (t11[i] - t01[i]) * fv);
+                        dfv += gp[i] * ((t01[i] - t00[i]) * au
+                                        + (t11[i] - t10[i]) * fu);
+                    }
                 }
                 const float wu[4] = {au, au, fu, fu};
                 const float wv[4] = {av, fv, av, fv};
@@ -403,8 +331,27 @@ plane_encode_bwd_light_kernel(const float* __restrict__ x,
                                  false, active, lane);
                 }
             }
+            if (EXACT && active) {  // this slot's one writer
+                float* pp = pbuf + (p * LO + lo) * 3;
+                pp[a] = dfu * R1;
+                pp[b] = dfv * R1;
+                pp[c] = has_lines ? dfw * R1 : 0.0f;
+            }
         }
-        __syncthreads();  // all done with `buf`: the next tile refills it
+        if (EXACT) {
+            __syncthreads();  // the tile's partials are complete
+            // gx of the tile's np points, once each, coalesced
+            float* gxt = gx + ((long long)k * N + t * tile) * 3;
+            for (int i = threadIdx.x; i < np * 3; i += blockDim.x) {
+                const int p = i / 3;
+                const float* pp = pbuf + p * LO * 3 + (i - 3 * p);
+                float s = 0.0f;
+                for (int lo = 0; lo < LO; ++lo) s += pp[3 * lo];
+                const float xv = xs[i];
+                gxt[i] = (xv >= 0.0f && xv <= 1.0f) ? s : 0.0f;
+            }
+        }
+        __syncthreads();  // all done with `buf` and the partials
     }
     __syncthreads();
 
@@ -427,29 +374,86 @@ plane_encode_bwd_light_kernel(const float* __restrict__ x,
     }
 }
 
-template <int VEC>
-static int launch_light(const float* x, const float* ct, PlaneLevels lv,
-                        PlaneGrads gr, int K, int N, int F, PlanePlan plan,
-                        cudaStream_t stream) {
-    auto kern = plane_encode_bwd_light_kernel<VEC>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+// Host state of one kernel variant's launches, so that a launch costs no
+// runtime queries after the first at its shape (kernel 5 launches 108
+// times in a host-bound training step): the dynamic shared memory it has
+// been opted in to, per device, and the occupancy calculator's answers,
+// per (device, threads, smem).
+struct LaunchCache {
+    std::mutex mu;
+    std::map<int, int> opted;
+    std::map<std::tuple<int, int, int>, int> per_sm;
+};
+
+template <typename Kern>
+static cudaError_t cached_occupancy(LaunchCache& cache, Kern kern,
+                                    int threads, int smem, int* per_sm) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(cache.mu);
+    int& opted = cache.opted[dev];  // 0 on a device's first launch
+    if (smem > 48 * 1024 && smem > opted) {  // opt in above the default
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        opted = smem;
+    }
+    const auto key = std::make_tuple(dev, threads, smem);
+    const auto it = cache.per_sm.find(key);
+    if (it != cache.per_sm.end()) {
+        *per_sm = it->second;
+        return cudaSuccess;
+    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
+                                                      smem);
+    if (e == cudaSuccess) cache.per_sm[key] = *per_sm;
+    return e;
+}
+
+template <int VEC, bool EXACT>
+static int launch_bwd(const float* x, const float* ct, PlaneLevels lv,
+                      PlaneGrads gr, float* gx, int K, int N, int F,
+                      PlanePlan plan, cudaStream_t stream) {
+    static LaunchCache cache;
+    auto kern = plane_encode_bwd_kernel<VEC, EXACT>;
+    int per_sm = 0;
+    const cudaError_t e =
+        cached_occupancy(cache, kern, plan.threads, plan.smem, &per_sm);
     if (e != cudaSuccess) return (int)e;
-    // persistent blocks: no more per expert than can be resident at once
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-        return (int)e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern, plan.threads, plan.smem)) != cudaSuccess)
-        return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const int resident = (int)((long long)sms * per_sm / K);
+    // persistent blocks: no more per expert than can be resident at once
+    const int resident = (int)((long long)plan.sms * per_sm / K);
     const int blocks = max(1, min(plan.blocks, resident));
-    kern<<<dim3(blocks, K), plan.threads, plan.smem, stream>>>(x, ct, lv, gr,
-                                                               N, F, plan);
+    kern<<<dim3(blocks, K), plan.threads, plan.smem, stream>>>(
+        x, ct, lv, gr, gx, N, F, plan);
     return (int)cudaGetLastError();
+}
+
+template <bool EXACT>
+static int plane_bwd(const float* x, const float* ct, PlaneLevels lv,
+                     PlaneGrads gr, float* gx, int K, int N, int F,
+                     PlanePlan plan, cudaStream_t stream) {
+    if ((long long)K * N == 0 || lv.levels == 0)
+        return (int)cudaGetLastError();
+    if (plan.tile % 32 || plan.threads % 32 || plan.threads > 512 ||
+        plan.blocks < 1 || plan.sms < 1 || (plan.vec && F % 4) ||
+        (EXACT && gx == nullptr))
+        return (int)cudaErrorInvalidValue;
+    // the plan's shared memory must hold what the kernel places in it
+    const int LO = 3 * lv.levels;
+    const long long lines_at = 2LL * plan.tile * (LO * F + 3) +
+                               partials_floats(EXACT, plan.tile, LO);
+    long long need = lines_at;
+    for (int l = 0; l < lv.levels; ++l)
+        if (plan.line_ofs[l] >= 0)
+            need = max(need, lines_at + plan.line_ofs[l] +
+                                 3LL * lv.res[l] * F);
+    if (4 * need > plan.smem) return (int)cudaErrorInvalidValue;
+    return plan.vec
+               ? launch_bwd<4, EXACT>(x, ct, lv, gr, gx, K, N, F, plan, stream)
+               : launch_bwd<1, EXACT>(x, ct, lv, gr, gx, K, N, F, plan,
+                                      stream);
 }
 
 // x: (K, N, 3) unit-cube points; ct: (K, N, 3 * levels * F) cotangent.
@@ -458,27 +462,15 @@ NERF_API int plane_encode_bwd_light(const float* x, const float* ct,
                                     PlaneLevels lv, PlaneGrads gr, int K,
                                     int N, int F, PlanePlan plan,
                                     cudaStream_t stream) {
-    if ((long long)K * N == 0 || lv.levels == 0)
-        return (int)cudaGetLastError();
-    if (plan.tile % 32 || plan.threads % 32 || plan.threads > 512 ||
-        plan.blocks < 1 || (plan.vec && F % 4))
-        return (int)cudaErrorInvalidValue;
-    return plan.vec ? launch_light<4>(x, ct, lv, gr, K, N, F, plan, stream)
-                    : launch_light<1>(x, ct, lv, gr, K, N, F, plan, stream);
+    return plane_bwd<false>(x, ct, lv, gr, nullptr, K, N, F, plan, stream);
 }
 
-// As kernel 5's inputs, and adds the position gradient into the zeroed gx
-// (K, N, 3).
+// As kernel 5's inputs, with an exact plan (its smem counts the position
+// partials); also writes the position gradient gx (K, N, 3), every point
+// once (gx need not be zeroed).
 NERF_API int plane_encode_bwd(const float* x, const float* ct,
                               PlaneLevels lv, PlaneGrads gr, float* gx, int K,
-                              int N, int F, cudaStream_t stream) {
-    if (gx == nullptr) return (int)cudaErrorInvalidValue;
-    const long long total = (long long)K * N * lv.levels * 3;
-    if (total > 0) {
-        const int threads = 256;
-        plane_encode_bwd_exact_kernel<<<nerf_blocks(total, threads), threads,
-                                        0, stream>>>(x, ct, lv, gr, gx, K, N,
-                                                     F);
-    }
-    return (int)cudaGetLastError();
+                              int N, int F, PlanePlan plan,
+                              cudaStream_t stream) {
+    return plane_bwd<true>(x, ct, lv, gr, gx, K, N, F, plan, stream);
 }

@@ -187,8 +187,8 @@ class PlaneLevels(ctypes.Structure):
 
 
 class PlanePlan(ctypes.Structure):
-    """A launch plan of kernels 1 and 5 (csrc/planes.cu PlanePlan; filled
-    from ops/planes.py `PlaneLaunchPlan`)."""
+    """A launch plan of kernels 1, 5 and 6 (csrc/planes.cu PlanePlan;
+    filled from ops/planes.py `PlaneLaunchPlan`)."""
     _fields_ = [
         ("tile", _I),
         ("threads", _I),
@@ -196,6 +196,7 @@ class PlanePlan(ctypes.Structure):
         ("smem", _I),
         ("vec", _I),
         ("line_ofs", _I * 8),
+        ("sms", _I),
     ]
 
 
@@ -251,16 +252,31 @@ PLANES_BWD_LIGHT = Kernel(
 )
 PLANES_BWD = Kernel(
     "plane_encode_bwd", "planes_bwd", "plane_encode_bwd",
-    # x, ct, levels, grads (by value), gx, K, N, F, stream
-    [_P, _P, PlaneLevels, PlaneGrads, _P, _I, _I, _I, _P],
+    # x, ct, levels, grads (by value), gx, K, N, F, plan (by value), stream
+    [_P, _P, PlaneLevels, PlaneGrads, _P, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:449 (_plane_encode_mm_bwd)",
 )
+
+
+class BakedPlan(ctypes.Structure):
+    """A launch plan of kernel 8 (csrc/baked.cu BakedPlan; filled from
+    models/baked.py `BakedLaunchPlan`)."""
+    _fields_ = [
+        ("lanes", _I),
+        ("sets", _I),
+        ("qbits", _I),
+        ("pieces", _I),
+        ("warps", _I),
+        ("blocks", _I),
+        ("smem", _I),
+    ]
+
 
 BAKED_TRILERP = Kernel(
     "baked_trilerp", "baked", "baked_trilerp",
     # pts, table, table_bf16, aabb, block_index (nullable), out,
-    # N, R, C, Cp, pack, Bs, stream
-    [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
+    # N, R, C, Cp, pack, Bs, plan (by value), stream
+    [_P, _P, _I, _P, _P, _P] + [_I] * 6 + [BakedPlan, _P],
     replaces="nerfsys_tpu/models/baked.py:647 (baked_trilerp)",
 )
 

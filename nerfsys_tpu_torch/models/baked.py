@@ -19,14 +19,16 @@ shared all-zero block) behind an int32 index whose rows pack the slots of a
 4³ super-block. The tables are built with torch on the bake's device; they
 are bit-identical to the reference's numpy packers.
 
-Kernel 8 (`csrc/baked.cu`) is the trilinear lookup on the card;
-`baked_trilerp_plain` is the same function in plain PyTorch. The reference's
+Kernel 8 (`csrc/baked.cu`) is the trilinear lookup on the card, with its
+launch geometry from `baked_plan`; `baked_trilerp_plain` is the same
+function in plain PyTorch. The reference's
 `device_put_chunked` (a transport workaround) has no counterpart: tables
 move with `.to(device)`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -58,7 +60,7 @@ from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
     frame_chunk_rays_biased,
     shape_frame_outputs,
 )
-from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.device import aligned, resolve_device
 
 _TABLE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -605,6 +607,68 @@ def baked_trilerp_plain(table: torch.Tensor, aabb: torch.Tensor,
             + row2(ix1, iy1) * wx * wy)
 
 
+@dataclasses.dataclass(frozen=True)
+class BakedLaunchPlan:
+    """Launch geometry of kernel 8 (csrc/baked.cu `BakedPlan`): a team of
+    `lanes` lanes reads each table row, one 16-byte piece a lane per set;
+    a warp takes 32 consecutive points, 32 / lanes teams of it at once."""
+
+    lanes: int  # a team's lanes: pack x pieces padded to 2^qbits / sets
+    sets: int  # pieces each lane loads per row (rows wider than 32 pieces)
+    qbits: int  # log2 of a corner block's pieces, padded to a power of two
+    pieces: int  # a corner block's 16-byte pieces: Cp x itemsize / 16
+    warps: int  # per block
+    blocks: int  # ceil(N / (32 warps))
+    smem: int  # the warps' staged outputs: 32 x C floats each
+
+    @property
+    def teams(self) -> int:
+        return 32 // self.lanes
+
+    @functools.cached_property
+    def struct(self) -> "kernels.BakedPlan":
+        return kernels.BakedPlan(self.lanes, self.sets, self.qbits,
+                                 self.pieces, self.warps, self.blocks,
+                                 self.smem)
+
+
+# Warps per block: 8, fewer where their staged outputs (32 x C floats a
+# warp) would exceed the 48 KB a block has without opting in
+BAKED_WARPS = 8
+BAKED_SMEM = 48 * 1024
+
+
+@functools.lru_cache(maxsize=64)
+def baked_plan(n: int, pack: int, c: int, cp: int,
+               itemsize: int) -> BakedLaunchPlan:
+    """Kernel 8's plan for N points of a table of `pack` corner blocks of
+    Cp channels (C used) of `itemsize` bytes (2: bf16, 4: f32). A block is
+    Cp x itemsize / 16 pieces, padded to a power of two; a row's padded
+    pieces spread over a team of at most 32 lanes, the rest over sets."""
+    if pack not in (2, 4, 8) or itemsize not in (2, 4):
+        raise ValueError(f"baked_trilerp: pack {pack}, itemsize {itemsize}")
+    ch = 16 // itemsize
+    if cp % ch or not 0 < c <= cp:
+        raise ValueError(f"baked_trilerp: Cp={cp} must be a multiple of {ch} "
+                         f"and hold C={c}")
+    pieces = cp // ch
+    qbits = (pieces - 1).bit_length()
+    width = pack << qbits
+    lanes = min(32, width)
+    sets = width // lanes
+    if sets > 4:
+        raise ValueError(f"baked_trilerp: rows of {pack} x {cp} channels are "
+                         f"wider than the kernel's 4 pieces a lane")
+    warps = min(BAKED_WARPS, BAKED_SMEM // (32 * 4 * c))
+    if warps < 1:
+        raise ValueError(f"baked_trilerp: C={c} outputs a point exceed the "
+                         f"staging buffer")
+    return BakedLaunchPlan(lanes=lanes, sets=sets, qbits=qbits,
+                           pieces=pieces, warps=warps,
+                           blocks=max(1, -(-n // (32 * warps))),
+                           smem=32 * 4 * c * warps)
+
+
 def baked_trilerp_kernel(table: torch.Tensor, aabb: torch.Tensor,
                          pts: torch.Tensor, R: int, C: int, Cp: int,
                          pack: int, block_index: Optional[torch.Tensor] = None,
@@ -631,13 +695,17 @@ def baked_trilerp_kernel(table: torch.Tensor, aabb: torch.Tensor,
                              f"({Rbs**3}, {_SUPER**3})")
     kernels.check_cuda_tensors("baked_trilerp", dev, pts=pts, table=table,
                                aabb=aabb, block_index=block_index)
+    if not aligned(table) or table.shape[0] >= 2**31:
+        raise ValueError("baked_trilerp: the table must be 16-byte aligned "
+                         "with fewer than 2^31 rows")
     N = pts.shape[0]
+    plan = baked_plan(N, pack, C, Cp, table.element_size())
     out = torch.empty((N, C), dtype=torch.float32, device=dev)
     kernels.BAKED_TRILERP(
         pts.data_ptr(), table.data_ptr(), int(table.dtype == torch.bfloat16),
         aabb.data_ptr(),
         None if block_index is None else block_index.data_ptr(),
-        out.data_ptr(), N, R, C, Cp, pack, int(block),
+        out.data_ptr(), N, R, C, Cp, pack, int(block), plan.struct,
         kernels.stream_ptr(pts))
     return out
 

@@ -16,8 +16,8 @@ Kernel 1 (`csrc/planes.cu`) computes this on the card;
 `plane_encode_plain` is the same function in plain PyTorch. Gradients go
 through `PlaneEncode`, whose backward is `csrc/planes_bwd.cu` (light mode
 when `pos_grad=False`, exact otherwise) or `plane_encode_bwd_plain`.
-Kernels 1 and 5 take their launch geometry from `plane_fwd_plan` and
-`plane_bwd_light_plan`, plain functions of the shapes.
+Kernels 1, 5 and 6 take their launch geometry from `plane_fwd_plan` and
+`plane_bwd_plan`, plain functions of the shapes.
 """
 from __future__ import annotations
 
@@ -146,8 +146,8 @@ def plane_encode_plain(params: Dict, x01: torch.Tensor,
 TILE, FWD_THREADS = 128, 384  # kernel 1's points per tile (4 rays of 32
 # samples) and threads: 12 warps take a tile's 36 (level x orientation,
 # 32-point) tasks at bench width in 3 rounds
-BWD_TILE, BWD_THREADS = 64, 256  # kernel 5's: 2 rays, 8 warps
-# Kernel 5's shared memory for private line gradients, by default. Float
+BWD_TILE, BWD_THREADS = 64, 256  # kernels 5 and 6: 2 rays, 8 warps
+# Kernels 5 and 6's shared memory for private line gradients, by default. Float
 # adds to shared memory are compare-and-swap loops on Hopper, so a private
 # level pays only where many adds meet few rows: the coarsest level at
 # bench width (12,288 bytes). Privatising all three levels (86,016 bytes)
@@ -157,16 +157,18 @@ LINE_BUDGET = 16_384
 
 @dataclasses.dataclass(frozen=True)
 class PlaneLaunchPlan:
-    """Launch geometry of kernel 1 or 5 (csrc/planes.cu `PlanePlan`)."""
+    """Launch geometry of kernel 1, 5 or 6 (csrc/planes.cu `PlanePlan`)."""
 
     tile: int  # consecutive points of one expert per tile (multiple of 32)
     threads: int  # per block (multiple of 32)
-    blocks: int  # per expert: one per tile (kernel 1), persistent (kernel 5)
+    blocks: int  # per expert: one per tile (kernel 1), persistent (5, 6)
     smem: int  # dynamic shared-memory bytes per block
     vec: bool  # 16-byte row access; False: the scalar variant
-    # kernel 5, per level: float offset of its private line gradients in
-    # shared memory, or -1 for the warp-aggregated global path
+    # kernels 5 and 6, per level: float offset of its private line
+    # gradients in shared memory, or -1 for the warp-aggregated global path
     line_ofs: Tuple[int, ...] = ()
+    sms: int = 0  # kernels 5 and 6: the card's SMs, the persistent cap
+    exact: bool = False  # kernel 6: smem holds the position partials
 
     @property
     def private_levels(self) -> List[int]:
@@ -180,6 +182,7 @@ class PlaneLaunchPlan:
         for l in range(kernels.PlaneLevels.MAX_LEVELS):
             s.line_ofs[l] = (self.line_ofs[l] if l < len(self.line_ofs)
                              else -1)
+        s.sms = self.sms
         return s
 
 
@@ -213,31 +216,36 @@ def plane_fwd_plan(n: int, res: Sequence[int], features: int,
                            vec=vec_ok and features % 4 == 0)
 
 
-def plane_bwd_light_plan(n: int, k: int, res: Sequence[int], features: int,
-                         has_lines: bool, num_sms: int, vec_ok: bool = True,
-                         line_budget: Optional[int] = LINE_BUDGET
-                         ) -> PlaneLaunchPlan:
-    """Kernel 5's plan for K experts of N points each.
+def plane_bwd_plan(n: int, k: int, res: Sequence[int], features: int,
+                   has_lines: bool, num_sms: int, vec_ok: bool = True,
+                   line_budget: Optional[int] = LINE_BUDGET,
+                   exact: bool = False) -> PlaneLaunchPlan:
+    """Kernel 5's plan (exact=False) or kernel 6's (exact=True) for K
+    experts of N points each.
 
     Shared memory holds two (tile, 3*L*F) cotangent buffers and two
-    (tile, 3) point buffers (BWD_TILE points, halved while they exceed half
-    a block's shared memory), then the private line gradients: levels are
-    taken from the coarsest up while their 3*R*F floats fit in
-    `line_budget` bytes (None: all that is left of the block's 227 KB); the
-    others take the global path. Blocks per expert: as many as can be
-    resident on `num_sms` SMs by shared memory and threads, at most one per
-    tile (the entry point lowers it to what the occupancy calculator,
-    registers included, allows)."""
+    (tile, 3) point buffers, and in exact mode the (tile, 3*L, 3) position
+    partials (BWD_TILE points, halved while these exceed half a block's
+    shared memory), then the private line gradients: levels are taken from
+    the coarsest up while their 3*R*F floats fit in `line_budget` bytes
+    (None: all that is left of the block's 227 KB); the others take the
+    global path. Blocks per expert: as many as can be resident on
+    `num_sms` SMs by shared memory and threads, at most one per tile (the
+    entry point lowers it to what the occupancy calculator, registers
+    included, allows)."""
     _check_shapes(res, features)
     d = 3 * len(res) * features
+
+    def buffers(tile):
+        return 8 * tile * (d + 3) + (4 * tile * 9 * len(res) if exact else 0)
+
     tile = BWD_TILE
-    while tile > 32 and 8 * tile * (d + 3) > SMEM_BLOCK_BYTES // 2:
+    while tile > 32 and buffers(tile) > SMEM_BLOCK_BYTES // 2:
         tile //= 2
-    buffers = 8 * tile * (d + 3)
-    if buffers > SMEM_BLOCK_BYTES:
+    if buffers(tile) > SMEM_BLOCK_BYTES:
         raise ValueError(f"plane_encode_bwd: a 32-point tile of {d} features "
                          f"exceeds {SMEM_BLOCK_BYTES} bytes of shared memory")
-    room = SMEM_BLOCK_BYTES - buffers
+    room = SMEM_BLOCK_BYTES - buffers(tile)
     if line_budget is not None:
         room = min(room, line_budget)
     line_ofs = [-1] * len(res)
@@ -248,13 +256,14 @@ def plane_bwd_light_plan(n: int, k: int, res: Sequence[int], features: int,
             if 4 * (used + size) <= room:
                 line_ofs[l] = used
                 used += size
-    smem = buffers + 4 * used
+    smem = buffers(tile) + 4 * used
     per_sm = max(1, min(SMEM_SM_BYTES // (smem + 1024),
                         2048 // BWD_THREADS))
     blocks = max(1, min(-(-n // tile), num_sms * per_sm // max(k, 1)))
     return PlaneLaunchPlan(tile=tile, threads=BWD_THREADS, blocks=blocks,
                            smem=smem, vec=vec_ok and features % 4 == 0,
-                           line_ofs=tuple(line_ofs))
+                           line_ofs=tuple(line_ofs), sms=num_sms,
+                           exact=exact)
 
 
 def plane_encode_kernel(params: Dict, x01: torch.Tensor,
@@ -413,8 +422,8 @@ def _unstack_grads(g_planes, g_lines, gx, x01, stacked: bool) -> GradTables:
 def plane_encode_bwd_kernel(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
                             cfg: PlaneEncodingConfig) -> GradTables:
     """Kernels 5/6's wrapper: the plain version for a CPU tensor; on a CUDA
-    tensor it launches `plane_encode_bwd_light` (pos_grad=False, with
-    `plane_bwd_light_plan`'s plan) or `plane_encode_bwd` (pos_grad=True) or
+    tensor it launches `plane_encode_bwd_light` (pos_grad=False) or
+    `plane_encode_bwd` (pos_grad=True) with `plane_bwd_plan`'s plan, or
     raises."""
     kernels.check_no_grad("plane_encode_bwd", x01, ct, *_tables(params))
     if x01.device.type == "cpu":
@@ -425,9 +434,9 @@ def plane_encode_bwd_kernel(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
 def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
                              ct: torch.Tensor, cfg: PlaneEncodingConfig,
                              plan: Optional[PlaneLaunchPlan]) -> GradTables:
-    """The CUDA half of `plane_encode_bwd_kernel`; in light mode `plan`
-    (None: `plane_bwd_light_plan`'s) sets kernel 5's launch, so a caller
-    can run either line-gradient variant at any shape."""
+    """The CUDA half of `plane_encode_bwd_kernel`; `plan` (None:
+    `plane_bwd_plan`'s for cfg.pos_grad) sets the launch, so a caller can
+    run either line-gradient variant at any shape."""
     if x01.device.type != "cuda":
         raise ValueError(f"plane_encode_bwd: unsupported device {x01.device}")
     planes, lines, x, stacked = _as_stacked(params, x01)
@@ -442,21 +451,24 @@ def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
     for l in range(len(g_planes)):
         gr.planes[l] = g_planes[l].data_ptr()
         gr.lines[l] = 0 if g_lines is None else g_lines[l].data_ptr()
+    vec_ok = aligned(ct, *planes, *(lines or ()), *g_planes, *(g_lines or ()))
+    if plan is None:
+        plan = plane_bwd_plan(N, K, cfg.level_resolutions(), cfg.features,
+                              lines is not None, num_sms(dev), vec_ok=vec_ok,
+                              exact=cfg.pos_grad)
+    elif plan.vec and not vec_ok:
+        raise ValueError("plane_encode_bwd: a 16-byte plan needs 16-byte "
+                         "aligned tables and cotangent")
+    if plan.exact != cfg.pos_grad:
+        raise ValueError(f"plane_encode_bwd: an exact={plan.exact} plan for "
+                         f"pos_grad={cfg.pos_grad}")
     stream = kernels.stream_ptr(x)
-    gx = torch.zeros_like(x)  # stays zero in light mode
-    if cfg.pos_grad:
+    if cfg.pos_grad:  # kernel 6 writes every point's gx once
+        gx = torch.empty_like(x)
         kernels.PLANES_BWD(x.data_ptr(), ct.data_ptr(), lv, gr, gx.data_ptr(),
-                           K, N, cfg.features, stream)
+                           K, N, cfg.features, plan.as_struct(), stream)
     else:
-        vec_ok = aligned(ct, *planes, *(lines or ()), *g_planes,
-                         *(g_lines or ()))
-        if plan is None:
-            plan = plane_bwd_light_plan(
-                N, K, cfg.level_resolutions(), cfg.features,
-                lines is not None, num_sms(dev), vec_ok=vec_ok)
-        elif plan.vec and not vec_ok:
-            raise ValueError("plane_encode_bwd: a 16-byte plan needs 16-byte "
-                             "aligned tables and cotangent")
+        gx = torch.zeros_like(x)
         kernels.PLANES_BWD_LIGHT(x.data_ptr(), ct.data_ptr(), lv, gr, K, N,
                                  cfg.features, plan.as_struct(), stream)
     return _unstack_grads(g_planes, g_lines, gx, x01, stacked)

@@ -3,7 +3,7 @@
 another one.
 
     python3 serve_ab.py OTHER_CHECKOUT [--pairs 10] [--experts planes|hash]
-                        [--phase frame|step]
+                        [--phase frame|step] [--exact]
 
 OTHER_CHECKOUT is a second copy of the repository, for example the parent
 commit unpacked with `git archive`. One worker process per checkout imports
@@ -19,8 +19,12 @@ clock, ending with the frame on the host, and the host ms of `frame_rays`
 for the first pose. A `--phase step` round takes three of chip_smoke's
 bench FoMAML steps (`make_train_step`, K=4 B=3, 8 inner steps of 4,000
 rays), each ending with its loss on the host, from the same parameters
-and generator seed every round. A worker waits on its pipe between
-rounds, so one runs at a time.
+and generator seed every round (before the rounds, each worker profiles
+one step with its chip_smoke's `profile_device`: device busy ms and idle
+share); `--exact` gives the planes experts the encoder's exact backward
+(each checkout's own `chip_smoke.exact_backward`, pos_grad=True) in
+place of the light one. A worker waits on its pipe between rounds, so
+one runs at a time.
 
 Prints every round, then for each side the median, quartiles and range of
 the round means; the difference of the medians against the other side's
@@ -43,7 +47,7 @@ from pathlib import Path
 SIDES = ("other", "this")
 
 
-def worker(root: Path, experts: str, phase: str) -> int:
+def worker(root: Path, experts: str, phase: str, exact: bool) -> int:
     sys.path[0] = str(root)  # that checkout's modules, not this script's
     import torch
 
@@ -56,8 +60,10 @@ def worker(root: Path, experts: str, phase: str) -> int:
     cfg, statics, params, occ = cs.bench_setup(device)
     if experts == "hash":
         cfg, params = cs.hash_setup(device)
+    if exact:
+        cfg = cs.exact_backward(cfg)
     if phase == "step":
-        return step_rounds(cs, cfg, statics, params, occ, device)
+        return step_rounds(cs, cfg, statics, params, occ, device, root)
     return frame_rounds(cs, cfg, statics, params, occ, device)
 
 
@@ -101,7 +107,7 @@ def frame_rounds(cs, cfg, statics, params, occ, device) -> int:
     return 0
 
 
-def step_rounds(cs, cfg, statics, params, occ, device) -> int:
+def step_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
     import torch
 
     from nerfsys_tpu_torch.models.container import param_group_labels
@@ -117,6 +123,8 @@ def step_rounds(cs, cfg, statics, params, occ, device) -> int:
     state0 = opt.init(params)
     gen = torch.Generator(device=device).manual_seed(1)
     float(step(params, state0, statics, batch, gen, occ)[2]["loss_out"])
+    cs.profile_device(f"{root} step", lambda: float(step(
+        params, state0, statics, batch, gen, occ)[2]["loss_out"]))
     print(json.dumps({"ready": "step"}), flush=True)
     for line in sys.stdin:
         if line.strip() != "run":
@@ -177,12 +185,17 @@ def main() -> int:
     ap.add_argument("--experts", choices=("planes", "hash"),
                     default="planes")
     ap.add_argument("--phase", choices=("frame", "step"), default="frame")
+    ap.add_argument("--exact", action="store_true",
+                    help="planes experts with the exact encoder backward")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        return worker(args.other.resolve(), args.experts, args.phase)
+        return worker(args.other.resolve(), args.experts, args.phase,
+                      args.exact)
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
+    if args.exact and (args.experts, args.phase) != ("planes", "step"):
+        ap.error("--exact takes --experts planes --phase step")
     import torch
 
     if not torch.cuda.is_available():
@@ -200,7 +213,8 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     procs = {name: subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--worker",
-         "--experts", args.experts, "--phase", args.phase, str(root)],
+         "--experts", args.experts, "--phase", args.phase,
+         *(["--exact"] if args.exact else []), str(root)],
         stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, text=True) for name, root in roots.items()}
     try:
@@ -241,7 +255,8 @@ def main() -> int:
           f" ms; this faster in {verdict['pairs_this_faster']} of "
           f"{args.pairs} pairs")
     print(json.dumps({"serve_ab": summary, "verdict": verdict,
-                      "experts": args.experts, "phase": args.phase}))
+                      "experts": args.experts, "phase": args.phase,
+                      "exact": args.exact}))
     print(card)
     a, b = summary["this"]["check"], summary["other"]["check"]
     if abs(a - b) > 1e-4 * max(1.0, abs(b)):

@@ -1,5 +1,5 @@
 """Adversarial inputs of the plane encoder (kernels 1, 5 and 6's module)
-against JAX, and the launch plans of kernels 1 and 5.
+against JAX, and the launch plans of kernels 1, 5 and 6.
 
 The same numpy points, tables and cotangents go through
 nerfsys_tpu.ops.planes (`plane_encode` and `jax.vjp` of it, jit disabled)
@@ -16,9 +16,11 @@ against `index_add_`).
 
 The plans are plain functions of the shapes: the tests check that bench
 width privatises all three line levels within an H100 block's shared
-memory, that larger configurations privatise only what fits, and, by
-walking the kernels' loops, that tiles and blocks visit every (point,
-level x orientation) exactly once, tails included.
+memory, that larger configurations privatise only what fits, that the
+exact plan (kernel 6) also holds its position partials or refuses, and,
+by walking the kernels' loops, that tiles and blocks visit every (point,
+level x orientation) exactly once, tails included, and that kernel 6
+writes every partial slot and every point's position gradient once.
 """
 import jax
 import jax.numpy as jnp
@@ -159,12 +161,12 @@ def test_bench_width_privatises_every_line_level():
     memory beside the cotangent buffers; by default (LINE_BUDGET) the plan
     privatises the coarsest alone."""
     res, F = BENCH
-    full = TP.plane_bwd_light_plan(128_000, 1, res, F, True, num_sms=132,
+    full = TP.plane_bwd_plan(128_000, 1, res, F, True, num_sms=132,
                                    line_budget=None)
     assert full.private_levels == [0, 1, 2]
     assert full.smem <= TP.SMEM_BLOCK_BYTES == 232_448
     assert full.smem == 124_416  # 2 x 64 x 75 floats + 3 x 896 x 8 floats
-    plan = TP.plane_bwd_light_plan(128_000, 1, res, F, True, num_sms=132)
+    plan = TP.plane_bwd_plan(128_000, 1, res, F, True, num_sms=132)
     assert plan.private_levels == [0]
     assert plan.smem == 50_688  # 2 x 64 x 75 floats + 3 x 128 x 8 floats
     assert plan.vec and (plan.tile, plan.threads) == (64, 256)
@@ -177,7 +179,7 @@ def test_bench_width_privatises_every_line_level():
 def test_large_config_privatises_only_what_fits():
     res, F = L5
     assert sum(3 * r * F * 4 for r in res) == 380_928
-    plan = TP.plane_bwd_light_plan(128_000, 1, res, F, True, num_sms=132,
+    plan = TP.plane_bwd_plan(128_000, 1, res, F, True, num_sms=132,
                                    line_budget=None)
     assert plan.private_levels == [0, 1, 2]
     assert plan.line_ofs[3:] == (-1, -1)
@@ -188,7 +190,7 @@ def test_large_config_privatises_only_what_fits():
     ends = [plan.line_ofs[l] + 3 * res[l] * F for l in plan.private_levels]
     assert ends[:-1] == used[1:]
     assert plan.smem == 8 * plan.tile * (3 * 5 * F + 3) + 4 * ends[-1]
-    default = TP.plane_bwd_light_plan(128_000, 1, res, F, True, num_sms=132)
+    default = TP.plane_bwd_plan(128_000, 1, res, F, True, num_sms=132)
     assert default.private_levels == [0]
 
 
@@ -196,19 +198,19 @@ def test_large_config_privatises_only_what_fits():
     (0, True, []), (12_288, True, [0]), (None, False, [])])
 def test_line_budget_and_no_lines(budget, lines, want):
     res, F = BENCH
-    plan = TP.plane_bwd_light_plan(128_000, 1, res, F, lines, num_sms=132,
+    plan = TP.plane_bwd_plan(128_000, 1, res, F, lines, num_sms=132,
                                    line_budget=budget)
     assert plan.private_levels == want
 
 
 def test_scalar_variant_and_refusals():
     assert not TP.plane_fwd_plan(100, [16, 32], 2).vec
-    assert not TP.plane_bwd_light_plan(100, 1, [16, 32], 2, True, 132).vec
+    assert not TP.plane_bwd_plan(100, 1, [16, 32], 2, True, 132).vec
     assert not TP.plane_fwd_plan(100, [16, 32], 4, vec_ok=False).vec
     with pytest.raises(ValueError):
         TP.plane_fwd_plan(100, [8] * 9, 4)  # more levels than the struct
     with pytest.raises(ValueError):
-        TP.plane_bwd_light_plan(100, 1, [16384], 8, True, 132)  # R^2 F
+        TP.plane_bwd_plan(100, 1, [16384], 8, True, 132)  # R^2 F
 
 
 def _walk(plan, n, k, levels, persistent):
@@ -244,6 +246,68 @@ def test_plans_visit_every_point_once(n):
     assert (fwd.blocks - 1) * fwd.tile < n <= fwd.blocks * fwd.tile
     assert np.all(_walk(fwd, n, 2, len(res), persistent=False) == 1)
     for sms in (1, 3, 132):
-        bwd = TP.plane_bwd_light_plan(n, 2, res, F, True, num_sms=sms)
+        bwd = TP.plane_bwd_plan(n, 2, res, F, True, num_sms=sms)
         assert 1 <= bwd.blocks <= -(-n // bwd.tile)
         assert np.all(_walk(bwd, n, 2, len(res), persistent=True) == 1)
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: the exact plan (the kernel-5 body with position partials)
+
+@pytest.mark.parametrize("res,F", [BENCH, L5, ([16, 32], 2)])
+def test_exact_plan_fits_with_its_partials(res, F):
+    """The exact plan adds the (tile, 3*L, 3) position partials to the
+    light plan's shared memory, and still fits one H100 block."""
+    light = TP.plane_bwd_plan(128_000, 1, res, F, True, num_sms=132)
+    exact = TP.plane_bwd_plan(128_000, 1, res, F, True, num_sms=132,
+                              exact=True)
+    assert exact.exact and not light.exact and exact.sms == 132
+    assert exact.tile == light.tile == 64
+    partials = 4 * exact.tile * 9 * len(res)
+    assert exact.smem == light.smem + partials <= TP.SMEM_BLOCK_BYTES
+    assert exact.line_ofs == light.line_ofs
+    assert exact.vec == (F % 4 == 0)
+    if res == BENCH[0]:
+        assert exact.smem == 57_600  # 50,688 + 64 x 27 floats
+        assert exact.blocks == 396  # 3 resident an SM by shared memory
+
+
+def test_exact_plan_refuses_a_tile_that_cannot_fit():
+    """L=8, F=37: a 32-point tile's buffers fit the light plan (228,096
+    bytes) but not with the exact plan's partials (237,312 bytes)."""
+    res = [8] * 8
+    light = TP.plane_bwd_plan(100, 1, res, 37, True, 132)
+    assert light.tile == 32 and light.smem <= TP.SMEM_BLOCK_BYTES
+    with pytest.raises(ValueError):
+        TP.plane_bwd_plan(100, 1, res, 37, True, 132, exact=True)
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 64 * 40 - 37])
+def test_exact_plan_writes_every_partial_and_gx_once(n):
+    """Kernel 6's loops: persistent blocks over tiles; in a tile each
+    warp task writes its active points' three partial slots of its block
+    (level x orientation), then one pass writes each point's gx."""
+    res, F = BENCH
+    lo_n = 3 * len(res)
+    for sms in (1, 3, 132):
+        plan = TP.plane_bwd_plan(n, 2, res, F, True, num_sms=sms,
+                                 exact=True)
+        assert np.all(_walk(plan, n, 2, len(res), persistent=True) == 1)
+        tiles = -(-n // plan.tile)
+        gx = np.zeros((2, n, 3), np.int64)
+        for e in range(2):
+            for bx in range(plan.blocks):
+                for t in range(bx, tiles, plan.blocks):
+                    np_ = min(plan.tile, n - t * plan.tile)
+                    slots = np.zeros((plan.tile, lo_n, 3), np.int64)
+                    for task in range(lo_n * (plan.tile // 32)):
+                        lo, g = divmod(task, plan.tile // 32)
+                        p = g * 32 + np.arange(32)
+                        p = p[p < np_]
+                        for ax in TP._ORIENTATIONS[lo % 3]:
+                            slots[p, lo, ax] += 1
+                    assert np.all(slots[:np_] == 1)
+                    assert np.all(slots[np_:] == 0)
+                    i = np.arange(np_ * 3)
+                    gx[e, t * plan.tile + i // 3, i % 3] += 1
+        assert np.all(gx == 1)
