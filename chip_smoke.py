@@ -22,7 +22,13 @@ printing its result lines):
    1 and outside [0, 1], a tail tile, a single point (5, 6), no lines,
    F=2 (the scalar variant), K=4 stacked experts, L=5 base 128, and the
    backward's line-gradient variants (the coarsest level private, all
-   levels private, none); each line prints the launch plan.
+   levels private, none); each line prints the launch plan. Kernel 4's
+   VJP too, at 4,000 rays: alpha at its clip, sigma exactly 0, rgb
+   exactly 0 and 1, dt at its floor, S = 2, 8, 31, 33, 64, 97, each
+   upstream gradient alone and all four, no background, sigma_scale 25
+   (`edge volume_render_bwd` lines). Kernels 2, 3 and 4 are also timed at
+   the step's shapes (the K=1 task probe, 4,000 x 32), back to back and
+   by device time, beside their bounds.
 4. Serve: a soft-occupancy chunk renderer at bench width renders one
    warm-up frame and then 3 requests of 800x800 frames through
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
@@ -88,15 +94,17 @@ printing its result lines):
    dense gradient it zeroes and fills, written once); 7a and 7c also on adversarial inputs under both lane maps
    (every point in one cell, many in one cell of the finest level, the
    clip bounds and exactly 0 and 1, tails, a single point; 7a at F = 1,
-   4, 8 and the other level grouping; 7c with K=4 stacked experts, one
-   level group of persistent blocks, and groups of 4 levels), and 7a at
-   the step's shapes with its device time. Then one
+   4, 8 and the other level grouping; 7b on the F = 2 cases and in
+   Smoothstep; 7c with K=4 stacked experts, one level group of persistent
+   blocks, and groups of 4 levels), and 7a and 7b at the step's shapes
+   with their device times. Then one
    warm-up and 3 requests of 800x800 (7a, 2, 3, 4 launched, 7b and 7c
    not; one chunk against the plain path; one profiled frame), one chunk
-   through the packed experts (7b alone) against the plain path, and the
-   train phase below with the hash experts and a packed step in place of
-   the exact-backward one (7a, 7b, 7c launched; gradients against the
-   plain step; one profiled step).
+   through the packed experts (7b alone) against the plain path, 2 packed
+   800x800 frames timed in turns with 2 fp32 ones and one profiled packed
+   frame, and the train phase below with the hash experts and a packed
+   step in place of the exact-backward one (7a, 7b, 7c launched;
+   gradients against the plain step; both steps profiled).
 9. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
    at the runner's default hash width (the hash phase's experts). Kernel
    row 10 against its plain versions at one full serve chunk (2,097,152
@@ -476,15 +484,26 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
     grads = (g_rgb, None, None, None)
     k_rs, k_bg = V.volume_render_bwd_kernel(rgb_sigma, t_vals, bg, grads)
     p_rs, p_bg = V.volume_render_bwd_plain(rgb_sigma, t_vals, bg, grads)
+    # its kernel time is the device time: the kernel takes less than the
+    # wrapper's host path, so back-to-back events would time the host
+    b2b_ms = cuda_ms(lambda: V.volume_render_bwd_kernel(
+        rgb_sigma, t_vals, bg, grads), 20)
     report(kernels.VOLREND_BWD,
            [("rgb_sigma", k_rs, p_rs, 1e-5), ("bg", k_bg, p_bg, 1e-5)],
-           "relative to each gradient's max: a division-free reverse scan vs "
-           "torch's cumprod backward, other summation orders",
-           cuda_ms(lambda: V.volume_render_bwd_kernel(rgb_sigma, t_vals, bg,
-                                                      grads), 20),
+           "relative to each gradient's max: warp scans (a product scan for "
+           "T, a division-free suffix scan of affine maps for the reverse "
+           "recurrence) vs torch's cumprod backward, other summation "
+           f"orders; kernel_ms is the device time, back to back "
+           f"{b2b_ms:.4f} ms (the host's launch path); plan "
+           f"{volrend_plan_text(V.volrend_bwd_plan(N, S))}",
+           device_ms(lambda: V.volume_render_bwd_kernel(rgb_sigma, t_vals,
+                                                        bg, grads)),
            cuda_ms(lambda: V.volume_render_bwd_plain(rgb_sigma, t_vals, bg,
                                                      grads), 5),
            nbytes(rgb_sigma, t_vals, bg, g_rgb, k_rs, k_bg), N * S * 40)
+    volrend_bwd_edges(N, device)
+    step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals, bg,
+                     results)
 
     # kernels 5 and 6: the encoder VJPs, one expert's tables (3 levels)
     enc = expert["planes_enc"]
@@ -542,6 +561,156 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
         del got, want, checks
     del exact
     plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device)
+
+
+def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
+                     bg, results):
+    """Kernels 2, 3 and 4 at the bench step's shapes (one inner step of one
+    expert: its K=1 task probe of 4,000 rays x 128 probes, 32 randomized
+    samples a ray, the compositor at 4,000 x 32): back-to-back and device
+    times beside each one's bytes and bound, appended to the kernel's
+    line (its headline numbers stay those of the serve chunk)."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    N, S, P = t_vals.shape[0], t_vals.shape[1], cdf["cdf"].shape[1] - 1
+    K, L = grid[0].shape[:2]
+    u = O._sample_targets(N, S, o.device, gen, True).contiguous()
+    t_ker = O.sample_tvals_kernel(cdf["cdf"], near, far, u)
+    outs = V.volume_render_kernel(rgb_sigma, t_vals, bg)
+    probe_kw = dict(n_probes=P, importance=True, ray_floor=0.25)
+    cases = (
+        (kernels.OCC_PROBE_CDF, "K=1 task probe",
+         lambda: O.occupancy_probe_cdf_kernel(*grid, o, d, near, far,
+                                              **probe_kw),
+         nbytes(grid[0], grid[1], o, d, near, far, list(cdf.values())),
+         N * P * (9 + K * L * 14) + N * P * 12),
+        (kernels.OCC_SAMPLE, "randomized samples",
+         lambda: O.sample_tvals_kernel(cdf["cdf"], near, far, u),
+         nbytes(cdf["cdf"], near, far, u, t_ker),
+         N * S * (P + 8) + N * S * S),
+        (kernels.VOLREND_FWD, "compositor",
+         lambda: V.volume_render_kernel(rgb_sigma, t_vals, bg),
+         nbytes(rgb_sigma, t_vals, bg, outs), N * S * 24))
+    torch.cuda.synchronize()
+    for kern, label, fn, n_bytes, n_ops in cases:
+        ms = cuda_ms(fn, 20)
+        dev_ms = device_ms(fn)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        text = (f"step shapes ({label}, {N} rays x {S} samples, {P} "
+                f"probes): kernel_ms={ms:.4f} (back to back) "
+                f"device_ms={dev_ms:.4f} bytes={n_bytes} bound_ms="
+                f"{b_ms:.4f} ({b_by})")
+        print(f"kernel {kern.name}: {text}", flush=True)
+        results[kern.name]["text"] += f"; {text}"
+
+
+VR_EDGE_TOL = 1e-5
+
+
+def volrend_edge_inputs(kind: str, n: int, s: int, device, seed: int = 0):
+    """Adversarial inputs of kernel 4's VJP from numpy seed `seed`:
+    rgb_sigma (n, s, 4), t_vals (n, s), bg (n, 3) and the four upstream
+    gradients (rgb, depth, weights, acc). "clip" puts alpha at its 1 - 1e-7
+    bound (sigma * dt >= 17) at every third sample of the even rays and
+    the middle one of the odd; "zero" sigma exactly 0 (alpha = 0 ties) on
+    the even rays and every other sample of the odd, 1e-9 (alpha rounds
+    to 0) at the rest of every fourth; "rgb01" rgb exactly 0 or 1;
+    "dtfloor" zero-length intervals (dt at its 1e-4 floor), the last one
+    included; otherwise uniform rgb around [0, 1] and exponential
+    sigma."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.1, 2.5, (n, s)), axis=1).astype(np.float32)
+    rgb = rng.uniform(-0.2, 1.2, (n, s, 3)).astype(np.float32)
+    sigma = rng.exponential(1.0, (n, s)).astype(np.float32)
+    if kind == "clip":
+        sigma[0::2, ::3] = 17.0 / 1e-4
+        sigma[1::2, s // 2] = 17.0 / 1e-4
+    elif kind == "zero":
+        sigma[0::2] = 0.0
+        sigma[1::2, ::2] = 0.0
+        sigma[3::4, 1::2] = 1e-9
+    elif kind == "rgb01":
+        rgb[0::2] = 0.0
+        rgb[1::2] = 1.0
+        rgb[0::4, ::2, 1] = 1.0
+    elif kind == "dtfloor":
+        t[:, 1::2] = t[:, 0:s - 1:2][:, :t[:, 1::2].shape[1]]
+        t[:, -1] = t[:, -2]
+    rgb_sigma = np.concatenate([rgb, sigma[..., None]], axis=-1)
+    arrays = (rgb_sigma, t, rng.uniform(size=(n, 3)),
+              rng.normal(size=(n, 3)), 0.2 * rng.normal(size=(n,)),
+              rng.normal(size=(n, s)), rng.normal(size=(n,)))
+    return [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+            for a in arrays]
+
+
+def volrend_plan_text(plan) -> str:
+    return (f"lanes={plan.lanes} rays_per_warp={plan.rays_per_warp} "
+            f"pieces={plan.pieces} threads={plan.threads} "
+            f"blocks={plan.blocks} smem={plan.smem}")
+
+
+def volrend_bwd_edges(n: int, device):
+    """Kernel 4's VJP against its plain version on adversarial inputs at
+    one inner step's ray count (`volrend_edge_inputs`): alpha at its clip,
+    sigma exactly 0, rgb exactly 0 and 1, dt at its floor, S = 2, 8, 31,
+    33, 64 and 97 (every lane plan: several rays a warp, partial segments,
+    pieces with a carry), each upstream gradient alone and all four, no
+    background, sigma_scale 25. rgb_sigma within 1e-5 of its max; the
+    background's gradient G (1 - acc) within 1e-5 of max |G| (where acc
+    rounds to 1 the plain version's own 1 - sum(w) is an ulp of 1, so the
+    gradient's own max is no scale there)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    all4 = (True, True, True, True)
+    cases = [("alpha at the clip", "clip", 32, all4, True, 1.0),
+             ("sigma exactly 0", "zero", 32, all4, True, 1.0),
+             ("rgb exactly 0 and 1", "rgb01", 32, all4, True, 1.0),
+             ("dt at the 1e-4 floor", "dtfloor", 32, all4, True, 1.0)]
+    cases += [(f"S={s}", "rand", s, all4, True, 1.0)
+              for s in (2, 8, 31, 33, 64, 97)]
+    for i, name in enumerate(("rgb", "depth", "weights", "acc")):
+        used = tuple(j == i for j in range(4))
+        cases.append((f"{name} gradient alone", "rand", 32, used, True, 1.0))
+    cases += [("all four gradients", "rand", 32, all4, True, 1.0),
+              ("no background", "rand", 32, all4, False, 1.0),
+              ("sigma_scale 25", "rand", 32, all4, True, 25.0),
+              ("alpha at the clip, S=97, sigma_scale 25", "clip", 97, all4,
+               True, 25.0)]
+    for seed, (label, kind, s, used, with_bg, scale) in enumerate(cases):
+        rs, t, bg, *ups = volrend_edge_inputs(kind, n, s, device, seed)
+        bg = bg if with_bg else None
+        grads = tuple(g if u else None for g, u in zip(ups, used))
+        got, got_bg = V.volume_render_bwd_kernel(rs, t, bg, grads,
+                                                 sigma_scale=scale)
+        want, want_bg = V.volume_render_bwd_plain(rs, t, bg, grads,
+                                                  sigma_scale=scale)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        g_scale = float(ups[0].abs().max()) if used[0] else 1.0
+        bg_err = (max_err(got_bg, want_bg) / g_scale if with_bg else 0.0)
+        ms = device_ms(lambda: V.volume_render_bwd_kernel(
+            rs, t, bg, grads, sigma_scale=scale), 5)
+        print(f"edge volume_render_bwd {label}: N={n} S={s} "
+              f"rgb_sigma_err/max={err:.3e} bg_err/max|G|={bg_err:.3e} "
+              f"tol={VR_EDGE_TOL:g} device_ms={ms:.4f} plan "
+              f"{volrend_plan_text(V.volrend_bwd_plan(n, s))}", flush=True)
+        if not (err <= VR_EDGE_TOL and bg_err <= VR_EDGE_TOL
+                and bool(torch.isfinite(got).all())):
+            raise SystemExit(f"kernel volume_render_bwd disagrees with its "
+                             f"plain version on {label}: {err}, {bg_err}")
+        if not bool((want != 0).any()):
+            raise SystemExit(f"volume_render_bwd edge {label}: zero "
+                             f"gradient")
 
 
 def plan_text(plan) -> str:
@@ -868,12 +1037,15 @@ def train(cfg, statics, params, occ, batch, device, label="train",
 
     grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
                               device, label)
+    watch = (("volume_render_bwd_kernel",), ("hash_fwd_kernel", "false"),
+             ("hash_fwd_kernel", "true"))
     profile_device(f"{label} step", lambda: float(
-        step(p, state, statics, batch, gen, occ)[2]["loss_out"]))
+        step(p, state, statics, batch, gen, occ)[2]["loss_out"]),
+        watch=watch)
     profile_device(f"{label} {name} step", lambda: float(
         step_x(p, state, statics, batch, gen, occ)[2]["loss_out"]),
-        watch=(("plane_encode_bwd_kernel", "true"),
-               ("plane_encode_bwd_kernel", "false")))
+        watch=watch + (("plane_encode_bwd_kernel", "true"),
+                       ("plane_encode_bwd_kernel", "false")))
 
     ms = [1e3 * t for t in times]
     n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
@@ -1937,22 +2109,27 @@ def check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
     x1, pts = step_points(cfg, statics, occ, batch["support_rays"][0, 0],
                           gen)
     xq, _ = step_points(cfg, statics, occ, batch["query_rays"][0, 0], gen)
-    steps = []
-    for label, x in (("one inner step", x1), ("a query set", xq)):
-        ker = E.hash_encode_kernel(table[0], x, hc)
-        err = rel_err(ker, E.hash_encode_plain(table[0], x, hc))
-        ms = cuda_ms(lambda: E.hash_encode_kernel(table[0], x, hc), 10)
-        dev_ms = device_ms(lambda: E.hash_encode_kernel(table[0], x, hc))
-        plan = E.hash_fwd_plan(x.shape[0], hc, 1, sms)
-        steps.append(f"{label} 1x{x.shape[0]} points kernel_ms={ms:.4f} "
-                     f"(back to back) device_ms={dev_ms:.4f} "
-                     f"err/max={err:.3e} plan {hash_plan_text(plan)}")
-        if not err <= tol:
-            raise SystemExit(f"kernel hash_encode_fwd disagrees with its "
-                             f"plain version at {label}: {err} > {tol}")
-    fwd_step = "; ".join(steps)
-    print(f"kernel hash_encode_fwd: step shapes: {fwd_step}", flush=True)
-    results[kernels.HASH_FWD.name]["text"] += f"; step shapes: {fwd_step}"
+    for kern, c, packed in ((kernels.HASH_FWD, hc, False),
+                            (kernels.HASH_FWD_PACKED, pc, True)):
+        plain = E.hash_encode_packed_plain if packed else E.hash_encode_plain
+        steps = []
+        for label, x in (("one inner step", x1), ("a query set", xq)):
+            ker = E.hash_encode_kernel(table[0], x, c, packed)
+            err = rel_err(ker, plain(table[0], x, c))
+            ms = cuda_ms(lambda: E.hash_encode_kernel(table[0], x, c,
+                                                      packed), 10)
+            dev_ms = device_ms(lambda: E.hash_encode_kernel(table[0], x, c,
+                                                            packed))
+            plan = E.hash_fwd_plan(x.shape[0], c, 1, sms)
+            steps.append(f"{label} 1x{x.shape[0]} points kernel_ms="
+                         f"{ms:.4f} (back to back) device_ms={dev_ms:.4f} "
+                         f"err/max={err:.3e} plan {hash_plan_text(plan)}")
+            if not err <= tol:
+                raise SystemExit(f"kernel {kern.name} disagrees with its "
+                                 f"plain version at {label}: {err} > {tol}")
+        fwd_step = "; ".join(steps)
+        print(f"kernel {kern.name}: step shapes: {fwd_step}", flush=True)
+        results[kern.name]["text"] += f"; step shapes: {fwd_step}"
     dout = torch.randn((x1.shape[0], hc.out_dim), device=device,
                        generator=gen)
     shape = table[0].shape
@@ -2051,13 +2228,14 @@ def hash_edge_points(kind: str, k: int, n: int, device, fine_scale=None):
 
 
 def hash_fwd_edges(hc, table, x01, device):
-    """Kernel 7a against its plain version on adversarial inputs, within
-    1e-6 of the output's max, under both lane maps: at the serve chunk (K=4,
-    2,097,152 points an expert) every point in one cell, many points in one
-    cell of the finest level, the bounds, a tail (N - 37) and a single
-    point; at 262,144 points F = 1, 4 and 8 (tables of their own) and the
-    other level grouping (one group if the plan splits the levels, groups
-    of 4 if it does not)."""
+    """Kernels 7a and 7b against their plain versions on adversarial
+    inputs, within 1e-6 of the output's max (each line says whether the
+    output is bit for bit equal), under both lane maps: at the serve chunk
+    (K=4, 2,097,152 points an expert) every point in one cell, many points
+    in one cell of the finest level, the bounds, a tail (N - 37) and a
+    single point; at 262,144 points F = 1, 4 and 8 (tables of their own;
+    7a only) and the other level grouping (one group if the plan splits
+    the levels, groups of 4 if it does not); 7b also in Smoothstep."""
     import dataclasses
 
     import torch
@@ -2085,25 +2263,36 @@ def hash_fwd_edges(hc, table, x01, device):
             num_experts=K), small, {}))
     cases.append((f"level groups of {other_lg}", hc, table, small,
                   dict(level_group=other_lg)))
-    for label, c, tab, x, kw in cases:
-        want = E.hash_encode_plain(tab, x, c)
-        for lane_map in E.LANE_MAPS:
-            plan = E.hash_fwd_plan(x.shape[1], c, K, sms, lane_map=lane_map,
-                                   **kw)
-            got = E.hash_encode_planned(tab, x, c, plan=plan)
-            err = rel_err(got, want)
-            ms = cuda_ms(lambda: E.hash_encode_planned(tab, x, c, plan=plan),
-                         3)
-            print(f"edge hash_encode_fwd {label}: K={K} N={x.shape[1]} "
-                  f"F={c.features_per_level} err/max={err:.3e} tol=1e-06 "
-                  f"kernel_ms={ms:.4f} plan {hash_plan_text(plan)}",
-                  flush=True)
-            if not err <= 1e-6:
-                raise SystemExit(f"kernel hash_encode_fwd disagrees with its "
-                                 f"plain version on {label} ({lane_map}): "
-                                 f"{err}")
-            del got
-        del want
+    # 7b (F = 2 only) on the same inputs, and in Smoothstep
+    packed = [(label, dataclasses.replace(c, packed=True), tab, x, kw)
+              for label, c, tab, x, kw in cases if c.features_per_level == 2]
+    packed.append(("Smoothstep", dataclasses.replace(
+        hc, packed=True, interpolation="Smoothstep"), table, small, {}))
+    for name, group in (("hash_encode_fwd", cases),
+                        ("hash_encode_fwd_packed", packed)):
+        for label, c, tab, x, kw in group:
+            plain = (E.hash_encode_packed_plain if c.packed
+                     else E.hash_encode_plain)
+            want = plain(tab, x, c)
+            for lane_map in E.LANE_MAPS:
+                plan = E.hash_fwd_plan(x.shape[1], c, K, sms,
+                                       lane_map=lane_map, **kw)
+                got = E.hash_encode_planned(tab, x, c, packed=c.packed,
+                                            plan=plan)
+                err = rel_err(got, want)
+                ms = cuda_ms(lambda: E.hash_encode_planned(
+                    tab, x, c, packed=c.packed, plan=plan), 3)
+                print(f"edge {name} {label}: K={K} N={x.shape[1]} "
+                      f"F={c.features_per_level} err/max={err:.3e} "
+                      f"tol=1e-06 bit_equal={bool(torch.equal(got, want))} "
+                      f"kernel_ms={ms:.4f} plan {hash_plan_text(plan)}",
+                      flush=True)
+                if not err <= 1e-6:
+                    raise SystemExit(f"kernel {name} disagrees with its "
+                                     f"plain version on {label} "
+                                     f"({lane_map}): {err}")
+                del got
+            del want
     torch.cuda.empty_cache()
 
 
@@ -2163,23 +2352,29 @@ def hash_bwd_edges(hc, table, x1, xk, dout, device):
     torch.cuda.empty_cache()
 
 
-def packed_chunk(cfg, statics, params, occ, device):
-    """One serve chunk through the packed-pair experts (the runner's
-    --packed_gather), kernels against plain, the counters zeroed just
-    before the kernel path and read just after."""
+def packed_serve(cfg, statics, params, occ, device):
+    """The packed-pair experts (the runner's --packed_gather) served: one
+    chunk through the kernels against the plain path, then full 800x800
+    frames through `render_image`, packed and fp32 in turns (fp32,
+    packed, packed, fp32), and one profiled packed frame. The counters
+    are zeroed just before the packed chunk; the packed renders' launches
+    are summed (7b alone of the two forwards)."""
     import torch
 
     from nerfsys_tpu_torch import kernels
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
     from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        default_chunk_rays,
         make_chunk_renderer,
+        render_image,
     )
 
     pcfg = with_hash(cfg, packed=True)
     md = pose((0.0, 0.0, 2.0))
-    rays, _ = frame_rays(SIDE, SIDE, md.intrinsics, md.c2w,
-                         aabb=statics.global_aabb.cpu().numpy())
+    aabb = statics.global_aabb.cpu().numpy()
+    rays, _ = frame_rays(SIDE, SIDE, md.intrinsics, md.c2w, aabb=aabb)
     chunk = torch.from_numpy(rays[:CHECK_RAYS]).to(device)
+    renderers = {}
     out = []
     for use in (True, False):
         renderer = make_chunk_renderer(pcfg, ray_samples=32, occ_state=occ,
@@ -2189,24 +2384,54 @@ def packed_chunk(cfg, statics, params, occ, device):
         torch.cuda.synchronize()
         if use:
             kernels.reset_launches()
+            renderers["packed"] = renderer
         out.append(renderer(params, statics, chunk))
         torch.cuda.synchronize()
         if use:
             launches = kernels.launches()
-    print(f"hash serve packed: launches for one chunk {launches}",
-          flush=True)
+    chunk_matches_plain("hash serve packed", *out)
+    del out
+    renderers["fp32"] = make_chunk_renderer(
+        cfg, ray_samples=32, occ_state=occ, occ_importance=True,
+        occ_hard_mask=False, device=device)
+    size = CHUNK or default_chunk_rays(32)
+    render_image(renderers["fp32"], params, statics, md, scene_aabb=aabb,
+                 chunk_rays=size)  # warm-up
+    times = {"fp32": [], "packed": []}
+    for name in ("fp32", "packed", "packed", "fp32"):
+        torch.cuda.synchronize()
+        before = kernels.launches()
+        t0 = time.perf_counter()
+        rgb, depth, acc = render_image(renderers[name], params, statics, md,
+                                       scene_aabb=aabb, chunk_rays=size)
+        times[name].append(1e3 * (time.perf_counter() - t0))
+        check_frame(f"hash serve {name}", rgb, depth, acc, (SIDE, SIDE, 3))
+        if name == "packed":
+            after = kernels.launches()
+            launches = {k: v + after[k] - before[k]
+                        for k, v in launches.items()}
+    print(f"hash serve packed: launches for one chunk and 2 frames "
+          f"{launches}", flush=True)
     if launches["hash_encode_fwd_packed"] <= 0 or launches[
             "hash_encode_fwd"] != 0:
-        raise SystemExit("hash serve packed: the chunk did not go through "
-                         "hash_encode_fwd_packed alone")
-    chunk_matches_plain("hash serve packed", *out)
+        raise SystemExit("hash serve packed: the packed renders did not go "
+                         "through hash_encode_fwd_packed alone")
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"hash serve packed: {SIDE}x{SIDE} frames in turns: packed ms="
+          f"{[round(x, 2) for x in times['packed']]} mean_ms="
+          f"{mean['packed']:.2f}; fp32 ms="
+          f"{[round(x, 2) for x in times['fp32']]} mean_ms="
+          f"{mean['fp32']:.2f}", flush=True)
+    profile_frame(renderers["packed"], params, statics, md, aabb, size,
+                  label="hash serve packed frame")
     return launches
 
 
 def hash_phase(statics, occ, rays_np, batch, device, results):
     """Phase: the runner's default hash-grid experts served and trained
-    (kernel row 7 checks, 3 live 800x800 frames, one packed chunk, 3 bench
-    FoMAML steps and one packed step) -> launches per part."""
+    (kernel row 7 checks, 3 live 800x800 frames, a packed chunk and 2
+    packed frames, 3 bench FoMAML steps and one packed step) -> launches
+    per part."""
     t0 = time.perf_counter()
     cfg, params = hash_setup(device)
     check_hash_kernels(cfg, statics, params, occ, rays_np, batch, device,
@@ -2214,7 +2439,7 @@ def hash_phase(statics, occ, rays_np, batch, device, results):
     served = serve(cfg, statics, params, occ, device, label="hash serve",
                    need=HASH_SERVE_KERNELS,
                    idle=("hash_encode_fwd_packed", "hash_encode_bwd"))
-    packed = packed_chunk(cfg, statics, params, occ, device)
+    packed = packed_serve(cfg, statics, params, occ, device)
     light, trained = train(
         cfg, statics, params, occ, batch, device, label="hash train",
         extra=(lambda c: with_hash(c, packed=True), "packed"),

@@ -41,9 +41,12 @@
 // moved and no matrix product, so the tensor cores have nothing to do.
 // 7c makes the same requests as read-modify-writes in the L2.
 //
-// Design of 7a and 7c (7b keeps its first design: one thread per (expert,
-// point, level), 64-bit indexing). The launch plans come from Python
-// (ops/encodings.py `hash_fwd_plan`, `hash_bwd_plan`):
+// Design of 7a, 7b and 7c. 7b is 7a's body built with PACKED: only the
+// corner sum differs (the bfloat16 roundings above), so it takes 7a's plan
+// and reads the same float32 rows, rounding them in registers (no second,
+// bfloat16 copy of the table to keep in step with training). The launch
+// plans come from Python (ops/encodings.py `hash_fwd_plan`,
+// `hash_bwd_plan`):
 //   - tiles of `tile` consecutive points of one expert, levels in groups
 //     of `level_group`, grid (blocks, level groups, K): one block per tile
 //     and group, or, with one group, 7c's persistent blocks striding over
@@ -63,9 +66,9 @@
 //     share rows at every level whose cell is wider than the rays'
 //     spacing: one load serves them); "samples" gives them 32 consecutive
 //     points (the samples of one ray, for random training rays);
-//   - 7a builds its (tile, levels x F) output in shared memory and writes it
-//     with 16-byte streaming stores, whole sectors that do not evict the
-//     slabs from the L2;
+//   - 7a and 7b build their (tile, levels x F) output in shared memory
+//     and write it with 16-byte streaming stores, whole sectors that do
+//     not evict the slabs from the L2;
 //   - 7c groups the lanes of a warp that add into one row
 //     (`__match_any_sync`), sums them with shuffles (`reduce_peers`,
 //     common.cuh) and lets one lane add the row with one vector reduction
@@ -165,30 +168,6 @@ __device__ __forceinline__ float corner_weight(const float (&fr)[3], int i) {
     return wx * wy * wz;
 }
 
-// Slab-relative rows and weights of the corners level l reads for the point
-// at xp; returns their count (8, or 1 for Nearest).
-__device__ __forceinline__ int hash_corners(const float* __restrict__ xp,
-                                            const HashLevels& lv, int l,
-                                            unsigned int* row, float* w) {
-    if (lv.mode == 2) {
-        row[0] = nearest_row(xp, lv, l);
-        w[0] = 1.0f;
-        return 1;
-    }
-    int c0[3], c1[3];
-    float fr[3];
-    hash_cell(xp, lv, l, c0, c1, fr);
-    const bool dense = lv.tcnn && lv.dense[l];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        row[i] = corner_row(lv, l, dense, (i >> 2) ? c1[0] : c0[0],
-                            ((i >> 1) & 1) ? c1[1] : c0[1],
-                            (i & 1) ? c1[2] : c0[2]);
-        w[i] = corner_weight(fr, i);
-    }
-    return 8;
-}
-
 // First row of expert k's slab l, in rows of the (K, L * 2^T, F) table.
 __device__ __forceinline__ long long slab_row(const HashLevels& lv, int k,
                                               int l) {
@@ -236,9 +215,9 @@ struct TileLanes {
 };
 
 // ---------------------------------------------------------------------------
-// 7a: the fp32 forward.
+// 7a: the fp32 forward; with PACKED (F = 2, Linear or Smoothstep), 7b.
 
-template <int F>
+template <int F, bool PACKED>
 __global__ void __launch_bounds__(512)
 hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
                 float* __restrict__ out, HashLevels lv, int N, HashPlan plan) {
@@ -279,7 +258,7 @@ hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
         float acc[F];
 #pragma unroll
         for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-        if (lv.mode == 2) {
+        if (!PACKED && lv.mode == 2) {
             float v[F];
             load_row<F>(t + (size_t)nearest_row(xp, lv, l) * F, v);
 #pragma unroll
@@ -300,8 +279,15 @@ hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
                 const float w = corner_weight(fr, i);
+                if constexpr (PACKED) {  // the reference's bfloat16 products
+                    const float wb = bf16_round(w);
 #pragma unroll
-                for (int f = 0; f < F; ++f) acc[f] = acc[f] + w * v[i][f];
+                    for (int f = 0; f < F; ++f)
+                        acc[f] = acc[f] + bf16_round(wb * bf16_round(v[i][f]));
+                } else {
+#pragma unroll
+                    for (int f = 0; f < F; ++f) acc[f] = acc[f] + w * v[i][f];
+                }
             }
         }
         float* dst = os + p * stride + (p >> 5) * shift + li * F;
@@ -329,34 +315,6 @@ hash_fwd_kernel(const float* __restrict__ x, const float* __restrict__ table,
             __stcs(og + p * D + c, os[p * stride + (p >> 5) * shift + c]);
         }
     }
-}
-
-// ---------------------------------------------------------------------------
-// 7b: the packed bfloat16-pair forward (its first design).
-
-__global__ void hash_fwd_packed_kernel(const float* __restrict__ x,
-                                       const float2* __restrict__ table,
-                                       float2* __restrict__ out,
-                                       HashLevels lv, int K, int N) {
-    const int L = lv.levels;
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (tid >= (long long)K * N * L) return;
-    const int l = (int)(tid % L);
-    const long long kn = tid / L;
-    const int k = (int)(kn / N);
-    unsigned int row[8];
-    float w[8];
-    hash_corners(x + kn * 3, lv, l, row, w);  // Linear or Smoothstep: 8
-    const float2* t = table + slab_row(lv, k, l);
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-        const float2 v = __ldg(t + row[c]);
-        const float wb = bf16_round(w[c]);
-        a0 = a0 + bf16_round(wb * bf16_round(v.x));
-        a1 = a1 + bf16_round(wb * bf16_round(v.y));
-    }
-    out[tid] = make_float2(a0, a1);
 }
 
 // ---------------------------------------------------------------------------
@@ -510,11 +468,11 @@ static cudaError_t smem_opt_in(Kern kern, int smem) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int F>
+template <int F, bool PACKED = false>
 static int launch_fwd(const float* x, const float* table, float* out,
                       HashLevels lv, int K, int N, HashPlan plan,
                       cudaStream_t stream) {
-    auto kern = hash_fwd_kernel<F>;
+    auto kern = hash_fwd_kernel<F, PACKED>;
     const cudaError_t e = smem_opt_in(kern, plan.smem);
     if (e != cudaSuccess) return (int)e;
     const int groups = (lv.levels + plan.level_group - 1) / plan.level_group;
@@ -525,15 +483,19 @@ static int launch_fwd(const float* x, const float* table, float* out,
 
 // x: (K, N, 3) unit-cube points; table: (K, L * 2^T, F), 16-byte aligned;
 // out: (K, N, L*F).
+static bool fwd_plan_ok(const HashPlan& plan, int F, const HashLevels& lv,
+                        int N) {
+    return plan_ok(plan, F) && (long long)plan.blocks * plan.tile >= N &&
+           !(plan.vec && ((plan.level_group * F) % 4 ||
+                          lv.levels % plan.level_group));
+}
+
 NERF_API int hash_encode_fwd(const float* x, const float* table, float* out,
                              HashLevels lv, int K, int N, int F,
                              HashPlan plan, cudaStream_t stream) {
     if ((long long)K * N == 0 || lv.levels == 0)
         return (int)cudaGetLastError();
-    if (!plan_ok(plan, F) || (long long)plan.blocks * plan.tile < N ||
-        (plan.vec && ((plan.level_group * F) % 4 ||
-                      lv.levels % plan.level_group)))
-        return (int)cudaErrorInvalidValue;
+    if (!fwd_plan_ok(plan, F, lv, N)) return (int)cudaErrorInvalidValue;
     switch (F) {
         case 1: return launch_fwd<1>(x, table, out, lv, K, N, plan, stream);
         case 2: return launch_fwd<2>(x, table, out, lv, K, N, plan, stream);
@@ -543,19 +505,16 @@ NERF_API int hash_encode_fwd(const float* x, const float* table, float* out,
     }
 }
 
-// As hash_encode_fwd with F = 2, Linear or Smoothstep, bfloat16 pairs.
+// As hash_encode_fwd with F = 2, Linear or Smoothstep, the table read as
+// bfloat16 pairs (7b), with 7a's plans.
 NERF_API int hash_encode_fwd_packed(const float* x, const float* table,
                                     float* out, HashLevels lv, int K, int N,
-                                    cudaStream_t stream) {
-    const long long total = (long long)K * N * lv.levels;
-    if (total > 0) {
-        const int threads = 256;
-        const unsigned int blocks = nerf_blocks(total, threads);
-        hash_fwd_packed_kernel<<<blocks, threads, 0, stream>>>(
-            x, reinterpret_cast<const float2*>(table),
-            reinterpret_cast<float2*>(out), lv, K, N);
-    }
-    return (int)cudaGetLastError();
+                                    HashPlan plan, cudaStream_t stream) {
+    if ((long long)K * N == 0 || lv.levels == 0)
+        return (int)cudaGetLastError();
+    if (lv.mode == 2 || !fwd_plan_ok(plan, 2, lv, N))
+        return (int)cudaErrorInvalidValue;
+    return launch_fwd<2, true>(x, table, out, lv, K, N, plan, stream);
 }
 
 template <int F>

@@ -236,12 +236,25 @@ VOLREND_FWD = Kernel(
              "volume_render)",
 )
 
+
+class VolrendPlan(ctypes.Structure):
+    """A launch plan of kernel 4's VJP (csrc/volrend_bwd.cu VolrendPlan;
+    filled from ops/volrend.py `VolrendBwdPlan`)."""
+    _fields_ = [
+        ("lanes", _I),
+        ("pieces", _I),
+        ("threads", _I),
+        ("blocks", _I),
+        ("smem", _I),
+    ]
+
+
 VOLREND_BWD = Kernel(
     "volume_render_bwd", "volrend_bwd", "volume_render_bwd",
     # rgb_sigma, t_vals, bg, g_rgb, g_depth, g_weights, g_acc (the last
     # five nullable), g_rgb_sigma, g_bg (nullable), N, S, scale_on,
-    # sigma_scale, stream
-    [_P] * 9 + [_I] * 3 + [_F, _P],
+    # sigma_scale, plan (by value), stream
+    [_P] * 9 + [_I] * 3 + [_F, VolrendPlan, _P],
     replaces="nerfsys_tpu/ops/volrend.py:81 (volume_render, its VJP)",
 )
 PLANES_BWD_LIGHT = Kernel(
@@ -306,7 +319,7 @@ class HashLevels(ctypes.Structure):
 
 
 class HashPlan(ctypes.Structure):
-    """A launch plan of kernels 7a and 7c (csrc/hash_grid.cu HashPlan;
+    """A launch plan of kernels 7a, 7b and 7c (csrc/hash_grid.cu HashPlan;
     filled from ops/encodings.py `HashLaunchPlan`)."""
     _fields_ = [
         ("tile", _I),
@@ -331,8 +344,8 @@ HASH_FWD = Kernel(
 )
 HASH_FWD_PACKED = Kernel(
     "hash_encode_fwd_packed", "hash_grid", "hash_encode_fwd_packed",
-    # x, table, out, levels (by value), K, N, stream
-    [_P, _P, _P, HashLevels, _I, _I, _P],
+    # x, table, out, levels (by value), K, N, plan (by value), stream
+    [_P, _P, _P, HashLevels, _I, _I, HashPlan, _P],
     replaces="nerfsys_tpu/ops/encodings.py:491 (hash_grid_encode_packed, "
              "_packed_fwd :506)",
 )

@@ -454,7 +454,7 @@ def _device_of(name: str, x01: torch.Tensor) -> bool:
     return x01.device.type == "cuda"
 
 
-# Launch plans of kernels 7a and 7c (csrc/hash_grid.cu `HashPlan`).
+# Launch plans of kernels 7a / 7b and 7c (csrc/hash_grid.cu `HashPlan`).
 LANE_MAPS = ("samples", "rays")  # kernel lane_map 0, 1
 HASH_FWD_TILE, HASH_FWD_THREADS = 256, 512  # 7a: 8 rays of 32 samples
 HASH_FWD_SMEM = 49_152  # 7a's tile is halved while its staging exceeds it
@@ -466,7 +466,8 @@ HASH_BWD_LEVELS = 2  # 7c's levels per block: 2 slabs (16 MiB) in the L2
 
 @dataclasses.dataclass(frozen=True)
 class HashLaunchPlan:
-    """Launch geometry of kernel 7a or 7c (csrc/hash_grid.cu `HashPlan`)."""
+    """Launch geometry of kernel 7a, 7b or 7c (csrc/hash_grid.cu
+    `HashPlan`)."""
 
     tile: int  # consecutive points of one expert per tile: 32 x 2^j <= 1024
     threads: int  # per block (multiple of 32)
@@ -515,14 +516,14 @@ def hash_fwd_plan(n: int, cfg: HashGridConfig, k: int = 1,
                   num_sms: int = 132, lane_map: str = "rays",
                   level_group: Optional[int] = None,
                   vec_ok: bool = True) -> HashLaunchPlan:
-    """Kernel 7a's plan for K experts of N points each: one block per tile
-    of consecutive points of one expert and level group (`level_group`
-    levels, a divisor of L), with at most one warp per (level, run of 32)
-    task; tile and group chosen by `_fwd_shape` unless a group is given
-    (then tiles of HASH_FWD_TILE), the tile halved while its points and
-    staged (tile, level_group * F) output exceed HASH_FWD_SMEM; 16-byte
-    stores when a group's span is whole float4s and `vec_ok` (the output
-    is 16-byte aligned)."""
+    """Kernel 7a's (and 7b's) plan for K experts of N points each: one
+    block per tile of consecutive points of one expert and level group
+    (`level_group` levels, a divisor of L), with at most one warp per
+    (level, run of 32) task; tile and group chosen by `_fwd_shape` unless
+    a group is given (then tiles of HASH_FWD_TILE), the tile halved while
+    its points and staged (tile, level_group * F) output exceed
+    HASH_FWD_SMEM; 16-byte stores when a group's span is whole float4s and
+    `vec_ok` (the output is 16-byte aligned)."""
     _check_lane_map(lane_map)
     L, F = cfg.levels, cfg.features_per_level
     if level_group is None:
@@ -604,9 +605,9 @@ def hash_encode_kernel(table: torch.Tensor, x01: torch.Tensor,
                        cfg: HashGridConfig,
                        packed: bool = False) -> torch.Tensor:
     """Kernels 7a / 7b's wrapper: the plain version for a CPU tensor; on a
-    CUDA tensor it launches `hash_encode_fwd` (with `hash_fwd_plan`'s plan)
-    or, when `packed`, `hash_encode_fwd_packed`, or raises. Not
-    differentiable: it raises under grad mode with inputs that require
+    CUDA tensor it launches `hash_encode_fwd` or, when `packed`,
+    `hash_encode_fwd_packed` (both with `hash_fwd_plan`'s plan), or raises.
+    Not differentiable: it raises under grad mode with inputs that require
     grad."""
     kernels.check_no_grad("hash_encode", x01, table)
     if packed:
@@ -622,28 +623,28 @@ def hash_encode_planned(table: torch.Tensor, x01: torch.Tensor,
                         plan: Optional[HashLaunchPlan] = None
                         ) -> torch.Tensor:
     """The CUDA half of `hash_encode_kernel`; `plan` (None:
-    `hash_fwd_plan`'s) sets 7a's launch, so a caller can run either lane
-    map, tile or level grouping at any shape."""
+    `hash_fwd_plan`'s) sets 7a's or 7b's launch, so a caller can run either
+    lane map, tile or level grouping at any shape."""
     if x01.device.type != "cuda":
         raise ValueError(f"hash_encode: unsupported device {x01.device}")
     tab, x, lead = _as_stacked(table, x01, cfg)
     K, N = x.shape[0], x.shape[1]
     kernels.check_cuda_tensors("hash_encode", x01.device, x=x, hash_table=tab)
-    lv = _level_table(cfg)
-    out = torch.empty((K, N, cfg.out_dim), dtype=torch.float32,
-                      device=x01.device)
-    stream = kernels.stream_ptr(x)
-    if packed:
-        kernels.HASH_FWD_PACKED(x.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                                lv, K, N, stream)
-        return _unstack(out, lead, cfg)
     if not aligned(tab):
         raise ValueError("hash_encode: the table must start on a 16-byte "
                          "boundary (the kernel reads rows as vectors)")
+    lv = _level_table(cfg)
+    out = torch.empty((K, N, cfg.out_dim), dtype=torch.float32,
+                      device=x01.device)
     st = (_fwd_struct(N, K, cfg, num_sms(x.device), aligned(out))
           if plan is None else plan.as_struct())
-    kernels.HASH_FWD(x.data_ptr(), tab.data_ptr(), out.data_ptr(), lv, K, N,
-                     cfg.features_per_level, st, stream)
+    stream = kernels.stream_ptr(x)
+    if packed:
+        kernels.HASH_FWD_PACKED(x.data_ptr(), tab.data_ptr(), out.data_ptr(),
+                                lv, K, N, st, stream)
+    else:
+        kernels.HASH_FWD(x.data_ptr(), tab.data_ptr(), out.data_ptr(), lv, K,
+                         N, cfg.features_per_level, st, stream)
     return _unstack(out, lead, cfg)
 
 

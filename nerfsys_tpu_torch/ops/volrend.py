@@ -13,13 +13,17 @@ into a carried state for the early-stop renderer;
 Kernel 4 (`csrc/volrend.cu`) is the compositor forward on the card;
 `volume_render_plain` is the same function in plain PyTorch. Gradients go
 through `VolumeRender`, whose backward is kernel 4's VJP
-(`csrc/volrend_bwd.cu`) or autograd through the plain version. Every clip follows JAX's gradient
+(`csrc/volrend_bwd.cu`, lanes over a ray's samples, launch plan from
+`volrend_bwd_plan`) or autograd through the plain version. Every clip
+follows JAX's gradient
 rule at a tie (`jnp.clip` and `jnp.maximum` pass half the gradient where
 the operands are equal, `torch.clamp` all of it), so the plain version
 clips with `torch.maximum` / `torch.minimum`, which pass half too.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -27,7 +31,7 @@ import torch
 from nerfsys_tpu_torch import kernels
 from nerfsys_tpu_torch.ops.activations import clip
 from nerfsys_tpu_torch.ops.occupancy import linspace01
-from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.device import aligned, resolve_device
 
 Render = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -130,6 +134,58 @@ def _check_shapes(name, rgb_sigma, t_vals, bg_rgb):
 
 Grads = Tuple[Optional[torch.Tensor], ...]
 
+VOLREND_BWD_THREADS = 256  # 8 warps a block
+VOLREND_BWD_SMEM = 48 * 1024  # piece carries within what needs no opt-in
+
+
+@dataclasses.dataclass(frozen=True)
+class VolrendBwdPlan:
+    """Launch geometry of kernel 4's VJP (csrc/volrend_bwd.cu
+    `VolrendPlan`)."""
+
+    lanes: int  # lanes a ray: the power of 2 at or above S, at most 32
+    pieces: int  # pieces of `lanes` samples a ray: ceil(S / lanes)
+    threads: int  # per block
+    blocks: int
+    smem: int  # the T at each piece's start, a float per piece and warp
+
+    @property
+    def rays_per_warp(self) -> int:
+        return 32 // self.lanes
+
+    def as_struct(self) -> "kernels.VolrendPlan":
+        return kernels.VolrendPlan(self.lanes, self.pieces, self.threads,
+                                   self.blocks, self.smem)
+
+
+def volrend_bwd_plan(n: int, s: int) -> VolrendBwdPlan:
+    """Kernel 4's VJP for N rays of S samples: a ray's samples on `lanes`
+    consecutive lanes, so a warp takes 32 / lanes rays (S <= 16) or one ray
+    in ceil(S / 32) pieces (S > 32); 8 warps a block, fewer when the
+    pieces' carries would pass 48 KB of shared memory."""
+    if s < 2:
+        raise ValueError(f"volume_render_bwd: S={s}, expected S >= 2")
+    lanes = min(32, 1 << (s - 1).bit_length())
+    pieces = -(-s // lanes)
+    warps = VOLREND_BWD_THREADS // 32
+    smem = 0
+    if pieces > 1:
+        warps = min(warps, VOLREND_BWD_SMEM // (4 * pieces))
+        if warps < 1:
+            raise ValueError(f"volume_render_bwd: S={s} samples need more "
+                             f"than {VOLREND_BWD_SMEM} bytes of shared "
+                             f"memory a warp")
+        smem = 4 * warps * pieces
+    rays_per_block = warps * (32 // lanes)
+    return VolrendBwdPlan(lanes=lanes, pieces=pieces, threads=32 * warps,
+                          blocks=max(1, -(-n // rays_per_block)), smem=smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_struct(n: int, s: int) -> "kernels.VolrendPlan":
+    """`volrend_bwd_plan` as the kernel's struct, per shape."""
+    return volrend_bwd_plan(n, s).as_struct()
+
 
 def volume_render_bwd_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                             bg_rgb: Optional[torch.Tensor], grads: Grads, *,
@@ -147,7 +203,10 @@ def volume_render_bwd_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
             return torch.zeros_like(rs), (None if bg is None
                                           else torch.zeros_like(bg))
         got = torch.autograd.grad([o for o, _ in pairs],
-                                  inputs, [g for _, g in pairs])
+                                  inputs, [g for _, g in pairs],
+                                  allow_unused=True)  # bg: depth alone
+        got = [torch.zeros_like(x) if g is None else g
+               for g, x in zip(got, inputs)]
     return got[0], (None if bg is None else got[1])
 
 
@@ -155,7 +214,8 @@ def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                              bg_rgb: Optional[torch.Tensor], grads: Grads, *,
                              sigma_scale: float = 1.0):
     """Kernel 4's VJP wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `volume_render_bwd` or raises."""
+    tensors it launches `volume_render_bwd` (with `volrend_bwd_plan`'s
+    plan) or raises."""
     kernels.check_no_grad("volume_render_bwd", rgb_sigma, t_vals, bg_rgb,
                           *grads)
     if rgb_sigma.device.type == "cpu":
@@ -176,13 +236,17 @@ def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
     kernels.check_cuda_tensors("volume_render_bwd", dev, rgb_sigma=rgb_sigma,
                                t_vals=t_vals, bg_rgb=bg_rgb, g_rgb=g_rgb,
                                g_depth=g_depth, g_weights=g_w, g_acc=g_acc)
+    if not aligned(rgb_sigma):
+        raise ValueError("volume_render_bwd: rgb_sigma must start on a "
+                         "16-byte boundary (the kernel reads samples as "
+                         "vectors)")
     g_rs = torch.empty_like(rgb_sigma)
     g_bg = None if bg_rgb is None else torch.empty_like(bg_rgb)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kernels.VOLREND_BWD(
         rgb_sigma.data_ptr(), t_vals.data_ptr(), ptr(bg_rgb), ptr(g_rgb),
         ptr(g_depth), ptr(g_w), ptr(g_acc), g_rs.data_ptr(), ptr(g_bg), N, S,
-        int(sigma_scale != 1.0), float(sigma_scale),
+        int(sigma_scale != 1.0), float(sigma_scale), _bwd_struct(N, S),
         kernels.stream_ptr(rgb_sigma))
     return g_rs, g_bg
 

@@ -3,7 +3,7 @@
 another one.
 
     python3 serve_ab.py OTHER_CHECKOUT [--pairs 10] [--experts planes|hash]
-                        [--phase frame|step] [--exact]
+                        [--phase frame|step] [--exact | --packed]
 
 OTHER_CHECKOUT is a second copy of the repository, for example the parent
 commit unpacked with `git archive`. One worker process per checkout imports
@@ -23,8 +23,11 @@ and generator seed every round (before the rounds, each worker profiles
 one step with its chip_smoke's `profile_device`: device busy ms and idle
 share); `--exact` gives the planes experts the encoder's exact backward
 (each checkout's own `chip_smoke.exact_backward`, pos_grad=True) in
-place of the light one. A worker waits on its pipe between rounds, so
-one runs at a time.
+place of the light one; `--packed` gives the hash experts the packed
+bfloat16-pair table reads (the runner's --packed_gather: each
+checkout's own `chip_smoke.with_hash(cfg, packed=True)`) for either
+phase, and implies `--experts hash`. A worker waits on its pipe between
+rounds, so one runs at a time.
 
 Prints every round, then for each side the median, quartiles and range of
 the round means; the difference of the medians against the other side's
@@ -47,7 +50,8 @@ from pathlib import Path
 SIDES = ("other", "this")
 
 
-def worker(root: Path, experts: str, phase: str, exact: bool) -> int:
+def worker(root: Path, experts: str, phase: str, exact: bool,
+           packed: bool) -> int:
     sys.path[0] = str(root)  # that checkout's modules, not this script's
     import torch
 
@@ -62,6 +66,8 @@ def worker(root: Path, experts: str, phase: str, exact: bool) -> int:
         cfg, params = cs.hash_setup(device)
     if exact:
         cfg = cs.exact_backward(cfg)
+    if packed:
+        cfg = cs.with_hash(cfg, packed=True)
     if phase == "step":
         return step_rounds(cs, cfg, statics, params, occ, device, root)
     return frame_rounds(cs, cfg, statics, params, occ, device)
@@ -182,16 +188,21 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="the other checkout's root")
     ap.add_argument("--pairs", type=int, default=10)
-    ap.add_argument("--experts", choices=("planes", "hash"),
-                    default="planes")
+    ap.add_argument("--experts", choices=("planes", "hash"), default=None,
+                    help="planes (the default) or hash")
     ap.add_argument("--phase", choices=("frame", "step"), default="frame")
     ap.add_argument("--exact", action="store_true",
                     help="planes experts with the exact encoder backward")
+    ap.add_argument("--packed", action="store_true",
+                    help="hash experts reading the table as bfloat16 pairs")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.packed and args.experts == "planes":
+        ap.error("--packed takes the hash experts")
+    args.experts = args.experts or ("hash" if args.packed else "planes")
     if args.worker:
         return worker(args.other.resolve(), args.experts, args.phase,
-                      args.exact)
+                      args.exact, args.packed)
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
     if args.exact and (args.experts, args.phase) != ("planes", "step"):
@@ -214,7 +225,8 @@ def main() -> int:
     procs = {name: subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--worker",
          "--experts", args.experts, "--phase", args.phase,
-         *(["--exact"] if args.exact else []), str(root)],
+         *(["--exact"] if args.exact else []),
+         *(["--packed"] if args.packed else []), str(root)],
         stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, text=True) for name, root in roots.items()}
     try:
@@ -256,7 +268,7 @@ def main() -> int:
           f"{args.pairs} pairs")
     print(json.dumps({"serve_ab": summary, "verdict": verdict,
                       "experts": args.experts, "phase": args.phase,
-                      "exact": args.exact}))
+                      "exact": args.exact, "packed": args.packed}))
     print(card)
     a, b = summary["this"]["check"], summary["other"]["check"]
     if abs(a - b) > 1e-4 * max(1.0, abs(b)):

@@ -1,5 +1,5 @@
-"""Adversarial inputs of the hash-grid encoder (kernels 7a and 7c's module)
-against JAX, and the launch plans of kernels 7a and 7c.
+"""Adversarial inputs of the hash-grid encoder (kernels 7a, 7b and 7c's
+module) against JAX, and the launch plans of kernels 7a / 7b and 7c.
 
 The same numpy points, tables and cotangents go through
 nerfsys_tpu.ops.encodings (`hash_grid_encode_fused` and `jax.vjp` of it,
@@ -14,7 +14,13 @@ the kernels' tiles and a single point, F = 1, 2, 4 and 8, and four
 stacked experts. Small widths: L=4 levels, 2^12 rows a slab, resolutions
 4-64. Tolerances: the forward 1e-6 of the output's max (XLA sums the 8
 corner products as a matmul, in its own order); the table gradient 1e-5
-of its max (scatter-adds in another order).
+of its max (scatter-adds in another order). The packed bfloat16-pair
+forward (`hash_encode_packed_plain`, 7b's oracle) is held to
+`hash_grid_encode_packed` on the same points at F = 2, Linear, Smoothstep
+and the tcnn layout, to 1e-6 of the output's max (each bf16 product
+rounds alike on both sides; XLA's 0/1 matmul sums them in its own order).
+7b runs 7a's plans: the tests check that a packed config gets the same
+plan at every shape.
 
 The plans are plain functions of the shapes: the tests walk the kernels'
 loops to show that tiles, level groups, warps and lanes visit every
@@ -145,6 +151,29 @@ def test_hash_stacked_k4_edges():
         want, gwant = _jax_vjp(jc, tables[e], x[e], ct[e])
         assert _max_rel(got[e], want) <= FWD_TOL
         assert _max_rel(g[e], gwant) <= GRAD_TOL
+
+
+@pytest.mark.parametrize("mode,tcnn", [("Linear", False),
+                                       ("Smoothstep", False),
+                                       ("Linear", True)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_packed_edges_match_jax(kind, mode, tcnn):
+    """The packed forward's plain version against hash_grid_encode_packed
+    on the adversarial points, within 1e-6 of the output's max; the fp32
+    encode differs by more (the bf16 roundings are in play)."""
+    jc, tc = _cfgs(2, interpolation=mode, tcnn_layout=tcnn, packed=True)
+    x = _points(kind, seed=7)
+    table = _table(jc, seed=8)
+    with jax.disable_jit():
+        want = np.asarray(JE.hash_grid_encode_packed(
+            jnp.asarray(table), jnp.asarray(x), jc))
+    got = TE.hash_encode_packed_plain(torch.from_numpy(table),
+                                      torch.from_numpy(x), tc).numpy()
+    assert got.shape == (x.shape[0], tc.out_dim)
+    assert _max_rel(got, want) <= FWD_TOL
+    fp32 = TE.hash_encode_plain(torch.from_numpy(table), torch.from_numpy(x),
+                                tc).numpy()
+    assert _max_rel(fp32, want) > 10 * FWD_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +379,22 @@ def test_default_plans_need_no_shared_memory_opt_in(n, k):
         tc = TE.HashGridConfig(**dict(RUNNER, **kw))
         assert TE.hash_fwd_plan(n, tc, k, 132).smem <= 48 * 1024
         assert TE.hash_bwd_plan(n, k, tc, 132).smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("n,k", SHAPES)
+def test_packed_forward_takes_7a_plans(n, k):
+    """7b is 7a's kernel body: a packed config gets 7a's plan (and its own
+    cached struct, equal to the fp32 one) at every shape the paths use."""
+    tc = TE.HashGridConfig(**RUNNER)
+    pc = dataclasses.replace(tc, packed=True)
+    for lane_map in TE.LANE_MAPS:
+        assert TE.hash_fwd_plan(n, pc, k, 132, lane_map=lane_map) == \
+            TE.hash_fwd_plan(n, tc, k, 132, lane_map=lane_map)
+    a, b = TE._fwd_struct(n, k, pc, 132, True), TE._fwd_struct(n, k, tc, 132,
+                                                               True)
+    assert a is not b
+    assert [getattr(a, f) for f, _ in a._fields_] == [
+        getattr(b, f) for f, _ in b._fields_]
 
 
 @pytest.mark.parametrize("offset", [0, 1, 2, 4])
