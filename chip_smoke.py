@@ -26,9 +26,18 @@ printing its result lines):
    VJP too, at 4,000 rays: alpha at its clip, sigma exactly 0, rgb
    exactly 0 and 1, dt at its floor, S = 2, 8, 31, 33, 64, 97, each
    upstream gradient alone and all four, no background, sigma_scale 25
-   (`edge volume_render_bwd` lines). Kernels 2, 3 and 4 are also timed at
+   (`edge volume_render_bwd` lines), and kernel 4 on the same cases at
+   4,013 rays (`edge volume_render_fwd` lines). Kernel 2 on adversarial
+   inputs under both lane maps (`edge occupancy_probe_cdf` lines: probe
+   points on level borders and one ulp either side, points outside every
+   level, all-dead rays, one occupied cell, sum(val) on both sides of
+   1e-12, P = 32, 100, 256, K=1 L=1, K=1 L=4, K=5, importance and
+   ray_floor on and off; 0 bit flips, cdf within 1e-5), its bound also by
+   the distinct 32-byte sectors the selected cells touch, its time by
+   lane map and without value reads. Kernels 2, 3 and 4 are also timed at
    the step's shapes (the K=1 task probe, 4,000 x 32), back to back and
-   by device time, beside their bounds.
+   by device time, beside their bounds; kernels 2 and 4's headline times
+   are device times.
 4. Serve: a soft-occupancy chunk renderer at bench width renders one
    warm-up frame and then 3 requests of 800x800 frames through
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
@@ -39,7 +48,7 @@ printing its result lines):
    transmittance) against its plain version at one serve chunk's first
    segment (65,536 rays x 8 samples, fresh carry) and one resume slice
    (16,384 x 24, that carry), fog off and on, at two densities, timed
-   with CUDA events beside its byte bound; the 8 + 24 split against
+   back to back and by device time beside its byte bound; the 8 + 24 split against
    kernel 4's one-shot. Then the soft-mode early-stop renderer (eps 1e-4,
    32 samples split 8 + 24) serves one warm-up and 3 requests of 800x800
    through `render_image` at sigma_scale 1 and at the opaque scale, each
@@ -309,16 +318,26 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
     if flips or alive_flips:
         raise SystemExit(f"probe kernel selects other cells than the plain "
                          f"version: {flips} probe bits, {alive_flips} rays")
+    io_bytes = nbytes(o, d, near, far, ker["cdf"], ker["alive"], ker["occ"])
+    need = probe_sector_bytes(*grids, o, d, near, far, P, True, pln["occ"])
+    all_bytes = nbytes(occ["occs"], occ["binary"]) + io_bytes
+    n_ops = N * P * (9 + K * L * 14) + N * P * 12
+    times = probe_times(grids, o, d, near, far, probe_kw)
+    b_all, _ = bound(all_bytes, n_ops)
     report(kernels.OCC_PROBE_CDF, max_err(ker["cdf"], pln["cdf"]), 1e-5,
            "cdf in [0,1]; warp scan vs torch.cumsum summation order",
-           cuda_ms(lambda: O.occupancy_probe_cdf_kernel(
-               *grids, o, d, near, far, **probe_kw), 10),
+           times["device"],
            cuda_ms(lambda: O.occupancy_probe_cdf(
                *grids, o, d, near, far, **probe_kw, use_kernels=False), 3),
-           nbytes(occ["occs"], occ["binary"], o, d, near, far, ker["cdf"],
-                  ker["alive"], ker["occ"]),
-           N * P * (9 + K * L * 14) + N * P * 12,
-           extra=f" occ_bit_flips={flips}")
+           need + io_bytes, n_ops,
+           extra=(f" (bytes: the distinct 32-byte sectors of the selected "
+                  f"cells, bits and the values read, plus rays and outputs; "
+                  f"every grid byte once: {all_bytes}, bound_ms="
+                  f"{b_all:.4f}) occ_bit_flips={flips} alive_flips="
+                  f"{alive_flips}; kernel_ms is the device time; "
+                  + probe_times_text(times)))
+    del need
+    probe_edges(device)
 
     # kernel 3: the sampler, fed the same cdf on both sides
     cdf_state = {"cdf": pln["cdf"], "alive": pln["alive"]}
@@ -365,13 +384,19 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
     out_p = V.volume_render_plain(rgb_sigma, t_vals, bg)
     err = max(max_err(out_k[0], out_p[0]), max_err(out_k[2], out_p[2]),
               max_err(out_k[3], out_p[3]), max_err(out_k[1], out_p[1]) / 10)
+    b2b = cuda_ms(lambda: V.volume_render_kernel(rgb_sigma, t_vals, bg), 10)
     report(kernels.VOLREND_FWD, err, 1e-5,
-           "rgb/weights/acc in [0,1] and depth/10 (t <= ~6): sums of 32 "
-           "products in another order than torch.sum",
-           cuda_ms(lambda: V.volume_render_kernel(rgb_sigma, t_vals, bg), 10),
+           "rgb/weights/acc in [0,1] and depth/10 (t <= ~6): a product "
+           "scan for T and sums of 32 products in another order than "
+           "torch.cumprod / torch.sum",
+           device_ms(lambda: V.volume_render_kernel(rgb_sigma, t_vals, bg)),
            cuda_ms(lambda: V.volume_render_plain(rgb_sigma, t_vals, bg), 3),
            nbytes(rgb_sigma, t_vals, bg, out_k),
-           N * S * 24)
+           N * S * 24,
+           extra=(f"; kernel_ms is the device time, back to back "
+                  f"{b2b:.4f} ms; plan "
+                  + volrend_plan_text(V.volrend_plan(N, S, backward=False))))
+    volrend_fwd_edges(4000 + 13, device)
     return results
 
 
@@ -495,7 +520,7 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
            "recurrence) vs torch's cumprod backward, other summation "
            f"orders; kernel_ms is the device time, back to back "
            f"{b2b_ms:.4f} ms (the host's launch path); plan "
-           f"{volrend_plan_text(V.volrend_bwd_plan(N, S))}",
+           f"{volrend_plan_text(V.volrend_plan(N, S, backward=True))}",
            device_ms(lambda: V.volume_render_bwd_kernel(rgb_sigma, t_vals,
                                                         bg, grads)),
            cuda_ms(lambda: V.volume_render_bwd_plain(rgb_sigma, t_vals, bg,
@@ -581,6 +606,12 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
     u = O._sample_targets(N, S, o.device, gen, True).contiguous()
     t_ker = O.sample_tvals_kernel(cdf["cdf"], near, far, u)
     outs = V.volume_render_kernel(rgb_sigma, t_vals, bg)
+    ref = V.volume_render_plain(rgb_sigma, t_vals, bg)
+    vr_err = max(max_err(outs[0], ref[0]), max_err(outs[2], ref[2]),
+                 max_err(outs[3], ref[3]), rel_err(outs[1], ref[1]))
+    if not vr_err <= 1e-5:
+        raise SystemExit(f"kernel volume_render_fwd disagrees with its plain "
+                         f"version at the step's shapes: {vr_err}")
     probe_kw = dict(n_probes=P, importance=True, ray_floor=0.25)
     cases = (
         (kernels.OCC_PROBE_CDF, "K=1 task probe",
@@ -595,7 +626,28 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
         (kernels.VOLREND_FWD, "compositor",
          lambda: V.volume_render_kernel(rgb_sigma, t_vals, bg),
          nbytes(rgb_sigma, t_vals, bg, outs), N * S * 24))
+    want = O.occupancy_probe_cdf(*grid, o, d, near, far, **probe_kw,
+                                 use_kernels=False)
     torch.cuda.synchronize()
+    flips = (int((cdf["occ"] != want["occ"]).sum()),
+             int((cdf["alive"] != want["alive"]).sum()))
+    cdf_err = max_err(cdf["cdf"], want["cdf"])
+    if flips != (0, 0) or not cdf_err <= 1e-5:
+        raise SystemExit(f"kernel occupancy_probe_cdf disagrees with its "
+                         f"plain version at the step's shapes: {flips} "
+                         f"flips, cdf {cdf_err}")
+    need = probe_sector_bytes(*grid, o, d, near, far, P, True, want["occ"])
+    io_bytes = nbytes(o, d, near, far, list(cdf.values()))
+    extra = {kernels.OCC_PROBE_CDF: lambda: (
+                 f" (distinct-sector bytes {need + io_bytes}, bound_ms "
+                 f"{bound(need + io_bytes, 0)[0]:.4f}); occ_bit_flips=0 "
+                 f"alive_flips=0 cdf_err={cdf_err:.3e} vs the plain probe; "
+                 + probe_times_text(probe_times(grid, o, d, near, far,
+                                                probe_kw))),
+             kernels.VOLREND_FWD: lambda: (
+                 f" max_err={vr_err:.3e} (depth relative) vs the plain "
+                 f"version; plan " + volrend_plan_text(
+                     V.volrend_plan(N, S, backward=False)))}
     for kern, label, fn, n_bytes, n_ops in cases:
         ms = cuda_ms(fn, 20)
         dev_ms = device_ms(fn)
@@ -604,6 +656,8 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
                 f"probes): kernel_ms={ms:.4f} (back to back) "
                 f"device_ms={dev_ms:.4f} bytes={n_bytes} bound_ms="
                 f"{b_ms:.4f} ({b_by})")
+        if kern in extra:
+            text += extra[kern]()
         print(f"kernel {kern.name}: {text}", flush=True)
         results[kern.name]["text"] += f"; {text}"
 
@@ -671,21 +725,7 @@ def volrend_bwd_edges(n: int, device):
 
     from nerfsys_tpu_torch.ops import volrend as V
 
-    all4 = (True, True, True, True)
-    cases = [("alpha at the clip", "clip", 32, all4, True, 1.0),
-             ("sigma exactly 0", "zero", 32, all4, True, 1.0),
-             ("rgb exactly 0 and 1", "rgb01", 32, all4, True, 1.0),
-             ("dt at the 1e-4 floor", "dtfloor", 32, all4, True, 1.0)]
-    cases += [(f"S={s}", "rand", s, all4, True, 1.0)
-              for s in (2, 8, 31, 33, 64, 97)]
-    for i, name in enumerate(("rgb", "depth", "weights", "acc")):
-        used = tuple(j == i for j in range(4))
-        cases.append((f"{name} gradient alone", "rand", 32, used, True, 1.0))
-    cases += [("all four gradients", "rand", 32, all4, True, 1.0),
-              ("no background", "rand", 32, all4, False, 1.0),
-              ("sigma_scale 25", "rand", 32, all4, True, 25.0),
-              ("alpha at the clip, S=97, sigma_scale 25", "clip", 97, all4,
-               True, 25.0)]
+    cases = volrend_edge_cases()
     for seed, (label, kind, s, used, with_bg, scale) in enumerate(cases):
         rs, t, bg, *ups = volrend_edge_inputs(kind, n, s, device, seed)
         bg = bg if with_bg else None
@@ -703,7 +743,8 @@ def volrend_bwd_edges(n: int, device):
         print(f"edge volume_render_bwd {label}: N={n} S={s} "
               f"rgb_sigma_err/max={err:.3e} bg_err/max|G|={bg_err:.3e} "
               f"tol={VR_EDGE_TOL:g} device_ms={ms:.4f} plan "
-              f"{volrend_plan_text(V.volrend_bwd_plan(n, s))}", flush=True)
+              f"{volrend_plan_text(V.volrend_plan(n, s, backward=True))}",
+              flush=True)
         if not (err <= VR_EDGE_TOL and bg_err <= VR_EDGE_TOL
                 and bool(torch.isfinite(got).all())):
             raise SystemExit(f"kernel volume_render_bwd disagrees with its "
@@ -711,6 +752,253 @@ def volrend_bwd_edges(n: int, device):
         if not bool((want != 0).any()):
             raise SystemExit(f"volume_render_bwd edge {label}: zero "
                              f"gradient")
+
+
+def volrend_edge_cases():
+    """The 18 adversarial cases of kernel 4 and its VJP at one inner step's
+    ray count: (label, kind, S, upstream gradients used, background,
+    sigma_scale); the forward ignores the upstream gradients."""
+    all4 = (True, True, True, True)
+    cases = [("alpha at the clip", "clip", 32, all4, True, 1.0),
+             ("sigma exactly 0", "zero", 32, all4, True, 1.0),
+             ("rgb exactly 0 and 1", "rgb01", 32, all4, True, 1.0),
+             ("dt at the 1e-4 floor", "dtfloor", 32, all4, True, 1.0)]
+    cases += [(f"S={s}", "rand", s, all4, True, 1.0)
+              for s in (2, 8, 31, 33, 64, 97)]
+    for i, name in enumerate(("rgb", "depth", "weights", "acc")):
+        used = tuple(j == i for j in range(4))
+        cases.append((f"{name} gradient alone", "rand", 32, used, True, 1.0))
+    cases += [("all four gradients", "rand", 32, all4, True, 1.0),
+              ("no background", "rand", 32, all4, False, 1.0),
+              ("sigma_scale 25", "rand", 32, all4, True, 25.0),
+              ("alpha at the clip, S=97, sigma_scale 25", "clip", 97, all4,
+               True, 25.0)]
+    return cases
+
+
+def volrend_fwd_edges(n: int, device):
+    """Kernel 4 against its plain version on `volrend_edge_cases` at n rays
+    (a tail past whole warps at S <= 16 when n is odd): rgb, weights and
+    acc within 1e-5, depth within 1e-5 of its max."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    for seed, (label, kind, s, _, with_bg, scale) in enumerate(
+            volrend_edge_cases()):
+        rs, t, bg, *_ = volrend_edge_inputs(kind, n, s, device, seed)
+        bg = bg if with_bg else None
+        got = V.volume_render_kernel(rs, t, bg, sigma_scale=scale)
+        want = V.volume_render_plain(rs, t, bg, sigma_scale=scale)
+        torch.cuda.synchronize()
+        errs = (max_err(got[0], want[0]), max_err(got[2], want[2]),
+                max_err(got[3], want[3]), rel_err(got[1], want[1]))
+        ms = device_ms(lambda: V.volume_render_kernel(
+            rs, t, bg, sigma_scale=scale), 5)
+        print(f"edge volume_render_fwd {label}: N={n} S={s} rgb_err="
+              f"{errs[0]:.3e} weights_err={errs[1]:.3e} acc_err="
+              f"{errs[2]:.3e} depth_err/max={errs[3]:.3e} tol={VR_EDGE_TOL:g}"
+              f" device_ms={ms:.4f} plan "
+              f"{volrend_plan_text(V.volrend_plan(n, s, backward=False))}",
+              flush=True)
+        if not (max(errs) <= VR_EDGE_TOL
+                and all(bool(torch.isfinite(x).all()) for x in got)):
+            raise SystemExit(f"kernel volume_render_fwd disagrees with its "
+                             f"plain version on {label}: {errs}")
+
+
+def probe_plan_text(plan) -> str:
+    return (f"lane_map={plan.lane_map} rays={plan.rays} threads="
+            f"{plan.threads} blocks={plan.blocks} stride={plan.stride} "
+            f"smem={plan.smem} group={plan.group} chunks={plan.chunks}")
+
+
+def probe_sector_bytes(occs, binary, aabbs, o, d, near, far, P,
+                       importance, union_occ) -> int:
+    """Bytes of the distinct 32-byte sectors kernel 2 must read for these
+    rays: each expert's deciding cell bit at every probe, and, with
+    importance, its value where the union is occupied (the plain version's
+    `_finest_level_index` selects the cells)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    K, L, R = occs.shape[:3]
+    cells = L * R ** 3
+    pts = O._probe_points(o, d, near, far, P).reshape(-1, 3)
+    union = union_occ.reshape(-1)
+    bits, vals = [], []
+    for k in range(K):
+        dec, flat = O._finest_level_index(aabbs[k], L, R, pts)
+        bits.append((k * cells + flat[dec]) // 32)
+        if importance:
+            vals.append((k * cells + flat[dec & union]) // 8)
+    n = torch.unique(torch.cat(bits)).numel()
+    if importance:
+        n += torch.unique(torch.cat(vals)).numel()
+    return 32 * n
+
+
+def probe_times(grids, o, d, near, far, kw):
+    """Kernel 2's device time under its default plan and under each lane
+    map, with importance off (no value reads), and back to back."""
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    def fn(**over):
+        args = dict(kw, **over)
+        return lambda: O.occupancy_probe_cdf_kernel(*grids, o, d, near, far,
+                                                    **args)
+
+    N, P = o.shape[0], kw["n_probes"]
+    K, L = grids[0].shape[:2]
+    return {"device": device_ms(fn()), "b2b": cuda_ms(fn(), 20),
+            "rays": device_ms(fn(lane_map="rays")),
+            "probes": device_ms(fn(lane_map="probes")),
+            "no_values": device_ms(fn(importance=False)),
+            "plan": O.occ_probe_plan(N, P, K, L)}
+
+
+def probe_times_text(times) -> str:
+    return (f"back to back {times['b2b']:.4f} ms; device by lane map: rays "
+            f"{times['rays']:.4f}, probes {times['probes']:.4f}; importance "
+            f"off (no value reads) {times['no_values']:.4f}; plan "
+            + probe_plan_text(times["plan"]))
+
+
+PROBE_EDGE_TOL = 1e-5
+PROBE_EDGE_N = 4096 + 13  # a tail past whole 32-ray blocks
+
+
+def probe_edge_inputs(kind: str, n: int, k: int, l: int, r: int, seed: int):
+    """Adversarial inputs of kernel 2 from numpy seed `seed`: occs, binary
+    (k, l, r, r, r), boxes (k, 2, 3) and rays o, d (n, 3), near, far (n,).
+    "borders" puts every coordinate of a third of the rays on a level
+    border or one ulp either side with d = 0 (every probe on it), moves
+    another third along x only (y and z stay on borders), and aims the rest
+    at random; "outside" starts half the rays far outside every level
+    (some through none); "dead" has no occupied cell; "single" one
+    occupied cell an expert, with the rays aimed through it; "tiny" values
+    below 1.05e-14 (sum(val) on either side of the 1e-12 threshold, on rays
+    with occupied probes);
+    otherwise half the cells occupied at random values in [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cents = np.array([[0.0, -1, -1], [0.0, -1, 1], [0.0, 1, -1], [0.0, 1, 1],
+                      [0.4, 0.2, 0.0]], np.float32)[np.arange(k) % 5]
+    half = np.float32(1.2) if k > 1 else np.float32(0.9)
+    boxes = np.stack([cents - half, cents + half], 1).astype(np.float32)
+    binary = rng.uniform(size=(k, l, r, r, r)) < 0.5
+    occs = rng.uniform(size=binary.shape).astype(np.float32)
+    if kind == "dead":
+        binary[:] = False
+    elif kind == "single":
+        binary[:] = False
+        binary[:, 0, r // 2, r // 3, r // 2] = True
+    elif kind == "tiny":
+        occs = (occs * np.float32(1.05e-14)).astype(np.float32)
+    o = rng.normal(size=(n, 3)).astype(np.float32) * np.float32(0.3)
+    o[:, 0] += np.float32(-3.0)
+    tgt = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    if kind == "single":  # through expert 0's occupied cell centre
+        c = boxes[0, 0] + (boxes[0, 1] - boxes[0, 0]) * (
+            np.array([r // 2, r // 3, r // 2]) + 0.5) / r
+        tgt[:] = c.astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    near = np.full(n, 0.5, np.float32)
+    far = rng.uniform(4.0, 6.0, n).astype(np.float32)
+    if kind == "borders":
+        s = 2.0 ** np.arange(l, dtype=np.float32)
+        ctr = np.float32(0.5) * (boxes[:, 0] + boxes[:, 1])
+        hlf = np.float32(0.5) * (boxes[:, 1] - boxes[:, 0])
+        lo = ctr[:, None] - hlf[:, None] * s[None, :, None]
+        hi = ctr[:, None] + hlf[:, None] * s[None, :, None]
+        edges = np.stack([lo, hi], 2).reshape(-1, 3)  # (k * l * 2, 3)
+        pick = edges[rng.integers(len(edges), size=(n, 3)), np.arange(3)]
+        ulp = rng.integers(-1, 2, size=(n, 3))
+        pick = np.where(ulp > 0, np.nextafter(pick, np.float32(np.inf)),
+                        np.where(ulp < 0,
+                                 np.nextafter(pick, np.float32(-np.inf)),
+                                 pick)).astype(np.float32)
+        third = n // 3
+        o[:third] = pick[:third]
+        d[:third] = 0.0
+        o[third:2 * third, 1:] = pick[third:2 * third, 1:]
+        d[third:2 * third] = np.array([1.0, 0.0, 0.0], np.float32)
+    elif kind == "outside":
+        o[: n // 2] = rng.uniform(30, 40, (n // 2, 3)).astype(np.float32)
+    return [np.ascontiguousarray(a) for a in (occs, binary, boxes, o, d,
+                                              near, far)]
+
+
+def probe_edge_cases():
+    """(label, kind, P, K, L, R, importance, ray_floor) of `probe_edges`."""
+    cases = [("level borders and one ulp either side", "borders", 128, 4, 4,
+              32, True, 0.25),
+             ("points outside every level", "outside", 128, 4, 4, 32, True,
+              0.25),
+             ("all-dead rays", "dead", 128, 4, 4, 32, True, 0.25),
+             ("one occupied cell, rays through it", "single", 128, 4, 4, 64,
+              True, 0.25),
+             ("vsum on both sides of 1e-12 with occupied probes", "tiny",
+              128, 4, 4, 32, True, 0.25)]
+    cases += [(f"P={p}", "rand", p, 4, 4, 32, True, 0.25)
+              for p in (32, 100, 256)]
+    cases += [("K=1 L=1 (the union grid)", "rand", 128, 1, 1, 128, True,
+               0.25),
+              ("K=1 L=4 (a task probe)", "borders", 128, 1, 4, 32, True,
+               0.25),
+              ("K=5 (two expert groups)", "borders", 128, 5, 2, 16, True,
+               0.25),
+              ("importance off, ray_floor 0", "rand", 128, 4, 4, 32, False,
+               0.0),
+              ("importance on, ray_floor 0", "rand", 128, 4, 4, 32, True,
+               0.0),
+              ("importance off, ray_floor 0.25", "borders", 128, 4, 4, 32,
+               False, 0.25)]
+    return cases
+
+
+def probe_edges(device):
+    """Kernel 2 against its plain version on `probe_edge_cases`, under both
+    lane maps: 0 occ-bit and 0 alive flips, cdf within 1e-5."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    for seed, (label, kind, P, K, L, R, imp, rf) in enumerate(
+            probe_edge_cases()):
+        occs, binary, boxes, o, d, near, far = (
+            torch.from_numpy(a).to(device) for a in probe_edge_inputs(
+                kind, PROBE_EDGE_N, K, L, R, seed))
+        kw = dict(n_probes=P, importance=imp, ray_floor=rf)
+        want = O.occupancy_probe_cdf(occs, binary, boxes, o, d, near, far,
+                                     **kw, use_kernels=False)
+        for lane_map in O.PROBE_LANE_MAPS:
+            got = O.occupancy_probe_cdf_kernel(occs, binary, boxes, o, d,
+                                               near, far, **kw,
+                                               lane_map=lane_map)
+            torch.cuda.synchronize()
+            flips = int((got["occ"] != want["occ"]).sum())
+            alive = int((got["alive"] != want["alive"]).sum())
+            err = max_err(got["cdf"], want["cdf"])
+            ms = device_ms(lambda: O.occupancy_probe_cdf_kernel(
+                occs, binary, boxes, o, d, near, far, **kw,
+                lane_map=lane_map), 5)
+            print(f"edge occupancy_probe_cdf {label}: N={PROBE_EDGE_N} P={P}"
+                  f" K={K} L={L} R={R} importance={imp} ray_floor={rf} "
+                  f"occ_bit_flips={flips} alive_flips={alive} occupied="
+                  f"{float(want['occ'].float().mean()):.4f} alive="
+                  f"{float(want['alive'].float().mean()):.4f} cdf_err="
+                  f"{err:.3e} tol={PROBE_EDGE_TOL:g} device_ms={ms:.4f} plan "
+                  + probe_plan_text(O.occ_probe_plan(PROBE_EDGE_N, P, K, L,
+                                                     lane_map)), flush=True)
+            if flips or alive or not err <= PROBE_EDGE_TOL:
+                raise SystemExit(f"kernel occupancy_probe_cdf disagrees with "
+                                 f"its plain version on {label} "
+                                 f"({lane_map}): {flips} bits, {alive} "
+                                 f"rays, cdf {err}")
 
 
 def plan_text(plan) -> str:
@@ -1270,25 +1558,28 @@ def check_segment_kernel(cfg, statics, params, occ, rays_np, device,
     for label, c, args, out, n in (("first segment", fresh, seg1, first, N),
                                    ("resume slice", carry, seg2, rest, cap)):
         ms = cuda_ms(lambda: V.composite_segment(c, *args), 20)
+        dev = device_ms(lambda: V.composite_segment(c, *args))
         plain_ms = cuda_ms(lambda: V.composite_segment_plain(c, *args), 5)
         n_bytes = nbytes(list(c.values()), args, list(out.values()))
         b_ms, b_by = bound(n_bytes, n * args[1].shape[1] * 24)
-        rows.append((label, ms, plain_ms, n_bytes, b_ms, b_by))
+        rows.append((label, ms, dev, plain_ms, n_bytes, b_ms, b_by))
         print(f"kernel composite_segment: {label} {n}x{args[1].shape[1]} "
-              f"fog=False kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
-              f"{HBM_BYTES_PER_S / 1e12:g} TB/s", flush=True)
-    label, ms, plain_ms, n_bytes, b_ms, b_by = rows[0]
+              f"fog=False kernel_ms={ms:.4f} (back to back) device_ms="
+              f"{dev:.4f} plain_ms={plain_ms:.4f} bytes={n_bytes} bound_ms="
+              f"{b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} TB/s",
+              flush=True)
+    label, ms, dev, plain_ms, n_bytes, b_ms, b_by = rows[0]
     results[kernels.COMPOSITE_SEG.name] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=worst, ms=dev, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by,
         text=(f"max_abs_err={worst:.3e} tol={tol:g} (both shapes, fog off "
               f"and on, two densities; sums of 8-24 products in another "
-              f"order than torch.sum) kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) "
-              f"at {HBM_BYTES_PER_S / 1e12:g} TB/s (the first segment, "
-              f"{N}x{s1}; resume slice kernel_ms={rows[1][1]:.4f} "
-              f"bound_ms={rows[1][4]:.4f})"))
+              f"order than torch.sum) kernel_ms={dev:.4f} (the device time; "
+              f"back to back {ms:.4f}) plain_ms={plain_ms:.4f} bytes="
+              f"{n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
+              f"{HBM_BYTES_PER_S / 1e12:g} TB/s (the first segment, "
+              f"{N}x{s1}; resume slice device_ms={rows[1][2]:.4f}, back to "
+              f"back {rows[1][1]:.4f}, bound_ms={rows[1][5]:.4f})"))
 
 
 def check_frame(label, rgb, depth, acc, shape):
@@ -2665,12 +2956,18 @@ def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
                                 far, **kw, use_kernels=False)
     torch.cuda.synchronize()
     flips = int((ker["occ"] != pln["occ"]).sum())
+    alive_flips = int((ker["alive"] != pln["alive"]).sum())
     err = max_err(ker["cdf"], pln["cdf"])
     ms = cuda_ms(lambda: O.occupancy_probe_cdf_kernel(
         pf.occs, pf.binary, pf.aabbs, o, d, near, far, **kw), 10)
-    n_bytes = nbytes(pf.occs, pf.binary, o, d, near, far, ker["cdf"],
-                     ker["alive"], ker["occ"])
-    b_ms, b_by = bound(n_bytes, o.shape[0] * 128 * 23 + o.shape[0] * 128 * 12)
+    dev = device_ms(lambda: O.occupancy_probe_cdf_kernel(
+        pf.occs, pf.binary, pf.aabbs, o, d, near, far, **kw))
+    io_bytes = nbytes(o, d, near, far, ker["cdf"], ker["alive"], ker["occ"])
+    n_bytes = nbytes(pf.occs, pf.binary) + io_bytes
+    n_ops = o.shape[0] * 128 * 23 + o.shape[0] * 128 * 12
+    b_ms, b_by = bound(n_bytes, n_ops)
+    need = probe_sector_bytes(pf.occs, pf.binary, pf.aabbs, o, d, near, far,
+                              128, pf.importance, pln["occ"]) + io_bytes
     exact_ms = cuda_ms(lambda: O.occupancy_probe_cdf_kernel(
         occ["occs"], occ["binary"], statics.expert_aabbs, o, d, near, far,
         **kw), 10)
@@ -2678,10 +2975,14 @@ def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
           f"share {float(grid['binary'].float().mean()):.4f}, built in "
           f"{build_ms:.1f} ms) at {o.shape[0]} rays x 128 probes: "
           f"max_abs_err={err:.3e} tol=1e-5 occ_bit_flips={flips} "
-          f"kernel_ms={ms:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} "
-          f"({b_by}) vs the exact K={K} L={occ['occs'].shape[1]} union "
-          f"{exact_ms:.4f}", flush=True)
-    if flips or not err <= 1e-5:
+          f"alive_flips={alive_flips} kernel_ms={ms:.4f} (back to back) "
+          f"device_ms={dev:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} "
+          f"({b_by}); distinct-sector bytes {need} bound_ms "
+          f"{bound(need, n_ops)[0]:.4f}; plan "
+          f"{probe_plan_text(O.occ_probe_plan(o.shape[0], 128, 1, 1))} vs "
+          f"the exact K={K} L={occ['occs'].shape[1]} union {exact_ms:.4f}",
+          flush=True)
+    if flips or alive_flips or not err <= 1e-5:
         raise SystemExit("kernel occupancy_probe_cdf disagrees on the union "
                          "probe grid")
 

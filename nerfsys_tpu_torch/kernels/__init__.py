@@ -214,11 +214,29 @@ PLANES_FWD = Kernel(
     [_P, _P, PlaneLevels, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:269 (_plane_encode_parts)",
 )
+
+
+class ProbePlan(ctypes.Structure):
+    """A launch plan of kernel 2 (csrc/occ_probe.cu ProbePlan; filled from
+    ops/occupancy.py `ProbeLaunchPlan`)."""
+    _fields_ = [
+        ("lane_map", _I),  # 0 "probes", 1 "rays"
+        ("rays", _I),
+        ("threads", _I),
+        ("blocks", _I),
+        ("stride", _I),
+        ("smem", _I),
+        ("group", _I),
+        ("chunks", _I),
+    ]
+
+
 OCC_PROBE_CDF = Kernel(
     "occupancy_probe_cdf", "occ_probe", "occupancy_probe_cdf",
-    # o, d, near, far, mids, occs, binary, level_aabbs, cdf, alive, occ,
-    # N, P, K, L, R, importance, c_imp, c_uni, c_keep, c_floor, stream
-    [_P] * 11 + [_I] * 6 + [_F] * 4 + [_P],
+    # o, d, near, far, mids, occs, binary, level table, cdf, alive, occ,
+    # N, P, K, L, R, importance, c_imp, c_uni, c_keep, c_floor,
+    # plan (by value), stream
+    [_P] * 11 + [_I] * 6 + [_F] * 4 + [ProbePlan, _P],
     replaces="nerfsys_tpu/ops/occupancy.py:394 (occupancy_probe_cdf)",
 )
 OCC_SAMPLE = Kernel(
@@ -227,19 +245,11 @@ OCC_SAMPLE = Kernel(
     [_P] * 6 + [_I] * 4 + [_P],
     replaces="nerfsys_tpu/ops/occupancy.py:468 (sample_tvals_from_cdf)",
 )
-VOLREND_FWD = Kernel(
-    "volume_render_fwd", "volrend", "volume_render_fwd",
-    # rgb_sigma, t_vals, bg (nullable), rgb, depth, weights, acc,
-    # N, S, scale_on, sigma_scale, stream
-    [_P] * 7 + [_I] * 3 + [_F, _P],
-    replaces="nerfsys_tpu/ops/volrend.py:57,81 (render_weights, "
-             "volume_render)",
-)
 
 
 class VolrendPlan(ctypes.Structure):
-    """A launch plan of kernel 4's VJP (csrc/volrend_bwd.cu VolrendPlan;
-    filled from ops/volrend.py `VolrendBwdPlan`)."""
+    """A launch plan of kernel 4 and its VJP (csrc/volrend_common.cuh
+    VolrendPlan; filled from ops/volrend.py `VolrendLaunchPlan`)."""
     _fields_ = [
         ("lanes", _I),
         ("pieces", _I),
@@ -249,6 +259,14 @@ class VolrendPlan(ctypes.Structure):
     ]
 
 
+VOLREND_FWD = Kernel(
+    "volume_render_fwd", "volrend", "volume_render_fwd",
+    # rgb_sigma, t_vals, bg (nullable), rgb, depth, weights, acc,
+    # N, S, scale_on, sigma_scale, plan (by value), stream
+    [_P] * 7 + [_I] * 3 + [_F, VolrendPlan, _P],
+    replaces="nerfsys_tpu/ops/volrend.py:57,81 (render_weights, "
+             "volume_render)",
+)
 VOLREND_BWD = Kernel(
     "volume_render_bwd", "volrend_bwd", "volume_render_bwd",
     # rgb_sigma, t_vals, bg, g_rgb, g_depth, g_weights, g_acc (the last

@@ -12,13 +12,16 @@ values and binary (K, L, R, R, R) bool. Level l of an expert covers its box
 scaled by 2^l about the centre, and the finest level containing a point
 decides its cell.
 
-Kernel 2 (`csrc/occ_probe.cu`) computes the union probe + CDF on the card,
-kernel 3 (`csrc/occ_sample.cu`) the inverse-CDF sampler; the `*_plain`
-functions are the same math in plain PyTorch.
+Kernel 2 (`csrc/occ_probe.cu`) computes the union probe + CDF on the card
+(launch plan from `occ_probe_plan`; level tables from `level_bounds`,
+cached per box tensor), kernel 3 (`csrc/occ_sample.cu`) the inverse-CDF
+sampler; the `*_plain` functions are the same math in plain PyTorch.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from collections import OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -144,8 +147,10 @@ def union_pair(occs: torch.Tensor, binary: torch.Tensor, aabbs: torch.Tensor,
     return torch.stack(occ_k).any(dim=0), torch.stack(val_k).amax(dim=0)
 
 
+@functools.lru_cache(maxsize=64)
 def _probe_mids(P: int, device) -> torch.Tensor:
-    """(P,) probe positions: the midpoints of P equal intervals of [0, 1]."""
+    """(P,) probe positions: the midpoints of P equal intervals of [0, 1],
+    cached per (P, device): callers only read them."""
     edges = linspace01(P + 1, device)
     return (0.5 * (edges[:-1] + edges[1:])).contiguous()
 
@@ -197,6 +202,141 @@ def occupancy_probe_cdf_plain(
     return {"cdf": cdf, "alive": alive, "occ": occ}
 
 
+PROBE_THREADS = 256  # 8 warps a block
+PROBE_RAYS_MIN = 16_384  # calls of this many rays take lanes across rays
+PROBE_SMEM = 48 * 1024  # the level table and the tile, without an opt-in
+PROBE_LANE_MAPS = ("probes", "rays")  # kernel lane_map 0, 1
+BOX_FLOATS = 12  # a level's bounds a, b, its lo and its width
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeLaunchPlan:
+    """Launch geometry of kernel 2 (csrc/occ_probe.cu `ProbePlan`)."""
+
+    lane_map: str  # "rays": a block's lanes across 32 consecutive rays,
+    # its warps across probes; "probes": a warp a ray, lanes over probes
+    rays: int  # rays a block
+    threads: int
+    blocks: int
+    stride: int  # floats a staged row of the tile: P rounded up to odd
+    smem: int  # the level table, then the rays x stride tile
+    group: int  # experts located together: 1, or 4 (K > 1)
+    chunks: int  # probes a lane in phase 2: the power of 2 at or above
+    # ceil(P / 32)
+
+    def as_struct(self) -> "kernels.ProbePlan":
+        return kernels.ProbePlan(
+            PROBE_LANE_MAPS.index(self.lane_map), self.rays, self.threads,
+            self.blocks, self.stride, self.smem, self.group, self.chunks)
+
+
+def occ_probe_plan(n: int, p: int, k: int, l: int,
+                   lane_map: Optional[str] = None) -> ProbeLaunchPlan:
+    """Kernel 2's plan for N rays of P probes over K experts' L-level
+    grids: lanes across rays from PROBE_RAYS_MIN rays a call (a serve
+    chunk's neighbouring pixels probe neighbouring cells), lanes over a
+    ray's probes below it (a training task's scattered rays), unless
+    `lane_map` says which; the probe results of a block's rays staged in a
+    tile of odd row stride (conflict-free in both directions)."""
+    if not 1 <= p <= 256:
+        raise ValueError(f"occupancy_probe_cdf: P={p}, the kernel takes "
+                         f"1 <= P <= 256")
+    if lane_map is None:
+        lane_map = "rays" if n >= PROBE_RAYS_MIN else "probes"
+    if lane_map not in PROBE_LANE_MAPS:
+        raise ValueError(f"lane_map={lane_map!r}: expected one of "
+                         f"{PROBE_LANE_MAPS}")
+    warps = PROBE_THREADS // 32
+    rays = 32 if lane_map == "rays" else warps
+    stride = p | 1
+    smem = 4 * (k * l * BOX_FLOATS + rays * stride)
+    if smem > PROBE_SMEM:
+        raise ValueError(f"occupancy_probe_cdf: K={k} x L={l} levels and "
+                         f"{rays} rays of {p} probes exceed {PROBE_SMEM} "
+                         f"bytes of shared memory")
+    return ProbeLaunchPlan(lane_map=lane_map, rays=rays,
+                           threads=PROBE_THREADS,
+                           blocks=max(1, -(-n // rays)), stride=stride,
+                           smem=smem, group=1 if k == 1 else 4,
+                           chunks=1 << (-(-p // 32) - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=256)
+def _probe_struct(n: int, p: int, k: int, l: int) -> "kernels.ProbePlan":
+    """`occ_probe_plan` as the kernel's struct, per shape."""
+    return occ_probe_plan(n, p, k, l).as_struct()
+
+
+def _float_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 keys in the floats' order (-0.0 just below +0.0)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(u >= 0, u, -(u + 2 ** 31) - 1)
+
+
+def _key_float(key: torch.Tensor) -> torch.Tensor:
+    bits = torch.where(key >= 0, key, -(key + 1) - 2 ** 31)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _first_float(pred, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The least float x in (lo, hi] with pred(x), elementwise, for a pred
+    monotone in x that is false at lo and true at hi: a bisection over the
+    floats' order (any two keys lie within 2^33), with no host sync."""
+    lo_k, hi_k = _float_key(lo), _float_key(hi)
+    for _ in range(33):
+        mid = lo_k + (hi_k - lo_k) // 2
+        take = pred(_key_float(mid))
+        hi_k = torch.where(take, mid, hi_k)
+        lo_k = torch.where(take, lo_k, mid)
+    return _key_float(hi_k)
+
+
+def level_bounds(aabbs: torch.Tensor, levels: int) -> torch.Tensor:
+    """(K, L, 12) float32: per level of each box, the float bounds a, b of
+    its inside test, its lo and its width. With rel = (x - lo) / (hi - lo)
+    as `_finest_level_index` rounds it, rel >= 0 and rel < 1 are monotone
+    in x, so on each axis 0 <= rel < 1 holds exactly for a <= x < b: kernel
+    2 tests levels by comparison and divides only for the deciding one,
+    selecting the plain version's cells bit for bit. Levels must have a
+    positive finite width (every box the port builds has); others are
+    never inside."""
+    la = level_aabbs(aabbs.to(torch.float32), levels)
+    lo, hi = la[..., 0, :], la[..., 1, :]
+    w = hi - lo
+    a = _first_float(lambda x: (x - lo) / w >= 0.0,
+                     torch.full_like(lo, float("-inf")), lo)
+    b = _first_float(lambda x: (x - lo) / w >= 1.0, lo, hi)
+    empty = ~((w > 0.0) & torch.isfinite(w))
+    a = torch.where(empty, float("inf"), a)
+    b = torch.where(empty, float("-inf"), b)
+    return torch.cat([a, b, lo, w], dim=-1).contiguous()
+
+
+_LEVEL_TABLES: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = (
+    OrderedDict())
+LEVEL_TABLES_KEPT = 64
+
+
+def _level_table(aabbs: torch.Tensor, levels: int) -> torch.Tensor:
+    """`level_bounds`, cached per box tensor (its storage, offset, shape,
+    strides and version counter) and level count. An entry holds the boxes,
+    so their storage is not freed and its address not reused while the
+    entry lives; writing to the boxes in place bumps the version and misses
+    the cache."""
+    key = (aabbs.untyped_storage().data_ptr(), aabbs.storage_offset(),
+           tuple(aabbs.shape), aabbs.stride(), aabbs._version, aabbs.device,
+           aabbs.dtype, levels)
+    hit = _LEVEL_TABLES.get(key)
+    if hit is not None:
+        _LEVEL_TABLES.move_to_end(key)
+        return hit[1]
+    table = level_bounds(aabbs, levels)
+    _LEVEL_TABLES[key] = (aabbs, table)
+    if len(_LEVEL_TABLES) > LEVEL_TABLES_KEPT:
+        _LEVEL_TABLES.popitem(last=False)
+    return table
+
+
 def occupancy_probe_cdf_kernel(
     occs: torch.Tensor,  # (K, L, R, R, R) float32
     binary: torch.Tensor,  # (K, L, R, R, R) bool
@@ -209,9 +349,12 @@ def occupancy_probe_cdf_kernel(
     importance: bool = False,
     uniform_frac: float = 0.25,
     ray_floor: float = 0.0,
+    *,
+    lane_map: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Kernel 2's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `occupancy_probe_cdf` or raises."""
+    tensors it launches `occupancy_probe_cdf` (with `occ_probe_plan`'s
+    plan; `lane_map` overrides its choice) or raises."""
     if rays_o.device.type == "cpu":
         return occupancy_probe_cdf_plain(
             lambda pts: union_pair(occs, binary, aabbs, pts), rays_o, rays_d,
@@ -222,15 +365,22 @@ def occupancy_probe_cdf_kernel(
     dev = rays_o.device
     N, P = rays_o.shape[0], n_probes
     K, L, R = occs.shape[0], occs.shape[1], occs.shape[2]
-    if P > 256:
-        raise ValueError("occupancy_probe_cdf: the kernel takes P <= 256")
-    if tuple(binary.shape) != tuple(occs.shape) or aabbs.shape[0] != K:
+    if tuple(binary.shape) != tuple(occs.shape) or tuple(aabbs.shape) != (
+            K, 2, 3):
         raise ValueError("occupancy_probe_cdf: grid/box shapes disagree")
-    laabb = level_aabbs(aabbs, L).contiguous()
+    if K * L * R ** 3 >= 2 ** 31:
+        raise ValueError("occupancy_probe_cdf: the kernel takes grids of "
+                         "fewer than 2^31 cells")
+    if aabbs.dtype != torch.float32:
+        raise TypeError(f"occupancy_probe_cdf: aabbs has dtype "
+                        f"{aabbs.dtype}, expected torch.float32")
+    plan = (_probe_struct(N, P, K, L) if lane_map is None
+            else occ_probe_plan(N, P, K, L, lane_map).as_struct())
+    table = _level_table(aabbs, L)
     mids = _probe_mids(P, dev)
     kernels.check_cuda_tensors(
         "occupancy_probe_cdf", dev, rays_o=rays_o, rays_d=rays_d, near=near,
-        far=far, occs=occs, binary=binary, laabb=laabb)
+        far=far, occs=occs, binary=binary, levels=table)
     cdf = torch.empty((N, P + 1), dtype=torch.float32, device=dev)
     alive = torch.empty((N,), dtype=torch.bool, device=dev)
     occ = torch.empty((N, P), dtype=torch.bool, device=dev)
@@ -238,10 +388,10 @@ def occupancy_probe_cdf_kernel(
     kernels.OCC_PROBE_CDF(
         rays_o.data_ptr(), rays_d.data_ptr(), near.data_ptr(), far.data_ptr(),
         mids.data_ptr(), occs.data_ptr(), binary.data_ptr(),
-        laabb.data_ptr(), cdf.data_ptr(), alive.data_ptr(), occ.data_ptr(),
+        table.data_ptr(), cdf.data_ptr(), alive.data_ptr(), occ.data_ptr(),
         N, P, K, L, R, int(importance), f32(1.0 - uniform_frac),
         f32(uniform_frac), f32(1.0 - ray_floor),
-        f32(ray_floor / P) if ray_floor > 0.0 else 0.0,
+        f32(ray_floor / P) if ray_floor > 0.0 else 0.0, plan,
         kernels.stream_ptr(rays_o))
     return {"cdf": cdf, "alive": alive, "occ": occ}
 

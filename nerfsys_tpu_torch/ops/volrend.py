@@ -13,8 +13,9 @@ into a carried state for the early-stop renderer;
 Kernel 4 (`csrc/volrend.cu`) is the compositor forward on the card;
 `volume_render_plain` is the same function in plain PyTorch. Gradients go
 through `VolumeRender`, whose backward is kernel 4's VJP
-(`csrc/volrend_bwd.cu`, lanes over a ray's samples, launch plan from
-`volrend_bwd_plan`) or autograd through the plain version. Every clip
+(`csrc/volrend_bwd.cu`) or autograd through the plain version. Both
+kernels put a ray's samples on lanes of a warp and take their launch plan
+from `volrend_plan`. Every clip
 follows JAX's gradient
 rule at a tie (`jnp.clip` and `jnp.maximum` pass half the gradient where
 the operands are equal, `torch.clamp` all of it), so the plain version
@@ -97,8 +98,9 @@ def volume_render_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                          bg_rgb: Optional[torch.Tensor] = None, *,
                          sigma_scale: float = 1.0) -> Render:
     """Kernel 4's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `volume_render_fwd` or raises. Not differentiable:
-    it raises under grad mode with inputs that require grad."""
+    tensors it launches `volume_render_fwd` (with `volrend_plan`'s plan) or
+    raises. Not differentiable: it raises under grad mode with inputs that
+    require grad."""
     kernels.check_no_grad("volume_render", rgb_sigma, t_vals, bg_rgb)
     if rgb_sigma.device.type == "cpu":
         return volume_render_plain(rgb_sigma, t_vals, bg_rgb,
@@ -110,6 +112,9 @@ def volume_render_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
     N, S = _check_shapes("volume_render", rgb_sigma, t_vals, bg_rgb)
     kernels.check_cuda_tensors("volume_render", dev, rgb_sigma=rgb_sigma,
                                t_vals=t_vals, bg_rgb=bg_rgb)
+    if not aligned(rgb_sigma):
+        raise ValueError("volume_render: rgb_sigma must start on a 16-byte "
+                         "boundary (the kernel reads samples as vectors)")
     rgb = torch.empty((N, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((N,), dtype=torch.float32, device=dev)
     weights = torch.empty((N, S), dtype=torch.float32, device=dev)
@@ -119,7 +124,7 @@ def volume_render_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
         None if bg_rgb is None else bg_rgb.data_ptr(), rgb.data_ptr(),
         depth.data_ptr(), weights.data_ptr(), acc.data_ptr(), N, S,
         int(sigma_scale != 1.0), float(sigma_scale),
-        kernels.stream_ptr(rgb_sigma))
+        _plan_struct(N, S, False), kernels.stream_ptr(rgb_sigma))
     return rgb, depth, weights, acc
 
 
@@ -134,20 +139,21 @@ def _check_shapes(name, rgb_sigma, t_vals, bg_rgb):
 
 Grads = Tuple[Optional[torch.Tensor], ...]
 
-VOLREND_BWD_THREADS = 256  # 8 warps a block
+VOLREND_THREADS = 256  # 8 warps a block
 VOLREND_BWD_SMEM = 48 * 1024  # piece carries within what needs no opt-in
 
 
 @dataclasses.dataclass(frozen=True)
-class VolrendBwdPlan:
-    """Launch geometry of kernel 4's VJP (csrc/volrend_bwd.cu
+class VolrendLaunchPlan:
+    """Launch geometry of kernel 4 and its VJP (csrc/volrend_common.cuh
     `VolrendPlan`)."""
 
     lanes: int  # lanes a ray: the power of 2 at or above S, at most 32
     pieces: int  # pieces of `lanes` samples a ray: ceil(S / lanes)
     threads: int  # per block
     blocks: int
-    smem: int  # the T at each piece's start, a float per piece and warp
+    smem: int  # the VJP's T at each piece's start, a float per piece and
+    # warp (the forward carries T in a register)
 
     @property
     def rays_per_warp(self) -> int:
@@ -158,33 +164,36 @@ class VolrendBwdPlan:
                                    self.blocks, self.smem)
 
 
-def volrend_bwd_plan(n: int, s: int) -> VolrendBwdPlan:
-    """Kernel 4's VJP for N rays of S samples: a ray's samples on `lanes`
-    consecutive lanes, so a warp takes 32 / lanes rays (S <= 16) or one ray
-    in ceil(S / 32) pieces (S > 32); 8 warps a block, fewer when the
-    pieces' carries would pass 48 KB of shared memory."""
+def volrend_plan(n: int, s: int, *, backward: bool) -> VolrendLaunchPlan:
+    """Kernel 4's (backward=False) or its VJP's plan for N rays of S
+    samples: a ray's samples on `lanes` consecutive lanes, so a warp takes
+    32 / lanes rays (S <= 16) or one ray in ceil(S / 32) pieces (S > 32);
+    8 warps a block, for the VJP fewer when the pieces' carries would pass
+    48 KB of shared memory."""
+    name = "volume_render_bwd" if backward else "volume_render"
     if s < 2:
-        raise ValueError(f"volume_render_bwd: S={s}, expected S >= 2")
+        raise ValueError(f"{name}: S={s}, expected S >= 2")
     lanes = min(32, 1 << (s - 1).bit_length())
     pieces = -(-s // lanes)
-    warps = VOLREND_BWD_THREADS // 32
+    warps = VOLREND_THREADS // 32
     smem = 0
-    if pieces > 1:
+    if backward and pieces > 1:
         warps = min(warps, VOLREND_BWD_SMEM // (4 * pieces))
         if warps < 1:
-            raise ValueError(f"volume_render_bwd: S={s} samples need more "
-                             f"than {VOLREND_BWD_SMEM} bytes of shared "
-                             f"memory a warp")
+            raise ValueError(f"{name}: S={s} samples need more than "
+                             f"{VOLREND_BWD_SMEM} bytes of shared memory a "
+                             f"warp")
         smem = 4 * warps * pieces
     rays_per_block = warps * (32 // lanes)
-    return VolrendBwdPlan(lanes=lanes, pieces=pieces, threads=32 * warps,
-                          blocks=max(1, -(-n // rays_per_block)), smem=smem)
+    return VolrendLaunchPlan(lanes=lanes, pieces=pieces, threads=32 * warps,
+                             blocks=max(1, -(-n // rays_per_block)),
+                             smem=smem)
 
 
 @functools.lru_cache(maxsize=256)
-def _bwd_struct(n: int, s: int) -> "kernels.VolrendPlan":
-    """`volrend_bwd_plan` as the kernel's struct, per shape."""
-    return volrend_bwd_plan(n, s).as_struct()
+def _plan_struct(n: int, s: int, backward: bool) -> "kernels.VolrendPlan":
+    """`volrend_plan` as the kernels' struct, per shape and direction."""
+    return volrend_plan(n, s, backward=backward).as_struct()
 
 
 def volume_render_bwd_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
@@ -214,8 +223,8 @@ def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                              bg_rgb: Optional[torch.Tensor], grads: Grads, *,
                              sigma_scale: float = 1.0):
     """Kernel 4's VJP wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `volume_render_bwd` (with `volrend_bwd_plan`'s
-    plan) or raises."""
+    tensors it launches `volume_render_bwd` (with `volrend_plan`'s plan)
+    or raises."""
     kernels.check_no_grad("volume_render_bwd", rgb_sigma, t_vals, bg_rgb,
                           *grads)
     if rgb_sigma.device.type == "cpu":
@@ -246,7 +255,7 @@ def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
     kernels.VOLREND_BWD(
         rgb_sigma.data_ptr(), t_vals.data_ptr(), ptr(bg_rgb), ptr(g_rgb),
         ptr(g_depth), ptr(g_w), ptr(g_acc), g_rs.data_ptr(), ptr(g_bg), N, S,
-        int(sigma_scale != 1.0), float(sigma_scale), _bwd_struct(N, S),
+        int(sigma_scale != 1.0), float(sigma_scale), _plan_struct(N, S, True),
         kernels.stream_ptr(rgb_sigma))
     return g_rs, g_bg
 

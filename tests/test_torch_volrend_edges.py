@@ -179,7 +179,7 @@ def _lane_vjp(rs, t, bg, grads, scale):
     division-free suffix scan of the affine maps x -> g alpha + m x, the
     segment sum for acc."""
     n, S = t.shape
-    plan = TV.volrend_bwd_plan(n, S)
+    plan = TV.volrend_plan(n, S, backward=True)
     W, P = plan.lanes, plan.pieces
     f32 = np.float32
     hi = f32(1.0) - f32(1e-7)
@@ -282,7 +282,7 @@ def test_lane_walk_matches_plain(kind, s, used, with_bg, scale):
 def test_plan_lanes_and_pieces(s):
     """A ray's samples fill one segment: the power of 2 at or above S up to
     32 lanes (so 32 / lanes rays a warp), then pieces of 32."""
-    plan = TV.volrend_bwd_plan(4000, s)
+    plan = TV.volrend_plan(4000, s, backward=True)
     assert plan.lanes == min(32, 1 << (s - 1).bit_length())
     assert plan.lanes * plan.rays_per_warp == 32
     assert (plan.pieces - 1) * plan.lanes < s <= plan.pieces * plan.lanes
@@ -297,7 +297,7 @@ def test_plan_lanes_and_pieces(s):
                                  (9, 32), (9, 33), (5, 97), (300, 16)])
 def test_plan_visits_every_sample_once(n, s):
     """Blocks, warps, lanes and pieces cover each (ray, sample) once."""
-    plan = TV.volrend_bwd_plan(n, s)
+    plan = TV.volrend_plan(n, s, backward=True)
     seen = np.zeros((n, s), np.int64)
     W, warps = plan.lanes, plan.threads // 32
     for blk in range(plan.blocks):
@@ -315,15 +315,15 @@ def test_plan_limits_and_struct():
     """Long rays take fewer warps a block to keep the carries within 48 KB;
     beyond one warp's worth the plan refuses, as it does S < 2; the struct
     carries the fields in the kernel's order and is cached per shape."""
-    big = TV.volrend_bwd_plan(10, 100_000)
+    big = TV.volrend_plan(10, 100_000, backward=True)
     assert big.pieces == 3125 and big.threads == 96
     assert big.smem == 4 * 3 * 3125 <= 48 * 1024
     with pytest.raises(ValueError, match="shared memory"):
-        TV.volrend_bwd_plan(10, 32 * 12_289)
+        TV.volrend_plan(10, 32 * 12_289, backward=True)
     with pytest.raises(ValueError, match="S >= 2"):
-        TV.volrend_bwd_plan(10, 1)
-    st = TV._bwd_struct(4000, 32)
-    assert st is TV._bwd_struct(4000, 32)
+        TV.volrend_plan(10, 1, backward=True)
+    st = TV._plan_struct(4000, 32, True)
+    assert st is TV._plan_struct(4000, 32, True)
     assert [f for f, _ in type(st)._fields_] == [
         "lanes", "pieces", "threads", "blocks", "smem"]
     assert (st.lanes, st.pieces, st.threads, st.blocks, st.smem) == (
