@@ -34,10 +34,19 @@ printing its result lines):
    1e-12, P = 32, 100, 256, K=1 L=1, K=1 L=4, K=5, importance and
    ray_floor on and off; 0 bit flips, cdf within 1e-5), its bound also by
    the distinct 32-byte sectors the selected cells touch, its time by
-   lane map and without value reads. Kernels 2, 3 and 4 are also timed at
-   the step's shapes (the K=1 task probe, 4,000 x 32), back to back and
-   by device time, beside their bounds; kernels 2 and 4's headline times
-   are device times.
+   lane map and without value reads. Kernel 3 (the sampler) also on
+   adversarial inputs (`edge sample_tvals_from_cdf` lines: rows that dip
+   by one ulp after dead probes, entries under the 1e-12 clamp, targets
+   equal to cdf entries and at 1 - 1e-6, all-dead rows, near = far,
+   jittered targets out of order, P = 1, 127, 129, 256 x S = 1, 8, 24,
+   64, and kernel 2's own rows over dead, tiny and random probes; error
+   0 expected, tol 1e-5;
+   each line with the rows that took the literal count and the rank sort,
+   and both branches of both must be reached). Kernels 2, 3 and 4 are
+   also timed at the step's shapes (the K=1 task probe, 4,000 x 32),
+   back to back and by device time, beside their bounds, and kernel 3's
+   jittered per-ray output is held to its plain version there; kernels 2,
+   3 and 4's headline times are device times.
 4. Serve: a soft-occupancy chunk renderer at bench width renders one
    warm-up frame and then 3 requests of 800x800 frames through
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
@@ -118,7 +127,11 @@ printing its result lines):
    at the runner's default hash width (the hash phase's experts). Kernel
    row 10 against its plain versions at one full serve chunk (2,097,152
    points, K=4): 10a-i (`bucket_dispatch`) for E=1 and 2, soft and hard
-   (integer outputs equal, weights within 1e-6), 10a-ii / 10a-iii (the
+   (integer outputs equal, weights within 1e-6, on two successive calls;
+   device times) and on adversarial inputs (`edge bucket_dispatch`
+   lines: every point on one expert, ties, distances at the margin, hard
+   top-4, N off whole tiles and below one tile, both routing subspaces,
+   3-wide rows, K = 1, 16, 64), 10a-ii / 10a-iii (the
    blend and its transpose, within 1e-6 of the output's max, with
    `embedding_bag` timed beside the blend), 10b (`coherent_expert`, ids
    equal), and kernel 2 on the res-128 union probe grid. Then
@@ -130,7 +143,9 @@ printing its result lines):
    renderer on measure_perf's skew-0.9 frame (640,000 rays) without and
    with the union grid against its full routed program (coherent_expert
    launched); and measure_perf's K=16 arm (bench-width planes experts,
-   1,572,864 points in 8 chunks), dense against bucketed E=2 cf 1.5, with
+   1,572,864 points in 8 chunks; 10a-i first held to its plain version on
+   one chunk, `kernel bucket_dispatch: K=16` line), dense against
+   bucketed E=2 cf 1.5, with
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
 10. A JSON line listing every kernel (launches, error, times, bound).
@@ -342,15 +357,25 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
     # kernel 3: the sampler, fed the same cdf on both sides
     cdf_state = {"cdf": pln["cdf"], "alive": pln["alive"]}
     u = O._sample_targets(N, S, device, None, False).contiguous()
-    t_ker = O.sample_tvals_kernel(pln["cdf"], near, far, u)
+    branches = torch.zeros(2, dtype=torch.int32, device=device)
+    t_ker = O.sample_tvals_kernel(pln["cdf"], near, far, u,
+                                  branch_counts=branches)
     t_pln = O.sample_tvals_plain(pln["cdf"], near, far, u)
+    b2b = cuda_ms(lambda: O.sample_tvals_kernel(pln["cdf"], near, far, u),
+                  10)
+    n_count, n_sort = branches.tolist()
     report(kernels.OCC_SAMPLE, max_err(t_ker, t_pln), 1e-5,
-           "t up to ~6 in float32: a few ulp",
-           cuda_ms(lambda: O.sample_tvals_kernel(pln["cdf"], near, far, u),
-                   10),
+           "the same idx and the same lerps: 0 expected",
+           device_ms(lambda: O.sample_tvals_kernel(pln["cdf"], near, far,
+                                                   u)),
            cuda_ms(lambda: O.sample_tvals_plain(pln["cdf"], near, far, u), 3),
            nbytes(pln["cdf"], near, far, u, t_ker),
-           N * S * (P + 8) + N * S * S)
+           N * S * (P.bit_length() + 8) + N * P,
+           extra=(f"; kernel_ms is the device time, back to back {b2b:.4f} "
+                  f"ms; rows that took the literal count {n_count}, the rank "
+                  f"sort {n_sort} of {N}; plan "
+                  + sample_plan_text(O.sample_plan(N, P, S))))
+    sample_edges(device)
 
     # kernel 1: the plane/line encoder at the chunk's sample points, K=4
     t_vals, _ = O.sample_tvals_from_cdf(cdf_state, near, far, S)
@@ -604,7 +629,17 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
     N, S, P = t_vals.shape[0], t_vals.shape[1], cdf["cdf"].shape[1] - 1
     K, L = grid[0].shape[:2]
     u = O._sample_targets(N, S, o.device, gen, True).contiguous()
-    t_ker = O.sample_tvals_kernel(cdf["cdf"], near, far, u)
+    branches = torch.zeros(2, dtype=torch.int32, device=o.device)
+    t_ker = O.sample_tvals_kernel(cdf["cdf"], near, far, u,
+                                  branch_counts=branches)
+    t_err = max_err(t_ker, O.sample_tvals_plain(cdf["cdf"], near, far, u))
+    if not t_err <= 1e-5:
+        print(f"kernel sample_tvals_from_cdf: step shapes (randomized "
+              f"samples, {N} rays x {S} samples): max_abs_err={t_err:.3e} "
+              f"tol=1e-5", flush=True)
+        raise SystemExit(f"kernel sample_tvals_from_cdf disagrees with its "
+                         f"plain version at the step's shapes (per-ray u): "
+                         f"{t_err}")
     outs = V.volume_render_kernel(rgb_sigma, t_vals, bg)
     ref = V.volume_render_plain(rgb_sigma, t_vals, bg)
     vr_err = max(max_err(outs[0], ref[0]), max_err(outs[2], ref[2]),
@@ -622,7 +657,7 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
         (kernels.OCC_SAMPLE, "randomized samples",
          lambda: O.sample_tvals_kernel(cdf["cdf"], near, far, u),
          nbytes(cdf["cdf"], near, far, u, t_ker),
-         N * S * (P + 8) + N * S * S),
+         N * S * (P.bit_length() + 8) + N * P),
         (kernels.VOLREND_FWD, "compositor",
          lambda: V.volume_render_kernel(rgb_sigma, t_vals, bg),
          nbytes(rgb_sigma, t_vals, bg, outs), N * S * 24))
@@ -644,6 +679,11 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
                  f"alive_flips=0 cdf_err={cdf_err:.3e} vs the plain probe; "
                  + probe_times_text(probe_times(grid, o, d, near, far,
                                                 probe_kw))),
+             kernels.OCC_SAMPLE: lambda: (
+                 f" max_abs_err={t_err:.3e} tol=1e-5 vs the plain version "
+                 f"on the same per-ray u; rows that took the literal count "
+                 f"{int(branches[0])}, the rank sort {int(branches[1])} of "
+                 f"{N}"),
              kernels.VOLREND_FWD: lambda: (
                  f" max_err={vr_err:.3e} (depth relative) vs the plain "
                  f"version; plan " + volrend_plan_text(
@@ -811,6 +851,12 @@ def probe_plan_text(plan) -> str:
     return (f"lane_map={plan.lane_map} rays={plan.rays} threads="
             f"{plan.threads} blocks={plan.blocks} stride={plan.stride} "
             f"smem={plan.smem} group={plan.group} chunks={plan.chunks}")
+
+
+def sample_plan_text(plan) -> str:
+    return (f"warps={plan.warps} threads={plan.threads} blocks={plan.blocks} "
+            f"(at most those resident at once are launched) stride="
+            f"{plan.stride} smem={plan.smem} top={plan.top}")
 
 
 def probe_sector_bytes(occs, binary, aabbs, o, d, near, far, P,
@@ -999,6 +1045,161 @@ def probe_edges(device):
                                  f"its plain version on {label} "
                                  f"({lane_map}): {flips} bits, {alive} "
                                  f"rays, cdf {err}")
+
+
+SAMPLE_EDGE_TOL = 1e-5
+SAMPLE_STEP_N = 4000  # one inner step's rays (TRAIN_S)
+SAMPLE_GRID_N = 4000 + 13  # a tail past whole 4-ray blocks
+
+
+def sample_edge_inputs(kind: str, n: int, p: int, s: int, per_ray: bool,
+                       seed: int):
+    """Adversarial inputs of kernel 3 from numpy seed `seed`: cdf (n, p+1)
+    rows built as kernel 2 builds them (probe weights, each + 1e-12, a
+    float32 cumsum, divided by the last entry, a leading 0), near, far (n,)
+    and targets u, (s,) midpoints or (n, s) jittered and clamped as
+    `_sample_targets` makes them. Half the probes are dead (weight 0) in
+    every kind but "dead" (all dead: the 1e-12 floor alone). "dip" lowers
+    the entry after a dead probe to one ulp below its predecessor in half
+    the rows (the dips of a Kogge-Stone scan); "tiny" kills the first 24
+    probes of every row, so its first entries differ by less than 1e-12,
+    and aims the first 8 targets of each ray into them (the clamp); "exact"
+    sets targets equal to cdf entries; "top" sets the last 4 targets to
+    1 - 1e-6, the jitter's clamp; "near=far" gives every ray far = near;
+    "reversed" reverses each ray's targets."""
+    import numpy as np
+
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(size=(n, p)).astype(f32)
+    w[rng.uniform(size=(n, p)) < 0.5] = 0.0
+    if kind == "dead":
+        w[:] = 0.0
+    if kind == "tiny":
+        w[:, :24] = 0.0
+    c = np.cumsum(w + f32(1e-12), axis=1, dtype=f32)
+    c = np.concatenate([np.zeros((n, 1), f32), c / c[:, -1:]], 1)
+    if kind == "dip" and p > 1:
+        rows = np.arange(0, n, 2)
+        q = rng.integers(0, p - 1, size=len(rows))
+        c[rows, q + 1] = np.nextafter(c[rows, q], f32(-1.0))
+    near = rng.uniform(0.1, 1.0, n).astype(f32)
+    far = (near + rng.uniform(1.0, 5.0, n)).astype(f32)
+    if kind == "near=far":
+        far = near.copy()
+    u = ((np.arange(s, dtype=f32) + f32(0.5)) / f32(s)).astype(f32)
+    if per_ray:
+        jit = ((rng.uniform(size=(n, s)).astype(f32) - f32(0.5)) / f32(s))
+        u = np.clip(u + jit, f32(0.0), f32(1.0 - 1e-6)).astype(f32)
+        if kind == "tiny":
+            k = min(s, 8)
+            u[:, :k] = c[:, 1:k + 1] * f32(1.5)
+        elif kind == "exact":
+            pick = np.sort(rng.integers(1, p + 1, size=(n, s)), axis=1)
+            u = np.take_along_axis(c, pick, 1).astype(f32)
+        elif kind == "top":
+            u[:, -4:] = f32(1.0 - 1e-6)
+        elif kind == "reversed":
+            u = np.ascontiguousarray(u[:, ::-1])
+    return [np.ascontiguousarray(a) for a in (c, near, far, u)]
+
+
+def sample_edge_cases():
+    """(label, kind, N, P, S, per_ray) of `sample_edges`: the serve chunk
+    (65,536 rays, shared targets) and the step (4,000 rays, jittered
+    targets) at P=128, S=32, then P in {1, 127, 129, 256} x S in {1, 8, 24,
+    64} with shared targets."""
+    chunk, step = CHECK_RAYS, SAMPLE_STEP_N
+    cases = [("one-ulp dips after dead probes", "dip", chunk, 128, 32,
+              False),
+             ("one-ulp dips, jittered u", "dip", step, 128, 32, True),
+             ("flat runs under the 1e-12 clamp", "tiny", step, 128, 32,
+              True),
+             ("u equal to cdf entries", "exact", step, 128, 32, True),
+             ("u = 1 - 1e-6", "top", step, 128, 32, True),
+             ("all-dead rows", "dead", chunk, 128, 32, False),
+             ("near = far", "near=far", chunk, 128, 32, False),
+             ("jittered u out of order", "reversed", step, 128, 32, True)]
+    cases += [(f"P={p} S={s}", "rand", SAMPLE_GRID_N, p, s, False)
+              for p in (1, 127, 129, 256) for s in (1, 8, 24, 64)]
+    return cases
+
+
+def sample_case_line(label, cdf, near, far, u, want, device) -> tuple:
+    """Kernel 3 on one input: prints one `edge sample_tvals_from_cdf`
+    line, raises on an error above SAMPLE_EDGE_TOL or when the rows that
+    took the literal count are not the rows that dip, returns (rows that
+    took the count, rows that took the rank sort, rows)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    counts = torch.zeros(2, dtype=torch.int32, device=device)
+    got = O.sample_tvals_kernel(cdf, near, far, u, branch_counts=counts)
+    err = max_err(got, want)
+    n_count, n_sort = counts.tolist()
+    dips = int((~(cdf[:, :-1] <= cdf[:, 1:]).all(1)).sum())
+    ms = device_ms(lambda: O.sample_tvals_kernel(cdf, near, far, u), 5)
+    N, S = got.shape
+    print(f"edge sample_tvals_from_cdf {label}: N={N} P={cdf.shape[1] - 1} "
+          f"S={S} u={'per ray' if u.dim() == 2 else 'shared'} "
+          f"max_abs_err={err:.3e} tol={SAMPLE_EDGE_TOL:g} count_rows="
+          f"{n_count} (rows failing c[q] <= c[q+1]: {dips}) search_rows={N - n_count} "
+          f"rank_sort_rows={n_sort} sorted_rows={N - n_sort} device_ms="
+          f"{ms:.4f}", flush=True)
+    if not err <= SAMPLE_EDGE_TOL:
+        raise SystemExit(f"kernel sample_tvals_from_cdf disagrees with its "
+                         f"plain version on {label}: {err}")
+    if n_count != dips:
+        raise SystemExit(f"kernel sample_tvals_from_cdf: {n_count} rows took "
+                         f"the count on {label}, {dips} rows dip")
+    return n_count, n_sort, N
+
+
+def sample_edges(device):
+    """Kernel 3 against its plain version on `sample_edge_cases` and on
+    kernel 2's own cdf rows over dead probes; every branch (binary search
+    and literal count, written out sorted and rank-sorted) must be reached
+    on the card."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    totals = [0, 0, 0]
+    for seed, (label, kind, n, p, s, per_ray) in enumerate(
+            sample_edge_cases()):
+        cdf, near, far, u = (torch.from_numpy(a).to(device) for a in
+                             sample_edge_inputs(kind, n, p, s, per_ray,
+                                                seed))
+        want = O.sample_tvals_plain(cdf, near, far, u)
+        for i, v in enumerate(sample_case_line(label, cdf, near, far, u,
+                                               want, device)):
+            totals[i] += v
+    for seed, kind in enumerate(("dead", "tiny", "rand")):
+        occs, binary, boxes, o, d, near, far = (
+            torch.from_numpy(a).to(device) for a in probe_edge_inputs(
+                kind, SAMPLE_STEP_N, 4, 4, 32, 100 + seed))
+        cdf = O.occupancy_probe_cdf_kernel(occs, binary, boxes, o, d, near,
+                                           far, 128, importance=True,
+                                           ray_floor=0.25)["cdf"]
+        gen = torch.Generator(device=device).manual_seed(seed)
+        u = O._sample_targets(SAMPLE_STEP_N, 32, device, gen,
+                              True).contiguous()
+        want = O.sample_tvals_plain(cdf, near, far, u)
+        for i, v in enumerate(sample_case_line(
+                f"kernel 2's cdf, {kind} probes", cdf, near, far, u, want,
+                device)):
+            totals[i] += v
+    n_count, n_sort, rows = totals
+    if not (0 < n_count < rows and 0 < n_sort < rows):
+        raise SystemExit(f"kernel sample_tvals_from_cdf: the edge cases "
+                         f"reached the count on {n_count} and the rank sort "
+                         f"on {n_sort} of {rows} rows: a branch went "
+                         f"unchecked")
+    print(f"edge sample_tvals_from_cdf: all cases: {rows} rows, {n_count} "
+          f"took the literal count and {rows - n_count} the binary search, "
+          f"{n_sort} the rank sort and {rows - n_sort} were written out "
+          f"sorted", flush=True)
 
 
 def plan_text(plan) -> str:
@@ -1326,7 +1527,7 @@ def train(cfg, statics, params, occ, batch, device, label="train",
     grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
                               device, label)
     watch = (("volume_render_bwd_kernel",), ("hash_fwd_kernel", "false"),
-             ("hash_fwd_kernel", "true"))
+             ("hash_fwd_kernel", "true"), ("sample_tvals_kernel",))
     profile_device(f"{label} step", lambda: float(
         step(p, state, statics, batch, gen, occ)[2]["loss_out"]),
         watch=watch)
@@ -1360,7 +1561,9 @@ def profile_frame(renderer, params, statics, md, aabb, chunk,
     raygen_ms = 1e3 * (time.perf_counter() - t0)
     profile_device(label, lambda: render_image(
         renderer, params, statics, md, scene_aabb=aabb, chunk_rays=chunk),
-        extra=f" host_raygen_ms={raygen_ms:.2f}")
+        extra=f" host_raygen_ms={raygen_ms:.2f}",
+        watch=(("sample_tvals_kernel",), ("bucket_dispatch_kernel",),
+               ("bucket_fill_kernel",)))
 
 
 SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
@@ -2781,11 +2984,191 @@ def chunk_samples(statics, occ, rays_np, device):
     return pts, dirs
 
 
+DISPATCH_KEYS = ("idx", "dest", "counts", "bucket_rows", "rows")
+
+
+def dispatch_check(label, pts, dirs, cents, cluster_2d, margin, E, C,
+                   edge=False):
+    """10a-i against its plain version on one input, called twice (a
+    second call on recycled scratch must give the same outputs): idx,
+    dest, counts, bucket_rows and rows equal, w within 1e-6. Prints one
+    `kernel bucket_dispatch: <label>` (or `edge bucket_dispatch <label>:`)
+    line with device and back-to-back times, bytes and bound; returns the
+    kernel's outputs and (w error, device ms, plain ms, bound ms, bound
+    by, bytes)."""
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+
+    N, K = pts.shape[0], cents.shape[0]
+    args = (pts, dirs, cents, cluster_2d, margin, E, C)
+    ker = CO.bucket_dispatch_kernel(*args)
+    again = CO.bucket_dispatch_kernel(*args)
+    pln = CO.bucket_dispatch_plain(*args)
+    torch.cuda.synchronize()
+    for key in DISPATCH_KEYS:
+        for name, got in (("first", ker), ("second", again)):
+            if not torch.equal(got[key], pln[key]):
+                bad = int((got[key] != pln[key]).sum())
+                raise SystemExit(f"kernel bucket_dispatch: {key} differs from "
+                                 f"the plain version at {bad} entries on the "
+                                 f"{name} call ({label})")
+    w_err = max(max_err(ker["w"], pln["w"]), max_err(again["w"], pln["w"]))
+    if not w_err <= 1e-6:
+        raise SystemExit(f"kernel bucket_dispatch: w error {w_err} ({label})")
+    counts = pln["counts"].tolist()
+    dropped = int((ker["dest"] == K * C).sum()) - int(
+        (pln["w"] <= 0).sum())
+    ms = device_ms(lambda: CO.bucket_dispatch_kernel(*args), 10)
+    b2b = cuda_ms(lambda: CO.bucket_dispatch_kernel(*args), 10)
+    plain_ms = 0.0 if edge else cuda_ms(
+        lambda: CO.bucket_dispatch_plain(*args), 2)
+    n_bytes = nbytes(pts, dirs, ker["idx"], ker["w"], ker["dest"],
+                     ker["counts"], ker["bucket_rows"], ker["rows"])
+    # distances: 5 products, 4 sums, max, sqrt a (point, expert)
+    b_ms, b_by = bound(n_bytes, N * K * 12)
+    head = (f"edge bucket_dispatch {label}:" if edge
+            else f"kernel bucket_dispatch: {label}")
+    print(f"{head} {N} points K={K} E={E} margin={margin:g} tile="
+          f"{CO.dispatch_tile(E)} cluster_2d="
+          f"{cluster_2d} width={ker['rows'].shape[-1]} C={C} demand="
+          f"{counts if K <= 16 else max(counts)} overflow pairs {dropped}, "
+          f"idx/dest/counts/bucket_rows/rows equal on two calls, w "
+          f"max_abs_err={w_err:.3e} (tol 1e-6) device_ms={ms:.4f} "
+          f"back_to_back_ms={b2b:.4f}"
+          + ("" if edge else f" plain_ms={plain_ms:.4f}")
+          + f" bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s", flush=True)
+    del again, pln
+    return ker, (w_err, ms, plain_ms, b_ms, b_by, n_bytes)
+
+
+def dispatch_edge_inputs(kind: str, n: int, k: int, with_dirs: bool,
+                         cluster_2d: bool, margin: float, seed: int,
+                         device):
+    """Adversarial inputs of 10a-i from numpy seed `seed`: pts (n, 3), dirs
+    (n, 3) or None, centroids (k, 3). K=4 takes the bench centroids
+    ((0, +-1, +-1): pairs mirrored in y and in z), other K random ones in
+    the bench box. "one" puts every point within 0.05 of centroid 0 (its
+    demand exceeds any C of cf 1.5 with K > 1); "ties" sets z = 0 on half
+    the points and y = 0 on a quarter (bit-equal distances to mirrored
+    centroids); "margin" puts the points on the routing segments between
+    neighbouring centroids at the least float step where the far
+    centroid's distance falls within margin x the near one's (the soft
+    weight's test), every second point one float step before it (a
+    bisection over the floats on `device`); otherwise uniform in the box."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    if k == 4:
+        cents = np.array([[0.0, -1, -1], [0.0, -1, 1], [0.0, 1, -1],
+                          [0.0, 1, 1]], f32)
+    else:
+        cents = rng.uniform(-2.0, 2.0, (k, 3)).astype(f32)
+    pts = rng.uniform(-2.2, 2.2, (n, 3)).astype(f32)
+    if kind == "one":
+        pts = (cents[0] + rng.uniform(-0.05, 0.05, (n, 3))).astype(f32)
+    elif kind == "ties":
+        pts[: n // 2, 2] = 0.0
+        pts[: n // 4, 1] = 0.0
+    dirs = rng.normal(size=(n, 3)).astype(f32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    out = [torch.from_numpy(a).to(device) for a in (pts, dirs, cents)]
+    if kind == "margin":
+        pair = rng.integers(0, k, size=n)
+        a = cents[pair] + rng.uniform(-0.05, 0.05, (n, 3)).astype(f32)
+        b = cents[(pair + 1) % k]
+        a, b = (torch.from_numpy(v.astype(f32)).to(device) for v in (a, b))
+        c = out[2]
+
+        def point(s):
+            return a + s[:, None] * (b - a)
+
+        def inside(s):  # the far end within margin x the nearest distance
+            d = CO._centroid_dist(c, cluster_2d, point(s))
+            d = torch.clamp(d, min=1e-6)
+            near = d.gather(1, torch.from_numpy(pair).to(device)[:, None])
+            far = d.gather(1, torch.from_numpy((pair + 1) % k).to(device)[
+                :, None])
+            return (far <= margin * near)[:, 0]
+
+        s = O._first_float(inside, torch.zeros(n, device=device),
+                           torch.ones(n, device=device))
+        before = torch.nextafter(s, torch.zeros_like(s))
+        s = torch.where(torch.arange(n, device=device) % 2 == 1, before, s)
+        out[0] = point(s).contiguous()
+    return out[0], out[1] if with_dirs else None, out[2]
+
+
+def dispatch_edge_cases():
+    """(label, kind, N, K, E, margin, cluster_2d, with_dirs) of
+    `dispatch_edges`, at the serve chunk's 2,097,152 points (cf 1.5)
+    unless N says otherwise."""
+    n = CHECK_RAYS * 32
+    return [("all points on one expert (demand > C)", "one", n, 4, 1, 1.1,
+             True, True),
+            ("all points on one expert, E=2", "one", n, 4, 2, 1.1, True,
+             True),
+            ("equidistant points (ties)", "ties", n, 4, 2, 1.1, True, True),
+            ("ties, cluster_2d off", "ties", n, 4, 2, 1.1, False, True),
+            ("distances at the margin", "margin", n, 4, 2, 1.1, True, True),
+            ("hard routing, E=4 (3 zero-weight pairs a point)", "rand", n, 4,
+             4, 1.0, True, True),
+            ("N not a multiple of the tile", "rand", n - 13, 4, 2, 1.1, True,
+             True),
+            ("N below one tile", "rand", 200, 4, 2, 1.1, True, True),
+            ("a single point", "rand", 1, 4, 1, 1.1, True, True),
+            ("cluster_2d off", "rand", n, 4, 2, 1.1, False, True),
+            ("no directions (3-wide rows)", "rand", n, 4, 2, 1.1, True,
+             False),
+            ("K=1", "rand", n, 1, 1, 1.1, True, True),
+            ("K=16", "rand", n, 16, 2, 1.1, True, True),
+            ("K=64", "rand", n, 64, 2, 1.1, True, True),
+            ("K=64, E=8, margin 1.3", "rand", n // 8, 64, 8, 1.3, False,
+             True)]
+
+
+def dispatch_edges(device):
+    """10a-i against its plain version on `dispatch_edge_cases`."""
+    from nerfsys_tpu_torch.models import container as CO
+
+    for seed, (label, kind, n, k, e, margin, c2d, with_dirs) in enumerate(
+            dispatch_edge_cases()):
+        pts, dirs, cents = dispatch_edge_inputs(kind, n, k, with_dirs, c2d,
+                                                margin, seed, device)
+        C = CO.bucket_capacity(n, k, e, MOE_CF)
+        dispatch_check(label, pts, dirs, cents, c2d, margin, e, C,
+                       edge=True)
+
+
+def check_dispatch_k16(cfg, statics, pts, dirs, results):
+    """10a-i at the K=16 arm's shape: one chunk of measure_moe's points
+    (196,608), E=2, cf 1.5, against its plain version on two calls."""
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models import container as CO
+
+    N, K = pts.shape[0], statics.centroids.shape[0]
+    C = CO.bucket_capacity(N, K, 2, MOE_CF)
+    _, (w_err, ms, plain_ms, b_ms, b_by, n_bytes) = dispatch_check(
+        f"K={K} E=2 cf {MOE_CF:g} (one chunk of the K=16 arm)", pts, dirs,
+        statics.centroids.contiguous(), cfg.cluster_2d,
+        float(cfg.boundary_margin), 2, C)
+    results[kernels.BUCKET_DISPATCH.name]["text"] += (
+        f"; K={K} E=2 at {N} points: device_ms={ms:.4f} bytes={n_bytes} "
+        f"bound_ms={b_ms:.4f} ({b_by}), equal on two calls")
+
+
 def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
     """Kernel row 10 against its plain versions on the card at one full
     serve chunk (65,536 rays x 32 samples = 2,097,152 points, K=4): 10a-i
     for E=1 and 2, soft (margin 1.1) and hard (1.0), cf 1.5 (idx, dest,
-    counts, bucket rows and gathered rows equal, w within 1e-6); 10a-ii and
+    counts, bucket rows and gathered rows equal, w within 1e-6, on two
+    successive calls) and on `dispatch_edge_cases`; 10a-ii and
     10a-iii on the E=2 soft dispatch with random bucket results (within
     1e-6 of the output's max), `embedding_bag` timed beside 10a-ii; 10b on
     the chunk's (65,536, 32, 3) samples (ids equal); kernel 2 on the
@@ -2801,53 +3184,29 @@ def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
     pts = pts_ns.reshape(-1, 3).contiguous()
     cents = statics.centroids.contiguous()
     N, K = pts.shape[0], cents.shape[0]
-    f32_ops = N * K * 12  # distances: 5 products, 4 sums, max, sqrt
     worst_w, timed, soft2 = 0.0, {}, None
     for E in (1, 2):
         for margin in (1.1, 1.0):
             C = CO.bucket_capacity(N, K, E, MOE_CF)
-            ker = CO.bucket_dispatch_kernel(pts, dirs, cents, True, margin,
-                                            E, C)
-            pln = CO.bucket_dispatch_plain(pts, dirs, cents, True, margin,
-                                           E, C)
-            torch.cuda.synchronize()
-            for key in ("idx", "dest", "counts", "bucket_rows", "rows"):
-                if not torch.equal(ker[key], pln[key]):
-                    raise SystemExit(f"kernel bucket_dispatch: {key} differs "
-                                     f"from the plain version (E={E}, margin "
-                                     f"{margin})")
-            w_err = max_err(ker["w"], pln["w"])
+            ker, stats = dispatch_check(f"E={E} margin={margin:g}", pts,
+                                        dirs, cents, True, margin, E, C)
+            w_err, ms, plain_ms, b_ms, b_by, n_bytes = stats
             worst_w = max(worst_w, w_err)
-            if not w_err <= 1e-6:
-                raise SystemExit(f"kernel bucket_dispatch: w error {w_err}")
-            counts = ker["counts"].tolist()
-            ms = cuda_ms(lambda: CO.bucket_dispatch_kernel(
-                pts, dirs, cents, True, margin, E, C), 10)
-            plain_ms = cuda_ms(lambda: CO.bucket_dispatch_plain(
-                pts, dirs, cents, True, margin, E, C), 2)
-            n_bytes = nbytes(pts, dirs, ker["idx"], ker["w"], ker["dest"],
-                             ker["counts"], ker["bucket_rows"], ker["rows"])
-            b_ms, b_by = bound(n_bytes, f32_ops)
-            print(f"kernel bucket_dispatch: E={E} margin={margin:g} {N} "
-                  f"points K={K} C={C} demand={counts} overflow="
-                  f"{max(counts) > C} idx/dest/counts/bucket_rows/rows equal, "
-                  f"w max_abs_err={w_err:.3e} (tol 1e-6) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bytes={n_bytes} bound_ms="
-                  f"{b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} TB/s",
-                  flush=True)
             timed[(E, margin)] = (ms, plain_ms, b_ms, b_by, n_bytes)
             if E == 2 and margin > 1.0:
                 soft2 = (ker, C)
-            del ker, pln
+            del ker
     ms, plain_ms, b_ms, b_by, n_bytes = timed[(1, 1.1)]
     results[kernels.BUCKET_DISPATCH.name] = dict(
         max_abs_err=worst_w, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by,
         text=(f"E=1 margin 1.1 (--render_fast) at {N} points: kernel_ms="
-              f"{ms:.4f} plain_ms={plain_ms:.4f} bytes={n_bytes} bound_ms="
-              f"{b_ms:.4f} ({b_by}); E=2 margin 1.1 kernel_ms="
+              f"{ms:.4f} (device) plain_ms={plain_ms:.4f} bytes={n_bytes} "
+              f"bound_ms={b_ms:.4f} ({b_by}); E=2 margin 1.1 device_ms="
               f"{timed[(2, 1.1)][0]:.4f}; integer outputs equal in all four "
-              f"configurations, w max_abs_err={worst_w:.3e} (tol 1e-6)"))
+              f"configurations on two successive calls, w max_abs_err="
+              f"{worst_w:.3e} (tol 1e-6)"))
+    dispatch_edges(device)
 
     # 10a-ii / 10a-iii on the E=2 soft dispatch
     dsp, C = soft2
@@ -3238,7 +3597,7 @@ def k16_setup(device):
             torch.from_numpy(dirs).to(device))
 
 
-def k16_moe(device):
+def k16_moe(device, results):
     """Dense vs bucketed (E=2, cf 1.5) container_apply at K=16 over
     1,572,864 points in 8 sequential chunks: one warm-up and 3 timed calls
     per arm, the counters zeroed just before the bucketed arm's calls and
@@ -3259,6 +3618,7 @@ def k16_moe(device):
                                capacity_factor=MOE_CF)
     n = K16_PTS // K16_CHUNKS
     xs, ds = pts.split(n), dirs.split(n)
+    check_dispatch_k16(dense, statics, xs[0], ds[0], results)
 
     def run(cfg):
         with torch.no_grad():
@@ -3348,7 +3708,7 @@ def moe_phase(statics, occ, rays_np, device, results):
              coherent_frames(cfg, statics, params, device)]
     del params
     torch.cuda.empty_cache()
-    parts.append(k16_moe(device))
+    parts.append(k16_moe(device, results))
     print(f"moe: phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return {k: sum(p[k] for p in parts) for k in parts[0]}
 
@@ -3421,7 +3781,10 @@ def main() -> int:
           "interpolation weights, the hash encoder (its corner rows and "
           "weights from the points; embedding_bag would only sum rows "
           "already indexed and weighted) or its table gradient, the union "
-          "probe + CDF, the inverse-CDF sampler, the compositor or its VJP, "
+          "probe + CDF, the inverse-CDF sampler (torch.searchsorted gives "
+          "only the interval index, and only on rows that never decrease; "
+          "the lerps and the sort are more calls), the compositor or its "
+          "VJP, "
           "segmented compositing with a carried transmittance, the bucket "
           "dispatch (top-E routing and a stable counting sort; torch.sort "
           "and cumsum are several calls), the blend's transpose (a scatter "

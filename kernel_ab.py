@@ -1,0 +1,185 @@
+"""Design experiments on kernel 3 (the inverse-CDF sampler) and 10a-i (the
+bucket dispatch): variants of their CUDA sources, built beside the shipped
+libraries and timed through the shipped wrappers at the real shapes.
+
+    python3 kernel_ab.py [--rounds 5]
+
+Needs one CUDA card and nvcc. Each variant is the shipped source with a
+few lines replaced (`VARIANTS`); it is built with the shipped flags into
+`nerfsys_tpu_torch/_build/variants/` (all nvcc runs at once) and swapped
+in for the shipped entry point, so the wrapper's plan, checks and launch
+path are the shipped ones. The cases are `serve_ab.py --phase kernels`'s:
+kernel 3 at the serve chunk (65,536 rays x 32 samples, P=128, shared
+targets) and at one inner step (4,000 rays, per-ray jittered targets),
+10a-i at the serve chunk's 2,097,152 points (K=4, E=1 and 2, cf 1.5) and
+on one chunk of the K=16 arm (196,608 points, E=2). A variant that keeps
+the outputs is first held to the plain version on every case of its
+kernel (the sampler within 1e-5, the dispatch's integer outputs equal and
+its weights within 1e-6 on two calls); a timing-only variant (its outputs
+incomplete) is not. Then `--rounds` rounds time every variant and the
+shipped kernel on every case by device time (chip_smoke's `device_ms`),
+in turn; the script prints each variant's ptxas register count, each
+round, and the median and range per (variant, case).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# name -> (library stem, timing only, [(shipped text, variant text)], the
+# dispatch's tile for E <= 2 when it differs). "{sms}" in a variant text is
+# the card's SM count.
+VARIANTS = {
+    "3: 16 blocks an SM (the grid before the occupancy cap)": (
+        "occ_sample", False,
+        [("kern<<<min(plan.blocks, resident),",
+          "kern<<<min(plan.blocks, 16 * {sms}),")], None),
+    "3: literal count on every row": (
+        "occ_sample", False,
+        [("const bool search = __all_sync(FULL_MASK, mono);",
+          "const bool search = false;")], None),
+    "3: rank sort on every row": (
+        "occ_sample", False,
+        [("const bool sorted = __all_sync(FULL_MASK, in_order);",
+          "const bool sorted = false;")], None),
+    "3: both (the count and the rank sort of every row)": (
+        "occ_sample", False,
+        [("const bool search = __all_sync(FULL_MASK, mono);",
+          "const bool search = false;"),
+         ("const bool sorted = __all_sync(FULL_MASK, in_order);",
+          "const bool sorted = false;")], None),
+    "10a-i: tiles of 256 at E <= 2": (
+        "bucket", False,
+        [("#define DISPATCH_PPT_E12 8", "#define DISPATCH_PPT_E12 1")],
+        256),
+    "10a-i: no rows phase (timing only)": (
+        "bucket", True,
+        [("for (int p0 = 0; p0 < total; p0 += GATHER) {",
+          "for (int p0 = 0; p0 < 0; p0 += GATHER) {")], None),
+}
+KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH"}
+CASES_OF = {"occ_sample": (0, 1), "bucket": (2, 3, 4)}
+
+
+def build_variants(kernels, sms: int):
+    """Writes and builds every variant in parallel; returns name ->
+    (library path, ptxas lines)."""
+    out_dir = kernels.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (name, (stem, _, reps, _)) in enumerate(VARIANTS.items()):
+        src_name, extra = kernels.SOURCES[stem]
+        text = (kernels.CSRC / src_name).read_text()
+        for old, new in reps:
+            if text.count(old) != 1:
+                raise SystemExit(f"kernel_ab: {name}: the shipped source "
+                                 f"no longer holds {old!r} once")
+            text = text.replace(old, new.replace("{sms}", str(sms)))
+        src = out_dir / f"v{i}_{src_name}"
+        src.write_text(text)
+        lib = out_dir / f"libv{i}_{stem}.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *extra, "-I",
+               str(kernels.CSRC), "-o", str(lib), str(src)]
+        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
+    built = {}
+    for name, (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"kernel_ab: nvcc failed for {name}:\n{log}")
+        built[name] = (lib, [ln.strip() for ln in log.splitlines()
+                             if "registers" in ln])
+    return built
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    import chip_smoke as cs
+    import serve_ab
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models import container as CO
+
+    print(cs.card_line(), flush=True)
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    kernels.build_all(("occ_sample", "bucket"))
+    for stem in ("occ_sample", "bucket"):
+        for ln in kernels.build_log.get(stem, "").splitlines():
+            if "registers" in ln:
+                print(f"shipped {stem}: {ln.strip()}", flush=True)
+    built = build_variants(kernels, sms)
+    for name, (_, regs) in built.items():
+        for ln in regs:
+            print(f"{name}: {ln}", flush=True)
+    torch.manual_seed(cs.SEED)
+    _, statics, _, occ = cs.bench_setup(device)
+    cases = serve_ab.kernel_cases(cs, statics, occ, device)
+    for case, _, check in cases:  # also loads the shipped entry points
+        print(f"shipped / {case}: {check()[0]}", flush=True)
+    shipped = {stem: getattr(kernels, k) for stem, k in KERNEL_OF.items()}
+    fns = {stem: k._fn for stem, k in shipped.items()}
+    shipped_tile = CO.dispatch_tile
+
+    def use(name):
+        """Swaps variant `name` (None: the shipped kernels) in."""
+        for stem, k in shipped.items():
+            k._fn = fns[stem]
+        CO.dispatch_tile = shipped_tile
+        CO._dispatch_plan.cache_clear()
+        if name is None:
+            return
+        stem, _, _, tile = VARIANTS[name]
+        fn = getattr(ctypes.CDLL(str(built[name][0])), shipped[stem].symbol)
+        fn.argtypes = shipped[stem].argtypes
+        fn.restype = ctypes.c_int
+        shipped[stem]._fn = fn
+        if tile is not None:
+            CO.dispatch_tile = lambda e: tile if e <= 2 else shipped_tile(e)
+
+    for name, (stem, timing_only, _, _) in VARIANTS.items():
+        if timing_only:
+            continue
+        use(name)
+        for i in CASES_OF[stem]:
+            text, _ = cases[i][2]()
+            print(f"{name} / {cases[i][0]}: {text}", flush=True)
+    use(None)
+    names = [None, *VARIANTS]
+    times = {(n, i): [] for n in names for i in range(len(cases))}
+    for r in range(args.rounds):
+        for name in names:
+            use(name)
+            idx = (range(len(cases)) if name is None
+                   else CASES_OF[VARIANTS[name][0]])
+            row = []
+            for i in idx:
+                ms = cs.device_ms(cases[i][1])
+                times[(name, i)].append(ms)
+                row.append(f"{cases[i][0]} {ms:.4f}")
+            print(f"round {r} {name or 'shipped'}: " + ", ".join(row),
+                  flush=True)
+    use(None)
+    for (name, i), xs in times.items():
+        if xs:
+            print(f"{name or 'shipped'} / {cases[i][0]}: device_ms median "
+                  f"{statistics.median(xs):.4f} range [{min(xs):.4f}, "
+                  f"{max(xs):.4f}] over {len(xs)} rounds", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,6 +9,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 #define NERF_API extern "C" __attribute__((visibility("default")))
 #define FULL_MASK 0xffffffffu
 
@@ -18,6 +22,66 @@ NERF_API const char* nerfsys_cuda_error_string(int code) {
 
 static inline unsigned int nerf_blocks(long long work, int threads) {
     return static_cast<unsigned int>((work + threads - 1) / threads);
+}
+
+// ---------------------------------------------------------------------------
+// Host state of one kernel variant's launches, so that a launch costs no
+// runtime queries after the first at its shape (kernels 3 and 5 launch
+// 108 times in a host-bound training step): the dynamic shared memory it has
+// been opted in to, per device, and the occupancy calculator's answers,
+// per (device, threads, smem), and each device's SM count.
+struct LaunchCache {
+    std::mutex mu;
+    std::map<int, int> opted;
+    std::map<std::tuple<int, int, int>, int> per_sm;
+    std::map<int, int> sms;
+};
+
+template <typename Kern>
+static cudaError_t cached_occupancy(LaunchCache& cache, Kern kern,
+                                    int threads, int smem, int* per_sm) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(cache.mu);
+    int& opted = cache.opted[dev];  // 0 on a device's first launch
+    if (smem > 48 * 1024 && smem > opted) {  // opt in above the default
+        e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return e;
+        opted = smem;
+    }
+    const auto key = std::make_tuple(dev, threads, smem);
+    const auto it = cache.per_sm.find(key);
+    if (it != cache.per_sm.end()) {
+        *per_sm = it->second;
+        return cudaSuccess;
+    }
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
+                                                      smem);
+    if (e == cudaSuccess) cache.per_sm[key] = *per_sm;
+    return e;
+}
+
+// The blocks of `kern` resident at once on the current device: the
+// occupancy calculator's blocks an SM times the SMs.
+template <typename Kern>
+static cudaError_t cached_resident(LaunchCache& cache, Kern kern, int threads,
+                                   int smem, int* blocks) {
+    int per_sm = 0, dev = 0;
+    cudaError_t e = cached_occupancy(cache, kern, threads, smem, &per_sm);
+    if (e != cudaSuccess) return e;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    std::lock_guard<std::mutex> lock(cache.mu);
+    auto it = cache.sms.find(dev);
+    if (it == cache.sms.end()) {
+        int n = 0;
+        e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+        if (e != cudaSuccess) return e;
+        it = cache.sms.emplace(dev, n).first;
+    }
+    *blocks = per_sm * it->second;
+    return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -81,4 +145,20 @@ __device__ __forceinline__ void red_add2(float* dst, float a, float b) {
     asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(dst), "f"(a),
                  "f"(b)
                  : "memory");
+}
+
+// Status words between blocks (the single-pass scan of bucket.cu): 32-bit
+// loads and stores at device scope, relaxed (each word is self-contained).
+__device__ __forceinline__ void store_relaxed(unsigned* p, unsigned v) {
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+                 : "memory");
+}
+
+__device__ __forceinline__ unsigned load_relaxed(const unsigned* p) {
+    unsigned v;
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
 }

@@ -74,10 +74,6 @@
 
 #include <cuda_bf16.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #define PLANES_MAX_LEVELS 8
 
 struct PlaneLevels {  // same layout as csrc/planes.cu
@@ -372,43 +368,6 @@ plane_encode_bwd_kernel(const float* __restrict__ x,
                 if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
         }
     }
-}
-
-// Host state of one kernel variant's launches, so that a launch costs no
-// runtime queries after the first at its shape (kernel 5 launches 108
-// times in a host-bound training step): the dynamic shared memory it has
-// been opted in to, per device, and the occupancy calculator's answers,
-// per (device, threads, smem).
-struct LaunchCache {
-    std::mutex mu;
-    std::map<int, int> opted;
-    std::map<std::tuple<int, int, int>, int> per_sm;
-};
-
-template <typename Kern>
-static cudaError_t cached_occupancy(LaunchCache& cache, Kern kern,
-                                    int threads, int smem, int* per_sm) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    std::lock_guard<std::mutex> lock(cache.mu);
-    int& opted = cache.opted[dev];  // 0 on a device's first launch
-    if (smem > 48 * 1024 && smem > opted) {  // opt in above the default
-        e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return e;
-        opted = smem;
-    }
-    const auto key = std::make_tuple(dev, threads, smem);
-    const auto it = cache.per_sm.find(key);
-    if (it != cache.per_sm.end()) {
-        *per_sm = it->second;
-        return cudaSuccess;
-    }
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, threads,
-                                                      smem);
-    if (e == cudaSuccess) cache.per_sm[key] = *per_sm;
-    return e;
 }
 
 template <int VEC, bool EXACT>

@@ -239,10 +239,26 @@ OCC_PROBE_CDF = Kernel(
     [_P] * 11 + [_I] * 6 + [_F] * 4 + [ProbePlan, _P],
     replaces="nerfsys_tpu/ops/occupancy.py:394 (occupancy_probe_cdf)",
 )
+
+
+class SamplePlan(ctypes.Structure):
+    """A launch plan of kernel 3 (csrc/occ_sample.cu SamplePlan; filled
+    from ops/occupancy.py `SampleLaunchPlan`)."""
+    _fields_ = [
+        ("warps", _I),
+        ("threads", _I),
+        ("blocks", _I),
+        ("stride", _I),
+        ("smem", _I),
+        ("top", _I),
+    ]
+
+
 OCC_SAMPLE = Kernel(
     "sample_tvals_from_cdf", "occ_sample", "sample_tvals_from_cdf",
-    # cdf, near, far, u, edges, t_vals, N, P, S, u_per_ray, stream
-    [_P] * 6 + [_I] * 4 + [_P],
+    # cdf, near, far, u, edges, t_vals, branch counts (nullable), N, P, S,
+    # u_per_ray, plan (by value), stream
+    [_P] * 7 + [_I] * 4 + [SamplePlan, _P],
     replaces="nerfsys_tpu/ops/occupancy.py:468 (sample_tvals_from_cdf)",
 )
 
@@ -375,11 +391,24 @@ HASH_BWD = Kernel(
              "row_gather transpose of hash_grid_encode_fused :345)",
 )
 
+
+class DispatchPlan(ctypes.Structure):
+    """A launch plan of kernel 10a-i (csrc/bucket.cu DispatchPlan; filled
+    from models/container.py `DispatchLaunchPlan`)."""
+    _fields_ = [
+        ("tile", _I),
+        ("tiles", _I),
+        ("fill_blocks", _I),
+        ("fill_threads", _I),
+    ]
+
+
 BUCKET_DISPATCH = Kernel(
     "bucket_dispatch", "bucket", "bucket_dispatch",
     # pts, dirs (nullable), centroids, idx, w, dest, counts, bucket_rows,
-    # rows, block-count scratch, N, K, E, C, cluster_2d, margin, stream
-    [_P] * 10 + [_I] * 5 + [_F, _P],
+    # rows, status scratch, N, K, E, C, cluster_2d, margin, plan (by
+    # value), stream
+    [_P] * 10 + [_I] * 5 + [_F, DispatchPlan, _P],
     replaces="nerfsys_tpu/models/container.py:279 (_bucketed_eval: top-E "
              "routing, the counting sort into buckets, the row gather "
              ":301-350)",
@@ -440,6 +469,7 @@ _DTYPES = {
     "table": (torch.float32, torch.bfloat16),
     "block_index": (torch.int32,),
     "dest": (torch.int32,),
+    "branch_counts": (torch.int32,),
 }
 
 

@@ -29,6 +29,7 @@ the kernels, built with --fmad=false, pick the same experts bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -45,13 +46,15 @@ from nerfsys_tpu_torch.models.ngp import (
     tree_to,
 )
 from nerfsys_tpu_torch.ops.encodings import sh_encode, sh_out_dim
-from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.device import num_sms, resolve_device
 from nerfsys_tpu_torch.utils.tree import tree_map
 
 Params = Dict
 
 MAX_EXPERTS = 64  # the routing kernels keep the centroids in shared memory
-BUCKET_THREADS = 256  # points per block of the dispatch's passes 1 and 3
+MAX_E = 8  # experts per point the dispatch kernel takes
+DISPATCH_THREADS = 256  # threads a tile of the dispatch, a point a round
+DISPATCH_FILL_THREADS = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,12 +328,68 @@ def bucket_dispatch_plain(pts: torch.Tensor, dirs: Optional[torch.Tensor],
             "bucket_rows": bucket_rows, "rows": src[bucket_rows.long()]}
 
 
+@dataclasses.dataclass(frozen=True)
+class DispatchLaunchPlan:
+    """Launch geometry of kernel 10a-i (csrc/bucket.cu `DispatchPlan`)."""
+
+    tile: int  # points a tile, a thread each
+    tiles: int  # tiles of the single pass, one block each
+    scratch: int  # int32 words, all cleared before the pass: the ticket,
+    # then a status word a (tile, expert): its flag and the tile's
+    # aggregate or inclusive count
+    fill_blocks: int  # blocks a bucket of the empty-slot fill
+    fill_threads: int
+
+    def as_struct(self) -> "kernels.DispatchPlan":
+        return kernels.DispatchPlan(self.tile, self.tiles, self.fill_blocks,
+                                    self.fill_threads)
+
+
+def dispatch_tile(e: int) -> int:
+    """Points a tile: 2,048 (8 rounds of 256) when E <= 2, so that few
+    tiles keep the look-back's chain short; 256 above, where a pair table
+    of E = 8 fills the block's shared memory."""
+    return 8 * DISPATCH_THREADS if e <= 2 else DISPATCH_THREADS
+
+
+def dispatch_plan(n: int, k: int, e: int, c: int,
+                  sms: int) -> DispatchLaunchPlan:
+    """Kernel 10a-i's plan for N points, K experts, E a point and buckets
+    of C rows on a card of `sms` SMs: one block of 256 threads a tile of
+    `dispatch_tile(E)` points in ticket order, then about 4 fill blocks an
+    SM shared by the K buckets, each looping over its bucket's empty
+    tail."""
+    if not (n >= 1 and 1 <= e <= min(k, MAX_E) and k <= MAX_EXPERTS
+            and c >= 128 and c % 128 == 0):
+        raise ValueError(f"bucket_dispatch: the kernel takes N >= 1, 1 <= E "
+                         f"<= min(K, {MAX_E}), K <= {MAX_EXPERTS} and C a "
+                         f"multiple of 128; got N={n} K={k} E={e} C={c}")
+    if n * e >= 2 ** 30 or k * c * 6 >= 2 ** 31:
+        raise ValueError("bucket_dispatch: too many pairs or slots for "
+                         "32-bit indices")
+    tile = dispatch_tile(e)
+    tiles = -(-n // tile)
+    return DispatchLaunchPlan(
+        tile=tile, tiles=tiles, scratch=1 + tiles * k,
+        fill_blocks=max(1, -(-4 * sms // k)),
+        fill_threads=DISPATCH_FILL_THREADS)
+
+
+@functools.lru_cache(maxsize=256)
+def _dispatch_plan(n: int, k: int, e: int, c: int, sms: int
+                   ) -> Tuple[DispatchLaunchPlan, "kernels.DispatchPlan"]:
+    """`dispatch_plan` and its struct, per shape."""
+    plan = dispatch_plan(n, k, e, c, sms)
+    return plan, plan.as_struct()
+
+
 def bucket_dispatch_kernel(pts: torch.Tensor, dirs: Optional[torch.Tensor],
                            centroids: torch.Tensor, cluster_2d: bool,
                            margin: float, E: int, C: int):
     """Kernel 10a-i's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `bucket_dispatch` (its passes in sequence on the
-    current stream) or raises."""
+    tensors it launches `bucket_dispatch` (a memset of its scratch and two
+    launches on the current stream, with `dispatch_plan`'s plan) or
+    raises."""
     if pts.device.type == "cpu":
         return bucket_dispatch_plain(pts, dirs, centroids, cluster_2d,
                                      margin, E, C)
@@ -338,27 +397,23 @@ def bucket_dispatch_kernel(pts: torch.Tensor, dirs: Optional[torch.Tensor],
         raise ValueError(f"bucket_dispatch: unsupported device {pts.device}")
     dev = pts.device
     N, K = pts.shape[0], centroids.shape[0]
-    if K > MAX_EXPERTS or not 1 <= E <= K:
-        raise ValueError(f"bucket_dispatch: the kernel takes 1 <= E <= K <= "
-                         f"{MAX_EXPERTS}, got E={E} K={K}")
+    plan, struct = _dispatch_plan(N, K, E, C, num_sms(dev))
     kernels.check_cuda_tensors("bucket_dispatch", dev, pts=pts, dirs=dirs,
                                centroids=centroids)
     width = 3 if dirs is None else 6
-    threads = BUCKET_THREADS
-    n_blocks = max(1, -(-N // threads))
     idx = torch.empty((N, E), dtype=torch.int32, device=dev)
     w = torch.empty((N, E), dtype=torch.float32, device=dev)
     dest = torch.empty((N * E,), dtype=torch.int32, device=dev)
     counts = torch.empty((K,), dtype=torch.int32, device=dev)
     bucket_rows = torch.empty((K, C), dtype=torch.int32, device=dev)
     rows = torch.empty((K, C, width), dtype=torch.float32, device=dev)
-    scratch = torch.empty((n_blocks * K,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((plan.scratch,), dtype=torch.int32, device=dev)
     kernels.BUCKET_DISPATCH(
         pts.data_ptr(), 0 if dirs is None else dirs.data_ptr(),
         centroids.data_ptr(), idx.data_ptr(), w.data_ptr(), dest.data_ptr(),
         counts.data_ptr(), bucket_rows.data_ptr(), rows.data_ptr(),
         scratch.data_ptr(), N, K, E, C, int(cluster_2d), float(margin),
-        kernels.stream_ptr(pts))
+        struct, kernels.stream_ptr(pts))
     return {"idx": idx, "w": w, "dest": dest, "counts": counts,
             "bucket_rows": bucket_rows, "rows": rows}
 

@@ -456,10 +456,68 @@ def sample_tvals_plain(cdf: torch.Tensor, near: torch.Tensor,
     return torch.sort(t_vals, dim=1).values
 
 
+SAMPLE_WARPS = 4  # warps a block of kernel 3, a ray each at a time
+SAMPLE_SMEM = 48 * 1024  # the staged rows, without an opt-in
+
+
+@dataclasses.dataclass(frozen=True)
+class SampleLaunchPlan:
+    """Launch geometry of kernel 3 (csrc/occ_sample.cu `SamplePlan`)."""
+
+    warps: int  # warps a block, a ray each at a time
+    threads: int
+    blocks: int  # a block per SAMPLE_WARPS rays; the launch takes at most
+    # the blocks resident at once, and the warps walk the rays, staging the
+    # next row while they place the current one
+    stride: int  # floats of a staged cdf row, one word of skew every 32
+    smem: int  # warps x (2 rows + S placements) floats
+    top: int  # the largest power of 2 <= P: the binary search's first step
+
+    def as_struct(self) -> "kernels.SamplePlan":
+        return kernels.SamplePlan(self.warps, self.threads, self.blocks,
+                                  self.stride, self.smem, self.top)
+
+
+def sample_plan(n: int, p: int, s: int) -> SampleLaunchPlan:
+    """Kernel 3's plan for N rays of P intervals and S samples: a warp a
+    ray at a time, SAMPLE_WARPS warps a block, each warp's two cdf rows
+    and placements in shared memory. The launch caps the grid at the
+    blocks the card holds at once (the occupancy calculator's, per kernel
+    instance and device), so the warps loop over the rays in one wave."""
+    if p < 1 or s < 1:
+        raise ValueError(f"sample_tvals_from_cdf: P={p}, S={s}")
+    stride = p + (p >> 5) + 1
+    smem = 4 * SAMPLE_WARPS * (2 * stride + s)
+    if smem > SAMPLE_SMEM:
+        raise ValueError(f"sample_tvals_from_cdf: P={p} and S={s} exceed "
+                         f"{SAMPLE_SMEM} bytes of shared memory")
+    return SampleLaunchPlan(
+        warps=SAMPLE_WARPS, threads=32 * SAMPLE_WARPS,
+        blocks=max(1, -(-n // SAMPLE_WARPS)), stride=stride, smem=smem,
+        top=1 << (p.bit_length() - 1))
+
+
+@functools.lru_cache(maxsize=256)
+def _sample_struct(n: int, p: int, s: int) -> "kernels.SamplePlan":
+    """`sample_plan` as the kernel's struct, per shape."""
+    return sample_plan(n, p, s).as_struct()
+
+
+@functools.lru_cache(maxsize=64)
+def _sample_edges(P: int, device) -> torch.Tensor:
+    """linspace01(P + 1) per (P, device): the kernel only reads it."""
+    return linspace01(P + 1, device)
+
+
 def sample_tvals_kernel(cdf: torch.Tensor, near: torch.Tensor,
-                        far: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+                        far: torch.Tensor, u: torch.Tensor, *,
+                        branch_counts: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Kernel 3's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `sample_tvals_from_cdf` or raises."""
+    tensors it launches `sample_tvals_from_cdf` (with `sample_plan`'s
+    plan) or raises. `branch_counts`, a zeroed (2,) int32 tensor on the
+    card, receives the rows that took the literal count and the rank
+    sort."""
     if cdf.device.type == "cpu":
         return sample_tvals_plain(cdf, near, far, u)
     if cdf.device.type != "cuda":
@@ -471,16 +529,19 @@ def sample_tvals_kernel(cdf: torch.Tensor, near: torch.Tensor,
     per_ray = u.dim() == 2
     if per_ray and tuple(u.shape) != (N, S):
         raise ValueError("sample_tvals_from_cdf: u must be (S,) or (N, S)")
-    if 4 * (P + 1 + S) * 4 > 48 * 1024:  # 4 warps' rows in static smem
-        raise ValueError("sample_tvals_from_cdf: the kernel takes "
-                         "P + S <= 3071")
-    edges = linspace01(P + 1, dev)
+    plan = _sample_struct(N, P, S)
+    edges = _sample_edges(P, dev)
     kernels.check_cuda_tensors("sample_tvals_from_cdf", dev, cdf=cdf,
-                               near=near, far=far, u=u)
+                               near=near, far=far, u=u,
+                               branch_counts=branch_counts)
+    if branch_counts is not None and tuple(branch_counts.shape) != (2,):
+        raise ValueError("sample_tvals_from_cdf: branch_counts must be (2,)")
     t_vals = torch.empty((N, S), dtype=torch.float32, device=dev)
     kernels.OCC_SAMPLE(cdf.data_ptr(), near.data_ptr(), far.data_ptr(),
                        u.data_ptr(), edges.data_ptr(), t_vals.data_ptr(),
-                       N, P, S, int(per_ray), kernels.stream_ptr(cdf))
+                       0 if branch_counts is None
+                       else branch_counts.data_ptr(),
+                       N, P, S, int(per_ray), plan, kernels.stream_ptr(cdf))
     return t_vals
 
 

@@ -3,7 +3,7 @@
 another one.
 
     python3 serve_ab.py OTHER_CHECKOUT [--pairs 10] [--experts planes|hash]
-                        [--phase frame|step] [--exact | --packed]
+                        [--phase frame|step|kernels] [--exact | --packed]
 
 OTHER_CHECKOUT is a second copy of the repository, for example the parent
 commit unpacked with `git archive`. One worker process per checkout imports
@@ -26,8 +26,19 @@ share); `--exact` gives the planes experts the encoder's exact backward
 place of the light one; `--packed` gives the hash experts the packed
 bfloat16-pair table reads (the runner's --packed_gather: each
 checkout's own `chip_smoke.with_hash(cfg, packed=True)`) for either
-phase, and implies `--experts hash`. A worker waits on its pipe between
-rounds, so one runs at a time.
+phase, and implies `--experts hash`. A `--phase kernels` round times,
+through each checkout's own wrappers, kernel 3 (the inverse-CDF sampler)
+at the serve chunk (65,536 rays x 32 samples of the bench probe's cdf,
+shared targets) and at one inner step (4,000 rays, jittered targets from
+a fixed seed), and 10a-i (the bucket dispatch) at the serve chunk's
+2,097,152 points (K=4, top-1 and top-2, cf 1.5) and on one chunk of the
+K=16 arm (196,608 points, top-2): each case's device time (chip_smoke's
+`device_ms`) and back-to-back time; before the rounds each worker holds
+every case against its plain version (the sampler within 1e-5, the
+dispatch's integer outputs equal and its weights within 1e-6 on two
+successive calls) and profiles ten dispatch calls (device time by kernel
+launch). A worker waits on its pipe between rounds, so one runs at a
+time.
 
 Prints every round, then for each side the median, quartiles and range of
 the round means; the difference of the medians against the other side's
@@ -70,6 +81,8 @@ def worker(root: Path, experts: str, phase: str, exact: bool,
         cfg = cs.with_hash(cfg, packed=True)
     if phase == "step":
         return step_rounds(cs, cfg, statics, params, occ, device, root)
+    if phase == "kernels":
+        return kernel_rounds(cs, statics, occ, device, root)
     return frame_rounds(cs, cfg, statics, params, occ, device)
 
 
@@ -147,6 +160,107 @@ def step_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
     return 0
 
 
+KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
+                "dispatch K=4 E=2", "dispatch K=16 E=2")
+
+
+def kernel_cases(cs, statics, occ, device):
+    """(name, call, check) of the `--phase kernels` cases: the call
+    launches the checkout's kernel, the check holds it against its plain
+    version (raising on a disagreement) and returns a text and a sum of
+    its outputs."""
+    import torch
+
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    md = cs.pose((0.0, 0.0, 2.0))
+    rays_np, _ = frame_rays(md.H, md.W, md.intrinsics, md.c2w,
+                            aabb=statics.global_aabb.cpu().numpy())
+    rays_np = rays_np[:cs.CHECK_RAYS]
+    rays = torch.from_numpy(rays_np).to(device)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    _, near, far = _ray_validity(rays)
+    grids = (occ["occs"], occ["binary"], statics.expert_aabbs)
+    kw = dict(importance=True, ray_floor=0.25, use_kernels=False)
+    cdf = O.occupancy_probe_cdf(*grids, o, d, near, far, 128, **kw)["cdf"]
+    u = O._sample_targets(cdf.shape[0], 32, device, None, False).contiguous()
+    sr = cs.train_batch(device)["support_rays"][0, 0]
+    so, sd = sr[:, 0:3].contiguous(), sr[:, 3:6].contiguous()
+    sn, sf = sr[:, 6].contiguous(), sr[:, 7].contiguous()
+    scdf = O.occupancy_probe_cdf(*(g[0:1] for g in grids), so, sd, sn, sf,
+                                 128, **kw)["cdf"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    su = O._sample_targets(sr.shape[0], 32, device, gen, True).contiguous()
+    pts_ns, dirs = cs.chunk_samples(statics, occ, rays_np, device)
+    pts = pts_ns.reshape(-1, 3).contiguous()
+    cents = statics.centroids.contiguous()
+    k16_cfg, k16_st, _, k16_pts, k16_dirs = cs.k16_setup(device)
+    n16 = cs.K16_PTS // cs.K16_CHUNKS
+    k16 = (k16_pts[:n16].contiguous(), k16_dirs[:n16].contiguous(),
+           k16_st.centroids.contiguous(), k16_cfg.cluster_2d,
+           float(k16_cfg.boundary_margin), 2,
+           CO.bucket_capacity(n16, 16, 2, cs.MOE_CF))
+
+    def sampler(args):
+        def check():
+            got = O.sample_tvals_kernel(*args)
+            err = cs.max_err(got, O.sample_tvals_plain(*args))
+            if not err <= 1e-5:
+                raise SystemExit(f"serve_ab: kernel 3 error {err}")
+            return f"max_abs_err={err:.3e}", float(got.double().sum())
+        return (lambda: O.sample_tvals_kernel(*args)), check
+
+    def dispatch(args):
+        def check():
+            outs = [CO.bucket_dispatch_kernel(*args) for _ in range(2)]
+            want = CO.bucket_dispatch_plain(*args)
+            for got in outs:
+                for key in ("idx", "dest", "counts", "bucket_rows", "rows"):
+                    if not torch.equal(got[key], want[key]):
+                        raise SystemExit(f"serve_ab: 10a-i {key} differs")
+            err = max(cs.max_err(got["w"], want["w"]) for got in outs)
+            if not err <= 1e-6:
+                raise SystemExit(f"serve_ab: 10a-i w error {err}")
+            return (f"outputs equal on two calls, w max_abs_err={err:.3e}",
+                    float(outs[0]["dest"].double().sum()))
+        return (lambda: CO.bucket_dispatch_kernel(*args)), check
+
+    return [(KERNEL_CASES[0], *sampler((cdf, near, far, u))),
+            (KERNEL_CASES[1], *sampler((scdf, sn, sf, su))),
+            (KERNEL_CASES[2], *dispatch((pts, dirs, cents, True, 1.1, 1,
+                                         CO.bucket_capacity(
+                                             pts.shape[0], 4, 1, cs.MOE_CF)))),
+            (KERNEL_CASES[3], *dispatch((pts, dirs, cents, True, 1.1, 2,
+                                         CO.bucket_capacity(
+                                             pts.shape[0], 4, 2, cs.MOE_CF)))),
+            (KERNEL_CASES[4], *dispatch(k16))]
+
+
+def kernel_rounds(cs, statics, occ, device, root: Path) -> int:
+    cases = kernel_cases(cs, statics, occ, device)
+    check = 0.0
+    for name, call, check_fn in cases:
+        text, total = check_fn()
+        check += total
+        print(f"{root} {name}: {text}", flush=True)
+    for name, call, _ in cases[2:]:
+        cs.profile_device(f"{root} {name}, 10 calls",
+                          lambda: [call() for _ in range(10)],
+                          watch=(("bucket",), ("Memset",)))
+    print(json.dumps({"ready": "kernels"}), flush=True)
+    for line in sys.stdin:
+        if line.strip() != "run":
+            break
+        ms = [cs.device_ms(call) for _, call, _ in cases]
+        b2b = [cs.cuda_ms(call, 20) for _, call, _ in cases]
+        print(json.dumps({"ms": ms, "b2b_ms": b2b, "raygen_ms": 0.0,
+                          "check": check}), flush=True)
+    return 0
+
+
 def _reply(proc) -> dict:
     """The worker's next JSON line (other lines pass through)."""
     while True:
@@ -190,7 +304,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--experts", choices=("planes", "hash"), default=None,
                     help="planes (the default) or hash")
-    ap.add_argument("--phase", choices=("frame", "step"), default="frame")
+    ap.add_argument("--phase", choices=("frame", "step", "kernels"),
+                    default="frame")
     ap.add_argument("--exact", action="store_true",
                     help="planes experts with the exact encoder backward")
     ap.add_argument("--packed", action="store_true",
@@ -255,6 +370,16 @@ def main() -> int:
                 p.kill()
                 p.wait()
     summary, verdict = summarize(rounds, roots)
+    if args.phase == "kernels":
+        for i, case in enumerate(KERNEL_CASES):
+            for key, what in (("ms", "device_ms"), ("b2b_ms", "b2b_ms")):
+                text = []
+                for name in SIDES:
+                    xs = [r[key][i] for r in rounds[name]]
+                    text.append(f"{name} median {statistics.median(xs):.4f} "
+                                f"range [{min(xs):.4f}, {max(xs):.4f}]")
+                print(f"kernels {case} {what}: " + "; ".join(text),
+                      flush=True)
     for name in SIDES:
         s = summary[name]
         print(f"{name}: median_ms={s['median_ms']:.2f} quartiles_ms="
