@@ -57,8 +57,12 @@ printing its result lines):
    transmittance) against its plain version at one serve chunk's first
    segment (65,536 rays x 8 samples, fresh carry) and one resume slice
    (16,384 x 24, that carry), fog off and on, at two densities, timed
-   back to back and by device time beside its byte bound; the 8 + 24 split against
-   kernel 4's one-shot. Then the soft-mode early-stop renderer (eps 1e-4,
+   back to back and by device time beside its byte bound; the 8 + 24
+   split against kernel 4's one-shot; and on adversarial inputs (`edge
+   composite_segment` lines: s = 1, 2, 8, 24, 31, 33, 64, alpha at its
+   clip, sigma exactly 0, carried transmittance 0, 1 and 1e-30, fog on
+   and off, t and dt as column slices and contiguous, N = 0, 1, tails;
+   within 1e-5, each with its plan and device time). Then the soft-mode early-stop renderer (eps 1e-4,
    32 samples split 8 + 24) serves one warm-up and 3 requests of 800x800
    through `render_image` at sigma_scale 1 and at the opaque scale, each
    against the same frames through the one-shot program (within the eps
@@ -68,7 +72,8 @@ printing its result lines):
    `render_rays_chunked` with the hard-mask two-wave renderer (within
    1e-5 of the one-shot, chunks skipped or packed, a dead chunk through
    the background program equal to the one-shot) and the hard-mask
-   early-stop renderer at the opaque scale; one frame is profiled.
+   early-stop renderer at the opaque scale; one frame at each scale is
+   profiled (row 8's launches x ms watched).
 6. Baked: bake the bench-width container into the serve snapshot (256³,
    SH-3, 32 directions, pack 8, sparse blocks of 8³, bf16, occupancy-aware
    on a synthetic R=64 L=2 grid, 2 dilations) through `bake_field`; hold
@@ -134,7 +139,13 @@ printing its result lines):
    3-wide rows, K = 1, 16, 64), 10a-ii / 10a-iii (the
    blend and its transpose, within 1e-6 of the output's max, with
    `embedding_bag` timed beside the blend), 10b (`coherent_expert`, ids
-   equal), and kernel 2 on the res-128 union probe grid. Then
+   equal; device and back-to-back times, its bound counting each ray's
+   points up to its first break; the skew frame's first chunk too; and
+   `edge coherent_expert` lines: K = 1, 2, 4, 16, 64, S = 1, 2, 8, 31,
+   32, 33, 64, 97, both routing subspaces, margins 1.0, 1.1, 1.5, points
+   on a bisector, at duplicated centroids, at d2 = 1.5 d1 exactly, a break
+   only at sample 0, the last sample or sample 32, N = 0, 1, tails), and
+   kernel 2 on the res-128 union probe grid. Then
    `--render_fast` (bucketed top-1, cf 1.5, the union grid): one warm-up
    and 3 requests of 800x800 through `render_image` (bucket_dispatch and
    the serve kernels launched; the dense-fallback count printed; one chunk
@@ -142,7 +153,7 @@ printing its result lines):
    through the hard two-wave renderer with the union grid; the coherent
    renderer on measure_perf's skew-0.9 frame (640,000 rays) without and
    with the union grid against its full routed program (coherent_expert
-   launched); and measure_perf's K=16 arm (bench-width planes experts,
+   launched; one frame profiled, 10b watched); and measure_perf's K=16 arm (bench-width planes experts,
    1,572,864 points in 8 chunks; 10a-i first held to its plain version on
    one chunk, `kernel bucket_dispatch: K=16` line), dense against
    bucketed E=2 cf 1.5, with
@@ -749,6 +760,13 @@ def volrend_plan_text(plan) -> str:
     return (f"lanes={plan.lanes} rays_per_warp={plan.rays_per_warp} "
             f"pieces={plan.pieces} threads={plan.threads} "
             f"blocks={plan.blocks} smem={plan.smem}")
+
+
+def lane_plan_text(plan) -> str:
+    """Rows 8 and 10b's `RayLaneLaunchPlan`."""
+    return (f"lanes={plan.lanes} pieces={plan.pieces} groups={plan.groups} "
+            f"rays_per_warp={plan.rays_per_warp} threads={plan.threads} "
+            f"blocks={plan.blocks}")
 
 
 def volrend_bwd_edges(n: int, device):
@@ -1563,7 +1581,8 @@ def profile_frame(renderer, params, statics, md, aabb, chunk,
         renderer, params, statics, md, scene_aabb=aabb, chunk_rays=chunk),
         extra=f" host_raygen_ms={raygen_ms:.2f}",
         watch=(("sample_tvals_kernel",), ("bucket_dispatch_kernel",),
-               ("bucket_fill_kernel",)))
+               ("bucket_fill_kernel",), ("composite_segment_kernel",),
+               ("coherent_expert_kernel",)))
 
 
 SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
@@ -1683,7 +1702,7 @@ def check_segment_kernel(cfg, statics, params, occ, rays_np, device,
     from the slice's own probe (soft, importance), sampler and field; t and
     dt are column slices of the (N, 32) sample arrays. Then the 8 + 24
     split, finalized, against kernel 4's one-shot volume_render on the same
-    samples."""
+    samples, and `composite_edge_cases`."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -1769,7 +1788,8 @@ def check_segment_kernel(cfg, statics, params, occ, rays_np, device,
         print(f"kernel composite_segment: {label} {n}x{args[1].shape[1]} "
               f"fog=False kernel_ms={ms:.4f} (back to back) device_ms="
               f"{dev:.4f} plain_ms={plain_ms:.4f} bytes={n_bytes} bound_ms="
-              f"{b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} TB/s",
+              f"{b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} TB/s; plan "
+              f"{lane_plan_text(V.ray_lane_plan(n, args[1].shape[1], 1))}",
               flush=True)
     label, ms, dev, plain_ms, n_bytes, b_ms, b_by = rows[0]
     results[kernels.COMPOSITE_SEG.name] = dict(
@@ -1783,6 +1803,116 @@ def check_segment_kernel(cfg, statics, params, occ, rays_np, device,
               f"{HBM_BYTES_PER_S / 1e12:g} TB/s (the first segment, "
               f"{N}x{s1}; resume slice device_ms={rows[1][2]:.4f}, back to "
               f"back {rows[1][1]:.4f}, bound_ms={rows[1][5]:.4f})"))
+    composite_edges(device)
+
+
+COMPOSITE_EDGE_N = 4096 + 13  # a tail past whole blocks at every plan
+
+
+def composite_edge_inputs(kind: str, n: int, s: int, fog: bool,
+                          layout: str, seed: int, device):
+    """Adversarial inputs of row 8 from numpy seed `seed`: a carry (fog
+    adds wmax and wlogw) and one segment, rgb (n, s, 3), sigma (n, s), t
+    and dt (n, s). t and dt are columns 3 .. 3 + s of an (n, s + 9) sample
+    set and of its `full_dists`: column slices ("slice", as the first
+    segment passes them) or contiguous copies ("contiguous"). "clip" puts
+    sigma * dt >= 20 on every second sample (alpha at 1 - 1e-7), "zero"
+    sigma exactly 0 on the even rays and every third sample of the odd
+    ones; "tc0", "tc1" and "tc_tiny" carry a transmittance of 0, 1 and
+    1e-30; otherwise random."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0.1, 4.0, (n, s + 9)), axis=1).astype(f32)
+    rgb = rng.uniform(0.0, 1.0, (n, s, 3)).astype(f32)
+    sigma = rng.exponential(2.0, (n, s)).astype(f32)
+    if kind == "clip":
+        sigma[:, ::2] = 2e5
+    elif kind == "zero":
+        sigma[0::2] = 0.0
+        sigma[1::2, ::3] = 0.0
+    trans = rng.uniform(0.05, 1.0, n)
+    trans = {"tc0": np.zeros(n), "tc1": np.ones(n),
+             "tc_tiny": np.full(n, 1e-30)}.get(kind, trans)
+    carry = {"rgb": rng.uniform(0.0, 0.5, (n, 3)),
+             "depth": rng.uniform(0.0, 2.0, n),
+             "acc": rng.uniform(0.0, 0.5, n), "trans": trans}
+    if fog:
+        carry["wmax"] = rng.uniform(0.0, 0.3, n)
+        carry["wlogw"] = rng.uniform(-0.5, 0.0, n)
+    carry = {key: torch.from_numpy(v.astype(f32)).to(device)
+             for key, v in carry.items()}
+    tt = torch.from_numpy(t).to(device)
+    t_seg, d_seg = tt[:, 3:3 + s], V.full_dists(tt)[:, 3:3 + s]
+    if layout == "contiguous":
+        t_seg, d_seg = t_seg.contiguous(), d_seg.contiguous()
+    return (carry, torch.from_numpy(rgb).to(device),
+            torch.from_numpy(sigma).to(device), t_seg, d_seg)
+
+
+def composite_edge_cases():
+    """(label, kind, N, s, fog, layout) of `composite_edges`."""
+    n = COMPOSITE_EDGE_N
+    return ([(f"s={s}", "rand", n, s, False, "slice")
+             for s in (1, 2, 8, 24, 31, 33, 64)]
+            + [(f"s={s}, fog", "rand", n, s, True, "slice")
+               for s in (1, 8, 24, 33, 64)]
+            + [("alpha at its clip (sigma dt >= 17)", "clip", n, 8, False,
+                "slice"),
+               ("alpha at its clip, s=24, fog", "clip", n, 24, True,
+                "slice"),
+               ("alpha at its clip, s=64, fog", "clip", n, 64, True,
+                "slice"),
+               ("sigma exactly 0", "zero", n, 8, False, "slice"),
+               ("sigma exactly 0, s=24, fog", "zero", n, 24, True, "slice"),
+               ("T_carry 0", "tc0", n, 8, True, "slice"),
+               ("T_carry 0, s=24", "tc0", n, 24, False, "contiguous"),
+               ("T_carry 1", "tc1", n, 8, False, "slice"),
+               ("T_carry 1, s=33, fog", "tc1", n, 33, True, "slice"),
+               ("T_carry 1e-30", "tc_tiny", n, 8, True, "slice"),
+               ("T_carry 1e-30, s=24", "tc_tiny", n, 24, False,
+                "contiguous"),
+               ("contiguous t and dt", "rand", n, 8, False, "contiguous"),
+               ("contiguous t and dt, s=24, fog", "rand", n, 24, True,
+                "contiguous"),
+               ("contiguous t and dt, s=33", "rand", n, 33, False,
+                "contiguous"),
+               ("N=0", "rand", 0, 8, True, "slice"),
+               ("N=1", "rand", 1, 8, False, "slice"),
+               ("N=1, s=33, fog", "rand", 1, 33, True, "slice"),
+               ("whole blocks only (N=4096), s=24", "rand", 4096, 24, False,
+                "slice")])
+
+
+def composite_edges(device):
+    """Row 8 against its plain version on `composite_edge_cases` (every
+    output within VR_EDGE_TOL), each line with its plan and device time."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    for seed, (label, kind, n, s, fog, layout) in enumerate(
+            composite_edge_cases()):
+        args = composite_edge_inputs(kind, n, s, fog, layout, seed, device)
+        got = V.composite_segment(*args)
+        want = V.composite_segment_plain(*args)
+        torch.cuda.synchronize()
+        if set(got) != set(want):
+            raise SystemExit(f"edge composite_segment {label}: keys "
+                             f"{sorted(got)} against {sorted(want)}")
+        err = max((max_err(got[k], want[k]) for k in want if n), default=0.0)
+        dev = device_ms(lambda: V.composite_segment(*args), 5) if n else 0.0
+        print(f"edge composite_segment {label}: N={n} s={s} fog={fog} t/dt "
+              f"{layout} max_abs_err={err:.3e} (tol {VR_EDGE_TOL:g}) "
+              f"device_ms={dev:.4f}; plan "
+              f"{lane_plan_text(V.ray_lane_plan(n, s, 1))}", flush=True)
+        if not err <= VR_EDGE_TOL:
+            raise SystemExit(f"edge composite_segment {label}: "
+                             f"max_abs_err {err} > {VR_EDGE_TOL}")
 
 
 def check_frame(label, rgb, depth, acc, shape):
@@ -2010,22 +2140,25 @@ def hard_early_stop(cfg, statics, params, device):
 def early_stop(cfg, statics, params, occ, rays_np, device, results):
     """Phase: live serving with early ray termination, and the hard-mask
     two-wave dispatch (kernel row 8 check, soft early-stop serve at two
-    densities, the hard-mask sky frame, one profiled frame)."""
+    densities, the hard-mask sky frame, one profiled frame at each
+    density)."""
     t0 = time.perf_counter()
     check_segment_kernel(cfg, statics, params, occ, rays_np, device,
                          results)
     total = {}
-    renderer = None
+    renderers = {}
     for scale in (1.0, OPAQUE):
-        renderer, launches = soft_early_stop(cfg, statics, params, occ,
-                                             device, scale)
+        renderers[scale], launches = soft_early_stop(cfg, statics, params,
+                                                     occ, device, scale)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     for k, v in hard_early_stop(cfg, statics, params, device).items():
         total[k] += v
-    profile_frame(renderer, params, statics, pose((0.0, 0.0, 2.0)),
-                  statics.global_aabb.cpu().numpy(), CHUNK or CHECK_RAYS,
-                  label=f"early-stop frame (soft, sigma_scale={OPAQUE:g})")
+    for scale, renderer in renderers.items():
+        profile_frame(renderer, params, statics, pose((0.0, 0.0, 2.0)),
+                      statics.global_aabb.cpu().numpy(), CHUNK or CHECK_RAYS,
+                      label=f"early-stop frame (soft, sigma_scale="
+                            f"{scale:g})")
     print(f"early-stop: phase took {time.perf_counter() - t0:.1f} s",
           flush=True)
     return total
@@ -3146,6 +3279,206 @@ def dispatch_edges(device):
                        edge=True)
 
 
+COHERENT_EDGE_N = 4096 + 13  # a tail past whole blocks at every plan
+
+
+def coherent_edge_inputs(kind: str, n: int, k: int, s: int, seed: int,
+                         device):
+    """Adversarial inputs of 10b from numpy seed `seed`: centroids (k, 3) on
+    an integer lattice 4 apart, (0, 4 (i mod 8), 4 (i div 8)), distinct in
+    (y, z), and points (n, s, 3) on a 1/64 grid, so that every routing
+    distance below is exact in float32. A ray's samples lie around one
+    centroid (spread 0.3; "rand" draws 0.05, 0.8 or 2.5 a ray, so that some
+    rays are coherent and some are not). "bisector" moves samples of every
+    ray onto the plane halfway to a lattice neighbour (equal distances: the
+    argmin takes the first index, soft routing sees no singleton);
+    "at_centroid" duplicates centroid 0 as centroid 1 and puts samples
+    exactly on centroids (d = 0 clamps to 1e-6: at centroids 0 and 1 both
+    do, so no singleton; elsewhere a singleton); "margin_eq" puts one
+    sample a ray at distances 2 and 3 from centroids 0 and 1 (centroid 1
+    moved to (0, 5, 0): d2 = 1.5 d1 exactly) on even rays and at 1.984375
+    and 3.015625 on odd ones; "break0", "break_last" and "break32" move
+    sample 0, the last sample or sample 32 of every even ray onto
+    centroid 1."""
+    import numpy as np
+    import torch
+
+    f32 = np.float32
+    rng = np.random.default_rng(seed)
+    i = np.arange(k)
+    cents = np.stack([np.zeros(k), 4.0 * (i % 8), 4.0 * (i // 8)], 1)
+    base = rng.integers(0, k, size=n)
+    spread = np.full((n, 1, 1), 0.3)
+    if kind == "rand":
+        spread = rng.choice([0.05, 0.8, 2.5], size=(n, 1, 1))
+    if kind == "at_centroid" and k > 1:
+        cents[1] = cents[0]
+    if kind in ("margin_eq", "break0", "break_last", "break32"):
+        base[:] = 0
+    if kind == "margin_eq" and k > 1:
+        cents[1] = (0.0, 5.0, 0.0)
+    pts = cents[base][:, None, :] + spread * rng.normal(size=(n, s, 3))
+    pts = np.round(pts * 64.0) / 64.0
+    even = np.arange(n) % 2 == 0
+    col = rng.integers(0, s, size=n)  # a sample a ray
+    if kind == "bisector" and k > 1:
+        # the lattice neighbour in y (or the one before it at the row's end)
+        up = (base % 8 < 7) & (base + 1 < k)
+        other = np.where(up, base + 1, base - 1)
+        mid = 0.5 * (cents[base] + cents[other])
+        for j in range(s):
+            on = rng.uniform(size=n) < 0.25
+            pts[on, j, 1] = mid[on, 1]
+            pts[on, j, 2] = np.where(cents[base[on], 2] == cents[other[on], 2],
+                                     pts[on, j, 2], mid[on, 2])
+    elif kind == "at_centroid":
+        on = rng.uniform(size=(n, s)) < 0.3
+        pts[on] = cents[base][:, None, :].repeat(s, 1)[on]
+    elif kind == "margin_eq" and k > 1:
+        rows = np.arange(n)
+        pts[rows, col] = np.where(even[:, None], [[0.0, 2.0, 0.0]],
+                                  [[0.0, 2.0 - 1 / 64, 0.0]])
+    elif kind.startswith("break") and k > 1:
+        j = {"break0": 0, "break_last": s - 1, "break32": min(32, s - 1)}[
+            kind]
+        pts[even, j] = cents[1]
+    return (torch.from_numpy(cents.astype(f32)).to(device),
+            torch.from_numpy(pts.astype(f32)).to(device))
+
+
+def coherent_edge_cases():
+    """(label, kind, N, K, S, cluster_2d, margin) of `coherent_edges`."""
+    n = COHERENT_EDGE_N
+    return ([(f"K={k}", "rand", n, k, 32, True, 1.1)
+             for k in (1, 2, 4, 16, 64)]
+            + [(f"S={s}", "rand", n, 4, s, True, 1.1)
+               for s in (1, 2, 8, 31, 33, 64, 97)]
+            + [("cluster_2d off", "rand", n, 4, 32, False, 1.1),
+               ("cluster_2d off, K=16, S=97", "rand", n, 16, 97, False, 1.5),
+               ("margin 1.0 (hard)", "rand", n, 4, 32, True, 1.0),
+               ("margin 1.5", "rand", n, 4, 32, True, 1.5),
+               ("points on a bisector, hard", "bisector", n, 4, 32, True,
+                1.0),
+               ("points on a bisector, soft", "bisector", n, 4, 32, True,
+                1.1),
+               ("points on a bisector, cluster_2d off, K=16, S=8",
+                "bisector", n, 16, 8, False, 1.0),
+               ("points at duplicated centroids, hard", "at_centroid", n, 4,
+                32, True, 1.0),
+               ("points at duplicated centroids, soft", "at_centroid", n, 4,
+                32, True, 1.1),
+               ("points at duplicated centroids, K=2, S=33", "at_centroid",
+                n, 2, 33, True, 1.5),
+               ("d2 = margin x d1 exactly, margin 1.5", "margin_eq", n, 4,
+                32, True, 1.5),
+               ("d2 = 1.5 d1, margin 1.1", "margin_eq", n, 4, 32, True, 1.1),
+               ("d2 = 1.5 d1, cluster_2d off, S=64", "margin_eq", n, 4, 64,
+                False, 1.5),
+               ("a break only at sample 0", "break0", n, 4, 32, True, 1.0),
+               ("a break only at sample 0, S=97", "break0", n, 4, 97, True,
+                1.1),
+               ("a break only at the last sample", "break_last", n, 4, 32,
+                True, 1.1),
+               ("a break only at the last sample, S=97", "break_last", n, 4,
+                97, True, 1.0),
+               ("a break only at sample 32 (a piece boundary), S=33",
+                "break32", n, 4, 33, True, 1.1),
+               ("a break only at sample 32, S=64", "break32", n, 4, 64, True,
+                1.0),
+               ("a break only at sample 32, S=97", "break32", n, 4, 97, True,
+                1.5),
+               ("N=0", "rand", 0, 4, 32, True, 1.1),
+               ("N=1", "rand", 1, 4, 32, True, 1.1),
+               ("N=1, S=97", "rand", 1, 4, 97, True, 1.1),
+               ("N=1, S=1", "rand", 1, 4, 1, True, 1.1),
+               ("whole blocks only (N=4096)", "rand", 4096, 4, 32, True,
+                1.1)])
+
+
+def coherent_needed(cents, pts_ns, cluster_2d: bool, margin: float):
+    """(N,) samples 10b must read of each ray: up to its first sample that
+    breaks coherence, all S for a coherent ray. The work depends on the
+    data, so its bound counts these points (12 B each) and the ids."""
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+
+    N, S, K = pts_ns.shape[0], pts_ns.shape[1], cents.shape[0]
+    dist = CO._centroid_dist(cents, cluster_2d,
+                             pts_ns.reshape(-1, 3)).reshape(N, S, K)
+    a = torch.argmin(dist, dim=-1)
+    ok = a == a[:, :1]
+    if margin > 1.0 and K > 1:
+        top2 = torch.sort(torch.clamp(dist, min=1e-6), dim=-1).values
+        ok &= top2[..., 1] > margin * top2[..., 0]
+    bad = ~ok
+    return torch.where(bad.any(dim=1), bad.int().argmax(dim=1) + 1, S)
+
+
+def coherent_bound(cents, pts_ns, cluster_2d: bool, margin: float):
+    """(bytes, bound ms, bound_by) of 10b on these rays: the points each
+    ray needs (`coherent_needed`) and the ids."""
+    samples = int(coherent_needed(cents, pts_ns, cluster_2d, margin).sum())
+    n_bytes = samples * 12 + pts_ns.shape[0] * 4
+    return (n_bytes, *bound(n_bytes, samples * cents.shape[0] * 14))
+
+
+def coherent_skew_chunk(statics, cents, margin: float, device):
+    """10b on the first chunk of the skew-0.9 frame (the coherent
+    renderer's probe samples): (coherent share, device ms, bound ms); ids
+    equal to the plain version's."""
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.models.occupancy import occ_sample_positions
+
+    rays = torch.from_numpy(skew_frame(SIDE * SIDE)[:CHECK_RAYS]).to(device)
+    pts = occ_sample_positions(full_occ(device), statics, rays, 32,
+                               importance=True,
+                               hard_mask=False)[0].contiguous()
+    got = CO.coherent_expert_kernel(cents, pts, True, margin)
+    if not torch.equal(got, CO.coherent_expert_plain(cents, pts, True,
+                                                     margin)):
+        raise SystemExit("kernel coherent_expert: ids differ from the plain "
+                         "version on the skew chunk")
+    dev = device_ms(lambda: CO.coherent_expert_kernel(cents, pts, True,
+                                                      margin))
+    return (float((got >= 0).float().mean()), dev,
+            coherent_bound(cents, pts, True, margin)[1])
+
+
+def coherent_plan(n: int, s: int):
+    """10b's launch plan for N rays of S samples."""
+    from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.ops.volrend import ray_lane_plan
+
+    return ray_lane_plan(n, s, CO.COHERENT_GROUPS, CO.COHERENT_LANES)
+
+
+def coherent_edges(device):
+    """10b against its plain version on `coherent_edge_cases`: ids equal,
+    each line with its plan and the share of coherent rays."""
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+
+    for seed, (label, kind, n, k, s, c2d, margin) in enumerate(
+            coherent_edge_cases()):
+        cents, pts = coherent_edge_inputs(kind, n, k, s, seed, device)
+        got = CO.coherent_expert_kernel(cents, pts, c2d, margin)
+        want = CO.coherent_expert_plain(cents, pts, c2d, margin)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        share = float((want >= 0).float().mean()) if n else 0.0
+        print(f"edge coherent_expert {label}: N={n} S={s} K={k} cluster_2d="
+              f"{c2d} margin={margin:g} ids differ {differ} (0 required); "
+              f"coherent share {share:.4f}; plan "
+              f"{lane_plan_text(coherent_plan(n, s))}", flush=True)
+        if differ:
+            raise SystemExit(f"edge coherent_expert {label}: {differ} ids "
+                             f"differ from the plain version")
+
+
 def check_dispatch_k16(cfg, statics, pts, dirs, results):
     """10a-i at the K=16 arm's shape: one chunk of measure_moe's points
     (196,608), E=2, cf 1.5, against its plain version on two calls."""
@@ -3171,8 +3504,9 @@ def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
     successive calls) and on `dispatch_edge_cases`; 10a-ii and
     10a-iii on the E=2 soft dispatch with random bucket results (within
     1e-6 of the output's max), `embedding_bag` timed beside 10a-ii; 10b on
-    the chunk's (65,536, 32, 3) samples (ids equal); kernel 2 on the
-    res-128 union probe grid of the bench occupancy."""
+    the chunk's (65,536, 32, 3) samples (ids equal; device and back-to-back
+    times) and on `coherent_edge_cases`; kernel 2 on the res-128 union
+    probe grid of the bench occupancy."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -3281,20 +3615,29 @@ def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
     R, S = pts_ns.shape[0], pts_ns.shape[1]
     ms = cuda_ms(lambda: CO.coherent_expert_kernel(cents, pts_ns, True,
                                                    margin), 20)
+    dev = device_ms(lambda: CO.coherent_expert_kernel(cents, pts_ns, True,
+                                                      margin))
     plain_ms = cuda_ms(lambda: CO.coherent_expert_plain(cents, pts_ns, True,
                                                         margin), 3)
-    n_bytes = nbytes(pts_ns, ker)
-    b_ms, b_by = bound(n_bytes, R * S * K * 14)
+    n_bytes, b_ms, b_by = coherent_bound(cents, pts_ns, True, margin)
+    skew, skew_ms, skew_b = coherent_skew_chunk(statics, cents, margin,
+                                                device)
     text = (f"margin {margin:g} at {R}x{S} samples, K={K}: ids equal "
             f"(coherent share {float((ker >= 0).float().mean()):.4f}) "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bytes={n_bytes} "
+            f"kernel_ms={dev:.4f} (the device time; back to back {ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} bytes={n_bytes} (each ray's points up "
+            f"to its first break; all {nbytes(pts_ns, ker)} give "
+            f"{bound(nbytes(pts_ns, ker), R * S * K * 14)[0]:.4f} ms) "
             f"bound_ms={b_ms:.4f} ({b_by}) at {HBM_BYTES_PER_S / 1e12:g} "
-            f"TB/s")
+            f"TB/s; skew chunk (coherent share {skew:.4f}) device_ms="
+            f"{skew_ms:.4f} bound_ms={skew_b:.4f}; plan "
+            f"{lane_plan_text(coherent_plan(R, S))}")
     print(f"kernel coherent_expert: {text}", flush=True)
     results[kernels.COHERENT_EXPERT.name] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=0.0, ms=dev, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, text=text)
     del pts_ns, pts, dirs, ker, pln
+    coherent_edges(device)
 
     # kernel 2 over the union probe grid (a K=1, L=1 stack)
     from nerfsys_tpu_torch.models.occupancy import _ray_validity
@@ -3506,7 +3849,7 @@ def coherent_frames(cfg, statics, params, device):
     without and with the res-128 union grid, via `render_rays_chunked`: one
     warm-up and 3 requests each, the counters zeroed just before them and
     read just after; then the same rays through the bundle's full routed
-    program."""
+    program; one frame without the union grid is profiled."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -3563,6 +3906,11 @@ def coherent_frames(cfg, statics, params, device):
         if not st["n_coherent"] >= 0.5 * rays.shape[0]:
             raise SystemExit(f"coherent: only {st['n_coherent']} coherent "
                              f"rays in the skewed frame")
+        if res == 0:
+            profile_device(f"coherent skew frame (union grid res {res})",
+                           lambda: render_rays_chunked(ren, params, statics,
+                                                       rays, chunk),
+                           watch=(("coherent_expert_kernel",),))
     return total
 
 

@@ -1,5 +1,6 @@
-"""Design experiments on kernel 3 (the inverse-CDF sampler) and 10a-i (the
-bucket dispatch): variants of their CUDA sources, built beside the shipped
+"""Design experiments on kernel 3 (the inverse-CDF sampler), 10a-i (the
+bucket dispatch), 10b (the coherent-expert test) and row 8 (the segment
+compositor): variants of their CUDA sources, built beside the shipped
 libraries and timed through the shipped wrappers at the real shapes.
 
     python3 kernel_ab.py [--rounds 5]
@@ -12,14 +13,17 @@ path are the shipped ones. The cases are `serve_ab.py --phase kernels`'s:
 kernel 3 at the serve chunk (65,536 rays x 32 samples, P=128, shared
 targets) and at one inner step (4,000 rays, per-ray jittered targets),
 10a-i at the serve chunk's 2,097,152 points (K=4, E=1 and 2, cf 1.5) and
-on one chunk of the K=16 arm (196,608 points, E=2). A variant that keeps
-the outputs is first held to the plain version on every case of its
+on one chunk of the K=16 arm (196,608 points, E=2), 10b at the serve
+chunk's and a skew chunk's 65,536 x 32 samples, row 8 at the first
+segment (65,536 x 8) and a resume slice (16,384 x 24). A variant that
+keeps the outputs is first held to the plain version on every case of its
 kernel (the sampler within 1e-5, the dispatch's integer outputs equal and
-its weights within 1e-6 on two calls); a timing-only variant (its outputs
-incomplete) is not. Then `--rounds` rounds time every variant and the
-shipped kernel on every case by device time (chip_smoke's `device_ms`),
-in turn; the script prints each variant's ptxas register count, each
-round, and the median and range per (variant, case).
+its weights within 1e-6 on two calls, 10b's ids equal, row 8 within
+1e-5); a timing-only variant (its outputs incomplete) is not. Then
+`--rounds` rounds time every variant and the shipped kernel on every case
+by device time (chip_smoke's `device_ms`), in turn; the script prints each
+variant's ptxas register count, each round, and the median and range per
+(variant, case).
 """
 from __future__ import annotations
 
@@ -33,8 +37,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # name -> (library stem, timing only, [(shipped text, variant text)], the
-# dispatch's tile for E <= 2 when it differs). "{sms}" in a variant text is
-# the card's SM count.
+# Python side's matching change: {"tile": the dispatch's tile for E <= 2},
+# {"groups": 10b's ray groups a warp} or {"lanes": 10b's lanes a ray at
+# most}, else None).
+# "{sms}" in a variant text is the card's SM count.
 VARIANTS = {
     "3: 16 blocks an SM (the grid before the occupancy cap)": (
         "occ_sample", False,
@@ -57,14 +63,44 @@ VARIANTS = {
     "10a-i: tiles of 256 at E <= 2": (
         "bucket", False,
         [("#define DISPATCH_PPT_E12 8", "#define DISPATCH_PPT_E12 1")],
-        256),
+        {"tile": 256}),
     "10a-i: no rows phase (timing only)": (
         "bucket", True,
         [("for (int p0 = 0; p0 < total; p0 += GATHER) {",
           "for (int p0 = 0; p0 < 0; p0 += GATHER) {")], None),
 }
-KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH"}
-CASES_OF = {"occ_sample": (0, 1), "bucket": (2, 3, 4)}
+VARIANTS.update({
+    f"10b: {g} ray group{'s' if g > 1 else ''} a warp": (
+        "coherent", False,
+        [("#define COHERENT_GROUPS 2", f"#define COHERENT_GROUPS {g}")],
+        {"groups": g})
+    for g in (1, 4, 8)})
+VARIANTS.update({
+    f"10b: pieces of {w} lanes": ("coherent", False, [], {"lanes": w})
+    for w in (4, 16, 32)})
+VARIANTS["8: the carry read first"] = (
+    "composite_seg", False,
+    [("    float T = 1.0f;  // the product of the pieces before",
+      "    float pre[8];  // output q's carry value, by the lane that writes"
+      " it\n#pragma unroll\n    for (int q = 0; q < 8; ++q)\n"
+      "        pre[q] = live && q < (FOG ? 8 : 6) && q != 5 &&\n"
+      "                 (q & (W - 1)) == sl\n"
+      "            ? __ldg(q < 3 ? c_rgb + ray * 3 + q\n"
+      "                    : q == 3 ? c_depth + ray : q == 4 ? c_acc + ray\n"
+      "                    : q == 6 ? c_wmax + ray : c_wlogw + ray)\n"
+      "            : 0.0f;\n"
+      "    float T = 1.0f;  // the product of the pieces before"),
+     ("__ldg(c_rgb + ray * 3) + cr", "pre[0] + cr"),
+     ("__ldg(c_rgb + ray * 3 + 1) + cg", "pre[1] + cg"),
+     ("__ldg(c_rgb + ray * 3 + 2) + cb", "pre[2] + cb"),
+     ("__ldg(c_depth + ray) + depth", "pre[3] + depth"),
+     ("__ldg(c_acc + ray) + acc", "pre[4] + acc"),
+     ("fmaxf(__ldg(c_wmax + ray), wmax)", "fmaxf(pre[6], wmax)"),
+     ("__ldg(c_wlogw + ray) + wlogw", "pre[7] + wlogw")], None)
+KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH",
+             "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG"}
+CASES_OF = {"occ_sample": (0, 1), "bucket": (2, 3, 4), "coherent": (5, 6),
+            "composite_seg": (7, 8)}
 
 
 def build_variants(kernels, sms: int):
@@ -116,8 +152,8 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     device = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    kernels.build_all(("occ_sample", "bucket"))
-    for stem in ("occ_sample", "bucket"):
+    kernels.build_all(tuple(KERNEL_OF))
+    for stem in KERNEL_OF:
         for ln in kernels.build_log.get(stem, "").splitlines():
             if "registers" in ln:
                 print(f"shipped {stem}: {ln.strip()}", flush=True)
@@ -126,13 +162,15 @@ def main() -> int:
         for ln in regs:
             print(f"{name}: {ln}", flush=True)
     torch.manual_seed(cs.SEED)
-    _, statics, _, occ = cs.bench_setup(device)
-    cases = serve_ab.kernel_cases(cs, statics, occ, device)
+    cfg, statics, params, occ = cs.bench_setup(device)
+    cases = serve_ab.kernel_cases(cs, cfg, statics, params, occ, device)
     for case, _, check in cases:  # also loads the shipped entry points
         print(f"shipped / {case}: {check()[0]}", flush=True)
     shipped = {stem: getattr(kernels, k) for stem, k in KERNEL_OF.items()}
     fns = {stem: k._fn for stem, k in shipped.items()}
     shipped_tile = CO.dispatch_tile
+    shipped_10b = {at: getattr(CO, at) for at in ("COHERENT_GROUPS",
+                                                  "COHERENT_LANES")}
 
     def use(name):
         """Swaps variant `name` (None: the shipped kernels) in."""
@@ -140,15 +178,22 @@ def main() -> int:
             k._fn = fns[stem]
         CO.dispatch_tile = shipped_tile
         CO._dispatch_plan.cache_clear()
+        for at, v in shipped_10b.items():
+            setattr(CO, at, v)
         if name is None:
             return
-        stem, _, _, tile = VARIANTS[name]
+        stem, _, _, patch = VARIANTS[name]
         fn = getattr(ctypes.CDLL(str(built[name][0])), shipped[stem].symbol)
         fn.argtypes = shipped[stem].argtypes
         fn.restype = ctypes.c_int
         shipped[stem]._fn = fn
-        if tile is not None:
-            CO.dispatch_tile = lambda e: tile if e <= 2 else shipped_tile(e)
+        if patch and "tile" in patch:
+            CO.dispatch_tile = (lambda e: patch["tile"] if e <= 2
+                                else shipped_tile(e))
+        if patch and "groups" in patch:
+            CO.COHERENT_GROUPS = patch["groups"]
+        if patch and "lanes" in patch:
+            CO.COHERENT_LANES = patch["lanes"]
 
     for name, (stem, timing_only, _, _) in VARIANTS.items():
         if timing_only:

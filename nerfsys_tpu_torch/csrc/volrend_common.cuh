@@ -1,12 +1,15 @@
-// Pieces shared by kernel 4 (volrend.cu) and its VJP (volrend_bwd.cu):
-// the launch plan, a sample as its lane loads it, and the segment scans.
+// Pieces shared by the kernels that put a ray's samples on the lanes of a
+// warp: kernel 4 (volrend.cu), its VJP (volrend_bwd.cu), the segment
+// compositor (row 8, composite_seg.cu) and the coherent-expert test (row
+// 10b, coherent.cu): the launch plans, a sample as kernel 4 loads it, and
+// the segment scans.
 //
-// Both kernels put a ray's samples on `lanes` consecutive lanes of a warp
-// (the power of 2 at or above S, at most 32: 32 / lanes rays a warp at
-// S <= 16, one ray in pieces of 32 with a carry above 32), so the forward
-// and the backward form the transmittance T in the same order: an
-// inclusive product scan of m = 1 - alpha + 1e-10 across the segment,
-// times the product of the pieces before.
+// Each puts a ray's samples on `lanes` consecutive lanes of a warp (the
+// power of 2 at or above S, at most 32: 32 / lanes rays a warp at S <= 16,
+// one ray in pieces of 32 with a carry above 32), so the compositors form
+// the transmittance T in one order: an inclusive product scan of
+// m = 1 - alpha + 1e-10 across the segment, times the product of the
+// pieces before.
 #pragma once
 
 #include "common.cuh"
@@ -19,6 +22,28 @@ struct VolrendPlan {  // ops/volrend.py VolrendLaunchPlan
     int smem;     // dynamic shared bytes: a float per piece and warp
                   // when pieces > 1, else 0
 };
+
+// Rows 8 and 10b: a ray's samples on `lanes` lanes in pieces (any lanes
+// may take pieces), and a warp takes `groups` groups of 32 / lanes rays at
+// once (10b: their loads issued together, their arithmetic interleaved,
+// walked with a grid-stride loop; row 8 takes one group a warp).
+struct RayLanePlan {  // ops/volrend.py RayLaneLaunchPlan
+    int lanes;    // lanes a ray: a power of 2, at most 32
+    int pieces;   // pieces of `lanes` samples a ray: ceil(S / lanes)
+    int groups;   // ray groups a warp takes at once (the kernel's constant)
+    int threads;  // per block, a multiple of 32, at most 256
+    int blocks;
+};
+
+// The checks both entry points make on a RayLanePlan for S samples.
+static inline bool ray_lane_plan_ok(const RayLanePlan& p, int S, int groups) {
+    const int W = p.lanes;
+    return S >= 1 && W >= 1 && W <= 32 && !(W & (W - 1)) && p.pieces >= 1 &&
+           (long long)p.pieces * W >= S &&
+           (long long)(p.pieces - 1) * W < S && p.groups == groups &&
+           p.threads >= 32 && p.threads <= 256 && p.threads % 32 == 0 &&
+           p.blocks >= 1;
+}
 
 // One sample as its lane sees it; past S (or on a dead ray) the identity:
 // alpha 0, m 1.
@@ -68,5 +93,13 @@ __device__ __forceinline__ float seg_sum(float v) {
 #pragma unroll
     for (int d = W >> 1; d > 0; d >>= 1)
         v += __shfl_xor_sync(FULL_MASK, v, d, W);
+    return v;
+}
+
+template <int W>
+__device__ __forceinline__ float seg_max(float v) {
+#pragma unroll
+    for (int d = W >> 1; d > 0; d >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, d, W));
     return v;
 }

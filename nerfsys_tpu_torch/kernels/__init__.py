@@ -275,6 +275,18 @@ class VolrendPlan(ctypes.Structure):
     ]
 
 
+class RayLanePlan(ctypes.Structure):
+    """A launch plan of rows 8 and 10b (csrc/volrend_common.cuh
+    RayLanePlan; filled from ops/volrend.py `RayLaneLaunchPlan`)."""
+    _fields_ = [
+        ("lanes", _I),
+        ("pieces", _I),
+        ("groups", _I),
+        ("threads", _I),
+        ("blocks", _I),
+    ]
+
+
 VOLREND_FWD = Kernel(
     "volume_render_fwd", "volrend", "volume_render_fwd",
     # rgb_sigma, t_vals, bg (nullable), rgb, depth, weights, acc,
@@ -331,8 +343,8 @@ COMPOSITE_SEG = Kernel(
     "composite_segment", "composite_seg", "composite_segment_fwd",
     # carry rgb, depth, acc, trans, wmax, wlogw (the last two nullable),
     # rgb, sigma, t, dt, out rgb, depth, acc, trans, wmax, wlogw (nullable),
-    # N, s, t_stride, d_stride, fog, stream
-    [_P] * 16 + [_I] * 5 + [_P],
+    # N, s, t_stride, d_stride, fog, plan (by value), stream
+    [_P] * 16 + [_I] * 5 + [RayLanePlan, _P],
     replaces="nerfsys_tpu/ops/volrend.py:153 (composite_segment)",
 )
 
@@ -430,8 +442,9 @@ BUCKET_COMBINE_BWD = Kernel(
 )
 COHERENT_EXPERT = Kernel(
     "coherent_expert", "coherent", "coherent_expert",
-    # pts (N, S, 3), centroids, out, N, S, K, cluster_2d, margin, stream
-    [_P] * 3 + [_I] * 4 + [_F, _P],
+    # pts (N, S, 3), centroids, out, N, S, K, cluster_2d, margin, plan (by
+    # value), stream
+    [_P] * 3 + [_I] * 4 + [_F, RayLanePlan, _P],
     replaces="nerfsys_tpu/models/container.py:198 (routing_coherent_expert)",
 )
 

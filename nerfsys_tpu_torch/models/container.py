@@ -46,12 +46,17 @@ from nerfsys_tpu_torch.models.ngp import (
     tree_to,
 )
 from nerfsys_tpu_torch.ops.encodings import sh_encode, sh_out_dim
+from nerfsys_tpu_torch.ops.volrend import ray_lane_struct
 from nerfsys_tpu_torch.utils.device import num_sms, resolve_device
 from nerfsys_tpu_torch.utils.tree import tree_map
 
 Params = Dict
 
 MAX_EXPERTS = 64  # the routing kernels keep the centroids in shared memory
+COHERENT_GROUPS = 2  # csrc/coherent.cu COHERENT_GROUPS: ray groups a warp
+# 10b's lanes a ray at most: pieces of 8 samples let a warp stop early on
+# rays that break, at ~1% on rays that do not (PERF.md, row 10b)
+COHERENT_LANES = 8
 MAX_E = 8  # experts per point the dispatch kernel takes
 DISPATCH_THREADS = 256  # threads a tile of the dispatch, a point a round
 DISPATCH_FILL_THREADS = 256
@@ -197,7 +202,8 @@ def coherent_expert_plain(centroids: torch.Tensor, pts_ns: torch.Tensor,
 def coherent_expert_kernel(centroids: torch.Tensor, pts_ns: torch.Tensor,
                            cluster_2d: bool, margin: float) -> torch.Tensor:
     """Kernel 10b's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `coherent_expert` or raises."""
+    tensors it launches `coherent_expert` (with `ray_lane_plan`'s plan for
+    COHERENT_GROUPS groups a warp) or raises."""
     if pts_ns.device.type == "cpu":
         return coherent_expert_plain(centroids, pts_ns, cluster_2d, margin)
     if pts_ns.device.type != "cuda":
@@ -213,7 +219,10 @@ def coherent_expert_kernel(centroids: torch.Tensor, pts_ns: torch.Tensor,
     out = torch.empty((N,), dtype=torch.int32, device=dev)
     kernels.COHERENT_EXPERT(pts_ns.data_ptr(), centroids.data_ptr(),
                             out.data_ptr(), N, S, K, int(cluster_2d),
-                            float(margin), kernels.stream_ptr(pts_ns))
+                            float(margin),
+                            ray_lane_struct(N, S, COHERENT_GROUPS,
+                                            COHERENT_LANES),
+                            kernels.stream_ptr(pts_ns))
     return out
 
 

@@ -8,7 +8,9 @@ exactly S samples laid out (N, S); empty space is masked by zero sigma.
 
 Kernel row 8 (`csrc/composite_seg.cu`) composites one segment of samples
 into a carried state for the early-stop renderer;
-`composite_segment_plain` is the same function in plain PyTorch.
+`composite_segment_plain` is the same function in plain PyTorch. It takes
+kernel 4's lane map, planned by `ray_lane_plan` (s >= 1), as the
+coherent-expert test (row 10b, models/container.py) does.
 
 Kernel 4 (`csrc/volrend.cu`) is the compositor forward on the card;
 `volume_render_plain` is the same function in plain PyTorch. Gradients go
@@ -164,6 +166,12 @@ class VolrendLaunchPlan:
                                    self.blocks, self.smem)
 
 
+def ray_lanes(s: int) -> int:
+    """Lanes a ray of S samples takes: the power of 2 at or above S, at
+    most 32."""
+    return min(32, 1 << (s - 1).bit_length())
+
+
 def volrend_plan(n: int, s: int, *, backward: bool) -> VolrendLaunchPlan:
     """Kernel 4's (backward=False) or its VJP's plan for N rays of S
     samples: a ray's samples on `lanes` consecutive lanes, so a warp takes
@@ -173,7 +181,7 @@ def volrend_plan(n: int, s: int, *, backward: bool) -> VolrendLaunchPlan:
     name = "volume_render_bwd" if backward else "volume_render"
     if s < 2:
         raise ValueError(f"{name}: S={s}, expected S >= 2")
-    lanes = min(32, 1 << (s - 1).bit_length())
+    lanes = ray_lanes(s)
     pieces = -(-s // lanes)
     warps = VOLREND_THREADS // 32
     smem = 0
@@ -194,6 +202,53 @@ def volrend_plan(n: int, s: int, *, backward: bool) -> VolrendLaunchPlan:
 def _plan_struct(n: int, s: int, backward: bool) -> "kernels.VolrendPlan":
     """`volrend_plan` as the kernels' struct, per shape and direction."""
     return volrend_plan(n, s, backward=backward).as_struct()
+
+
+@dataclasses.dataclass(frozen=True)
+class RayLaneLaunchPlan:
+    """Launch geometry of rows 8 and 10b (csrc/volrend_common.cuh
+    `RayLanePlan`): a ray's samples on `lanes` lanes in `pieces`, and
+    `groups` groups of 32 / lanes rays a warp at once."""
+
+    lanes: int
+    pieces: int
+    groups: int  # the kernel's compile-time constant, checked by its entry
+    threads: int
+    blocks: int  # enough for N rays in one pass
+
+    @property
+    def rays_per_warp(self) -> int:
+        return self.groups * (32 // self.lanes)
+
+    def as_struct(self) -> "kernels.RayLanePlan":
+        return kernels.RayLanePlan(self.lanes, self.pieces, self.groups,
+                                   self.threads, self.blocks)
+
+
+def ray_lane_plan(n: int, s: int, groups: int,
+                  max_lanes: int = 32) -> RayLaneLaunchPlan:
+    """Row 8's or 10b's plan for N rays of s >= 1 samples: kernel 4's lane
+    map with at most `max_lanes` lanes a ray (a power of 2: the power of 2
+    at or above s, capped; a ray longer than its lanes takes pieces),
+    `groups` groups of 32 / lanes rays a warp, 8 warps a block, blocks for
+    one pass."""
+    if s < 1 or groups < 1 or max_lanes not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"ray_lane_plan: s={s}, groups={groups}, max_lanes="
+                         f"{max_lanes}; expected s, groups >= 1 and "
+                         f"max_lanes a power of 2 up to 32")
+    lanes = min(max_lanes, ray_lanes(s))
+    warps = VOLREND_THREADS // 32
+    return RayLaneLaunchPlan(
+        lanes=lanes, pieces=-(-s // lanes), groups=groups,
+        threads=32 * warps,
+        blocks=max(1, -(-n // (warps * groups * (32 // lanes)))))
+
+
+@functools.lru_cache(maxsize=256)
+def ray_lane_struct(n: int, s: int, groups: int,
+                    max_lanes: int = 32) -> "kernels.RayLanePlan":
+    """`ray_lane_plan` as the kernels' struct, per shape."""
+    return ray_lane_plan(n, s, groups, max_lanes).as_struct()
 
 
 def volume_render_bwd_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
@@ -356,7 +411,8 @@ def composite_segment_plain(carry: Carry, rgb: torch.Tensor,
 def composite_segment(carry: Carry, rgb: torch.Tensor, sigma: torch.Tensor,
                       t_seg: torch.Tensor, dists_seg: torch.Tensor) -> Carry:
     """Kernel row 8's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `composite_segment_fwd` or raises. t_seg and
+    tensors it launches `composite_segment_fwd` (with `ray_lane_plan`'s
+    plan, one ray group a warp) or raises. t_seg and
     dists_seg may be column slices of (N, S) tensors (unit column stride):
     the kernel reads them through their row stride. No backward: it raises
     under grad mode with inputs that require grad."""
@@ -376,7 +432,8 @@ def composite_segment(carry: Carry, rgb: torch.Tensor, sigma: torch.Tensor,
     strides = []
     for name, t in (("t_seg", t_seg), ("dists_seg", dists_seg)):
         if (tuple(t.shape) != (N, s) or t.device != dev
-                or t.dtype != torch.float32 or (s > 1 and t.stride(1) != 1)
+                or t.dtype != torch.float32
+                or (N > 0 and s > 1 and t.stride(1) != 1)
                 or (N > 1 and t.stride(0) < s)):
             raise ValueError(f"composite_segment: {name} must be a float32 "
                              f"(N, s) tensor on {dev} with unit column "
@@ -401,7 +458,7 @@ def composite_segment(carry: Carry, rgb: torch.Tensor, sigma: torch.Tensor,
         out["rgb"].data_ptr(), out["depth"].data_ptr(),
         out["acc"].data_ptr(), out["trans"].data_ptr(), ptr("wmax", out),
         ptr("wlogw", out), N, s, strides[0], strides[1], int(fog),
-        kernels.stream_ptr(rgb))
+        ray_lane_struct(N, s, 1), kernels.stream_ptr(rgb))
     return out
 
 

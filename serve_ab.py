@@ -32,13 +32,20 @@ at the serve chunk (65,536 rays x 32 samples of the bench probe's cdf,
 shared targets) and at one inner step (4,000 rays, jittered targets from
 a fixed seed), and 10a-i (the bucket dispatch) at the serve chunk's
 2,097,152 points (K=4, top-1 and top-2, cf 1.5) and on one chunk of the
-K=16 arm (196,608 points, top-2): each case's device time (chip_smoke's
-`device_ms`) and back-to-back time; before the rounds each worker holds
-every case against its plain version (the sampler within 1e-5, the
-dispatch's integer outputs equal and its weights within 1e-6 on two
-successive calls) and profiles ten dispatch calls (device time by kernel
-launch). A worker waits on its pipe between rounds, so one runs at a
-time.
+K=16 arm (196,608 points, top-2), 10b (the coherent-expert test, K=4,
+margin 1.1, cluster_2d) on the serve chunk's 65,536 x 32 samples and on
+the first chunk of the skew-0.9 frame's (the coherent renderer's probe
+samples), and row 8 (the segment compositor) on the serve chunk's first
+segment (65,536 x 8, the bench probe's samples through the field, t and
+dt column slices) and on a resume slice (16,384 x 24): each case's device
+time (chip_smoke's `device_ms`) and back-to-back time; before the rounds
+each worker holds every case against its plain version (the sampler
+within 1e-5, the dispatch's integer outputs equal and its weights within
+1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5); then,
+one side after the other, each profiles ten dispatch calls (device time
+by kernel launch), one soft early-stop frame at sigma_scale 1 and one
+coherent skew frame (hash experts), watching rows 8 and 10b. A worker
+waits on its pipe between rounds, so one runs at a time.
 
 Prints every round, then for each side the median, quartiles and range of
 the round means; the difference of the medians against the other side's
@@ -82,7 +89,7 @@ def worker(root: Path, experts: str, phase: str, exact: bool,
     if phase == "step":
         return step_rounds(cs, cfg, statics, params, occ, device, root)
     if phase == "kernels":
-        return kernel_rounds(cs, statics, occ, device, root)
+        return kernel_rounds(cs, cfg, statics, params, occ, device, root)
     return frame_rounds(cs, cfg, statics, params, occ, device)
 
 
@@ -161,10 +168,53 @@ def step_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
 
 
 KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
-                "dispatch K=4 E=2", "dispatch K=16 E=2")
+                "dispatch K=4 E=2", "dispatch K=16 E=2", "coherent chunk",
+                "coherent skew chunk", "composite first segment",
+                "composite resume slice")
 
 
-def kernel_cases(cs, statics, occ, device):
+def segment_inputs(cs, cfg, statics, params, occ, rays, device):
+    """Row 8's inputs as chip_smoke's `check_segment_kernel` makes them at
+    sigma_scale 1: the bench probe's samples of the serve chunk through the
+    field, the first segment (fresh carry; t and dt column slices of the
+    (N, 32) arrays) and the resume slice of the first 16,384 rays (their
+    carry after the first segment)."""
+    import torch
+
+    from nerfsys_tpu_torch.models.container import container_apply
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.ops.activations import clip
+
+    S, s1 = 32, cs.ES_SEG
+    N, cap = rays.shape[0], rays.shape[0] // 4
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    valid, near, far = _ray_validity(rays)
+    cdf = O.occupancy_probe_cdf(occ["occs"], occ["binary"],
+                                statics.expert_aabbs, o, d, near, far, 128,
+                                importance=True, ray_floor=0.25)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S)
+    dists = V.full_dists(t_vals)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    with torch.no_grad():
+        rgb, sigma = container_apply(params, cfg, statics, pts,
+                                     d[:, None, :].expand(N, S, 3)
+                                     .reshape(-1, 3))
+    rgb = clip(rgb.reshape(N, S, 3), 0.0, 1.0)
+    sigma = torch.clamp(torch.where(valid[:, None], sigma.reshape(N, S),
+                                    0.0), min=0.0)
+    first = (V.composite_init(N, device=device), rgb[:, :s1].contiguous(),
+             sigma[:, :s1].contiguous(), t_vals[:, :s1], dists[:, :s1])
+    carry = V.composite_segment_plain(*first)
+    ids = torch.arange(cap, device=device)
+    rest = ({k: v.index_select(0, ids) for k, v in carry.items()},
+            rgb[:cap, s1:].contiguous(), sigma[:cap, s1:].contiguous(),
+            t_vals[:cap, s1:], dists[:cap, s1:])
+    return first, rest
+
+
+def kernel_cases(cs, cfg, statics, params, occ, device):
     """(name, call, check) of the `--phase kernels` cases: the call
     launches the checkout's kernel, the check holds it against its plain
     version (raising on a disagreement) and returns a text and a sum of
@@ -173,8 +223,12 @@ def kernel_cases(cs, statics, occ, device):
 
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
     from nerfsys_tpu_torch.models import container as CO
-    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.models.occupancy import (
+        _ray_validity,
+        occ_sample_positions,
+    )
     from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
 
     md = cs.pose((0.0, 0.0, 2.0))
     rays_np, _ = frame_rays(md.H, md.W, md.intrinsics, md.c2w,
@@ -213,6 +267,37 @@ def kernel_cases(cs, statics, occ, device):
             return f"max_abs_err={err:.3e}", float(got.double().sum())
         return (lambda: O.sample_tvals_kernel(*args)), check
 
+    skew = torch.from_numpy(cs.skew_frame(cs.SIDE * cs.SIDE)[
+        :cs.CHECK_RAYS]).to(device)
+    skew_pts = occ_sample_positions(cs.full_occ(device), statics, skew, 32,
+                                    importance=True,
+                                    hard_mask=False)[0].contiguous()
+    segments = segment_inputs(cs, cfg, statics, params, occ, rays, device)
+
+    def coherent(pts_ns):
+        args = (cents, pts_ns, True, 1.1)
+
+        def check():
+            got = CO.coherent_expert_kernel(*args)
+            differ = int((got != CO.coherent_expert_plain(*args)).sum())
+            if differ:
+                raise SystemExit(f"serve_ab: 10b: {differ} ids differ")
+            return (f"ids equal, coherent share "
+                    f"{float((got >= 0).float().mean()):.4f}",
+                    float(got.double().sum()))
+        return (lambda: CO.coherent_expert_kernel(*args)), check
+
+    def composite(args):
+        def check():
+            got = V.composite_segment(*args)
+            want = V.composite_segment_plain(*args)
+            err = max(cs.max_err(got[k], want[k]) for k in want)
+            if not err <= 1e-5:
+                raise SystemExit(f"serve_ab: row 8 error {err}")
+            return (f"max_abs_err={err:.3e}",
+                    float(sum(v.double().sum() for v in got.values())))
+        return (lambda: V.composite_segment(*args)), check
+
     def dispatch(args):
         def check():
             outs = [CO.bucket_dispatch_kernel(*args) for _ in range(2)]
@@ -236,22 +321,72 @@ def kernel_cases(cs, statics, occ, device):
             (KERNEL_CASES[3], *dispatch((pts, dirs, cents, True, 1.1, 2,
                                          CO.bucket_capacity(
                                              pts.shape[0], 4, 2, cs.MOE_CF)))),
-            (KERNEL_CASES[4], *dispatch(k16))]
+            (KERNEL_CASES[4], *dispatch(k16)),
+            (KERNEL_CASES[5], *coherent(pts_ns)),
+            (KERNEL_CASES[6], *coherent(skew_pts)),
+            (KERNEL_CASES[7], *composite(segments[0])),
+            (KERNEL_CASES[8], *composite(segments[1]))]
 
 
-def kernel_rounds(cs, statics, occ, device, root: Path) -> int:
-    cases = kernel_cases(cs, statics, occ, device)
+def profile_frames(cs, cfg, statics, params, occ, device, root: Path):
+    """One profiled frame a side, after a warm-up: the soft early-stop
+    renderer at sigma_scale 1 (chip_smoke's first pose; row 8) and the
+    coherent renderer on the skew-0.9 frame with the hash experts
+    (chip_smoke's `coherent_frames` without the union grid; 10b)."""
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        make_chunk_renderer,
+        make_coherent_renderer,
+        render_image,
+        render_rays_chunked,
+    )
+
+    S, chunk = 32, cs.CHUNK or cs.CHECK_RAYS
+    aabb = statics.global_aabb.cpu().numpy()
+    md = cs.pose((0.0, 0.0, 2.0))
+    ren = make_chunk_renderer(cfg, ray_samples=S, occ_state=occ,
+                              occ_importance=True, occ_hard_mask=False,
+                              early_stop_eps=cs.ES_EPS, sigma_scale=1.0,
+                              device=device)
+
+    def frame():
+        render_image(ren, params, statics, md, scene_aabb=aabb,
+                     chunk_rays=chunk)
+
+    frame()
+    cs.profile_device(f"{root} early-stop frame (soft, sigma_scale=1)",
+                      frame, watch=(("composite_segment_kernel",),))
+    hcfg, hparams = cs.hash_setup(device)
+    coh = make_coherent_renderer(hcfg, ray_samples=S,
+                                 occ_state=cs.full_occ(device),
+                                 occ_importance=True, occ_hard_mask=False,
+                                 device=device)
+    rays = cs.skew_frame(cs.SIDE * cs.SIDE)
+
+    def skew():
+        render_rays_chunked(coh, hparams, statics, rays, chunk)
+
+    skew()
+    cs.profile_device(f"{root} coherent skew frame", skew,
+                      watch=(("coherent_expert_kernel",),))
+
+
+def kernel_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
+    cases = kernel_cases(cs, cfg, statics, params, occ, device)
     check = 0.0
     for name, call, check_fn in cases:
         text, total = check_fn()
         check += total
         print(f"{root} {name}: {text}", flush=True)
-    for name, call, _ in cases[2:]:
-        cs.profile_device(f"{root} {name}, 10 calls",
-                          lambda: [call() for _ in range(10)],
-                          watch=(("bucket",), ("Memset",)))
     print(json.dumps({"ready": "kernels"}), flush=True)
     for line in sys.stdin:
+        if line.strip() == "profile":  # one side at a time
+            for name, call, _ in cases[2:5]:
+                cs.profile_device(f"{root} {name}, 10 calls",
+                                  lambda: [call() for _ in range(10)],
+                                  watch=(("bucket",), ("Memset",)))
+            profile_frames(cs, cfg, statics, params, occ, device, root)
+            print(json.dumps({"profiled": True}), flush=True)
+            continue
         if line.strip() != "run":
             break
         ms = [cs.device_ms(call) for _, call, _ in cases]
@@ -347,6 +482,11 @@ def main() -> int:
     try:
         for name in SIDES:
             _reply(procs[name])
+        if args.phase == "kernels":
+            for name in SIDES:
+                procs[name].stdin.write("profile\n")
+                procs[name].stdin.flush()
+                _reply(procs[name])
         rounds = {name: [] for name in SIDES}
         for i in range(args.pairs):
             for name in (SIDES if i % 2 == 0 else SIDES[::-1]):
