@@ -52,7 +52,19 @@ printing its result lines):
    `render_image`. Every output must be finite with rgb and acc in [0, 1],
    every serving kernel's launch counter must have moved during the 3
    requests, and one chunk rendered through the kernels must match the
-   same chunk rendered through the plain versions.
+   same chunk rendered through the plain versions. Camera: the live
+   camera renderer (`make_live_camera_renderer`: rays generated on the
+   card, every chunk dispatched before the one fetch) with the same
+   settings renders one warm-up and 3 uint8 800x800 frames of the same
+   poses (kernels 1-4 must launch during them), and `render_image` the
+   same poses; both wall times per frame and one profiled frame of each
+   (device busy ms, idle share); each pose's float planes against
+   render_image's outputs within the serve tolerances, with at most 0.5%
+   of the rays beyond them (the two generate their rays apart, an ulp from
+   a cell wall a probe can take the other cell); the uint8 frame against the
+   camera renderer's plain path within 1 level in >= 99.9% of the pixels;
+   one hard-mask frame and one with the res-128 union probe grid against
+   render_image through the chunk renderer of the same mode.
 5. Early stop: kernel row 8 (segmented compositing with a carried
    transmittance) against its plain version at one serve chunk's first
    segment (65,536 rays x 8 samples, fresh carry) and one resume slice
@@ -103,7 +115,17 @@ printing its result lines):
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one light and one exact
    step are profiled (device busy ms, idle share, kernel 6's launches x
-   ms).
+   ms). Occupancy: fresh K=4 grids at the reference's defaults (R=128,
+   L=4) premarked from a ring of 8 bench cameras, one warmup update
+   (every cell) and one subset update after warmup through
+   `make_occ_update_fn` (kernel 1 launched), each timed to a synchronize
+   and held against the same update through the plain versions with the
+   same draws (occs within 1e-6 of their max, binary flips at most 1e-6
+   of the cells); then one hard-mask FoMAML bench step
+   (`occ_hard_mask=True`, the default of `MetaConfig()`): kernels 1-5
+   launched, its gradients against the plain step within 2^-8 of each
+   leaf's max, one step profiled with the device time of the hard mask's
+   point queries (a profiler range around each) beside its busy time.
 8. Hash: the runner's default experts (`container_config_from_args` with
    the flag defaults: K=4 Instant-NGP experts, hash L=16 F=2
    log2_hashmap_size 20, 16-4096, Linear, floor layout, fp32; 512 MiB of
@@ -138,7 +160,11 @@ printing its result lines):
    top-4, N off whole tiles and below one tile, both routing subspaces,
    3-wide rows, K = 1, 16, 64), 10a-ii / 10a-iii (the
    blend and its transpose, within 1e-6 of the output's max, with
-   `embedding_bag` timed beside the blend), 10b (`coherent_expert`, ids
+   `embedding_bag` timed beside the blend; 10a-iii also on one chunk of
+   the K=16 arm and on adversarial inputs, `edge bucket_combine_bwd`
+   lines: E=1 and 8, hard routing, an empty bucket, an overflowing one,
+   N off whole tiles, below one tile and a single point, no rgb, K=64;
+   equal to the plain version expected, tol 1e-6), 10b (`coherent_expert`, ids
    equal; device and back-to-back times, its bound counting each ray's
    points up to its first break; the skew frame's first chunk too; and
    `edge coherent_expert` lines: K = 1, 2, 4, 16, 64, S = 1, 2, 8, 31,
@@ -167,6 +193,7 @@ It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1431,10 +1458,15 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
                          f"the plain path")
 
 
-def profile_device(label: str, fn, extra: str = "", watch=()) -> None:
+def profile_device(label: str, fn, extra: str = "", watch=(),
+                   ranges=None) -> float:
     """Where one call's time goes: device time by kernel under
     torch.profiler, the device busy share of the (profiled) wall time;
-    also the rows whose names contain every word of one `watch` entry."""
+    also the rows whose names contain every word of one `watch` entry.
+    `ranges`: a dict whose keys name torch.profiler.record_function ranges
+    opened inside fn (`named_range`); each value is set to (calls, device
+    ms of the kernels launched inside them). Returns the device busy ms (0
+    when the profiler saw no device events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1445,10 +1477,11 @@ def profile_device(label: str, fn, extra: str = "", watch=()) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    names = set(ranges or ())
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue  # host-side ops carry their kernels' time too
+        if ev.device_type != DeviceType.CUDA or ev.key in names:
+            continue  # host-side ops and ranges carry their kernels' time too
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -1456,6 +1489,12 @@ def profile_device(label: str, fn, extra: str = "", watch=()) -> None:
             rows.append((dev_us / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    for name in names:
+        evs = [ev for ev in prof.events()
+               if ev.name == name and ev.device_type == DeviceType.CPU]
+        dev_us = sum(ev.device_time_total if hasattr(ev, "device_time_total")
+                     else ev.cuda_time_total for ev in evs)
+        ranges[name] = (len(evs), dev_us / 1e3)
     if busy_ms > 0:
         print(f"profile: {label} wall_ms={wall_ms:.2f} (profiled) "
               f"device_busy_ms={busy_ms:.2f} "
@@ -1476,6 +1515,27 @@ def profile_device(label: str, fn, extra: str = "", watch=()) -> None:
         print(f"profile: device time not measured (the profiler saw no "
               f"device events); {label} wall_ms={wall_ms:.2f}{extra}",
               flush=True)
+    return busy_ms
+
+
+@contextlib.contextmanager
+def named_range(module, attr: str, name: str):
+    """While the block runs, every call of `module.attr` opens the
+    torch.profiler.record_function range `name`, so that a profile sums
+    the device time of the kernels launched inside those calls."""
+    import torch
+
+    fn = getattr(module, attr)
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+
+    setattr(module, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
 
 
 def exact_backward(cfg):
@@ -1566,6 +1626,169 @@ def train(cfg, statics, params, occ, batch, device, label="train",
     return light, launches
 
 
+OCC_RING = 8  # training cameras of the premark
+OCC_LIGHT_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
+                     "sample_tvals_from_cdf", "volume_render_fwd",
+                     "volume_render_bwd", "plane_encode_bwd_light")
+
+
+def ring_cameras(n: int, device):
+    """n bench cameras (800x800, focal 0.8 W, serve()'s intrinsics) on a
+    ring of radius 4 around the bench scene at height 2, each looking at
+    the origin (RUB: the camera's -z axis points at it) -> c2ws (n, 3, 4),
+    intrinsics (n, 4), wh (n, 2) on `device`."""
+    import numpy as np
+    import torch
+
+    c2ws = []
+    for a in np.linspace(0.0, 2.0 * np.pi, n, endpoint=False):
+        eye = np.array([4.0 * np.cos(a), 4.0 * np.sin(a), 2.0])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        c2ws.append(np.stack([right, np.cross(right, fwd), -fwd, eye], 1))
+    md = pose((0.0, 0.0, 0.0))
+    intr = np.tile(md.intrinsics, (n, 1))
+    wh = np.tile([float(md.W), float(md.H)], (n, 1))
+    return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
+                              device=device) for a in (c2ws, intr, wh))
+
+
+def updates_match(label, got, want):
+    """An occupancy update through the kernels against the same update
+    (same draws) through the plain versions: occs within 1e-6 of their
+    max; binary flips (cells within the field's rounding of the
+    threshold) listed, at most 1e-6 of the cells (33 at K=4 R=128 L=4).
+    Read on the H100 80GB HBM3 at 700 W: err/max 4.7e-10, 3 and 1 cells
+    flipped."""
+    err = rel_err(got["occs"], want["occs"])
+    flips = int((got["binary"] != want["binary"]).sum())
+    share = flips / got["binary"].numel()
+    print(f"occupancy: {label} through kernels vs plain (the same draws): "
+          f"occs err/max {err:.3e} (tol 1e-6) binary flips {flips} (share "
+          f"{share:.3e}, at most 1e-6: cells at the threshold)", flush=True)
+    if not err <= 1e-6 or share > 1e-6:
+        raise SystemExit(f"occupancy: {label} disagrees with the plain path")
+
+
+def occupancy(cfg, statics, params, occ, batch, device):
+    """Phase: the occupancy grid's lifecycle and hard-mask training at
+    bench width. The counters are zeroed just before and read just after
+    the kernel path's work (the plain references launch nothing): premark
+    K=4 fresh grids (R=128, L=4, the reference's OccGridConfig defaults)
+    from a ring of 8 bench cameras; one warmup update (every cell) and
+    one subset update after warmup (every second cell), each timed to a
+    synchronize and held against `make_occ_update_fn(...,
+    use_kernels=False)` with the same draws; then one hard-mask FoMAML
+    bench step (`occ_hard_mask=True`, ray_floor 0) on the bench grids,
+    its gradients held against `make_train_step(..., use_kernels=False)`
+    within 2^-8 of each leaf's max, and one step profiled with the device
+    time of the hard mask's point queries (`query_binary` in
+    `render_rays_occ_field`, plain torch, one a sample; a profiler range
+    around each call) beside the step's device busy time."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models import occupancy as MO
+    from nerfsys_tpu_torch.models.container import param_group_labels
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops.occupancy import OccGridConfig, init_occ_state
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+    from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
+
+    t_phase = time.perf_counter()
+    ocfg = OccGridConfig()
+    K = statics.centroids.shape[0]
+    cams = ring_cameras(OCC_RING, device)
+    upd = MO.make_occ_update_fn(cfg, ocfg)
+    plain = MO.make_occ_update_fn(cfg, ocfg, use_kernels=False)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = MO.premark_invisible_expert_cells(
+        init_occ_state(ocfg, K, device=device), statics, ocfg, *cams)
+    torch.cuda.synchronize()
+    premark_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = upd(state, params, statics, 0, gen(21))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sub = upd(warm, params, statics, ocfg.warmup_steps, gen(22))
+    torch.cuda.synchronize()
+    sub_s = time.perf_counter() - t0
+    upd_launches = kernels.launches()
+    if upd_launches["plane_encode_fwd"] <= 0:
+        raise SystemExit("occupancy: the update never launched kernel 1")
+    n_cells = state["occs"].numel()
+    print(f"occupancy: premark of K={K} grids (R={ocfg.resolution} "
+          f"L={ocfg.levels}, {n_cells} cells) from {OCC_RING} cameras "
+          f"{premark_s:.3f} s, invisible share "
+          f"{float((state['occs'] < 0).float().mean()):.4f}; warmup update "
+          f"({n_cells} field evaluations) {warm_s:.3f} s, occupied share "
+          f"{float(warm['binary'].float().mean()):.4f}; subset update "
+          f"(every second cell) {sub_s:.3f} s, occupied share "
+          f"{float(sub['binary'].float().mean()):.4f}; num_updates "
+          f"{int(sub['num_updates'])}; launches {upd_launches}", flush=True)
+    updates_match("warmup update", warm, plain(state, params, statics, 0,
+                                               gen(21)))
+    updates_match("subset update", sub, plain(warm, params, statics,
+                                              ocfg.warmup_steps, gen(22)))
+    del state, warm, sub
+    torch.cuda.empty_cache()
+
+    meta = dataclasses.replace(train_meta(), occ_hard_mask=True)
+    opt = build_optimizer(OptimConfig(outer_steps=10000),
+                          param_group_labels(params))
+    step = make_train_step(meta, cfg, opt)
+    g = gen(23)
+    st = opt.init(params)
+    float(step(params, st, statics, batch, g, occ)[2]["loss_out"])  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    _, _, aux = step(params, st, statics, batch, g, occ)
+    loss = float(aux["loss_out"])
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    step_launches = kernels.launches()
+    if loss != loss or float(aux["skipped_nonfinite"]):
+        raise SystemExit("occupancy: hard-mask step not finite")
+    for k in OCC_LIGHT_KERNELS:
+        if step_launches[k] <= 0:
+            raise SystemExit(f"occupancy: hard-mask step never launched {k}")
+    print(f"occupancy: hard-mask FoMAML step (K={TRAIN_K} B={TRAIN_B} "
+          f"S={TRAIN_S} Q={TRAIN_Q} inner={TRAIN_INNER}, ray_floor 0) "
+          f"ms={step_ms:.2f} loss_out={loss:.6f} launches {step_launches}",
+          flush=True)
+    grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
+                              device, "occupancy hard-mask step")
+    query = {"hard_mask_point_query": None}
+    with named_range(O, "query_binary", "hard_mask_point_query"):
+        busy = profile_device("occupancy hard-mask step", lambda: float(
+            step(params, st, statics, batch, g, occ)[2]["loss_out"]),
+            watch=(("index_elementwise",), ("volume_render_bwd_kernel",),
+                   ("sample_tvals_kernel",)), ranges=query)
+    calls, q_ms = query["hard_mask_point_query"]
+    n_renders = TRAIN_K * TRAIN_B * (TRAIN_INNER + 1)
+    if calls < n_renders:
+        raise SystemExit(f"occupancy: {calls} point queries in the profiled "
+                         f"step, at least {n_renders} expected (a render)")
+    print(f"occupancy: the hard mask's point queries (query_binary, plain "
+          f"torch) in the profiled step: {calls} calls, device ms "
+          f"{q_ms:.2f}, share {q_ms / busy if busy else float('nan'):.3f} "
+          f"of the step's device busy {busy:.2f} ms; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: upd_launches[k] + step_launches[k] for k in upd_launches}
+
+
 def profile_frame(renderer, params, statics, md, aabb, chunk,
                   label="frame"):
     """Where one served frame's time goes: host ray generation, and the
@@ -1587,14 +1810,16 @@ def profile_frame(renderer, params, statics, md, aabb, chunk,
 
 SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
                  "sample_tvals_from_cdf", "volume_render_fwd")
+SERVE_POSES = ((0.0, 0.0, 2.0), (0.1, 0.0, 2.0), (0.0, -0.1, 2.1))
 
 
-def chunk_matches_plain(label, got, ref, flip_share=0.0):
+def chunk_matches_plain(label, got, ref, flip_share=0.0,
+                        what="kernels vs plain on one chunk"):
     """One served chunk (rgb, depth, acc) through the kernels against the
-    same chunk through the plain versions. flip_share: the share of rays
-    allowed outside the tolerance, for hard-mask chunks, where a sample
-    moved by an ulp across the exact occupancy boundary gains or loses
-    its whole sigma."""
+    same chunk through the plain versions (or `what` else). flip_share:
+    the share of rays allowed outside the tolerance, for hard-mask chunks,
+    where a sample moved by an ulp across the exact occupancy boundary
+    gains or loses its whole sigma."""
     rgb, depth, acc = (g.double() - r.double() for g, r in zip(got, ref))
     bad = ((rgb.abs() > 1e-4).any(dim=1) | (acc.abs() > 1e-4)
            | (depth.abs() > 1e-3))
@@ -1603,15 +1828,14 @@ def chunk_matches_plain(label, got, ref, flip_share=0.0):
     errs = [float(x[ok].abs().max()) if bool(ok.any()) else 0.0
             for x in (rgb, depth, acc)]
     worst = [float(x.abs().max()) for x in (rgb, depth, acc)]
-    print(f"{label}: kernels vs plain on one chunk: rgb {errs[0]:.3e} "
+    print(f"{label}: {what}: rgb {errs[0]:.3e} "
           f"depth {errs[1]:.3e} acc {errs[2]:.3e} (tol rgb/acc 1e-4, depth "
           f"1e-3: encoder and cdf rounding move t by ulps through the "
           f"MLPs) on {n - n_bad} of {n} rays; {n_bad} rays beyond (allowed "
           f"{int(flip_share * n)}), worst rgb {worst[0]:.3e} depth "
           f"{worst[1]:.3e} acc {worst[2]:.3e}", flush=True)
     if n_bad > flip_share * n:
-        raise SystemExit(f"{label}: kernel path disagrees with the plain "
-                         f"path")
+        raise SystemExit(f"{label}: {what}: the two disagree")
 
 
 def serve(cfg, statics, params, occ, device, label="serve",
@@ -1635,8 +1859,7 @@ def serve(cfg, statics, params, occ, device, label="serve",
     renderer = make_chunk_renderer(cfg, ray_samples=S, occ_state=occ,
                                    occ_importance=True, occ_hard_mask=False,
                                    device=device)
-    poses = [pose((0.0, 0.0, 2.0)), pose((0.1, 0.0, 2.0)),
-             pose((0.0, -0.1, 2.1))]
+    poses = [pose(x) for x in SERVE_POSES]
     render_image(renderer, params, statics, poses[0], scene_aabb=aabb,
                  chunk_rays=chunk)  # warm-up
     torch.cuda.synchronize()
@@ -1678,6 +1901,158 @@ def serve(cfg, statics, params, occ, device, label="serve",
           f"mean_ms={sum(ms) / 3:.2f} rays_per_s={n / (sum(times) / 3):.1f} "
           f"chunk_rays={chunk} mean_rgb={float(rgb.mean()):.4f} "
           f"mean_acc={float(acc.mean()):.4f}", flush=True)
+    return launches
+
+
+# the share of rays allowed beyond the serve tolerances when two renders
+# generate their rays apart (the camera renderer on the card, render_image
+# with numpy): a probe point an ulp from a cell wall can take the other
+# cell, which moves a soft ray's samples and adds or drops a hard-mask
+# sample's sigma. Read on the H100 80GB HBM3 at 700 W: 705-805 of 640,000
+# rays beyond in soft frames (0.11-0.13%), 987 in the hard-mask frame
+# (0.15%), 0 with the union grid; 0.5% leaves 3x room over the worst
+CAMERA_FLIP = 0.005
+
+
+def planes_of(out):
+    """Stacked (H*W, 5) planes -> (rgb, depth, acc) tensors."""
+    import torch
+
+    a = torch.from_numpy(out)
+    return a[:, 0:3], a[:, 3], a[:, 4]
+
+
+def frame_of(rgb, depth, acc):
+    """render_image's (H, W, ...) arrays -> (rgb, depth, acc) tensors."""
+    import torch
+
+    return (torch.from_numpy(rgb.reshape(-1, 3)),
+            torch.from_numpy(depth.reshape(-1)),
+            torch.from_numpy(acc.reshape(-1)))
+
+
+def u8_within_one(label, got, want) -> float:
+    """The share of pixels whose uint8 channels lie within 1 level."""
+    import numpy as np
+
+    ok = (np.abs(got.astype(np.int16) - want.astype(np.int16)) <= 1).all(
+        axis=-1)
+    share = float(ok.mean())
+    print(f"{label}: uint8 frames within 1 level in {share:.6f} of the "
+          f"pixels", flush=True)
+    return share
+
+
+def camera(cfg, statics, params, occ, device):
+    """Phase: the live camera renderer (`make_live_camera_renderer`, rays
+    generated on the card, every chunk dispatched before the one fetch)
+    with serve()'s settings (soft occupancy, importance, S=32, 65,536-ray
+    chunks): one warm-up and 3 uint8 800x800 frames of serve()'s poses,
+    the counters zeroed just before them and read just after (kernels 1-4
+    must launch); the same poses through `render_image` (numpy rays on the
+    host); wall ms per frame of both and one profiled frame of each. The
+    float planes (out_u8=False) of each pose against render_image's
+    outputs within the serve tolerances under CAMERA_FLIP; the uint8 frame
+    against the camera renderer's plain path (use_kernels=False, the same
+    rays) within 1 level in >= 99.9% of the pixels; one hard-mask frame
+    and one with the res-128 union probe grid against render_image through
+    the chunk renderer of the same mode."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        default_chunk_rays,
+        make_chunk_renderer,
+        make_live_camera_renderer,
+        render_image,
+    )
+
+    t_phase = time.perf_counter()
+    S = 32
+    chunk = CHUNK or default_chunk_rays(S)
+    aabb = statics.global_aabb.cpu().numpy()
+    soft = dict(occ_state=occ, occ_importance=True, occ_hard_mask=False)
+    cam_kw = dict(H=SIDE, W=SIDE, ray_samples=S, chunk_rays=chunk,
+                  scene_aabb=aabb, device=device)
+    cam8 = make_live_camera_renderer(cfg, **cam_kw, **soft)
+    poses = [pose(x) for x in SERVE_POSES]
+    cam8(params, statics, poses[0].c2w, poses[0].intrinsics)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    cam_ms, frames = [], []
+    for md in poses:
+        t0 = time.perf_counter()
+        frames.append(cam8(params, statics, md.c2w, md.intrinsics))
+        cam_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = kernels.launches()
+    print(f"camera: launches during 3 requests {launches}", flush=True)
+    for k in SERVE_KERNELS:
+        if launches[k] <= 0:
+            raise SystemExit(f"camera: kernel {k} never launched")
+    for img in frames:
+        if img.dtype.name != "uint8" or img.shape != (SIDE, SIDE, 3):
+            raise SystemExit(f"camera: frame {img.dtype} {img.shape}")
+
+    ren = make_chunk_renderer(cfg, ray_samples=S, device=device, **soft)
+    render_image(ren, params, statics, poses[0], scene_aabb=aabb,
+                 chunk_rays=chunk)  # warm-up
+    ri_ms, refs = [], []
+    for md in poses:
+        t0 = time.perf_counter()
+        refs.append(render_image(ren, params, statics, md, scene_aabb=aabb,
+                                 chunk_rays=chunk))
+        ri_ms.append(1e3 * (time.perf_counter() - t0))
+
+    camf = make_live_camera_renderer(cfg, **cam_kw, out_u8=False, **soft)
+    for i, md in enumerate(poses):
+        planes = camf(params, statics, md.c2w, md.intrinsics)
+        check_frame("camera", planes[:, 0:3].reshape(SIDE, SIDE, 3),
+                    planes[:, 3], planes[:, 4], (SIDE, SIDE, 3))
+        chunk_matches_plain(f"camera pose {i}", planes_of(planes),
+                            frame_of(*refs[i]), CAMERA_FLIP,
+                            "camera frame vs render_image")
+    plain8 = make_live_camera_renderer(cfg, **cam_kw, use_kernels=False,
+                                       **soft)(params, statics,
+                                               poses[0].c2w,
+                                               poses[0].intrinsics)
+    if u8_within_one("camera vs its plain path", frames[0], plain8) < 0.999:
+        raise SystemExit("camera: uint8 frame disagrees with the plain path")
+    import numpy as np
+
+    ri8 = np.clip(refs[0][0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    u8_within_one("camera vs render_image", frames[0], ri8)
+
+    for label, kw in (("hard mask", dict(occ_state=occ, occ_importance=True,
+                                         occ_hard_mask=True)),
+                      (f"union grid res {UNION_RES}",
+                       dict(soft, occ_probe_grid_res=UNION_RES))):
+        cam_x = make_live_camera_renderer(cfg, **cam_kw, out_u8=False, **kw)
+        cam_x(params, statics, poses[0].c2w, poses[0].intrinsics)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes = cam_x(params, statics, poses[0].c2w, poses[0].intrinsics)
+        x_ms = 1e3 * (time.perf_counter() - t0)
+        ren_x = make_chunk_renderer(cfg, ray_samples=S, device=device, **kw)
+        ref = render_image(ren_x, params, statics, poses[0],
+                           scene_aabb=aabb, chunk_rays=chunk)
+        print(f"camera {label}: frame ms={x_ms:.2f} mean_acc="
+              f"{float(planes[:, 4].mean()):.4f}", flush=True)
+        chunk_matches_plain(f"camera {label}", planes_of(planes),
+                            frame_of(*ref), CAMERA_FLIP,
+                            "camera frame vs render_image")
+
+    cam_busy = profile_device("camera frame", lambda: cam8(
+        params, statics, poses[0].c2w, poses[0].intrinsics))
+    ri_busy = profile_device("camera render_image frame", lambda: render_image(
+        ren, params, statics, poses[0], scene_aabb=aabb, chunk_rays=chunk))
+    print(f"camera: {SIDE}x{SIDE} uint8 frames ms="
+          f"{[round(x, 2) for x in cam_ms]} mean_ms={sum(cam_ms) / 3:.2f} "
+          f"rays_per_s={SIDE * SIDE / (sum(cam_ms) / 3e3):.1f}; render_image "
+          f"ms={[round(x, 2) for x in ri_ms]} mean_ms={sum(ri_ms) / 3:.2f}; "
+          f"device busy ms of one profiled frame: camera {cam_busy:.2f}, "
+          f"render_image {ri_busy:.2f}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -3479,6 +3854,116 @@ def coherent_edges(device):
                              f"differ from the plain version")
 
 
+def combine_bwd_check(label, w, dest, counts, g_s, g_r, n_slots,
+                      edge=False):
+    """10a-iii against its plain version on one input: equal (one product
+    a slot; the error is also printed relative to the output's max, tol
+    1e-6). Prints one `kernel bucket_combine_bwd: <label>` (or `edge
+    bucket_combine_bwd <label>:`) line with device and back-to-back times,
+    bytes and bound; returns (max abs error, device ms, back-to-back ms,
+    plain ms, bound ms, bound by, bytes)."""
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+
+    N, E = w.shape
+    K = counts.shape[0]
+    C = n_slots // K
+
+    def call():
+        return CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, n_slots,
+                                            counts=counts)
+
+    got = call()
+    want = CO.bucket_combine_bwd_plain(w, dest, g_s, g_r, n_slots)
+    torch.cuda.synchronize()
+    pairs = [(got[0], want[0])] + ([] if g_r is None else
+                                   [(got[1], want[1])])
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    err = max(max_err(a, b) for a, b in pairs)
+    rel = max(rel_err(a, b) for a, b in pairs)
+    ms = device_ms(call, 10)
+    b2b = cuda_ms(call, 10)
+    plain_ms = 0.0 if edge else cuda_ms(
+        lambda: CO.bucket_combine_bwd_plain(w, dest, g_s, g_r, n_slots), 3)
+    width = 4 if g_r is None else 16
+    n_bytes = nbytes(w, dest, counts, g_s, g_r) + n_slots * width
+    b_ms, b_by = bound(n_bytes, N * E * (1 if g_r is None else 4))
+    kept = int((dest < n_slots).sum())
+    plan = CO.combine_bwd_plan(N, K, E, C, CO.num_sms(w.device))
+    head = (f"edge bucket_combine_bwd {label}:" if edge
+            else f"kernel bucket_combine_bwd: {label}")
+    print(f"{head} N={N} K={K} E={E} C={C} kept slots {kept} of {n_slots}"
+          f" (demand {counts.tolist() if K <= 16 else int(counts.max())}) "
+          f"rgb={g_r is not None} plan tile={plan.tile} tiles={plan.tiles} "
+          f"fill_blocks={plan.fill_blocks} equal={equal} max_abs_err="
+          f"{err:.3e} err/max={rel:.3e} (tol 1e-6) device_ms={ms:.4f} "
+          f"back_to_back_ms={b2b:.4f}"
+          + ("" if edge else f" plain_ms={plain_ms:.4f}")
+          + f" bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s", flush=True)
+    if not rel <= 1e-6:
+        raise SystemExit(f"kernel bucket_combine_bwd disagrees with its "
+                         f"plain version ({label}): {rel}")
+    return err, ms, b2b, plain_ms, b_ms, b_by, n_bytes
+
+
+def combine_edge_cases():
+    """(label, kind, N, K, E, margin, with_rgb) of `combine_edges`: 10a-iii
+    on dispatches of `dispatch_edge_inputs` (cf 1.5, cluster_2d), at the
+    serve chunk's 2,097,152 points unless N says otherwise. "empty" adds a
+    centroid far outside the box, whose bucket stays empty; "one" puts
+    every point on expert 0, whose demand exceeds C (the overflow that
+    `bucket_overflow_dense=False` renders through the buckets)."""
+    n = CHECK_RAYS * 32
+    return [("E=1", "rand", n, 4, 1, 1.1, True),
+            ("E=8, K=16, margin 1.3", "rand", n // 8, 16, 8, 1.3, True),
+            ("hard routing, E=2 (the second pair trashed)", "rand", n, 4, 2,
+             1.0, True),
+            ("an empty bucket", "empty", n, 5, 2, 1.1, True),
+            ("overflow (bucket_overflow_dense=False)", "one", n, 4, 2, 1.1,
+             True),
+            ("N not a multiple of the tile", "rand", n - 13, 4, 2, 1.1,
+             True),
+            ("N below one tile", "rand", 200, 4, 2, 1.1, True),
+            ("a single point", "rand", 1, 4, 1, 1.1, True),
+            ("no rgb", "rand", n, 4, 2, 1.1, False),
+            ("K=64", "rand", n, 64, 2, 1.1, True)]
+
+
+def combine_edge_inputs(kind: str, n: int, k: int, e: int, margin: float,
+                        with_rgb: bool, seed: int, device):
+    """A dispatch of `dispatch_edge_inputs`' points on `device` and
+    upstream gradients from numpy seed `seed` -> (w, dest, counts, g_sigma,
+    g_rgb or None, n_slots)."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.models import container as CO
+
+    far = kind == "empty"
+    pts, dirs, cents = dispatch_edge_inputs(
+        "rand" if far else kind, n, k - 1 if far else k, True, True, margin,
+        seed, device)
+    if far:
+        cents = torch.cat([cents, torch.full((1, 3), 50.0, device=device)])
+    C = CO.bucket_capacity(n, k, e, MOE_CF)
+    dsp = CO.bucket_dispatch_kernel(pts, dirs, cents, True, margin, e, C)
+    rng = np.random.default_rng(seed + 100)
+    g_s = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(device)
+    g_r = (torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+           .to(device) if with_rgb else None)
+    return dsp["w"], dsp["dest"], dsp["counts"], g_s, g_r, k * C
+
+
+def combine_edges(device):
+    """10a-iii against its plain version on `combine_edge_cases`."""
+    for seed, (label, kind, n, k, e, margin, rgb) in enumerate(
+            combine_edge_cases()):
+        combine_bwd_check(label, *combine_edge_inputs(
+            kind, n, k, e, margin, rgb, seed, device), edge=True)
+
+
 def check_dispatch_k16(cfg, statics, pts, dirs, results):
     """10a-i at the K=16 arm's shape: one chunk of measure_moe's points
     (196,608), E=2, cf 1.5, against its plain version on two calls."""
@@ -3494,6 +3979,20 @@ def check_dispatch_k16(cfg, statics, pts, dirs, results):
     results[kernels.BUCKET_DISPATCH.name]["text"] += (
         f"; K={K} E=2 at {N} points: device_ms={ms:.4f} bytes={n_bytes} "
         f"bound_ms={b_ms:.4f} ({b_by}), equal on two calls")
+    import torch
+
+    dsp = CO.bucket_dispatch_kernel(pts, dirs, statics.centroids.contiguous(),
+                                    cfg.cluster_2d,
+                                    float(cfg.boundary_margin), 2, C)
+    gen = torch.Generator(device=pts.device).manual_seed(12)
+    g_s = torch.randn((N,), device=pts.device, generator=gen)
+    g_r = torch.randn((N, 3), device=pts.device, generator=gen)
+    _, ms, b2b, _, b_ms, b_by, n_bytes = combine_bwd_check(
+        f"K={K} E=2 at {N} points (one chunk of the K=16 arm)", dsp["w"],
+        dsp["dest"], dsp["counts"], g_s, g_r, K * C)
+    results[kernels.BUCKET_COMBINE_BWD.name]["text"] += (
+        f"; K={K} E=2 at {N} points: device_ms={ms:.4f} (back to back "
+        f"{b2b:.4f}) bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by})")
 
 
 def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
@@ -3581,27 +4080,17 @@ def check_moe_kernels(cfg, statics, occ, rays_np, device, results):
 
     g_s = torch.randn((N,), device=device, generator=gen)
     g_r = torch.randn((N, 3), device=device, generator=gen)
-    got = CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, K * C)
-    want = CO.bucket_combine_bwd_plain(w, dest, g_s, g_r, K * C)
-    torch.cuda.synchronize()
-    err = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
-    ms = cuda_ms(lambda: CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r,
-                                                      K * C), 20)
-    plain_ms = cuda_ms(lambda: CO.bucket_combine_bwd_plain(w, dest, g_s, g_r,
-                                                           K * C), 3)
-    n_bytes = N * 2 * (4 + 4) + N * 16 + K * C * 16
-    b_ms, b_by = bound(n_bytes, N * 2 * 4)
-    text = (f"E=2 margin 1.1 at {N} points into {K}x{C} slots: err/max="
-            f"{err:.3e} tol=1e-6 (one product per kept slot) kernel_ms="
-            f"{ms:.4f} (the zeroed buffers included) plain_ms={plain_ms:.4f} "
-            f"bytes={n_bytes} bound_ms={b_ms:.4f} ({b_by}) at "
-            f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
-    print(f"kernel bucket_combine_bwd: {text}", flush=True)
-    if not err <= 1e-6:
-        raise SystemExit(f"kernel bucket_combine_bwd disagrees: {err}")
+    err, ms, b2b, plain_ms, b_ms, b_by, n_bytes = combine_bwd_check(
+        f"E=2 margin 1.1 at {N} points", w, dest, dsp["counts"], g_s, g_r,
+        K * C)
     results[kernels.BUCKET_COMBINE_BWD.name] = dict(
-        max_abs_err=max(max_err(got[0], want[0]), max_err(got[1], want[1])),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, text=text)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by,
+        text=(f"E=2 margin 1.1 at {N} points into {K}x{C} slots: kernel_ms="
+              f"{ms:.4f} (device; back to back {b2b:.4f}) plain_ms="
+              f"{plain_ms:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} "
+              f"({b_by}), equal to the plain version"))
+    combine_edges(device)
     del dsp, soft2, got, want, lib, table
 
     # 10b on the chunk's samples
@@ -3718,8 +4207,7 @@ def render_fast(cfg, statics, params, occ, device):
               occ_hard_mask=False, occ_probe_grid_res=UNION_RES,
               device=device)
     renderer = make_chunk_renderer(fcfg, **kw)
-    poses = [pose((0.0, 0.0, 2.0)), pose((0.1, 0.0, 2.0)),
-             pose((0.0, -0.1, 2.1))]
+    poses = [pose(x) for x in SERVE_POSES]
     render_image(renderer, params, statics, poses[0], scene_aabb=aabb,
                  chunk_rays=chunk)  # warm-up (builds the union grid)
     torch.cuda.synchronize()
@@ -4099,16 +4587,19 @@ def main() -> int:
     batch = train_batch(device)
     check_train_kernels(cfg, statics, params, occ, batch, device, results)
     served = serve(cfg, statics, params, occ, device)
+    cam = camera(cfg, statics, params, occ, device)
     early = early_stop(cfg, statics, params, occ, rays[:CHECK_RAYS], device,
                        results)
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
+    occ_n = occupancy(cfg, statics, params, occ, batch, device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
     moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
 
-    parts = (("serve", served), ("early-stop", early), ("baked", baked_n),
-             ("train", trained), ("hash serve", hash_served),
+    parts = (("serve", served), ("camera", cam), ("early-stop", early),
+             ("baked", baked_n), ("train", trained),
+             ("occupancy", occ_n), ("hash serve", hash_served),
              ("hash train", hash_trained), ("moe", moe))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         n = k.name

@@ -1,7 +1,8 @@
 """Design experiments on kernel 3 (the inverse-CDF sampler), 10a-i (the
-bucket dispatch), 10b (the coherent-expert test) and row 8 (the segment
-compositor): variants of their CUDA sources, built beside the shipped
-libraries and timed through the shipped wrappers at the real shapes.
+bucket dispatch), 10a-iii (the blend's transpose), 10b (the
+coherent-expert test) and row 8 (the segment compositor): variants of
+their CUDA sources, built beside the shipped libraries and timed through
+the shipped wrappers at the real shapes.
 
     python3 kernel_ab.py [--rounds 5]
 
@@ -15,14 +16,16 @@ targets) and at one inner step (4,000 rays, per-ray jittered targets),
 10a-i at the serve chunk's 2,097,152 points (K=4, E=1 and 2, cf 1.5) and
 on one chunk of the K=16 arm (196,608 points, E=2), 10b at the serve
 chunk's and a skew chunk's 65,536 x 32 samples, row 8 at the first
-segment (65,536 x 8) and a resume slice (16,384 x 24). A variant that
+segment (65,536 x 8) and a resume slice (16,384 x 24), 10a-iii on the
+top-2 dispatches of the serve chunk and of the K=16 chunk. A variant that
 keeps the outputs is first held to the plain version on every case of its
 kernel (the sampler within 1e-5, the dispatch's integer outputs equal and
 its weights within 1e-6 on two calls, 10b's ids equal, row 8 within
-1e-5); a timing-only variant (its outputs incomplete) is not. Then
-`--rounds` rounds time every variant and the shipped kernel on every case
-by device time (chip_smoke's `device_ms`), in turn; the script prints each
-variant's ptxas register count, each round, and the median and range per
+1e-5, 10a-iii equal); a timing-only variant (its outputs incomplete) is
+not. Then `--rounds` rounds time every variant and the shipped kernel on
+every case by device time (chip_smoke's `device_ms`), in turn; the script
+prints each variant's ptxas register count, each round, and the median
+and range per
 (variant, case).
 """
 from __future__ import annotations
@@ -97,10 +100,47 @@ VARIANTS["8: the carry read first"] = (
      ("__ldg(c_acc + ray) + acc", "pre[4] + acc"),
      ("fmaxf(__ldg(c_wmax + ray), wmax)", "fmaxf(pre[6], wmax)"),
      ("__ldg(c_wlogw + ray) + wlogw", "pre[7] + wlogw")], None)
+VARIANTS["10a-iii: the tail fill as a second launch"] = (
+    "bucket", False,
+    [("""    bucket_combine_bwd_kernel<PPT, MAXE, RGB>
+        <<<n_fill + plan.tiles, COMBINE_THREADS, 0, stream>>>(
+            w, dest, counts, g_sigma, g_rgb, g_sigma_b, g_rgb_b, N, K, E, C,
+            n_fill, plan.fill_blocks);""",
+      """    bucket_combine_bwd_kernel<PPT, MAXE, RGB>
+        <<<n_fill, COMBINE_THREADS, 0, stream>>>(
+            w, dest, counts, g_sigma, g_rgb, g_sigma_b, g_rgb_b, N, K, E, C,
+            n_fill, plan.fill_blocks);
+    bucket_combine_bwd_kernel<PPT, MAXE, RGB>
+        <<<plan.tiles, COMBINE_THREADS, 0, stream>>>(
+            w, dest, counts, g_sigma, g_rgb, g_sigma_b, g_rgb_b, N, K, E, C,
+            0, plan.fill_blocks);""")],
+    {"kernel": "BUCKET_COMBINE_BWD"})
+VARIANTS["10a-iii: each run written by the whole block"] = (
+    "bucket", False,
+    [("""    const int warp = tid >> 5, lane = tid & 31;
+    for (int k = warp; k < K; k += COMBINE_WARPS) {""",
+      """    const int lane = tid;
+    for (int k = 0; k < K; ++k) {"""),
+     ("write_run(g_sigma_b, s_sig + off, start, cnt, lane, 32);",
+      "write_run(g_sigma_b, s_sig + off, start, cnt, lane, "
+      "COMBINE_THREADS);"),
+     ("""3 * cnt, lane,
+                      32);""", """3 * cnt, lane,
+                      COMBINE_THREADS);""")],
+    {"kernel": "BUCKET_COMBINE_BWD"})
+# the kernel a variant of each library replaces unless it names another
 KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH",
              "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG"}
-CASES_OF = {"occ_sample": (0, 1), "bucket": (2, 3, 4), "coherent": (5, 6),
-            "composite_seg": (7, 8)}
+# each kernel's cases in `serve_ab.kernel_cases`
+CASES_OF = {"OCC_SAMPLE": (0, 1), "BUCKET_DISPATCH": (2, 3, 4),
+            "COHERENT_EXPERT": (5, 6), "COMPOSITE_SEG": (7, 8),
+            "BUCKET_COMBINE_BWD": (9, 10)}
+
+
+def kernel_of(name: str) -> str:
+    """The kernels attribute that variant `name` replaces."""
+    stem, _, _, patch = VARIANTS[name]
+    return (patch or {}).get("kernel", KERNEL_OF[stem])
 
 
 def build_variants(kernels, sms: int):
@@ -152,8 +192,9 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     device = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    kernels.build_all(tuple(KERNEL_OF))
-    for stem in KERNEL_OF:
+    stems = sorted({getattr(kernels, k).stem for k in CASES_OF})
+    kernels.build_all(tuple(stems))
+    for stem in stems:
         for ln in kernels.build_log.get(stem, "").splitlines():
             if "registers" in ln:
                 print(f"shipped {stem}: {ln.strip()}", flush=True)
@@ -166,27 +207,29 @@ def main() -> int:
     cases = serve_ab.kernel_cases(cs, cfg, statics, params, occ, device)
     for case, _, check in cases:  # also loads the shipped entry points
         print(f"shipped / {case}: {check()[0]}", flush=True)
-    shipped = {stem: getattr(kernels, k) for stem, k in KERNEL_OF.items()}
-    fns = {stem: k._fn for stem, k in shipped.items()}
+    shipped = {k: getattr(kernels, k) for k in CASES_OF}
+    fns = {k: kern._fn for k, kern in shipped.items()}
     shipped_tile = CO.dispatch_tile
     shipped_10b = {at: getattr(CO, at) for at in ("COHERENT_GROUPS",
                                                   "COHERENT_LANES")}
 
     def use(name):
         """Swaps variant `name` (None: the shipped kernels) in."""
-        for stem, k in shipped.items():
-            k._fn = fns[stem]
+        for k, kern in shipped.items():
+            kern._fn = fns[k]
         CO.dispatch_tile = shipped_tile
         CO._dispatch_plan.cache_clear()
         for at, v in shipped_10b.items():
             setattr(CO, at, v)
         if name is None:
             return
-        stem, _, _, patch = VARIANTS[name]
-        fn = getattr(ctypes.CDLL(str(built[name][0])), shipped[stem].symbol)
-        fn.argtypes = shipped[stem].argtypes
+        _, _, _, patch = VARIANTS[name]
+        kern = shipped[kernel_of(name)]
+        lib = ctypes.CDLL(str(built[name][0]))
+        fn = getattr(lib, kern.symbol)
+        fn.argtypes = kern.argtypes
         fn.restype = ctypes.c_int
-        shipped[stem]._fn = fn
+        kern._fn = fn
         if patch and "tile" in patch:
             CO.dispatch_tile = (lambda e: patch["tile"] if e <= 2
                                 else shipped_tile(e))
@@ -199,7 +242,7 @@ def main() -> int:
         if timing_only:
             continue
         use(name)
-        for i in CASES_OF[stem]:
+        for i in CASES_OF[kernel_of(name)]:
             text, _ = cases[i][2]()
             print(f"{name} / {cases[i][0]}: {text}", flush=True)
     use(None)
@@ -209,7 +252,7 @@ def main() -> int:
         for name in names:
             use(name)
             idx = (range(len(cases)) if name is None
-                   else CASES_OF[VARIANTS[name][0]])
+                   else CASES_OF[kernel_of(name)])
             row = []
             for i in idx:
                 ms = cs.device_ms(cases[i][1])

@@ -56,13 +56,27 @@
 // 10a-ii `bucket_combine_fwd`: one thread per point, sigma = sum over e in
 // e order of wk * sigma_b[dest] (wk = w on kept pairs, 0 on the trash slot,
 // which reads 0); the same for rgb.
-// 10a-iii `bucket_combine_bwd`: one thread per pair. Each kept slot is the
-// destination of exactly one pair, so the transpose is a plain scatter with
-// no atomics: g_sigma_b[dest] = wk * g_sigma[n]; the caller zeroes the rest.
+// 10a-iii `bucket_combine_bwd`: the transpose, g_sigma_b[dest] = w *
+// g_sigma[n] on the kept slots (each the destination of exactly one pair,
+// one product a slot) and 0 on the rest, with every output byte written
+// once (plan: `CombinePlan`, models/container.py `combine_bwd_plan`). One
+// grid: its first fill_blocks * K blocks zero each bucket's empty tail
+// [min(counts[k], C), C) with 16-byte stores (the pattern of
+// `bucket_fill_kernel`); each later block takes a tile of points (1,024
+// at E <= 2, 4 a thread, w and dest read as 8-byte vectors at E = 2; 256
+// above), reads g once a point, and stages the products in shared memory
+// by (expert, slot): within a tile the kept pairs of an expert hold
+// consecutive slots (the dispatch's stable counting sort), so shared
+// atomics find each expert's run (its first slot and length) and a warp
+// an expert writes each run out as one contiguous stream of 16-byte
+// stores, where one thread a pair would store the 12-byte rgb rows as
+// three scalars each. dest must be as bucket_dispatch wrote it.
 //
 // Bound on the H100: bytes. 10a-i reads N*12 B of points (and N*12 of
 // directions) and writes N*E*12 B (idx, w, dest) + K*C*(4 + 24) B; 10a-ii
-// reads N*E*(4 + 4 + 16) B and writes N*16 B. A four-pass dispatch
+// reads N*E*(4 + 4 + 16) B and writes N*16 B; 10a-iii reads N*E*8 B (w,
+// dest) and N*16 B (g) and writes K*C*16 B, which a zero fill before a
+// scatter of the kept slots would write twice. A four-pass dispatch
 // (route, a scan, place, fill) would read the points twice, write idx and
 // w to read them back, ballot once per expert in every warp and write
 // each row on its own; this one reads them once and streams the runs.
@@ -614,39 +628,225 @@ NERF_API int bucket_combine_fwd(const float* w, const int* dest,
     return (int)cudaGetLastError();
 }
 
-__global__ void bucket_combine_bwd_kernel(
+// Kernel 10a-iii: a grid of plan.fill_blocks * K fill blocks, then
+// plan.tiles pair tiles (CombinePlan, models/container.py
+// `combine_bwd_plan`).
+struct CombinePlan {
+    int tile;         // points a pair tile: 1,024 for E <= 2, else 256
+    int tiles;        // ceil(N / tile)
+    int fill_blocks;  // blocks a bucket of the tail fill
+};
+
+#define COMBINE_THREADS 256
+#define COMBINE_WARPS (COMBINE_THREADS / 32)
+#define COMBINE_PPT_E12 4  // points a thread of a tile when E <= 2
+#define COMBINE_PAIRS 2048  // pairs a tile at most: 1,024 x 2 or 256 x 8
+
+// dst[a, b) = 0 for the threads g = 0 .. step-1 of a grid stride: scalar
+// stores up to the first 16-byte boundary, then 16-byte stores
+__device__ __forceinline__ void zero_range(float* dst, int a, int b, int g,
+                                           int step) {
+    const int a4 = min((a + 3) & ~3, b);
+    for (int f = a + g; f < a4; f += step) dst[f] = 0.0f;
+    const int b4 = a4 + ((b - a4) & ~3);
+    for (int q = a4 / 4 + g; q < b4 / 4; q += step)
+        reinterpret_cast<float4*>(dst)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int f = b4 + g; f < b; f += step) dst[f] = 0.0f;
+}
+
+// dst[f0, f0 + n) = src[0, n) by threads i = 0 .. step-1: scalar stores
+// up to the first 16-byte boundary of dst, 16-byte stores, a scalar tail
+__device__ __forceinline__ void write_run(float* __restrict__ dst,
+                                          const float* src, long long f0,
+                                          int n, int i, int step) {
+    const int head = min(n, (int)((4 - (f0 & 3)) & 3));
+    if (i < head) dst[f0 + i] = src[i];
+    const int body = (n - head) >> 2;
+    float4* d4 = reinterpret_cast<float4*>(dst + f0 + head);
+    const float* s = src + head;
+    for (int q = i; q < body; q += step)
+        d4[q] = make_float4(s[4 * q], s[4 * q + 1], s[4 * q + 2],
+                            s[4 * q + 3]);
+    const int done = head + 4 * body;
+    for (int f = done + i; f < n; f += step) dst[f0 + f] = src[f];
+}
+
+template <int PPT, int MAXE, bool RGB>
+__global__ void __launch_bounds__(COMBINE_THREADS) bucket_combine_bwd_kernel(
         const float* __restrict__ w, const int* __restrict__ dest,
-        const float* __restrict__ g_sigma, const float* __restrict__ g_rgb,
-        float* __restrict__ g_sigma_b, float* __restrict__ g_rgb_b, int N,
-        int E, int n_slots) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)N * E) return;
-    const int d = dest[i];
-    if (d >= n_slots) return;  // the trash slot has no gradient
-    const long long n = i / E;
-    const float wk = w[i];
-    g_sigma_b[d] = wk * g_sigma[n];
-    if (g_rgb) {
-        for (int c = 0; c < 3; ++c)
-            g_rgb_b[(long long)d * 3 + c] = wk * g_rgb[n * 3 + c];
+        const int* __restrict__ counts, const float* __restrict__ g_sigma,
+        const float* __restrict__ g_rgb, float* __restrict__ g_sigma_b,
+        float* __restrict__ g_rgb_b, int N, int K, int E, int C, int n_fill,
+        int fill_blocks) {
+    __shared__ float s_sig[COMBINE_PAIRS];
+    __shared__ float s_rgb[RGB ? 3 * COMBINE_PAIRS : 1];
+    __shared__ int s_start[MAX_EXPERTS];  // the tile's first slot of k
+    __shared__ int s_count[MAX_EXPERTS];  // its kept pairs of k
+    __shared__ int s_off[MAX_EXPERTS];    // their first staged position
+    const int tid = threadIdx.x;
+    if ((int)blockIdx.x < n_fill) {  // the empty tail [min(counts, C), C)
+        const int k = blockIdx.x / fill_blocks;
+        const int s0 = min(counts[k], C);
+        if (s0 >= C) return;  // uniform over the block
+        const int g = (blockIdx.x % fill_blocks) * COMBINE_THREADS + tid;
+        const int step = fill_blocks * COMBINE_THREADS;
+        zero_range(g_sigma_b + (long long)k * C, s0, C, g, step);
+        if (RGB)
+            zero_range(g_rgb_b + (long long)k * C * 3, 3 * s0, 3 * C, g,
+                       step);
+        return;
+    }
+    const long long n0 =
+        (long long)(blockIdx.x - n_fill) * (PPT * COMBINE_THREADS);
+    const int n_slots = K * C;
+    for (int k = tid; k < K; k += COMBINE_THREADS) {
+        s_start[k] = 0x7fffffff;
+        s_count[k] = 0;
+    }
+    __syncthreads();
+    // 1. each thread's points, coalesced across the block; a pair's kept
+    // slot joins its expert's run: within a tile the kept pairs of an
+    // expert hold consecutive slots (the dispatch's stable counting sort)
+    int d[PPT][MAXE];
+    float wk[PPT][MAXE];
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+        const long long n = n0 + i * COMBINE_THREADS + tid;
+#pragma unroll
+        for (int e = 0; e < MAXE; ++e) {
+            d[i][e] = n_slots;
+            wk[i][e] = 0.0f;
+        }
+        if (n >= N) continue;
+        if (MAXE == 2) {
+            const int2 dd = reinterpret_cast<const int2*>(dest)[n];
+            const float2 ww = reinterpret_cast<const float2*>(w)[n];
+            d[i][0] = dd.x;
+            d[i][1] = dd.y;
+            wk[i][0] = ww.x;
+            wk[i][1] = ww.y;
+        } else {
+#pragma unroll
+            for (int e = 0; e < MAXE; ++e) {
+                if (e < E) {
+                    d[i][e] = dest[n * E + e];
+                    wk[i][e] = w[n * E + e];
+                }
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < MAXE; ++e) {
+            if (d[i][e] < n_slots) {
+                const int k = d[i][e] / C;
+                atomicMin(&s_start[k], d[i][e]);
+                atomicAdd(&s_count[k], 1);
+            }
+        }
+    }
+    __syncthreads();
+    // 2. the runs' staged offsets: an exclusive scan of the counts by warp 0
+    if (tid < 32) {
+        int carry = 0;
+        for (int base = 0; base < K; base += 32) {
+            const int k = base + tid;
+            const int c = k < K ? s_count[k] : 0;
+            int incl = c;
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+                const int t = __shfl_up_sync(FULL_MASK, incl, o);
+                if (tid >= o) incl += t;
+            }
+            if (k < K) s_off[k] = carry + incl - c;
+            carry += __shfl_sync(FULL_MASK, incl, 31);
+        }
+    }
+    __syncthreads();
+    // 3. one product a kept slot, staged by (expert, slot); g read once a
+    // point
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+        const long long n = n0 + i * COMBINE_THREADS + tid;
+        if (n >= N) continue;
+        const float gs = g_sigma[n];
+        float gr[3] = {0.0f, 0.0f, 0.0f};
+        if (RGB) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) gr[c] = g_rgb[n * 3 + c];
+        }
+#pragma unroll
+        for (int e = 0; e < MAXE; ++e) {
+            const int dd = d[i][e];
+            if (dd >= n_slots) continue;  // the trash slot has no gradient
+            const int k = dd / C;
+            const int r = dd - s_start[k];
+            if (r >= s_count[k]) continue;  // not a dispatch's dest
+            const int pos = s_off[k] + r;
+            s_sig[pos] = wk[i][e] * gs;
+            if (RGB) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    s_rgb[pos * 3 + c] = wk[i][e] * gr[c];
+            }
+        }
+    }
+    __syncthreads();
+    // 4. each expert's run goes out as one contiguous stream, a warp an
+    // expert
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int k = warp; k < K; k += COMBINE_WARPS) {
+        const int cnt = s_count[k];
+        if (cnt == 0) continue;
+        const int start = s_start[k], off = s_off[k];
+        write_run(g_sigma_b, s_sig + off, start, cnt, lane, 32);
+        if (RGB)
+            write_run(g_rgb_b, s_rgb + 3 * off, 3LL * start, 3 * cnt, lane,
+                      32);
     }
 }
 
-// w (N, E), dest (N*E,), g_sigma (N,), g_rgb (N, 3) nullable -> the
-// caller-zeroed g_sigma_b (n_slots,) and g_rgb_b (n_slots, 3) at the kept
-// slots.
+template <int PPT, int MAXE, bool RGB>
+static void launch_combine_bwd(const float* w, const int* dest,
+                               const int* counts, const float* g_sigma,
+                               const float* g_rgb, float* g_sigma_b,
+                               float* g_rgb_b, int N, int K, int E, int C,
+                               CombinePlan plan, cudaStream_t stream) {
+    const int n_fill = plan.fill_blocks * K;
+    bucket_combine_bwd_kernel<PPT, MAXE, RGB>
+        <<<n_fill + plan.tiles, COMBINE_THREADS, 0, stream>>>(
+            w, dest, counts, g_sigma, g_rgb, g_sigma_b, g_rgb_b, N, K, E, C,
+            n_fill, plan.fill_blocks);
+}
+
+// w (N, E), dest (N*E,) and counts (K,) as bucket_dispatch wrote them,
+// g_sigma (N,), g_rgb (N, 3) nullable -> g_sigma_b (K*C,) and g_rgb_b
+// (K*C, 3) (null when g_rgb is), every slot written: the kept slots with
+// their product, the rest 0.
 NERF_API int bucket_combine_bwd(const float* w, const int* dest,
-                                const float* g_sigma, const float* g_rgb,
-                                float* g_sigma_b, float* g_rgb_b, int N,
-                                int E, int n_slots, cudaStream_t stream) {
-    if (E < 1 || (g_rgb == nullptr) != (g_rgb_b == nullptr))
+                                const int* counts, const float* g_sigma,
+                                const float* g_rgb, float* g_sigma_b,
+                                float* g_rgb_b, int N, int K, int E, int C,
+                                CombinePlan plan, cudaStream_t stream) {
+    const int ppt = E <= 2 ? COMBINE_PPT_E12 : 1;
+    if (N < 0 || K < 1 || K > MAX_EXPERTS || E < 1 || E > MAX_E || C < 1 ||
+        C % 128 != 0 || (long long)K * C * 3 >= (1LL << 31) ||
+        (g_rgb == nullptr) != (g_rgb_b == nullptr) ||
+        plan.tile != ppt * COMBINE_THREADS ||
+        plan.tiles != (int)nerf_blocks(N, plan.tile) || plan.fill_blocks < 1)
         return (int)cudaErrorInvalidValue;
-    const long long pairs = (long long)N * E;
-    if (pairs > 0) {
-        bucket_combine_bwd_kernel<<<nerf_blocks(pairs, 256), 256, 0,
-                                    stream>>>(w, dest, g_sigma, g_rgb,
-                                              g_sigma_b, g_rgb_b, N, E,
-                                              n_slots);
-    }
+#define NERF_COMBINE(T, M)                                                   \
+    do {                                                                     \
+        if (g_rgb)                                                           \
+            launch_combine_bwd<T, M, true>(w, dest, counts, g_sigma, g_rgb,  \
+                                           g_sigma_b, g_rgb_b, N, K, E, C,   \
+                                           plan, stream);                    \
+        else                                                                 \
+            launch_combine_bwd<T, M, false>(w, dest, counts, g_sigma, g_rgb, \
+                                            g_sigma_b, g_rgb_b, N, K, E, C,  \
+                                            plan, stream);                   \
+    } while (0)
+    if (E == 1) NERF_COMBINE(COMBINE_PPT_E12, 1);
+    else if (E == 2) NERF_COMBINE(COMBINE_PPT_E12, 2);
+    else NERF_COMBINE(1, MAX_E);
+#undef NERF_COMBINE
     return (int)cudaGetLastError();
 }

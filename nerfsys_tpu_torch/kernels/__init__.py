@@ -433,11 +433,23 @@ BUCKET_COMBINE_FWD = Kernel(
     replaces="nerfsys_tpu/models/container.py:363 (_bucketed_eval's "
              "reshape-sum blend)",
 )
+
+
+class CombinePlan(ctypes.Structure):
+    """A launch plan of kernel 10a-iii (csrc/bucket.cu CombinePlan; filled
+    from models/container.py `CombineLaunchPlan`)."""
+    _fields_ = [
+        ("tile", _I),
+        ("tiles", _I),
+        ("fill_blocks", _I),
+    ]
+
+
 BUCKET_COMBINE_BWD = Kernel(
     "bucket_combine_bwd", "bucket", "bucket_combine_bwd",
-    # w, dest, g_sigma, g_rgb (nullable), g_sigma_b, g_rgb_b (nullable),
-    # N, E, n_slots, stream
-    [_P] * 6 + [_I] * 3 + [_P],
+    # w, dest, counts, g_sigma, g_rgb (nullable), g_sigma_b, g_rgb_b
+    # (nullable), N, K, E, C, plan (by value), stream
+    [_P] * 7 + [_I] * 4 + [CombinePlan, _P],
     replaces="nerfsys_tpu/models/container.py:363 (the blend's VJP)",
 )
 COHERENT_EXPERT = Kernel(
@@ -482,6 +494,7 @@ _DTYPES = {
     "table": (torch.float32, torch.bfloat16),
     "block_index": (torch.int32,),
     "dest": (torch.int32,),
+    "counts": (torch.int32,),
     "branch_counts": (torch.int32,),
 }
 

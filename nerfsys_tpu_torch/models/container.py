@@ -495,9 +495,54 @@ def bucket_combine_kernel(w, dest, sigma_b, rgb_b):
     return sigma, rgb
 
 
-def bucket_combine_bwd_kernel(w, dest, g_sigma, g_rgb, n_slots: int):
+COMBINE_THREADS = 256  # csrc/bucket.cu COMBINE_THREADS
+
+
+@dataclasses.dataclass(frozen=True)
+class CombineLaunchPlan:
+    """Launch geometry of kernel 10a-iii (csrc/bucket.cu `CombinePlan`)."""
+
+    tile: int  # points a pair tile, a block each
+    tiles: int
+    fill_blocks: int  # blocks a bucket that zero its empty tail
+
+    def as_struct(self) -> "kernels.CombinePlan":
+        return kernels.CombinePlan(self.tile, self.tiles, self.fill_blocks)
+
+
+def combine_bwd_plan(n: int, k: int, e: int, c: int,
+                     sms: int) -> CombineLaunchPlan:
+    """Kernel 10a-iii's plan for N points, K buckets of C slots and E pairs
+    a point on a card of `sms` SMs: about 4 fill blocks an SM shared by the
+    K buckets' empty tails, then a block a tile of points (1,024 when E <=
+    2, 4 a thread; 256 above), at most 2,048 pairs, whose products a block
+    stages in shared memory."""
+    if not (n >= 0 and 1 <= e <= MAX_E and 1 <= k <= MAX_EXPERTS
+            and c >= 128 and c % 128 == 0):
+        raise ValueError(f"bucket_combine_bwd: the kernel takes 1 <= E <= "
+                         f"{MAX_E}, K <= {MAX_EXPERTS} and C a multiple of "
+                         f"128; got N={n} K={k} E={e} C={c}")
+    if k * c * 3 >= 2 ** 31 or n * e >= 2 ** 31:
+        raise ValueError("bucket_combine_bwd: too many pairs or slots for "
+                         "32-bit indices")
+    tile = (4 if e <= 2 else 1) * COMBINE_THREADS
+    return CombineLaunchPlan(tile=tile, tiles=-(-n // tile),
+                             fill_blocks=max(1, -(-4 * sms // k)))
+
+
+@functools.lru_cache(maxsize=256)
+def _combine_struct(n: int, k: int, e: int, c: int,
+                    sms: int) -> "kernels.CombinePlan":
+    return combine_bwd_plan(n, k, e, c, sms).as_struct()
+
+
+def bucket_combine_bwd_kernel(w, dest, g_sigma, g_rgb, n_slots: int, *,
+                              counts: torch.Tensor):
     """Kernel 10a-iii's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `bucket_combine_bwd` or raises."""
+    tensors it launches `bucket_combine_bwd` (one grid, `combine_bwd_plan`'s
+    plan) or raises. w, dest and counts must be as the dispatch wrote them:
+    counts (K,) gives each bucket's empty tail, and n_slots is K * C. The
+    outputs are allocated empty: the kernel writes every slot once."""
     if w.device.type == "cpu":
         return bucket_combine_bwd_plain(w, dest, g_sigma, g_rgb, n_slots)
     if w.device.type != "cuda":
@@ -505,15 +550,21 @@ def bucket_combine_bwd_kernel(w, dest, g_sigma, g_rgb, n_slots: int):
                          f"{w.device}")
     dev = w.device
     N, E = w.shape
+    K = counts.shape[0]
+    if n_slots % K:
+        raise ValueError(f"bucket_combine_bwd: {n_slots} slots are not K={K} "
+                         f"buckets")
+    C = n_slots // K
+    struct = _combine_struct(N, K, E, C, num_sms(dev))
     kernels.check_cuda_tensors("bucket_combine_bwd", dev, w=w, dest=dest,
-                               g_sigma=g_sigma, g_rgb=g_rgb)
-    g_s = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+                               counts=counts, g_sigma=g_sigma, g_rgb=g_rgb)
+    g_s = torch.empty((n_slots,), dtype=torch.float32, device=dev)
     g_r = (None if g_rgb is None
-           else torch.zeros((n_slots, 3), dtype=torch.float32, device=dev))
+           else torch.empty((n_slots, 3), dtype=torch.float32, device=dev))
     kernels.BUCKET_COMBINE_BWD(
-        w.data_ptr(), dest.data_ptr(), g_sigma.data_ptr(),
+        w.data_ptr(), dest.data_ptr(), counts.data_ptr(), g_sigma.data_ptr(),
         0 if g_rgb is None else g_rgb.data_ptr(), g_s.data_ptr(),
-        0 if g_r is None else g_r.data_ptr(), N, E, n_slots,
+        0 if g_r is None else g_r.data_ptr(), N, K, E, C, struct,
         kernels.stream_ptr(w))
     return g_s, g_r
 
@@ -522,13 +573,15 @@ class BucketCombine(torch.autograd.Function):
     """The blend of the bucket results back to the points (10a-ii), with
     its transpose (10a-iii) as the backward. Gradients reach the bucket
     results only: the weights are functions of the sample positions, which
-    nothing differentiated moves."""
+    nothing differentiated moves. `counts` (the dispatch's demand) is saved
+    beside (w, dest) so that the backward knows each bucket's empty
+    tail."""
 
     @staticmethod
-    def forward(ctx, w, dest, sigma_b, rgb_b, use_kernels):
+    def forward(ctx, w, dest, counts, sigma_b, rgb_b, use_kernels):
         fn = bucket_combine_kernel if use_kernels else bucket_combine_plain
         sigma, rgb = fn(w, dest, sigma_b, rgb_b)
-        ctx.save_for_backward(w, dest)
+        ctx.save_for_backward(w, dest, counts)
         ctx.use_kernels = use_kernels
         ctx.n_slots = sigma_b.shape[0]
         ctx.has_rgb = rgb_b is not None
@@ -538,17 +591,18 @@ class BucketCombine(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_sigma, g_rgb=None):
-        w, dest = ctx.saved_tensors
-        fn = (bucket_combine_bwd_kernel if ctx.use_kernels
-              else bucket_combine_bwd_plain)
+        w, dest, counts = ctx.saved_tensors
         if g_sigma is None:
             g_sigma = w.new_zeros(w.shape[0])
         if ctx.has_rgb and g_rgb is None:
             g_rgb = w.new_zeros((w.shape[0], 3))
-        g_s, g_r = fn(w, dest, g_sigma.contiguous(),
-                      None if g_rgb is None else g_rgb.contiguous(),
-                      ctx.n_slots)
-        return None, None, g_s, g_r, None
+        args = (w, dest, g_sigma.contiguous(),
+                None if g_rgb is None else g_rgb.contiguous(), ctx.n_slots)
+        if ctx.use_kernels:
+            g_s, g_r = bucket_combine_bwd_kernel(*args, counts=counts)
+        else:
+            g_s, g_r = bucket_combine_bwd_plain(*args)
+        return None, None, None, g_s, g_r, None
 
 
 # Calls of the bucketed container and how many took the dense branch
@@ -583,9 +637,11 @@ def _bucketed_eval(params: Params, cfg: ContainerConfig,
         None if dirs is None else rows[..., 3:6], use_kernels=use_kernels)
     sigma_b = sigma_b.reshape(-1).contiguous()
     if rgb_b is None:
-        return None, BucketCombine.apply(dsp["w"], dsp["dest"], sigma_b,
-                                         None, use_kernels)
-    sigma, rgb = BucketCombine.apply(dsp["w"], dsp["dest"], sigma_b,
+        return None, BucketCombine.apply(dsp["w"], dsp["dest"],
+                                         dsp["counts"], sigma_b, None,
+                                         use_kernels)
+    sigma, rgb = BucketCombine.apply(dsp["w"], dsp["dest"], dsp["counts"],
+                                     sigma_b,
                                      rgb_b.reshape(-1, 3).contiguous(),
                                      use_kernels)
     return rgb, sigma

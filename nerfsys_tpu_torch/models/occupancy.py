@@ -1,9 +1,11 @@
-"""Occupancy-guided MoE rendering: soft and hard mask, probe, dead program,
-early ray termination.
+"""Occupancy-guided MoE rendering (soft and hard mask, probe, dead program,
+early ray termination) and the grids' lifecycle (premark, EMA updates).
 
-Port of nerfsys_tpu/models/occupancy.py (`union_binary_fn` :47,
-`expert_binary_fn` :60, `union_value_fn` :69, `union_pair_fn` :92,
-`expert_pair_fn` :110, `occ_ready` :188, `build_union_probe_grid` :200,
+Port of nerfsys_tpu/models/occupancy.py (`expert_render_step_sizes` :39,
+`union_binary_fn` :47, `expert_binary_fn` :60, `union_value_fn` :69,
+`union_pair_fn` :92, `expert_pair_fn` :110,
+`premark_invisible_expert_cells` :121, `make_occ_update_fn` :140,
+`occ_ready` :188, `build_union_probe_grid` :200,
 `union_probe_fns` :289, `_ray_validity` :307, `_occ_query_fns` :315,
 `probe_rays_occ` :345, `render_rays_occ_dead` :389, `render_rays_occ` :436,
 `occ_sample_positions` :558, `_occ_keep_mask` :613,
@@ -31,18 +33,23 @@ import torch
 from nerfsys_tpu_torch.models.container import (
     ContainerConfig,
     ContainerStatics,
+    _expert_apply_fn,
+    _expert_params,
     container_apply,
     container_bg_fn,
 )
 from nerfsys_tpu_torch.ops.activations import clip
 from nerfsys_tpu_torch.ops.occupancy import (
+    OccGridConfig,
     level_aabbs,
+    mark_invisible_cells,
     occupancy_probe_cdf,
     query_binary,
     query_pair,
     query_values,
     sample_tvals_from_cdf,
     union_pair,
+    update_occ_grid,
 )
 from nerfsys_tpu_torch.ops.volrend import (
     background_rgb,
@@ -124,6 +131,66 @@ def occ_ready(occ_state: Dict, min_updates: int = 1) -> torch.Tensor:
         thresh = torch.tensor(min_updates, dtype=torch.int32,
                               device=occ_state["binary"].device)
     return (occ_state["num_updates"] >= thresh) & occ_state["binary"].any()
+
+
+# --------------------------- grid lifecycle ----------------------------------
+def expert_render_step_sizes(statics: ContainerStatics) -> torch.Tensor:
+    """(K,) marching step of each expert: its box diagonal / 1000."""
+    ext = statics.expert_aabbs[:, 1] - statics.expert_aabbs[:, 0]
+    return torch.linalg.norm(ext, dim=-1) / 1000.0
+
+
+def premark_invisible_expert_cells(occ_state: Dict, statics: ContainerStatics,
+                                   occ_cfg: OccGridConfig,
+                                   c2ws: torch.Tensor,  # (N, 3, 4)
+                                   intrinsics: torch.Tensor,  # (N, 4)
+                                   wh: torch.Tensor,  # (N, 2)
+                                   near: float = 0.0) -> Dict:
+    """Tag every expert's cells that no training camera sees with -1 (they
+    never become occupied); the binary fields restart empty."""
+    occs = torch.stack([
+        mark_invisible_cells(statics.expert_aabbs[k], occ_cfg, c2ws,
+                             intrinsics, wh, near)
+        for k in range(statics.expert_aabbs.shape[0])])
+    return {**occ_state, "occs": occs,
+            "binary": torch.zeros_like(occ_state["binary"])}
+
+
+def make_occ_update_fn(cfg: ContainerConfig, occ_cfg: OccGridConfig, *,
+                       use_kernels: bool = True):
+    """(occ_state, params, statics, step (a host int), generator) ->
+    occ_state. Every `update_interval` steps the EMA update of every expert
+    (`update_occ_grid` with the expert's density times its render step
+    size; all cells while step < warmup_steps) and num_updates + 1 on the
+    grid's device; the state unchanged on other steps, so the train loop
+    calls it every step. The field runs through the encoder kernel unless
+    use_kernels=False; the draws come from `generator`, expert after
+    expert."""
+    _, density_fn = _expert_apply_fn(cfg)
+
+    def update(occ_state, params, statics, step: int, generator=None):
+        if step % occ_cfg.update_interval != 0:
+            return occ_state
+        steps = expert_render_step_sizes(statics)
+        warmup = step < occ_cfg.warmup_steps
+        outs = []
+        for k in range(occ_state["occs"].shape[0]):
+            p_k, aabb_k = _expert_params(params, k), statics.expert_aabbs[k]
+
+            def fn(x, p_k=p_k, aabb_k=aabb_k, step_size=steps[k]):
+                return density_fn(p_k, cfg.expert, aabb_k, x,
+                                  use_kernels=use_kernels) * step_size
+
+            outs.append(update_occ_grid(
+                {"occs": occ_state["occs"][k],
+                 "binary": occ_state["binary"][k]},
+                aabb_k, fn, 1.0, occ_cfg, generator, warmup))
+        return {**occ_state,
+                "occs": torch.stack([o["occs"] for o in outs]),
+                "binary": torch.stack([o["binary"] for o in outs]),
+                "num_updates": occ_state["num_updates"] + 1}
+
+    return update
 
 
 # --------------------------- union probe grid -------------------------------

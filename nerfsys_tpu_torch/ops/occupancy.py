@@ -1,11 +1,13 @@
 """Multi-level occupancy grids: state, queries, probe CDF and sampler.
 
 Port of nerfsys_tpu/ops/occupancy.py (`OccGridConfig` :42, `init_occ_state`
-:69, `level_aabbs` :90, `_finest_level_index` :121, `query_binary` :159,
-`query_values` :179, `query_pair` :196,
-`occupancy_probe_cdf` :394, `sample_tvals_from_cdf` :468,
-`render_rays_occ_field` :556 in soft mode). Grid updates are not ported
-yet.
+:69, `level_aabbs` :90, `cell_centers` :100, `_finest_level_index` :121, `query_binary` :159, `query_values` :179,
+`query_pair` :196, `dilate_binary` :221, `update_occ_grid` :240,
+`mark_invisible_cells` :343, `occupancy_probe_cdf` :394,
+`sample_tvals_from_cdf` :468, `render_rays_occ_field` :556, soft and hard
+mask). The grid's lifecycle: premark the cells no camera sees (-1, never
+occupied), then EMA updates from the field at jittered cell centres; an
+update takes its random draws from an explicit torch.Generator.
 
 The grids of the K experts are stacked: occs (K, L, R, R, R) float EMA
 values and binary (K, L, R, R, R) bool. Level l of an expert covers its box
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from collections import OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
@@ -35,13 +38,21 @@ PairFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 @dataclasses.dataclass(frozen=True)
 class OccGridConfig:
-    """Static occupancy-grid hyperparameters used so far (the grid update
-    keys arrive with the update's port)."""
+    """Static occupancy-grid hyperparameters: the reference's keys and
+    defaults that the grid and its update read (its alpha-threshold anneal
+    and cone_angle keys, which nothing reads, are dropped on import)."""
 
     resolution: int = 128
     levels: int = 4
+    ema_decay: float = 0.95
+    occ_thre: float = 1e-2
     warmup_steps: int = 256
     update_interval: int = 16
+    # fraction of cells re-evaluated by an update after warmup (a
+    # random-phase strided subset; every cell during warmup)
+    sample_fraction: float = 0.5
+    # passes of 3^3 box dilation of the binary field after each update
+    dilate: int = 0
 
 
 def init_occ_state(cfg: OccGridConfig, num_experts: int,
@@ -80,6 +91,19 @@ def level_aabbs(aabb: torch.Tensor, levels: int) -> torch.Tensor:
     los = center - half * scales[:, None]
     his = center + half * scales[:, None]
     return torch.stack([los, his], dim=-2)
+
+
+def cell_centers(aabb: torch.Tensor, cfg: OccGridConfig) -> torch.Tensor:
+    """(L, R^3, 3) world-space cell centres of every level, cells in
+    (i, j, k) row-major order."""
+    R = cfg.resolution
+    ar = torch.arange(R, device=aabb.device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                      dim=-1).reshape(-1, 3)
+    frac = (idx.to(torch.float32) + 0.5) / R
+    la = level_aabbs(aabb, cfg.levels)
+    return (la[:, 0][:, None, :]
+            + frac[None] * (la[:, 1] - la[:, 0])[:, None, :])
 
 
 def _finest_level_index(aabb: torch.Tensor, L: int, R: int,
@@ -137,6 +161,154 @@ def query_pair(occs: torch.Tensor, binary: torch.Tensor, aabb: torch.Tensor,
     val = torch.where(decided, occs.reshape(-1)[flat_idx],
                       torch.zeros((), dtype=occs.dtype, device=occs.device))
     return occ, torch.clamp(val, min=0.0)
+
+
+def dilate_binary(binary: torch.Tensor, passes: int = 1) -> torch.Tensor:
+    """(L, R, R, R) bool -> box-dilated by `passes` cells on the three
+    spatial axes, edges clamped (no wrap): each pass ORs every cell with
+    its neighbours along one axis at a time, the full 3^3 box."""
+    b = binary
+    for _ in range(passes):
+        for ax in (1, 2, 3):
+            n = b.shape[ax]
+            pad = torch.zeros_like(b.narrow(ax, 0, 1))
+            fwd = torch.cat([pad, b.narrow(ax, 0, n - 1)], dim=ax)
+            bwd = torch.cat([b.narrow(ax, 1, n - 1), pad], dim=ax)
+            b = b | fwd | bwd
+    return b
+
+
+# ------------------------------ updates ------------------------------------
+UPDATE_CHUNK = 131_072  # field evaluations of an update at once
+
+
+def update_occ_grid(
+    occ_state_k: Dict[str, torch.Tensor],  # one expert's occs, binary
+    aabb: torch.Tensor,  # (2, 3)
+    density_fn: Callable[[torch.Tensor], torch.Tensor],  # (M, 3) -> (M,)
+    render_step_size: float,
+    cfg: OccGridConfig,
+    generator: Optional[torch.Generator],
+    warmup: bool,
+) -> Dict[str, torch.Tensor]:
+    """One EMA occupancy update of one expert -> {occs, binary} (L, R, R,
+    R). During warmup every cell is re-evaluated; after it, one
+    random-phase strided subset of about sample_fraction of the cells (a
+    lattice of stride m = ceil(1 / fraction) from a phase drawn in [0, m),
+    the same cells at every level), and the field is evaluated only
+    there. The draws, on the grid's device from `generator`: a jitter
+    uniform in [0, 1) of shape (L, M, 3) (M the cells evaluated a level),
+    then the phase."""
+    L, flat = cfg.levels, occ_state_k["occs"].reshape(cfg.levels, -1)
+    m = _subset_stride(cfg)
+    n_eval = flat.shape[1] if warmup else max(1, -(-flat.shape[1] // m))
+    dev = flat.device
+    jitter = torch.rand((L, n_eval, 3), generator=generator, device=dev)
+    phase = torch.randint(0, m, (), generator=generator, device=dev)
+    return _update_occ_grid(occ_state_k, aabb, density_fn, render_step_size,
+                            cfg, warmup, jitter, phase)
+
+
+def _subset_stride(cfg: OccGridConfig) -> int:
+    """m: an update after warmup evaluates every m-th cell."""
+    return max(1, math.ceil(1.0 / max(cfg.sample_fraction, 1e-6) - 1e-9))
+
+
+def _update_occ_grid(occ_state_k, aabb, density_fn, render_step_size, cfg,
+                     warmup: bool, jitter: torch.Tensor, phase: int):
+    """`update_occ_grid` with its draws given: jitter (L, M, 3) in [0, 1)
+    and the subset's phase in [0, m) (an int or a scalar tensor on the
+    grid's device)."""
+    R, L = cfg.resolution, cfg.levels
+    occs = occ_state_k["occs"]
+    flat = occs.reshape(L, -1)
+    n_cells = flat.shape[1]
+    la = level_aabbs(aabb, L)
+    cell_size = (la[:, 1] - la[:, 0]) / R  # (L, 3)
+
+    def eval_new_vals(idx):  # (L, M) cell indices -> (L, M) sigma * step
+        i = torch.div(idx, R * R, rounding_mode="floor")
+        j = torch.div(idx, R, rounding_mode="floor") % R
+        k = idx % R
+        frac = (torch.stack([i, j, k], dim=-1).to(torch.float32) + 0.5) / R
+        centers = (la[:, 0][:, None, :]
+                   + frac * (la[:, 1] - la[:, 0])[:, None, :])
+        # jitter inside the cell (nerfacc samples uniformly within cells)
+        pts = (centers + (jitter - 0.5) * cell_size[:, None, :]).reshape(-1,
+                                                                          3)
+        with torch.no_grad():
+            sigma = torch.cat([density_fn(pts[s:s + UPDATE_CHUNK])
+                               for s in range(0, pts.shape[0],
+                                              UPDATE_CHUNK)])
+        return sigma.reshape(L, -1) * render_step_size
+
+    invisible = flat < 0.0  # premarked cells stay -1 forever
+    if warmup:
+        idx = torch.arange(n_cells, dtype=torch.int32,
+                           device=flat.device).expand(L, n_cells)
+        ema = torch.maximum(flat * cfg.ema_decay, eval_new_vals(idx))
+        updated = torch.where(~invisible, ema, flat)
+    else:
+        m = _subset_stride(cfg)
+        n_sub = max(1, -(-n_cells // m))
+        # the lattice reaches the last cells when m does not divide
+        # n_cells; the overshoot wraps to the front (unique within a call)
+        idx1 = (torch.arange(n_sub, dtype=torch.int64, device=flat.device)
+                * m + phase) % n_cells
+        idx = idx1.expand(L, n_sub)
+        new_val = eval_new_vals(idx)
+        cur = torch.gather(flat, 1, idx)
+        upd = torch.where(cur < 0.0, cur,
+                          torch.maximum(cur * cfg.ema_decay, new_val))
+        updated = flat.clone()
+        updated.scatter_(1, idx, upd)
+
+    # binary = occ > min(occ_thre, mean of the visible occs)
+    visible_vals = torch.where(invisible, torch.zeros_like(updated), updated)
+    mean_occ = visible_vals.sum() / torch.clamp((~invisible).sum(), min=1)
+    thre = torch.clamp(mean_occ, max=cfg.occ_thre)
+    binary = (updated > thre) & ~invisible
+    if cfg.dilate > 0:
+        binary = dilate_binary(binary.reshape(occs.shape),
+                               cfg.dilate).reshape(L, -1)
+    return {"occs": updated.reshape(occs.shape),
+            "binary": binary.reshape(occs.shape)}
+
+
+def mark_invisible_cells(
+    aabb: torch.Tensor,  # (2, 3)
+    cfg: OccGridConfig,
+    c2ws: torch.Tensor,  # (N, 3, 4) camera-to-world, RUB camera frame
+    intrinsics: torch.Tensor,  # (N, 4) fx fy cx cy
+    wh: torch.Tensor,  # (N, 2) W, H
+    near: float = 0.0,
+) -> torch.Tensor:
+    """occs (L, R, R, R) of {0, -1}: -1 for the cells whose centre no
+    camera sees (it projects outside every image or lies behind every
+    camera), computed over chunks of UPDATE_CHUNK cells."""
+    pts = cell_centers(aabb, cfg).reshape(-1, 3)
+    r_w2c = c2ws[:, :3, :3].transpose(1, 2)  # (N, 3, 3) world -> camera
+    t = c2ws[:, :3, 3]
+    fx, fy, cx, cy = (intrinsics[:, i:i + 1] for i in range(4))
+    W, H = wh[:, 0:1], wh[:, 1:2]
+
+    def visible_chunk(p):  # (C, 3) -> (C,) bool
+        rel = p[None, :, :] - t[:, None, :]  # (N, C, 3)
+        cam = torch.einsum("nij,ncj->nci", r_w2c, rel)  # RUB frame
+        z = -cam[..., 2]  # RUB: forward is -z
+        in_front = z > near
+        x = cam[..., 0] / torch.clamp(z, min=1e-8)
+        y = cam[..., 1] / torch.clamp(z, min=1e-8)
+        u = fx * x + cx
+        v = -fy * y + cy  # image v grows downward; camera y is up
+        in_img = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        return (in_front & in_img).any(dim=0)
+
+    visible = torch.cat([visible_chunk(pts[s:s + UPDATE_CHUNK])
+                         for s in range(0, pts.shape[0], UPDATE_CHUNK)])
+    occs = torch.where(visible, 0.0, -1.0)
+    R = cfg.resolution
+    return occs.reshape(cfg.levels, R, R, R)
 
 
 def union_pair(occs: torch.Tensor, binary: torch.Tensor, aabbs: torch.Tensor,
@@ -585,25 +757,27 @@ def render_rays_occ_field(
     ray_floor: Optional[float] = None,
     use_kernels: bool = True,
 ):
-    """Occupancy-guided dense render of ONE field (no routing), soft mode:
-    the grid steers sample PLACEMENT and never deletes density. Used by the
+    """Occupancy-guided dense render of ONE field (no routing). Used by the
     meta inner loop, which trains each expert alone -> (rgb (N, 3),
-    depth (N,), weights (N, S), acc (N,)).
+    depth (N,), weights (N, S), acc (N,)). Soft mode (hard_mask=False):
+    the grid steers sample PLACEMENT and never deletes density. Hard mode:
+    sigma is also zeroed where the binary grid is empty at the final
+    sample points (point-exact: one query of the grid a sample) and on
+    rays whose probes found nothing.
 
     Probe + CDF (kernel 2 on the K=1 grid slice, skipped when `cdf_state`
-    is given) -> inverse-CDF samples (kernel 3) -> field -> compositor
-    (kernel 4 and its backward). Hard-mask rendering and probe-bit masks
-    are not ported."""
+    is given) -> inverse-CDF samples (kernel 3) -> field -> the hard mask
+    -> compositor (kernel 4 and its backward). Probe-bit masks
+    (mask_from_probes) are not ported and raise."""
     from nerfsys_tpu_torch.ops.volrend import (
         background_rgb,
         t_to_points,
         volume_render,
     )
 
-    if hard_mask or mask_from_probes:
+    if mask_from_probes:
         raise NotImplementedError(
-            "hard-mask occupancy rendering (and mask_from_probes) is not "
-            "ported; pass hard_mask=False (the soft mode)")
+            "probe-bit masks (mask_from_probes) are not ported")
     o = rays[:, 0:3].contiguous()
     d = rays[:, 3:6].contiguous()
     near, far = rays[:, 6], rays[:, 7]
@@ -613,22 +787,30 @@ def render_rays_occ_field(
     near_s = torch.where(valid, near, torch.zeros_like(near))
     far_s = torch.where(valid, far, torch.ones_like(far))
     if ray_floor is None:
-        ray_floor = 0.25  # soft mode: unmarked space stays reachable
+        # soft mode needs unmarked space reachable; hard mode would zero
+        # those samples anyway
+        ray_floor = 0.0 if hard_mask else 0.25
+    occs, binary, aabbs = occ_grid
     if cdf_state is None:
-        occs, binary, aabbs = occ_grid
         cdf_state = occupancy_probe_cdf(
             occs, binary, aabbs, o, d, near_s, far_s, n_probes,
             importance=importance, uniform_frac=uniform_frac,
             ray_floor=ray_floor, use_kernels=use_kernels)
-    t_vals, _ = sample_tvals_from_cdf(
+    t_vals, alive = sample_tvals_from_cdf(
         cdf_state, near_s, far_s, n_samples, generator=generator,
         randomized=randomized, use_kernels=use_kernels)
     pts = t_to_points(o, d, t_vals)
     dirs = d[:, None, :].expand(pts.shape)
-    rgb, sigma = field_fn(pts.reshape(-1, 3), dirs.reshape(-1, 3))
+    flat_pts = pts.reshape(-1, 3)
+    rgb, sigma = field_fn(flat_pts, dirs.reshape(-1, 3))
     rgb = rgb.reshape(n_rays, n_samples, 3)
     sigma = sigma.reshape(n_rays, n_samples)
-    sigma = torch.where(valid[:, None], sigma, torch.zeros_like(sigma))
+    keep = valid[:, None]
+    if hard_mask:
+        occ_mask = query_binary(binary[0], aabbs[0], flat_pts).reshape(
+            n_rays, n_samples)
+        keep = occ_mask & alive[:, None] & keep
+    sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
     if bg_fn is not None:
         bg = bg_fn(d)
     else:

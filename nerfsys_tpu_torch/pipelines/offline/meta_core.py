@@ -57,7 +57,8 @@ class MetaConfig:
     randomized: bool = True
     occ_importance: bool = False  # EMA values steer the probe pdf
     occ_probe_mask: bool = False  # hard mode only (not ported)
-    occ_hard_mask: bool = True  # False: the soft mode (the ported one)
+    occ_hard_mask: bool = True  # sigma zeroed outside the grid; False:
+    # the soft mode (the grid steers placement only)
     occ_ray_floor: float = 0.25  # whole-ray pdf floor of the soft mode
     occ_probes: int = 128
 

@@ -5,7 +5,8 @@ Port of nerfsys_tpu/pipelines/online/runtime_adapt.py
 :319, `EarlyStopOccRenderer` :342, `_pad_ids` :389, `_early_stop_dispatch`
 :395, `_fog_stats` :522, `make_chunk_renderer` :532, `default_chunk_rays`
 :909, `render_image` :919, `frame_chunk_rays_biased` :948,
-`shape_frame_outputs` :971, `CoherentExpertRenderer` :1145,
+`shape_frame_outputs` :971, `make_live_camera_renderer` :997,
+`CoherentExpertRenderer` :1145,
 `make_coherent_renderer` :1165, `coherent_dispatch` :1339, `_pad_chunk`,
 `_pack5`, `_pack7` :1411-1425, `two_wave_dispatch` :1428,
 `render_rays_chunked` :1598). The renderer kinds of the occupancy path:
@@ -17,6 +18,10 @@ hard mode; without an occupancy grid, the stratified renderer. With
 (`build_union_probe_grid`, built once per statics). The coherent-expert
 renderer renders rays whose every sample routes to one expert through that
 expert alone. The baked renderers are in models/baked.py.
+
+`make_live_camera_renderer` is the viewer's and the video's live path:
+rays generated on the device from the pose, all chunks dispatched before
+the one fetch of the frame.
 
 The runner's fast live modes map here: `--render_fast` is
 `ContainerConfig(bucketed=True, experts_per_point=1)` with
@@ -55,6 +60,7 @@ from nerfsys_tpu_torch.models.occupancy import (
     union_probe_fns,
 )
 from nerfsys_tpu_torch.ops.rays import clamp_rays_near_far, frame_chunk_rays
+from nerfsys_tpu_torch.ops.scene_box import SceneBox
 from nerfsys_tpu_torch.ops.volrend import (
     render_rays_stratified,
     stratified_t_vals,
@@ -1002,3 +1008,122 @@ def shape_frame_outputs(rays, rgb, depth, weights, acc, *extra, fog_stats,
         return torch.clamp(outs[0] * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
     return torch.cat([o if o.dim() == 2 else o[:, None] for o in outs],
                      dim=1)
+
+
+def make_live_camera_renderer(
+    cfg: ContainerConfig,
+    *,
+    H: int,
+    W: int,
+    ray_samples: int,
+    chunk_rays: int = 65536,
+    scene_aabb: Optional[np.ndarray] = None,
+    near: Optional[float] = None,
+    far: Optional[float] = None,
+    near_override: Optional[float] = None,
+    far_override: Optional[float] = None,
+    near_bias: float = 0.0,
+    occ_state: Optional[Dict] = None,
+    occ_importance: bool = False,
+    occ_hard_mask: bool = True,
+    occ_probe_mask: bool = False,
+    occ_probe_grid_res: int = 0,  # union-grid probing (0 = exact per-expert)
+    active_expert: Optional[int] = None,
+    bg_policy: str = "white",
+    use_bg_fn: bool = True,
+    fog_stats: bool = False,
+    invalid_black: bool = False,
+    out_u8: bool = True,
+    map_outputs=None,
+    device="cuda",
+    use_kernels: bool = True,
+):
+    """Serving-path frame renderer over the LIVE field: (params, statics,
+    c2w (3, 4), intrinsics (4,), *extra) -> (H, W, 3) uint8, or with
+    out_u8=False the stacked float planes (H*W, 5) [rgb, depth, acc]
+    ((H*W, 7) with fog_stats' wmax and entropy), or with map_outputs its
+    (H, W, k) result.
+
+    Rays are generated on the device chunk by chunk
+    (`frame_chunk_rays_biased`: the upload is the pose and intrinsics, not
+    H*W*8 floats of host rays), each chunk is rendered and shaped on the
+    device (`shape_frame_outputs`), and every chunk is dispatched before
+    the one fetch of the frame. The one-program live modes: stratified
+    without occ_state; soft occupancy (the grid steers placement, nothing
+    is skipped); hard mask without dead-chunk skipping (the two-wave
+    dispatcher stays on the host-ray path). occ_probe_grid_res > 0 probes
+    ONE resampled union grid (built once per statics) instead of every
+    expert's every level; the hard sigma mask stays exact per expert.
+
+    `near_bias` shifts t_near on the device as the video path does
+    (max(near, 0) + bias, capped at far - 1e-4; miss tags stay inf);
+    `map_outputs(rgb, depth, acc[, wmax, entropy], *extra)` maps the
+    outputs on the device; invalid_black zeroes box-miss pixels. Probe-bit
+    masks (occ_probe_mask) are not ported and raise."""
+    if occ_probe_mask:
+        raise NotImplementedError("probe-bit masks are not ported")
+    dev = resolve_device(device)
+    sb = None
+    if scene_aabb is not None:
+        sb = SceneBox(torch.as_tensor(np.asarray(scene_aabb, np.float32),
+                                      device=dev))
+    elif near is None or far is None:
+        raise ValueError("provide scene_aabb or scalar near/far")
+    occ = (None if occ_state is None
+           else {k: v.to(dev) for k, v in occ_state.items()})
+    grid_for = None
+    if occ is not None and int(occ_probe_grid_res) > 0:
+        if active_expert is not None:
+            print("[render] --occ_union_probe_res ignored: union-grid "
+                  "probing applies to the full-MoE path only "
+                  "(active_expert set)")
+        else:
+            grid_for = _union_grid_for(occ, occ_importance,
+                                       int(occ_probe_grid_res))
+
+    def chunk_fn(params, statics, c2w, intr, start, union_grid, *extra):
+        rays = frame_chunk_rays_biased(
+            c2w, intr, start, chunk_rays, H, W, scene_box=sb, near=near,
+            far=far, near_override=near_override, far_override=far_override,
+            near_bias=near_bias)
+        if occ is not None:
+            rgb, depth, w, acc = render_rays_occ(
+                params, cfg, statics, occ, rays, ray_samples,
+                randomized=False, bg_policy=bg_policy,
+                active_expert=active_expert, importance=occ_importance,
+                hard_mask=occ_hard_mask, use_bg_fn=use_bg_fn,
+                probe_fns=(None if union_grid is None
+                           else union_probe_fns(union_grid)),
+                use_kernels=use_kernels)
+        else:
+            field = container_field_fn(params, cfg, statics, active_expert,
+                                       use_kernels=use_kernels)
+            rgb, depth, w, acc = render_rays_stratified(
+                field, rays, ray_samples, randomized=False,
+                bg_policy=bg_policy,
+                bg_fn=container_bg_fn(params, cfg) if use_bg_fn else None,
+                use_kernels=use_kernels)
+        return shape_frame_outputs(
+            rays, rgb, depth, w, acc, *extra, fog_stats=fog_stats,
+            invalid_black=invalid_black, map_outputs=map_outputs,
+            out_u8=out_u8)
+
+    n_pix = H * W
+
+    def render(params, statics, c2w, intrinsics, *extra):
+        c2w_t = torch.from_numpy(
+            np.array(np.asarray(c2w, np.float32)[:3, :4])).to(dev)
+        intr_t = torch.from_numpy(
+            np.array(np.asarray(intrinsics, np.float32)[:4])).to(dev)
+        with torch.no_grad():
+            grid = grid_for(statics) if grid_for is not None else None
+            # every chunk dispatched before the first fetch
+            pending = [chunk_fn(params, statics, c2w_t, intr_t, s, grid,
+                                *extra)
+                       for s in range(0, n_pix, chunk_rays)]
+            out = torch.cat(pending, dim=0)[:n_pix].cpu().numpy()
+        if map_outputs is not None or out_u8:
+            return out.reshape(H, W, -1)
+        return out  # (H*W, C) stacked planes; the caller reshapes
+
+    return render

@@ -21,6 +21,7 @@ import torch
 from nerfsys_tpu_torch.models.container import ContainerConfig, ContainerStatics
 from nerfsys_tpu_torch.models.ngp import NGPConfig
 from nerfsys_tpu_torch.ops.encodings import HashGridConfig
+from nerfsys_tpu_torch.ops.occupancy import OccGridConfig
 from nerfsys_tpu_torch.ops.planes import PlaneEncodingConfig
 from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
 from nerfsys_tpu_torch.utils.device import resolve_device
@@ -90,8 +91,11 @@ def _fields(obj: Any, cls) -> Dict:
 # container.py:79-88 expert_map: lax.map vs vmap over the expert axis;
 # nerfsys_tpu/ops/planes.py:56-115: the matmul backward and its chunking,
 # zero-padded gather rows, the scatter backward, packed corner rows, float32
-# line matmuls and their chunking). Every other key the port lacks must hold
-# the reference's default, or the import raises: it would change the math.
+# line matmuls and their chunking); and the occupancy grid's alpha-threshold
+# anneal and cone_angle (nerfsys_tpu/ops/occupancy.py:42-66): no renderer,
+# update or trainer of the reference reads them (only `anneal_alpha_thre`
+# :111, which nothing calls). Every other key the port lacks must hold the
+# reference's default, or the import raises: it would change the math.
 DROPPED_KEYS = {
     "ContainerConfig": ("expert_map",),
     "NGPConfig": (),
@@ -100,6 +104,8 @@ DROPPED_KEYS = {
                             "packed_corners", "lines_matmul",
                             "lines_mm_chunk"),
     "HashGridConfig": (),
+    "OccGridConfig": ("alpha_thre", "alpha_thre_start", "alpha_thre_end",
+                      "cosine_anneal", "cone_angle"),
 }
 
 
@@ -146,6 +152,13 @@ def container_config_from_jax(cfg: Any) -> ContainerConfig:
     ck = _ported_fields(cfg, ContainerConfig, "cfg")
     ck["expert"] = NGPConfig(**ek)
     return ContainerConfig(**ck)
+
+
+def occ_grid_config_from_jax(cfg: Any) -> OccGridConfig:
+    """The port's OccGridConfig from a reference OccGridConfig: the grid's
+    shape, warmup and the update's EMA, threshold, subset fraction and
+    dilation; the unread keys of DROPPED_KEYS are dropped."""
+    return OccGridConfig(**_ported_fields(cfg, OccGridConfig, "occ"))
 
 
 def meta_config_from_jax(meta: Any) -> MetaConfig:

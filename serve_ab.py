@@ -38,14 +38,17 @@ the first chunk of the skew-0.9 frame's (the coherent renderer's probe
 samples), and row 8 (the segment compositor) on the serve chunk's first
 segment (65,536 x 8, the bench probe's samples through the field, t and
 dt column slices) and on a resume slice (16,384 x 24): each case's device
-time (chip_smoke's `device_ms`) and back-to-back time; before the rounds
+time (chip_smoke's `device_ms`) and back-to-back time, and 10a-iii (the
+blend's transpose) on the top-2 dispatches of the serve chunk and of the
+K=16 chunk; before the rounds
 each worker holds every case against its plain version (the sampler
 within 1e-5, the dispatch's integer outputs equal and its weights within
-1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5); then,
-one side after the other, each profiles ten dispatch calls (device time
-by kernel launch), one soft early-stop frame at sigma_scale 1 and one
-coherent skew frame (hash experts), watching rows 8 and 10b. A worker
-waits on its pipe between rounds, so one runs at a time.
+1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5, 10a-iii
+equal); then, one side after the other, each profiles ten dispatch calls
+and ten 10a-iii calls (device time by kernel launch), one soft early-stop
+frame at sigma_scale 1 and one coherent skew frame (hash experts),
+watching rows 8 and 10b. A worker waits on its pipe between rounds, so
+one runs at a time.
 
 Prints every round, then for each side the median, quartiles and range of
 the round means; the difference of the medians against the other side's
@@ -170,7 +173,20 @@ def step_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
 KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
                 "dispatch K=4 E=2", "dispatch K=16 E=2", "coherent chunk",
                 "coherent skew chunk", "composite first segment",
-                "composite resume slice")
+                "composite resume slice", "combine_bwd K=4 E=2",
+                "combine_bwd K=16 E=2")
+
+
+def combine_bwd_call(CO, w, dest, counts, g_s, g_r, n_slots):
+    """The checkout's 10a-iii wrapper: with the dispatch's counts where it
+    takes them (a wrapper that predates them zero-fills its outputs)."""
+    import inspect
+
+    if "counts" in inspect.signature(
+            CO.bucket_combine_bwd_kernel).parameters:
+        return CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, n_slots,
+                                            counts=counts)
+    return CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, n_slots)
 
 
 def segment_inputs(cs, cfg, statics, params, occ, rays, device):
@@ -313,6 +329,25 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
                     float(outs[0]["dest"].double().sum()))
         return (lambda: CO.bucket_dispatch_kernel(*args)), check
 
+    def combine_bwd(dispatch_args):
+        dsp = CO.bucket_dispatch_kernel(*dispatch_args)
+        K, C = dispatch_args[2].shape[0], dispatch_args[-1]
+        n = dispatch_args[0].shape[0]
+        g = torch.Generator(device=device).manual_seed(13)
+        g_s = torch.randn((n,), device=device, generator=g)
+        g_r = torch.randn((n, 3), device=device, generator=g)
+        args = (CO, dsp["w"], dsp["dest"], dsp["counts"], g_s, g_r, K * C)
+
+        def check():
+            got = combine_bwd_call(*args)
+            want = CO.bucket_combine_bwd_plain(*args[1:3], *args[4:])
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit("serve_ab: 10a-iii differs from its plain "
+                                 "version")
+            return ("equal to the plain version",
+                    float(sum(x.double().sum() for x in got)))
+        return (lambda: combine_bwd_call(*args)), check
+
     return [(KERNEL_CASES[0], *sampler((cdf, near, far, u))),
             (KERNEL_CASES[1], *sampler((scdf, sn, sf, su))),
             (KERNEL_CASES[2], *dispatch((pts, dirs, cents, True, 1.1, 1,
@@ -325,7 +360,12 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
             (KERNEL_CASES[5], *coherent(pts_ns)),
             (KERNEL_CASES[6], *coherent(skew_pts)),
             (KERNEL_CASES[7], *composite(segments[0])),
-            (KERNEL_CASES[8], *composite(segments[1]))]
+            (KERNEL_CASES[8], *composite(segments[1])),
+            (KERNEL_CASES[9], *combine_bwd((pts, dirs, cents, True, 1.1, 2,
+                                            CO.bucket_capacity(
+                                                pts.shape[0], 4, 2,
+                                                cs.MOE_CF)))),
+            (KERNEL_CASES[10], *combine_bwd(k16))]
 
 
 def profile_frames(cs, cfg, statics, params, occ, device, root: Path):
@@ -380,10 +420,11 @@ def kernel_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
     print(json.dumps({"ready": "kernels"}), flush=True)
     for line in sys.stdin:
         if line.strip() == "profile":  # one side at a time
-            for name, call, _ in cases[2:5]:
+            for name, call, _ in cases[2:5] + cases[9:11]:
                 cs.profile_device(f"{root} {name}, 10 calls",
                                   lambda: [call() for _ in range(10)],
-                                  watch=(("bucket",), ("Memset",)))
+                                  watch=(("bucket",), ("Memset",),
+                                         ("Fill",)))
             profile_frames(cs, cfg, statics, params, occ, device, root)
             print(json.dumps({"profiled": True}), flush=True)
             continue

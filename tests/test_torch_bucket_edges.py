@@ -1,6 +1,7 @@
 """Adversarial inputs of the bucket dispatch (kernel 10a-i, its module
 `nerfsys_tpu_torch.models.container`) against the reference, the kernel's
-single-pass algorithm walked in numpy, and its launch plans.
+single-pass algorithm walked in numpy, and its launch plans; the same for
+the blend's transpose (10a-iii).
 
 Inputs come from chip_smoke.py's `dispatch_edge_inputs` and
 `dispatch_edge_cases`, the ones the kernel is held to on the card (numpy
@@ -17,6 +18,14 @@ one-hot exclusive cumsum) for idx, w, dest and counts.
 Tolerances: integer outputs and gathered rows exactly; w within 1e-6
 against the reference (its routing distance is a matrix product, the
 port's an elementwise sum in the same order), exactly for the walk.
+
+10a-iii's cases are chip_smoke.py's `combine_edge_cases` (E=1 and 8, hard
+routing, an empty bucket, an overflowing one, N off whole tiles, below
+one tile and a single point, no rgb, K=64) on dispatches of the same
+inputs: BucketCombine's backward (the saved counts beside w and dest)
+equals `jax.vjp` of the reference's reshape-sum blend exactly (one
+product a slot), and the kernel's tiles, staged runs and tail fill walked
+in numpy equal the plain version exactly.
 """
 import dataclasses
 
@@ -334,3 +343,209 @@ def test_bucketed_container_config_unchanged():
     fields = {f.name for f in dataclasses.fields(TCo.ContainerConfig)}
     assert {"bucketed", "experts_per_point", "capacity_factor",
             "bucket_overflow_dense"} <= fields
+
+
+COMBINE_CASES = cs.combine_edge_cases()
+COMBINE_IDS = [c[0].replace(" ", "_").replace(",", "") for c in
+               COMBINE_CASES]
+
+
+def _combine_inputs(case, seed):
+    _, kind, n, k, e, margin, rgb = case
+    tile = TCo.combine_bwd_plan(1, k, e, 128, 132).tile
+    n = n if n < cs.CHECK_RAYS * 32 // 8 else 2 * tile + 188
+    return cs.combine_edge_inputs(kind, n, k, e, margin, rgb, seed,
+                                  torch.device("cpu"))
+
+
+def _combine_walk(w, dest, counts, g_s, g_r, n_slots, sms=132):
+    """Kernel 10a-iii in numpy: the fill blocks zero each bucket's tail
+    [min(counts, C), C) in grid-stride order; each tile of the plan's
+    points finds each expert's run (its least slot and its count, the
+    shared atomics), scans the counts, stages one product a kept slot by
+    (expert, slot), and a warp an expert writes the run as a scalar head
+    to the first 16-byte boundary, 16-byte stores and a scalar tail.
+    Every output float must be written exactly once."""
+    N, E = w.shape
+    K = counts.shape[0]
+    C = n_slots // K
+    plan = TCo.combine_bwd_plan(N, K, E, C, sms)
+    sig = np.full(n_slots, np.nan, np.float32)
+    rgb = None if g_r is None else np.full(n_slots * 3, np.nan, np.float32)
+    writes = np.zeros(n_slots, np.int64)
+    rgb_writes = np.zeros(n_slots * 3, np.int64)
+
+    def store(dst, hits, f0, vals):
+        assert np.isnan(dst[f0:f0 + len(vals)]).all()
+        dst[f0:f0 + len(vals)] = vals
+        hits[f0:f0 + len(vals)] += 1
+
+    step = plan.fill_blocks * 256
+    for k in range(K):
+        s0 = min(int(counts[k]), C)
+        for j in range(plan.fill_blocks):
+            for g in range(j * 256, (j + 1) * 256):
+                for f in range(s0 + g, C, step):
+                    store(sig, writes, k * C + f, [0.0])
+                if rgb is not None:
+                    a, b = 3 * s0, 3 * C
+                    a4 = min((a + 3) & ~3, b)
+                    for f in range(a + g, a4, step):
+                        store(rgb, rgb_writes, 3 * k * C + f, [0.0])
+                    for q in range(a4 // 4 + g, b // 4, step):
+                        store(rgb, rgb_writes, 3 * k * C + 4 * q, [0.0] * 4)
+    d_all = dest.reshape(N, E)
+    for t in range(plan.tiles):
+        lo, hi = t * plan.tile, min((t + 1) * plan.tile, N)
+        d, wt = d_all[lo:hi], w[lo:hi]
+        kept = d < n_slots
+        ks = d // C
+        start = np.full(K, 2 ** 31 - 1, np.int64)
+        cnt = np.zeros(K, np.int64)
+        for kk, dd in zip(ks[kept], d[kept]):
+            start[kk] = min(start[kk], dd)
+            cnt[kk] += 1
+        off = np.cumsum(cnt) - cnt
+        total = int(cnt.sum())
+        assert total <= 2048  # the shared staging
+        s_sig = np.full(total, np.nan, np.float32)
+        s_rgb = np.full(total * 3, np.nan, np.float32)
+        for i in range(hi - lo):
+            for e in range(E):
+                if not kept[i, e]:
+                    continue
+                kk, r = ks[i, e], d[i, e] - start[ks[i, e]]
+                assert 0 <= r < cnt[kk]  # the run is contiguous
+                pos = off[kk] + r
+                assert np.isnan(s_sig[pos])
+                s_sig[pos] = wt[i, e] * g_s[lo + i]
+                if rgb is not None:
+                    s_rgb[3 * pos:3 * pos + 3] = wt[i, e] * g_r[lo + i]
+        for kk in range(K):
+            if cnt[kk] == 0:
+                continue
+            runs = [(sig, writes, start[kk], s_sig[off[kk]:off[kk] +
+                                                     cnt[kk]])]
+            if rgb is not None:
+                runs.append((rgb, rgb_writes, 3 * start[kk],
+                             s_rgb[3 * off[kk]:3 * (off[kk] + cnt[kk])]))
+            for dst, hits, f0, src in runs:
+                n = len(src)
+                head = min(n, (4 - (f0 & 3)) & 3)
+                body = (n - head) // 4
+                assert (f0 + head) % 4 == 0 or body == 0
+                store(dst, hits, f0, src[:head])
+                for q in range(body):
+                    store(dst, hits, f0 + head + 4 * q,
+                          src[head + 4 * q:head + 4 * q + 4])
+                store(dst, hits, f0 + head + 4 * body,
+                      src[head + 4 * body:])
+    assert (writes == 1).all()
+    assert rgb is None or (rgb_writes == 1).all()
+    return sig, None if rgb is None else rgb.reshape(-1, 3)
+
+
+def _jax_blend_vjp(w, dest, n_slots, g_s, g_r):
+    """jax.vjp of the reference's reshape-sum blend (container.py:363-373)
+    with respect to the bucket results."""
+    N, E = w.shape
+    keep = jnp.asarray(dest < n_slots)
+    wk = jnp.where(keep, jnp.asarray(w.reshape(-1)), 0.0)
+    d = jnp.asarray(dest.astype(np.int32))
+
+    def blend(sb, rb):
+        s_flat = jnp.concatenate([sb, jnp.zeros((1,), sb.dtype)])
+        sigma = jnp.sum((wk * s_flat[d]).reshape(N, E), axis=1)
+        if rb is None:
+            return sigma
+        r_flat = jnp.concatenate([rb, jnp.zeros((1, 3), rb.dtype)])
+        return sigma, jnp.sum((wk[:, None] * r_flat[d]).reshape(N, E, 3),
+                              axis=1)
+
+    sb = jnp.zeros((n_slots,), jnp.float32)
+    if g_r is None:
+        _, vjp = jax.vjp(lambda s: blend(s, None), sb)
+        return vjp(jnp.asarray(g_s))[0], None
+    _, vjp = jax.vjp(blend, sb, jnp.zeros((n_slots, 3), jnp.float32))
+    return vjp((jnp.asarray(g_s), jnp.asarray(g_r)))
+
+
+@pytest.mark.parametrize("case", COMBINE_CASES, ids=COMBINE_IDS)
+def test_combine_bwd_matches_reference_vjp(case):
+    """BucketCombine's backward, with the dispatch's counts saved beside w
+    and dest, against jax.vjp of the reference's blend: exactly."""
+    w, dest, counts, g_s, g_r, n_slots = _combine_inputs(case, seed=5)
+    sb = torch.zeros(n_slots, requires_grad=True)
+    rb = (None if g_r is None
+          else torch.zeros((n_slots, 3), requires_grad=True))
+    out = TCo.BucketCombine.apply(w, dest, counts, sb, rb, True)
+    if rb is None:
+        got = torch.autograd.grad(out, sb, g_s)
+        got = (got[0], None)
+    else:
+        got = torch.autograd.grad(out, (sb, rb), (g_s, g_r))
+    with jax.disable_jit():
+        want = _jax_blend_vjp(w.numpy(), dest.numpy(), n_slots, g_s.numpy(),
+                              None if g_r is None else g_r.numpy())
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    if g_r is not None:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("case", COMBINE_CASES, ids=COMBINE_IDS)
+def test_combine_walk_matches_plain(case, sms):
+    """Every output float written once: the tails by the fill blocks, the
+    kept slots by their tile's staged runs; equal to the plain version."""
+    w, dest, counts, g_s, g_r, n_slots = _combine_inputs(case, seed=6)
+    want = TCo.bucket_combine_bwd_plain(w, dest, g_s, g_r, n_slots)
+    got = _combine_walk(w.numpy(), dest.numpy(), counts.numpy(),
+                        g_s.numpy(), None if g_r is None else g_r.numpy(),
+                        n_slots, sms)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    if g_r is not None:
+        np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+def test_combine_edge_inputs_hit_their_cases():
+    """The empty bucket stays empty, the overflow's demand exceeds C, hard
+    routing trashes every second pair, no rgb has no rgb gradient."""
+    by_label = {c[0]: c for c in COMBINE_CASES}
+    *_, counts, _, _, n_slots = _combine_inputs(by_label["an empty bucket"],
+                                                0)
+    assert int(counts[-1]) == 0 and int(counts[:-1].min()) > 0
+    w, dest, counts, _, _, n_slots = _combine_inputs(
+        by_label["overflow (bucket_overflow_dense=False)"], 0)
+    assert int(counts.max()) > n_slots // counts.shape[0]
+    assert int((dest == n_slots).sum()) > 0
+    w, dest, *_ = _combine_inputs(
+        [c for c in COMBINE_CASES if c[5] == 1.0][0], 0)
+    assert (w[:, 1] == 0).all() and (dest.reshape(-1, 2)[:, 1] ==
+                                     dest.max()).all()
+    assert _combine_inputs(by_label["no rgb"], 0)[4] is None
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 2_097_152])
+@pytest.mark.parametrize("k,e", [(1, 1), (4, 1), (4, 2), (4, 4), (16, 8),
+                                 (64, 2)])
+def test_combine_bwd_plan(n, k, e):
+    """Tiles of 1,024 points for E <= 2 and 256 above, at most 2,048 pairs
+    a tile; about 4 fill blocks an SM over the K buckets."""
+    plan = TCo.combine_bwd_plan(n, k, e, 128, 132)
+    assert plan.tile == (1024 if e <= 2 else 256)
+    assert plan.tile * e <= 2048
+    assert plan.tiles * plan.tile >= n > (plan.tiles - 1) * plan.tile or (
+        n == 0 and plan.tiles == 0)
+    assert plan.fill_blocks * k >= 4 * 132
+    st = plan.as_struct()
+    assert (st.tile, st.tiles, st.fill_blocks) == (plan.tile, plan.tiles,
+                                                   plan.fill_blocks)
+
+
+@pytest.mark.parametrize("bad", [dict(k=65), dict(e=9), dict(c=100),
+                                 dict(e=0), dict(k=0), dict(n=-1)])
+def test_combine_bwd_plan_limits(bad):
+    kw = dict(n=1000, k=4, e=1, c=128, sms=132)
+    kw.update(bad)
+    with pytest.raises(ValueError):
+        TCo.combine_bwd_plan(**kw)

@@ -289,7 +289,10 @@ def test_combine_and_its_transpose():
                       requires_grad=True)
     rb = torch.tensor(rng.normal(size=(K * C, 3)).astype(np.float32),
                       requires_grad=True)
-    sigma, rgb = TCo.BucketCombine.apply(w, torch.tensor(dest), sb, rb, True)
+    counts = torch.tensor(np.bincount(dest[dest < K * C] // C,
+                                      minlength=K).astype(np.int32))
+    sigma, rgb = TCo.BucketCombine.apply(w, torch.tensor(dest), counts, sb,
+                                         rb, True)
     s_flat = torch.cat([sb, sb.new_zeros(1)])
     r_flat = torch.cat([rb, rb.new_zeros(1, 3)])
     keep = torch.tensor(dest < K * C).reshape(N, E)

@@ -190,7 +190,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert all(hasattr(ra, f) for f in ('TwoWaveOccRenderer',"
         " 'EarlyStopOccRenderer', 'two_wave_dispatch',"
         " 'CoherentExpertRenderer', 'make_coherent_renderer',"
-        " 'coherent_dispatch'))\n"
+        " 'coherent_dispatch', 'make_live_camera_renderer'))\n"
+        "assert all(hasattr(mo, f) for f in ('make_occ_update_fn',"
+        " 'premark_invisible_expert_cells', 'expert_render_step_sizes'))\n"
         "from nerfsys_tpu_torch.models import container as co\n"
         "assert all(hasattr(co, f) for f in ('bucket_dispatch_plain',"
         " 'bucket_combine_plain', 'bucket_combine_bwd_plain',"
@@ -206,6 +208,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 22
+
+
+def test_port_sources_name_neither_jax_nor_the_jax_package():
+    """No import statement of the port's package or of its scripts names
+    jax or the JAX package (nerfsys_tpu, not nerfsys_tpu_torch)."""
+    import re
+    from pathlib import Path
+
+    root = Path(REPO)
+    files = sorted((root / "nerfsys_tpu_torch").rglob("*.py")) + [
+        root / name for name in ("chip_smoke.py", "serve_ab.py",
+                                 "kernel_ab.py")]
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|nerfsys_tpu)(\.|\s|$)")
+    named = re.compile(r"import_module\(\s*[\"'](jax|nerfsys_tpu)[\"'.]")
+    bad = [f"{f.relative_to(root)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pattern.match(line) or named.search(line)]
+    assert len(files) > 30 and not bad, bad
 
 
 def test_kernel_registry_covers_every_source():

@@ -297,10 +297,13 @@ def test_maml_and_unported_modes_raise():
         TS.make_train_step(TM.MetaConfig(algo="maml"), tcfg, opt)
     with pytest.raises(ValueError):
         TM.MetaConfig(algo="sgd")
-    meta = interop.meta_config_from_jax(_meta(occ_hard_mask=True))
+    # the hard mask is ported (tests/test_torch_hard_mask_train.py);
+    # probe-bit masks still raise
+    meta = interop.meta_config_from_jax(_meta(occ_hard_mask=True,
+                                              occ_probe_mask=True))
     assert meta.occ_importance and meta.ray_samples == 8
     _, (tcfg, tp, tst, tocc, tb) = _sides(cfg, params, statics, occ, batch)
-    with pytest.raises(NotImplementedError, match="hard-mask"):
+    with pytest.raises(NotImplementedError, match="probe-bit"):
         TS.make_train_step(meta, tcfg, opt)(tp, {}, tst, tb,
                                             torch.Generator(), tocc)
 
