@@ -32,7 +32,7 @@ printing its result lines):
    points on level borders and one ulp either side, points outside every
    level, all-dead rays, one occupied cell, sum(val) on both sides of
    1e-12, P = 32, 100, 256, K=1 L=1, K=1 L=4, K=5, importance and
-   ray_floor on and off; 0 bit flips, cdf within 1e-5), its bound also by
+   ray_floor on and off; 0 bit flips, the cdf bit-equal), its bound also by
    the distinct 32-byte sectors the selected cells touch, its time by
    lane map and without value reads. Kernel 3 (the sampler) also on
    adversarial inputs (`edge sample_tvals_from_cdf` lines: rows that dip
@@ -126,7 +126,38 @@ printing its result lines):
    launched, its gradients against the plain step within 2^-8 of each
    leaf's max, one step profiled with the device time of the hard mask's
    point queries (a profiler range around each) beside its busy time.
-8. Hash: the runner's default experts (`container_config_from_args` with
+8. Trainer: the runner's train op in process (`runner.main`), on a
+   prepared scene that the phase writes to a temporary directory in the
+   dataset layout (coordinates.pt; train|val metadata .pt and .png rgbs;
+   masks/g22 with params.pt, scene_boxes.pt and zip-compressed per-image
+   boolean masks): an aerial ring of 16 training and 2 validation
+   1000x750 cameras (a 12 MP photo at configs/train.json's downscale
+   0.25, read at --downscale 1.0) over a smooth procedural ground
+   texture, 4 experts on a 2x2 ground Voronoi with margin 1.1 (14.6M
+   training rays from 12M pixels: the margin puts boundary pixels in two
+   experts). `--configPath configs/train.json` (bench width: K=4
+   planes experts L=3 base 128 F=8, hidden 64, B=3 tasks of 4,000 + 2,000
+   rays, 8 inner steps, 32 samples, soft importance occupancy R=128 L=4,
+   nothing cut) for 36 steps, occupancy warmup 12 and an update every 6,
+   eval and save every 12, one eval batch. Checks: every step's loss
+   finite, the params moved, kernels 1-5 launched, 6 occupancy updates (2
+   full, 4 subset), step12 / step24 / step36 / last / best written, the
+   batches reach the step on the card, and two loop steps taken again
+   through the plain path from the same params, batch, grid and generator
+   state within 2^-8 of each gradient leaf's max: the first (stratified
+   sampling, the grid not yet ready) and step 18 (importance sampling
+   through kernels 2 and 3). Then a warm start from
+   `last` (--outer_steps 40: start step 36, best and grids restored,
+   params bit-equal to the saved ones, 4 more steps) and 4 steps of the
+   hash experts at the runner's default widths (7a and 7c launched),
+   both on 4 of the 16 training cameras (--cap_images 4: the host
+   rebuilds each run's rays and routing, and neither check reads them).
+   Prints the scene's build seconds (dataset, routing, TaskDataset),
+   seconds to the first step, the median loop step on the host clock
+   with meta_trainer's data_time and step_time, one profiled loop step
+   with its occupancy update beside the train phase's bench step, and
+   the checkpoint save and load seconds.
+9. Hash: the runner's default experts (`container_config_from_args` with
    the flag defaults: K=4 Instant-NGP experts, hash L=16 F=2
    log2_hashmap_size 20, 16-4096, Linear, floor layout, fp32; 512 MiB of
    tables) on the same statics and occupancy grid. Kernel row 7 against
@@ -150,7 +181,7 @@ printing its result lines):
    frame, and the train phase below with the hash experts and a packed
    step in place of the exact-backward one (7a, 7b, 7c launched;
    gradients against the plain step; both steps profiled).
-9. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
+10. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
    at the runner's default hash width (the hash phase's experts). Kernel
    row 10 against its plain versions at one full serve chunk (2,097,152
    points, K=4): 10a-i (`bucket_dispatch`) for E=1 and 2, soft and hard
@@ -185,8 +216,8 @@ printing its result lines):
    bucketed E=2 cf 1.5, with
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
-10. A JSON line listing every kernel (launches, error, times, bound).
-11. The card line, then the last line:
+11. A JSON line listing every kernel (launches, error, times, bound).
+12. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -377,8 +408,9 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
     n_ops = N * P * (9 + K * L * 14) + N * P * 12
     times = probe_times(grids, o, d, near, far, probe_kw)
     b_all, _ = bound(all_bytes, n_ops)
-    report(kernels.OCC_PROBE_CDF, max_err(ker["cdf"], pln["cdf"]), 1e-5,
-           "cdf in [0,1]; warp scan vs torch.cumsum summation order",
+    report(kernels.OCC_PROBE_CDF, max_err(ker["cdf"], pln["cdf"]),
+           PROBE_EDGE_TOL, "bit-equal: the plain version sums and scans in "
+           "the kernel's order",
            times["device"],
            cuda_ms(lambda: O.occupancy_probe_cdf(
                *grids, o, d, near, far, **probe_kw, use_kernels=False), 3),
@@ -424,8 +456,10 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
     e_ker = PL.plane_encode_kernel(enc_p, x01, pc)
     e_pln = PL.plane_encode_plain(enc_p, x01, pc)
     n_out = e_ker.numel()
-    report(kernels.PLANES_FWD, max_err(e_ker, e_pln), 1e-5,
-           "features O(0.3); fused multiply-adds vs separate torch ops",
+    report(kernels.PLANES_FWD, max_err(e_ker, e_pln), 0.0,
+           "bit-equal: built with --fmad=false, the plain version's op "
+           "order; a contracted build reads ~1e-7 here and flips MLP ReLUs "
+           "in training",
            cuda_ms(lambda: PL.plane_encode_kernel(enc_p, x01, pc), 10),
            cuda_ms(lambda: PL.plane_encode_plain(enc_p, x01, pc), 3),
            nbytes(x01, enc_p["planes"], enc_p["lines"], e_ker),
@@ -705,7 +739,7 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
     flips = (int((cdf["occ"] != want["occ"]).sum()),
              int((cdf["alive"] != want["alive"]).sum()))
     cdf_err = max_err(cdf["cdf"], want["cdf"])
-    if flips != (0, 0) or not cdf_err <= 1e-5:
+    if flips != (0, 0) or not cdf_err <= PROBE_EDGE_TOL:
         raise SystemExit(f"kernel occupancy_probe_cdf disagrees with its "
                          f"plain version at the step's shapes: {flips} "
                          f"flips, cdf {cdf_err}")
@@ -956,7 +990,10 @@ def probe_times_text(times) -> str:
             + probe_plan_text(times["plan"]))
 
 
-PROBE_EDGE_TOL = 1e-5
+# the plain version sums and scans in the kernel's order: the cdf is
+# bit-equal, and a rounding difference would move the samples kernel 3
+# draws and with them a training step's gradients (the trainer phase)
+PROBE_EDGE_TOL = 0.0
 PROBE_EDGE_N = 4096 + 13  # a tail past whole 32-ray blocks
 
 
@@ -1053,7 +1090,7 @@ def probe_edge_cases():
 
 def probe_edges(device):
     """Kernel 2 against its plain version on `probe_edge_cases`, under both
-    lane maps: 0 occ-bit and 0 alive flips, cdf within 1e-5."""
+    lane maps: 0 occ-bit and 0 alive flips, the cdf bit-equal."""
     import torch
 
     from nerfsys_tpu_torch.ops import occupancy as O
@@ -1289,7 +1326,7 @@ def plane_fwd_edges(pc, enc_p, x01, device):
     chunk (K=4, 2,097,152 points an expert unless stated): one cell,
     coordinates on and outside the bounds, a tail tile (N - 37), no lines,
     F=2 (the scalar variant), and L=5 base 128 (K=1, 120 output floats a
-    point)."""
+    point); bit-equal (tolerance 0), as the --fmad=false build is."""
     import dataclasses
 
     import torch
@@ -1316,9 +1353,9 @@ def plane_fwd_edges(pc, enc_p, x01, device):
         plan = PL.plane_fwd_plan(x.shape[1], c.level_resolutions(),
                                  c.features)
         print(f"edge plane_encode_fwd {label}: K={x.shape[0]} "
-              f"N={x.shape[1]} max_abs_err={err:.3e} tol=1e-05 "
+              f"N={x.shape[1]} max_abs_err={err:.3e} tol=0 "
               f"kernel_ms={ms:.4f} plan {plan_text(plan)}", flush=True)
-        if not err <= 1e-5:
+        if not err <= 0.0:
             raise SystemExit(f"kernel plane_encode_fwd disagrees with its "
                              f"plain version on {label}: {err}")
         del got, want
@@ -1412,24 +1449,30 @@ def plane_bwd_edges(cfg, statics, params, enc, pts, x01, ct, device):
 
 
 class GradRecorder:
-    """Wraps an optimizer and keeps the gradients each step hands it."""
+    """Wraps an optimizer and keeps, by update index, the gradients of the
+    updates whose indices are in `keep` (all of them by default)."""
 
-    def __init__(self, opt):
-        self.opt, self.grads = opt, []
+    def __init__(self, opt, keep=None):
+        self.opt, self.grads, self.keep, self.n = opt, {}, keep, 0
 
     def init(self, params):
         return self.opt.init(params)
 
     def update(self, grads, state, params=None):
-        self.grads.append(grads)
+        if self.keep is None or self.n in self.keep:
+            self.grads[self.n] = grads
+        self.n += 1
         return self.opt.update(grads, state, params)
 
 
 def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
-                              device, label="train"):
+                              device, label="train", kernel_side=None,
+                              gen_state=None):
     """One outer step's gradients (all B tasks) through the kernels against
     the same step through the plain versions, both through `make_train_step`
-    on the card, from the same random draws (one generator seed each)."""
+    on the card, from the same random draws (one generator seed each, or
+    the generator state `gen_state`). `kernel_side`: the kernel path's
+    (meta loss, gradient leaves) when they were already recorded."""
     import torch
 
     from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
@@ -1437,10 +1480,14 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
     )
     from nerfsys_tpu_torch.utils.tree import tree_leaves
 
-    out = []
-    for use_kernels in (True, False):
+    out = [] if kernel_side is None else [kernel_side]
+    for use_kernels in (True, False)[len(out):]:
         rec = GradRecorder(opt)
-        gen = torch.Generator(device=device).manual_seed(7)
+        gen = torch.Generator(device=device)
+        if gen_state is None:
+            gen.manual_seed(7)
+        else:
+            gen.set_state(gen_state)
         _, _, aux = make_train_step(meta, cfg, rec, use_kernels=use_kernels)(
             params, rec.init(params), statics, batch, gen, occ)
         out.append((float(aux["loss_out_meta"]), tree_leaves(rec.grads[0])))
@@ -1468,7 +1515,6 @@ def profile_device(label: str, fn, extra: str = "", watch=(),
     ms of the kernels launched inside them). Returns the device busy ms (0
     when the profiler saw no device events)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1477,6 +1523,18 @@ def profile_device(label: str, fn, extra: str = "", watch=(),
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    return profile_report(label, prof, wall_ms, extra, watch, ranges)
+
+
+PROFILES = {}  # label -> (wall ms, device busy ms) of each profile_report
+
+
+def profile_report(label: str, prof, wall_ms: float, extra: str = "",
+                   watch=(), ranges=None) -> float:
+    """profile_device's report of a finished torch.profiler session that
+    spanned `wall_ms` of host time; returns the device busy ms."""
+    from torch.autograd import DeviceType
+
     names = set(ranges or ())
     rows = []
     for ev in prof.key_averages():
@@ -1515,27 +1573,34 @@ def profile_device(label: str, fn, extra: str = "", watch=(),
         print(f"profile: device time not measured (the profiler saw no "
               f"device events); {label} wall_ms={wall_ms:.2f}{extra}",
               flush=True)
+    PROFILES[label] = (wall_ms, busy_ms)
     return busy_ms
 
 
 @contextlib.contextmanager
+def patched(module, attr: str, make):
+    """While the block runs, `module.attr` is `make(original)`."""
+    fn = getattr(module, attr)
+    setattr(module, attr, make(fn))
+    try:
+        yield
+    finally:
+        setattr(module, attr, fn)
+
+
 def named_range(module, attr: str, name: str):
     """While the block runs, every call of `module.attr` opens the
     torch.profiler.record_function range `name`, so that a profile sums
     the device time of the kernels launched inside those calls."""
     import torch
 
-    fn = getattr(module, attr)
+    def make(fn):
+        def wrapped(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
 
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
-
-    setattr(module, attr, wrapped)
-    try:
-        yield
-    finally:
-        setattr(module, attr, fn)
+    return patched(module, attr, make)
 
 
 def exact_backward(cfg):
@@ -1787,6 +1852,537 @@ def occupancy(cfg, statics, params, occ, batch, device):
           f"of the step's device busy {busy:.2f} ms; phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {k: upd_launches[k] + step_launches[k] for k in upd_launches}
+
+
+TRAINER_CAMS, TRAINER_VAL = 16, 2  # an aerial ring of training + val cameras
+TRAINER_W, TRAINER_H = 1000, 750  # a 12 MP drone photo at downscale 0.25
+TRAINER_FOCAL = 750.0
+TRAINER_STEPS, TRAINER_WARM_STEPS, TRAINER_HASH_STEPS = 36, 4, 4
+TRAINER_PROFILED = 18  # a loop step with an occupancy update after it
+TRAINER_CAP = 4  # training cameras of the warm-start and hash runs (their
+# checks do not depend on the data; the host builds the scene's rays anew)
+GROUND_X, CAM_X, CAM_R = 0.5, -0.9, 0.4  # DRB: x points down
+# the global box: the ground's altitude band, +-1.1 across (the cameras
+# fly above it, as create_clusters' box holds the scene's points)
+SCENE_BOX = ((0.2, -1.1, -1.1), (0.6, 1.1, 1.1))
+MASK_SAMPLES, MASK_MARGIN = 32, 1.1
+TRAINER_EXTRA = ()  # flags appended to every runner call (CPU rehearsals)
+TRAINER_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
+                   "sample_tvals_from_cdf", "volume_render_fwd",
+                   "volume_render_bwd", "plane_encode_bwd_light")
+TRAINER_HASH_KERNELS = ("hash_encode_fwd", "hash_encode_bwd")
+
+
+def scene_cameras():
+    """The ring's camera-to-world poses (RUB camera axes in the DRB world)
+    and intrinsics: TRAINER_CAMS + TRAINER_VAL cameras at height -CAM_X,
+    radius CAM_R, each looking at the ground's centre."""
+    import numpy as np
+
+    n = TRAINER_CAMS + TRAINER_VAL
+    up = np.array([-1.0, 0.0, 0.0])
+    target = np.array([GROUND_X, 0.0, 0.0])
+    c2ws = []
+    for a in np.linspace(0.0, 2.0 * np.pi, n, endpoint=False):
+        eye = np.array([CAM_X, CAM_R * np.cos(a), CAM_R * np.sin(a)])
+        fwd = (target - eye) / np.linalg.norm(target - eye)
+        right = np.cross(fwd, up)
+        right /= np.linalg.norm(right)
+        c2ws.append(np.stack([right, np.cross(right, fwd), -fwd, eye],
+                             1).astype(np.float32))
+    intr = np.array([TRAINER_FOCAL, TRAINER_FOCAL, TRAINER_W / 2,
+                     TRAINER_H / 2], np.float32)
+    return c2ws, intr
+
+
+def scene_image(c2w, intr, device):
+    """(H, W, 3) uint8: a smooth procedural texture on the ground plane
+    x = GROUND_X inside the scene box's footprint, a sky gradient
+    elsewhere -> (image, camera rays (H*W, 3) origins, directions)."""
+    import torch
+
+    H, W = TRAINER_H, TRAINER_W
+    fx, fy, cx, cy = (float(v) for v in intr)
+    j, i = torch.meshgrid(torch.arange(H, device=device) + 0.5,
+                          torch.arange(W, device=device) + 0.5,
+                          indexing="ij")
+    dirs = torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)],
+                       -1).reshape(-1, 3)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    c2w = torch.tensor(c2w, device=device)
+    d = dirs @ c2w[:, :3].T
+    o = c2w[:, 3].expand_as(d)
+    t = (GROUND_X - o[:, 0]) / d[:, 0].clamp(min=1e-6)
+    y, z = (o[:, 1] + d[:, 1] * t), (o[:, 2] + d[:, 2] * t)
+    ground = (d[:, 0] > 1e-6) & (y.abs() <= SCENE_BOX[1][1]) & (
+        z.abs() <= SCENE_BOX[1][2])
+    tex = torch.stack([
+        0.5 + 0.3 * torch.sin(3.1 * y + 1.7 * z + 0.3),
+        0.5 + 0.3 * torch.sin(-2.3 * y + 2.9 * z + 1.1),
+        0.5 + 0.25 * torch.cos(4.0 * torch.sqrt(y * y + z * z))], -1)
+    sky = torch.stack([0.55 - 0.2 * d[:, 0], 0.65 - 0.2 * d[:, 0],
+                       torch.full_like(y, 0.9)], -1)
+    rgb = torch.where(ground[:, None], tex, sky).clamp(0, 1)
+    img = (rgb * 255.0 + 0.5).to(torch.uint8).reshape(H, W, 3)
+    return img, o, d
+
+
+def voronoi_masks(o, d, cents, box, mins, maxs):
+    """create_clusters' routing of one image on the card: MASK_SAMPLES
+    points a ray between its entry to and exit from the global box; a
+    pixel belongs to expert c iff min_x d2(x, c) <= margin^2 min_c'
+    min_x d2(x, c') on (y, z); the experts' boxes grow over the points
+    assigned to them (mins, maxs updated in place) -> (H*W, K) bool."""
+    import torch
+
+    inv = 1.0 / torch.where(d.abs() < 1e-8, torch.full_like(d, 1e-8), d)
+    t0, t1 = (box[0] - o) * inv, (box[1] - o) * inv
+    near = torch.minimum(t0, t1).amax(-1).clamp(min=0.0)
+    far = torch.maximum(t0, t1).amin(-1)
+    ok = far > near
+    near, far = torch.where(ok, near, 0.0), torch.where(ok, far, 0.0)
+    zs = torch.linspace(0.0, 1.0, MASK_SAMPLES, device=o.device)
+    out = []
+    for s in range(0, o.shape[0], 1 << 18):
+        sl = slice(s, s + (1 << 18))
+        t = near[sl, None] * (1 - zs) + far[sl, None] * zs
+        x = o[sl, None] + d[sl, None] * t[..., None]  # (R, S, 3)
+        d2 = ((x[..., None, 1:] - cents[:, 1:]) ** 2).sum(-1)  # (R, S, K)
+        assign = (d2 <= MASK_MARGIN ** 2 * d2.amin(-1, keepdim=True)) & ok[
+            sl, None, None]
+        out.append(assign.any(1))
+        for k in range(cents.shape[0]):
+            pts = x[assign[..., k]]
+            if pts.shape[0]:
+                mins[k] = torch.minimum(mins[k], pts.amin(0))
+                maxs[k] = torch.maximum(maxs[k], pts.amax(0))
+    return torch.cat(out)
+
+
+def save_zip_mask(path, mask) -> None:
+    """A zip-compressed torch .pt bool tensor (create_clusters' format)."""
+    import io
+    import zipfile
+
+    import torch
+
+    buf = io.BytesIO()
+    torch.save(mask.cpu().contiguous(), buf)
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr(path.name, buf.getvalue())
+
+
+def write_scene(root, device) -> int:
+    """A prepared scene in the dataset layout (nerfsys_tpu/data/dataset.py)
+    under root: coordinates.pt, {train,val}/{metadata/*.pt, rgbs/*.png},
+    masks/g22/{params.pt, scene_boxes.pt, <cid>/*.pt} (zip-compressed
+    boolean masks of a 2x2 ground Voronoi with margin MASK_MARGIN) ->
+    pixels written."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    c2ws, intr = scene_cameras()
+    n = len(c2ws)
+    val = {round(n * (k + 0.25) / TRAINER_VAL) for k in range(TRAINER_VAL)}
+    box = torch.tensor(SCENE_BOX, device=device)
+    mid = 0.5 * (SCENE_BOX[0][0] + SCENE_BOX[1][0])
+    cents = torch.tensor([[mid, sy * 0.55, sz * 0.55] for sy in (-1, 1)
+                          for sz in (-1, 1)], device=device)
+    K = cents.shape[0]
+    mins = torch.full((K, 3), float("inf"), device=device)
+    maxs = torch.full((K, 3), float("-inf"), device=device)
+    masks_dir = root / "masks" / "g22"
+    for d in ([root / s / k for s in ("train", "val")
+               for k in ("metadata", "rgbs")]
+              + [masks_dir / str(c) for c in range(K)]):
+        d.mkdir(parents=True, exist_ok=True)
+    torch.save({"origin_drb": torch.zeros(3), "pose_scale_factor": 1.0},
+               root / "coordinates.pt")
+    for i, c2w in enumerate(c2ws):
+        split = "val" if i in val else "train"
+        name = f"{i:06d}"
+        img, o, d = scene_image(c2w, intr, device)
+        Image.fromarray(img.cpu().numpy()).save(
+            root / split / "rgbs" / f"{name}.png", compress_level=1)
+        torch.save({"H": TRAINER_H, "W": TRAINER_W,
+                    "c2w": torch.from_numpy(c2w),
+                    "intrinsics": torch.from_numpy(intr),
+                    "distortion": torch.zeros(4)},
+                   root / split / "metadata" / f"{name}.pt")
+        mask = voronoi_masks(o, d, cents, box, mins, maxs)
+        for c in range(K):
+            save_zip_mask(masks_dir / str(c) / f"{name}.pt",
+                          mask[:, c].reshape(TRAINER_H, TRAINER_W))
+    lo, hi = box[0], box[1]
+    mins, maxs = torch.maximum(mins, lo), torch.minimum(maxs, hi)
+    mins[:, 0], maxs[:, 0] = lo[0], hi[0]  # altitude unified
+    aabb = box.cpu()
+    torch.save({"format_version": 3, "centroid_mode": "grid",
+                "centroids": cents.cpu(), "grid_dim": (1, 2, 2),
+                "cluster_2d": True, "boundary_margin": MASK_MARGIN,
+                "ray_samples": MASK_SAMPLES, "aabb_global": aabb,
+                "scene_scale": 1.1, "near_far_override_m": (None, None)},
+               masks_dir / "params.pt")
+    torch.save({"format_version": 3, "aabb_global": aabb,
+                "mins": mins.cpu(), "maxs": maxs.cpu()},
+               masks_dir / "scene_boxes.pt")
+    return n * TRAINER_H * TRAINER_W
+
+
+class LoopProbe:
+    """What chip_smoke reads of a runner.main run, through wrappers on
+    the runner's names (`attach`): the build's seconds, each train step
+    (its host start, metrics, the batch's devices), the inputs and
+    gradients of the steps in `check_steps` (`checked`, by step index;
+    with whether the occupancy grid was ready, so the step sampled by
+    importance), the occupancy updates, the checkpoint saves and loads,
+    meta_trainer's arguments and the meters' data_time / step_time; and
+    one profiled loop step (`profile_step`, with the occupancy update
+    after it)."""
+
+    def __init__(self, profile_step=None, check_steps=(0,)):
+        self.seconds = {}
+        self.steps, self.updates, self.saves, self.meters = [], [], [], []
+        self.check_steps, self.checked = frozenset(check_steps), {}
+        self.last_params = None
+        self.trainer_kwargs = None
+        self.rec = None
+        self.meta_cfg = None
+        self.profile_step, self.prof = profile_step, None
+        self.t_main = time.perf_counter()
+
+    def timed(self, key):
+        def make(fn):
+            def wrapped(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.seconds[key] = self.seconds.get(key, 0.0) + (
+                        time.perf_counter() - t0)
+            return wrapped
+        return make
+
+    def make_train_step(self, fn):
+        import torch
+
+        from nerfsys_tpu_torch.models.occupancy import occ_ready
+
+        def make(meta, cfg, tx, **kw):
+            self.meta_cfg = (meta, cfg, tx)
+            step = fn(meta, cfg, tx, **kw)
+
+            def wrapped(params, opt_state, statics, batch, gen, occ=None):
+                i = len(self.steps)
+                if i in self.check_steps:
+                    self.checked[i] = dict(
+                        params=params, statics=statics, batch=batch,
+                        gen_state=gen.get_state(),
+                        occ=None if occ is None else
+                        {k: v.clone() for k, v in occ.items()},
+                        occ_ready=occ is not None and bool(occ_ready(occ)))
+                if i == self.profile_step:
+                    self.start_profile()
+                t = time.perf_counter()
+                out = step(params, opt_state, statics, batch, gen, occ)
+                self.last_params = out[0]
+                self.steps.append(dict(
+                    t=t, aux=out[2],
+                    on_device=all(v.device.type == gen.device.type
+                                  for v in batch.values()
+                                  if isinstance(v, torch.Tensor))))
+                return out
+            return wrapped
+        return make
+
+    def build_optimizer(self, fn):
+        def make(cfg, labels):
+            self.rec = GradRecorder(fn(cfg, labels), keep=self.check_steps)
+            return self.rec
+        return make
+
+    def make_occ_update_fn(self, fn):
+        def make(cfg, occ_cfg, **kw):
+            update = fn(cfg, occ_cfg, **kw)
+
+            def wrapped(state, params, statics, step, gen):
+                new = update(state, params, statics, step, gen)
+                if new is not state:
+                    self.updates.append((step, step < occ_cfg.warmup_steps,
+                                         new["num_updates"]))
+                if self.prof is not None:
+                    self.stop_profile()
+                return new
+            return wrapped
+        return make
+
+    def meta_trainer(self, fn):
+        def wrapped(**kw):
+            self.trainer_kwargs = dict(kw)
+            self.seconds["to first step"] = time.perf_counter() - self.t_main
+            return fn(**kw)
+        return wrapped
+
+    def scalars(self, fn):
+        def wrapped(logger, values, step, prefix=""):
+            if prefix == "train/":
+                self.meters.append((values["time_data"],
+                                    values["time_step"]))
+            return fn(logger, values, step, prefix)
+        return wrapped
+
+    def start_profile(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.start()
+        self.t_prof = time.perf_counter()
+
+    def stop_profile(self):
+        import torch
+
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - self.t_prof)
+        self.prof.stop()
+        prof, self.prof = self.prof, None
+        profile_report("trainer loop step", prof, wall_ms,
+                       extra=" (one runner loop step with its occupancy "
+                       "update)", watch=(("plane_encode_fwd_kernel",),
+                                         ("volume_render_bwd_kernel",)))
+
+    def attach(self, stack):
+        from nerfsys_tpu_torch import runner
+        from nerfsys_tpu_torch.data import task_dataset
+        from nerfsys_tpu_torch.models import occupancy as MO
+        from nerfsys_tpu_torch.utils import checkpoint as ckpt
+        from nerfsys_tpu_torch.utils.logging import Logger
+
+        for module, attr, make in (
+                (runner, "get_dataset", self.timed("dataset")),
+                (runner, "TaskDataset", self.timed("TaskDataset")),
+                (task_dataset, "route_rays_exact", self.timed("routing")),
+                (runner, "make_train_step", self.make_train_step),
+                (runner, "build_optimizer", self.build_optimizer),
+                (runner, "meta_trainer", self.meta_trainer),
+                (MO, "make_occ_update_fn", self.make_occ_update_fn),
+                (ckpt, "save_checkpoint", self.timed("checkpoint save")),
+                (ckpt, "save_aux_state", self.timed("checkpoint save")),
+                (ckpt, "load_checkpoint", self.timed("checkpoint load")),
+                (ckpt, "load_aux_state", self.timed("checkpoint load")),
+                (Logger, "scalars", self.scalars)):
+            stack.enter_context(patched(module, attr, make))
+        return self
+
+
+def run_runner(argv, profile_step=None, check_steps=(0,)):
+    """runner.main(argv) with a LoopProbe attached -> (ctx, probe); the
+    launch counters are zeroed just before and read just after."""
+    from nerfsys_tpu_torch import kernels, runner
+
+    with contextlib.ExitStack() as stack:
+        probe = LoopProbe(profile_step, check_steps).attach(stack)
+        kernels.reset_launches()
+        ctx = runner.main(argv)
+        probe.launches = kernels.launches()
+    return ctx, probe
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def loop_checks(label, probe, n_steps, need):
+    """Every step finite and fed from the card, the kernels `need`
+    launched -> the losses."""
+    import math
+
+    losses = [float(s["aux"]["loss_out"]) for s in probe.steps]
+    if len(losses) != n_steps or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"trainer: {label}: {len(losses)} steps, losses "
+                         f"{losses}")
+    if not all(s["on_device"] for s in probe.steps):
+        raise SystemExit(f"trainer: {label}: a batch reached the step off "
+                         f"the card")
+    for k in need:
+        if probe.launches[k] <= 0:
+            raise SystemExit(f"trainer: {label}: kernel {k} never launched")
+    return losses
+
+
+def trainer(device):
+    """Phase: the runner's train op (`runner.main`, configs/train.json's
+    model at bench width: K=4 planes experts L=3 base 128 F=8, hidden 64,
+    B=3 tasks of 4,000 + 2,000 rays, 8 inner steps, 32 samples, soft
+    importance occupancy R=128 L=4) on a prepared scene written to a
+    temporary directory: an aerial ring of 16 training and 2 validation
+    1000x750 cameras over a textured ground, 4 experts on a 2x2 ground
+    Voronoi. 36 steps with 6 occupancy updates, evals and saves every 12;
+    the gradients of steps 0 (stratified) and 18 (importance sampling)
+    against the same steps through the plain path; a warm start from `last` for 4 more steps; 4 steps of the hash
+    experts (the runner's default encoder at its default widths) ->
+    launches of the three runs."""
+    import json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="nerfsys_trainer_"))
+    try:
+        t0 = time.perf_counter()
+        pixels = write_scene(tmp / "out" / "scene", device)
+        scene_s = time.perf_counter() - t0
+        base = ["--op", "train", "--configPath",
+                str(Path(__file__).resolve().parent / "configs"
+                    / "train.json"),
+                "--data_path", str(tmp), "--data_dirname", "scene",
+                "--mask_dirname", "g22", "--downscale", "1.0",
+                "--occ_warmup", "12", "--occ_update_interval", "6",
+                "--eval_step", "12", "--save_step", "12",
+                "--max_test_tasks", "1", "--device", str(device),
+                *TRAINER_EXTRA]
+        run = tmp / "run"
+        ctx, probe = run_runner(base + ["--outer_steps", str(TRAINER_STEPS),
+                                        "--fname", str(run)],
+                                profile_step=TRAINER_PROFILED,
+                                check_steps=(0, TRAINER_PROFILED))
+        losses = loop_checks("main run", probe, TRAINER_STEPS,
+                             TRAINER_KERNELS)
+        bundle = ctx["bundle"]
+        n_rays = sum(len(ds) for ds in bundle.train_sets)
+        moved = [not torch.equal(a, b) for a, b in zip(
+            tree_leaves(probe.last_params),
+            tree_leaves(probe.checked[0]["params"]))]
+        if not all(moved):
+            raise SystemExit(f"trainer: {moved.count(False)} param leaves "
+                             f"did not move")
+        ups = [(s, w, int(n)) for s, w, n in probe.updates]
+        if [w for _, w, _ in ups] != [True] * 2 + [False] * 4 or \
+                ups[-1][2] != 6:
+            raise SystemExit(f"trainer: occupancy updates {ups}, expected "
+                             f"2 full then 4 subset")
+        tags = ("step12", "step24", "step36", "last", "best")
+        missing = [t for t in tags if not (run / f"{t}.model").exists()
+                   or not (run / f"{t}.occ").exists()]
+        if missing:
+            raise SystemExit(f"trainer: checkpoints missing: {missing}")
+        print(f"trainer: scene {TRAINER_CAMS} + {TRAINER_VAL} cameras "
+              f"{TRAINER_W}x{TRAINER_H} ({pixels} pixels) written in "
+              f"{scene_s:.2f} s; {n_rays} training rays over "
+              f"{len(bundle.train_sets)} experts "
+              f"{[len(ds) for ds in bundle.train_sets]}; build s: dataset "
+              f"{probe.seconds['dataset']:.2f}, TaskDataset "
+              f"{probe.seconds['TaskDataset']:.2f} (routing "
+              f"{probe.seconds['routing']:.2f}); seconds to the first step "
+              f"{probe.seconds['to first step']:.2f}", flush=True)
+        gaps = [1e3 * (b["t"] - a["t"])
+                for a, b in zip(probe.steps, probe.steps[1:])]
+        data = [1e3 * m[0] for m in probe.meters]
+        stept = [1e3 * m[1] for m in probe.meters]
+        saves = probe.seconds.get("checkpoint save", 0.0)
+        print(f"trainer: {TRAINER_STEPS} loop steps: median step ms (host "
+              f"clock, start to start) {median(gaps):.2f}; meters: "
+              f"data_time median {median(data):.2f} ms (max "
+              f"{max(data):.2f}), step_time median {median(stept):.2f} ms; "
+              f"loss_out first / last {losses[0]:.6f} / {losses[-1]:.6f} "
+              f"(min {min(losses):.6f}); occupancy updates {ups}; "
+              f"checkpoint saves (every tag and each new best) {saves:.2f} "
+              f"s in all; launches {probe.launches}", flush=True)
+        bench = PROFILES.get("train step")
+        loop = PROFILES.get("trainer loop step")
+        if loop is None:
+            raise SystemExit("trainer: the loop step was not profiled")
+        if bench is not None:
+            print(f"trainer: profiled loop step (step {TRAINER_PROFILED} + "
+                  f"its occupancy update) wall {loop[0]:.2f} ms, device busy "
+                  f"{loop[1]:.2f} ms, idle share "
+                  f"{1 - loop[1] / loop[0]:.3f}; the train phase's bench "
+                  f"step on the same configuration wall {bench[0]:.2f} ms, "
+                  f"busy {bench[1]:.2f} ms, idle share "
+                  f"{1 - bench[1] / bench[0]:.3f}", flush=True)
+
+        # the loop's first step samples stratified (the grid is not ready
+        # before occ_warmup // occ_update_interval updates); the profiled
+        # step samples by importance through kernels 2 and 3
+        meta, cfg, opt = probe.meta_cfg
+        for i, want_ready in ((0, False), (TRAINER_PROFILED, True)):
+            f = probe.checked[i]
+            if f["occ_ready"] != want_ready:
+                raise SystemExit(f"trainer: loop step {i}: occupancy grid "
+                                 f"ready {f['occ_ready']}, expected "
+                                 f"{want_ready}")
+            path = ("importance sampling from the occupancy grid" if
+                    want_ready else "stratified, the grid not yet ready")
+            grads_through_plain_match(
+                meta, cfg, opt, f["statics"], f["params"], f["occ"],
+                f["batch"], device, f"trainer loop step {i} ({path})",
+                kernel_side=(float(probe.steps[i]["aux"]["loss_out_meta"]),
+                             tree_leaves(probe.rec.grads[i])),
+                gen_state=f["gen_state"])
+        launches = dict(probe.launches)
+        del ctx, probe, f, bundle
+        torch.cuda.empty_cache()
+
+        # warm start from the main run's `last`
+        saved = torch.load(run / "last.model", weights_only=True)
+        saved_occ = torch.load(run / "last.occ", weights_only=True)
+        state = json.loads((run / "last.state.json").read_text())
+        ctx, probe = run_runner(base + [
+            "--cap_images", str(TRAINER_CAP),
+            "--checkpoint_path", str(run), "--prefix", "last",
+            "--outer_steps", str(TRAINER_STEPS + TRAINER_WARM_STEPS),
+            "--fname", str(tmp / "warm")])
+        kw = probe.trainer_kwargs
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree_leaves(probe.checked[0]["params"]), tree_leaves(saved)))
+        same_occ = all(torch.equal(probe.checked[0]["occ"][k].cpu(), v)
+                       for k, v in saved_occ.items())
+        if kw["start_step"] != TRAINER_STEPS or kw["best"] != state[
+                "best"] or not same or not same_occ:
+            raise SystemExit(f"trainer: warm start restored step "
+                             f"{kw['start_step']} best {kw['best']} (saved "
+                             f"{state}), params equal {same}, grids equal "
+                             f"{same_occ}")
+        loop_checks("warm start", probe, TRAINER_WARM_STEPS, ())
+        print(f"trainer: warm start from last: step {kw['start_step']}, "
+              f"best {kw['best']:.4f}, params and grids bit-equal to the "
+              f"saved ones; checkpoint load "
+              f"{probe.seconds.get('checkpoint load', 0.0):.2f} s, seconds "
+              f"to the first step {probe.seconds['to first step']:.2f}; "
+              f"{TRAINER_WARM_STEPS} more steps; launches "
+              f"{probe.launches}", flush=True)
+        launches = {k: v + probe.launches[k] for k, v in launches.items()}
+        del ctx, probe, saved, saved_occ
+        torch.cuda.empty_cache()
+
+        # the runner's default encoder at its default widths
+        ctx, probe = run_runner(base + [
+            "--cap_images", str(TRAINER_CAP), "--xyz_encoding", "hash",
+            "--outer_steps", str(TRAINER_HASH_STEPS),
+            "--fname", str(tmp / "hash")])
+        hash_losses = loop_checks("hash run", probe, TRAINER_HASH_STEPS,
+                                  TRAINER_HASH_KERNELS)
+        hc = ctx["cfg"].expert.hash
+        print(f"trainer: hash run (L={hc.levels} F="
+              f"{hc.features_per_level} T={hc.log2_hashmap_size}) "
+              f"{TRAINER_HASH_STEPS} steps, loss_out {hash_losses}; "
+              f"launches {probe.launches}", flush=True)
+        launches = {k: v + probe.launches[k] for k, v in launches.items()}
+        del ctx, probe
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"trainer: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 
 def profile_frame(renderer, params, statics, md, aabb, chunk,
@@ -4593,13 +5189,15 @@ def main() -> int:
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
+    trainer_n = trainer(device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
     moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
 
     parts = (("serve", served), ("camera", cam), ("early-stop", early),
              ("baked", baked_n), ("train", trained),
-             ("occupancy", occ_n), ("hash serve", hash_served),
+             ("occupancy", occ_n), ("trainer", trainer_n),
+             ("hash serve", hash_served),
              ("hash train", hash_trained), ("moe", moe))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         n = k.name

@@ -1,16 +1,28 @@
-"""Host-side frame ray generation (numpy).
+"""Host-side ray generation and the in-RAM ray store of a split (numpy).
 
-The port's own copy of the numpy ray path of nerfsys_tpu/data/ram_rays.py
+The port's own copy of nerfsys_tpu/data/ram_rays.py: the numpy ray path
 (`np_ray_directions`, `np_ray_aabb_intersect`, `np_get_rays`,
-`np_clamp_rays`, `frame_rays`; :28-137). The reference's C++ ray generator
-(data/native) is host code and is not part of the port; `frame_rays` here
-is always the numpy path.
+`np_clamp_rays`, `frame_rays`; :28-137), Mega-NeRF val balancing
+(`apply_meganerf_val_balancing` :141), the per-image worker
+(`process_single_image` :165) and `RamRaysDataset` (:228). Per image: load
+the pixels, apply the expert's keep-mask (and optionally the val
+balancing), generate rays against the expert's scene box, clamp near/far,
+drop invalid rays, normalize rgb to [0, 1]. Images are processed by a
+thread pool when there are more than 8.
+
+The reference's C++ ray generator (data/native) is host code and is not
+part of the port: every function here is always the numpy path, which is
+the reference's own path when the native library is absent.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from nerfsys_tpu_torch.data.image_metadata import ImageMetadata
 
 _MISS = 1e10  # AABB miss tag, matches ops/scene_box.py
 
@@ -91,3 +103,121 @@ def frame_rays(H: int, W: int, intrinsics, c2w: np.ndarray, *,
                        near=near, far=far)
     rays = rays.reshape(-1, 8).astype(np.float32)
     return np_clamp_rays(rays, near, far)
+
+
+# --------------------- Mega-NeRF val balancing ------------------------------
+def apply_meganerf_val_balancing(keep_mask: np.ndarray,
+                                 rng: np.random.Generator) -> np.ndarray:
+    """Keep the left half; re-add as many discarded left pixels as right
+    pixels were dropped (the ray count stays roughly constant)."""
+    H, W = keep_mask.shape
+    mask = keep_mask.copy()
+    left = mask[:, : W // 2]
+    right = mask[:, W // 2:]
+    n_discard = int(right.sum())
+    if n_discard > 0:
+        cand = np.arange(H * W).reshape(H, W)[:, : W // 2]
+        not_kept = cand[~left]
+        if not_kept.size > 0:
+            take = rng.permutation(not_kept.size)[:n_discard]
+            flat = mask.reshape(-1)
+            flat[not_kept[take]] = True
+            mask = flat.reshape(H, W)
+    mask[:, W // 2:] = False
+    return mask
+
+
+# --------------------- per-image worker --------------------------------------
+def process_single_image(
+    md: Optional[ImageMetadata],
+    center_pixels: bool,
+    val_balancing: bool,
+    aabb: Optional[np.ndarray],
+    near_far_override: Optional[Tuple[Optional[float],
+                                      Optional[float]]] = None,
+    seed: int = 0,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """-> (rgbs (M, 3) float32, rays (M, 8) float32, img_indices (M,)
+    int32), or None when the image keeps no valid ray."""
+    if md is None:
+        return None
+    img = md.load_image()  # (H, W, 3) uint8
+    keep = md.load_mask()
+
+    if md.is_val and val_balancing:
+        if keep is None:
+            keep = np.ones((md.H, md.W), dtype=bool)
+        keep = apply_meganerf_val_balancing(
+            keep, np.random.default_rng(seed + md.image_index))
+
+    if keep is not None and keep.sum() == 0:
+        return None
+
+    no, fo = near_far_override or (None, None)
+    fx, fy, cx, cy = md.intrinsics
+    dirs = np_ray_directions(md.H, md.W, fx, fy, cx, cy, center_pixels)
+    rays = np_get_rays(dirs, md.c2w, aabb=aabb).reshape(-1, 8)
+    rgb = img.reshape(-1, 3)
+
+    if keep is not None:
+        flat = keep.reshape(-1)
+        rays = rays[flat]
+        rgb = rgb[flat]
+
+    rays, valid = np_clamp_rays(rays, no, fo)
+    if not valid.any():
+        return None
+    rays = rays[valid]
+    rgb = rgb[valid].astype(np.float32) / 255.0
+    idx = np.full((rgb.shape[0],), md.image_index, dtype=np.int32)
+    return rgb, rays, idx
+
+
+# --------------------- dataset ------------------------------------------------
+class RamRaysDataset:
+    """All rays of a split, flattened into contiguous numpy arrays:
+    rays (N, 8), rgbs (N, 3), img_indices (N,), what TaskDataset and the
+    train loop consume."""
+
+    def __init__(
+        self,
+        metadata_items: List[ImageMetadata],
+        center_pixels: bool = True,
+        val_balancing: bool = False,
+        scene_aabb: Optional[np.ndarray] = None,  # (2, 3) or None
+        near_far_override: Optional[Tuple] = None,
+        num_workers: Optional[int] = None,
+        seed: int = 0,
+    ):
+        if num_workers is None:
+            num_workers = min(8, max(1, (os.cpu_count() or 1) // 2))
+
+        def work(md):
+            return process_single_image(md, center_pixels, val_balancing,
+                                        scene_aabb, near_far_override, seed)
+
+        if len(metadata_items) > 8 and num_workers > 1:
+            with ThreadPoolExecutor(max_workers=num_workers) as ex:
+                results = list(ex.map(work, metadata_items))
+        else:
+            results = [work(md) for md in metadata_items]
+
+        results = [r for r in results if r is not None]
+        if not results:
+            self.rgbs = np.zeros((0, 3), dtype=np.float32)
+            self.rays = np.zeros((0, 8), dtype=np.float32)
+            self.img_indices = np.zeros((0,), dtype=np.int32)
+            self.num_images = 0
+        else:
+            self.rgbs = np.concatenate([r[0] for r in results], 0)
+            self.rays = np.concatenate([r[1] for r in results], 0)
+            self.img_indices = np.concatenate([r[2] for r in results], 0)
+            self.num_images = len(results)
+        self.unique_image_ids = np.unique(self.img_indices).tolist()
+
+    def __len__(self) -> int:
+        return self.rgbs.shape[0]
+
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        return {"rgbs": self.rgbs[idx], "rays": self.rays[idx],
+                "img_indices": self.img_indices[idx]}

@@ -48,8 +48,13 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # the neighbouring cell, at a hashed level an unrelated row. So do the
 # bucket dispatch and the coherent-expert test: their routing distances
 # must round as the plain versions' do, or a near tie picks another expert.
+# So does the plane encoder's forward: its features feed the MLP's ReLUs,
+# and a feature one ulp off flips a unit whose pre-activation lies within
+# rounding of zero, which moves that point's whole gradient (contracted,
+# a FoMAML step on a real scene missed the plain step's gradients by
+# 5.1e-3 of a leaf's max on an H100, chip_smoke's trainer check).
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
-    "planes": ("planes.cu", ()),
+    "planes": ("planes.cu", ("--fmad=false",)),
     "occ_probe": ("occ_probe.cu", ("--fmad=false",)),
     "occ_sample": ("occ_sample.cu", ("--fmad=false",)),
     "volrend": ("volrend.cu", ()),

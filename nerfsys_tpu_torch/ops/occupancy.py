@@ -333,6 +333,46 @@ def _probe_points(rays_o, rays_d, near, far, P: int) -> torch.Tensor:
     return rays_o[:, None, :] + rays_d[:, None, :] * t_probe[..., None]
 
 
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """(N, P) -> (N, J, 32), J = ceil(P / 32), zero-padded: probe p on lane
+    p % 32 in chunk p // 32, as kernel 2's phase 2 holds a ray's probes."""
+    N, P = x.shape
+    J = -(-P // 32)
+    return torch.nn.functional.pad(x, (0, 32 * J - P)).reshape(N, J, 32)
+
+
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """(N, P) -> (N, 1) row sums in kernel 2's order: each lane adds its
+    probes chunk by chunk, then a butterfly over the 32 lanes (every lane
+    ends with the same rounded sum). Equal to the kernel's sums bit for
+    bit, so the pdf and cdf built from them are too."""
+    lanes = _lanes(x)
+    v = lanes[:, 0]
+    for j in range(1, lanes.shape[1]):
+        v = v + lanes[:, j]
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[:, lane ^ off]
+    return v[:, :1]
+
+
+def _lane_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """(N, P) -> (N, P) inclusive prefix sums in kernel 2's order: a
+    Hillis-Steele scan over each chunk of 32 probes, plus the running sum
+    of the earlier chunks' totals."""
+    N, P = x.shape
+    lanes = _lanes(x)
+    lane = torch.arange(32, device=x.device)
+    for off in (1, 2, 4, 8, 16):
+        up = torch.nn.functional.pad(lanes[..., :-off], (off, 0))
+        lanes = torch.where(lane >= off, lanes + up, lanes)
+    out, carry = [lanes[:, 0]], lanes[:, 0, 31:]
+    for j in range(1, lanes.shape[1]):
+        out.append(lanes[:, j] + carry)
+        carry = carry + lanes[:, j, 31:]
+    return torch.cat(out, dim=1)[:, :P]
+
+
 def occupancy_probe_cdf_plain(
     pair_fn: PairFn,  # pts (M, 3) -> (occ (M,) bool, value (M,))
     rays_o: torch.Tensor,  # (N, 3)
@@ -343,11 +383,26 @@ def occupancy_probe_cdf_plain(
     importance: bool = False,
     uniform_frac: float = 0.25,
     ray_floor: float = 0.0,
+    kernel_order: Optional[bool] = None,
 ) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of kernel 2: probe P midpoints per ray and
     build {cdf (N, P+1), alive (N,), occ (N, P)}. importance=True mixes the
     EMA values into the pdf (the reference's pair_fn path); False uses the
-    occupancy bits alone."""
+    occupancy bits alone.
+
+    `kernel_order` (default: for CUDA tensors) runs the sums and the scan
+    in the kernel's order (`_lane_sum`, `_lane_cumsum`), so on the same
+    probes the cdf is the kernel's bit for bit: a rounding difference
+    there moves the samples kernel 3 draws, and with them every gradient
+    of a training step. Otherwise torch's reductions, whose rounding on
+    the CPU stays near the reference's on XLA's CPU."""
+    if kernel_order is None:
+        kernel_order = rays_o.device.type == "cuda"
+    if kernel_order:
+        row_sum, cumsum = _lane_sum, _lane_cumsum
+    else:
+        row_sum = functools.partial(torch.sum, dim=1, keepdim=True)
+        cumsum = functools.partial(torch.cumsum, dim=1)
     N, P = rays_o.shape[0], n_probes
     pts = _probe_points(rays_o, rays_d, near, far, P)
     occ, val = pair_fn(pts.reshape(-1, 3))
@@ -356,8 +411,8 @@ def occupancy_probe_cdf_plain(
     occf = occ.to(rays_o.dtype)
     if importance:
         val = torch.clamp(val.reshape(N, P), min=0.0).to(rays_o.dtype) * occf
-        vsum = val.sum(dim=1, keepdim=True)
-        osum = torch.clamp(occf.sum(dim=1, keepdim=True), min=1e-12)
+        vsum = row_sum(val)
+        osum = torch.clamp(row_sum(occf), min=1e-12)
         uni = occf / osum
         imp = torch.where(vsum > 1e-12, val / torch.clamp(vsum, min=1e-12),
                           uni)
@@ -365,10 +420,9 @@ def occupancy_probe_cdf_plain(
     else:
         w = occf
     if ray_floor > 0.0:
-        wsum = torch.clamp(w.sum(dim=1, keepdim=True), min=1e-12)
+        wsum = torch.clamp(row_sum(w), min=1e-12)
         w = (1.0 - ray_floor) * (w / wsum) + ray_floor / P
-    w = w + 1e-12
-    cdf = torch.cumsum(w, dim=1)
+    cdf = cumsum(w + 1e-12)
     cdf = cdf / cdf[:, -1:]
     cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=1)
     return {"cdf": cdf, "alive": alive, "occ": occ}

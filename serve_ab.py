@@ -178,15 +178,9 @@ KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
 
 
 def combine_bwd_call(CO, w, dest, counts, g_s, g_r, n_slots):
-    """The checkout's 10a-iii wrapper: with the dispatch's counts where it
-    takes them (a wrapper that predates them zero-fills its outputs)."""
-    import inspect
-
-    if "counts" in inspect.signature(
-            CO.bucket_combine_bwd_kernel).parameters:
-        return CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, n_slots,
-                                            counts=counts)
-    return CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, n_slots)
+    """The checkout's 10a-iii wrapper, with the dispatch's counts."""
+    return CO.bucket_combine_bwd_kernel(w, dest, g_s, g_r, n_slots,
+                                        counts=counts)
 
 
 def segment_inputs(cs, cfg, statics, params, occ, rays, device):

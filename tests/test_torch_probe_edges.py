@@ -15,9 +15,11 @@ nerfsys_tpu.models.occupancy `union_pair_fn` (jit disabled); the port's
 side `occupancy_probe_cdf_plain` through `union_pair` and the kernel
 wrapper on CPU tensors (its plain version).
 Tolerances: occupancy bits and alive flags exactly; the cdf within 1e-6
-against JAX (the same operations, XLA's cumsum order) and within 1e-5 for
-the numpy walk of the kernel (a warp butterfly and a Kogge-Stone scan),
-the card's tolerance.
+against JAX (the same operations, XLA's cumsum order); against the numpy
+walk of the kernel (a warp butterfly and a Kogge-Stone scan), within 1e-5
+for the wrapper on CPU tensors (torch's reductions) and bit for bit for
+the plain version in the kernel's order (`kernel_order=True`, its default
+on the card).
 """
 from collections import namedtuple
 
@@ -255,7 +257,9 @@ def _kernel_walk(arrays, kw, lane_map=None):
 @pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_kernel_walk_matches_plain(case, lane_map):
     """The kernel's algorithm under each lane map against the plain
-    version: the same bits and alive flags, the cdf within 1e-5."""
+    version: the same bits and alive flags, the cdf within 1e-5 of the
+    wrapper on CPU tensors and bit-equal to the plain version in the
+    kernel's order."""
     arrays, kw = _inputs(case, seed=11)
     want = T.occupancy_probe_cdf_kernel(*_torch_args(arrays), **kw)
     got = _kernel_walk(arrays, kw, lane_map)
@@ -263,6 +267,13 @@ def test_kernel_walk_matches_plain(case, lane_map):
     np.testing.assert_array_equal(got["alive"], want["alive"].numpy())
     np.testing.assert_allclose(got["cdf"], want["cdf"].numpy(), rtol=0,
                                atol=WALK_TOL)
+    occs, binary, boxes, *rays = _torch_args(arrays)
+    same = T.occupancy_probe_cdf_plain(
+        lambda pts: T.union_pair(occs, binary, boxes, pts), *rays,
+        kw["n_probes"], kw["importance"], 0.25, kw["ray_floor"],
+        kernel_order=True)
+    np.testing.assert_array_equal(got["cdf"], same["cdf"].numpy())
+    np.testing.assert_array_equal(got["occ"], same["occ"].numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -180,7 +180,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'pipelines.offline.meta_core', 'pipelines.offline.meta_train_step',"
         " 'utils.optim', 'utils.tree', 'ops.losses', 'ops.color_space',"
         " 'models.baked', 'models.occupancy', 'ops.volrend',"
-        " 'pipelines.online.runtime_adapt', 'ops.encodings')}\n"
+        " 'pipelines.online.runtime_adapt', 'ops.encodings',"
+        " 'data.image_metadata', 'data.ram_rays', 'data.dataset',"
+        " 'data.task_dataset', 'data.loaders', 'utils.logging',"
+        " 'utils.checkpoint', 'utils.config', 'pipelines.offline.trainer',"
+        " 'runner')}\n"
         "from nerfsys_tpu_torch.models import occupancy as mo\n"
         "from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra\n"
         "assert all(hasattr(mo, f) for f in ('probe_rays_occ',"
@@ -202,12 +206,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert all(hasattr(enc, f) for f in ('HashGridConfig', 'HashEncode',"
         " 'hash_encode_plain', 'hash_encode_packed_plain',"
         " 'hash_encode_bwd_plain'))\n"
+        "from nerfsys_tpu_torch import runner\n"
+        "assert all(hasattr(runner, f) for f in ('container_config_from_args',"
+        " 'optim_config_from_args', 'meta_config_from_args',"
+        " 'occ_config_from_args', 'build_context', 'train', 'main'))\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in"
+        " ('flax', 'optax')]\n"
+        "assert not bad, bad\n"
         "assert need <= set(mods), need - set(mods)\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22
+    assert int(out.stdout.strip()) >= 32
 
 
 def test_port_sources_name_neither_jax_nor_the_jax_package():
