@@ -157,7 +157,34 @@ printing its result lines):
    with meta_trainer's data_time and step_time, one profiled loop step
    with its occupancy update beside the train phase's bench step, and
    the checkpoint save and load seconds.
-9. Hash: the runner's default experts (`container_config_from_args` with
+9. Eval (`eval:` lines), on the trainer phase's scene and run directory
+   before it is removed: the runner's eval op in process (`runner.main`
+   with `--op eval --configPath configs/eval.json --prefix best --tto
+   0,1,10`: 96 samples, 4,000 support rays, nothing cut) over the scene's
+   2 val cameras at 1000x750; the trained model (K=4 planes experts at
+   bench width, soft importance occupancy R=128 L=4 restored from
+   best.occ). Checks: every PSNR and SSIM finite, every adapt loss
+   finite, the params moved after tto > 0, kernels 1-5 launched; the
+   tto=10 run's first 4 adapt steps taken again from their own params,
+   batch and generator state through the kernels and through the plain
+   versions (losses within 1e-4, every gradient leaf within 2^-8 of its
+   max; importance sampling, the grids are ready); its first val image
+   through the plain versions from the adapted params (rgb within 1e-4 in
+   all but 0.5% of the pixels, PSNR within 0.01 dB); the LPIPS graph on
+   AlexNet-shaped random weights written here, on the card against the
+   CPU (within 1e-4). Then a `--render_fast` run (`--tto 0,4`: bucketed
+   top-1 adaptation and rendering, the dense fallbacks per call in each
+   phase, 10a-i launched, 10a-ii / 10a-iii whenever a call stayed within
+   capacity) and one image each at `--tto 0 --cap_images 1` with
+   `--render_early_stop 1e-4` (the share of rays ending in the first
+   segment; row 8 launched), `--render_coherent` (n_coherent, rays
+   padded, 10b launched, PSNR within 0.01 dB of the live render's) and
+   `--render_baked 256 --render_baked_occ` (bake seconds, alive share,
+   row 9 launched). Prints PSNR / SSIM per tto for both runs, ms per
+   adapt step (host clock, median of the tto=10 run; one profiled step),
+   s per rendered image with its host ray generation, the phase's
+   seconds.
+10. Hash: the runner's default experts (`container_config_from_args` with
    the flag defaults: K=4 Instant-NGP experts, hash L=16 F=2
    log2_hashmap_size 20, 16-4096, Linear, floor layout, fp32; 512 MiB of
    tables) on the same statics and occupancy grid. Kernel row 7 against
@@ -181,7 +208,7 @@ printing its result lines):
    frame, and the train phase below with the hash experts and a packed
    step in place of the exact-backward one (7a, 7b, 7c launched;
    gradients against the plain step; both steps profiled).
-10. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
+11. MoE: bucketed top-E routing, union-probe grids and coherent dispatch
    at the runner's default hash width (the hash phase's experts). Kernel
    row 10 against its plain versions at one full serve chunk (2,097,152
    points, K=4): 10a-i (`bucket_dispatch`) for E=1 and 2, soft and hard
@@ -216,8 +243,8 @@ printing its result lines):
    bucketed E=2 cf 1.5, with
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
-11. A JSON line listing every kernel (launches, error, times, bound).
-12. The card line, then the last line:
+12. A JSON line listing every kernel (launches, error, times, bound).
+13. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
 It imports neither jax nor nerfsys_tpu. Weights are random, from a seed.
@@ -2224,8 +2251,9 @@ def trainer(device):
     Voronoi. 36 steps with 6 occupancy updates, evals and saves every 12;
     the gradients of steps 0 (stratified) and 18 (importance sampling)
     against the same steps through the plain path; a warm start from `last` for 4 more steps; 4 steps of the hash
-    experts (the runner's default encoder at its default widths) ->
-    launches of the three runs."""
+    experts (the runner's default encoder at its default widths); then
+    the eval phase on the main run's directory -> (launches of the three
+    runs, the eval phase's launches)."""
     import json
     import shutil
     import tempfile
@@ -2378,9 +2406,469 @@ def trainer(device):
         launches = {k: v + probe.launches[k] for k, v in launches.items()}
         del ctx, probe
         torch.cuda.empty_cache()
+        print(f"trainer: phase took {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        evaluated = eval_phase(device, tmp, run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"trainer: phase took {time.perf_counter() - t_phase:.1f} s",
+    return launches, evaluated
+
+
+EVAL_TTO = "0,1,10"  # configs/eval.json's --tto
+EVAL_FAST_TTO = "0,4"  # the --render_fast run
+EVAL_CHECKED = 4  # adapt steps held against the plain path
+EVAL_EXTRA = ()  # flags appended to every eval call (CPU rehearsals)
+EVAL_BAKE_R = 256  # --render_baked of the baked one-image run
+EVAL_KERNELS = TRAINER_KERNELS  # kernels 1-5 and 4'
+EVAL_FLIP = 0.005  # the camera phase's rule: pixels beyond 1e-4
+LPIPS_CFG = ((64, 11), (192, 5), (384, 3), (256, 3), (256, 3))
+
+
+class EvalProbe:
+    """What chip_smoke reads of a `runner.main(["--op", "eval", ...])` run,
+    through wrappers on the runtime's names (`attach`): every adapt step
+    (host ms to a synchronize, its loss, the bucketed container's calls
+    and dense fallbacks during it; the inputs of the first EVAL_CHECKED
+    steps of the run's last --tto entry, with the step's factory
+    arguments), every `render_image` call (host s, the dispatch's stats,
+    the prediction), each `runtime_evaluate` call's arguments and result,
+    and the bake's seconds and alive share."""
+
+    def __init__(self, capture_tto=None):
+        self.steps, self.frames, self.evals = [], [], []
+        self.captured, self.capture_tto, self.tto = [], capture_tto, None
+        self.step_args = None
+        self.bake = {}
+
+    def runtime_evaluate(self, fn):
+        def wrapped(**kw):
+            self.tto = kw["tto_steps"]
+            out = fn(**kw)
+            self.evals.append((kw, out))
+            return out
+        return wrapped
+
+    def make_adapt_step(self, fn):
+        import torch
+
+        from nerfsys_tpu_torch.models import container as co
+
+        def make(cfg, optimizer, **kw):
+            step = fn(cfg, optimizer, **kw)
+            self.step_args = (cfg, optimizer, kw)
+
+            def wrapped(params, opt_state, statics, rays, rgbs, gen,
+                        occ=None):
+                if (self.tto == self.capture_tto
+                        and len(self.captured) < EVAL_CHECKED):
+                    self.captured.append(dict(
+                        params=params, opt_state=opt_state, statics=statics,
+                        rays=rays, rgbs=rgbs, gen_state=gen.get_state(),
+                        occ=occ))
+                calls, dense = co.bucket_stats["calls"], co.bucket_stats[
+                    "dense"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(params, opt_state, statics, rays, rgbs, gen, occ)
+                torch.cuda.synchronize()
+                self.steps.append(dict(
+                    tto=self.tto, ms=1e3 * (time.perf_counter() - t0),
+                    loss=float(out[2]),
+                    calls=co.bucket_stats["calls"] - calls,
+                    dense=co.bucket_stats["dense"] - dense))
+                return out
+            return wrapped
+        return make
+
+    def render_image(self, fn):
+        from nerfsys_tpu_torch.models import container as co
+
+        def wrapped(renderer, params, statics, md, **kw):
+            stats = kw.setdefault("stats", {})
+            calls, dense = co.bucket_stats["calls"], co.bucket_stats["dense"]
+            t0 = time.perf_counter()
+            out = fn(renderer, params, statics, md, **kw)
+            self.frames.append(dict(
+                tto=self.tto, s=time.perf_counter() - t0, md=md, stats=stats,
+                pred=out[0], calls=co.bucket_stats["calls"] - calls,
+                dense=co.bucket_stats["dense"] - dense))
+            return out
+        return wrapped
+
+    def bake_field(self, fn):
+        import torch
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.bake["s"] = time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def bake_alive_mask(self, fn):
+        def wrapped(*a, **kw):
+            alive = fn(*a, **kw)
+            if alive is not None:
+                self.bake["alive"] = float(alive.float().mean())
+            return alive
+        return wrapped
+
+    def attach(self, stack):
+        from nerfsys_tpu_torch import runner
+        from nerfsys_tpu_torch.models import baked
+        from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra
+
+        for module, attr, make in (
+                (runner, "runtime_evaluate", self.runtime_evaluate),
+                (ra, "make_adapt_step", self.make_adapt_step),
+                (ra, "render_image", self.render_image),
+                (baked, "bake_field", self.bake_field),
+                (baked, "bake_alive_mask", self.bake_alive_mask)):
+            stack.enter_context(patched(module, attr, make))
+        return self
+
+
+def run_eval(argv, capture_tto=None):
+    """runner.main(argv) for the eval op with an EvalProbe attached ->
+    (ctx, probe); the launch counters are zeroed just before and read
+    just after."""
+    from nerfsys_tpu_torch import kernels, runner
+
+    with contextlib.ExitStack() as stack:
+        probe = EvalProbe(capture_tto).attach(stack)
+        kernels.reset_launches()
+        ctx = runner.main(list(argv) + list(EVAL_EXTRA))
+        probe.launches = kernels.launches()
+    return ctx, probe
+
+
+def image_scores(pred_lin, md, color_space, device):
+    """(PSNR, SSIM) of a rendered linear image against its ground truth,
+    as runtime_evaluate scores it."""
+    import torch
+
+    from nerfsys_tpu_torch.ops.color_space import color_space_transformer
+    from nerfsys_tpu_torch.ops.losses import psnr_from_mse
+    from nerfsys_tpu_torch.utils.metrics import ssim
+
+    gt = torch.from_numpy(md.load_image().astype("float32") / 255.0).to(
+        device)
+    pred, gt = color_space_transformer(torch.from_numpy(pred_lin).to(device),
+                                       gt, color_space)
+    return (float(psnr_from_mse(torch.mean((pred - gt) ** 2))),
+            float(ssim(pred, gt)))
+
+
+def eval_rows_text(ctx) -> str:
+    return "; ".join(f"tto {r['tto']}: PSNR {r['psnr']:.4f} SSIM "
+                     f"{r['ssim']:.5f} adapt {r['duration']:.2f} s render "
+                     f"{r['render_time']:.2f} s" for r in ctx["rows"])
+
+
+def eval_checks(label, ctx, probe, need, n_tto):
+    """Every row finite, each adapted run's params moved from the
+    checkpoint's, every adapt loss finite, the kernels `need` launched."""
+    import math
+
+    import torch
+
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    rows = ctx["rows"]
+    if len(rows) != n_tto or not all(
+            math.isfinite(r["psnr"]) and math.isfinite(r["ssim"])
+            for r in rows):
+        raise SystemExit(f"eval: {label}: rows {rows}")
+    if not all(math.isfinite(s["loss"]) for s in probe.steps):
+        raise SystemExit(f"eval: {label}: adapt losses "
+                         f"{[s['loss'] for s in probe.steps]}")
+    base = tree_leaves(ctx["params"])
+    for kw, out in probe.evals:
+        if kw["tto_steps"] > 0 and not all(
+                not torch.equal(a, b)
+                for a, b in zip(tree_leaves(out["params"]), base)):
+            raise SystemExit(f"eval: {label}: tto {kw['tto_steps']}: a "
+                             f"param leaf did not move")
+    for k in need:
+        if probe.launches[k] <= 0:
+            raise SystemExit(f"eval: {label}: kernel {k} never launched")
+
+
+def adapt_steps_match(probe, device):
+    """The captured adapt steps, each taken again from its own inputs and
+    generator state through the kernels and through the plain versions:
+    losses within 1e-4 relative, every gradient leaf within 2^-8 of its
+    max, the updated params reported beside."""
+    import torch
+
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        make_adapt_step,
+    )
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    cfg, opt, kw = probe.step_args
+    tol, worst, worst_p, losses = 2.0 ** -8, [], [], []
+    for i, c in enumerate(probe.captured):
+        side = []
+        for use_kernels in (True, False):
+            rec = GradRecorder(opt)
+            gen = torch.Generator(device=device)
+            gen.set_state(c["gen_state"])
+            p, _, loss = make_adapt_step(cfg, rec, **kw,
+                                         use_kernels=use_kernels)(
+                c["params"], c["opt_state"], c["statics"], c["rays"],
+                c["rgbs"], gen, c["occ"])
+            side.append((float(loss), tree_leaves(rec.grads[0]),
+                         tree_leaves(p)))
+        (lk, gk, pk), (lp, gp, pp) = side
+        errs = [rel_err(a, b) for a, b in zip(gk, gp)]
+        worst.append(max(errs))
+        worst_p.append(max(rel_err(a, b) for a, b in zip(pk, pp)))
+        losses.append((lk, lp))
+        if abs(lk - lp) > 1e-4 * abs(lp) or not max(errs) <= tol:
+            raise SystemExit(f"eval: adapt step {i}: kernel path loss {lk} "
+                             f"vs plain {lp}, gradient error / leaf max "
+                             f"{max(errs):.3e} (tol {tol:g})")
+    print(f"eval: {len(probe.captured)} adapt steps (importance sampling "
+          f"from the restored grids) through kernels vs plain from the same "
+          f"params, batch and generator state: losses "
+          + ", ".join(f"{a:.7f}/{b:.7f}" for a, b in losses)
+          + f"; gradient error / leaf max worst per step "
+          + ", ".join(f"{e:.3e}" for e in worst)
+          + f" (tol {tol:g}); updated params error / leaf max "
+          + ", ".join(f"{e:.3e}" for e in worst_p), flush=True)
+    return max(worst)
+
+
+def val_image_matches_plain(ctx, probe, device):
+    """The last --tto entry's first val image through the kernels (as the
+    run rendered it) against the same image through the plain versions
+    from the same adapted params: rgb within 1e-4 but for at most
+    EVAL_FLIP of the pixels, PSNR within 0.01 dB; then the kernel path's
+    image once more, profiled."""
+    import numpy as np
+
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        default_chunk_rays,
+        make_chunk_renderer,
+        render_image,
+    )
+
+    kw, out = probe.evals[-1]
+    frame = next(f for f in probe.frames if f["tto"] == kw["tto_steps"])
+    md = frame["md"]
+
+    def image(use_kernels):
+        renderer = make_chunk_renderer(
+            kw["cfg"], ray_samples=kw["ray_samples"], bg_policy="white",
+            occ_state=kw["occ_state"], occ_importance=kw["occ_importance"],
+            occ_probe_grid_res=kw["occ_probe_grid_res"],
+            occ_hard_mask=kw["occ_hard_mask"],
+            early_stop_eps=kw["render_early_stop"], device=device,
+            use_kernels=use_kernels)
+        return render_image(
+            renderer, out["params"], kw["statics"], md,
+            scene_aabb=kw["global_aabb"], near=kw["near"], far=kw["far"],
+            chunk_rays=default_chunk_rays(kw["ray_samples"]))[0]
+
+    t0 = time.perf_counter()
+    plain = image(False)
+    plain_s = time.perf_counter() - t0
+    diff = np.abs(frame["pred"] - plain).max(axis=-1)
+    share = float((diff > 1e-4).mean())
+    pk = image_scores(frame["pred"], md, kw["color_space"], device)
+    pp = image_scores(plain, md, kw["color_space"], device)
+    print(f"eval: val image {md.W}x{md.H} at tto {kw['tto_steps']} through "
+          f"kernels vs plain: rgb max error {float(diff.max()):.3e}, "
+          f"{share:.5f} of pixels beyond 1e-4 (limit {EVAL_FLIP}); PSNR "
+          f"{pk[0]:.4f} vs {pp[0]:.4f} dB, SSIM {pk[1]:.5f} vs {pp[1]:.5f}; "
+          f"kernel path {frame['s']:.2f} s, plain path {plain_s:.2f} s",
+          flush=True)
+    if share > EVAL_FLIP or abs(pk[0] - pp[0]) > 0.01:
+        raise SystemExit("eval: the val image through the kernels disagrees "
+                         "with the plain path")
+    profile_device("eval val image", lambda: image(True),
+                   extra=f" ({md.W}x{md.H}, {kw['ray_samples']} samples, "
+                   f"adapted params)", watch=(("plane_encode_fwd_kernel",),))
+
+
+def lpips_graph_check(pred_lin, md, device, tmp):
+    """The LPIPS graph on AlexNet-shaped random weights (written here with
+    numpy) on the card against the same call on the CPU: a check of the
+    graph, not a quality figure."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.ops.color_space import linear_to_srgb
+    from nerfsys_tpu_torch.utils.metrics import lpips, load_lpips_weights
+
+    rng = np.random.default_rng(SEED)
+    arrs, cin = {}, 3
+    for i, (cout, k) in enumerate(LPIPS_CFG):
+        arrs[f"conv{i}/w"] = rng.normal(0, 0.05, (k, k, cin, cout)).astype(
+            np.float32)  # HWIO, the converter's layout
+        arrs[f"conv{i}/b"] = rng.normal(0, 0.01, cout).astype(np.float32)
+        arrs[f"lin{i}/w"] = rng.uniform(0, 1, (1, 1, cout, 1)).astype(
+            np.float32)
+        cin = cout
+    path = tmp / "lpips_random.npz"
+    np.savez(path, **arrs)
+    w = load_lpips_weights(str(path))
+    pred = linear_to_srgb(torch.from_numpy(pred_lin))
+    gt = torch.from_numpy(md.load_image().astype(np.float32) / 255.0)
+    t0 = time.perf_counter()
+    card = float(lpips(pred.to(device), gt.to(device), w))
+    card_s = time.perf_counter() - t0
+    cpu = float(lpips(pred, gt, w))
+    err = abs(card - cpu) / max(abs(cpu), 1e-30)
+    print(f"eval: LPIPS graph on random AlexNet-shaped weights (a check of "
+          f"the graph, not a quality figure) on the {md.W}x{md.H} val image: "
+          f"card {card:.7f} ({card_s:.2f} s) vs CPU {cpu:.7f}, relative "
+          f"error {err:.3e} (tol 1e-4)", flush=True)
+    if not err <= 1e-4:
+        raise SystemExit("eval: the LPIPS graph on the card disagrees with "
+                         "the CPU")
+
+
+def eval_phase(device, tmp, run):
+    """Phase: the runner's eval op (`runner.main`, configs/eval.json:
+    96 samples, 4,000 support rays, tto 0, 1, 10) on the trainer phase's
+    scene and best checkpoint (K=4 planes experts at bench width, soft
+    importance occupancy R=128 L=4 restored from best.occ), over the
+    scene's 2 val cameras at 1000x750; then a --render_fast run (tto 0, 4)
+    and one image each with early stop, coherent experts and a bake ->
+    the launches of all runs."""
+    import torch
+
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+
+    t_phase = time.perf_counter()
+    base = ["--op", "eval", "--configPath",
+            str(Path(__file__).resolve().parent / "configs" / "eval.json"),
+            "--data_path", str(tmp), "--data_dirname", "scene",
+            "--mask_dirname", "g22", "--downscale", "1.0",
+            "--checkpoint_path", str(run), "--prefix", "best",
+            "--device", str(device)]
+    last_tto = int(EVAL_TTO.split(",")[-1])
+    ctx, probe = run_eval(base + ["--tto", EVAL_TTO, "--fname",
+                                  str(tmp / "eval")], capture_tto=last_tto)
+    P = ctx["P"]
+    eval_checks("main run", ctx, probe, EVAL_KERNELS, len(EVAL_TTO.split(",")))
+    md = ctx["test_metadata"][0]
+    t0 = time.perf_counter()
+    frame_rays(md.H, md.W, md.intrinsics, md.c2w, aabb=ctx["global_aabb"],
+               near=P.near, far=P.far)
+    raygen = time.perf_counter() - t0
+    steps = [s["ms"] for s in probe.steps if s["tto"] == last_tto]
+    frames = [f["s"] for f in probe.frames]
+    occ = ctx["occ_state"]
+    print(f"eval: main run (configs/eval.json: {P.ray_samples} samples, "
+          f"{P.support_rays} support rays; checkpoint {P.prefix} @ step "
+          f"{ctx['ckpt_state']['step']}, grids restored, "
+          f"{int(occ['num_updates'])} updates, "
+          f"{float(occ['binary'].float().mean()):.4f} of cells occupied) "
+          f"over {len(ctx['test_metadata'])} val cameras {md.W}x{md.H}: "
+          f"{eval_rows_text(ctx)}", flush=True)
+    every = [s["ms"] for s in probe.steps]
+    print(f"eval: ms per adapt step (host clock to a synchronize) median "
+          f"{median(steps):.2f} of the tto={last_tto} run's {len(steps)} "
+          f"(all {len(every)}: min {min(every):.2f}, max {max(every):.2f}); "
+          f"s per rendered "
+          f"image median {median(frames):.3f} of {len(frames)} (min "
+          f"{min(frames):.3f}, {md.W * md.H / median(frames):.0f} rays/s), of "
+          f"which host ray generation {raygen:.3f} s; launches "
+          f"{probe.launches}", flush=True)
+    live_psnr = image_scores(probe.frames[0]["pred"], md, P.color_space,
+                             device)[0]
+    adapt_steps_match(probe, device)
+    c = probe.captured[0]
+    step = probe.step_args
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        make_adapt_step,
+    )
+
+    adapt = make_adapt_step(step[0], step[1], **step[2])
+    gen = torch.Generator(device=device)
+    gen.set_state(c["gen_state"])
+    profile_device("eval adapt step", lambda: adapt(
+        c["params"], c["opt_state"], c["statics"], c["rays"], c["rgbs"], gen,
+        c["occ"]), extra=f" (one adapt step: {P.support_rays} rays x "
+        f"{P.ray_samples} samples, Adam)",
+        watch=(("plane_encode_fwd_kernel",), ("volume_render_bwd_kernel",)))
+    val_image_matches_plain(ctx, probe, device)
+    lpips_graph_check(probe.frames[0]["pred"], md, device, tmp)
+    launches = dict(probe.launches)
+    del ctx, probe, c, adapt
+    torch.cuda.empty_cache()
+
+    # --render_fast: bucketed top-1 adaptation and rendering
+    ctx, probe = run_eval(base + ["--render_fast", "--tto", EVAL_FAST_TTO,
+                                  "--fname", str(tmp / "eval_fast")])
+    eval_checks("render_fast", ctx, probe, ("bucket_dispatch",),
+                len(EVAL_FAST_TTO.split(",")))
+    a_calls = sum(s["calls"] for s in probe.steps)
+    a_dense = sum(s["dense"] for s in probe.steps)
+    r_calls = sum(f["calls"] for f in probe.frames)
+    r_dense = sum(f["dense"] for f in probe.frames)
+    n = probe.launches
+    print(f"eval: render_fast run (top-1 buckets, cf "
+          f"{ctx['cfg'].capacity_factor}, union grid res "
+          f"{ctx['P'].occ_union_probe_res}): {eval_rows_text(ctx)}; adapt "
+          f"steps "
+          f"{len(probe.steps)}: container calls {a_calls}, dense fallbacks "
+          f"{a_dense}; rendering: calls {r_calls}, dense fallbacks "
+          f"{r_dense}; launches bucket_dispatch {n['bucket_dispatch']}, "
+          f"bucket_combine_fwd {n['bucket_combine_fwd']}, bucket_combine_bwd "
+          f"{n['bucket_combine_bwd']}", flush=True)
+    if (a_calls > a_dense and n["bucket_combine_bwd"] <= 0) or (
+            a_calls + r_calls > a_dense + r_dense
+            and n["bucket_combine_fwd"] <= 0):
+        raise SystemExit("eval: render_fast: a call within capacity "
+                         "launched no blend (10a-ii) or no transpose "
+                         "(10a-iii)")
+    launches = {k: v + n[k] for k, v in launches.items()}
+    del ctx, probe
+    torch.cuda.empty_cache()
+
+    # one image each: early stop, coherent experts, a bake
+    one = ["--tto", "0", "--cap_images", "1"]
+    for label, flags, need in (
+            ("early stop", ["--render_early_stop", "1e-4"],
+             ("composite_segment",)),
+            ("coherent", ["--render_coherent"], ("coherent_expert",)),
+            ("baked", ["--render_baked", str(EVAL_BAKE_R),
+                       "--render_baked_occ"],
+             ("baked_trilerp",))):
+        ctx, probe = run_eval(base + one + flags + [
+            "--fname", str(tmp / f"eval_{label.replace(' ', '_')}")])
+        eval_checks(label, ctx, probe, need, 1)
+        st, row = probe.frames[0]["stats"], ctx["rows"][0]
+        if label == "early stop":
+            done = st.get("n_terminated", 0) + st.get("n_resumed", 0)
+            detail = (f"{st.get('n_terminated', 0)} of {done} rays end in "
+                      f"the first segment "
+                      f"({st.get('n_terminated', 0) / max(done, 1):.4f}), "
+                      f"{st.get('resume_calls', 0)} resume calls, mode "
+                      f"{st.get('mode')}")
+        elif label == "coherent":
+            detail = (f"n_coherent {st.get('n_coherent')}, n_boundary "
+                      f"{st.get('n_boundary')}, rays_padded "
+                      f"{st.get('rays_padded')}")
+        else:
+            detail = (f"bake {probe.bake.get('s', float('nan')):.2f} s, alive "
+                      f"share {probe.bake.get('alive', float('nan')):.4f}")
+        print(f"eval: {label}, one image at tto 0: PSNR {row['psnr']:.4f} "
+              f"(live render {live_psnr:.4f}), SSIM {row['ssim']:.5f}, "
+              f"{probe.frames[0]['s']:.3f} s; {detail}; launches "
+              + str({k: probe.launches[k] for k in need}), flush=True)
+        if label == "coherent" and abs(row["psnr"] - live_psnr) > 0.01:
+            raise SystemExit("eval: coherent dispatch is exact, but its PSNR "
+                             "differs from the live render's")
+        launches = {k: v + probe.launches[k] for k, v in launches.items()}
+        del ctx, probe
+        torch.cuda.empty_cache()
+    print(f"eval: phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
 
@@ -5189,14 +5677,14 @@ def main() -> int:
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
-    trainer_n = trainer(device)
+    trainer_n, eval_n = trainer(device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
     moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
 
     parts = (("serve", served), ("camera", cam), ("early-stop", early),
              ("baked", baked_n), ("train", trained),
-             ("occupancy", occ_n), ("trainer", trainer_n),
+             ("occupancy", occ_n), ("trainer", trainer_n), ("eval", eval_n),
              ("hash serve", hash_served),
              ("hash train", hash_trained), ("moe", moe))
     for k in kernels.KERNELS:  # one line per kernel, with its launches

@@ -1,7 +1,7 @@
 """Batched episode assembly and background prefetch for the outer step.
 
 The port's own copy of nerfsys_tpu/data/loaders.py (`MetaBatcher` :28,
-`PrefetchLoader` :161). MetaBatcher assembles the fixed-shape stacked batch
+`PrefetchLoader` :161, `EpochBatchSampler` :224). MetaBatcher assembles the fixed-shape stacked batch
 that `make_train_step` consumes:
 
   { support_rays (K,B,S,8), support_rgbs (K,B,S,3),
@@ -16,6 +16,9 @@ the prefetch thread copies each batch from pinned host memory on a stream
 of its own and records an event, and `__next__` makes the consumer's
 current stream wait on that event, so neither the copy nor the host stalls
 the step. On the CPU the numpy arrays become tensors without a copy.
+
+EpochBatchSampler feeds test-time adaptation: one shuffled pass over a
+RamRaysDataset in numpy batches, which the adapt step uploads itself.
 """
 from __future__ import annotations
 
@@ -90,6 +93,28 @@ class MetaBatcher:
     def __iter__(self):
         while True:
             yield self.next_batch()
+
+
+class EpochBatchSampler:
+    """Shuffled single pass over a RamRaysDataset in fixed-size numpy
+    batches; the final short batch is padded by wrap-around, so every
+    batch has the same shape. The permutation is numpy's
+    `default_rng(seed)`, as the reference draws it."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0):
+        self.ds = dataset
+        self.batch_size = int(batch_size)
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        n = len(self.ds)
+        order = self.rng.permutation(n)
+        for s in range(0, n, self.batch_size):
+            idx = order[s:s + self.batch_size]
+            if idx.size < self.batch_size:
+                idx = np.concatenate([idx, order[:self.batch_size - idx.size]])
+            yield {"rays": self.ds.rays[idx], "rgbs": self.ds.rgbs[idx],
+                   "img_indices": self.ds.img_indices[idx]}
 
 
 class PrefetchLoader:

@@ -793,7 +793,8 @@ def sample_tvals_from_cdf(
 
 def render_rays_occ_field(
     field_fn,  # (pts (M, 3), dirs (M, 3)) -> (rgb (M, 3), sigma (M,))
-    occ_grid,  # (occs (1, L, R, R, R), binary, aabbs (1, 2, 3)): one expert
+    occ_grid,  # (occs (K, L, R, R, R), binary, aabbs (K, 2, 3)): K=1 for
+    # one expert, all K for the routed container (their union)
     rays: torch.Tensor,  # (N, 8)
     n_samples: int,
     generator: Optional[torch.Generator] = None,
@@ -811,15 +812,16 @@ def render_rays_occ_field(
     ray_floor: Optional[float] = None,
     use_kernels: bool = True,
 ):
-    """Occupancy-guided dense render of ONE field (no routing). Used by the
-    meta inner loop, which trains each expert alone -> (rgb (N, 3),
+    """Occupancy-guided dense render of ONE field function: an expert (the
+    meta inner loop, K=1 grid slice) or the routed container over the union
+    of its K grids (test-time adaptation) -> (rgb (N, 3),
     depth (N,), weights (N, S), acc (N,)). Soft mode (hard_mask=False):
     the grid steers sample PLACEMENT and never deletes density. Hard mode:
     sigma is also zeroed where the binary grid is empty at the final
     sample points (point-exact: one query of the grid a sample) and on
     rays whose probes found nothing.
 
-    Probe + CDF (kernel 2 on the K=1 grid slice, skipped when `cdf_state`
+    Probe + CDF (kernel 2 over the stacked grids, skipped when `cdf_state`
     is given) -> inverse-CDF samples (kernel 3) -> field -> the hard mask
     -> compositor (kernel 4 and its backward). Probe-bit masks
     (mask_from_probes) are not ported and raise."""
@@ -861,9 +863,11 @@ def render_rays_occ_field(
     sigma = sigma.reshape(n_rays, n_samples)
     keep = valid[:, None]
     if hard_mask:
-        occ_mask = query_binary(binary[0], aabbs[0], flat_pts).reshape(
-            n_rays, n_samples)
-        keep = occ_mask & alive[:, None] & keep
+        # occupied under ANY of the stacked grids (one for an expert)
+        occ_mask = query_binary(binary[0], aabbs[0], flat_pts)
+        for k in range(1, binary.shape[0]):
+            occ_mask = occ_mask | query_binary(binary[k], aabbs[k], flat_pts)
+        keep = occ_mask.reshape(n_rays, n_samples) & alive[:, None] & keep
     sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
     if bg_fn is not None:
         bg = bg_fn(d)

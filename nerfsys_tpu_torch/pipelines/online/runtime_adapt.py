@@ -1,23 +1,33 @@
-"""Online stage: chunked full-frame rendering (the serving path).
+"""Online stage: test-time adaptation, evaluation, and chunked full-frame
+rendering (the serving path).
 
-Port of nerfsys_tpu/pipelines/online/runtime_adapt.py
-(`_union_probe_wrap` :232, `TwoWaveOccRenderer` :275 with `map_outputs`
-:319, `EarlyStopOccRenderer` :342, `_pad_ids` :389, `_early_stop_dispatch`
-:395, `_fog_stats` :522, `make_chunk_renderer` :532, `default_chunk_rays`
-:909, `render_image` :919, `frame_chunk_rays_biased` :948,
-`shape_frame_outputs` :971, `make_live_camera_renderer` :997,
-`CoherentExpertRenderer` :1145,
+Port of nerfsys_tpu/pipelines/online/runtime_adapt.py (`make_adapt_step`
+:40, `runtime_adapt` :190, `_union_probe_wrap` :232, `TwoWaveOccRenderer`
+:275 with `map_outputs` :319, `EarlyStopOccRenderer` :342, `_pad_ids`
+:389, `_early_stop_dispatch` :395, `_fog_stats` :522, `make_chunk_renderer`
+:532, `default_chunk_rays` :909, `render_image` :919,
+`frame_chunk_rays_biased` :948, `shape_frame_outputs` :971,
+`make_live_camera_renderer` :997, `CoherentExpertRenderer` :1145,
 `make_coherent_renderer` :1165, `coherent_dispatch` :1339, `_pad_chunk`,
 `_pack5`, `_pack7` :1411-1425, `two_wave_dispatch` :1428,
-`render_rays_chunked` :1598). The renderer kinds of the occupancy path:
-the one-shot program (soft mode, or a hard mask whose background reads
-field colors), the hard-mask two-wave renderer (probe, then skip or pack
-chunks whose rays are all dead), and the early-stop renderer in soft and
-hard mode; without an occupancy grid, the stratified renderer. With
-`occ_probe_grid_res` the probes read ONE resampled union grid
-(`build_union_probe_grid`, built once per statics). The coherent-expert
-renderer renders rays whose every sample routes to one expert through that
-expert alone. The baked renderers are in models/baked.py.
+`render_rays_chunked` :1598, `runtime_evaluate` :1665).
+
+Test-time adaptation (`make_adapt_step`, `runtime_adapt`) takes Adam steps
+of the whole routed container on support-ray batches; `runtime_evaluate`
+adapts on the test images' rays (Phase A), then renders every test image
+and scores PSNR / SSIM / LPIPS (Phase B), dumping pred / gt PNGs. The
+Fisher-weighted adaptation (`make_fim_adapt_step`, `--fim`) is not ported
+(ROADMAP Queue 1 item 7).
+
+The renderer kinds of the occupancy path: the one-shot program (soft mode,
+or a hard mask whose background reads field colors), the hard-mask
+two-wave renderer (probe, then skip or pack chunks whose rays are all
+dead), and the early-stop renderer in soft and hard mode; without an
+occupancy grid, the stratified renderer. With `occ_probe_grid_res` the
+probes read ONE resampled union grid (`build_union_probe_grid`, built once
+per statics). The coherent-expert renderer renders rays whose every sample
+routes to one expert through that expert alone. The baked renderers are in
+models/baked.py.
 
 `make_live_camera_renderer` is the viewer's and the video's live path:
 rays generated on the device from the pose, all chunks dispatched before
@@ -29,17 +39,21 @@ The runner's fast live modes map here: `--render_fast` is
 `make_coherent_renderer` (with `occ_probe_grid_res` when the union grid is
 on) through `render_rays_chunked`.
 
-Every renderer program runs without autograd on its `device`. Test-time
-adaptation, probe masks and mesh sharding are not ported yet.
+Every renderer program runs without autograd on its `device`. Probe masks
+and mesh sharding are not ported.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
 
-from nerfsys_tpu_torch.data.ram_rays import frame_rays
+from nerfsys_tpu_torch.data.image_metadata import ImageMetadata
+from nerfsys_tpu_torch.data.loaders import EpochBatchSampler
+from nerfsys_tpu_torch.data.ram_rays import RamRaysDataset, frame_rays
 from nerfsys_tpu_torch.models.container import (
     ContainerConfig,
     ContainerStatics,
@@ -51,6 +65,7 @@ from nerfsys_tpu_torch.models.occupancy import (
     _ray_validity,
     build_union_probe_grid,
     dead_grid,
+    occ_ready,
     occ_sample_positions,
     probe_rays_occ,
     render_rays_occ,
@@ -59,6 +74,12 @@ from nerfsys_tpu_torch.models.occupancy import (
     render_rays_occ_et_resume,
     union_probe_fns,
 )
+from nerfsys_tpu_torch.ops.color_space import (
+    color_space_transformer,
+    linear_to_srgb,
+)
+from nerfsys_tpu_torch.ops.losses import compute_mse_loss, psnr_from_mse
+from nerfsys_tpu_torch.ops.occupancy import occupancy_probe_cdf
 from nerfsys_tpu_torch.ops.rays import clamp_rays_near_far, frame_chunk_rays
 from nerfsys_tpu_torch.ops.scene_box import SceneBox
 from nerfsys_tpu_torch.ops.volrend import (
@@ -67,6 +88,127 @@ from nerfsys_tpu_torch.ops.volrend import (
     t_to_points,
 )
 from nerfsys_tpu_torch.utils.device import resolve_device
+from nerfsys_tpu_torch.utils.metrics import load_lpips_weights, lpips, ssim
+from nerfsys_tpu_torch.utils.optim import Optimizer, apply_updates
+from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+# --------------------------- adaptation --------------------------------------
+def _to_device(a, dev: torch.device) -> torch.Tensor:
+    """A host batch array (or a tensor) as a float32 tensor on `dev`."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=torch.float32)
+
+
+def make_adapt_step(
+    cfg: ContainerConfig,
+    optimizer: Optimizer,
+    *,
+    ray_samples: int,
+    color_space: str = "linear",
+    bg_policy: str = "random",
+    active_expert: Optional[int] = None,
+    occ_importance: bool = False,
+    occ_probe_mask: bool = False,
+    occ_hard_mask: bool = True,
+    occ_ray_floor: float = 0.25,
+    use_kernels: bool = True,
+):
+    """One Adam step of the routed container on a support batch:
+    (params, opt_state, statics, rays (N, 8), rgbs (N, 3), generator,
+    occ_state=None) -> (params, opt_state, loss). Batches may be numpy; they
+    are uploaded to the params' device. The draws (sample jitter, a random
+    background) come from `generator`, which lives on that device.
+
+    With occ_state the render is occupancy-guided once the grids are ready
+    (`occ_ready`, read on the host where the reference branches with
+    lax.cond): the union probe CDF over the K stacked grids is built once a
+    step outside the differentiated loss (it depends on the rays and grids
+    only), then samples placed by inverse CDF; before that, stratified.
+    use_kernels=False runs the plain version of every kernel."""
+    if occ_probe_mask:
+        raise NotImplementedError(
+            "probe-bit masks (--occ_probe_mask) are not ported: ROADMAP "
+            "Queue 1 item 7")
+    ray_floor = 0.0 if occ_hard_mask else occ_ray_floor
+
+    def step(params, opt_state, statics: ContainerStatics, rays, rgbs,
+             generator: torch.Generator, occ_state: Optional[Dict] = None):
+        dev = tree_leaves(params)[0].device
+        rays = _to_device(rays, dev)
+        rgbs = _to_device(rgbs, dev)
+        occ_grid = occ_on = occ_cdf = None
+        if occ_state is not None:
+            occ_grid = (occ_state["occs"], occ_state["binary"],
+                        statics.expert_aabbs)
+            occ_on = bool(occ_ready(occ_state))
+            if occ_on:
+                _, near_s, far_s = _ray_validity(rays)
+                occ_cdf = occupancy_probe_cdf(
+                    *occ_grid, rays[:, 0:3].contiguous(),
+                    rays[:, 3:6].contiguous(), near_s, far_s,
+                    importance=occ_importance, ray_floor=ray_floor,
+                    use_kernels=use_kernels)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, _ = compute_mse_loss(
+                container_field_fn(leaves, cfg, statics, active_expert,
+                                   use_kernels=use_kernels),
+                rays, rgbs, ray_samples=ray_samples, generator=generator,
+                randomized=True, color_space=color_space,
+                bg_policy=bg_policy, bg_fn=container_bg_fn(leaves, cfg),
+                occ_grid=occ_grid, occ_on=occ_on, importance=occ_importance,
+                occ_cdf=occ_cdf, occ_probe_mask=occ_probe_mask,
+                occ_hard_mask=occ_hard_mask, occ_ray_floor=occ_ray_floor,
+                use_kernels=use_kernels)
+            flat = tree_leaves(leaves)
+            grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        by_id = {id(t): g for t, g in zip(flat, grads)}
+        grads = tree_map(lambda t: torch.zeros_like(t) if by_id[id(t)] is None
+                         else by_id[id(t)], leaves)
+        base = tree_map(lambda t: t.detach(), leaves)
+        updates, opt_state = optimizer.update(grads, opt_state, base)
+        return apply_updates(base, updates), opt_state, loss.detach()
+
+    return step
+
+
+def runtime_adapt(
+    *,
+    params,
+    opt_state,
+    adapt_step,  # from make_adapt_step
+    statics: ContainerStatics,
+    data_loader: Iterable,  # yields {'rays', 'rgbs'} numpy batches
+    steps: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Dict:
+    """steps=None -> one pass over the loader; else exactly `steps` updates,
+    the loader restarted whenever it runs out -> {params, opt_state, loss
+    (the last, a float), steps}. Without a generator, one on the params'
+    device seeded 0."""
+    if generator is None:
+        generator = torch.Generator(tree_leaves(params)[0].device)
+        generator.manual_seed(0)
+    last_loss, count = 0.0, 0
+    it = iter(data_loader)
+    while steps is None or count < steps:
+        try:
+            batch = next(it)
+        except StopIteration:
+            if steps is None:
+                break
+            it = iter(data_loader)
+            batch = next(it)
+        params, opt_state, loss = adapt_step(
+            params, opt_state, statics, batch["rays"], batch["rgbs"],
+            generator)
+        last_loss = float(loss)
+        count += 1
+    return {"params": params, "opt_state": opt_state, "loss": last_loss,
+            "steps": count}
+
 
 
 class ChunkRenderer:
@@ -1127,3 +1269,223 @@ def make_live_camera_renderer(
         return out  # (H*W, C) stacked planes; the caller reshapes
 
     return render
+
+
+# --------------------------- evaluate ----------------------------------------
+def _srgb_u8(img: torch.Tensor) -> np.ndarray:
+    return (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+
+
+def runtime_evaluate(
+    *,
+    params,
+    cfg: ContainerConfig,
+    statics: ContainerStatics,
+    optimizer: Optimizer,
+    test_metadata: List[ImageMetadata],
+    tto_steps: int,
+    support_batch: int = 4096,
+    ray_samples: int = 96,
+    color_space: str = "linear",
+    bg_policy: str = "random",
+    near: Optional[float] = None,
+    far: Optional[float] = None,
+    global_aabb: Optional[np.ndarray] = None,
+    out_dir: Optional[Path] = None,
+    logger=None,
+    seed: int = 0,
+    lpips_weights_path: Optional[str] = None,
+    chunk_rays: Optional[int] = None,  # None: default_chunk_rays
+    occ_state: Optional[Dict] = None,
+    occ_importance: bool = False,
+    occ_probe_mask: bool = False,
+    occ_hard_mask: bool = True,
+    occ_probe_grid_res: int = 0,  # Phase-B union-grid probing (0 = exact)
+    render_early_stop: float = 0.0,  # Phase-B early ray termination eps
+    render_coherent: bool = False,  # Phase-B coherent-expert dispatch
+    render_baked_res: int = 0,  # > 0: Phase-B renders a baked SH snapshot
+    render_baked_sh: int = 3,  # SH levels (degree + 1) for the bake
+    render_baked_occ: bool = False,  # bake only occ-alive cells
+    render_baked_occ_dilate: int = 2,
+    render_baked_sparse: int = 0,  # block-compact the baked table (exact)
+    render_baked_cache: str = "",  # .npz snapshot cache: bake once, serve
+    # on every later run of the SAME checkpoint/adaptation (fingerprinted)
+    fim_cfg=None,  # not ported (ROADMAP Queue 1 item 7)
+    mesh=None,  # not ported
+) -> Dict[str, float]:
+    """Adapt on the test images' support rays, then render and score them
+    on the params' device -> {psnr, ssim, lpips (NaN without weights),
+    duration (Phase A s), render_time (Phase B s), num_images, params}."""
+    if fim_cfg is not None:
+        raise NotImplementedError(
+            "Fisher-weighted adaptation (--fim, make_fim_adapt_step) is not "
+            "ported: ROADMAP Queue 1 item 7")
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded rendering is not ported")
+    log = logger.log if logger is not None else print
+    dev = tree_leaves(params)[0].device
+    if chunk_rays is None:
+        chunk_rays = default_chunk_rays(ray_samples)
+
+    # ---- Phase A: adaptation ----
+    log(f"[Phase 1] runtime adaptation, tto={tto_steps}")
+    t0 = time.time()
+    opt_state = optimizer.init(params)
+    step = make_adapt_step(
+        cfg, optimizer, ray_samples=ray_samples, color_space=color_space,
+        bg_policy=bg_policy, occ_importance=occ_importance,
+        occ_probe_mask=occ_probe_mask, occ_hard_mask=occ_hard_mask)
+
+    def adapt_step(p, o, statics_, rays_, rgbs_, gen):
+        return step(p, o, statics_, rays_, rgbs_, gen, occ_state)
+
+    support_ds = RamRaysDataset(test_metadata, scene_aabb=global_aabb,
+                                near_far_override=(near, far))
+    log(f"  support rays: {len(support_ds):,} from {support_ds.num_images} "
+        f"images")
+    if tto_steps > 0 and len(support_ds) > 0:
+        loader = EpochBatchSampler(support_ds, support_batch, seed=seed)
+        gen = torch.Generator(dev)
+        gen.manual_seed(seed)
+        out = runtime_adapt(params=params, opt_state=opt_state,
+                            adapt_step=adapt_step, statics=statics,
+                            data_loader=loader, steps=tto_steps,
+                            generator=gen)
+        params = out["params"]
+        log(f"  adapted {out['steps']} steps, last loss {out['loss']:.6f}")
+    adapt_time = time.time() - t0
+
+    # ---- Phase B: render + metrics ----
+    log("[Phase 2] rendering test images")
+    if render_baked_res > 0:
+        # serving mode: resample the (adapted) field into a baked SH grid
+        # once, then frames cost only trilinear grid lookups (models/baked).
+        # Re-baked per TTO setting because adaptation changes the field.
+        if float(render_early_stop) > 0.0:
+            log("  [baked] NOTE: --render_early_stop is ignored with "
+                "--render_baked (the baked render has no occ/ET path)")
+        if render_coherent:
+            log("  [baked] NOTE: --render_coherent is ignored with "
+                "--render_baked (the snapshot has no expert routing)")
+        from nerfsys_tpu_torch.models.baked import (
+            BakedConfig,
+            bake_field,
+            load_baked,
+            make_baked_chunk_renderer,
+            occ_bake_fingerprint,
+            params_fingerprint,
+            save_baked,
+        )
+
+        # n_dirs scales with the basis count so the SH least-squares
+        # projection stays overdetermined at any --render_baked_sh
+        bcfg = BakedConfig(resolution=int(render_baked_res),
+                           sh_levels=int(render_baked_sh),
+                           n_dirs=max(32, 2 * int(render_baked_sh) ** 2),
+                           sparse_block=int(render_baked_sparse))
+        if render_baked_occ and occ_state is None:
+            # bake_field only warns for a present-but-not-ready state; a
+            # checkpoint with no grids at all would silently bake dense
+            log("  [baked] WARNING: --render_baked_occ requested but the "
+                "checkpoint has no occupancy state — baking dense")
+        baked = None
+        fp = params_fingerprint(params) if render_baked_cache else ""
+        ok = occ_bake_fingerprint(
+            occ_state if render_baked_occ else None,
+            int(render_baked_occ_dilate)) if render_baked_cache else ""
+        if render_baked_cache:
+            baked = load_baked(render_baked_cache, bcfg, fingerprint=fp,
+                               occ_key=ok, device=dev)
+            if baked is not None:
+                log(f"  [baked] loaded snapshot cache {render_baked_cache}")
+        if baked is None:
+            tb = time.time()
+            baked = bake_field(
+                params, cfg, statics, bcfg,
+                occ_state=occ_state if render_baked_occ else None,
+                occ_dilate=int(render_baked_occ_dilate), device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            log(f"  baked {bcfg.resolution}³ SH-{bcfg.sh_levels} grid "
+                f"in {time.time() - tb:.1f}s")
+            if render_baked_cache:
+                save_baked(render_baked_cache, baked, bcfg, fingerprint=fp,
+                           occ_key=ok)
+                log(f"  [baked] saved snapshot cache {render_baked_cache}")
+        renderer = make_baked_chunk_renderer(
+            baked, bcfg, cfg, ray_samples=ray_samples, bg_policy="white",
+            device=dev)
+    elif render_coherent and float(render_early_stop) == 0:
+        # coherent-expert live dispatch: exact, fastest on spatially
+        # clustered frames (render_rays_chunked routes the bundle through
+        # coherent_dispatch)
+        if int(occ_probe_grid_res) > 0:
+            log(f"  [render] coherent + union-probe grid "
+                f"(res {int(occ_probe_grid_res)}): probe rows /K in every "
+                "program")
+        renderer = make_coherent_renderer(
+            cfg, ray_samples=ray_samples, bg_policy="white",
+            occ_state=occ_state, occ_importance=occ_importance,
+            occ_hard_mask=occ_hard_mask, occ_probe_mask=occ_probe_mask,
+            occ_probe_grid_res=occ_probe_grid_res, device=dev)
+    else:
+        if render_coherent:
+            log("  [render] --render_coherent ignored: unsharded renders "
+                "without --render_early_stop only")
+        renderer = make_chunk_renderer(
+            cfg, ray_samples=ray_samples, bg_policy="white",
+            occ_state=occ_state, occ_importance=occ_importance,
+            occ_probe_grid_res=occ_probe_grid_res,
+            occ_hard_mask=occ_hard_mask,  # render how the checkpoint trained
+            occ_probe_mask=occ_probe_mask,
+            early_stop_eps=render_early_stop, device=dev)
+    lpips_w = load_lpips_weights(lpips_weights_path)
+    psnrs, ssims, lpipss = [], [], []
+    if out_dir is not None:
+        pred_dir = Path(out_dir) / f"pred{tto_steps}"
+        gt_dir = Path(out_dir) / "gt"
+        pred_dir.mkdir(parents=True, exist_ok=True)
+        gt_dir.mkdir(parents=True, exist_ok=True)
+
+    t1 = time.time()
+    for i, md in enumerate(test_metadata):
+        gt_srgb = md.load_image().astype(np.float32) / 255.0
+        pred_lin, _, _ = render_image(
+            renderer, params, statics, md, scene_aabb=global_aabb,
+            near=near, far=far, chunk_rays=chunk_rays)
+        pred_t = torch.from_numpy(pred_lin).to(dev)
+        gt_t = torch.from_numpy(gt_srgb).to(dev)
+        with torch.no_grad():
+            pred_c, gt_c = color_space_transformer(pred_t, gt_t, color_space)
+            p = float(psnr_from_mse(torch.mean((pred_c - gt_c) ** 2)))
+            s = float(ssim(pred_c, gt_c))
+            pred_srgb = linear_to_srgb(pred_t)
+            if lpips_w is not None:
+                lpipss.append(float(lpips(pred_srgb, gt_t, lpips_w)))
+        psnrs.append(p)
+        ssims.append(s)
+        log(f"  [{i:03d}] psnr {p:.2f}  ssim {s:.4f}"
+            + (f"  lpips {lpipss[-1]:.4f}" if lpips_w is not None else ""))
+
+        if out_dir is not None:
+            from PIL import Image as PILImage
+
+            PILImage.fromarray(_srgb_u8(pred_srgb)).save(
+                pred_dir / f"{i:06d}.png")
+            PILImage.fromarray((gt_srgb * 255).astype(np.uint8)).save(
+                gt_dir / f"{i:06d}.png")
+
+    render_time = time.time() - t1
+    result = {
+        "psnr": float(np.mean(psnrs)) if psnrs else float("nan"),
+        "ssim": float(np.mean(ssims)) if ssims else float("nan"),
+        "lpips": float(np.mean(lpipss)) if lpipss else float("nan"),
+        "duration": adapt_time,
+        "render_time": render_time,
+        "num_images": len(test_metadata),
+        "params": params,
+    }
+    log(f"[RESULT tto={tto_steps}] psnr {result['psnr']:.3f}  "
+        f"ssim {result['ssim']:.4f}  lpips {result['lpips']:.4f}  "
+        f"adapt {adapt_time:.1f}s  render {render_time:.1f}s")
+    return result

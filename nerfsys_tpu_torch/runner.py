@@ -1,30 +1,38 @@
-"""The port's job entry point: --op train.
+"""The port's job entry point: --op train and --op eval.
 
 Port of nerfsys_tpu/runner.py (`container_config_from_args` :54,
 `optim_config_from_args` :119, `meta_config_from_args` :134,
-`build_context` :154-271 for the train op, `occ_config_from_args` :274,
-`train` :379-497, `main` :599-614). Run as:
+`build_context` :154-271 for the train and eval ops,
+`occ_config_from_args` :274, `_load_params_from_checkpoint` :289,
+`train` :379-497, `evaluate` :500-584, `main` :599-614). Run as:
 
     python -m nerfsys_tpu_torch.runner --op train --configPath configs/train.json
+    python -m nerfsys_tpu_torch.runner --op eval --configPath configs/eval.json
 
 It builds the context from the merged flags (utils.config): the prepared
 scene under <data_path>/out/<data_dirname>, its clustering, the container
-with weights from `init_container_params(cfg, seed=P.seed)`, the
-per-expert ray datasets, TaskDatasets and prefetching episode loaders on
-`--device` (default cuda); then `train` warm-starts from
+with weights from `init_container_params(cfg, seed=P.seed)` on `--device`
+(default cuda). For train: the per-expert ray datasets, TaskDatasets and
+prefetching episode loaders; then `train` warm-starts from
 `--checkpoint_path` / `--prefix` when given, premarks the occupancy grids
 from the training cameras (restoring the trained grids on a warm start)
-and runs `meta_trainer`.
+and runs `meta_trainer`. For eval: the validation images (`--cap_images`
+of them), the params of `--checkpoint_path` / `--prefix` (the port's
+checkpoints or the JAX package's) and, under `--use_occ`, the grids of
+`{prefix}.occ`; then `evaluate` runs `runtime_evaluate` once per `--tto`
+entry, each from the checkpoint's params, and writes eval_results.json.
 
 Not ported, and refused at context build with the queue item that holds
-it: `--op eval` (ROADMAP Queue 1 item 4), `--op video` and `--op view`
-(item 8), `--mesh_shape` and `--use_amp` (item 7), `--algo maml` (item 6),
-`--occ_probe_mask`, `--fim`, and the vanilla model, the frequency
-direction encoding and the fourier background encoding (item 7; the last
-three through the port's config classes).
+it: `--op video` and `--op view` (item 8), `--mesh_shape` and `--use_amp`
+(item 7), `--algo maml` (item 6), `--occ_probe_mask`, `--fim`, and the
+vanilla model, the frequency direction encoding and the fourier
+background encoding (item 7; the last three through the port's config
+classes).
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import time
 from pathlib import Path
 from typing import List, Optional
@@ -33,7 +41,9 @@ import numpy as np
 import torch
 
 from nerfsys_tpu_torch.data.dataset import (
+    cap_metadata,
     get_dataset,
+    get_image_metadata,
     load_clustering_meta,
     load_coordinates,
     load_scene_boxes,
@@ -56,6 +66,7 @@ from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
     make_train_step,
 )
 from nerfsys_tpu_torch.pipelines.offline.trainer import meta_trainer
+from nerfsys_tpu_torch.pipelines.online.runtime_adapt import runtime_evaluate
 from nerfsys_tpu_torch.utils import checkpoint as ckpt
 from nerfsys_tpu_torch.utils.config import namespace_to_dict, parse_args
 from nerfsys_tpu_torch.utils.device import resolve_device
@@ -63,7 +74,6 @@ from nerfsys_tpu_torch.utils.logging import Logger
 from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
 
 UNPORTED_OPS = {
-    "eval": "ROADMAP Queue 1 item 4 (test-time adaptation and evaluation)",
     "video": "ROADMAP Queue 1 item 8 (video_gen and the viewer)",
     "view": "ROADMAP Queue 1 item 8 (video_gen and the viewer)",
 }
@@ -178,12 +188,14 @@ def refuse_unported(P, op: str) -> None:
     if op in UNPORTED_OPS:
         raise NotImplementedError(
             f"--op {op} is not ported: {UNPORTED_OPS[op]}")
-    if op != "train":
+    if op not in ("train", "eval"):
         raise ValueError(f"Unknown op: {op}")
     flags = (
         ("mesh_shape", getattr(P, "mesh_shape", None),
-         "multi-GPU training (ROADMAP Queue 1 item 7)"),
-        ("algo maml", getattr(P, "algo", "fomaml") == "maml",
+         "multi-GPU training and rendering (ROADMAP Queue 1 item 7)"),
+        # eval reads no meta-learning setting
+        ("algo maml",
+         op == "train" and getattr(P, "algo", "fomaml") == "maml",
          "second-order MAML (ROADMAP Queue 1 item 6)"),
         ("occ_probe_mask", getattr(P, "occ_probe_mask", False),
          "probe-bit masks (ROADMAP Queue 1 item 7)"),
@@ -197,8 +209,9 @@ def refuse_unported(P, op: str) -> None:
 
 # --------------------------- context ------------------------------------------
 def build_context(P, op: str) -> dict:
-    """Resolve data paths, scene geometry, model and the train op's data
-    plumbing on P.device."""
+    """Resolve data paths, scene geometry, model and the op's data on
+    P.device: the train op's episode loaders, or the eval op's validation
+    metadata and checkpoint."""
     refuse_unported(P, op)
     device = resolve_device(getattr(P, "device", "cuda"))
     np.random.seed(P.seed)
@@ -265,6 +278,14 @@ def build_context(P, op: str) -> dict:
     ctx["logger"] = logger
     ctx["run_dir"] = logger.logdir
 
+    if op == "eval":
+        _, val_md = get_image_metadata(data_path, P.downscale)
+        if P.cap_images:
+            val_md = cap_metadata(val_md, P.cap_images)
+        ctx["test_metadata"] = val_md
+        _load_params_from_checkpoint(ctx)
+        return ctx
+
     bundle = get_dataset(
         data_path, P.downscale, P.mask_dirname, P.num_submodules,
         cap_images=P.cap_images, near_far_override=(P.near, P.far),
@@ -290,6 +311,29 @@ def build_context(P, op: str) -> dict:
         MetaBatcher(val_task_sets, P.test_batch_size), device=device)
         if val_task_sets else None)
     return ctx
+
+
+def _load_params_from_checkpoint(ctx) -> None:
+    """ctx's params (and ckpt_state) from --checkpoint_path / --prefix;
+    under --use_occ also the grids of {prefix}.occ as ctx['occ_state']."""
+    P = ctx["P"]
+    if not getattr(P, "checkpoint_path", None):
+        return
+    params, state = ckpt.load_model_checkpoint(P.checkpoint_path, P.prefix,
+                                               ctx["params"])
+    ctx["params"] = params
+    ctx["ckpt_state"] = state
+    print(f"Loaded checkpoint {P.prefix} @ step {state['step']}")
+    if getattr(P, "use_occ", False):
+        from nerfsys_tpu_torch.ops.occupancy import init_occ_state
+
+        tpl = init_occ_state(occ_config_from_args(P), P.num_submodules,
+                             device=ctx["device"])
+        occ = ckpt.load_aux_state(P.checkpoint_path, "occ", tpl,
+                                  tag=P.prefix)
+        if occ is not None:
+            ctx["occ_state"] = occ
+            print("Restored occupancy grids from checkpoint")
 
 
 def check_expert_sets(bundle, num_experts: int) -> None:
@@ -419,12 +463,77 @@ def train(ctx):
     return params
 
 
+def evaluate(ctx):
+    """One `runtime_evaluate` per --tto entry, each from the checkpoint's
+    params with a fresh optimizer (no lr schedule) -> the result rows,
+    also written to <run_dir>/eval_results.json."""
+    P = ctx["P"]
+    base_params = ctx["params"]
+    tto_list = [int(t) for t in str(P.tto).split(",") if t != ""]
+    opt_cfg = optim_config_from_args(P)
+    rows = []
+    for tto in tto_list:
+        tx = build_optimizer(dataclasses.replace(opt_cfg, use_scheduler=False),
+                             param_group_labels(base_params))
+        result = runtime_evaluate(
+            params=base_params,  # reset to the meta-learned base each time
+            cfg=ctx["cfg"],
+            statics=ctx["statics"],
+            occ_state=ctx.get("occ_state"),
+            occ_importance=getattr(P, "occ_importance", False),
+            occ_probe_mask=getattr(P, "occ_probe_mask", False),
+            occ_hard_mask=not getattr(P, "occ_no_hard_mask", False),
+            occ_probe_grid_res=int(getattr(P, "occ_union_probe_res", 0)),
+            render_early_stop=float(getattr(P, "render_early_stop", 0.0)),
+            render_baked_res=int(getattr(P, "render_baked", 0)),
+            render_baked_sh=int(getattr(P, "render_baked_sh", 3)),
+            render_baked_occ=bool(getattr(P, "render_baked_occ", False)),
+            render_baked_occ_dilate=int(
+                getattr(P, "render_baked_occ_dilate", 2)),
+            render_baked_sparse=int(getattr(P, "render_baked_sparse", 0)),
+            render_baked_cache=str(
+                getattr(P, "render_baked_cache", "") or ""),
+            render_coherent=bool(getattr(P, "render_coherent", False)),
+            optimizer=tx,
+            test_metadata=ctx["test_metadata"],
+            tto_steps=tto,
+            support_batch=P.support_rays,
+            ray_samples=P.ray_samples,
+            color_space=P.color_space,
+            bg_policy=P.bg_color_default,
+            near=P.near,
+            far=P.far,
+            global_aabb=ctx["global_aabb"],
+            out_dir=Path(ctx["run_dir"]) / "rendered",
+            logger=ctx["logger"],
+            seed=P.seed,
+        )
+        rows.append({"tto": tto, **{k: v for k, v in result.items()
+                                    if k != "params"}})
+
+    # the results table (the reference prints pandas and LaTeX)
+    try:
+        import pandas as pd
+
+        df = pd.DataFrame(rows).set_index("tto")
+        print(df.to_string())
+        print(df.to_latex(float_format="%.3f"))
+    except ImportError:
+        print(json.dumps(rows, indent=2))
+    out_path = Path(ctx["run_dir"]) / "eval_results.json"
+    out_path.write_text(json.dumps(rows, indent=2))
+    return rows
+
+
 def main(argv: Optional[List[str]] = None):
     P = parse_args(argv)
     op = P.op
     ctx = build_context(P, op)
     t0 = time.time()
-    train(ctx)
+    if op == "eval":
+        ctx["rows"] = evaluate(ctx)
+    else:
+        train(ctx)
     print(f"[done] op={op} in {time.time() - t0:.1f}s")
     return ctx
 

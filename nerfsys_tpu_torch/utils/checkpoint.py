@@ -8,15 +8,24 @@ Port of nerfsys_tpu/utils/checkpoint.py, with the same file names and tags:
     <run_dir>/{tag}.state.json   {step, best, is_best}
     <run_dir>/{tag}.{name}       an auxiliary tree, e.g. {tag}.occ
 
-tags: 'best' | 'last' | 'step{N}'. The payload of `.model`, `.optim` and
-the auxiliary files is a `torch.save` of the tree with its tensors on the
-host. The reference writes flax msgpack, which cannot be read or written
-without flax; reading the JAX package's `.model` files is a loader of its
-own (ROADMAP Queue 1 item 4, not ported), and `load_checkpoint` refuses
-such a file with an error that says so. Restoring needs live templates
-(params and optimizer state built from the pinned ARCH_KEYS config): the
-loaded tree must have the template's nesting, shapes and dtypes, and its
-tensors land on the template's devices.
+tags: 'best' | 'last' | 'step{N}'. The port writes `.model`, `.optim` and
+the auxiliary files as a `torch.save` of the tree with its tensors on the
+host. It reads those, and the JAX package's, which are flax msgpack
+(`serialization.to_bytes`), told apart by content: a zip archive is the
+port's own, anything else goes to the msgpack reader below, and a file
+that is neither raises ValueError naming its path. The reader needs the
+`msgpack` package (imported when a JAX file is read, nowhere else) and
+not flax: each array is an ext record of code 1 holding (shape, dtype
+name, C-order bytes); arrays over flax's MAX_CHUNK_SIZE arrive as
+{"__msgpack_chunked_array__": True, "shape", "chunks"} maps; lists and
+tuples arrive as maps keyed "0", "1", .... The JAX package's optimizer
+state (optax's NamedTuples) has no reader: eval loads params and grids
+only (`load_model_checkpoint`, `load_aux_state`).
+
+Restoring needs live templates (params and optimizer state built from the
+pinned ARCH_KEYS config, in the JAX params' nesting, see utils/interop):
+the loaded tree must have the template's nesting, shapes and dtypes, and
+its tensors land on the template's devices.
 """
 from __future__ import annotations
 
@@ -45,15 +54,88 @@ def _save_tree(path: Path, tree) -> None:
 
 
 def _load_tree(path: Path):
-    """A tree written by `_save_tree`; a file that is not a torch.save
-    archive (the JAX package's flax msgpack) raises ValueError."""
-    if not zipfile.is_zipfile(path):
+    """A tree written by `_save_tree` (a zip archive) or by the JAX
+    package (flax msgpack); anything else raises ValueError."""
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    return load_flax_tree(path)
+
+
+# numpy dtype names of flax's array records -> torch dtypes; bfloat16 is
+# stored as its raw 16 bits
+_FLAX_DTYPES = {
+    "float64": torch.float64, "float32": torch.float32,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int64": torch.int64, "int32": torch.int32, "int16": torch.int16,
+    "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
+}
+
+
+def _flax_array(data: bytes) -> torch.Tensor:
+    """One ext record's payload (shape, dtype name, C-order bytes) -> a
+    tensor of that dtype."""
+    import msgpack
+
+    shape, name, buf = msgpack.unpackb(data, raw=False)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name not in _FLAX_DTYPES:
+        raise ValueError(f"flax array of dtype {name!r} has no torch "
+                         f"counterpart here")
+    dtype = _FLAX_DTYPES[name]
+    raw = torch.int16 if dtype == torch.bfloat16 else dtype
+    flat = (torch.frombuffer(bytearray(buf), dtype=raw) if buf
+            else torch.empty(0, dtype=raw))  # frombuffer refuses 0 bytes
+    return flat.view(dtype).reshape(tuple(shape))
+
+
+def _flax_ext(code: int, data: bytes):
+    # flax's ext codes: 1 an ndarray, 3 a numpy scalar (packed as a 0-d
+    # array); 2 (a Python complex) never occurs in these trees
+    if code in (1, 3):
+        return _flax_array(data)
+    raise ValueError(f"flax msgpack ext record of code {code} is not read")
+
+
+def _index_keys(d: dict) -> bool:
+    return bool(d) and set(d) == {str(i) for i in range(len(d))}
+
+
+def _unchunk(tree):
+    """Chunked-array maps -> tensors (flat chunks joined, reshaped)."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree.get("__msgpack_chunked_array__"):
+        shape, chunks = tree["shape"], tree["chunks"]
+        shape = tuple(shape[str(i)] for i in range(len(shape)))
+        flat = torch.cat([chunks[str(i)].reshape(-1)
+                          for i in range(len(chunks))])
+        return flat.reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def load_flax_tree(path: Path):
+    """The state dict of a file that the JAX package wrote with flax's
+    `serialization.to_bytes`: nested dicts (lists still as index-keyed
+    maps, which `_restore` matches against the template) of CPU tensors.
+    A file that is not msgpack raises ValueError naming it."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            f"reading {path}, a checkpoint of the JAX package (flax "
+            f"msgpack), needs the 'msgpack' package") from e
+    try:
+        tree = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_flax_ext,
+                               raw=False, strict_map_key=False)
+    except (msgpack.UnpackException, ValueError, TypeError) as e:
         raise ValueError(
-            f"{path} is not a checkpoint of nerfsys_tpu_torch (a torch.save "
-            f"archive): the JAX package writes flax msgpack, which this "
-            f"package does not read (a loader for it is ROADMAP Queue 1 "
-            f"item 4, not ported)")
-    return torch.load(path, map_location="cpu", weights_only=True)
+            f"{path} is neither a checkpoint of nerfsys_tpu_torch (a "
+            f"torch.save archive) nor one of the JAX package (flax "
+            f"msgpack): {e}") from e
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: a flax state dict (a msgpack map) "
+                         f"expected, found {type(tree).__name__}")
+    return _unchunk(tree)
 
 
 def _restore(template, loaded, where: str = "tree"):
@@ -68,6 +150,9 @@ def _restore(template, loaded, where: str = "tree"):
         return {k: _restore(template[k], loaded[k], f"{where}.{k}")
                 for k in template}
     if isinstance(template, (list, tuple)):
+        if isinstance(loaded, dict) and _index_keys(loaded):
+            # flax writes sequences as maps keyed "0", "1", ...
+            loaded = [loaded[str(i)] for i in range(len(loaded))]
         if (not isinstance(loaded, (list, tuple))
                 or len(loaded) != len(template)):
             raise ValueError(f"{where}: a sequence of {len(template)} "
@@ -124,6 +209,12 @@ def load_checkpoint(run_dir, tag: str, params_template,
     if state_path.exists():
         state.update(json.loads(state_path.read_text()))
     return params, opt_state, state
+
+
+def load_model_checkpoint(run_dir, tag: str, params_template):
+    """Params only (the eval path) -> (params, state dict)."""
+    params, _, state = load_checkpoint(run_dir, tag, params_template)
+    return params, state
 
 
 def checkpoint_exists(run_dir, tag: str) -> bool:

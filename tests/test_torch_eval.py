@@ -1,0 +1,168 @@
+"""The port's eval op as a whole, against the JAX package's, on the
+prepared COLMAP test scene (tests/test_torch_data.py's `prepare_scene`).
+
+The JAX runner trains configs/train.json's model at test widths (K=4
+planes experts L=1 base 8 F=4, hidden 8, soft importance occupancy R=16
+L=2, ready after the first update) for 2 steps and writes flax
+checkpoints; then both runners evaluate its `last` with configs/eval.json,
+`--tto 0,1 --cap_images 1 --ray_samples 8 --support_rays 64` and LPIPS
+weights from `random_weights` (the JAX one through `evaluate`, the port
+through `runner.main(["--op", "eval", "--device", "cpu", ...])`).
+
+Tolerances at tto 0, from what this fixture measures (PSNR equal to
+1e-6 dB, SSIM 8e-7, LPIPS equal): PSNR within 0.005 dB, SSIM within 2e-5,
+LPIPS within 1e-5 relative. The JAX side renders jitted, and XLA fuses
+multiply-adds, which can move a probe point to the neighbouring cell; one
+ray's color moved by 0.1 moves this image's PSNR by about 1e-4 dB. At tto
+1 both are finite and the port's adapted params moved. A checkpoint that
+the port writes from the restored params evaluates to the same numbers.
+"""
+import json
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from test_dataprep_e2e import colmap_scene  # noqa: F401  (fixture)
+from test_torch_data import prepare_scene
+from test_torch_runner import SMALL
+
+from nerfsys_tpu_torch import runner as TR
+from nerfsys_tpu_torch.utils import checkpoint as TCK
+from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+REPO = Path(__file__).resolve().parent.parent
+EVAL = ["--configPath", str(REPO / "configs" / "eval.json"),
+        "--downscale", "1.0", "--prefix", "last", "--tto", "0,1",
+        "--cap_images", "1", "--ray_samples", "8", "--support_rays", "64"]
+
+
+def _scene_args(data_root):
+    return ["--data_path", str(data_root), "--data_dirname", "scene",
+            "--mask_dirname", "g22"]
+
+
+@pytest.fixture(scope="module")
+def evals(colmap_scene, tmp_path_factory):  # noqa: F811
+    """(JAX rows, the port's ctx with its results, scene args, JAX run
+    dir, work dir)."""
+    from nerfsys_tpu.runner import build_context, evaluate, train
+    from nerfsys_tpu.scripts.convert_lpips_weights import random_weights
+    from nerfsys_tpu.utils.config import parse_args
+
+    work = tmp_path_factory.mktemp("eval")
+    data_root = work / "drz"
+    data_root.mkdir()
+    prepare_scene(colmap_scene, data_root)
+    scene = _scene_args(data_root)
+    lpips_npz = work / "alex_random.npz"
+    np.savez(lpips_npz, **random_weights(7))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(work)  # logs/ land in the work dir
+        mp.setenv("NERFSYS_LPIPS_WEIGHTS", str(lpips_npz))
+        ctx = build_context(parse_args([
+            "--op", "train", "--configPath",
+            str(REPO / "configs" / "train.json"), *scene, *SMALL,
+            "--outer_steps", "2", "--save_step", "2", "--fname", "jax_run"]),
+            "train")
+        train(ctx)
+        run_dir = Path(ctx["run_dir"]).resolve()
+        argv = ["--op", "eval", *scene, *EVAL, "--checkpoint_path",
+                str(run_dir)]
+        jrows = evaluate(build_context(parse_args(
+            argv + ["--fname", "jax_eval"]), "eval"))
+        results = []
+        orig = TR.runtime_evaluate
+
+        def keep(**kw):
+            out = orig(**kw)
+            results.append(out)
+            return out
+
+        mp.setattr(TR, "runtime_evaluate", keep)
+        tctx = TR.main(argv + ["--fname", "port_eval", "--device", "cpu"])
+        tctx["results"] = results
+    return jrows, tctx, scene, run_dir, work
+
+
+def test_eval_matches_jax_at_tto_0(evals):
+    jrows, tctx, *_ = evals
+    j, t = jrows[0], tctx["rows"][0]
+    assert j["tto"] == t["tto"] == 0
+    assert abs(t["psnr"] - j["psnr"]) <= 0.005, (t["psnr"], j["psnr"])
+    assert abs(t["ssim"] - j["ssim"]) <= 2e-5, (t["ssim"], j["ssim"])
+    assert abs(t["lpips"] - j["lpips"]) <= 1e-5 * abs(j["lpips"])
+    assert t["num_images"] == j["num_images"] == 1
+    assert "occ_state" in tctx and tctx["ckpt_state"]["step"] == 2
+
+
+def test_eval_adapts_at_tto_1(evals):
+    jrows, tctx, *_ = evals
+    j, t = jrows[1], tctx["rows"][1]
+    assert j["tto"] == t["tto"] == 1
+    for k in ("psnr", "ssim", "lpips", "duration", "render_time"):
+        assert np.isfinite(t[k]) and np.isfinite(j[k]), k
+    base = tree_leaves(tctx["params"])
+    r0, r1 = tctx["results"]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(r0["params"]),
+                                                 base))
+    moved = [not torch.equal(a, b)
+             for a, b in zip(tree_leaves(r1["params"]), base)]
+    assert all(moved), moved.count(False)
+
+
+def test_eval_writes_results_and_pngs(evals):
+    from PIL import Image
+
+    _, tctx, _, _, work = evals
+    run = work / tctx["run_dir"]  # relative to the run's directory
+    rows = json.loads((run / "eval_results.json").read_text())
+    assert [r["tto"] for r in rows] == [0, 1]
+    assert set(rows[0]) == {"tto", "psnr", "ssim", "lpips", "duration",
+                            "render_time", "num_images"}
+    md = tctx["test_metadata"][0]
+    for sub in ("pred0", "pred1", "gt"):
+        img = np.asarray(Image.open(run / "rendered" / sub / "000000.png"))
+        assert img.shape == (md.H, md.W, 3) and img.dtype == np.uint8
+    gt = np.asarray(Image.open(run / "rendered" / "gt" / "000000.png"))
+    np.testing.assert_array_equal(gt, md.load_image())
+
+
+def test_a_port_checkpoint_evaluates_alike(evals, monkeypatch):
+    """The restored params written back by the port (torch.save) with the
+    JAX run's config and grids evaluate to the same numbers."""
+    jrows, tctx, scene, run_dir, work = evals
+    own = work / "port_ckpt"
+    TCK.save_checkpoint(own, "last", tctx["params"], step=2)
+    TCK.save_aux_state(own, "last", "occ", tctx["occ_state"])
+    shutil.copy(run_dir / "last.config.json", own / "last.config.json")
+    monkeypatch.chdir(work)
+    monkeypatch.setenv("NERFSYS_LPIPS_WEIGHTS", str(work /
+                                                   "alex_random.npz"))
+    ctx = TR.main(["--op", "eval", *scene, *EVAL, "--tto", "0",
+                   "--checkpoint_path", str(own), "--fname", "port_own",
+                   "--device", "cpu"])
+    row, want = ctx["rows"][0], tctx["rows"][0]
+    for k in ("psnr", "ssim", "lpips"):
+        assert row[k] == want[k], k
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--fim"], "fim"), (["--mesh_shape", "2"], "mesh_shape"),
+    (["--occ_probe_mask"], "occ_probe_mask")])
+def test_eval_refuses_unported_flags(evals, flags, match):
+    _, _, scene, run_dir, _ = evals
+    with pytest.raises(NotImplementedError, match=f"{match}.*item 7"):
+        TR.main(["--op", "eval", *scene, *EVAL, "--checkpoint_path",
+                 str(run_dir), "--device", "cpu", *flags])
+
+
+def test_eval_without_a_card_raises(evals):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    _, _, scene, run_dir, _ = evals
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TR.main(["--op", "eval", *scene, *EVAL, "--checkpoint_path",
+                 str(run_dir)])

@@ -184,7 +184,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'data.image_metadata', 'data.ram_rays', 'data.dataset',"
         " 'data.task_dataset', 'data.loaders', 'utils.logging',"
         " 'utils.checkpoint', 'utils.config', 'pipelines.offline.trainer',"
-        " 'runner')}\n"
+        " 'utils.metrics', 'runner')}\n"
         "from nerfsys_tpu_torch.models import occupancy as mo\n"
         "from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra\n"
         "assert all(hasattr(mo, f) for f in ('probe_rays_occ',"
@@ -209,9 +209,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from nerfsys_tpu_torch import runner\n"
         "assert all(hasattr(runner, f) for f in ('container_config_from_args',"
         " 'optim_config_from_args', 'meta_config_from_args',"
-        " 'occ_config_from_args', 'build_context', 'train', 'main'))\n"
+        " 'occ_config_from_args', 'build_context', 'train', 'evaluate',"
+        " '_load_params_from_checkpoint', 'main'))\n"
+        "assert all(hasattr(ra, f) for f in ('make_adapt_step',"
+        " 'runtime_adapt', 'runtime_evaluate'))\n"
+        "from nerfsys_tpu_torch.utils import checkpoint as ck, metrics as me\n"
+        "assert all(hasattr(ck, f) for f in ('load_model_checkpoint',"
+        " 'load_flax_tree'))\n"
+        "assert all(hasattr(me, f) for f in ('ssim', 'lpips',"
+        " 'load_lpips_weights', 'psnr'))\n"
+        "from nerfsys_tpu_torch.data import loaders as lo\n"
+        "assert hasattr(lo, 'EpochBatchSampler')\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in"
-        " ('flax', 'optax')]\n"
+        " ('flax', 'optax', 'msgpack')]\n"
         "assert not bad, bad\n"
         "assert need <= set(mods), need - set(mods)\n"
         "print(len(mods))\n")

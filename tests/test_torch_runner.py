@@ -149,9 +149,11 @@ def test_configs_from_flags_match_jax(config, extra):
 
 @pytest.mark.parametrize("op", ["eval", "video", "view"])
 def test_unported_ops_raise(data_root, op):
-    item = "item 4" if op == "eval" else "item 8"
+    # the eval op is ported; its Fisher-weighted adaptation is not
+    item, extra = ("item 7", ["--fim"]) if op == "eval" else ("item 8", [])
     with pytest.raises(NotImplementedError, match=item):
-        TR.main(["--op", op, "--device", "cpu", *_scene_args(data_root)])
+        TR.main(["--op", op, "--device", "cpu", *_scene_args(data_root),
+                 *extra])
 
 
 @pytest.mark.parametrize("flags,match", [

@@ -294,18 +294,27 @@ def test_aux_state_key_merge_fallback(tmp_path, capsys):
 
 
 def test_a_jax_checkpoint_raises(tmp_path):
-    """The JAX package's flax msgpack `.model` is refused, never misread."""
+    """The JAX package's flax msgpack files: params and grids are read bit
+    for bit (the eval op's path); its optax optimizer state, which the
+    port does not read, raises, never misread, and a resume gives None."""
     from nerfsys_tpu.utils import checkpoint as JC
 
     cfg, params, statics, occ, _ = _setup()
     (jp, _, jocc, _), (_, tp, _, tocc, _) = _sides(cfg, params, statics,
                                                    occ, {})
-    JC.save_checkpoint(tmp_path, "last", _jax(params), None, {}, 3, 1.0)
+    tx = JO.build_optimizer(JO.OptimConfig(), JCo.param_group_labels(params))
+    JC.save_checkpoint(tmp_path, "last", jp, tx.init(jp), {}, 3, 1.0)
     JC.save_aux_state(tmp_path, "last", "occ", jocc)
-    with pytest.raises(ValueError, match="flax msgpack"):
-        ckpt.load_checkpoint(tmp_path, "last", tp)
-    assert ckpt.is_resume(tmp_path, tp) is None
-    assert ckpt.load_aux_state(tmp_path, "occ", tocc) is None
+    got, _, state = ckpt.load_checkpoint(tmp_path, "last", tp)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(tp)))
+    assert state["step"] == 3
+    opt = TO.build_optimizer(TO.OptimConfig(), TCo.param_group_labels(tp))
+    with pytest.raises(ValueError, match="opt_state"):
+        ckpt.load_checkpoint(tmp_path, "last", tp, opt.init(tp))
+    assert ckpt.is_resume(tmp_path, tp, opt.init(tp)) is None
+    got_occ = ckpt.load_aux_state(tmp_path, "occ", tocc)
+    assert all(torch.equal(got_occ[k], tocc[k]) for k in tocc)
 
 
 def test_trace_window_writes_a_torch_profiler_trace(tmp_path):
