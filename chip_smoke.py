@@ -10,7 +10,12 @@ printing its result lines):
 
 1. Card: name and power limit (nvidia-smi).
 2. Build: compile every kernel source in nerfsys_tpu_torch/csrc with nvcc
-   (one process per source, all at once) and report the seconds.
+   (one process per source, all at once) and report the seconds; then
+   the native host ray kernels (nerfsys_tpu_torch/data/native, g++) and
+   their seconds. `native:` lines: one 800x800 frame of the serve pose
+   through `frame_rays`, native and numpy in turns (host ms of each; the
+   valid masks equal, o/d within 1e-5, near/far on valid rays within
+   1e-4 + 1e-5 |x|, the largest errors printed), with the host's cores.
 3. Kernels: hold each forward kernel against its plain PyTorch version on
    the card at one full serve chunk (65,536 rays, S=32 samples, P=128
    probes; K=4 experts at bench width; R=128, L=4 occupancy grids half
@@ -152,8 +157,12 @@ printing its result lines):
    hash experts at the runner's default widths (7a and 7c launched),
    both on 4 of the 16 training cameras (--cap_images 4: the host
    rebuilds each run's rays and routing, and neither check reads them).
-   Prints the scene's build seconds (dataset, routing, TaskDataset),
-   seconds to the first step, the median loop step on the host clock
+   Prints the scene's build seconds (dataset, routing, TaskDataset;
+   native rays and routing) beside the numpy paths' on the same scene,
+   seconds to the first step, then `native:` lines: the exact DDA router
+   and the sampled router on 1,000,000 of the scene's rays, native
+   against numpy (equal bit for bit, both host times), the median loop
+   step on the host clock
    with meta_trainer's data_time and step_time, one profiled loop step
    with its occupancy update beside the train phase's bench step, and
    the checkpoint save and load seconds.
@@ -184,6 +193,23 @@ printing its result lines):
    adapt step (host clock, median of the tto=10 run; one profiled step),
    s per rendered image with its host ray generation, the phase's
    seconds.
+   Video (`video:` lines), on the same scene and checkpoint: the runner's
+   video op (`runner.main` with `--op video --configPath
+   configs/eval.json --prefix best --video_frames 6`, 96 samples) at the
+   val cameras' 1000x750, four runs: the turntable with the hard mask on
+   (a copy of configs/eval.json with occ_no_hard_mask false: host rays
+   from the native generator, the two-wave dispatch), full_coverage soft
+   (the pose path: the live camera renderer with the fused fog / sRGB /
+   uint8 tail), the turntable baked at 256³ with --render_baked_occ (the
+   baked camera renderer, row 9) and with --render_coherent (10b).
+   Checks: each run rendered through the expected renderer, 6 uint8
+   frames of the val shape, none constant, the output written, kernels
+   1-4 launched (row 9 and 4 when baked; 10b too when coherent); the
+   first frame of the host-ray and the pose-path run again through the
+   plain versions from the same params and inputs, within 1 level on all
+   but 0.5% of the pixels. Prints per run the writer used (mp4 through
+   imageio, or the PNG sequence), ms per frame (median, min), host ray
+   generation per frame on the host-ray paths, and the phase's seconds.
 10. Hash: the runner's default experts (`container_config_from_args` with
    the flag defaults: K=4 Instant-NGP experts, hash L=16 F=2
    log2_hashmap_size 20, 16-4096, Linear, floor layout, fp32; 512 MiB of
@@ -2252,8 +2278,8 @@ def trainer(device):
     the gradients of steps 0 (stratified) and 18 (importance sampling)
     against the same steps through the plain path; a warm start from `last` for 4 more steps; 4 steps of the hash
     experts (the runner's default encoder at its default widths); then
-    the eval phase on the main run's directory -> (launches of the three
-    runs, the eval phase's launches)."""
+    the eval and video phases on the main run's directory -> (launches of
+    the three runs, the eval phase's launches, the video phase's)."""
     import json
     import shutil
     import tempfile
@@ -2310,7 +2336,13 @@ def trainer(device):
               f"{probe.seconds['dataset']:.2f}, TaskDataset "
               f"{probe.seconds['TaskDataset']:.2f} (routing "
               f"{probe.seconds['routing']:.2f}); seconds to the first step "
-              f"{probe.seconds['to first step']:.2f}", flush=True)
+              f"{probe.seconds['to first step']:.2f} (native rays and "
+              f"routing; {host_text()}; reference points, not measured in "
+              f"this run: the numpy paths took dataset 11.05, routing 58.35, "
+              f"74.48 s to the first step on this scene in an earlier run "
+              f"on an H100 80GB HBM3 host)", flush=True)
+        native_routing_check(bundle.train_sets[0].rays[:NATIVE_ROUTE_RAYS],
+                             ctx["P"].cell_dim)
         gaps = [1e3 * (b["t"] - a["t"])
                 for a, b in zip(probe.steps, probe.steps[1:])]
         data = [1e3 * m[0] for m in probe.meters]
@@ -2409,16 +2441,19 @@ def trainer(device):
         print(f"trainer: phase took {time.perf_counter() - t_phase:.1f} s",
               flush=True)
         evaluated = eval_phase(device, tmp, run)
+        filmed = video_phase(device, tmp, run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, evaluated
+    return launches, evaluated, filmed
 
 
 EVAL_TTO = "0,1,10"  # configs/eval.json's --tto
 EVAL_FAST_TTO = "0,4"  # the --render_fast run
 EVAL_CHECKED = 4  # adapt steps held against the plain path
-EVAL_EXTRA = ()  # flags appended to every eval call (CPU rehearsals)
-EVAL_BAKE_R = 256  # --render_baked of the baked one-image run
+# flags appended to every runner call of the eval and video phases (CPU
+# rehearsals shrink them; the main path appends none)
+REHEARSAL_EXTRA = ()
+BAKE_R = 256  # --render_baked of the eval and video phases' baked runs
 EVAL_KERNELS = TRAINER_KERNELS  # kernels 1-5 and 4'
 EVAL_FLIP = 0.005  # the camera phase's rule: pixels beyond 1e-4
 LPIPS_CFG = ((64, 11), (192, 5), (384, 3), (256, 3), (256, 3))
@@ -2538,7 +2573,7 @@ def run_eval(argv, capture_tto=None):
     with contextlib.ExitStack() as stack:
         probe = EvalProbe(capture_tto).attach(stack)
         kernels.reset_launches()
-        ctx = runner.main(list(argv) + list(EVAL_EXTRA))
+        ctx = runner.main(list(argv) + list(REHEARSAL_EXTRA))
         probe.launches = kernels.launches()
     return ctx, probe
 
@@ -2777,7 +2812,7 @@ def eval_phase(device, tmp, run):
           f"s per rendered "
           f"image median {median(frames):.3f} of {len(frames)} (min "
           f"{min(frames):.3f}, {md.W * md.H / median(frames):.0f} rays/s), of "
-          f"which host ray generation {raygen:.3f} s; launches "
+          f"which host ray generation (native) {raygen:.3f} s; launches "
           f"{probe.launches}", flush=True)
     live_psnr = image_scores(probe.frames[0]["pred"], md, P.color_space,
                              device)[0]
@@ -2837,7 +2872,7 @@ def eval_phase(device, tmp, run):
             ("early stop", ["--render_early_stop", "1e-4"],
              ("composite_segment",)),
             ("coherent", ["--render_coherent"], ("coherent_expert",)),
-            ("baked", ["--render_baked", str(EVAL_BAKE_R),
+            ("baked", ["--render_baked", str(BAKE_R),
                        "--render_baked_occ"],
              ("baked_trilerp",))):
         ctx, probe = run_eval(base + one + flags + [
@@ -2873,9 +2908,257 @@ def eval_phase(device, tmp, run):
     return launches
 
 
+VIDEO_FRAMES = 6
+VIDEO_LIVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
+                      "sample_tvals_from_cdf", "volume_render_fwd")
+
+
+class VideoProbe:
+    """What chip_smoke reads of a `runner.main(["--op", "video", ...])`
+    run, through wrappers on video_gen's names (`attach`): the renderer it
+    built (factory and arguments), the host clock at each frame's start
+    (the camera renderer's call on the pose path, `frame_rays` on the
+    host-ray path) and at the writer, each frame's host ray generation,
+    the first frame's renderer inputs and output, the frames and the path
+    written."""
+
+    def __init__(self):
+        self.starts, self.raygen = [], []
+        self.factory = self.first = self.frames = self.path = None
+        self.t_end = self.write_s = None
+
+    def camera_renderer(self, name):
+        def make(fn):
+            def build(*a, **kw):
+                self.factory = (name, fn, a, dict(kw))
+                render = fn(*a, **kw)
+
+                def wrapped(params, statics, c2w, intr, *extra):
+                    self.starts.append(time.perf_counter())
+                    out = render(params, statics, c2w, intr, *extra)
+                    if self.first is None:
+                        self.first = dict(args=(params, statics, c2w, intr),
+                                          out=out)
+                    return out
+                return wrapped
+            return build
+        return make
+
+    def chunk_renderer(self, name):
+        def make(fn):
+            def build(*a, **kw):
+                self.factory = (name, fn, a, dict(kw))
+                return fn(*a, **kw)
+            return build
+        return make
+
+    def frame_rays(self, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            self.starts.append(t0)
+            out = fn(*a, **kw)
+            self.raygen.append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def render_rays_chunked(self, fn):
+        def wrapped(renderer, params, statics, rays, chunk_rays, **kw):
+            out = fn(renderer, params, statics, rays, chunk_rays, **kw)
+            if self.first is None:
+                self.first = dict(args=(params, statics, rays.copy(),
+                                        chunk_rays), kw=dict(kw), out=out)
+            return out
+        return wrapped
+
+    def write_video(self, fn):
+        def wrapped(frames, *a, **kw):
+            self.t_end = time.perf_counter()
+            self.frames = list(frames)
+            self.path = fn(frames, *a, **kw)
+            self.write_s = time.perf_counter() - self.t_end
+            return self.path
+        return wrapped
+
+    def attach(self, stack):
+        from nerfsys_tpu_torch.models import baked
+        from nerfsys_tpu_torch.pipelines import video_gen as vg
+
+        for module, attr, make in (
+                (vg, "make_live_camera_renderer",
+                 self.camera_renderer("live camera")),
+                (baked, "make_baked_camera_renderer",
+                 self.camera_renderer("baked camera")),
+                (vg, "make_chunk_renderer", self.chunk_renderer("chunk")),
+                (vg, "make_coherent_renderer",
+                 self.chunk_renderer("coherent")),
+                (vg, "frame_rays", self.frame_rays),
+                (vg, "render_rays_chunked", self.render_rays_chunked),
+                (vg, "write_video", self.write_video)):
+            stack.enter_context(patched(module, attr, make))
+        return self
+
+    def frame_ms(self):
+        """Host ms of each frame, start to start (the last to the
+        writer)."""
+        t = self.starts + [self.t_end]
+        return [1e3 * (b - a) for a, b in zip(t, t[1:])]
+
+
+def run_video(argv):
+    """runner.main(argv) for the video op with a VideoProbe attached ->
+    (ctx, probe); the launch counters are zeroed just before and read
+    just after."""
+    from nerfsys_tpu_torch import kernels, runner
+
+    with contextlib.ExitStack() as stack:
+        probe = VideoProbe().attach(stack)
+        kernels.reset_launches()
+        ctx = runner.main(list(argv) + list(REHEARSAL_EXTRA))
+        probe.launches = kernels.launches()
+    return ctx, probe
+
+
+def video_matches_plain(label, ctx, probe):
+    """The run's first frame rendered again through the plain versions
+    from the same params and inputs (the renderer rebuilt from the
+    factory's arguments with use_kernels=False). Fog suppression sets
+    most pixels of these frames to the background whatever the field
+    computed, so the outputs before the frame tail are held first: rgb,
+    depth and acc of every ray within the serve tolerances on all but
+    CAMERA_FLIP of the rays (on the pose path both renderers rebuilt with
+    map_outputs=None, out_u8=False; on the host-ray path the run's own
+    chunk outputs); then the uint8 frames (host rays through the same
+    tail) within 1 level on all but CAMERA_FLIP of the pixels."""
+    from nerfsys_tpu_torch.pipelines import video_gen as vg
+
+    name, fn, a, kw = probe.factory
+    plain = fn(*a, **dict(kw, use_kernels=False))
+    t0 = time.perf_counter()
+    if "camera" in name:
+        raw = dict(kw, map_outputs=None, out_u8=False)
+        args = probe.first["args"]
+        got_planes = fn(*a, **raw)(*args)
+        want_planes = fn(*a, **dict(raw, use_kernels=False))(*args)
+        want = plain(*args)
+    else:
+        params, statics, rays, chunk_rays = probe.first["args"]
+        got_planes = probe.first["out"]
+        want_planes = vg.render_rays_chunked(plain, params, statics, rays,
+                                             chunk_rays, **probe.first["kw"])
+        P = ctx["P"]
+        md = ctx["test_metadata"][0]
+        want = vg.host_frame_u8(want_planes, md.H, md.W,
+                                not getattr(P, "no_suppress_fog", False))
+    plain_s = time.perf_counter() - t0
+    chunk_matches_plain(f"video: {label}: frame 0", planes_of(got_planes),
+                        planes_of(want_planes), CAMERA_FLIP,
+                        f"kernels vs plain before the frame tail "
+                        f"({plain_s:.2f} s)")
+    share = u8_within_one(f"video: {label}: frame 0 vs the plain path",
+                          probe.frames[0], want)
+    if share < 1.0 - CAMERA_FLIP:
+        raise SystemExit(f"video: {label}: the frame disagrees with the "
+                         f"plain path")
+    return share
+
+
+def video_phase(device, tmp, run):
+    """Phase: the runner's video op (`runner.main(["--op", "video",
+    ...])`, configs/eval.json: 96 samples) on the trainer phase's scene
+    and `best` checkpoint (K=4 planes experts at bench width, grids
+    restored), VIDEO_FRAMES frames at the val cameras' 1000x750: the
+    turntable with the hard mask on (configs/eval.json plus
+    occ_no_hard_mask false: the host-ray two-wave path), full_coverage
+    soft (the live camera renderer with the fused fog tail), the turntable
+    baked at 256³ with --render_baked_occ (the baked camera renderer) and
+    through --render_coherent (coherent dispatch over host rays). Checks:
+    every frame uint8 of the val cameras' shape and not constant, the
+    output written, each run's kernels launched; the first frame of the
+    pose-path and the host-ray run against the plain path -> the launches
+    of all runs."""
+    import json
+
+    import torch
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    hard = tmp / "video_hard.json"
+    cfg_json = json.loads((root / "configs" / "eval.json").read_text())
+    hard.write_text(json.dumps(dict(cfg_json, occ_no_hard_mask=False)))
+    base = ["--op", "video", "--data_path", str(tmp), "--data_dirname",
+            "scene", "--mask_dirname", "g22", "--downscale", "1.0",
+            "--checkpoint_path", str(run), "--prefix", "best",
+            "--video_frames", str(VIDEO_FRAMES), "--device", str(device)]
+    eval_json = str(root / "configs" / "eval.json")
+    runs = (
+        ("host-ray two-wave", ["--configPath", str(hard), "--camera_path",
+                               "turntable"],
+         VIDEO_LIVE_KERNELS, "chunk"),
+        ("pose path", ["--configPath", eval_json, "--camera_path",
+                       "full_coverage", "--occ_no_hard_mask"],
+         VIDEO_LIVE_KERNELS, "live camera"),
+        ("baked", ["--configPath", eval_json, "--camera_path", "turntable",
+                   "--render_baked", str(BAKE_R),
+                   "--render_baked_occ"],
+         ("baked_trilerp", "volume_render_fwd"), "baked camera"),
+        ("coherent", ["--configPath", eval_json, "--camera_path",
+                      "turntable", "--render_coherent"],
+         ("coherent_expert",) + VIDEO_LIVE_KERNELS, "coherent"),
+    )
+    launches = None
+    for label, flags, need, factory in runs:
+        t0 = time.perf_counter()
+        ctx, probe = run_video(base + flags + [
+            "--fname", str(tmp / f"video_{label.split()[0]}")])
+        run_s = time.perf_counter() - t0
+        md = ctx["test_metadata"][0]
+        frames, path = probe.frames, Path(ctx["video_path"])
+        if probe.factory is None or probe.factory[0] != factory:
+            raise SystemExit(f"video: {label}: rendered through "
+                             f"{probe.factory and probe.factory[0]}, "
+                             f"expected {factory}")
+        if len(frames) != VIDEO_FRAMES or not path.exists():
+            raise SystemExit(f"video: {label}: {len(frames)} frames, "
+                             f"{path} exists {path.exists()}")
+        for f in frames:
+            if f.dtype.name != "uint8" or f.shape != (md.H, md.W, 3) or \
+                    int(f.min()) == int(f.max()):
+                raise SystemExit(f"video: {label}: frame {f.dtype} "
+                                 f"{f.shape} range {f.min()}-{f.max()}")
+        for k in need:
+            if probe.launches[k] <= 0:
+                raise SystemExit(f"video: {label}: kernel {k} never "
+                                 f"launched")
+        ms = probe.frame_ms()
+        writer = ("mp4 through imageio" if path.suffix == ".mp4"
+                  else "PNG sequence (no mp4 encoder)")
+        raygen = (f"; host ray generation per frame (native) median "
+                  f"{1e3 * median(probe.raygen):.2f} ms"
+                  if probe.raygen else "")
+        print(f"video: {label} ({factory} renderer, --camera_path "
+              f"{ctx['P'].camera_path}): {len(frames)} frames {md.W}x{md.H} "
+              f"written as {writer} to {path.name} "
+              f"({probe.write_s:.2f} s); ms per frame (host clock, start to "
+              f"start) median {median(ms):.2f}, min {min(ms):.2f}, all "
+              f"{[round(x, 2) for x in ms]}{raygen}; mean uint8 "
+              f"{float(sum(f.mean() for f in frames) / len(frames)):.2f}; "
+              f"run {run_s:.2f} s; launches "
+              + str({k: probe.launches[k] for k in need}), flush=True)
+        if label in ("host-ray two-wave", "pose path"):
+            video_matches_plain(label, ctx, probe)
+        launches = (dict(probe.launches) if launches is None else
+                    {k: v + probe.launches[k] for k, v in launches.items()})
+        del ctx, probe, frames
+        torch.cuda.empty_cache()
+    print(f"video: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def profile_frame(renderer, params, statics, md, aabb, chunk,
-                  label="frame"):
-    """Where one served frame's time goes: host ray generation, and the
+                  label="frame", numpy_raygen=False):
+    """Where one served frame's time goes: host ray generation (the
+    native generator; with numpy_raygen also its numpy version), and the
     device time by kernel (one extra frame, after the launch counts were
     read)."""
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
@@ -2884,9 +3167,16 @@ def profile_frame(renderer, params, statics, md, aabb, chunk,
     t0 = time.perf_counter()
     frame_rays(md.H, md.W, md.intrinsics, md.c2w, aabb=aabb)
     raygen_ms = 1e3 * (time.perf_counter() - t0)
+    extra = f" host_raygen_ms={raygen_ms:.2f}"
+    if numpy_raygen:
+        t0 = time.perf_counter()
+        frame_rays(md.H, md.W, md.intrinsics, md.c2w, aabb=aabb,
+                   native=False)
+        extra += (f" (numpy path {1e3 * (time.perf_counter() - t0):.2f} ms; "
+                  f"{host_text()})")
     profile_device(label, lambda: render_image(
         renderer, params, statics, md, scene_aabb=aabb, chunk_rays=chunk),
-        extra=f" host_raygen_ms={raygen_ms:.2f}",
+        extra=extra,
         watch=(("sample_tvals_kernel",), ("bucket_dispatch_kernel",),
                ("bucket_fill_kernel",), ("composite_segment_kernel",),
                ("coherent_expert_kernel",)))
@@ -2895,6 +3185,95 @@ def profile_frame(renderer, params, statics, md, aabb, chunk,
 SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
                  "sample_tvals_from_cdf", "volume_render_fwd")
 SERVE_POSES = ((0.0, 0.0, 2.0), (0.1, 0.0, 2.0), (0.0, -0.1, 2.1))
+NATIVE_ROUTE_RAYS = 1_000_000  # trainer-scene rays the routers are held on
+
+
+def host_text() -> str:
+    """The host's machine type and cores (host times depend on them)."""
+    import os
+    import platform
+
+    return (f"host {platform.machine()}, {os.cpu_count()} cores "
+            f"({len(os.sched_getaffinity(0))} usable)")
+
+
+def native_frame_check(statics):
+    """`native:` lines: one SIDE x SIDE frame of serve()'s first pose
+    through `frame_rays`, native and numpy (its plain version), in turns:
+    host ms of each, the valid masks equal, o/d within 1e-5 and near/far
+    on valid rays within 1e-4 + 1e-5 |x| (the reference's own test
+    tolerances), the largest errors printed."""
+    import numpy as np
+
+    from nerfsys_tpu_torch.data.ram_rays import frame_rays
+
+    md = pose(SERVE_POSES[0])
+    aabb = statics.global_aabb.cpu().numpy()
+    ms, out = {True: [], False: []}, {}
+    for nat in (True, False, True, False):
+        t0 = time.perf_counter()
+        out[nat] = frame_rays(md.H, md.W, md.intrinsics, md.c2w, aabb=aabb,
+                              native=nat)
+        ms[nat].append(1e3 * (time.perf_counter() - t0))
+    (rn, vn), (rp, vp) = out[True], out[False]
+    same_valid = bool(np.array_equal(vn, vp))
+    od = float(np.abs(rn[:, :6] - rp[:, :6]).max())
+    nf_err = np.abs(rn[vn, 6:] - rp[vp, 6:]) if same_valid else None
+    nf = float(nf_err.max()) if same_valid and vn.any() else float("inf")
+    nf_ok = same_valid and bool(
+        (nf_err <= 1e-4 + 1e-5 * np.abs(rp[vp, 6:])).all())
+    print(f"native: {host_text()}; frame_rays {md.W}x{md.H} (serve pose 0) "
+          f"host ms native {ms[True][0]:.2f} / {ms[True][1]:.2f}, numpy "
+          f"{ms[False][0]:.2f} / {ms[False][1]:.2f} (in turns); valid masks "
+          f"equal {same_valid} ({int(vn.sum())} of {vn.size} valid); o/d max "
+          f"error {od:.3e} (tol 1e-5); near/far on valid rays max error "
+          f"{nf:.3e} (tol 1e-4 + 1e-5 |x|)", flush=True)
+    if not (same_valid and od <= 1e-5 and nf_ok):
+        raise SystemExit("native: frame rays disagree with the numpy path")
+    return min(ms[True]), min(ms[False])
+
+
+def native_routing_check(rays, cell_dim: int):
+    """`native:` lines: the exact DDA router (`route_rays_exact(policy=
+    "dda")`) and the sampled router, native against numpy, on `rays`
+    (NATIVE_ROUTE_RAYS of the trainer scene's first expert) over the
+    region box and cells the TaskDataset infers: equal bit for bit, with
+    both host times."""
+    import numpy as np
+
+    from nerfsys_tpu_torch.data.task_dataset import (
+        route_rays_exact,
+        route_rays_to_cells,
+    )
+
+    pts = rays[:, 0:3] + rays[:, 3:6] * rays[:, 6:7]
+    pts = pts[np.isfinite(pts).all(axis=1)]
+    aabb = np.stack([pts.min(0), pts.max(0)]).astype(np.float32)
+    cells = (1, int(cell_dim), int(cell_dim))
+    res = {}
+    for name, fn in (
+            ("dda", lambda nat: route_rays_exact(rays, aabb, cells,
+                                                 policy="dda", native=nat)),
+            ("sampled", lambda nat: route_rays_to_cells(
+                rays, aabb, cells, rng=np.random.default_rng(SEED),
+                native=nat))):
+        got = {}
+        for nat in (True, False):
+            t0 = time.perf_counter()
+            got[nat] = fn(nat)
+            got[nat, "s"] = time.perf_counter() - t0
+        diff = int((got[True] != got[False]).sum())
+        res[name] = (got[True, "s"], got[False, "s"], diff)
+        print(f"native: {name} router on {len(rays)} trainer rays, cells "
+              f"{cells}: native {got[True, 's']:.3f} s, numpy "
+              f"{got[False, 's']:.3f} s ({got[False, 's'] / got[True, 's']:.1f}"
+              f"x); {diff} cells differ (bit-equal expected); hit rate "
+              f"{float((got[True] >= 0).mean()):.4f}; {host_text()}",
+              flush=True)
+        if diff:
+            raise SystemExit(f"native: the {name} router disagrees with "
+                             f"its numpy version")
+    return res
 
 
 def chunk_matches_plain(label, got, ref, flip_share=0.0,
@@ -2977,7 +3356,7 @@ def serve(cfg, statics, params, occ, device, label="serve",
     chunk_matches_plain(label, got, ref)
 
     profile_frame(renderer, params, statics, poses[0], aabb, chunk,
-                  label=f"{label} frame")
+                  label=f"{label} frame", numpy_raygen=label == "serve")
 
     ms = [1e3 * t for t in times]
     n = SIDE * SIDE
@@ -2990,7 +3369,7 @@ def serve(cfg, statics, params, occ, device, label="serve",
 
 # the share of rays allowed beyond the serve tolerances when two renders
 # generate their rays apart (the camera renderer on the card, render_image
-# with numpy): a probe point an ulp from a cell wall can take the other
+# on the host): a probe point an ulp from a cell wall can take the other
 # cell, which moves a soft ray's samples and adds or drops a hard-mask
 # sample's sigma. Read on the H100 80GB HBM3 at 700 W: 705-805 of 640,000
 # rays beyond in soft frames (0.11-0.13%), 987 in the hard-mask frame
@@ -2999,7 +3378,7 @@ CAMERA_FLIP = 0.005
 
 
 def planes_of(out):
-    """Stacked (H*W, 5) planes -> (rgb, depth, acc) tensors."""
+    """Stacked (H*W, 5 or 7) planes -> (rgb, depth, acc) tensors."""
     import torch
 
     a = torch.from_numpy(out)
@@ -3033,8 +3412,8 @@ def camera(cfg, statics, params, occ, device):
     with serve()'s settings (soft occupancy, importance, S=32, 65,536-ray
     chunks): one warm-up and 3 uint8 800x800 frames of serve()'s poses,
     the counters zeroed just before them and read just after (kernels 1-4
-    must launch); the same poses through `render_image` (numpy rays on the
-    host); wall ms per frame of both and one profiled frame of each. The
+    must launch); the same poses through `render_image` (native rays on
+    the host); wall ms per frame of both and one profiled frame of each. The
     float planes (out_u8=False) of each pose against render_image's
     outputs within the serve tolerances under CAMERA_FLIP; the uint8 frame
     against the camera renderer's plain path (use_kernels=False, the same
@@ -5646,6 +6025,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(root))
     from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.data import native
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
 
     card = card_line()
@@ -5654,6 +6034,11 @@ def main() -> int:
     build_s = kernels.build_all()
     print(f"build: {len(kernels.SOURCES)} libraries in {build_s:.2f} s",
           flush=True)
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"build: native host ray kernels ({native.CXX} "
+          f"{' '.join(native.CXX_FLAGS)}) in {time.perf_counter() - t0:.2f} "
+          f"s: {native.lib_path().name}", flush=True)
     for stem, log in kernels.build_log.items():
         for line in log.splitlines():  # ptxas -v, each entry's kernel first
             if any(w in line for w in ("entry function", "registers",
@@ -5663,6 +6048,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.manual_seed(SEED)
     cfg, statics, params, occ = bench_setup(device)
+    native_frame_check(statics)
     md = pose((0.0, 0.0, 2.0))
     rays, _ = frame_rays(md.H, md.W, md.intrinsics, md.c2w,
                          aabb=statics.global_aabb.cpu().numpy())
@@ -5677,7 +6063,7 @@ def main() -> int:
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
-    trainer_n, eval_n = trainer(device)
+    trainer_n, eval_n, video_n = trainer(device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
     moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
@@ -5685,7 +6071,7 @@ def main() -> int:
     parts = (("serve", served), ("camera", cam), ("early-stop", early),
              ("baked", baked_n), ("train", trained),
              ("occupancy", occ_n), ("trainer", trainer_n), ("eval", eval_n),
-             ("hash serve", hash_served),
+             ("video", video_n), ("hash serve", hash_served),
              ("hash train", hash_trained), ("moe", moe))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         n = k.name

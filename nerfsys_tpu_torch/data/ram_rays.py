@@ -1,4 +1,4 @@
-"""Host-side ray generation and the in-RAM ray store of a split (numpy).
+"""Host-side ray generation and the in-RAM ray store of a split.
 
 The port's own copy of nerfsys_tpu/data/ram_rays.py: the numpy ray path
 (`np_ray_directions`, `np_ray_aabb_intersect`, `np_get_rays`,
@@ -10,9 +10,13 @@ balancing), generate rays against the expert's scene box, clamp near/far,
 drop invalid rays, normalize rgb to [0, 1]. Images are processed by a
 thread pool when there are more than 8.
 
-The reference's C++ ray generator (data/native) is host code and is not
-part of the port: every function here is always the numpy path, which is
-the reference's own path when the native library is absent.
+`frame_rays` and `process_single_image` run through the native C++
+generator (data/native: one multithreaded call a frame, and a compaction
+pass per image), as the reference does whenever g++ builds it. The numpy
+path is their plain version, reached only through `native=False`; the two
+agree as the reference's own test holds them (valid masks equal, o/d
+within 1e-5, near/far within 1e-4 on valid rays), and the native path
+equals the JAX package's native path bit for bit.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from nerfsys_tpu_torch.data import native as _native
 from nerfsys_tpu_torch.data.image_metadata import ImageMetadata
 
 _MISS = 1e10  # AABB miss tag, matches ops/scene_box.py
@@ -91,10 +96,19 @@ def np_clamp_rays(rays: np.ndarray, near_override: Optional[float] = None,
 def frame_rays(H: int, W: int, intrinsics, c2w: np.ndarray, *,
                aabb: Optional[np.ndarray] = None,
                near: Optional[float] = None, far: Optional[float] = None,
-               center_pixels: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-    """All H*W rays of one pinhole frame -> (rays (H*W, 8) f32, valid)."""
+               center_pixels: bool = True,
+               native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """All H*W rays of one pinhole frame -> (rays (H*W, 8) f32, valid):
+    np_ray_directions + np_get_rays + np_clamp_rays (invalid rays
+    inf-tagged), through the native generator unless native=False."""
+    if native:
+        return _native.compute_rays_native(
+            H, W, intrinsics, c2w, aabb=aabb, near=near, far=far,
+            center_pixels=center_pixels)
     fx, fy, cx, cy = [float(v) for v in intrinsics[:4]]
     if aabb is None:
+        # the native kernel's None defaults (far=_MISS rays fail the
+        # < 1e10 check)
         near = 0.0 if near is None else near
         far = _MISS if far is None else far
     dirs = np_ray_directions(H, W, fx, fy, cx, cy, center_pixels)
@@ -136,9 +150,12 @@ def process_single_image(
     near_far_override: Optional[Tuple[Optional[float],
                                       Optional[float]]] = None,
     seed: int = 0,
+    native: bool = True,
 ) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """-> (rgbs (M, 3) float32, rays (M, 8) float32, img_indices (M,)
-    int32), or None when the image keeps no valid ray."""
+    int32), or None when the image keeps no valid ray. The rays and the
+    compaction (valid & keep, rgb / 255) run natively unless
+    native=False."""
     if md is None:
         return None
     img = md.load_image()  # (H, W, 3) uint8
@@ -154,6 +171,18 @@ def process_single_image(
         return None
 
     no, fo = near_far_override or (None, None)
+    if native:
+        all_rays, valid = _native.compute_rays_native(
+            md.H, md.W, md.intrinsics, md.c2w, aabb=aabb, near=no, far=fo,
+            center_pixels=center_pixels)
+        rays, rgb = _native.compact_rays_native(
+            all_rays, valid, None if keep is None else keep.reshape(-1),
+            img.reshape(-1, 3))
+        if rays.shape[0] == 0:
+            return None
+        idx = np.full((rgb.shape[0],), md.image_index, dtype=np.int32)
+        return rgb, rays, idx
+
     fx, fy, cx, cy = md.intrinsics
     dirs = np_ray_directions(md.H, md.W, fx, fy, cx, cy, center_pixels)
     rays = np_get_rays(dirs, md.c2w, aabb=aabb).reshape(-1, 8)

@@ -28,9 +28,12 @@ filter, `route_rays_to_cells`, `route_rays_exact` and `TaskDataset`
     fallback).
 
 The draws come from numpy's `default_rng(seed)`, as in the reference, so
-the same seed gives the same episodes in both packages. The reference's
-C++ routers (data/native) are host code and are not part of the port:
-routing is always the numpy path.
+the same seed gives the same episodes in both packages. The sampled and
+DDA routers run through the native C++ kernels (data/native, one
+multithreaded call over all rays), as the reference's do whenever g++
+builds them; their numpy versions are the plain versions, reached only
+through `native=False`, and the native DDA equals the numpy DDA bit for
+bit. The alpha policy is numpy only, as in the reference.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from nerfsys_tpu_torch.data import native as _native
 from nerfsys_tpu_torch.data.ram_rays import RamRaysDataset
 
 
@@ -266,20 +270,24 @@ def route_rays_to_cells(
     samples_per_ray: int = 16,
     rng: Optional[np.random.Generator] = None,
     chunk: int = 500_000,
+    native: bool = True,
 ) -> np.ndarray:
     """APPROXIMATE majority-vote routing (cheap 'sampled' policy): max-overlap
     micro-cell id per ray (N,), -1 for rays missing the box. Kept for speed
     comparisons; the reference-exact policies are _dda_route_numpy /
-    _alpha_route_numpy."""
+    _alpha_route_numpy. The sample fractions are drawn from rng first, then
+    the vote runs natively unless native=False."""
     rng = rng or np.random.default_rng(0)
     dims = np.asarray(cells, dtype=np.int64)
     n_cells = int(dims.prod())
     lo = aabb[0].astype(np.float32)
     extent = np.maximum(aabb[1] - aabb[0], 1e-8).astype(np.float32)
 
-    out = np.full(rays.shape[0], -1, dtype=np.int64)
     ts = rng.uniform(0.0, 1.0, size=samples_per_ray).astype(np.float32)
+    if native:
+        return _native.route_rays_native(rays, aabb, cells, ts)
 
+    out = np.full(rays.shape[0], -1, dtype=np.int64)
     for s in range(0, rays.shape[0], chunk):
         r = rays[s : s + chunk]
         o, d = r[:, :3], r[:, 3:6]
@@ -315,16 +323,22 @@ def route_rays_exact(
     policy: str = "dda",
     alpha: float = 0.7,
     max_steps: int = 64,
+    native: bool = True,
 ) -> np.ndarray:
-    """Reference-exact routing dispatch (the numpy routers)."""
+    """Reference-exact routing dispatch: DDA and sampled through the native
+    kernels unless native=False, alpha in numpy."""
     if policy == "dda":
+        if native:
+            return _native.dda_route_native(
+                rays, np.asarray(aabb, np.float32), cells, max_steps)
         return _dda_route_numpy(rays, np.asarray(aabb, np.float32), cells,
                                 max_steps)
     if policy == "alpha":
         return _alpha_route_numpy(rays, np.asarray(aabb, np.float32), cells,
                                   alpha)
     if policy == "sampled":
-        return route_rays_to_cells(rays, np.asarray(aabb, np.float32), cells)
+        return route_rays_to_cells(rays, np.asarray(aabb, np.float32), cells,
+                                   native=native)
     raise ValueError(f"unknown routing policy: {policy!r}")
 
 

@@ -1,13 +1,17 @@
-"""The port's job entry point: --op train and --op eval.
+"""The port's job entry point: --op train, --op eval and --op video.
 
 Port of nerfsys_tpu/runner.py (`container_config_from_args` :54,
 `optim_config_from_args` :119, `meta_config_from_args` :134,
-`build_context` :154-271 for the train and eval ops,
+`build_context` :154-271 for the train, eval and video ops,
 `occ_config_from_args` :274, `_load_params_from_checkpoint` :289,
-`train` :379-497, `evaluate` :500-584, `main` :599-614). Run as:
+`train` :379-497, `evaluate` :500-584, `main` :599-614; the video op
+calls `pipelines.video_gen.render_video` from `main`).
+Run as:
 
     python -m nerfsys_tpu_torch.runner --op train --configPath configs/train.json
     python -m nerfsys_tpu_torch.runner --op eval --configPath configs/eval.json
+    python -m nerfsys_tpu_torch.runner --op video --configPath configs/eval.json \
+        --camera_path turntable --video_frames 60
 
 It builds the context from the merged flags (utils.config): the prepared
 scene under <data_path>/out/<data_dirname>, its clustering, the container
@@ -21,9 +25,13 @@ of them), the params of `--checkpoint_path` / `--prefix` (the port's
 checkpoints or the JAX package's) and, under `--use_occ`, the grids of
 `{prefix}.occ`; then `evaluate` runs `runtime_evaluate` once per `--tto`
 entry, each from the checkpoint's params, and writes eval_results.json.
+For video: the same context as eval (the validation images give the
+frame size and intrinsics); `pipelines.video_gen.render_video` renders
+the camera path and writes `<run_dir>/video_<path>.mp4`, or a PNG
+sequence when no mp4 encoder is available.
 
 Not ported, and refused at context build with the queue item that holds
-it: `--op video` and `--op view` (item 8), `--mesh_shape` and `--use_amp`
+it: `--op view` (item 8), `--mesh_shape` and `--use_amp`
 (item 7), `--algo maml` (item 6), `--occ_probe_mask`, `--fim`, and the
 vanilla model, the frequency direction encoding and the fourier
 background encoding (item 7; the last three through the port's config
@@ -67,6 +75,7 @@ from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
 )
 from nerfsys_tpu_torch.pipelines.offline.trainer import meta_trainer
 from nerfsys_tpu_torch.pipelines.online.runtime_adapt import runtime_evaluate
+from nerfsys_tpu_torch.pipelines.video_gen import render_video
 from nerfsys_tpu_torch.utils import checkpoint as ckpt
 from nerfsys_tpu_torch.utils.config import namespace_to_dict, parse_args
 from nerfsys_tpu_torch.utils.device import resolve_device
@@ -74,8 +83,7 @@ from nerfsys_tpu_torch.utils.logging import Logger
 from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
 
 UNPORTED_OPS = {
-    "video": "ROADMAP Queue 1 item 8 (video_gen and the viewer)",
-    "view": "ROADMAP Queue 1 item 8 (video_gen and the viewer)",
+    "view": "ROADMAP Queue 1 item 8 (the viewer)",
 }
 
 
@@ -188,7 +196,7 @@ def refuse_unported(P, op: str) -> None:
     if op in UNPORTED_OPS:
         raise NotImplementedError(
             f"--op {op} is not ported: {UNPORTED_OPS[op]}")
-    if op not in ("train", "eval"):
+    if op not in ("train", "eval", "video"):
         raise ValueError(f"Unknown op: {op}")
     flags = (
         ("mesh_shape", getattr(P, "mesh_shape", None),
@@ -210,8 +218,8 @@ def refuse_unported(P, op: str) -> None:
 # --------------------------- context ------------------------------------------
 def build_context(P, op: str) -> dict:
     """Resolve data paths, scene geometry, model and the op's data on
-    P.device: the train op's episode loaders, or the eval op's validation
-    metadata and checkpoint."""
+    P.device: the train op's episode loaders, or the eval and video ops'
+    validation metadata and checkpoint."""
     refuse_unported(P, op)
     device = resolve_device(getattr(P, "device", "cuda"))
     np.random.seed(P.seed)
@@ -278,7 +286,7 @@ def build_context(P, op: str) -> dict:
     ctx["logger"] = logger
     ctx["run_dir"] = logger.logdir
 
-    if op == "eval":
+    if op in ("eval", "video"):
         _, val_md = get_image_metadata(data_path, P.downscale)
         if P.cap_images:
             val_md = cap_metadata(val_md, P.cap_images)
@@ -532,6 +540,8 @@ def main(argv: Optional[List[str]] = None):
     t0 = time.time()
     if op == "eval":
         ctx["rows"] = evaluate(ctx)
+    elif op == "video":
+        ctx["video_path"] = render_video(ctx)
     else:
         train(ctx)
     print(f"[done] op={op} in {time.time() - t0:.1f}s")

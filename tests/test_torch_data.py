@@ -4,11 +4,14 @@ against the JAX package's numpy data layer on a prepared scene.
 
 The scene is the COLMAP fixture of tests/test_dataprep_e2e.py (8 aerial
 64x48 images, 2 for validation) through the JAX package's
-`prepare_dataset` and `create_clusters` (a 2x2 grid, 4 experts). The JAX
-side runs with its native C++ ray generator and router switched off
-(`native_available` patched to False): its numpy path is the reference the
-port copies, and the native one differs by an ulp. Everything is compared
-bit for bit: the same rays, the same routing, the same numpy draws.
+`prepare_dataset` and `create_clusters` (a 2x2 grid, 4 experts). Under
+the `numpy_reference` fixture both sides take their numpy ray and routing
+paths: the JAX package's native library is switched off
+(`native_available` patched to False) and the port's plain versions are
+chosen with `native=False`. Without it both take their native paths,
+which run the same C++ source under the same flags. Everything is
+compared bit for bit: the same rays, the same routing, the same numpy
+draws.
 """
 from pathlib import Path
 from types import SimpleNamespace
@@ -52,9 +55,15 @@ def scene(colmap_scene, tmp_path_factory):  # noqa: F811
 
 @pytest.fixture
 def numpy_reference(monkeypatch):
+    from functools import partial
+
     from nerfsys_tpu.data import native
 
     monkeypatch.setattr(native, "native_available", lambda: False)
+    monkeypatch.setattr(TR, "process_single_image",
+                        partial(TR.process_single_image, native=False))
+    monkeypatch.setattr(TT, "route_rays_exact",
+                        partial(TT.route_rays_exact, native=False))
 
 
 def _bundles(scene, **kw):
@@ -100,6 +109,20 @@ def test_get_dataset_matches_jax(scene, numpy_reference, near_far):
         assert np.array_equal(a.c2w, b.c2w)
         assert np.array_equal(a.intrinsics, b.intrinsics)
         assert (a.W, a.H, a.image_index) == (b.W, b.H, b.image_index)
+
+
+def test_native_dataset_and_routing_match_jax_native(scene):
+    """Both packages on their default native paths: the same bundles and
+    the same DDA-routed task pools, bit for bit."""
+    jb, tb = _bundles(scene, near_far_override=(0.0, 5000.0))
+    for a, b in zip(jb.train_sets + jb.val_sets, tb.train_sets + tb.val_sets):
+        _same_set(a, b)
+    jts, tts = _task_pairs(scene)
+    for j, t in zip(jts, tts):
+        assert t.eligible_cells == j.eligible_cells and len(t) > 0
+        for a, b in zip(j._cell_flat_idx, t._cell_flat_idx):
+            assert np.array_equal(a, b)
+        _same_task(j.sample_task(), t.sample_task())
 
 
 def test_downscale_cap_and_val_balancing_match_jax(scene, numpy_reference):

@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import nerfsys_tpu.data.native as jax_native
 from nerfsys_tpu.models import baked as JB
 from nerfsys_tpu.models import container as JCo
 from nerfsys_tpu.models import ngp as JN
@@ -457,12 +456,11 @@ def _camera(side=16, t=(0.1, -0.2, 2.0)):
 
 
 @pytest.mark.parametrize("variant", ["floor", "packed"])
-def test_hash_frame_matches_eager_jax(variant, monkeypatch):
+def test_hash_frame_matches_eager_jax(variant):
     """A 16x16 frame through make_chunk_renderer (soft one-shot,
-    importance probing) and render_image, both sides eager, the reference
-    on its numpy ray path (its native generator differs in the last bit,
-    which can move a probe cell): 1e-5."""
-    monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    importance probing) and render_image, both sides eager, both on their
+    native ray path (the same C++ source under the same flags: the same
+    rays bit for bit, so no probe cell moves): 1e-5."""
     cfg, tcfg, (jp, jst, jocc), (tp, tst, tocc), *_ = _setup(
         seed=1, **VARIANTS[variant])
     md = _camera()

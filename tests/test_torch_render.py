@@ -184,7 +184,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'data.image_metadata', 'data.ram_rays', 'data.dataset',"
         " 'data.task_dataset', 'data.loaders', 'utils.logging',"
         " 'utils.checkpoint', 'utils.config', 'pipelines.offline.trainer',"
-        " 'utils.metrics', 'runner')}\n"
+        " 'utils.metrics', 'runner', 'data.native',"
+        " 'pipelines.video_gen')}\n"
         "from nerfsys_tpu_torch.models import occupancy as mo\n"
         "from nerfsys_tpu_torch.pipelines.online import runtime_adapt as ra\n"
         "assert all(hasattr(mo, f) for f in ('probe_rays_occ',"
@@ -220,6 +221,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " 'load_lpips_weights', 'psnr'))\n"
         "from nerfsys_tpu_torch.data import loaders as lo\n"
         "assert hasattr(lo, 'EpochBatchSampler')\n"
+        "from nerfsys_tpu_torch.data import native as na\n"
+        "assert all(hasattr(na, f) for f in ('get_lib', 'native_available',"
+        " 'compute_rays_native', 'compact_rays_native', 'route_rays_native',"
+        " 'dda_route_native'))\n"
+        "assert na._lib is None  # nothing is built at import time\n"
+        "from nerfsys_tpu_torch.pipelines import video_gen as vg\n"
+        "assert all(hasattr(vg, f) for f in ('render_video', 'suppress_fog',"
+        " 'PATH_GENERATORS', 'write_video', 'poses_turntable_drb'))\n"
+        "assert 'video' not in runner.UNPORTED_OPS\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in"
         " ('flax', 'optax', 'msgpack')]\n"
         "assert not bad, bad\n"

@@ -88,21 +88,27 @@ def _camera(side, t=(0.1, -0.2, 2.0)):
 
 
 def test_frame_rays_matches_jax(monkeypatch):
-    """Exact against the reference's numpy ray path; within 1e-6 of its
-    native C++ generator (the last float32 bit differs)."""
+    """The port's default (native) path equals the reference's native C++
+    generator bit for bit, and its plain version (native=False) the
+    reference's numpy path."""
     md = _camera(24)
     aabb = np.array([[-2.5] * 3, [2.5] * 3], np.float32)
     for kw in (dict(aabb=aabb), dict(near=0.5, far=3.0)):
-        native, _ = JRays.frame_rays(md.H, md.W, md.intrinsics, md.c2w, **kw)
+        native, native_valid = JRays.frame_rays(md.H, md.W, md.intrinsics,
+                                                md.c2w, **kw)
         got, valid = TRays.frame_rays(md.H, md.W, md.intrinsics, md.c2w,
                                       **kw)
-        np.testing.assert_allclose(got, native, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got, native)
+        np.testing.assert_array_equal(valid, native_valid)
+        plain, plain_valid = TRays.frame_rays(md.H, md.W, md.intrinsics,
+                                              md.c2w, native=False, **kw)
         with monkeypatch.context() as m:
             m.setattr(jax_native, "native_available", lambda: False)
             want, want_valid = JRays.frame_rays(md.H, md.W, md.intrinsics,
                                                 md.c2w, **kw)
-        np.testing.assert_array_equal(got, want)
-        np.testing.assert_array_equal(valid, want_valid)
+        np.testing.assert_array_equal(plain, want)
+        np.testing.assert_array_equal(plain_valid, want_valid)
+        np.testing.assert_allclose(got, plain, rtol=0, atol=1e-6)
         assert valid.any()
 
 

@@ -149,8 +149,11 @@ def test_configs_from_flags_match_jax(config, extra):
 
 @pytest.mark.parametrize("op", ["eval", "video", "view"])
 def test_unported_ops_raise(data_root, op):
-    # the eval op is ported; its Fisher-weighted adaptation is not
-    item, extra = ("item 7", ["--fim"]) if op == "eval" else ("item 8", [])
+    # the eval and video ops are ported; the eval op's Fisher-weighted
+    # adaptation and the video op's probe-bit masks are not
+    item, extra = {"eval": ("item 7", ["--fim"]),
+                   "video": ("item 7", ["--occ_probe_mask"]),
+                   "view": ("item 8", [])}[op]
     with pytest.raises(NotImplementedError, match=item):
         TR.main(["--op", op, "--device", "cpu", *_scene_args(data_root),
                  *extra])
@@ -194,7 +197,6 @@ def test_a_dropped_expert_raises_before_the_first_step(data_root):
 
 def test_runner_trains_on_the_cpu_and_premarks_like_jax(data_root, tmp_path,
                                                         monkeypatch):
-    from nerfsys_tpu.data import native
     from nerfsys_tpu.models import occupancy as JMO
     from nerfsys_tpu.ops import occupancy as JO
 
@@ -228,7 +230,6 @@ def test_runner_trains_on_the_cpu_and_premarks_like_jax(data_root, tmp_path,
     P = TC.parse_args(argv + ["--fname", "premark"])
     tctx = TR.build_context(P, "train")
     got, _ = TR.build_occupancy(tctx)
-    monkeypatch.setattr(native, "native_available", lambda: False)
     Pj = JC.parse_args(argv[:argv.index("--device")]
                        + argv[argv.index("--device") + 2:])
     jctx = JR.build_context(Pj, "train")
