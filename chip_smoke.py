@@ -47,7 +47,21 @@ printing its result lines):
    64, and kernel 2's own rows over dead, tiny and random probes; error
    0 expected, tol 1e-5;
    each line with the rows that took the literal count and the rank sort,
-   and both branches of both must be reached). Kernels 2, 3 and 4 are
+   and both branches of both must be reached; each case also with the
+   probe bits, kernel 3m: `edge sample_tvals_from_cdf mask` lines, the
+   mask equal to the plain version's (its stable sort: ties of t within
+   two ulps, in sorted and in rank-sorted rows) and t equal to the
+   kernel's without the mask). Kernel 11q (the occupancy point query,
+   unioned over the K experts) at the serve chunk's 2,097,152 sample
+   points (K=4) and the step's 4,000 x 32 (the K=1 slice), in each mode
+   (bits, values, pair; equal to the plain version), by device time and
+   back to back beside its bound (points in, outputs out, the distinct
+   32-byte grid sectors read), and on adversarial inputs (`edge
+   occupancy_query` lines: points on level faces and one ulp either side,
+   outside every level, rel * R at the top of the last cell, invisible
+   cells tagged -1,
+   K = 1, 4, 5, a tail past whole blocks, M = 1 and 0); kernel 3m timed
+   at both shapes beside kernel 3. Kernels 2, 3 and 4 are
    also timed at the step's shapes (the K=1 task probe, 4,000 x 32),
    back to back and by device time, beside their bounds, and kernel 3's
    jittered per-ray output is held to its plain version there; kernels 2,
@@ -69,7 +83,13 @@ printing its result lines):
    a cell wall a probe can take the other cell); the uint8 frame against the
    camera renderer's plain path within 1 level in >= 99.9% of the pixels;
    one hard-mask frame and one with the res-128 union probe grid against
-   render_image through the chunk renderer of the same mode.
+   render_image through the chunk renderer of the same mode. The
+   hard-mask frame is drawn in both forms: point-exact (kernel 11q
+   launched) and with occ_probe_mask (the probe bits; 11q not launched),
+   each camera frame and live frame (render_image through the two-wave
+   renderer) against its plain path within the serve tolerances under
+   the 0.5% flip share, ms per frame and device busy ms of both forms
+   side by side.
 5. Early stop: kernel row 8 (segmented compositing with a carried
    transmittance) against its plain version at one serve chunk's first
    segment (65,536 rays x 8 samples, fresh carry) and one resume slice
@@ -130,7 +150,9 @@ printing its result lines):
    (`occ_hard_mask=True`, the default of `MetaConfig()`): kernels 1-5
    launched, its gradients against the plain step within 2^-8 of each
    leaf's max, one step profiled with the device time of the hard mask's
-   point queries (a profiler range around each) beside its busy time.
+   point queries (`occupancy_query`, kernel 11q; a profiler range around
+   each) beside its busy time; then the same step with occ_probe_mask
+   (the probe bits, no point query), held and profiled alike.
 8. Trainer: the runner's train op in process (`runner.main`), on a
    prepared scene that the phase writes to a temporary directory in the
    dataset layout (coordinates.pt; train|val metadata .pt and .png rgbs;
@@ -192,16 +214,21 @@ printing its result lines):
    row 9 launched). Prints PSNR / SSIM per tto for both runs, ms per
    adapt step (host clock, median of the tto=10 run; one profiled step),
    s per rendered image with its host ray generation, the phase's
-   seconds.
+   seconds. Between the main and the --render_fast run, a run at --tto
+   0,1 through a JSON copy of configs/eval.json with occ_no_hard_mask
+   false and occ_probe_mask true: its adapt step and first val image held
+   to the plain path as above, no point query launched.
    Video (`video:` lines), on the same scene and checkpoint: the runner's
    video op (`runner.main` with `--op video --configPath
    configs/eval.json --prefix best --video_frames 6`, 96 samples) at the
-   val cameras' 1000x750, four runs: the turntable with the hard mask on
+   val cameras' 1000x750, five runs: the turntable with the hard mask on
    (a copy of configs/eval.json with occ_no_hard_mask false: host rays
    from the native generator, the two-wave dispatch), full_coverage soft
    (the pose path: the live camera renderer with the fused fog / sRGB /
    uint8 tail), the turntable baked at 256³ with --render_baked_occ (the
-   baked camera renderer, row 9) and with --render_coherent (10b).
+   baked camera renderer, row 9) and with --render_coherent (10b); and the
+   hard-mask turntable again with occ_probe_mask true (the probe bits:
+   11q not launched, its first frame against the plain path).
    Checks: each run rendered through the expected renderer, 6 uint8
    frames of the val shape, none constant, the output written, kernels
    1-4 launched (row 9 and 4 when baked; 10b too when coherent); the
@@ -269,7 +296,8 @@ printing its result lines):
    bucketed E=2 cf 1.5, with
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
-12. A JSON line listing every kernel (launches, error, times, bound).
+12. A JSON line listing every kernel (launches, error, times, bound):
+   17 kernels from 12 libraries.
 13. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -409,6 +437,123 @@ def pose(t):
         [W * 0.8, W * 0.8, W / 2, H / 2], np.float32))
 
 
+def query_sector_bytes(occs, binary, aabbs, pts, bits: bool,
+                       values: bool) -> int:
+    """Bytes of the distinct 32-byte sectors kernel 11q must read at these
+    points: each expert's deciding cell, its bit and / or its value (the
+    plain version's `_finest_level_index` selects the cells)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    K, L, R = binary.shape[:3]
+    cells = L * R ** 3
+    sectors = {"bits": [], "values": []}
+    for k in range(K):
+        dec, flat = O._finest_level_index(aabbs[k], L, R, pts)
+        cell = k * cells + flat[dec]
+        if bits:
+            sectors["bits"].append(cell // 32)
+        if values:
+            sectors["values"].append(cell // 8)
+    return 32 * sum(torch.unique(torch.cat(v)).numel()
+                    for v in sectors.values() if v)
+
+
+def query_check(grids, pts, results, label):
+    """Kernel 11q against its plain version at `pts` over `grids` in each
+    mode (bits and values equal), timed by device time and back to back
+    beside its bound (the points in, the outputs out, the distinct grid
+    sectors read). The first call (the serve chunk) fills the kernel's
+    results with the bits mode, the hard mask's; later calls append."""
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    occs, binary, aabbs = grids
+    M = pts.shape[0]
+    parts = []
+    for mode in O.QUERY_MODES:
+        wrong = query_mismatches(occs, binary, aabbs, pts, mode)
+        if wrong:
+            raise SystemExit(f"kernel occupancy_query disagrees with its "
+                             f"plain version at the {label} ({mode}): "
+                             f"{wrong} outputs")
+        outs = O.occupancy_query_kernel(occs, binary, aabbs, pts, mode)
+        bits, values = mode != "values", mode != "bits"
+        n_bytes = (nbytes(pts, outs)
+                   + query_sector_bytes(occs, binary, aabbs, pts, bits,
+                                        values))
+        all_bytes = nbytes(pts, outs, occs if values else None,
+                           binary if bits else None)
+
+        def fn(mode=mode):
+            return O.occupancy_query_kernel(occs, binary, aabbs, pts, mode)
+
+        dev, b2b = device_ms(fn), cuda_ms(fn, 20)
+        plain = cuda_ms(lambda mode=mode: O.occupancy_query_plain(
+            occs, binary, aabbs, pts, mode), 3)
+        b_ms, b_by = bound(n_bytes, 0)
+        parts.append((mode, dev, b2b, plain, n_bytes, b_ms, b_by,
+                      all_bytes))
+    K, L, R = occs.shape[:3]
+    share = float(O.occupancy_query_plain(occs, binary, aabbs, pts,
+                                          "bits").float().mean())
+    text = (f"{label} ({M} points, K={K} L={L} R={R}, occupied "
+            f"{share:.4f}): " + "; ".join(
+                f"{mode}: mismatches 0, device_ms={dev:.4f} back to back "
+                f"{b2b:.4f} plain_ms={plain:.4f} bytes={n_bytes} (points, "
+                f"outputs, distinct 32-byte grid sectors; every grid byte "
+                f"{all_bytes}) bound_ms={b_ms:.4f} ({b_by}) "
+                f"device/bound={dev / b_ms:.1f}x"
+                for mode, dev, b2b, plain, n_bytes, b_ms, b_by, all_bytes
+                in parts))
+    print(f"kernel occupancy_query: {text}", flush=True)
+    name = kernels.OCC_QUERY.name
+    if name not in results:
+        _, dev, _, plain, _, b_ms, b_by, _ = parts[0]
+        results[name] = dict(max_abs_err=0.0, ms=dev, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by,
+                             text=f"max_abs_err=0 tol=0 (bits and values "
+                                  f"equal: the same cells); kernel_ms is the "
+                                  f"bits mode's device time; {text}")
+    else:
+        results[name]["text"] += f"; {text}"
+
+
+def mask_check(cdf, near, far, u, occ, t_ker, results, label):
+    """Kernel 3m (the sampler with the probe bits) against its plain
+    version: mask equal, t equal to the kernel's without the mask; its
+    device and back-to-back times beside kernel 3's, appended to kernel 3's
+    line."""
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    N, S = t_ker.shape
+    P = cdf.shape[1] - 1
+    t_m, mask = O.sample_tvals_kernel(cdf, near, far, u, occ)
+    _, want = O.sample_tvals_plain(cdf, near, far, u, occ)
+    flips, t_diff = int((mask != want).sum()), max_err(t_m, t_ker)
+    if flips or t_diff != 0.0:
+        raise SystemExit(f"kernel sample_tvals_from_cdf's mask (3m) "
+                         f"disagrees with its plain version at the {label}: "
+                         f"{flips} bits, t {t_diff}")
+
+    def fn():
+        return O.sample_tvals_kernel(cdf, near, far, u, occ)
+
+    dev, b2b = device_ms(fn), cuda_ms(fn, 20)
+    plain = cuda_ms(lambda: O.sample_tvals_plain(cdf, near, far, u, occ), 3)
+    n_bytes = nbytes(cdf, near, far, u, occ, t_m, mask)
+    b_ms, b_by = bound(n_bytes, N * S * (P.bit_length() + 9) + N * P)
+    text = (f"with the mask (3m) at the {label} ({N} x {S}): mask_flips=0 "
+            f"t_vs_no_mask=0 device_ms={dev:.4f} back to back {b2b:.4f} "
+            f"plain_ms={plain:.4f} (stable sort and gathers) bytes={n_bytes} "
+            f"bound_ms={b_ms:.4f} ({b_by}) kept="
+            f"{float(want.float().mean()):.4f}")
+    print(f"kernel sample_tvals_from_cdf: {text}", flush=True)
+    results[kernels.OCC_SAMPLE.name]["text"] += f"; {text}"
+
+
 def check_kernels(cfg, statics, params, occ, rays_np, device):
     """Phase 3: every kernel against its plain version at one full chunk."""
     import torch
@@ -498,6 +643,8 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
                   f"ms; rows that took the literal count {n_count}, the rank "
                   f"sort {n_sort} of {N}; plan "
                   + sample_plan_text(O.sample_plan(N, P, S))))
+    mask_check(cdf_state["cdf"], near, far, u, pln["occ"], t_ker, results,
+               "serve chunk")
     sample_edges(device)
 
     # kernel 1: the plane/line encoder at the chunk's sample points, K=4
@@ -521,6 +668,10 @@ def check_kernels(cfg, statics, params, occ, rays_np, device):
                x01.shape[1], pc.level_resolutions(), pc.features)))
     del e_ker, e_pln
     plane_fwd_edges(pc, enc_p, x01, device)
+
+    # kernel 11q: the point queries at the chunk's samples, K=4
+    query_check(grids, pts, results, "serve chunk")
+    query_edges(device)
 
     # kernel 4: the compositor on the chunk's routed field values
     dirs = d[:, None, :].expand(N, S, 3).reshape(-1, 3)
@@ -740,11 +891,12 @@ def check_train_kernels(cfg, statics, params, occ, batch, device, results):
 
 def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
                      bg, results):
-    """Kernels 2, 3 and 4 at the bench step's shapes (one inner step of one
-    expert: its K=1 task probe of 4,000 rays x 128 probes, 32 randomized
-    samples a ray, the compositor at 4,000 x 32): back-to-back and device
-    times beside each one's bytes and bound, appended to the kernel's
-    line (its headline numbers stay those of the serve chunk)."""
+    """Kernels 2, 3 (and 3m) and 4 and 11q at the bench step's shapes (one
+    inner step of one expert: its K=1 task probe of 4,000 rays x 128
+    probes, 32 randomized samples a ray, the compositor and the point
+    queries at 4,000 x 32): back-to-back and device times beside each
+    one's bytes and bound, appended to the kernel's line (its headline
+    numbers stay those of the serve chunk)."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -825,6 +977,10 @@ def step_shape_times(grid, o, d, near, far, cdf, gen, rgb_sigma, t_vals,
             text += extra[kern]()
         print(f"kernel {kern.name}: {text}", flush=True)
         results[kern.name]["text"] += f"; {text}"
+    mask_check(cdf["cdf"], near, far, u, cdf["occ"], t_ker, results,
+               "step shapes (per-ray u)")
+    query_check(grid, V.t_to_points(o, d, t_vals).reshape(-1, 3), results,
+                "step shapes (the K=1 task slice, the hard mask's points)")
 
 
 VR_EDGE_TOL = 1e-5
@@ -1182,13 +1338,144 @@ def probe_edges(device):
                                  f"rays, cdf {err}")
 
 
+# kernel 11q selects the plain version's cells with the same float-bound
+# test as kernel 2: bits and values equal
+QUERY_EDGE_N = 4096 * 8 + 13  # a tail past whole 256-point blocks
+
+
+def query_edge_inputs(kind: str, m: int, k: int, l: int, r: int, seed: int):
+    """Adversarial inputs of kernel 11q from numpy seed `seed`: occs,
+    binary (k, l, r, r, r), boxes (k, 2, 3) and points (m, 3). "faces"
+    puts every coordinate of the points on a level's lo or hi face (rel
+    exactly 0 or exactly 1) or one ulp either side; "outside" puts half
+    the points outside every level of every expert; "round" puts points
+    within a few ulps below a level's hi face: rel just below 1, rel * R
+    at the top of the last cell (the clamp at R - 1 guards it; rel < 1
+    holds exactly where x < b, so rel * R stays below R even for R not a
+    power of 2); "invisible" tags a third of the
+    cells -1 (the premark: never occupied, they read 0); otherwise points
+    at random in and around the boxes, half the cells occupied at values
+    in [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cents = np.array([[0.0, -1, -1], [0.0, -1, 1], [0.0, 1, -1], [0.0, 1, 1],
+                      [0.4, 0.2, 0.0]], np.float32)[np.arange(k) % 5]
+    half = np.float32(1.2) if k > 1 else np.float32(0.9)
+    boxes = np.stack([cents - half, cents + half], 1).astype(np.float32)
+    binary = rng.uniform(size=(k, l, r, r, r)) < 0.5
+    occs = np.where(binary, rng.uniform(size=binary.shape),
+                    0.0).astype(np.float32)
+    if kind == "invisible":
+        tag = rng.uniform(size=binary.shape) < 1.0 / 3
+        occs[tag] = -1.0
+        binary[tag] = False
+    pts = rng.uniform(-2.0 * half - 1.5, 2.0 * half + 1.5,
+                      (m, 3)).astype(np.float32)
+    s = 2.0 ** np.arange(l, dtype=np.float32)
+    ctr = np.float32(0.5) * (boxes[:, 0] + boxes[:, 1])
+    hlf = np.float32(0.5) * (boxes[:, 1] - boxes[:, 0])
+    lo = ctr[:, None] - hlf[:, None] * s[None, :, None]  # (k, l, 3)
+    hi = ctr[:, None] + hlf[:, None] * s[None, :, None]
+    if kind == "faces":
+        faces = np.stack([lo, hi], 2).reshape(-1, 3)  # (k * l * 2, 3)
+        pick = faces[rng.integers(len(faces), size=(m, 3)), np.arange(3)]
+        ulp = rng.integers(-1, 2, size=(m, 3))
+        pts = np.where(ulp > 0, np.nextafter(pick, np.float32(np.inf)),
+                       np.where(ulp < 0,
+                                np.nextafter(pick, np.float32(-np.inf)),
+                                pick)).astype(np.float32)
+    elif kind == "outside":
+        far_out = rng.uniform(1.0, 3.0, (m // 2, 3)).astype(np.float32)
+        sign = np.where(rng.uniform(size=(m // 2, 3)) < 0.5, -1.0, 1.0)
+        top = np.abs(np.concatenate([lo, hi], 1)).max()
+        pts[: m // 2] = (sign * (top + far_out)).astype(np.float32)
+    elif kind == "round":
+        face = hi.reshape(-1, 3)[rng.integers(k * l, size=m)]
+        steps = rng.integers(1, 5, size=(m, 3))
+        below = face.copy()
+        for _ in range(4):  # a few ulps below the face
+            below = np.where(steps > 0,
+                             np.nextafter(below, np.float32(-np.inf)),
+                             below).astype(np.float32)
+            steps -= 1
+        axis = rng.integers(0, 3, size=m)
+        mix = rng.uniform(size=(m, 3)) < 0.5
+        pts = np.where(mix | (np.arange(3)[None, :] == axis[:, None]),
+                       below, pts).astype(np.float32)
+    return [np.ascontiguousarray(a) for a in (occs, binary, boxes, pts)]
+
+
+def query_edge_cases():
+    """(label, kind, M, K, L, R) of `query_edges`: every kind at K=4 and
+    K=1, a tail past whole blocks, and M = 0."""
+    n = QUERY_EDGE_N
+    cases = [("points on level faces and one ulp either side", "faces", n,
+              4, 4, 16),
+             ("points outside every level", "outside", n, 4, 4, 16),
+             ("rel * R at the top of the last cell (R=12)", "round", n, 4,
+              3, 12),
+             ("invisible cells tagged -1", "invisible", n, 4, 4, 16),
+             ("random points", "rand", n, 4, 4, 32),
+             ("K=1 faces (a task's slice)", "faces", n, 1, 4, 16),
+             ("K=1 rel * R at the top of the last cell (R=24)", "round", n,
+              1, 2, 24),
+             ("K=1 L=1 (the union grid)", "rand", n, 1, 1, 128),
+             ("K=5, M=1", "faces", 1, 5, 2, 16),
+             ("M=0", "rand", 0, 4, 4, 16)]
+    return cases
+
+
+def query_mismatches(occs, binary, boxes, pts, mode) -> int:
+    """Outputs of kernel 11q in `mode` that differ from its plain
+    version's."""
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    got = O.occupancy_query_kernel(occs, binary, boxes, pts, mode)
+    want = O.occupancy_query_plain(occs, binary, boxes, pts, mode)
+    if mode != "pair":
+        got, want = (got,), (want,)
+    return sum(int((g != w).sum()) for g, w in zip(got, want))
+
+
+def query_case_line(label, occs, binary, boxes, pts) -> None:
+    """Kernel 11q against its plain version in each mode on one input:
+    prints one `edge occupancy_query` line, raises unless bits and values
+    are equal."""
+    from nerfsys_tpu_torch.ops import occupancy as O
+
+    out = {mode: query_mismatches(occs, binary, boxes, pts, mode)
+           for mode in O.QUERY_MODES}
+    ms = (device_ms(lambda: O.occupancy_query_kernel(
+        occs, binary, boxes, pts, "bits"), 5) if pts.shape[0] else 0.0)
+    bits = O.occupancy_query_plain(occs, binary, boxes, pts, "bits").float()
+    share = float(bits.mean()) if bits.numel() else 0.0
+    K, L, R = occs.shape[:3]
+    print(f"edge occupancy_query {label}: M={pts.shape[0]} K={K} L={L} "
+          f"R={R} occupied={share:.4f} mismatches bits={out['bits']} values={out['values']} pair="
+          f"{out['pair']} (equal expected) device_ms={ms:.4f}", flush=True)
+    if any(out.values()):
+        raise SystemExit(f"kernel occupancy_query disagrees with its plain "
+                         f"version on {label}: {out}")
+
+
+def query_edges(device):
+    """Kernel 11q against its plain version on `query_edge_cases`."""
+    import torch
+
+    for seed, (label, kind, m, k, l, r) in enumerate(query_edge_cases()):
+        query_case_line(label, *(torch.from_numpy(a).to(device) for a in
+                                 query_edge_inputs(kind, m, k, l, r,
+                                                   200 + seed)))
+
+
 SAMPLE_EDGE_TOL = 1e-5
 SAMPLE_STEP_N = 4000  # one inner step's rays (TRAIN_S)
 SAMPLE_GRID_N = 4000 + 13  # a tail past whole 4-ray blocks
 
 
 def sample_edge_inputs(kind: str, n: int, p: int, s: int, per_ray: bool,
-                       seed: int):
+                       seed: int, with_bits: bool = False):
     """Adversarial inputs of kernel 3 from numpy seed `seed`: cdf (n, p+1)
     rows built as kernel 2 builds them (probe weights, each + 1e-12, a
     float32 cumsum, divided by the last entry, a leading 0), near, far (n,)
@@ -1201,7 +1488,14 @@ def sample_edge_inputs(kind: str, n: int, p: int, s: int, per_ray: bool,
     and aims the first 8 targets of each ray into them (the clamp); "exact"
     sets targets equal to cdf entries; "top" sets the last 4 targets to
     1 - 1e-6, the jitter's clamp; "near=far" gives every ray far = near;
-    "reversed" reverses each ray's targets."""
+    "reversed" reverses each ray's targets; "tied" sets far two ulps above
+    near, so every t is near or one of the next two floats and samples of
+    different intervals tie (reversed targets too when per ray: ties in
+    the rank sort). with_bits appends the probe bits (n, p) bool: a probe
+    occupied where its weight is not 0 (as kernel 2's occ), but at random
+    in "tied" and "reversed", so that samples of different intervals carry
+    different bits (with kernel 2's bits every sample lands in an occupied
+    interval) and their order decides the mask."""
     import numpy as np
 
     f32 = np.float32
@@ -1222,6 +1516,9 @@ def sample_edge_inputs(kind: str, n: int, p: int, s: int, per_ray: bool,
     far = (near + rng.uniform(1.0, 5.0, n)).astype(f32)
     if kind == "near=far":
         far = near.copy()
+    elif kind == "tied":
+        far = np.nextafter(np.nextafter(near, np.float32(np.inf)),
+                           np.float32(np.inf)).astype(f32)
     u = ((np.arange(s, dtype=f32) + f32(0.5)) / f32(s)).astype(f32)
     if per_ray:
         jit = ((rng.uniform(size=(n, s)).astype(f32) - f32(0.5)) / f32(s))
@@ -1234,9 +1531,13 @@ def sample_edge_inputs(kind: str, n: int, p: int, s: int, per_ray: bool,
             u = np.take_along_axis(c, pick, 1).astype(f32)
         elif kind == "top":
             u[:, -4:] = f32(1.0 - 1e-6)
-        elif kind == "reversed":
+        elif kind in ("reversed", "tied"):
             u = np.ascontiguousarray(u[:, ::-1])
-    return [np.ascontiguousarray(a) for a in (c, near, far, u)]
+    out = [c, near, far, u]
+    if with_bits:
+        out.append(rng.uniform(size=(n, p)) < 0.5
+                   if kind in ("tied", "reversed") else w > 0)
+    return [np.ascontiguousarray(a) for a in out]
 
 
 def sample_edge_cases():
@@ -1254,17 +1555,25 @@ def sample_edge_cases():
              ("u = 1 - 1e-6", "top", step, 128, 32, True),
              ("all-dead rows", "dead", chunk, 128, 32, False),
              ("near = far", "near=far", chunk, 128, 32, False),
-             ("jittered u out of order", "reversed", step, 128, 32, True)]
+             ("jittered u out of order", "reversed", step, 128, 32, True),
+             ("ties: t within two ulps, samples of different intervals",
+              "tied", step, 128, 32, False),
+             ("ties in reversed rows (the rank sort)", "tied", step, 128, 32,
+              True)]
     cases += [(f"P={p} S={s}", "rand", SAMPLE_GRID_N, p, s, False)
               for p in (1, 127, 129, 256) for s in (1, 8, 24, 64)]
     return cases
 
 
-def sample_case_line(label, cdf, near, far, u, want, device) -> tuple:
+def sample_case_line(label, cdf, near, far, u, want, device,
+                     occ=None) -> tuple:
     """Kernel 3 on one input: prints one `edge sample_tvals_from_cdf`
     line, raises on an error above SAMPLE_EDGE_TOL or when the rows that
     took the literal count are not the rows that dip, returns (rows that
-    took the count, rows that took the rank sort, rows)."""
+    took the count, rows that took the rank sort, rows). With the probe
+    bits `occ`, also 3m: one `edge sample_tvals_from_cdf mask` line, the
+    mask equal to the plain version's and t equal to the kernel's without
+    the mask."""
     import torch
 
     from nerfsys_tpu_torch.ops import occupancy as O
@@ -1288,6 +1597,22 @@ def sample_case_line(label, cdf, near, far, u, want, device) -> tuple:
     if n_count != dips:
         raise SystemExit(f"kernel sample_tvals_from_cdf: {n_count} rows took "
                          f"the count on {label}, {dips} rows dip")
+    if occ is not None:
+        t_m, mask = O.sample_tvals_kernel(cdf, near, far, u, occ)
+        _, want_m = O.sample_tvals_plain(cdf, near, far, u, occ)
+        flips = int((mask != want_m).sum())
+        t_diff = max_err(t_m, got)
+        ms_m = device_ms(lambda: O.sample_tvals_kernel(cdf, near, far, u,
+                                                       occ), 5)
+        print(f"edge sample_tvals_from_cdf mask {label}: N={N} S={S} "
+              f"mask_flips={flips} (0 expected: the stable (value, index) "
+              f"order) kept={float(want_m.float().mean()):.4f} t_vs_no_mask="
+              f"{t_diff:.3e} (0 expected) device_ms={ms_m:.4f} "
+              f"(without the mask {ms:.4f})", flush=True)
+        if flips or t_diff != 0.0:
+            raise SystemExit(f"kernel sample_tvals_from_cdf's mask disagrees "
+                             f"with its plain version on {label}: {flips} "
+                             f"bits, t {t_diff}")
     return n_count, n_sort, N
 
 
@@ -1303,27 +1628,29 @@ def sample_edges(device):
     totals = [0, 0, 0]
     for seed, (label, kind, n, p, s, per_ray) in enumerate(
             sample_edge_cases()):
-        cdf, near, far, u = (torch.from_numpy(a).to(device) for a in
-                             sample_edge_inputs(kind, n, p, s, per_ray,
-                                                seed))
+        cdf, near, far, u, occ = (torch.from_numpy(a).to(device) for a in
+                                  sample_edge_inputs(kind, n, p, s, per_ray,
+                                                     seed, with_bits=True))
         want = O.sample_tvals_plain(cdf, near, far, u)
         for i, v in enumerate(sample_case_line(label, cdf, near, far, u,
-                                               want, device)):
+                                               want, device, occ)):
             totals[i] += v
     for seed, kind in enumerate(("dead", "tiny", "rand")):
         occs, binary, boxes, o, d, near, far = (
             torch.from_numpy(a).to(device) for a in probe_edge_inputs(
                 kind, SAMPLE_STEP_N, 4, 4, 32, 100 + seed))
-        cdf = O.occupancy_probe_cdf_kernel(occs, binary, boxes, o, d, near,
-                                           far, 128, importance=True,
-                                           ray_floor=0.25)["cdf"]
+        probed = O.occupancy_probe_cdf_kernel(occs, binary, boxes, o, d,
+                                              near, far, 128,
+                                              importance=True,
+                                              ray_floor=0.25)
+        cdf = probed["cdf"]
         gen = torch.Generator(device=device).manual_seed(seed)
         u = O._sample_targets(SAMPLE_STEP_N, 32, device, gen,
                               True).contiguous()
         want = O.sample_tvals_plain(cdf, near, far, u)
         for i, v in enumerate(sample_case_line(
                 f"kernel 2's cdf, {kind} probes", cdf, near, far, u, want,
-                device)):
+                device, probed["occ"])):
             totals[i] += v
     n_count, n_sort, rows = totals
     if not (0 < n_count < rows and 0 < n_sort < rows):
@@ -1580,6 +1907,7 @@ def profile_device(label: str, fn, extra: str = "", watch=(),
 
 
 PROFILES = {}  # label -> (wall ms, device busy ms) of each profile_report
+WATCHED = {}  # (label, watch words) -> (launches, device ms) of its rows
 
 
 def profile_report(label: str, prof, wall_ms: float, extra: str = "",
@@ -1618,6 +1946,8 @@ def profile_report(label: str, prof, wall_ms: float, extra: str = "",
                     print(f"profile: {label} watch {count}x {key[:60]}: "
                           f"{dev_ms:.3f} ms ({dev_ms / count:.4f} ms each)",
                           flush=True)
+                    n, ms = WATCHED.get((label, words), (0, 0.0))
+                    WATCHED[label, words] = (n + count, ms + dev_ms)
         dtoh = [r for r in rows if "DtoH" in r[1]]
         print(f"profile: device-to-host copies {sum(r[2] for r in dtoh)}x "
               f"{sum(r[0] for r in dtoh):.3f} ms (each a host sync)",
@@ -1801,9 +2131,10 @@ def occupancy(cfg, statics, params, occ, batch, device):
     bench step (`occ_hard_mask=True`, ray_floor 0) on the bench grids,
     its gradients held against `make_train_step(..., use_kernels=False)`
     within 2^-8 of each leaf's max, and one step profiled with the device
-    time of the hard mask's point queries (`query_binary` in
-    `render_rays_occ_field`, plain torch, one a sample; a profiler range
-    around each call) beside the step's device busy time."""
+    time of the hard mask's point queries (`occupancy_query` in
+    `render_rays_occ_field`, kernel 11q, one a render; a profiler range
+    around each call) beside the step's device busy time; then the same
+    with occ_probe_mask (the probe bits: 11q must not launch)."""
     import dataclasses
 
     import torch
@@ -1863,48 +2194,75 @@ def occupancy(cfg, statics, params, occ, batch, device):
     del state, warm, sub
     torch.cuda.empty_cache()
 
-    meta = dataclasses.replace(train_meta(), occ_hard_mask=True)
     opt = build_optimizer(OptimConfig(outer_steps=10000),
                           param_group_labels(params))
-    step = make_train_step(meta, cfg, opt)
-    g = gen(23)
     st = opt.init(params)
-    float(step(params, st, statics, batch, g, occ)[2]["loss_out"])  # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    _, _, aux = step(params, st, statics, batch, g, occ)
-    loss = float(aux["loss_out"])
-    step_ms = 1e3 * (time.perf_counter() - t0)
-    step_launches = kernels.launches()
-    if loss != loss or float(aux["skipped_nonfinite"]):
-        raise SystemExit("occupancy: hard-mask step not finite")
-    for k in OCC_LIGHT_KERNELS:
-        if step_launches[k] <= 0:
-            raise SystemExit(f"occupancy: hard-mask step never launched {k}")
-    print(f"occupancy: hard-mask FoMAML step (K={TRAIN_K} B={TRAIN_B} "
-          f"S={TRAIN_S} Q={TRAIN_Q} inner={TRAIN_INNER}, ray_floor 0) "
-          f"ms={step_ms:.2f} loss_out={loss:.6f} launches {step_launches}",
-          flush=True)
-    grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
-                              device, "occupancy hard-mask step")
-    query = {"hard_mask_point_query": None}
-    with named_range(O, "query_binary", "hard_mask_point_query"):
-        busy = profile_device("occupancy hard-mask step", lambda: float(
-            step(params, st, statics, batch, g, occ)[2]["loss_out"]),
-            watch=(("index_elementwise",), ("volume_render_bwd_kernel",),
-                   ("sample_tvals_kernel",)), ranges=query)
-    calls, q_ms = query["hard_mask_point_query"]
     n_renders = TRAIN_K * TRAIN_B * (TRAIN_INNER + 1)
-    if calls < n_renders:
-        raise SystemExit(f"occupancy: {calls} point queries in the profiled "
-                         f"step, at least {n_renders} expected (a render)")
-    print(f"occupancy: the hard mask's point queries (query_binary, plain "
-          f"torch) in the profiled step: {calls} calls, device ms "
-          f"{q_ms:.2f}, share {q_ms / busy if busy else float('nan'):.3f} "
-          f"of the step's device busy {busy:.2f} ms; phase took "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {k: upd_launches[k] + step_launches[k] for k in upd_launches}
+    total = dict(upd_launches)
+    forms = []
+    for probe_mask in (False, True):
+        meta = dataclasses.replace(train_meta(), occ_hard_mask=True,
+                                   occ_probe_mask=probe_mask)
+        form = "probe-bit" if probe_mask else "point-exact"
+        step = make_train_step(meta, cfg, opt)
+        g = gen(23)
+        float(step(params, st, statics, batch, g, occ)[2]["loss_out"])
+        torch.cuda.synchronize()  # the warm-up ends
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        _, _, aux = step(params, st, statics, batch, g, occ)
+        loss = float(aux["loss_out"])
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        step_launches = kernels.launches()
+        if loss != loss or float(aux["skipped_nonfinite"]):
+            raise SystemExit(f"occupancy: {form} hard-mask step not finite")
+        need = OCC_LIGHT_KERNELS + (() if probe_mask else
+                                    ("occupancy_query",))
+        for k in need:
+            if step_launches[k] <= 0:
+                raise SystemExit(f"occupancy: {form} hard-mask step never "
+                                 f"launched {k}")
+        if probe_mask and step_launches["occupancy_query"]:
+            raise SystemExit("occupancy: the probe-bit step queried the "
+                             "grid at its samples")
+        for k, v in step_launches.items():
+            total[k] += v
+        print(f"occupancy: {form} hard-mask FoMAML step (K={TRAIN_K} "
+              f"B={TRAIN_B} S={TRAIN_S} Q={TRAIN_Q} inner={TRAIN_INNER}, "
+              f"ray_floor 0, occ_probe_mask={probe_mask}) ms={step_ms:.2f} "
+              f"loss_out={loss:.6f} launches {step_launches}", flush=True)
+        grads_through_plain_match(meta, cfg, opt, statics, params, occ,
+                                  batch, device,
+                                  f"occupancy {form} hard-mask step")
+        query = {"hard_mask_point_query": None}
+        label = f"occupancy {form} hard-mask step"
+        with named_range(O, "occupancy_query", "hard_mask_point_query"):
+            busy = profile_device(label, lambda: float(
+                step(params, st, statics, batch, g, occ)[2]["loss_out"]),
+                watch=(("occupancy_query_kernel",),
+                       ("volume_render_bwd_kernel",),
+                       ("sample_tvals_kernel",)), ranges=query)
+        # the calls from the range; the device ms from 11q's own rows (a
+        # range does not collect kernels launched through ctypes)
+        calls = query["hard_mask_point_query"][0]
+        q_ms = WATCHED.get((label, ("occupancy_query_kernel",)), (0, 0.0))[1]
+        if calls < (0 if probe_mask else n_renders):
+            raise SystemExit(f"occupancy: {calls} point queries in the "
+                             f"profiled step, at least {n_renders} expected "
+                             f"(a render)")
+        forms.append((form, step_ms, busy, calls, q_ms))
+    print("occupancy: the hard mask's point queries (occupancy_query, "
+          "kernel 11q; calls by a profiler range, device ms from 11q's "
+          "rows) in the profiled steps: " + "; ".join(
+              f"{form}: {calls} calls, device ms {q_ms:.3f}, share "
+              f"{q_ms / busy if busy else float('nan'):.4f} of the step's "
+              f"device busy {busy:.2f} ms (step wall {ms:.2f} ms)"
+              for form, ms, busy, calls, q_ms in forms)
+          + "; an earlier run's plain query_binary (chip run 5, PR 14, "
+          "H100 80GB HBM3, 700 W): 108 calls, 13.92 ms, share 0.056 of "
+          f"247.55 ms; phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total
 
 
 TRAINER_CAMS, TRAINER_VAL = 16, 2  # an aerial ring of training + val cameras
@@ -2700,6 +3058,7 @@ def val_image_matches_plain(ctx, probe, device):
             occ_state=kw["occ_state"], occ_importance=kw["occ_importance"],
             occ_probe_grid_res=kw["occ_probe_grid_res"],
             occ_hard_mask=kw["occ_hard_mask"],
+            occ_probe_mask=kw["occ_probe_mask"],
             early_stop_eps=kw["render_early_stop"], device=device,
             use_kernels=use_kernels)
         return render_image(
@@ -2771,9 +3130,12 @@ def eval_phase(device, tmp, run):
     96 samples, 4,000 support rays, tto 0, 1, 10) on the trainer phase's
     scene and best checkpoint (K=4 planes experts at bench width, soft
     importance occupancy R=128 L=4 restored from best.occ), over the
-    scene's 2 val cameras at 1000x750; then a --render_fast run (tto 0, 4)
-    and one image each with early stop, coherent experts and a bake ->
-    the launches of all runs."""
+    scene's 2 val cameras at 1000x750; then a run at tto 0, 1 with the
+    hard mask from the probe bits (a JSON copy of configs/eval.json with
+    occ_no_hard_mask false, occ_probe_mask true: its adapt step and first
+    val image against the plain path, no point query launched); then a
+    --render_fast run (tto 0, 4) and one image each with early stop,
+    coherent experts and a bake -> the launches of all runs."""
     import torch
 
     from nerfsys_tpu_torch.data.ram_rays import frame_rays
@@ -2834,7 +3196,40 @@ def eval_phase(device, tmp, run):
     val_image_matches_plain(ctx, probe, device)
     lpips_graph_check(probe.frames[0]["pred"], md, device, tmp)
     launches = dict(probe.launches)
+    soft0 = probe.frames[0]["pred"]  # the first val image at tto 0
     del ctx, probe, c, adapt
+    torch.cuda.empty_cache()
+
+    # the hard mask from the probes' interval bits: a JSON copy of
+    # configs/eval.json (its mode keys win over the checkpoint's)
+    bits_json = tmp / "eval_probe.json"
+    bits_json.write_text(json.dumps(dict(
+        json.loads(Path(base[base.index("--configPath") + 1]).read_text()),
+        occ_no_hard_mask=False, occ_probe_mask=True)))
+    bits_base = list(base)
+    bits_base[base.index("--configPath") + 1] = str(bits_json)
+    ctx, probe = run_eval(bits_base + ["--tto", "0,1", "--fname",
+                                       str(tmp / "eval_probe")],
+                          capture_tto=1)
+    eval_checks("probe bits", ctx, probe, EVAL_KERNELS, 2)
+    P = ctx["P"]
+    if not P.occ_probe_mask or P.occ_no_hard_mask or \
+            probe.launches["occupancy_query"]:
+        raise SystemExit(f"eval: probe bits: occ_probe_mask "
+                         f"{P.occ_probe_mask}, occ_no_hard_mask "
+                         f"{P.occ_no_hard_mask}, the point query launched "
+                         f"{probe.launches['occupancy_query']} times")
+    frames = [f["s"] for f in probe.frames]
+    diff = float(abs(probe.frames[0]["pred"] - soft0).max())
+    print(f"eval: probe bits run (hard mask from the probes' interval bits, "
+          f"tto 0,1): {eval_rows_text(ctx)}; its first image at tto 0 "
+          f"against the soft main run's: rgb max difference {diff:.3e}; s "
+          f"per rendered image median {median(frames):.3f} of "
+          f"{len(frames)}; launches {probe.launches}", flush=True)
+    adapt_steps_match(probe, device)
+    val_image_matches_plain(ctx, probe, device)
+    launches = {k: v + probe.launches[k] for k, v in launches.items()}
+    del ctx, probe
     torch.cuda.empty_cache()
 
     # --render_fast: bucketed top-1 adaptation and rendering
@@ -3068,23 +3463,26 @@ def video_phase(device, tmp, run):
     and `best` checkpoint (K=4 planes experts at bench width, grids
     restored), VIDEO_FRAMES frames at the val cameras' 1000x750: the
     turntable with the hard mask on (configs/eval.json plus
-    occ_no_hard_mask false: the host-ray two-wave path), full_coverage
-    soft (the live camera renderer with the fused fog tail), the turntable
+    occ_no_hard_mask false: the host-ray two-wave path, the point query
+    11q), the same with occ_probe_mask true (the probe bits: 11q must not
+    launch), full_coverage soft (the live camera renderer with the fused fog tail), the turntable
     baked at 256³ with --render_baked_occ (the baked camera renderer) and
     through --render_coherent (coherent dispatch over host rays). Checks:
     every frame uint8 of the val cameras' shape and not constant, the
     output written, each run's kernels launched; the first frame of the
-    pose-path and the host-ray run against the plain path -> the launches
-    of all runs."""
+    pose-path and the two host-ray runs against the plain path -> the
+    launches of all runs."""
     import json
 
     import torch
 
     t_phase = time.perf_counter()
     root = Path(__file__).resolve().parent
-    hard = tmp / "video_hard.json"
+    hard, probe_bits = tmp / "video_hard.json", tmp / "video_probe.json"
     cfg_json = json.loads((root / "configs" / "eval.json").read_text())
     hard.write_text(json.dumps(dict(cfg_json, occ_no_hard_mask=False)))
+    probe_bits.write_text(json.dumps(dict(cfg_json, occ_no_hard_mask=False,
+                                          occ_probe_mask=True)))
     base = ["--op", "video", "--data_path", str(tmp), "--data_dirname",
             "scene", "--mask_dirname", "g22", "--downscale", "1.0",
             "--checkpoint_path", str(run), "--prefix", "best",
@@ -3093,6 +3491,9 @@ def video_phase(device, tmp, run):
     runs = (
         ("host-ray two-wave", ["--configPath", str(hard), "--camera_path",
                                "turntable"],
+         VIDEO_LIVE_KERNELS + ("occupancy_query",), "chunk"),
+        ("probe-bit two-wave", ["--configPath", str(probe_bits),
+                                "--camera_path", "turntable"],
          VIDEO_LIVE_KERNELS, "chunk"),
         ("pose path", ["--configPath", eval_json, "--camera_path",
                        "full_coverage", "--occ_no_hard_mask"],
@@ -3129,6 +3530,13 @@ def video_phase(device, tmp, run):
             if probe.launches[k] <= 0:
                 raise SystemExit(f"video: {label}: kernel {k} never "
                                  f"launched")
+        if label.startswith("probe-bit") and (
+                probe.launches["occupancy_query"]
+                or not ctx["P"].occ_probe_mask):
+            raise SystemExit(f"video: {label}: occ_probe_mask "
+                             f"{ctx['P'].occ_probe_mask}, the point query "
+                             f"launched {probe.launches['occupancy_query']} "
+                             f"times")
         ms = probe.frame_ms()
         writer = ("mp4 through imageio" if path.suffix == ".mp4"
                   else "PNG sequence (no mp4 encoder)")
@@ -3144,7 +3552,8 @@ def video_phase(device, tmp, run):
               f"{float(sum(f.mean() for f in frames) / len(frames)):.2f}; "
               f"run {run_s:.2f} s; launches "
               + str({k: probe.launches[k] for k in need}), flush=True)
-        if label in ("host-ray two-wave", "pose path"):
+        if label in ("host-ray two-wave", "probe-bit two-wave",
+                     "pose path"):
             video_matches_plain(label, ctx, probe)
         launches = (dict(probe.launches) if launches is None else
                     {k: v + probe.launches[k] for k, v in launches.items()})
@@ -3418,8 +3827,10 @@ def camera(cfg, statics, params, occ, device):
     outputs within the serve tolerances under CAMERA_FLIP; the uint8 frame
     against the camera renderer's plain path (use_kernels=False, the same
     rays) within 1 level in >= 99.9% of the pixels; one hard-mask frame
-    and one with the res-128 union probe grid against render_image through
-    the chunk renderer of the same mode."""
+    in each form (point-exact through 11q, and with the probe bits; see
+    `hard_forms`) and one with the res-128 union probe grid against
+    render_image through the chunk renderer of the same mode, their
+    launches counted with the 3 requests'."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -3486,24 +3897,38 @@ def camera(cfg, statics, params, occ, device):
     ri8 = np.clip(refs[0][0] * 255.0 + 0.5, 0, 255).astype(np.uint8)
     u8_within_one("camera vs render_image", frames[0], ri8)
 
-    for label, kw in (("hard mask", dict(occ_state=occ, occ_importance=True,
-                                         occ_hard_mask=True)),
+    hard = dict(occ_state=occ, occ_importance=True, occ_hard_mask=True)
+    forms = {}
+    for label, kw in (("hard mask", hard),
+                      ("hard mask, probe bits",
+                       dict(hard, occ_probe_mask=True)),
                       (f"union grid res {UNION_RES}",
                        dict(soft, occ_probe_grid_res=UNION_RES))):
+        c2w, intr = poses[0].c2w, poses[0].intrinsics
         cam_x = make_live_camera_renderer(cfg, **cam_kw, out_u8=False, **kw)
-        cam_x(params, statics, poses[0].c2w, poses[0].intrinsics)
+        cam_x(params, statics, c2w, intr)
         torch.cuda.synchronize()
+        kernels.reset_launches()
         t0 = time.perf_counter()
-        planes = cam_x(params, statics, poses[0].c2w, poses[0].intrinsics)
+        planes = cam_x(params, statics, c2w, intr)
         x_ms = 1e3 * (time.perf_counter() - t0)
+        x_launches = kernels.launches()
+        for k, v in x_launches.items():
+            launches[k] += v
         ren_x = make_chunk_renderer(cfg, ray_samples=S, device=device, **kw)
         ref = render_image(ren_x, params, statics, poses[0],
                            scene_aabb=aabb, chunk_rays=chunk)
         print(f"camera {label}: frame ms={x_ms:.2f} mean_acc="
-              f"{float(planes[:, 4].mean()):.4f}", flush=True)
+              f"{float(planes[:, 4].mean()):.4f} occupancy_query launches "
+              f"{x_launches['occupancy_query']}", flush=True)
         chunk_matches_plain(f"camera {label}", planes_of(planes),
                             frame_of(*ref), CAMERA_FLIP,
                             "camera frame vs render_image")
+        if kw.get("occ_hard_mask"):
+            forms[label] = hard_forms(
+                label, cfg, params, statics, poses[0], aabb, chunk, cam_kw,
+                kw, (planes, ref, x_ms, x_launches, cam_x, ren_x), device)
+    hard_forms_text(forms)
 
     cam_busy = profile_device("camera frame", lambda: cam8(
         params, statics, poses[0].c2w, poses[0].intrinsics))
@@ -3517,6 +3942,67 @@ def camera(cfg, statics, params, occ, device):
           f"render_image {ri_busy:.2f}; phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def hard_forms(label, cfg, params, statics, md, aabb, chunk, cam_kw, kw,
+               drawn, device):
+    """One hard-mask form (point-exact, or with the probe bits) of the
+    camera phase: its camera frame and its live frame (render_image through
+    the two-wave chunk renderer) against their plain paths (the same
+    renderers with use_kernels=False) within the serve tolerances under
+    CAMERA_FLIP; the point query (11q) must launch in the point-exact form
+    and must not in the probe-bit form. `drawn`: the camera frame's planes,
+    the live frame, the camera frame's ms and launches, and the two
+    renderers. Returns (camera ms, camera busy, live ms, live busy, 11q
+    launches)."""
+    import torch
+
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        make_chunk_renderer,
+        make_live_camera_renderer,
+        render_image,
+    )
+
+    planes, ref, cam_ms, cam_launches, cam_x, ren_x = drawn
+    n_query = cam_launches["occupancy_query"]
+    if (n_query > 0) == bool(kw.get("occ_probe_mask")):
+        raise SystemExit(f"camera {label}: occupancy_query launched "
+                         f"{n_query} times: expected "
+                         f"{'none' if kw.get('occ_probe_mask') else 'some'}")
+    plain = make_live_camera_renderer(cfg, **cam_kw, out_u8=False,
+                                      use_kernels=False, **kw)(
+        params, statics, md.c2w, md.intrinsics)
+    chunk_matches_plain(f"camera {label}", planes_of(planes),
+                        planes_of(plain), CAMERA_FLIP,
+                        "camera frame vs its plain path")
+    ren_p = make_chunk_renderer(cfg, ray_samples=cam_kw["ray_samples"],
+                                device=device, use_kernels=False, **kw)
+    live_plain = render_image(ren_p, params, statics, md, scene_aabb=aabb,
+                              chunk_rays=chunk)
+    chunk_matches_plain(f"live {label}", frame_of(*ref),
+                        frame_of(*live_plain), CAMERA_FLIP,
+                        "render_image frame vs its plain path")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_image(ren_x, params, statics, md, scene_aabb=aabb,
+                 chunk_rays=chunk)
+    live_ms = 1e3 * (time.perf_counter() - t0)
+    cam_busy = profile_device(f"camera {label} frame", lambda: cam_x(
+        params, statics, md.c2w, md.intrinsics))
+    live_busy = profile_device(f"live {label} frame", lambda: render_image(
+        ren_x, params, statics, md, scene_aabb=aabb, chunk_rays=chunk))
+    return cam_ms, cam_busy, live_ms, live_busy, n_query
+
+
+def hard_forms_text(forms) -> None:
+    """The camera phase's two hard-mask forms side by side."""
+    print("camera: hard-mask forms of one 800x800 frame, side by side: "
+          + "; ".join(f"{label}: camera ms={c_ms:.2f} device busy "
+                      f"{c_busy:.2f} ms, live (render_image) ms="
+                      f"{l_ms:.2f} device busy {l_busy:.2f} ms, "
+                      f"occupancy_query launches {n}"
+                      for label, (c_ms, c_busy, l_ms, l_busy, n)
+                      in forms.items()), flush=True)
 
 
 ES_EPS = 1e-4  # nerfacc's default early_stop_eps
@@ -6100,7 +6586,10 @@ def main() -> int:
           "dispatch (top-E routing and a stable counting sort; torch.sort "
           "and cumsum are several calls), the blend's transpose (a scatter "
           "whose indices are unique: index_copy_ would need the products "
-          "formed first) or the coherent-expert test")
+          "formed first), the coherent-expert test or the occupancy point "
+          "query (no single PyTorch call selects the finest level that "
+          "holds a point and reads its cell; nor does one give the "
+          "sampler's mask: torch.searchsorted gives no mask)")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

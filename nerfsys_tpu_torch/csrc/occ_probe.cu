@@ -43,16 +43,15 @@
 //     x, so each level's inside test is x >= a and x < b with float bounds
 //     a, b that the wrapper finds once per box tensor (ops/occupancy.py
 //     `level_bounds`); only the deciding level divides, so the selected
-//     cells stay bit for bit those of the plain version;
+//     cells stay bit for bit those of the plain version (`locate`, in
+//     occ_common.cuh, shared with kernel 11q's point queries);
 //   - the probe results go to a rays x P tile in shared memory (the value,
 //     or -1 for a probe no expert occupies); phase 2 takes one ray a warp
 //     with lanes over its probes (the first design's order of the sums and
 //     the scan; J probes a lane, J the power of 2 at or above P / 32) and
 //     writes the cdf rows and occupancy bytes coalesced.
 // The plan comes from Python (ops/occupancy.py `occ_probe_plan`).
-#include "common.cuh"
-
-#define BOX_FLOATS 12  // a[3], b[3], lo[3], w[3] a level
+#include "occ_common.cuh"  // BOX_FLOATS, locate: shared with kernel 11q
 
 struct ProbePlan {  // ops/occupancy.py ProbeLaunchPlan
     int lane_map;   // 0 "probes": a warp a ray; 1 "rays": lanes over rays
@@ -77,30 +76,6 @@ __device__ __forceinline__ float warp_inclusive_scan(float v, int lane) {
         if (lane >= off) v += y;
     }
     return v;
-}
-
-// The flat cell index of expert k's deciding level at (x, y, z), or -1 when
-// no level contains the point. `box` holds the K x L level table in shared
-// memory, a level as three float4: (a, b.x), (b.y, b.z, lo.x, lo.y),
-// (lo.z, w).
-__device__ __forceinline__ int locate(const float4* box, int k, int L, int R,
-                                      float x, float y, float z) {
-    for (int l = 0; l < L; ++l) {
-        const float4* b = box + (k * L + l) * (BOX_FLOATS / 4);
-        const float4 q0 = b[0], q1 = b[1];
-        if (x >= q0.x && x < q0.w && y >= q0.y && y < q1.x && z >= q0.z &&
-            z < q1.y) {
-            const float4 q2 = b[2];
-            const float rx = (x - q1.z) / q2.y;
-            const float ry = (y - q1.w) / q2.z;
-            const float rz = (z - q2.x) / q2.w;
-            const int i0 = min(max(__float2int_rz(rx * (float)R), 0), R - 1);
-            const int i1 = min(max(__float2int_rz(ry * (float)R), 0), R - 1);
-            const int i2 = min(max(__float2int_rz(rz * (float)R), 0), R - 1);
-            return (((k * L + l) * R + i0) * R + i1) * R + i2;
-        }
-    }
-    return -1;
 }
 
 // One probe against the union of the K experts: -1 when no expert's

@@ -1,7 +1,7 @@
 // Kernel 3: inverse-CDF sample placement over the probe intervals.
 //
 // Replaces: nerfsys_tpu/ops/occupancy.py `sample_tvals_from_cdf` (:468),
-// without the optional per-sample mask (with_mask).
+// with its optional per-sample mask (with_mask, kernel 3m).
 //
 // Per ray, for each of the S samples with target u (shared (S,) or per ray
 // (N, S) when jittered):
@@ -11,6 +11,14 @@
 //   t    = near + (far - near) * s
 // then the S values are sorted ascending. Built with --fmad=false so the
 // lerps round like the plain PyTorch version.
+//
+// With the probe bits `occ` (N, P) (kernel 2's output; null: no mask),
+// sample i's bit occ[ray, idx_i] is written to `mask` (N, S) at the
+// sample's sorted position: position i on a row written out sorted, its
+// rank in (value, index) order on a row that takes the rank sort. That is
+// jnp.argsort's stable order (the reference takes the bits through it):
+// samples of equal t keep their index order, so a tie between two
+// intervals with different bits resolves as in the reference.
 //
 // Bound on the H100: bytes (the cdf row in, S floats out: ~43 MB per
 // 65,536-ray chunk at P=128, S=32). Counting every interval (P compares
@@ -36,7 +44,10 @@
 //     torch.sort's);
 //   - `counts`, when not null, receives the rows that took the count
 //     (counts[0]) and the rank sort (counts[1]): the edge checks' proof
-//     that both fallbacks are reached.
+//     that both fallbacks are reached;
+//   - the mask (3m): each placement reads its interval's bit (one byte of
+//     the ray's P, in the L1 after the first) into a per-warp byte row
+//     beside the placements, and the write-out stores it beside its t.
 #include "common.cuh"
 
 #define SAMPLE_THREADS 128  // ops/occupancy.py SAMPLE_WARPS x 32
@@ -47,7 +58,8 @@ struct SamplePlan {
     int blocks;   // ceil(N / warps); the launch takes at most the blocks
                   // resident at once, and the warps walk the rays
     int stride;   // floats of a staged cdf row: skew(P) + 1
-    int smem;     // warps * (2 * stride + S) floats, in bytes
+    int smem;     // warps * (2 * stride + S) floats, then warps * S mask
+                  // bytes, in bytes
     int top;      // the largest power of 2 <= P: the search's first step
 };
 
@@ -72,7 +84,8 @@ template <int PT, int ST>
 __global__ void __launch_bounds__(SAMPLE_THREADS) sample_tvals_kernel(
         const float* __restrict__ cdf, const float* __restrict__ near,
         const float* __restrict__ far, const float* __restrict__ u,
-        const float* __restrict__ edges, float* __restrict__ t_out,
+        const float* __restrict__ edges, const uint8_t* __restrict__ occ,
+        float* __restrict__ t_out, uint8_t* __restrict__ mask,
         int* __restrict__ counts, int N, int P_, int S_, int u_per_ray,
         SamplePlan plan) {
     extern __shared__ float smem[];
@@ -84,6 +97,9 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) sample_tvals_kernel(
     const long long step_rays = (long long)gridDim.x * plan.warps;
     float* rows = smem + wib * (2 * plan.stride + S);
     float* tv = rows + 2 * plan.stride;
+    uint8_t* mb = reinterpret_cast<uint8_t*>(
+                      smem + plan.warps * (2 * plan.stride + S)) +
+                  wib * S;  // the placements' probe bits
     const float width = edges[1] - edges[0];
     long long ray = (long long)blockIdx.x * plan.warps + wib;
     if (ray < N) stage_row(rows, cdf + ray * (P + 1), P, lane);
@@ -126,6 +142,7 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) sample_tvals_kernel(
                 (uu - lo) / fmaxf(c[skew(idx + 1)] - lo, 1e-12f);
             const float s = edges[idx] + frac * width;
             tv[i] = nr + span * s;
+            if (occ != nullptr) mb[i] = occ[ray * P + idx];
         }
         __syncwarp();
 
@@ -135,8 +152,12 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) sample_tvals_kernel(
             in_order = in_order && tv[i] <= tv[i + 1];
         const bool sorted = __all_sync(FULL_MASK, in_order);
         float* orow = t_out + ray * S;
+        uint8_t* mrow = mask != nullptr ? mask + ray * S : nullptr;
         if (sorted) {
-            for (int i = lane; i < S; i += 32) orow[i] = tv[i];
+            for (int i = lane; i < S; i += 32) {
+                orow[i] = tv[i];
+                if (mrow != nullptr) mrow[i] = mb[i];
+            }
         } else {
             for (int i = lane; i < S; i += 32) {
                 const float ti = tv[i];
@@ -146,21 +167,23 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) sample_tvals_kernel(
                     rank += (tj < ti || (tj == ti && j < i)) ? 1 : 0;
                 }
                 orow[rank] = ti;
+                if (mrow != nullptr) mrow[rank] = mb[i];
             }
         }
         if (counts != nullptr && lane == 0) {
             if (!search) atomicAdd(&counts[0], 1);
             if (!sorted) atomicAdd(&counts[1], 1);
         }
-        __syncwarp();  // every lane is done with this row and tv
+        __syncwarp();  // every lane is done with this row, tv and mb
     }
 }
 
 template <int PT, int ST>
 static int launch_sample(const float* cdf, const float* near,
                          const float* far, const float* u,
-                         const float* edges, float* t_out, int* counts,
-                         int N, int P, int S, int u_per_ray, SamplePlan plan,
+                         const float* edges, const uint8_t* occ,
+                         float* t_out, uint8_t* mask, int* counts, int N,
+                         int P, int S, int u_per_ray, SamplePlan plan,
                          cudaStream_t stream) {
     static LaunchCache cache;
     auto kern = sample_tvals_kernel<PT, ST>;
@@ -170,28 +193,33 @@ static int launch_sample(const float* cdf, const float* near,
     if (e != cudaSuccess) return (int)e;
     if (resident < 1) return (int)cudaErrorInvalidConfiguration;
     kern<<<min(plan.blocks, resident), plan.threads, plan.smem, stream>>>(
-        cdf, near, far, u, edges, t_out, counts, N, P, S, u_per_ray, plan);
+        cdf, near, far, u, edges, occ, t_out, mask, counts, N, P, S,
+        u_per_ray, plan);
     return (int)cudaGetLastError();
 }
 
 // cdf: (N, P+1); near, far: (N,); u: (S,) or (N, S); edges: (P+1,);
-// counts: (2,) int32 or null. Out: t_vals (N, S), sorted per ray.
+// occ: (N, P) bool probe bits or null; counts: (2,) int32 or null.
+// Out: t_vals (N, S), sorted per ray; mask (N, S) bool, null iff occ is.
 NERF_API int sample_tvals_from_cdf(const float* cdf, const float* near,
                                    const float* far, const float* u,
-                                   const float* edges, float* t_out,
-                                   int* counts, int N, int P, int S,
-                                   int u_per_ray, SamplePlan plan,
-                                   cudaStream_t stream) {
+                                   const float* edges, const uint8_t* occ,
+                                   float* t_out, uint8_t* mask, int* counts,
+                                   int N, int P, int S, int u_per_ray,
+                                   SamplePlan plan, cudaStream_t stream) {
     if (P < 1 || S < 1 || plan.threads != SAMPLE_THREADS ||
         plan.threads != plan.warps * 32 || plan.blocks < 1 ||
         plan.stride != P + (P >> 5) + 1 || plan.top < 1 || plan.top > P ||
-        2 * plan.top <= P || plan.smem > 48 * 1024)
+        2 * plan.top <= P ||
+        plan.smem != plan.warps * (4 * (2 * plan.stride + S) + S) ||
+        plan.smem > 48 * 1024 || (occ == nullptr) != (mask == nullptr))
         return (int)cudaErrorInvalidValue;
     if (N < 1) return (int)cudaGetLastError();
     return P == 128 && S == 32
-               ? launch_sample<128, 32>(cdf, near, far, u, edges, t_out,
-                                        counts, N, P, S, u_per_ray, plan,
-                                        stream)
-               : launch_sample<0, 0>(cdf, near, far, u, edges, t_out, counts,
-                                     N, P, S, u_per_ray, plan, stream);
+               ? launch_sample<128, 32>(cdf, near, far, u, edges, occ, t_out,
+                                        mask, counts, N, P, S, u_per_ray,
+                                        plan, stream)
+               : launch_sample<0, 0>(cdf, near, far, u, edges, occ, t_out,
+                                     mask, counts, N, P, S, u_per_ray, plan,
+                                     stream);
 }

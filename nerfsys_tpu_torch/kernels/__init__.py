@@ -36,10 +36,11 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# library stem -> (source file, extra nvcc flags). The probe and sampler
-# compile with --fmad=false so that no multiply-add is contracted: their
-# cell selection, interval counts and lerps then round exactly like the
-# plain PyTorch versions, which run one elementwise op per kernel. The
+# library stem -> (source file, extra nvcc flags). The probe, the sampler
+# and the point query compile with --fmad=false so that no multiply-add is
+# contracted: their cell selection, interval counts and lerps then round
+# exactly like the plain PyTorch versions, which run one elementwise op per
+# kernel. The
 # encoder backward does too: its light mode rounds the recomputed plane and
 # line values to bfloat16, and a value one float32 ulp away can round to
 # the neighbouring bfloat16. So does the baked lookup, whose cell selection
@@ -65,10 +66,12 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "hash_grid": ("hash_grid.cu", ("--fmad=false",)),
     "bucket": ("bucket.cu", ("--fmad=false",)),
     "coherent": ("coherent.cu", ("--fmad=false",)),
+    "occ_query": ("occ_query.cu", ("--fmad=false",)),
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -261,10 +264,12 @@ class SamplePlan(ctypes.Structure):
 
 OCC_SAMPLE = Kernel(
     "sample_tvals_from_cdf", "occ_sample", "sample_tvals_from_cdf",
-    # cdf, near, far, u, edges, t_vals, branch counts (nullable), N, P, S,
+    # cdf, near, far, u, edges, probe bits (nullable), t_vals, mask
+    # (nullable with the bits), branch counts (nullable), N, P, S,
     # u_per_ray, plan (by value), stream
-    [_P] * 7 + [_I] * 4 + [SamplePlan, _P],
-    replaces="nerfsys_tpu/ops/occupancy.py:468 (sample_tvals_from_cdf)",
+    [_P] * 9 + [_I] * 4 + [SamplePlan, _P],
+    replaces="nerfsys_tpu/ops/occupancy.py:468 (sample_tvals_from_cdf, "
+             "with_mask)",
 )
 
 
@@ -465,10 +470,21 @@ COHERENT_EXPERT = Kernel(
     replaces="nerfsys_tpu/models/container.py:198 (routing_coherent_expert)",
 )
 
+OCC_QUERY = Kernel(
+    "occupancy_query", "occ_query", "occupancy_query",
+    # pts, occs (nullable), binary (nullable), level table, bits out
+    # (nullable), values out (nullable), M, K, L, R, stream
+    [_P] * 6 + [_L] + [_I] * 3 + [_P],
+    replaces="nerfsys_tpu/ops/occupancy.py:159,179,196 (query_binary, "
+             "query_values, query_pair: one row_gather a point, "
+             "ops/gather.py:40; unioned as models/occupancy.py:47-118)",
+)
+
 KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
            PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG,
            HASH_FWD, HASH_FWD_PACKED, HASH_BWD, BUCKET_DISPATCH,
-           BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT)
+           BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT,
+           OCC_QUERY)
 
 
 def reset_launches() -> None:
@@ -496,6 +512,7 @@ def check_no_grad(name: str, *tensors) -> None:
 # inputs the kernels read in another dtype than float32, by keyword
 _DTYPES = {
     "binary": (torch.bool,),
+    "occ": (torch.bool,),
     "table": (torch.float32, torch.bfloat16),
     "block_index": (torch.int32,),
     "dest": (torch.int32,),

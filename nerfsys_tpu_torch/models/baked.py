@@ -304,14 +304,16 @@ def cell_centers(R: int, lo: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
 
 def bake_alive_mask(occ_state: Dict, statics: ContainerStatics,
                     centers: torch.Tensor, R: int,
-                    occ_dilate: int = 2) -> Optional[torch.Tensor]:
+                    occ_dilate: int = 2, *,
+                    use_kernels: bool = True) -> Optional[torch.Tensor]:
     """(R, R, R) bool: cells whose centre is occupied under any expert's
-    grid, dilated `occ_dilate` passes in bake-grid space; None when the
-    occupancy state is not ready (the bake then evaluates every cell)."""
+    grid (kernel 11q unless use_kernels=False), dilated `occ_dilate` passes
+    in bake-grid space; None when the occupancy state is not ready (the
+    bake then evaluates every cell)."""
     if not bool(occ_ready(occ_state)):
         print("[bake] occ_state not ready (warmup incomplete) - baking dense")
         return None
-    query = union_binary_fn(occ_state, statics)
+    query = union_binary_fn(occ_state, statics, use_kernels=use_kernels)
     step = 1 << 20
     alive = torch.cat([query(centers[i:i + step])
                        for i in range(0, centers.shape[0], step)])
@@ -353,7 +355,8 @@ def bake_field(params, cfg: ContainerConfig, statics: ContainerStatics,
     cells = None
     if occ_state is not None:
         occ = {k: v.to(dev) for k, v in occ_state.items()}
-        alive = bake_alive_mask(occ, statics, centers, R, occ_dilate)
+        alive = bake_alive_mask(occ, statics, centers, R, occ_dilate,
+                                use_kernels=use_kernels)
         if alive is not None:
             cells = torch.nonzero(alive.reshape(-1)).squeeze(1)
             print(f"[bake] occ skip: {cells.numel()}/{R**3} cells alive "

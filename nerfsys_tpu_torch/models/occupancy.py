@@ -18,11 +18,14 @@ sample points.
 The probe takes grid stacks, not query functions: the grid slice of
 `active_expert` (or all K for the union) goes to kernel 2, or, with
 `probe_fns` (`union_probe_fns` of a `build_union_probe_grid` result), the
-ONE resampled union grid as a K=1, L=1 stack. The hard sigma mask always
-reads the exact per-expert union. `field_expert` narrows the field
-evaluation to one expert while probing and masking keep the union (the
-coherent dispatch). Probe-bit masks (`mask_from_probes`) are not ported
-and raise NotImplementedError.
+ONE resampled union grid as a K=1, L=1 stack. The hard sigma mask reads
+the exact per-expert union at the sample points (kernel 11q through
+`occupancy_query`), or with `mask_from_probes` each sample's probe-interval
+bit (kernel 3's mask output; under the union probe grid, that grid's
+bit). `field_expert` narrows the field evaluation to one expert while
+probing and masking keep the union (the coherent dispatch). The point
+queries of the union functions below go through kernel 11q unless
+use_kernels=False.
 """
 from __future__ import annotations
 
@@ -44,11 +47,8 @@ from nerfsys_tpu_torch.ops.occupancy import (
     level_aabbs,
     mark_invisible_cells,
     occupancy_probe_cdf,
-    query_binary,
-    query_pair,
-    query_values,
+    occupancy_query,
     sample_tvals_from_cdf,
-    union_pair,
     update_occ_grid,
 )
 from nerfsys_tpu_torch.ops.volrend import (
@@ -65,62 +65,49 @@ from nerfsys_tpu_torch.ops.volrend import (
 Render = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def union_binary_fn(occ_state: Dict, statics: ContainerStatics):
+def _query_fn(occ_state: Dict, statics: ContainerStatics,
+              k: Optional[int], mode: str, use_kernels: bool):
+    """pts (M, 3) -> `occupancy_query` of `mode` over every expert's grid
+    (k None) or expert k's alone (its K=1 slice)."""
+    sl = slice(None) if k is None else slice(int(k), int(k) + 1)
+
+    def query(pts):
+        return occupancy_query(occ_state["occs"][sl],
+                               occ_state["binary"][sl],
+                               statics.expert_aabbs[sl], pts, mode,
+                               use_kernels=use_kernels)
+
+    return query
+
+
+def union_binary_fn(occ_state: Dict, statics: ContainerStatics, *,
+                    use_kernels: bool = True):
     """pts (M, 3) -> (M,) bool: occupied under ANY expert's grid."""
-
-    def query(pts):
-        binary = occ_state["binary"]
-        occ = query_binary(binary[0], statics.expert_aabbs[0], pts)
-        for k in range(1, binary.shape[0]):
-            occ = occ | query_binary(binary[k], statics.expert_aabbs[k], pts)
-        return occ
-
-    return query
+    return _query_fn(occ_state, statics, None, "bits", use_kernels)
 
 
-def expert_binary_fn(occ_state: Dict, statics: ContainerStatics, k: int):
+def expert_binary_fn(occ_state: Dict, statics: ContainerStatics, k: int, *,
+                     use_kernels: bool = True):
     """pts (M, 3) -> (M,) bool: occupied under expert k's grid alone."""
-
-    def query(pts):
-        return query_binary(occ_state["binary"][k], statics.expert_aabbs[k],
-                            pts)
-
-    return query
+    return _query_fn(occ_state, statics, k, "bits", use_kernels)
 
 
-def union_value_fn(occ_state: Dict, statics: ContainerStatics):
+def union_value_fn(occ_state: Dict, statics: ContainerStatics, *,
+                   use_kernels: bool = True):
     """pts (M, 3) -> (M,) max EMA value over the experts."""
-
-    def query(pts):
-        occs = occ_state["occs"]
-        val = query_values(occs[0], statics.expert_aabbs[0], pts)
-        for k in range(1, occs.shape[0]):
-            val = torch.maximum(val, query_values(occs[k],
-                                                  statics.expert_aabbs[k],
-                                                  pts))
-        return val
-
-    return query
+    return _query_fn(occ_state, statics, None, "values", use_kernels)
 
 
-def union_pair_fn(occ_state: Dict, statics: ContainerStatics):
+def union_pair_fn(occ_state: Dict, statics: ContainerStatics, *,
+                  use_kernels: bool = True):
     """pts (M, 3) -> (occ under ANY expert (M,), max EMA value (M,))."""
-
-    def query(pts):
-        return union_pair(occ_state["occs"], occ_state["binary"],
-                          statics.expert_aabbs, pts)
-
-    return query
+    return _query_fn(occ_state, statics, None, "pair", use_kernels)
 
 
-def expert_pair_fn(occ_state: Dict, statics: ContainerStatics, k: int):
+def expert_pair_fn(occ_state: Dict, statics: ContainerStatics, k: int, *,
+                   use_kernels: bool = True):
     """pts (M, 3) -> (occ, value) of expert k's grid alone."""
-
-    def query(pts):
-        return query_pair(occ_state["occs"][k], occ_state["binary"][k],
-                          statics.expert_aabbs[k], pts)
-
-    return query
+    return _query_fn(occ_state, statics, k, "pair", use_kernels)
 
 
 def occ_ready(occ_state: Dict, min_updates: int = 1) -> torch.Tensor:
@@ -204,7 +191,8 @@ def _chunked(fn, pts: torch.Tensor) -> torch.Tensor:
 
 def build_union_probe_grid(occ_state: Dict, statics: ContainerStatics,
                            res: int = 128, importance: bool = False,
-                           dilate: int = 1) -> Dict:
+                           dilate: int = 1, *,
+                           use_kernels: bool = True) -> Dict:
     """Resample the K experts' occupancy union into ONE single-level grid
     for PROBING only -> {"binary": (1, res, res, res) bool, "values":
     (1, res, res, res) f32 or None, "aabb": (2, 3)}.
@@ -222,7 +210,7 @@ def build_union_probe_grid(occ_state: Dict, statics: ContainerStatics,
     lo = torch.minimum(la[:, :, 0].amin(dim=(0, 1)), statics.global_aabb[0])
     hi = torch.maximum(la[:, :, 1].amax(dim=(0, 1)), statics.global_aabb[1])
     aabb = torch.stack([lo, hi])
-    bin_fn = union_binary_fn(occ_state, statics)
+    bin_fn = union_binary_fn(occ_state, statics, use_kernels=use_kernels)
     dev = aabb.device
 
     def grid_pts(n, offset_half):
@@ -252,7 +240,8 @@ def build_union_probe_grid(occ_state: Dict, statics: ContainerStatics,
                     cell = cell | p[dx:dx + res, dy:dy + res, dz:dz + res]
     out = {"binary": cell[None], "values": None, "aabb": aabb}
     if importance:
-        vals = _chunked(union_value_fn(occ_state, statics), centers)
+        vals = _chunked(union_value_fn(occ_state, statics,
+                                       use_kernels=use_kernels), centers)
         out["values"] = vals.reshape(1, res, res, res)
     return out
 
@@ -292,23 +281,32 @@ def _ray_validity(rays: torch.Tensor):
 
 
 def _occ_query_fns(occ_state: Dict, statics: ContainerStatics,
-                   active_expert: Optional[int]):
+                   active_expert: Optional[int], use_kernels: bool = True):
     """(bin_fn, grids): the exact mask query of the hard mode, and the
     (occs, binary, aabbs) stack the probe reads (expert k's K=1 slice, or
     all K for the union)."""
     occs, binary, aabbs = (occ_state["occs"], occ_state["binary"],
                            statics.expert_aabbs)
     if active_expert is None:
-        return union_binary_fn(occ_state, statics), (occs, binary, aabbs)
+        return (union_binary_fn(occ_state, statics, use_kernels=use_kernels),
+                (occs, binary, aabbs))
     k = int(active_expert)
-    return (expert_binary_fn(occ_state, statics, k),
+    return (expert_binary_fn(occ_state, statics, k, use_kernels=use_kernels),
             (occs[k:k + 1], binary[k:k + 1], aabbs[k:k + 1]))
 
 
-def _not_ported(mask_from_probes=False):
-    if mask_from_probes:
-        raise NotImplementedError("mask_from_probes (interval-bit sigma "
-                                  "masks) is not ported")
+def _sample(cdf_state, near_s, far_s, n_samples, generator, randomized,
+            with_mask: bool, use_kernels: bool):
+    """(t_vals, alive, probe bits (N, S) or None): kernel 3, with the
+    interval bits when the hard mask takes them from the probes."""
+    if with_mask:
+        return sample_tvals_from_cdf(
+            cdf_state, near_s, far_s, n_samples, generator=generator,
+            randomized=randomized, with_mask=True, use_kernels=use_kernels)
+    t_vals, alive = sample_tvals_from_cdf(
+        cdf_state, near_s, far_s, n_samples, generator=generator,
+        randomized=randomized, use_kernels=use_kernels)
+    return t_vals, alive, None
 
 
 def _split_rays(rays: torch.Tensor):
@@ -450,10 +448,11 @@ def render_rays_occ(
     inverse-CDF placement (kernel 3) -> routed field (the encoder kernel +
     MLPs; through expert `field_expert` alone when given, while probing and
     masking keep `active_expert`'s semantics) -> hard mode: sigma zeroed
-    outside the exact union at the sample points and on dead rays
-    (point-exact, one grid query per sample per expert) -> compositing
-    (kernel 4)."""
-    _not_ported(mask_from_probes)
+    outside the exact union at the sample points (point-exact, kernel 11q)
+    or, with mask_from_probes, where the sample's probe interval is empty
+    (the probe's bit, carried by kernel 3; no grid query), and on dead
+    rays -> compositing (kernel 4). Soft mode ignores mask_from_probes, as
+    the reference does."""
     o, d = _split_rays(rays)
     n_rays = o.shape[0]
     valid, near_s, far_s = _ray_validity(rays)
@@ -466,9 +465,9 @@ def render_rays_occ(
                                near_s, far_s, n_probes, importance,
                                uniform_frac, ray_floor, use_kernels,
                                probe_fns)
-    t_vals, alive = sample_tvals_from_cdf(
-        cdf_state, near_s, far_s, n_samples, generator=generator,
-        randomized=randomized, use_kernels=use_kernels)
+    t_vals, alive, occ_bits = _sample(
+        cdf_state, near_s, far_s, n_samples, generator, randomized,
+        mask_from_probes and hard_mask, use_kernels)
 
     pts = t_to_points(o, d, t_vals).reshape(-1, 3)
     dirs = d[:, None, :].expand(n_rays, n_samples, 3).reshape(-1, 3)
@@ -478,8 +477,9 @@ def render_rays_occ(
         use_kernels=use_kernels)
     rgb = rgb.reshape(n_rays, n_samples, 3)
     sigma = sigma.reshape(n_rays, n_samples)
-    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
-                          valid, hard_mask, n_rays, n_samples)
+    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, occ_bits,
+                          alive, valid, hard_mask, n_rays, n_samples,
+                          use_kernels)
     sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
 
     bg = _background(params, cfg, use_bg_fn, bg_policy, d, rgb,
@@ -533,14 +533,19 @@ def occ_sample_positions(
 # of the products and sums.
 
 
-def _occ_keep_mask(occ_state, statics, active_expert, pts_flat, alive, valid,
-                   hard_mask, n_rays, s):
+def _occ_keep_mask(occ_state, statics, active_expert, pts_flat, occ_bits_seg,
+                   alive, valid, hard_mask, n_rays, s, use_kernels=True):
     """The sigma keep-mask of render_rays_occ for (n_rays, s) samples at
-    pts_flat: hard mode keeps occupied samples of alive valid rays (point
-    exact); soft mode keeps every sample of a valid ray."""
+    pts_flat: hard mode keeps the occupied samples of alive valid rays,
+    by the probe bits `occ_bits_seg` (n_rays, s) when given, else by the
+    point query; soft mode keeps every sample of a valid ray."""
     if hard_mask:
-        bin_fn, _ = _occ_query_fns(occ_state, statics, active_expert)
-        occ_mask = bin_fn(pts_flat).reshape(n_rays, s)
+        if occ_bits_seg is not None:
+            occ_mask = occ_bits_seg
+        else:
+            bin_fn, _ = _occ_query_fns(occ_state, statics, active_expert,
+                                       use_kernels)
+            occ_mask = bin_fn(pts_flat).reshape(n_rays, s)
         return occ_mask & alive[:, None] & valid[:, None]
     return valid[:, None].expand(n_rays, s)
 
@@ -588,13 +593,13 @@ def render_rays_occ_et_partial(
     ended here (exact for rays whose remaining transmittance is below
     early_stop_eps, up to that eps); et_alive: (N,) bool, the rays that need
     the remaining samples; resume_state: what render_rays_occ_et_resume
-    reads (the carry, the remaining t and dt, masks, the background).
+    reads (the carry, the remaining t and dt, masks, the background; with
+    the probes' bits as the mask, the remaining samples' bits "occ_rest").
     Backgrounds that read field colors ('last_sample') or need a generator
     ('random') are refused; the caller gates on that."""
     if bg_policy in ("last_sample", "random"):
         raise ValueError(f"early-stop rendering does not support "
                          f"bg_policy={bg_policy!r}")
-    _not_ported(mask_from_probes)
     o, d = _split_rays(rays)
     n_rays = o.shape[0]
     valid, near_s, far_s = _ray_validity(rays)
@@ -605,8 +610,9 @@ def render_rays_occ_et_partial(
                                near_s, far_s, n_probes, importance,
                                uniform_frac, ray_floor, use_kernels,
                                probe_fns)
-    t_vals, alive = sample_tvals_from_cdf(cdf_state, near_s, far_s,
-                                          n_samples, use_kernels=use_kernels)
+    t_vals, alive, occ_bits = _sample(
+        cdf_state, near_s, far_s, n_samples, None, False,
+        mask_from_probes and hard_mask, use_kernels)
     dists = full_dists(t_vals)
     s1 = int(seg_samples)
     t_seg, d_seg = t_vals[:, :s1], dists[:, :s1]
@@ -614,8 +620,9 @@ def render_rays_occ_et_partial(
     dirs = d[:, None, :].expand(n_rays, s1, 3).reshape(-1, 3)
     rgb, sigma = container_apply(params, cfg, statics, pts, dirs,
                                  active_expert, use_kernels=use_kernels)
-    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
-                          valid, hard_mask, n_rays, s1)
+    keep = _occ_keep_mask(occ_state, statics, active_expert, pts,
+                          None if occ_bits is None else occ_bits[:, :s1],
+                          alive, valid, hard_mask, n_rays, s1, use_kernels)
     rgb, sigma = _masked_segment(sigma.reshape(n_rays, s1), keep,
                                  rgb.reshape(n_rays, s1, 3), sigma_scale)
     segment = composite_segment if use_kernels else composite_segment_plain
@@ -633,6 +640,8 @@ def render_rays_occ_et_partial(
     state = {"o": o, "d": d, "t_rest": t_vals[:, s1:],
              "d_rest": dists[:, s1:], "alive": alive, "valid": valid,
              "carry": carry, "bg": bg}
+    if occ_bits is not None:
+        state["occ_rest"] = occ_bits[:, s1:]
     return outputs, et_alive, state
 
 
@@ -667,8 +676,9 @@ def render_rays_occ_et_resume(
     dirs = d[:, None, :].expand(n_rays, s2, 3).reshape(-1, 3)
     rgb, sigma = container_apply(params, cfg, statics, pts, dirs,
                                  active_expert, use_kernels=use_kernels)
-    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, alive,
-                          valid, hard_mask, n_rays, s2)
+    occ_rest = take(state["occ_rest"]) if "occ_rest" in state else None
+    keep = _occ_keep_mask(occ_state, statics, active_expert, pts, occ_rest,
+                          alive, valid, hard_mask, n_rays, s2, use_kernels)
     rgb, sigma = _masked_segment(sigma.reshape(n_rays, s2), keep,
                                  rgb.reshape(n_rays, s2, 3), sigma_scale)
     segment = composite_segment if use_kernels else composite_segment_plain

@@ -17,7 +17,11 @@ decides its cell.
 Kernel 2 (`csrc/occ_probe.cu`) computes the union probe + CDF on the card
 (launch plan from `occ_probe_plan`; level tables from `level_bounds`,
 cached per box tensor), kernel 3 (`csrc/occ_sample.cu`) the inverse-CDF
-sampler; the `*_plain` functions are the same math in plain PyTorch.
+sampler and, with the probe bits, each sample's interval bit (3m, the
+reference's with_mask), and kernel 11q (`csrc/occ_query.cu`) the point
+queries unioned over the stacked experts (`occupancy_query`: the hard
+mask, the union probe grid's build, the bake's alive cells); the
+`*_plain` functions are the same math in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -317,6 +321,109 @@ def union_pair(occs: torch.Tensor, binary: torch.Tensor, aabbs: torch.Tensor,
     occ_k, val_k = zip(*(query_pair(occs[k], binary[k], aabbs[k], pts)
                          for k in range(occs.shape[0])))
     return torch.stack(occ_k).any(dim=0), torch.stack(val_k).amax(dim=0)
+
+
+QUERY_MODES = ("bits", "values", "pair")
+QUERY_THREADS = 256  # csrc/occ_query.cu: a thread a point
+QUERY_SMEM = 48 * 1024  # the level table, without an opt-in
+
+
+def occupancy_query_plain(occs: Optional[torch.Tensor],
+                          binary: Optional[torch.Tensor],
+                          aabbs: torch.Tensor, pts: torch.Tensor, mode: str):
+    """Plain PyTorch version of kernel 11q: the point queries of the K
+    stacked experts unioned, as the reference's union_binary_fn /
+    union_value_fn / union_pair_fn do -> any-expert bits (...,) bool
+    ("bits"), max-over-experts values (...,) ("values"), or both
+    ("pair")."""
+    if mode == "bits":
+        occ = query_binary(binary[0], aabbs[0], pts)
+        for k in range(1, binary.shape[0]):
+            occ = occ | query_binary(binary[k], aabbs[k], pts)
+        return occ
+    if mode == "values":
+        val = query_values(occs[0], aabbs[0], pts)
+        for k in range(1, occs.shape[0]):
+            val = torch.maximum(val, query_values(occs[k], aabbs[k], pts))
+        return val
+    return union_pair(occs, binary, aabbs, pts)
+
+
+def occupancy_query_kernel(occs: Optional[torch.Tensor],
+                           binary: Optional[torch.Tensor],
+                           aabbs: torch.Tensor, pts: torch.Tensor,
+                           mode: str):
+    """Kernel 11q's wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `occupancy_query` (a thread a point; the level
+    table from `level_bounds`, cached per box tensor) or raises. `occs` may
+    be None in "bits" mode and `binary` in "values" mode."""
+    if mode not in QUERY_MODES:
+        raise ValueError(f"occupancy_query: mode={mode!r}, expected one of "
+                         f"{QUERY_MODES}")
+    if pts.device.type == "cpu":
+        return occupancy_query_plain(occs, binary, aabbs, pts, mode)
+    if pts.device.type != "cuda":
+        raise ValueError(f"occupancy_query: unsupported device {pts.device}")
+    dev = pts.device
+    bits, values = mode != "values", mode != "bits"
+    grid = binary if bits else occs
+    K, L, R = grid.shape[0], grid.shape[1], grid.shape[2]
+    if (grid.dim() != 5 or tuple(aabbs.shape) != (K, 2, 3)
+            or (bits and values and binary.shape != occs.shape)):
+        raise ValueError("occupancy_query: grid/box shapes disagree")
+    if K * L * R ** 3 >= 2 ** 31:
+        raise ValueError("occupancy_query: the kernel takes grids of fewer "
+                         "than 2^31 cells")
+    if 4 * K * L * BOX_FLOATS > QUERY_SMEM:
+        raise ValueError(f"occupancy_query: K={K} x L={L} levels exceed "
+                         f"{QUERY_SMEM} bytes of shared memory")
+    if aabbs.dtype != torch.float32:
+        raise TypeError(f"occupancy_query: aabbs has dtype {aabbs.dtype}, "
+                        f"expected torch.float32")
+    if pts.shape[-1] != 3:
+        raise ValueError("occupancy_query: pts must be (..., 3)")
+    table = _level_table(aabbs, L)
+    flat = pts.reshape(-1, 3)
+    kernels.check_cuda_tensors(
+        "occupancy_query", dev, pts=flat, levels=table,
+        occs=occs if values else None, binary=binary if bits else None)
+    M = flat.shape[0]
+    out_bits = (torch.empty((M,), dtype=torch.bool, device=dev) if bits
+                else None)
+    out_vals = (torch.empty((M,), dtype=torch.float32, device=dev)
+                if values else None)
+    if M:
+        kernels.OCC_QUERY(
+            flat.data_ptr(), occs.data_ptr() if values else 0,
+            binary.data_ptr() if bits else 0, table.data_ptr(),
+            0 if out_bits is None else out_bits.data_ptr(),
+            0 if out_vals is None else out_vals.data_ptr(), M, K, L, R,
+            kernels.stream_ptr(pts))
+    shape = pts.shape[:-1]
+    if mode == "bits":
+        return out_bits.reshape(shape)
+    if mode == "values":
+        return out_vals.reshape(shape)
+    return out_bits.reshape(shape), out_vals.reshape(shape)
+
+
+def occupancy_query(occs: Optional[torch.Tensor],
+                    binary: Optional[torch.Tensor], aabbs: torch.Tensor,
+                    pts: torch.Tensor, mode: str, *,
+                    use_kernels: bool = True):
+    """The occupancy at world points pts (..., 3) under the UNION of the
+    stacked experts' grids, occs / binary (K, L, R, R, R) and aabbs (K, 2,
+    3) (a single expert is a K=1 slice): "bits" -> any expert's bit,
+    "values" -> the max over experts of the EMA value clamped at 0,
+    "pair" -> (bits, values). A point inside no level of an expert reads
+    (False, 0) for it. use_kernels=False runs the plain version on any
+    device."""
+    if use_kernels:
+        return occupancy_query_kernel(occs, binary, aabbs, pts, mode)
+    if mode not in QUERY_MODES:
+        raise ValueError(f"occupancy_query: mode={mode!r}, expected one of "
+                         f"{QUERY_MODES}")
+    return occupancy_query_plain(occs, binary, aabbs, pts, mode)
 
 
 @functools.lru_cache(maxsize=64)
@@ -664,9 +771,14 @@ def _sample_targets(N: int, S: int, device, generator, randomized: bool):
 
 
 def sample_tvals_plain(cdf: torch.Tensor, near: torch.Tensor,
-                       far: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+                       far: torch.Tensor, u: torch.Tensor,
+                       occ: Optional[torch.Tensor] = None):
     """Plain PyTorch version of kernel 3: sorted t_vals (N, S) for targets
-    u, (S,) or (N, S)."""
+    u, (S,) or (N, S). With the probe bits occ (N, P) -> (t_vals, mask (N,
+    S) bool): each sample's interval bit, taken through the stable sort's
+    order as the reference's jnp.argsort takes it (samples of equal t keep
+    their index order: an unstable sort could swap two tied samples from
+    intervals with different bits)."""
     N, P = cdf.shape[0], cdf.shape[1] - 1
     edges = linspace01(P + 1, cdf.device)
     u = u.expand(N, u.shape[-1])
@@ -679,7 +791,10 @@ def sample_tvals_plain(cdf: torch.Tensor, near: torch.Tensor,
     width = edges[1] - edges[0]
     s = e_lo + frac * width
     t_vals = near[:, None] + (far - near)[:, None] * s
-    return torch.sort(t_vals, dim=1).values
+    if occ is None:
+        return torch.sort(t_vals, dim=1).values
+    t_sorted, order = torch.sort(t_vals, dim=1, stable=True)
+    return t_sorted, torch.gather(occ, 1, torch.gather(idx, 1, order))
 
 
 SAMPLE_WARPS = 4  # warps a block of kernel 3, a ray each at a time
@@ -696,7 +811,8 @@ class SampleLaunchPlan:
     # the blocks resident at once, and the warps walk the rays, staging the
     # next row while they place the current one
     stride: int  # floats of a staged cdf row, one word of skew every 32
-    smem: int  # warps x (2 rows + S placements) floats
+    smem: int  # warps x (2 rows + S placements) floats, then warps x S
+    # bytes: the placements' probe bits (3m)
     top: int  # the largest power of 2 <= P: the binary search's first step
 
     def as_struct(self) -> "kernels.SamplePlan":
@@ -713,7 +829,7 @@ def sample_plan(n: int, p: int, s: int) -> SampleLaunchPlan:
     if p < 1 or s < 1:
         raise ValueError(f"sample_tvals_from_cdf: P={p}, S={s}")
     stride = p + (p >> 5) + 1
-    smem = 4 * SAMPLE_WARPS * (2 * stride + s)
+    smem = SAMPLE_WARPS * (4 * (2 * stride + s) + s)
     if smem > SAMPLE_SMEM:
         raise ValueError(f"sample_tvals_from_cdf: P={p} and S={s} exceed "
                          f"{SAMPLE_SMEM} bytes of shared memory")
@@ -736,16 +852,17 @@ def _sample_edges(P: int, device) -> torch.Tensor:
 
 
 def sample_tvals_kernel(cdf: torch.Tensor, near: torch.Tensor,
-                        far: torch.Tensor, u: torch.Tensor, *,
-                        branch_counts: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        far: torch.Tensor, u: torch.Tensor,
+                        occ: Optional[torch.Tensor] = None, *,
+                        branch_counts: Optional[torch.Tensor] = None):
     """Kernel 3's wrapper: the plain version for CPU tensors; on CUDA
     tensors it launches `sample_tvals_from_cdf` (with `sample_plan`'s
-    plan) or raises. `branch_counts`, a zeroed (2,) int32 tensor on the
-    card, receives the rows that took the literal count and the rank
-    sort."""
+    plan) or raises. With the probe bits occ (N, P) it returns (t_vals,
+    mask), as `sample_tvals_plain` does (3m). `branch_counts`, a zeroed
+    (2,) int32 tensor on the card, receives the rows that took the literal
+    count and the rank sort."""
     if cdf.device.type == "cpu":
-        return sample_tvals_plain(cdf, near, far, u)
+        return sample_tvals_plain(cdf, near, far, u, occ)
     if cdf.device.type != "cuda":
         raise ValueError(f"sample_tvals_from_cdf: unsupported device "
                          f"{cdf.device}")
@@ -758,17 +875,24 @@ def sample_tvals_kernel(cdf: torch.Tensor, near: torch.Tensor,
     plan = _sample_struct(N, P, S)
     edges = _sample_edges(P, dev)
     kernels.check_cuda_tensors("sample_tvals_from_cdf", dev, cdf=cdf,
-                               near=near, far=far, u=u,
+                               near=near, far=far, u=u, occ=occ,
                                branch_counts=branch_counts)
     if branch_counts is not None and tuple(branch_counts.shape) != (2,):
         raise ValueError("sample_tvals_from_cdf: branch_counts must be (2,)")
+    if occ is not None and tuple(occ.shape) != (N, P):
+        raise ValueError("sample_tvals_from_cdf: occ must be (N, P)")
     t_vals = torch.empty((N, S), dtype=torch.float32, device=dev)
+    mask = (None if occ is None
+            else torch.empty((N, S), dtype=torch.bool, device=dev))
     kernels.OCC_SAMPLE(cdf.data_ptr(), near.data_ptr(), far.data_ptr(),
-                       u.data_ptr(), edges.data_ptr(), t_vals.data_ptr(),
+                       u.data_ptr(), edges.data_ptr(),
+                       0 if occ is None else occ.data_ptr(),
+                       t_vals.data_ptr(),
+                       0 if mask is None else mask.data_ptr(),
                        0 if branch_counts is None
                        else branch_counts.data_ptr(),
                        N, P, S, int(per_ray), plan, kernels.stream_ptr(cdf))
-    return t_vals
+    return t_vals if occ is None else (t_vals, mask)
 
 
 def sample_tvals_from_cdf(
@@ -778,17 +902,24 @@ def sample_tvals_from_cdf(
     n_samples: int,
     generator: Optional[torch.Generator] = None,
     randomized: bool = False,
+    with_mask: bool = False,
     *,
     use_kernels: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """Pass 2: place S samples by inverse CDF over the probe intervals ->
-    (t_vals (N, S) sorted, alive (N,)). The per-sample mask (with_mask) is
-    not ported yet."""
+    (t_vals (N, S) sorted, alive (N,)). with_mask=True also returns each
+    sample's probe-interval occupancy bit (N, S), from cdf_state["occ"]
+    (kernel 2's probe bits): the grid-query-free alternative to the point
+    query of every sample (interval-resolution masking keeps a sample's
+    sigma wherever its probe interval is occupied)."""
     cdf = cdf_state["cdf"]
     u = _sample_targets(cdf.shape[0], n_samples, cdf.device, generator,
                         randomized)
     fn = sample_tvals_kernel if use_kernels else sample_tvals_plain
-    return fn(cdf, near, far, u.contiguous()), cdf_state["alive"]
+    if not with_mask:
+        return fn(cdf, near, far, u.contiguous()), cdf_state["alive"]
+    t_vals, mask = fn(cdf, near, far, u.contiguous(), cdf_state["occ"])
+    return t_vals, cdf_state["alive"], mask
 
 
 def render_rays_occ_field(
@@ -818,22 +949,20 @@ def render_rays_occ_field(
     depth (N,), weights (N, S), acc (N,)). Soft mode (hard_mask=False):
     the grid steers sample PLACEMENT and never deletes density. Hard mode:
     sigma is also zeroed where the binary grid is empty at the final
-    sample points (point-exact: one query of the grid a sample) and on
-    rays whose probes found nothing.
+    sample points (point-exact: one query of the grid a sample, kernel
+    11q) or, with mask_from_probes, where the sample's probe interval is
+    empty (the bit kernel 2 already found; kernel 3 carries it to the
+    sample), and on rays whose probes found nothing.
 
     Probe + CDF (kernel 2 over the stacked grids, skipped when `cdf_state`
     is given) -> inverse-CDF samples (kernel 3) -> field -> the hard mask
-    -> compositor (kernel 4 and its backward). Probe-bit masks
-    (mask_from_probes) are not ported and raise."""
+    -> compositor (kernel 4 and its backward)."""
     from nerfsys_tpu_torch.ops.volrend import (
         background_rgb,
         t_to_points,
         volume_render,
     )
 
-    if mask_from_probes:
-        raise NotImplementedError(
-            "probe-bit masks (mask_from_probes) are not ported")
     o = rays[:, 0:3].contiguous()
     d = rays[:, 3:6].contiguous()
     near, far = rays[:, 6], rays[:, 7]
@@ -852,9 +981,15 @@ def render_rays_occ_field(
             occs, binary, aabbs, o, d, near_s, far_s, n_probes,
             importance=importance, uniform_frac=uniform_frac,
             ray_floor=ray_floor, use_kernels=use_kernels)
-    t_vals, alive = sample_tvals_from_cdf(
-        cdf_state, near_s, far_s, n_samples, generator=generator,
-        randomized=randomized, use_kernels=use_kernels)
+    occ_mask = None
+    if mask_from_probes and hard_mask:
+        t_vals, alive, occ_mask = sample_tvals_from_cdf(
+            cdf_state, near_s, far_s, n_samples, generator=generator,
+            randomized=randomized, with_mask=True, use_kernels=use_kernels)
+    else:
+        t_vals, alive = sample_tvals_from_cdf(
+            cdf_state, near_s, far_s, n_samples, generator=generator,
+            randomized=randomized, use_kernels=use_kernels)
     pts = t_to_points(o, d, t_vals)
     dirs = d[:, None, :].expand(pts.shape)
     flat_pts = pts.reshape(-1, 3)
@@ -863,10 +998,11 @@ def render_rays_occ_field(
     sigma = sigma.reshape(n_rays, n_samples)
     keep = valid[:, None]
     if hard_mask:
-        # occupied under ANY of the stacked grids (one for an expert)
-        occ_mask = query_binary(binary[0], aabbs[0], flat_pts)
-        for k in range(1, binary.shape[0]):
-            occ_mask = occ_mask | query_binary(binary[k], aabbs[k], flat_pts)
+        if occ_mask is None:
+            # point-exact: occupied under ANY of the stacked grids (one
+            # for an expert)
+            occ_mask = occupancy_query(occs, binary, aabbs, flat_pts, "bits",
+                                       use_kernels=use_kernels)
         keep = occ_mask.reshape(n_rays, n_samples) & alive[:, None] & keep
     sigma = torch.where(keep, sigma, torch.zeros_like(sigma))
     if bg_fn is not None:

@@ -56,7 +56,7 @@ class MetaConfig:
     sigma_scale: float = 1.0
     randomized: bool = True
     occ_importance: bool = False  # EMA values steer the probe pdf
-    occ_probe_mask: bool = False  # hard mode only (not ported)
+    occ_probe_mask: bool = False  # hard mode: mask by the probe bits
     occ_hard_mask: bool = True  # sigma zeroed outside the grid; False:
     # the soft mode (the grid steers placement only)
     occ_ray_floor: float = 0.25  # whole-ray pdf floor of the soft mode

@@ -25,9 +25,11 @@ two-wave renderer (probe, then skip or pack chunks whose rays are all
 dead), and the early-stop renderer in soft and hard mode; without an
 occupancy grid, the stratified renderer. With `occ_probe_grid_res` the
 probes read ONE resampled union grid (`build_union_probe_grid`, built once
-per statics). The coherent-expert renderer renders rays whose every sample
-routes to one expert through that expert alone. The baked renderers are in
-models/baked.py.
+per statics). The hard mask zeroes sigma outside the grids at the sample
+points (kernel 11q), or with `occ_probe_mask` where the sample's probe
+interval is empty (kernel 3's mask output). The coherent-expert renderer
+renders rays whose every sample routes to one expert through that expert
+alone. The baked renderers are in models/baked.py.
 
 `make_live_camera_renderer` is the viewer's and the video's live path:
 rays generated on the device from the pose, all chunks dispatched before
@@ -39,8 +41,8 @@ The runner's fast live modes map here: `--render_fast` is
 `make_coherent_renderer` (with `occ_probe_grid_res` when the union grid is
 on) through `render_rays_chunked`.
 
-Every renderer program runs without autograd on its `device`. Probe masks
-and mesh sharding are not ported.
+Every renderer program runs without autograd on its `device`. Mesh
+sharding is not ported.
 """
 from __future__ import annotations
 
@@ -126,11 +128,9 @@ def make_adapt_step(
     lax.cond): the union probe CDF over the K stacked grids is built once a
     step outside the differentiated loss (it depends on the rays and grids
     only), then samples placed by inverse CDF; before that, stratified.
-    use_kernels=False runs the plain version of every kernel."""
-    if occ_probe_mask:
-        raise NotImplementedError(
-            "probe-bit masks (--occ_probe_mask) are not ported: ROADMAP "
-            "Queue 1 item 7")
+    occ_probe_mask: the hard mask takes each sample's probe-interval bit
+    in place of a point query of the grids. use_kernels=False runs the
+    plain version of every kernel."""
     ray_floor = 0.0 if occ_hard_mask else occ_ray_floor
 
     def step(params, opt_state, statics: ContainerStatics, rays, rgbs,
@@ -339,10 +339,12 @@ def _pack_cost_ratio(cfg: ContainerConfig, ray_samples: int,
     return probe_rows / max(rows - probe_rows, 1.0)
 
 
-def _union_grid_for(occ: Dict, occ_importance: bool, res: int):
+def _union_grid_for(occ: Dict, occ_importance: bool, res: int,
+                    use_kernels: bool = True):
     """statics -> the union probe grid of `occ` at `res`, built once per
     statics object (the reference's id(statics) cache; the entry keeps the
-    statics alive, so its id cannot be reused while cached)."""
+    statics alive, so its id cannot be reused while cached); its point
+    queries go through kernel 11q unless use_kernels=False."""
     cache: Dict = {}
 
     def grid_for(statics):
@@ -351,7 +353,8 @@ def _union_grid_for(occ: Dict, occ_importance: bool, res: int):
             cache.clear()
             with torch.no_grad():
                 cache[key] = (statics, build_union_probe_grid(
-                    occ, statics, res=res, importance=occ_importance))
+                    occ, statics, res=res, importance=occ_importance,
+                    use_kernels=use_kernels))
         return cache[key][1]
 
     return grid_for
@@ -363,7 +366,7 @@ def _union_probe_wrap(occ: Dict, occ_importance: bool, res: int,
     switches grids: alive chunks sample from its CDF, while the one-shot
     `full` program (packing mode, direct calls) keeps exact per-expert
     probing."""
-    grid_for = _union_grid_for(occ, occ_importance, res)
+    grid_for = _union_grid_for(occ, occ_importance, res, use_kernels)
 
     def probe(statics, rays):
         return probe_rays_occ(statics, occ, rays, importance=occ_importance,
@@ -422,8 +425,6 @@ def make_chunk_renderer(
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError("mesh-sharded rendering is not ported")
-    if occ_probe_mask:
-        raise NotImplementedError("probe-bit masks are not ported")
 
     def _with_stats(rgb, depth, weights, acc):
         if fog_stats:
@@ -451,6 +452,9 @@ def make_chunk_renderer(
     occ = {k: v.to(dev) for k, v in occ_state.items()}
     common = dict(active_expert=active_expert, sigma_scale=sigma_scale,
                   use_kernels=use_kernels)
+    # the probe-bit mask of the one-shot, partial and union programs (the
+    # resume takes the partial's bits from its state)
+    masks = dict(mask_from_probes=occ_probe_mask)
     union_probe = bool(occ_probe_grid_res) and active_expert is None
     if bool(occ_probe_grid_res) and not union_probe:
         print("[render] --occ_union_probe_res ignored: union-grid probing "
@@ -462,7 +466,7 @@ def make_chunk_renderer(
             params, cfg, statics, occ, rays, ray_samples, randomized=False,
             bg_policy=bg_policy, importance=occ_importance,
             hard_mask=occ_hard_mask, use_bg_fn=use_bg_fn,
-            cdf_state=cdf_state, **common)
+            cdf_state=cdf_state, **masks, **common)
         return _with_stats(rgb, depth, w, acc)
 
     full = ChunkRenderer(render_fn, dev)
@@ -513,7 +517,7 @@ def make_chunk_renderer(
                 importance=occ_importance, cdf_state=cdf_state,
                 hard_mask=occ_hard_mask,
                 early_stop_eps=float(early_stop_eps), fog=fog_stats,
-                **common)
+                **masks, **common)
             flag = et_alive.to(outs[0].dtype)[:, None]
             return torch.cat([pack(*outs), flag], dim=1), state
 
@@ -540,7 +544,7 @@ def make_chunk_renderer(
     if union_probe:
         # the one-shot program with the union grid steering placement
         grid_for = _union_grid_for(occ, occ_importance,
-                                   int(occ_probe_grid_res))
+                                   int(occ_probe_grid_res), use_kernels)
 
         def render_union_fn(params, statics, rays):
             rgb, depth, w, acc = render_rays_occ(
@@ -548,7 +552,8 @@ def make_chunk_renderer(
                 randomized=False, bg_policy=bg_policy,
                 importance=occ_importance, hard_mask=occ_hard_mask,
                 use_bg_fn=use_bg_fn,
-                probe_fns=union_probe_fns(grid_for(statics)), **common)
+                probe_fns=union_probe_fns(grid_for(statics)), **masks,
+                **common)
             return _with_stats(rgb, depth, w, acc)
 
         return ChunkRenderer(render_union_fn, dev)
@@ -615,8 +620,6 @@ def make_coherent_renderer(
     program evaluates the K-batched ones; the matmuls may round differently
     on the card (a few float32 ulps through the MLPs)."""
     dev = resolve_device(device)
-    if occ_probe_mask:
-        raise NotImplementedError("probe-bit masks are not ported")
 
     def _stats(rgb, depth, weights, acc):
         if fog_stats:
@@ -626,7 +629,7 @@ def make_coherent_renderer(
     if occ_state is not None:
         occ = {k: v.to(dev) for k, v in occ_state.items()}
         grid_for = (_union_grid_for(occ, occ_importance,
-                                    int(occ_probe_grid_res))
+                                    int(occ_probe_grid_res), use_kernels)
                     if int(occ_probe_grid_res) > 0 else None)
 
         def pfns(statics):
@@ -638,7 +641,8 @@ def make_coherent_renderer(
                 params, cfg, statics, occ, rays, ray_samples,
                 randomized=False, bg_policy=bg_policy,
                 importance=occ_importance, hard_mask=occ_hard_mask,
-                use_bg_fn=use_bg_fn, sigma_scale=sigma_scale, field_expert=k,
+                mask_from_probes=occ_probe_mask, use_bg_fn=use_bg_fn,
+                sigma_scale=sigma_scale, field_expert=k,
                 probe_fns=pfns(statics), use_kernels=use_kernels))
 
         def probe_fn(statics, rays):
@@ -1200,10 +1204,9 @@ def make_live_camera_renderer(
     `near_bias` shifts t_near on the device as the video path does
     (max(near, 0) + bias, capped at far - 1e-4; miss tags stay inf);
     `map_outputs(rgb, depth, acc[, wmax, entropy], *extra)` maps the
-    outputs on the device; invalid_black zeroes box-miss pixels. Probe-bit
-    masks (occ_probe_mask) are not ported and raise."""
-    if occ_probe_mask:
-        raise NotImplementedError("probe-bit masks are not ported")
+    outputs on the device; invalid_black zeroes box-miss pixels;
+    occ_probe_mask masks the hard mode's sigma by the samples' probe bits
+    in place of the point query."""
     dev = resolve_device(device)
     sb = None
     if scene_aabb is not None:
@@ -1221,7 +1224,7 @@ def make_live_camera_renderer(
                   "(active_expert set)")
         else:
             grid_for = _union_grid_for(occ, occ_importance,
-                                       int(occ_probe_grid_res))
+                                       int(occ_probe_grid_res), use_kernels)
 
     def chunk_fn(params, statics, c2w, intr, start, union_grid, *extra):
         rays = frame_chunk_rays_biased(
@@ -1233,7 +1236,8 @@ def make_live_camera_renderer(
                 params, cfg, statics, occ, rays, ray_samples,
                 randomized=False, bg_policy=bg_policy,
                 active_expert=active_expert, importance=occ_importance,
-                hard_mask=occ_hard_mask, use_bg_fn=use_bg_fn,
+                hard_mask=occ_hard_mask, mask_from_probes=occ_probe_mask,
+                use_bg_fn=use_bg_fn,
                 probe_fns=(None if union_grid is None
                            else union_probe_fns(union_grid)),
                 use_kernels=use_kernels)

@@ -25,8 +25,9 @@ with the reference's near bias and re-clamp. The frames are written as an
 mp4 through `imageio` (libx264), or, on any exception there, as a PNG
 sequence through PIL (`write_video`).
 
-Mesh-sharded rendering (`maybe_render_mesh`) and probe-bit masks are not
-ported: the runner refuses `--mesh_shape` and `--occ_probe_mask`.
+Mesh-sharded rendering (`maybe_render_mesh`) is not ported: the runner
+refuses `--mesh_shape`. `--occ_probe_mask` reaches every occupancy
+renderer above.
 """
 from __future__ import annotations
 

@@ -189,7 +189,8 @@ def test_adapt_step_plain_path_matches_kernel_path():
 def test_adapt_step_stratified_until_the_grid_is_ready_and_refusals(
         monkeypatch):
     """A grid that is not ready yet renders stratified (no probe), as the
-    reference's lax.cond does; probe-bit masks and FIM adaptation raise."""
+    reference's lax.cond does, with or without the probe-bit mask (which
+    then has nothing to mask: the same step); FIM adaptation raises."""
     cfg, params, statics, occ, batch = _setup(seed=6)
     occ["num_updates"] = np.int32(0)
     occ["ready_after"] = np.int32(5)
@@ -203,8 +204,13 @@ def test_adapt_step_stratified_until_the_grid_is_ready_and_refusals(
                       batch["support_rgbs"][0, 0],
                       torch.Generator().manual_seed(0), tocc)
     assert probes == [] and np.isfinite(float(loss))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TRA.make_adapt_step(tcfg, opt, ray_samples=8, occ_probe_mask=True)
+    bits = TRA.make_adapt_step(tcfg, opt, ray_samples=8, occ_importance=True,
+                               occ_probe_mask=True)
+    _, _, loss_bits = bits(tp, opt.init(tp), tst,
+                           batch["support_rays"][0, 0],
+                           batch["support_rgbs"][0, 0],
+                           torch.Generator().manual_seed(0), tocc)
+    assert probes == [] and float(loss_bits) == float(loss)
     with pytest.raises(NotImplementedError, match="item 7"):
         TRA.runtime_evaluate(params=tp, cfg=tcfg, statics=tst, optimizer=opt,
                              test_metadata=[], tto_steps=1, fim_cfg=object())

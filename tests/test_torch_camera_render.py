@@ -180,12 +180,17 @@ def test_camera_renderer_matches_render_image(mode):
     _close(got, want, flip_share=FLIP_SHARE if mode == "hard" else 0.0)
 
 
-def test_probe_masks_raise_and_the_card_is_the_default():
+def test_probe_masks_match_jax_and_the_card_is_the_default():
+    """The hard mask from the probes' interval bits against JAX's; its acc
+    is never below the point-masked frame's (interval masking keeps every
+    sample of an occupied probe interval)."""
+    want, got = _pair(out_u8=False, occ=True, occ_importance=True,
+                      occ_hard_mask=True, occ_probe_mask=True)
+    _close(got, want, flip_share=FLIP_SHARE)
+    _, point = _pair(out_u8=False, occ=True, occ_importance=True,
+                     occ_hard_mask=True)
+    assert (got[:, 4] >= point[:, 4] - 1e-6).all()
     _, tcfg, _, _ = _setup()
-    with pytest.raises(NotImplementedError):
-        TR.make_live_camera_renderer(tcfg, H=4, W=4, ray_samples=4,
-                                     scene_aabb=GBOX, occ_probe_mask=True,
-                                     device="cpu")
     with pytest.raises(ValueError):
         TR.make_live_camera_renderer(tcfg, H=4, W=4, ray_samples=4,
                                      device="cpu")

@@ -16,6 +16,9 @@ multiply-adds, which can move a probe point to the neighbouring cell; one
 ray's color moved by 0.1 moves this image's PSNR by about 1e-4 dB. At tto
 1 both are finite and the port's adapted params moved. A checkpoint that
 the port writes from the restored params evaluates to the same numbers.
+So does the hard mask from the probes' interval bits (`--occ_probe_mask`
+through a JSON copy of configs/eval.json), at tto 0 within the same
+tolerances.
 """
 import json
 import shutil
@@ -149,9 +152,37 @@ def test_a_port_checkpoint_evaluates_alike(evals, monkeypatch):
         assert row[k] == want[k], k
 
 
+def test_eval_with_probe_masks_matches_jax(evals, tmp_path, monkeypatch):
+    """A JSON copy of configs/eval.json with the hard mask on and
+    occ_probe_mask (its mode keys win over the soft checkpoint's): both
+    runners evaluate the JAX run's `last` at tto 0 within the tolerances
+    above, and the port's renders differ from its soft render."""
+    from nerfsys_tpu.runner import build_context, evaluate
+    from nerfsys_tpu.utils.config import parse_args
+
+    _, tctx, scene, run_dir, work = evals
+    cfg_json = json.loads((REPO / "configs" / "eval.json").read_text())
+    bits = tmp_path / "eval_probe.json"
+    bits.write_text(json.dumps(dict(cfg_json, occ_no_hard_mask=False,
+                                    occ_probe_mask=True)))
+    argv = ["--op", "eval", *scene, *EVAL, "--tto", "0", "--configPath",
+            str(bits), "--checkpoint_path", str(run_dir)]
+    monkeypatch.chdir(work)
+    monkeypatch.setenv("NERFSYS_LPIPS_WEIGHTS", str(work /
+                                                   "alex_random.npz"))
+    j = evaluate(build_context(parse_args(argv + ["--fname", "jax_bits"]),
+                               "eval"))[0]
+    ctx = TR.main(argv + ["--fname", "port_bits", "--device", "cpu"])
+    assert ctx["P"].occ_probe_mask and not ctx["P"].occ_no_hard_mask
+    t = ctx["rows"][0]
+    assert abs(t["psnr"] - j["psnr"]) <= 0.005, (t["psnr"], j["psnr"])
+    assert abs(t["ssim"] - j["ssim"]) <= 2e-5, (t["ssim"], j["ssim"])
+    assert abs(t["lpips"] - j["lpips"]) <= 1e-5 * abs(j["lpips"])
+    assert t["psnr"] != tctx["rows"][0]["psnr"]  # the mask changed it
+
+
 @pytest.mark.parametrize("flags,match", [
-    (["--fim"], "fim"), (["--mesh_shape", "2"], "mesh_shape"),
-    (["--occ_probe_mask"], "occ_probe_mask")])
+    (["--fim"], "fim"), (["--mesh_shape", "2"], "mesh_shape")])
 def test_eval_refuses_unported_flags(evals, flags, match):
     _, _, scene, run_dir, _ = evals
     with pytest.raises(NotImplementedError, match=f"{match}.*item 7"):

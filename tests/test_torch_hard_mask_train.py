@@ -48,9 +48,10 @@ from test_torch_train import (
 )
 
 
-def _render_pair(importance, k=1, cdf=False):
+def _render_pair(importance, k=1, cdf=False, probe_mask=False):
     """One expert's hard-mask render of its support rays on both sides ->
-    (JAX outputs and gradients, the port's)."""
+    (JAX outputs and gradients, the port's); probe_mask: the mask from the
+    probes' interval bits."""
     cfg, params, statics, occ, batch = _setup()
     (jp, jst, jocc, jb), (tcfg, tp, tst, tocc, tb) = _sides(
         cfg, params, statics, occ, batch)
@@ -60,7 +61,8 @@ def _render_pair(importance, k=1, cdf=False):
     jaabb = jst.expert_aabbs[k]
     japply, _ = JCo._expert_apply_fn(cfg)
     jbin, jval = jocc["binary"][k], jocc["occs"][k]
-    kw = dict(randomized=False, n_probes=32, hard_mask=True, bg_policy="white")
+    kw = dict(randomized=False, n_probes=32, hard_mask=True, bg_policy="white",
+              mask_from_probes=probe_mask)
 
     def jloss(pk):
         def field(x, d):
@@ -177,12 +179,13 @@ def test_hard_mask_step_plain_path_matches_kernel_path():
         assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
 
 
-def test_probe_masks_still_raise():
-    _, _, _, _, batch = _setup()
-    rays = torch.from_numpy(np.asarray(batch["support_rays"][0, 0]).copy())
-    grid = (torch.zeros(1, 2, 16, 16, 16), torch.ones(1, 2, 16, 16, 16,
-                                                      dtype=torch.bool),
-            torch.tensor([[[-1.0] * 3, [1.0] * 3]]))
-    with pytest.raises(NotImplementedError, match="probe-bit"):
-        TO.render_rays_occ_field(lambda x, d: (x, x[:, 0]), grid, rays, 8,
-                                 mask_from_probes=True)
+@pytest.mark.parametrize("importance", [True, False])
+def test_probe_mask_render_and_gradients_match_jax(importance):
+    """The hard mask from the probes' interval bits (no point query):
+    outputs and gradients against JAX's (its conservative acc:
+    tests/test_torch_probe_mask.py)."""
+    (jout, jgrad), (tout, tgrad) = _render_pair(importance, probe_mask=True)
+    for got, want in zip(tout, jout):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=0, atol=1e-5)
+    _close_rel(tgrad, jgrad, 1e-4)

@@ -25,8 +25,10 @@ import torch
 
 from nerfsys_tpu.models import container as JCo
 from nerfsys_tpu.models import ngp as JN
+from nerfsys_tpu.models import occupancy as JMO
 from nerfsys_tpu.ops.planes import PlaneEncodingConfig
 from nerfsys_tpu.pipelines.online import runtime_adapt as JR
+from nerfsys_tpu_torch.data import ram_rays as TRays
 from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import occupancy as TO
@@ -131,23 +133,33 @@ def test_stratified_branch_matches_jax():
 
 
 def test_unported_paths_raise():
-    cfg, tcfg, _, (tp, tst, tocc) = _setup()
-    # union-probe grids, probe_fns and field_expert are ported; probe-bit
-    # masks and meshes still raise, in every renderer that takes them
-    for kw in (dict(occ_probe_mask=True), dict(mesh=object()),
+    cfg, tcfg, (jp, jst, jocc), (tp, tst, tocc) = _setup()
+    # union-probe grids, probe_fns, field_expert and probe-bit masks are
+    # ported; meshes still raise
+    with pytest.raises(NotImplementedError):
+        TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
+                               device="cpu", mesh=object())
+    for kw in (dict(occ_probe_mask=True),
                dict(occ_probe_mask=True, occ_hard_mask=False)):
-        with pytest.raises(NotImplementedError):
-            TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
-                                   device="cpu", **kw)
-    rays = torch.zeros(4, 8)
+        TR.make_chunk_renderer(tcfg, ray_samples=8, occ_state=tocc,
+                               device="cpu", **kw)
+    TR.make_coherent_renderer(tcfg, ray_samples=8, occ_state=tocc,
+                              occ_probe_mask=True, device="cpu")
+    # the probe-bit mask renders as the reference's (soft mode ignores it)
+    md = _camera(4)
+    rays, _ = TRays.frame_rays(md.H, md.W, md.intrinsics, md.c2w,
+                               aabb=np.asarray(jst.global_aabb))
     for kw in (dict(mask_from_probes=True),
                dict(mask_from_probes=True, hard_mask=False),
                dict(mask_from_probes=True, field_expert=0)):
-        with pytest.raises(NotImplementedError):
-            TMO.render_rays_occ(tp, tcfg, tst, tocc, rays, 8, **kw)
-    with pytest.raises(NotImplementedError):
-        TR.make_coherent_renderer(tcfg, ray_samples=8, occ_state=tocc,
-                                  occ_probe_mask=True, device="cpu")
+        got = TMO.render_rays_occ(tp, tcfg, tst, tocc, torch.tensor(rays), 8,
+                                  **kw)
+        with jax.disable_jit():
+            want = JMO.render_rays_occ(jp, cfg, jst, jocc, jnp.asarray(rays),
+                                       8, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                       atol=1e-5)
 
 
 def test_entry_points_raise_without_cuda():
@@ -269,8 +281,8 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 16
-    assert len(kernels.SOURCES) == 11
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 17
+    assert len(kernels.SOURCES) == 12
     assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
     assert kernels.KERNELS[9:12] == (kernels.HASH_FWD,
@@ -280,7 +292,12 @@ def test_kernel_registry_covers_every_source():
     assert kernels.KERNELS[12:] == (kernels.BUCKET_DISPATCH,
                                     kernels.BUCKET_COMBINE_FWD,
                                     kernels.BUCKET_COMBINE_BWD,
-                                    kernels.COHERENT_EXPERT)
+                                    kernels.COHERENT_EXPERT,
+                                    kernels.OCC_QUERY)
+    assert kernels.OCC_QUERY.source.endswith("csrc/occ_query.cu")
+    assert "--fmad=false" in kernels.SOURCES["occ_query"][1]
+    assert kernels.OCC_QUERY.replaces.startswith(
+        "nerfsys_tpu/ops/occupancy.py:")
     for k in kernels.KERNELS[12:15]:
         assert k.source.endswith("csrc/bucket.cu")
         assert k.replaces.startswith("nerfsys_tpu/models/container.py:")

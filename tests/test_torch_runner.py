@@ -149,10 +149,10 @@ def test_configs_from_flags_match_jax(config, extra):
 
 @pytest.mark.parametrize("op", ["eval", "video", "view"])
 def test_unported_ops_raise(data_root, op):
-    # the eval and video ops are ported; the eval op's Fisher-weighted
-    # adaptation and the video op's probe-bit masks are not
+    # the eval and video ops are ported; the Fisher-weighted adaptation
+    # and mesh sharding are not
     item, extra = {"eval": ("item 7", ["--fim"]),
-                   "video": ("item 7", ["--occ_probe_mask"]),
+                   "video": ("item 7", ["--mesh_shape", "2"]),
                    "view": ("item 8", [])}[op]
     with pytest.raises(NotImplementedError, match=item):
         TR.main(["--op", op, "--device", "cpu", *_scene_args(data_root),
@@ -163,7 +163,6 @@ def test_unported_ops_raise(data_root, op):
     (["--mesh_shape", "2"], "mesh_shape"),
     (["--use_amp"], "use_amp"),
     (["--algo", "maml"], "maml"),
-    (["--occ_probe_mask"], "occ_probe_mask"),
     (["--fim"], "fim"),
     (["--nerf_variant", "vanilla"], "vanilla"),
     (["--dir_encoding", "frequency"], "frequency"),
@@ -174,6 +173,24 @@ def test_unported_flags_raise_at_context_build(data_root, flags, match):
                        *flags])
     with pytest.raises(NotImplementedError, match=match):
         TR.build_context(P, "train")
+
+
+@pytest.mark.parametrize("op", ["train", "eval", "video"])
+def test_probe_masks_pass_the_refusals(data_root, op):
+    """--occ_probe_mask is ported: no op refuses it, and the train
+    context's meta-learning config carries it as the JAX runner's does."""
+    from nerfsys_tpu import runner as JR
+    from nerfsys_tpu.utils import config as JC
+
+    argv = [*_scene_args(data_root), *SMALL, "--occ_probe_mask"]
+    P = TC.parse_args(["--device", "cpu", *argv])
+    TR.refuse_unported(P, op)
+    if op == "train":
+        ctx = TR.build_context(P, "train")
+        meta = TR.meta_config_from_args(ctx["P"])
+        assert meta.occ_probe_mask
+        assert meta == interop.meta_config_from_jax(
+            JR.meta_config_from_args(JC.parse_args(argv)))
 
 
 def test_the_card_is_the_default_and_no_card_raises(data_root):

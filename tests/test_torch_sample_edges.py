@@ -188,7 +188,8 @@ def test_search_equals_count_on_rows_that_never_decrease(seed):
 def test_sample_plan(P, S, n):
     """The staged row holds every skewed entry inside its stride, the
     search's steps cover 0..P, a block takes SAMPLE_WARPS rays (the launch
-    caps the grid at the resident blocks), and the shared memory stays
+    caps the grid at the resident blocks), and the shared memory (each
+    warp's two rows and S placements, then S mask bytes a warp) stays
     under 48 KB."""
     plan = T.sample_plan(n, P, S)
     sk = _skew(np.arange(P + 1))
@@ -196,7 +197,7 @@ def test_sample_plan(P, S, n):
     assert plan.top <= P < 2 * plan.top
     assert plan.blocks == -(-n // plan.warps) and plan.warps == 4
     assert plan.threads == 32 * plan.warps
-    assert plan.smem == 4 * plan.warps * (2 * plan.stride + S)
+    assert plan.smem == plan.warps * (4 * (2 * plan.stride + S) + S)
     assert plan.smem <= T.SAMPLE_SMEM
     st = plan.as_struct()
     assert (st.warps, st.threads, st.blocks, st.stride, st.smem, st.top) == (

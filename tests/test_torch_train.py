@@ -297,15 +297,19 @@ def test_maml_and_unported_modes_raise():
         TS.make_train_step(TM.MetaConfig(algo="maml"), tcfg, opt)
     with pytest.raises(ValueError):
         TM.MetaConfig(algo="sgd")
-    # the hard mask is ported (tests/test_torch_hard_mask_train.py);
-    # probe-bit masks still raise
+    # the hard mask and its probe-bit form are ported (held to JAX in
+    # tests/test_torch_hard_mask_train.py and
+    # tests/test_torch_probe_mask_paths.py): the probe-bit step runs
     meta = interop.meta_config_from_jax(_meta(occ_hard_mask=True,
                                               occ_probe_mask=True))
     assert meta.occ_importance and meta.ray_samples == 8
+    assert meta.occ_probe_mask
     _, (tcfg, tp, tst, tocc, tb) = _sides(cfg, params, statics, occ, batch)
-    with pytest.raises(NotImplementedError, match="probe-bit"):
-        TS.make_train_step(meta, tcfg, opt)(tp, {}, tst, tb,
-                                            torch.Generator(), tocc)
+    opt = TO.build_optimizer(TO.OptimConfig(), TCo.param_group_labels(tp))
+    _, _, m = TS.make_train_step(meta, tcfg, opt)(
+        tp, opt.init(tp), tst, tb, torch.Generator(), tocc)
+    assert np.isfinite(float(m["loss_out"]))
+    assert float(m["skipped_nonfinite"]) == 0.0
 
 
 def test_reptile_update_matches_jax():

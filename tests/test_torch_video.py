@@ -15,7 +15,8 @@ random ready grid; the baked snapshot (8³, SH-2) through the baked camera
 renderer (the pose path) and, with early stop asked for, through the
 baked chunk renderer over host rays, baked over the grid
 (--render_baked_occ); the coherent-expert renderer over host rays without
-a grid and with the hard mask.
+a grid and with the hard mask; the hard-mask two-wave renderer again
+with --occ_probe_mask (the probes' interval bits).
 The JAX side runs jitted, as its video op serves: XLA on the CPU then
 contracts multiply-adds, which can move a sample into another cell, and
 the sRGB tail truncates, so a float32 ulp can cross an integer level.
@@ -192,13 +193,15 @@ MODES = {
                             "1e-9"], True, "baked chunk"),
     "coherent": (["--render_coherent"], False, "coherent"),
     "coherent_hard_occ": (["--render_coherent"], True, "coherent"),
+    "host_hard_occ_probe": (["--occ_probe_mask"], True, "chunk"),
 }
 
 
 @pytest.mark.parametrize("mode,fog", [
     ("pose", True), ("pose_soft_occ", False), ("host_early_stop", False),
     ("host_hard_occ", True), ("baked_pose", True), ("baked_host", False),
-    ("coherent", True), ("coherent_hard_occ", False)])
+    ("coherent", True), ("coherent_hard_occ", False),
+    ("host_hard_occ_probe", True)])
 def test_render_video_matches_jax(tmp_path, mode, fog, monkeypatch):
     import nerfsys_tpu_torch.pipelines.video_gen as tv
 
@@ -250,11 +253,12 @@ def test_render_video_matches_jax(tmp_path, mode, fog, monkeypatch):
     assert any(len(np.unique(f)) > 1 for f in got)
 
 
-def test_render_video_bakes_and_refuses_probe_masks(tmp_path):
+def test_render_video_bakes_and_renders_probe_masks(tmp_path):
     """The baked pose path writes frames of the test camera's size through
     the snapshot (a cache written on the first run loads on the second);
-    probe-bit masks raise."""
-    _, (tcfg, tst, tp) = _tiny()
+    with probe-bit masks and no grid the stratified renderer serves (the
+    flag has nothing to mask), as the reference's does."""
+    (jcfg, jst, jp), (tcfg, tst, tp) = _tiny()
     cache = tmp_path / "snap.npz"
     argv = ["--op", "video", "--data_path", str(tmp_path),
             "--camera_path", "east_west", "--video_frames", "2",
@@ -273,9 +277,14 @@ def test_render_video_bakes_and_refuses_probe_masks(tmp_path):
     for a, b in zip(*runs):
         np.testing.assert_array_equal(a, b)
     probe = ["--op", "video", "--data_path", str(tmp_path),
-             "--video_frames", "1", "--ray_samples", "4",
-             "--occ_probe_mask", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="probe"):
-        TV.render_video({"P": TC.parse_args(probe), "cfg": tcfg,
-                         "statics": tst, "params": tp,
-                         "run_dir": tmp_path / "probe"})
+             "--video_frames", "1", "--video_width", "24",
+             "--video_height", "16", "--ray_samples", "4",
+             "--occ_probe_mask"]
+    got, _ = _frames(TV.render_video({
+        "P": TC.parse_args(probe + ["--device", "cpu"]), "cfg": tcfg,
+        "statics": tst, "params": tp, "run_dir": tmp_path / "probe"}))
+    want, _ = _frames(JV.render_video({
+        "P": JC.parse_args(probe), "cfg": jcfg, "statics": jst,
+        "params": jp, "run_dir": tmp_path / "probe_jax"}))
+    assert [f.shape for f in got] == [(16, 24, 3)]
+    _u8_close(got, want)
