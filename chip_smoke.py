@@ -54,12 +54,13 @@ printing its result lines):
    kernel's without the mask). Kernel 11q (the occupancy point query,
    unioned over the K experts) at the serve chunk's 2,097,152 sample
    points (K=4) and the step's 4,000 x 32 (the K=1 slice), in each mode
-   (bits, values, pair; equal to the plain version), by device time and
-   back to back beside its bound (points in, outputs out, the distinct
-   32-byte grid sectors read), and on adversarial inputs (`edge
-   occupancy_query` lines: points on level faces and one ulp either side,
-   outside every level, rel * R at the top of the last cell, invisible
-   cells tagged -1,
+   (bits, values, pair; equal to the plain version), by device time,
+   back to back and on the host clock beside its bound (points in,
+   outputs out, the distinct 32-byte grid sectors read), and on
+   adversarial inputs (`edge occupancy_query` lines: points on level
+   faces and one ulp either side, outside every level, rel * R at the top
+   of the last cell, on the cells' step points and one ulp either side
+   at R = 128 and 127, invisible cells tagged -1,
    K = 1, 4, 5, a tail past whole blocks, M = 1 and 0); kernel 3m timed
    at both shapes beside kernel 3. Kernels 2, 3 and 4 are
    also timed at the step's shapes (the K=1 task probe, 4,000 x 32),
@@ -140,7 +141,10 @@ printing its result lines):
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one light and one exact
    step are profiled (device busy ms, idle share, kernel 6's launches x
-   ms). Occupancy: fresh K=4 grids at the reference's defaults (R=128,
+   ms). Row 12 (`trunc_exp`, plain PyTorch): its calls in one live frame
+   and one bench step, and its forward and backward at a frame call's
+   points by device time beside their byte bound (`row 12 trunc_exp:`
+   line). Occupancy: fresh K=4 grids at the reference's defaults (R=128,
    L=4) premarked from a ring of 8 bench cameras, one warmup update
    (every cell) and one subset update after warmup through
    `make_occ_update_fn` (kernel 1 launched), each timed to a synchronize
@@ -292,7 +296,10 @@ printing its result lines):
    with the union grid against its full routed program (coherent_expert
    launched; one frame profiled, 10b watched); and measure_perf's K=16 arm (bench-width planes experts,
    1,572,864 points in 8 chunks; 10a-i first held to its plain version on
-   one chunk, `kernel bucket_dispatch: K=16` line), dense against
+   one chunk, `kernel bucket_dispatch: K=16` line; kernel 11q in each
+   mode on its first 1,048,576 points over K=16 L=4 R=128 grids 5%
+   occupied, `kernel
+   occupancy_query: K=16 chunk`), dense against
    bucketed E=2 cf 1.5, with
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
@@ -460,12 +467,28 @@ def query_sector_bytes(occs, binary, aabbs, pts, bits: bool,
                     for v in sectors.values() if v)
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds a call of fn: `calls` calls on the host clock,
+    synchronized once at the end (the wrapper's launch path wherever the
+    kernel is shorter)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls
+
+
 def query_check(grids, pts, results, label):
     """Kernel 11q against its plain version at `pts` over `grids` in each
-    mode (bits and values equal), timed by device time and back to back
-    beside its bound (the points in, the outputs out, the distinct grid
-    sectors read). The first call (the serve chunk) fills the kernel's
-    results with the bits mode, the hard mask's; later calls append."""
+    mode (bits and values equal), timed by device time, back to back and
+    on the host clock (1,000 calls) beside its bound (the points in, the
+    outputs out, the distinct grid sectors read). The first call (the
+    serve chunk) fills the kernel's results with the bits mode, the hard
+    mask's; later calls append."""
     from nerfsys_tpu_torch import kernels
     from nerfsys_tpu_torch.ops import occupancy as O
 
@@ -489,11 +512,11 @@ def query_check(grids, pts, results, label):
         def fn(mode=mode):
             return O.occupancy_query_kernel(occs, binary, aabbs, pts, mode)
 
-        dev, b2b = device_ms(fn), cuda_ms(fn, 20)
+        dev, b2b, host = device_ms(fn), cuda_ms(fn, 20), host_us(fn)
         plain = cuda_ms(lambda mode=mode: O.occupancy_query_plain(
             occs, binary, aabbs, pts, mode), 3)
         b_ms, b_by = bound(n_bytes, 0)
-        parts.append((mode, dev, b2b, plain, n_bytes, b_ms, b_by,
+        parts.append((mode, dev, b2b, host, plain, n_bytes, b_ms, b_by,
                       all_bytes))
     K, L, R = occs.shape[:3]
     share = float(O.occupancy_query_plain(occs, binary, aabbs, pts,
@@ -501,16 +524,16 @@ def query_check(grids, pts, results, label):
     text = (f"{label} ({M} points, K={K} L={L} R={R}, occupied "
             f"{share:.4f}): " + "; ".join(
                 f"{mode}: mismatches 0, device_ms={dev:.4f} back to back "
-                f"{b2b:.4f} plain_ms={plain:.4f} bytes={n_bytes} (points, "
-                f"outputs, distinct 32-byte grid sectors; every grid byte "
-                f"{all_bytes}) bound_ms={b_ms:.4f} ({b_by}) "
-                f"device/bound={dev / b_ms:.1f}x"
-                for mode, dev, b2b, plain, n_bytes, b_ms, b_by, all_bytes
-                in parts))
+                f"{b2b:.4f} host_us={host:.1f} plain_ms={plain:.4f} "
+                f"bytes={n_bytes} (points, outputs, distinct 32-byte grid "
+                f"sectors; every grid byte {all_bytes}) bound_ms="
+                f"{b_ms:.4f} ({b_by}) device/bound={dev / b_ms:.1f}x"
+                for mode, dev, b2b, host, plain, n_bytes, b_ms, b_by,
+                all_bytes in parts))
     print(f"kernel occupancy_query: {text}", flush=True)
     name = kernels.OCC_QUERY.name
     if name not in results:
-        _, dev, _, plain, _, b_ms, b_by, _ = parts[0]
+        _, dev, _, _, plain, _, b_ms, b_by, _ = parts[0]
         results[name] = dict(max_abs_err=0.0, ms=dev, plain_ms=plain,
                              bound_ms=b_ms, bound_by=b_by,
                              text=f"max_abs_err=0 tol=0 (bits and values "
@@ -1343,6 +1366,34 @@ def probe_edges(device):
 QUERY_EDGE_N = 4096 * 8 + 13  # a tail past whole 256-point blocks
 
 
+def query_step_points(lo, hi, r: int):
+    """(..., r - 1) float32: for levels spanning lo to hi (...,) on one
+    axis, the least float x with trunc(fl(fl(x - lo) / (hi - lo)) * r) >=
+    j, j = 1 .. r - 1 (the plain version's cell formula), by bisection
+    over the floats' order in numpy, apart from the port's own tables."""
+    import numpy as np
+
+    def key(x):
+        u = x.astype(np.float32).view(np.int32).astype(np.int64)
+        return np.where(u >= 0, u, -(u + 2 ** 31) - 1)
+
+    def flt(kk):
+        return np.where(kk >= 0, kk, -(kk + 1) - 2 ** 31).astype(
+            np.int32).view(np.float32)
+
+    lo = lo[..., None].astype(np.float32)
+    hi = hi[..., None].astype(np.float32)
+    w = hi - lo
+    j = np.arange(1, r, dtype=np.float32)
+    lo_k = np.broadcast_to(key(lo), lo.shape[:-1] + (r - 1,))
+    hi_k = np.broadcast_to(key(hi), lo_k.shape)
+    for _ in range(33):
+        mid = lo_k + (hi_k - lo_k) // 2
+        take = (flt(mid) - lo) / w * np.float32(r) >= j
+        hi_k, lo_k = np.where(take, mid, hi_k), np.where(take, lo_k, mid)
+    return flt(hi_k)
+
+
 def query_edge_inputs(kind: str, m: int, k: int, l: int, r: int, seed: int):
     """Adversarial inputs of kernel 11q from numpy seed `seed`: occs,
     binary (k, l, r, r, r), boxes (k, 2, 3) and points (m, 3). "faces"
@@ -1352,7 +1403,10 @@ def query_edge_inputs(kind: str, m: int, k: int, l: int, r: int, seed: int):
     within a few ulps below a level's hi face: rel just below 1, rel * R
     at the top of the last cell (the clamp at R - 1 guards it; rel < 1
     holds exactly where x < b, so rel * R stays below R even for R not a
-    power of 2); "invisible" tags a third of the
+    power of 2); "steps" puts every coordinate on a step point of one
+    level (`query_step_points`: where the plain cell goes from j - 1 to
+    j, which the kernel's multiply guess may miss by a cell) or one ulp
+    either side; "invisible" tags a third of the
     cells -1 (the premark: never occupied, they read 0); otherwise points
     at random in and around the boxes, half the cells occupied at values
     in [0, 1)."""
@@ -1403,6 +1457,16 @@ def query_edge_inputs(kind: str, m: int, k: int, l: int, r: int, seed: int):
         mix = rng.uniform(size=(m, 3)) < 0.5
         pts = np.where(mix | (np.arange(3)[None, :] == axis[:, None]),
                        below, pts).astype(np.float32)
+    elif kind == "steps":
+        steps = query_step_points(lo, hi, r)  # (k, l, 3, r - 1)
+        lev = (rng.integers(k, size=(m, 1)), rng.integers(l, size=(m, 1)))
+        pick = steps[lev[0], lev[1], np.arange(3)[None, :],
+                     rng.integers(r - 1, size=(m, 3))]
+        ulp = rng.integers(-1, 2, size=(m, 3))
+        pts = np.where(ulp > 0, np.nextafter(pick, np.float32(np.inf)),
+                       np.where(ulp < 0,
+                                np.nextafter(pick, np.float32(-np.inf)),
+                                pick)).astype(np.float32)
     return [np.ascontiguousarray(a) for a in (occs, binary, boxes, pts)]
 
 
@@ -1422,7 +1486,10 @@ def query_edge_cases():
               1, 2, 24),
              ("K=1 L=1 (the union grid)", "rand", n, 1, 1, 128),
              ("K=5, M=1", "faces", 1, 5, 2, 16),
-             ("M=0", "rand", 0, 4, 4, 16)]
+             ("M=0", "rand", 0, 4, 4, 16),
+             ("points on the cells' step points and one ulp either side "
+              "(R=128)", "steps", n, 4, 4, 128),
+             ("K=1 step points (R=127)", "steps", n, 1, 4, 127)]
     return cases
 
 
@@ -2072,6 +2139,73 @@ def train(cfg, statics, params, occ, batch, device, label="train",
           f"grad_norm={float(aux['grad_norm']):.4f} "
           f"{name}_step_loss_out={loss_x:.6f}", flush=True)
     return light, launches
+
+
+def trunc_exp_row(cfg, statics, params, occ, batch, device):
+    """Row 12 of PERF.md's kernel table, `trunc_exp` (ops/activations.py:
+    a plain autograd.Function, clamp and exp forward, a product backward;
+    no hand-written kernel): its calls in one live frame (the serve
+    renderer, 800x800) and one bench FoMAML step (a counting wrapper on
+    models.ngp's name; a backward for each call whose input needs a
+    gradient), and the device time of its forward and its backward at a
+    frame call's points (CUDA events around 20 calls queued while the card
+    sleeps: the profiler has seen no device events in so short a window),
+    beside the byte bound: the forward reads x and writes y, the backward
+    reads g and y and writes the gradient."""
+    import torch
+
+    from nerfsys_tpu_torch.models import ngp
+    from nerfsys_tpu_torch.models.container import param_group_labels
+    from nerfsys_tpu_torch.ops.activations import trunc_exp
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        default_chunk_rays,
+        make_chunk_renderer,
+        render_image,
+    )
+    from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
+
+    calls = []
+
+    def count(fn):
+        def wrapped(x):
+            calls.append((x.numel(), x.requires_grad))
+            return fn(x)
+        return wrapped
+
+    renderer = make_chunk_renderer(cfg, ray_samples=32, occ_state=occ,
+                                   occ_importance=True, occ_hard_mask=False,
+                                   device=device)
+    with patched(ngp, "trunc_exp", count):
+        render_image(renderer, params, statics, pose(SERVE_POSES[0]),
+                     scene_aabb=statics.global_aabb.cpu().numpy(),
+                     chunk_rays=CHUNK or default_chunk_rays(32))
+    frame = list(calls)
+    calls.clear()
+    opt = build_optimizer(OptimConfig(outer_steps=10000),
+                          param_group_labels(params))
+    step = make_train_step(train_meta(), cfg, opt)
+    gen = torch.Generator(device=device).manual_seed(1)
+    with patched(ngp, "trunc_exp", count):
+        float(step(params, opt.init(params), statics, batch, gen,
+                   occ)[2]["loss_out"])
+    n = max(c[0] for c in frame)
+    gen = torch.Generator(device=device).manual_seed(4)
+    x = (4.0 * torch.randn(n, device=device, generator=gen)
+         ).requires_grad_(True)
+    g = torch.randn(n, device=device, generator=gen)
+    y = trunc_exp(x)
+    fwd = device_ms(lambda: trunc_exp(x))
+    bwd = device_ms(lambda: torch.autograd.grad(y, x, g, retain_graph=True))
+    print(f"row 12 trunc_exp: a live frame {len(frame)} calls "
+          f"({sum(c[0] for c in frame)} points, {n} a call at most), a "
+          f"bench step {len(calls)} calls ({sum(c[0] for c in calls)} "
+          f"points) and {sum(c[1] for c in calls)} backwards; at {n} "
+          f"points: forward device_ms={fwd:.4f} (bytes {8 * n}, bound_ms "
+          f"{bound(8 * n, 0)[0]:.4f}), backward device_ms={bwd:.4f} (bytes "
+          f"{12 * n}, bound_ms {bound(12 * n, 0)[0]:.4f})", flush=True)
 
 
 OCC_RING = 8  # training cameras of the premark
@@ -6382,6 +6516,22 @@ def k16_setup(device):
             torch.from_numpy(dirs).to(device))
 
 
+K16_QUERY_PTS = 1 << 20  # the union grid build's chunk of points
+
+
+def k16_query_grids(statics, device):
+    """Kernel 11q's grids on the K=16 arm's boxes: L=4 R=128, 5% of the
+    cells occupied at random (seed 5; about half the points then read a
+    set bit from one of their 16 experts) at value 0.1 (serve_ab.py's
+    `query K=16 bits` case)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    binary = torch.rand((16, 4, 128, 128, 128), generator=gen,
+                        device=device) < 0.05
+    return torch.where(binary, 0.1, 0.0), binary, statics.expert_aabbs
+
+
 def k16_moe(device, results):
     """Dense vs bucketed (E=2, cf 1.5) container_apply at K=16 over
     1,572,864 points in 8 sequential chunks: one warm-up and 3 timed calls
@@ -6404,6 +6554,9 @@ def k16_moe(device, results):
     n = K16_PTS // K16_CHUNKS
     xs, ds = pts.split(n), dirs.split(n)
     check_dispatch_k16(dense, statics, xs[0], ds[0], results)
+    query_check(k16_query_grids(statics, device), pts[:K16_QUERY_PTS],
+                results, "K=16 chunk (the arm's first 1,048,576 points)")
+    torch.cuda.empty_cache()
 
     def run(cfg):
         with torch.no_grad():
@@ -6548,6 +6701,7 @@ def main() -> int:
                        results)
     baked_n = baked(cfg, statics, params, device, results)
     light, trained = train(cfg, statics, params, occ, batch, device)
+    trunc_exp_row(cfg, statics, params, occ, batch, device)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
     trainer_n, eval_n, video_n = trainer(device)
     hash_served, hash_light, hash_trained = hash_phase(

@@ -1,10 +1,11 @@
 """Design experiments on kernel 3 (the inverse-CDF sampler), 10a-i (the
 bucket dispatch), 10a-iii (the blend's transpose), 10b (the
-coherent-expert test) and row 8 (the segment compositor): variants of
-their CUDA sources, built beside the shipped libraries and timed through
-the shipped wrappers at the real shapes.
+coherent-expert test), row 8 (the segment compositor) and 11q (the
+occupancy point query): variants of their CUDA sources, built beside the
+shipped libraries and timed through the shipped wrappers at the real
+shapes.
 
-    python3 kernel_ab.py [--rounds 5]
+    python3 kernel_ab.py [--rounds 5] [--kernels OCC_QUERY ...]
 
 Needs one CUDA card and nvcc. Each variant is the shipped source with a
 few lines replaced (`VARIANTS`); it is built with the shipped flags into
@@ -17,16 +18,18 @@ targets) and at one inner step (4,000 rays, per-ray jittered targets),
 on one chunk of the K=16 arm (196,608 points, E=2), 10b at the serve
 chunk's and a skew chunk's 65,536 x 32 samples, row 8 at the first
 segment (65,536 x 8) and a resume slice (16,384 x 24), 10a-iii on the
-top-2 dispatches of the serve chunk and of the K=16 chunk. A variant that
-keeps the outputs is first held to the plain version on every case of its
-kernel (the sampler within 1e-5, the dispatch's integer outputs equal and
-its weights within 1e-6 on two calls, 10b's ids equal, row 8 within
-1e-5, 10a-iii equal); a timing-only variant (its outputs incomplete) is
-not. Then `--rounds` rounds time every variant and the shipped kernel on
-every case by device time (chip_smoke's `device_ms`), in turn; the script
-prints each variant's ptxas register count, each round, and the median
-and range per
-(variant, case).
+top-2 dispatches of the serve chunk and of the K=16 chunk, 11q at the
+serve chunk in each mode, at one inner step (K=1) and on a K=16 chunk. A
+variant that keeps the outputs is first held to the plain version on
+every case of its kernel (the sampler within 1e-5, the dispatch's integer
+outputs equal and its weights within 1e-6 on two calls, 10b's ids equal,
+row 8 within 1e-5, 10a-iii and 11q equal); a timing-only variant (its
+outputs wrong or incomplete) is not. `--kernels` keeps the variants and
+cases of the named kernels (the `kernels` module's attributes, as in
+`CASES_OF`). Then `--rounds` rounds time every variant and the shipped
+kernel on every case by device time (chip_smoke's `device_ms`), in turn;
+the script prints each variant's ptxas register count, each round, and
+the median and range per (variant, case).
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# name -> (library stem, timing only, [(shipped text, variant text)], the
+# name -> (library stem, timing only, [(shipped text or None for the whole
+# source, variant text)], the
 # Python side's matching change: {"tile": the dispatch's tile for E <= 2},
 # {"groups": 10b's ray groups a warp} or {"lanes": 10b's lanes a ray at
 # most}, else None).
@@ -128,13 +132,205 @@ VARIANTS["10a-iii: each run written by the whole block"] = (
                       32);""", """3 * cnt, lane,
                       COMBINE_THREADS);""")],
     {"kernel": "BUCKET_COMBINE_BWD"})
+# 11q (csrc/occ_query.cu). Its first design, whole (a thread a point,
+# kernel 2's `locate`: levels finest first, an early return, three
+# divisions; its copy of the level table gathers `level_bounds`' 12 floats
+# a level from the shipped table's 16), and its attribution; then the
+# shipped design's parts one at a time.
+Q_PR18 = r"""#include "occ_common.cuh"  // BOX_FLOATS, locate: shared with kernel 2
+
+#define QUERY_THREADS 256  // ops/occupancy.py QUERY_THREADS
+
+template <bool BITS, bool VALUES>
+__global__ void __launch_bounds__(QUERY_THREADS) occupancy_query_kernel(
+        const float* __restrict__ pts, const float* __restrict__ occs,
+        const uint8_t* __restrict__ binary, const float* __restrict__ levels,
+        uint8_t* __restrict__ out_bits, float* __restrict__ out_vals,
+        long long M, int K, int L, int R) {
+    extern __shared__ float4 smem_q[];  // 16-byte aligned: float4 reads
+    float* box = reinterpret_cast<float*>(smem_q);
+    for (int i = threadIdx.x; i < K * L * BOX_FLOATS; i += blockDim.x) {
+        const int f = i % BOX_FLOATS;  // a, b, lo, w from the 16-float rows
+        box[i] = __ldg(levels + 16 * (i / BOX_FLOATS) +
+                       (f < 6 ? f : f < 9 ? f + 2 : f == 9 ? 6 : f == 10 ? 7
+                                                                   : 14));
+    }
+    __syncthreads();
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= M) return;
+    const float x = pts[3 * i + 0], y = pts[3 * i + 1], z = pts[3 * i + 2];
+    bool bit = false;
+    float val = 0.0f;
+    for (int k = 0; k < K; ++k) {
+        const int flat = locate(smem_q, k, L, R, x, y, z);
+        if (flat < 0) continue;
+        if (BITS) bit = bit || __ldg(binary + flat) != 0;
+        if (VALUES) val = fmaxf(val, fmaxf(__ldg(occs + flat), 0.0f));
+    }
+    if (BITS) out_bits[i] = bit ? 1 : 0;
+    if (VALUES) out_vals[i] = val;
+}
+
+// pts: (M, 3) float; occs: (K, L, R, R, R) float, null without values;
+// binary: the same shape, bool bytes, null without bits; levels: (K, L,
+// 12) float (ops/occupancy.py `level_bounds`). K * L * R^3 < 2^31, K * L
+// * 48 bytes of level table at most 48 KB. Out: bits (M,) bool and / or
+// values (M,) float; at least one of the two.
+NERF_API int occupancy_query(const float* pts, const float* occs,
+                             const uint8_t* binary, const float* levels,
+                             uint8_t* out_bits, float* out_vals, long long M,
+                             int K, int L, int R, cudaStream_t stream) {
+    const bool bits = out_bits != nullptr, values = out_vals != nullptr;
+    const int smem = 4 * K * L * BOX_FLOATS;
+    if (M < 0 || K < 1 || L < 1 || R < 1 ||
+        (long long)K * L * R * R * R >= (1LL << 31) || smem > 48 * 1024 ||
+        (!bits && !values) || (bits && binary == nullptr) ||
+        (values && occs == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (M == 0) return (int)cudaGetLastError();
+    const long long blocks = (M + QUERY_THREADS - 1) / QUERY_THREADS;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+#define OCC_QUERY_LAUNCH(B, V)                                               \
+    occupancy_query_kernel<B, V><<<(unsigned)blocks, QUERY_THREADS, smem,    \
+                                   stream>>>(pts, occs, binary, levels,      \
+                                             out_bits, out_vals, M, K, L, R)
+    if (bits && values)
+        OCC_QUERY_LAUNCH(true, true);
+    else if (bits)
+        OCC_QUERY_LAUNCH(true, false);
+    else
+        OCC_QUERY_LAUNCH(false, true);
+#undef OCC_QUERY_LAUNCH
+    return (int)cudaGetLastError();
+}
+"""
+Q_PR18_READS = """        if (BITS) bit = bit || __ldg(binary + flat) != 0;
+        if (VALUES) val = fmaxf(val, fmaxf(__ldg(occs + flat), 0.0f));"""
+Q_PR18_NO_READS = """        if (BITS) bit = bit != ((flat & 1) != 0);
+        if (VALUES) val = fmaxf(val, (float)flat);"""
+Q_PR18_LOCATE = "        const int flat = locate(smem_q, k, L, R, x, y, z);"
+Q_PR18_PICK = """        int sel = -1, flat = -1;
+        float lx = 0.0f, ly = 0.0f, lz = 0.0f, wx = 1.0f, wy = 1.0f,
+              wz = 1.0f;
+#pragma unroll
+        for (int l = 7; l >= 0; --l) {
+            if (l >= L) continue;
+            const float4* b = smem_q + (k * L + l) * (BOX_FLOATS / 4);
+            const float4 q0 = b[0], q1 = b[1], q2 = b[2];
+            const bool in = (x >= q0.x) & (x < q0.w) & (y >= q0.y) &
+                            (y < q1.x) & (z >= q0.z) & (z < q1.y);
+            sel = in ? l : sel;
+            lx = in ? q1.z : lx;
+            ly = in ? q1.w : ly;
+            lz = in ? q2.x : lz;
+            wx = in ? q2.y : wx;
+            wy = in ? q2.z : wy;
+            wz = in ? q2.w : wz;
+        }
+        if (sel >= 0) {
+            const int i0 = min(max(__float2int_rz((x - lx) / wx * (float)R),
+                                   0), R - 1);
+            const int i1 = min(max(__float2int_rz((y - ly) / wy * (float)R),
+                                   0), R - 1);
+            const int i2 = min(max(__float2int_rz((z - lz) / wz * (float)R),
+                                   0), R - 1);
+            flat = (((k * L + sel) * R + i0) * R + i1) * R + i2;
+        }"""
+Q_PR18_RCP = """__device__ __forceinline__ int locate_rcp(const float4* box, int k, int L,
+                                          int R, float x, float y,
+                                          float z) {
+    for (int l = 0; l < L; ++l) {
+        const float4* b = box + (k * L + l) * (BOX_FLOATS / 4);
+        const float4 q0 = b[0], q1 = b[1];
+        if (x >= q0.x && x < q0.w && y >= q0.y && y < q1.x && z >= q0.z &&
+            z < q1.y) {
+            const float4 q2 = b[2];
+            const float rx = __fdividef(x - q1.z, q2.y);
+            const float ry = __fdividef(y - q1.w, q2.z);
+            const float rz = __fdividef(z - q2.x, q2.w);
+            const int i0 = min(max(__float2int_rz(rx * (float)R), 0), R - 1);
+            const int i1 = min(max(__float2int_rz(ry * (float)R), 0), R - 1);
+            const int i2 = min(max(__float2int_rz(rz * (float)R), 0), R - 1);
+            return (((k * L + l) * R + i0) * R + i1) * R + i2;
+        }
+    }
+    return -1;
+}
+
+template <bool BITS, bool VALUES>"""
+Q_CELLS = """                bool n0, n1, n2;  // the three guesses first, then rows
+                int i0 = guess_cell(x[p], c0.x, c0.w, margin, top, n0);
+                int i1 = guess_cell(y[p], c0.y, c1.x, margin, top, n1);
+                int i2 = guess_cell(z[p], c0.z, c1.y, margin, top, n2);
+                const float* r = steps + kl * 3 * row;
+                if (n0) i0 = step_row(r, x[p], i0, R);
+                if (n1) i1 = step_row(r + row, y[p], i1, R);
+                if (n2) i2 = step_row(r + 2 * row, z[p], i2, R);"""
+Q_DIV_CELLS = """                const float4 w01 = smem_q[4 * kl + 1];  // b.y, b.z, w.x, w.y
+                const float wz = smem_q[4 * kl + 3].z;
+""" + "\n".join(
+    f"                int i{a} = min(max(__float2int_rz(({c}[p] - "
+    f"c0.{'xyz'[a]}) / {w} * (float)R), 0), R - 1);"
+    for a, (c, w) in enumerate((("x", "w01.z"), ("y", "w01.w"),
+                                ("z", "wz"))))
+Q_READS = """                if (BITS) bit[p] = bit[p] || __ldg(binary + flat) != 0;
+                if (VALUES)
+                    val[p] = fmaxf(val[p], fmaxf(__ldg(occs + flat), 0.0f));"""
+Q_NO_READS = """                if (BITS) bit[p] = bit[p] != ((flat & 1) != 0);
+                if (VALUES) val[p] = fmaxf(val[p], (float)flat);"""
+Q_ONE_WAVE = "    if (blocks <= resident) {  // one wave: a thread a point"
+VARIANTS["11q: the first design (a thread a point, `locate`)"] = (
+    "occ_query", False, [(None, Q_PR18)], None)
+VARIANTS["11q: the first design without the grid reads (timing only)"] = (
+    "occ_query", True,
+    [(None, Q_PR18.replace(Q_PR18_READS, Q_PR18_NO_READS))], None)
+VARIANTS["11q: the first design, the divisions as approximate reciprocal "
+         "multiplies (timing only)"] = (
+    "occ_query", True,
+    [(None, Q_PR18.replace("template <bool BITS, bool VALUES>", Q_PR18_RCP)
+      .replace("locate(smem_q", "locate_rcp(smem_q"))], None)
+VARIANTS["11q: the first design, the finest level picked by selects over "
+         "the unrolled level loop (divisions kept)"] = (
+    "occ_query", False, [(None, Q_PR18.replace(Q_PR18_LOCATE, Q_PR18_PICK))],
+    None)
+VARIANTS["11q: the step rows read on every cell (no margin test)"] = (
+    "occ_query", False,
+    [("    near = !(f >= margin && f <= top);", "    near = true;")], None)
+VARIANTS["11q: divisions in place of the guess and the step rows"] = (
+    "occ_query", False, [(Q_CELLS, Q_DIV_CELLS)], None)
+VARIANTS["11q: the one-wave kernel reading the step rows from device "
+         "memory"] = (
+    "occ_query", False,
+    [("    const int rows_shared = smem + rows <= 48 * 1024;",
+      "    const int rows_shared = 0;")], None)
+VARIANTS["11q: bits alone without the skip after a set bit"] = (
+    "occ_query", False,
+    [("                if (sel[p] < 0 || (!VALUES && bit[p])) continue;",
+      "                if (sel[p] < 0) continue;")], None)
+VARIANTS["11q: no grid reads (timing only)"] = (
+    "occ_query", True, [(Q_READS, Q_NO_READS)], None)
+VARIANTS["11q: a point a thread at every size"] = (
+    "occ_query", False, [(Q_ONE_WAVE, "    if (true) {")], None)
+VARIANTS["11q: four points a thread at every size"] = (
+    "occ_query", False, [(Q_ONE_WAVE, "    if (false) {")], None)
+VARIANTS["11q: 512 threads a block"] = (
+    "occ_query", False,
+    [("#define QUERY_THREADS 256", "#define QUERY_THREADS 512")], None)
+VARIANTS["11q: four points a thread on blocks capped at the resident "
+         "count (grid-stride)"] = (
+    "occ_query", False,
+    [("    if (smem > 48 * 1024 &&", "    if ("),
+     ("    many<<<(unsigned)tiles, QUERY_THREADS, smem, stream>>>(",
+      "    many<<<(unsigned)(tiles < resident ? tiles : resident), "
+      "QUERY_THREADS, smem, stream>>>(")], None)
 # the kernel a variant of each library replaces unless it names another
 KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH",
-             "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG"}
+             "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG",
+             "occ_query": "OCC_QUERY"}
 # each kernel's cases in `serve_ab.kernel_cases`
 CASES_OF = {"OCC_SAMPLE": (0, 1), "BUCKET_DISPATCH": (2, 3, 4),
             "COHERENT_EXPERT": (5, 6), "COMPOSITE_SEG": (7, 8),
-            "BUCKET_COMBINE_BWD": (9, 10)}
+            "BUCKET_COMBINE_BWD": (9, 10), "OCC_QUERY": (11, 12, 13, 14, 15)}
 
 
 def kernel_of(name: str) -> str:
@@ -153,6 +349,9 @@ def build_variants(kernels, sms: int):
         src_name, extra = kernels.SOURCES[stem]
         text = (kernels.CSRC / src_name).read_text()
         for old, new in reps:
+            if old is None:  # the whole source
+                text = new
+                continue
             if text.count(old) != 1:
                 raise SystemExit(f"kernel_ab: {name}: the shipped source "
                                  f"no longer holds {old!r} once")
@@ -178,7 +377,11 @@ def build_variants(kernels, sms: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--kernels", nargs="+", choices=sorted(CASES_OF),
+                    default=sorted(CASES_OF))
     args = ap.parse_args()
+    for name in [n for n in VARIANTS if kernel_of(n) not in args.kernels]:
+        del VARIANTS[name]
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -192,8 +395,8 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     device = torch.device("cuda", 0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    stems = sorted({getattr(kernels, k).stem for k in CASES_OF})
-    kernels.build_all(tuple(stems))
+    stems = sorted({getattr(kernels, k).stem for k in args.kernels})
+    kernels.build_all()  # the cases' set-up runs other kernels too
     for stem in stems:
         for ln in kernels.build_log.get(stem, "").splitlines():
             if "registers" in ln:
@@ -205,9 +408,10 @@ def main() -> int:
     torch.manual_seed(cs.SEED)
     cfg, statics, params, occ = cs.bench_setup(device)
     cases = serve_ab.kernel_cases(cs, cfg, statics, params, occ, device)
-    for case, _, check in cases:  # also loads the shipped entry points
-        print(f"shipped / {case}: {check()[0]}", flush=True)
-    shipped = {k: getattr(kernels, k) for k in CASES_OF}
+    timed = sorted(i for k in args.kernels for i in CASES_OF[k])
+    for i in timed:  # also loads the shipped entry points
+        print(f"shipped / {cases[i][0]}: {cases[i][2]()[0]}", flush=True)
+    shipped = {k: getattr(kernels, k) for k in args.kernels}
     fns = {k: kern._fn for k, kern in shipped.items()}
     shipped_tile = CO.dispatch_tile
     shipped_10b = {at: getattr(CO, at) for at in ("COHERENT_GROUPS",
@@ -251,8 +455,7 @@ def main() -> int:
     for r in range(args.rounds):
         for name in names:
             use(name)
-            idx = (range(len(cases)) if name is None
-                   else CASES_OF[kernel_of(name)])
+            idx = timed if name is None else CASES_OF[kernel_of(name)]
             row = []
             for i in idx:
                 ms = cs.device_ms(cases[i][1])

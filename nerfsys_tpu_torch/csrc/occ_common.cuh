@@ -1,13 +1,13 @@
-// Cell selection shared by the occupancy kernels: kernel 2 (occ_probe.cu)
-// and kernel 11q (occ_query.cu) locate a point's cell with the same code,
-// so both select the plain version's cells bit for bit
-// (nerfsys_tpu/ops/occupancy.py `_finest_level_index` :121).
+// Kernel 2's cell selection (occ_probe.cu), which selects the plain
+// version's cells bit for bit (nerfsys_tpu/ops/occupancy.py
+// `_finest_level_index` :121). Kernel 11q (occ_query.cu) tests levels on
+// the same bounds but selects its cells without division.
 //
 // The level table is ops/occupancy.py `level_bounds`: per level of each
 // expert's box, BOX_FLOATS floats a[3], b[3], lo[3], w[3]. rel = (x - lo)
 // / w is monotone in x, so 0 <= rel < 1 holds on an axis exactly for a <=
 // x < b: a level is tested by comparison, and only the deciding level
-// divides. Both kernels copy the table into shared memory and read a level
+// divides. Kernel 2 copies the table into shared memory and reads a level
 // as three float4: (a, b.x), (b.y, b.z, lo.x, lo.y), (lo.z, w).
 #pragma once
 

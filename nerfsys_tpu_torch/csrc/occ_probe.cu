@@ -51,7 +51,7 @@
 //     the scan; J probes a lane, J the power of 2 at or above P / 32) and
 //     writes the cdf rows and occupancy bytes coalesced.
 // The plan comes from Python (ops/occupancy.py `occ_probe_plan`).
-#include "occ_common.cuh"  // BOX_FLOATS, locate: shared with kernel 11q
+#include "occ_common.cuh"  // BOX_FLOATS, locate
 
 struct ProbePlan {  // ops/occupancy.py ProbeLaunchPlan
     int lane_map;   // 0 "probes": a warp a ray; 1 "rays": lanes over rays

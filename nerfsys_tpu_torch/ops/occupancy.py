@@ -324,8 +324,8 @@ def union_pair(occs: torch.Tensor, binary: torch.Tensor, aabbs: torch.Tensor,
 
 
 QUERY_MODES = ("bits", "values", "pair")
-QUERY_THREADS = 256  # csrc/occ_query.cu: a thread a point
-QUERY_SMEM = 48 * 1024  # the level table, without an opt-in
+QUERY_SMEM = 227 * 1024  # csrc/occ_query.cu: a block's level table
+QUERY_MAX_LEVELS = 8  # csrc/occ_query.cu: its level loop, unrolled
 
 
 def occupancy_query_plain(occs: Optional[torch.Tensor],
@@ -354,9 +354,10 @@ def occupancy_query_kernel(occs: Optional[torch.Tensor],
                            aabbs: torch.Tensor, pts: torch.Tensor,
                            mode: str):
     """Kernel 11q's wrapper: the plain version for CPU tensors; on CUDA
-    tensors it launches `occupancy_query` (a thread a point; the level
-    table from `level_bounds`, cached per box tensor) or raises. `occs` may
-    be None in "bits" mode and `binary` in "values" mode."""
+    tensors it launches `occupancy_query` (one or four points a thread;
+    its level table and step rows from `query_table`, cached per box
+    tensor, level count and resolution) or raises. `occs` may be None in "bits" mode and
+    `binary` in "values" mode."""
     if mode not in QUERY_MODES:
         raise ValueError(f"occupancy_query: mode={mode!r}, expected one of "
                          f"{QUERY_MODES}")
@@ -374,18 +375,20 @@ def occupancy_query_kernel(occs: Optional[torch.Tensor],
     if K * L * R ** 3 >= 2 ** 31:
         raise ValueError("occupancy_query: the kernel takes grids of fewer "
                          "than 2^31 cells")
-    if 4 * K * L * BOX_FLOATS > QUERY_SMEM:
-        raise ValueError(f"occupancy_query: K={K} x L={L} levels exceed "
-                         f"{QUERY_SMEM} bytes of shared memory")
+    if L > QUERY_MAX_LEVELS or query_smem(K, L) > QUERY_SMEM:
+        raise ValueError(f"occupancy_query: the kernel takes at most "
+                         f"{QUERY_MAX_LEVELS} levels and {QUERY_SMEM} bytes "
+                         f"of level table (K={K} x L={L} levels: "
+                         f"{query_smem(K, L)})")
     if aabbs.dtype != torch.float32:
         raise TypeError(f"occupancy_query: aabbs has dtype {aabbs.dtype}, "
                         f"expected torch.float32")
     if pts.shape[-1] != 3:
         raise ValueError("occupancy_query: pts must be (..., 3)")
-    table = _level_table(aabbs, L)
+    table = _cached_table(aabbs, L, R)
     flat = pts.reshape(-1, 3)
     kernels.check_cuda_tensors(
-        "occupancy_query", dev, pts=flat, levels=table,
+        "occupancy_query", dev, pts=flat, table=table,
         occs=occs if values else None, binary=binary if bits else None)
     M = flat.shape[0]
     out_bits = (torch.empty((M,), dtype=torch.bool, device=dev) if bits
@@ -645,29 +648,82 @@ def level_bounds(aabbs: torch.Tensor, levels: int) -> torch.Tensor:
     return torch.cat([a, b, lo, w], dim=-1).contiguous()
 
 
+def cell_steps(lo: torch.Tensor, hi: torch.Tensor, R: int) -> torch.Tensor:
+    """(..., R + 1) float32 step rows of levels spanning lo to hi (...,) on
+    one axis: t_0 = -inf, t_j (0 < j < R) the least float x with
+    trunc(fl(fl(x - lo) / (hi - lo)) * R) >= j, the cell formula of
+    `_finest_level_index`, and t_R = +inf. That cell is monotone in x, so
+    for x in the level (a <= x < b of `level_bounds`) the plain version's
+    cell is the c with t_c <= x < t_{c+1}: the number of step points <= x.
+    Found by `_first_float`'s bisection, on the tensors' device. Levels
+    without a positive finite width get rows of +inf (they hold no
+    point)."""
+    lo = lo.to(torch.float32)
+    hi = hi.to(torch.float32)
+    w = hi - lo
+    j = torch.arange(1, R, dtype=torch.float32, device=lo.device)
+    shape = lo.shape + (R - 1,)
+    lo_, w_ = lo[..., None], w[..., None]
+    t = _first_float(lambda x: (x - lo_) / w_ * R >= j, lo_.expand(shape),
+                     hi[..., None].expand(shape))
+    empty = ~((w > 0.0) & torch.isfinite(w))
+    t = torch.where(empty[..., None], float("inf"), t)
+    inf = torch.full(lo.shape + (1,), float("inf"), device=lo.device)
+    return torch.cat([-inf, t, inf], dim=-1)
+
+
+def query_smem(K: int, L: int) -> int:
+    """Bytes of kernel 11q's shared level table: 16 floats a level."""
+    return 64 * K * L
+
+
+def query_table(aabbs: torch.Tensor, levels: int, R: int) -> torch.Tensor:
+    """Kernel 11q's table, flat float32: per level of each box 16 floats,
+    a, b.x | b.y, b.z, w.x, w.y | lo, s.x | s.y, s.z, w.z, 0, where a, b,
+    lo, w are `level_bounds`' and s = R / w is the cell guess's scale;
+    then the (K, L, 3, R + 1) `cell_steps` rows of every level and axis,
+    zero-padded to whole float4s."""
+    lb = level_bounds(aabbs, levels)  # (K, L, 12): a, b, lo, w
+    a, b, lo, w = (lb[..., 3 * i:3 * i + 3] for i in range(4))
+    s = torch.full_like(w, float(R)) / w
+    zero = torch.zeros_like(w[..., :1])
+    head = torch.cat([a, b, w[..., :2], lo, s, w[..., 2:], zero], dim=-1)
+    la = level_aabbs(aabbs.to(torch.float32), levels)
+    steps = cell_steps(la[..., 0, :], la[..., 1, :], R)  # (K, L, 3, R + 1)
+    pad = steps.new_zeros(-steps.numel() % 4)  # whole float4s
+    return torch.cat([head.reshape(-1), steps.reshape(-1), pad]).contiguous()
+
+
 _LEVEL_TABLES: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = (
     OrderedDict())
 LEVEL_TABLES_KEPT = 64
 
 
-def _level_table(aabbs: torch.Tensor, levels: int) -> torch.Tensor:
-    """`level_bounds`, cached per box tensor (its storage, offset, shape,
-    strides and version counter) and level count. An entry holds the boxes,
-    so their storage is not freed and its address not reused while the
-    entry lives; writing to the boxes in place bumps the version and misses
-    the cache."""
+def _cached_table(aabbs: torch.Tensor, levels: int,
+                  R: Optional[int] = None) -> torch.Tensor:
+    """`level_bounds` (R None: kernel 2's) or `query_table` (kernel 11q's),
+    cached per box tensor (its storage, offset, shape, strides and version
+    counter), level count and R. An entry holds the boxes, so their storage
+    is not freed and its address not reused while the entry lives; writing
+    to the boxes in place bumps the version and misses the cache."""
     key = (aabbs.untyped_storage().data_ptr(), aabbs.storage_offset(),
            tuple(aabbs.shape), aabbs.stride(), aabbs._version, aabbs.device,
-           aabbs.dtype, levels)
+           aabbs.dtype, levels, R)
     hit = _LEVEL_TABLES.get(key)
     if hit is not None:
         _LEVEL_TABLES.move_to_end(key)
         return hit[1]
-    table = level_bounds(aabbs, levels)
+    table = (level_bounds(aabbs, levels) if R is None
+             else query_table(aabbs, levels, R))
     _LEVEL_TABLES[key] = (aabbs, table)
     if len(_LEVEL_TABLES) > LEVEL_TABLES_KEPT:
         _LEVEL_TABLES.popitem(last=False)
     return table
+
+
+def _level_table(aabbs: torch.Tensor, levels: int) -> torch.Tensor:
+    """Kernel 2's level table, `level_bounds` through `_cached_table`."""
+    return _cached_table(aabbs, levels)
 
 
 def occupancy_probe_cdf_kernel(

@@ -37,15 +37,19 @@ margin 1.1, cluster_2d) on the serve chunk's 65,536 x 32 samples and on
 the first chunk of the skew-0.9 frame's (the coherent renderer's probe
 samples), and row 8 (the segment compositor) on the serve chunk's first
 segment (65,536 x 8, the bench probe's samples through the field, t and
-dt column slices) and on a resume slice (16,384 x 24): each case's device
-time (chip_smoke's `device_ms`) and back-to-back time, and 10a-iii (the
+dt column slices) and on a resume slice (16,384 x 24), 10a-iii (the
 blend's transpose) on the top-2 dispatches of the serve chunk and of the
-K=16 chunk; before the rounds
+K=16 chunk, and 11q (the occupancy point query) at the serve chunk's
+2,097,152 samples (K=4 L=4 R=128) in its three modes, at one inner
+step's 128,000 samples (the K=1 task slice) and on the first 1,048,576
+points of the K=16 arm (K=16 L=4 R=128 grids, 5% occupied, seed 5):
+each case's device time (chip_smoke's `device_ms`) and back-to-back time;
+before the rounds
 each worker holds every case against its plain version (the sampler
 within 1e-5, the dispatch's integer outputs equal and its weights within
 1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5, 10a-iii
-equal); then, one side after the other, each profiles ten dispatch calls
-and ten 10a-iii calls (device time by kernel launch), one soft early-stop
+and 11q equal); then, one side after the other, each profiles ten
+dispatch calls and ten 10a-iii calls (device time by kernel launch), one soft early-stop
 frame at sigma_scale 1 and one coherent skew frame (hash experts),
 watching rows 8 and 10b. A worker waits on its pipe between rounds, so
 one runs at a time.
@@ -174,7 +178,10 @@ KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
                 "dispatch K=4 E=2", "dispatch K=16 E=2", "coherent chunk",
                 "coherent skew chunk", "composite first segment",
                 "composite resume slice", "combine_bwd K=4 E=2",
-                "combine_bwd K=16 E=2")
+                "combine_bwd K=16 E=2", "query chunk bits",
+                "query chunk values", "query chunk pair", "query step bits",
+                "query K=16 bits")
+QUERY_K16_PTS = 1 << 20  # the union grid build's chunk of points
 
 
 def combine_bwd_call(CO, w, dest, counts, g_s, g_r, n_slots):
@@ -342,6 +349,29 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
                     float(sum(x.double().sum() for x in got)))
         return (lambda: combine_bwd_call(*args)), check
 
+    def query(grids_q, qpts, mode):
+        args = (*grids_q, qpts, mode)
+
+        def check():
+            got = O.occupancy_query_kernel(*args)
+            want = O.occupancy_query_plain(*args)
+            if mode != "pair":
+                got, want = (got,), (want,)
+            wrong = sum(int((g != w).sum()) for g, w in zip(got, want))
+            if wrong:
+                raise SystemExit(f"serve_ab: 11q ({mode}): {wrong} outputs "
+                                 f"differ from its plain version")
+            return ("equal to the plain version",
+                    float(sum(g.double().sum() for g in got)))
+        return (lambda: O.occupancy_query_kernel(*args)), check
+
+    step_pts = V.t_to_points(so, sd, O.sample_tvals_plain(
+        scdf, sn, sf, su)).reshape(-1, 3).contiguous()
+    g16 = torch.Generator(device=device).manual_seed(5)
+    bin16 = torch.rand((16, 4, 128, 128, 128), generator=g16,
+                       device=device) < 0.05
+    k16_grids = (torch.where(bin16, 0.1, 0.0), bin16, k16_st.expert_aabbs)
+    k16_qpts = k16_pts[:QUERY_K16_PTS].contiguous()
     return [(KERNEL_CASES[0], *sampler((cdf, near, far, u))),
             (KERNEL_CASES[1], *sampler((scdf, sn, sf, su))),
             (KERNEL_CASES[2], *dispatch((pts, dirs, cents, True, 1.1, 1,
@@ -359,7 +389,12 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
                                             CO.bucket_capacity(
                                                 pts.shape[0], 4, 2,
                                                 cs.MOE_CF)))),
-            (KERNEL_CASES[10], *combine_bwd(k16))]
+            (KERNEL_CASES[10], *combine_bwd(k16)),
+            *((KERNEL_CASES[11 + i], *query(grids, pts, mode))
+              for i, mode in enumerate(("bits", "values", "pair"))),
+            (KERNEL_CASES[14], *query([g[0:1] for g in grids], step_pts,
+                                      "bits")),
+            (KERNEL_CASES[15], *query(k16_grids, k16_qpts, "bits"))]
 
 
 def profile_frames(cs, cfg, statics, params, occ, device, root: Path):

@@ -10,10 +10,15 @@ ones the kernel is held to on the card, at fewer points: points on level
 faces (rel exactly 0 and exactly 1) and one ulp either side, points
 outside every level, rel a few ulps below 1 (the last cell, R = 12,
 24: rel < 1 exactly where x < b, so rel * R stays below R), invisible cells
-tagged -1, random points, K = 1, 4, 5, M = 1 and 0. The JAX side runs
-with jit disabled (jitted XLA on the CPU contracts the level boxes'
-multiply-adds, which can move a face by an ulp). Bits and values are
-equal bit for bit: the same float32 operations select the same cells.
+tagged -1, random points, K = 1, 4, 5, M = 1 and 0; and points on the
+cells' step points and one ulp either side (R = 128, 127), which the
+numpy walk takes and the JAX side does not (no eager-JAX time). The JAX
+side runs with jit disabled (jitted XLA on the CPU contracts the level
+boxes' multiply-adds, which can move a face by an ulp). Bits and values
+are equal bit for bit: the same float32 operations select the same
+cells. The kernel's step rows (`cell_steps`) are held to the division
+formula they replace, and its guess correction to the true cell however
+far off the guess.
 """
 import jax
 import jax.numpy as jnp
@@ -29,8 +34,10 @@ from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import occupancy as T
 
 M = 1024 + 13  # a tail past whole 256-point blocks
-CASES = [(label, kind, min(m, M), k, l, r)
-         for label, kind, m, k, l, r in cs.query_edge_cases()]
+ALL_CASES = [(label, kind, min(m, M), k, l, r)
+             for label, kind, m, k, l, r in cs.query_edge_cases()]
+ALL_IDS = [c[0].replace(" ", "_") for c in ALL_CASES]
+CASES = [c for c in ALL_CASES if c[1] != "steps"]  # the JAX side's
 IDS = [c[0].replace(" ", "_") for c in CASES]
 f32 = np.float32
 
@@ -120,24 +127,63 @@ def test_points_of_any_shape():
         assert torch.equal(g.reshape(-1), f)
 
 
+def _guess(q, R):
+    """trunc(q) clamped to [0, R), float32 (NaN reads 0, as the card's
+    conversion gives)."""
+    q = np.nan_to_num(q, nan=0.0, posinf=R, neginf=0.0)
+    return np.clip(q, 0, R - 1).astype(np.int64)
+
+
+def _correct(rows, x, g):
+    """The step row's verdict from guess g: g where t_g <= x < t_{g+1}
+    brackets x, else the bisection over the row. rows (n, R + 1), x and
+    g (n,)."""
+    n, R = np.arange(len(x)), rows.shape[1] - 1
+    ok = (x >= rows[n, g]) & (x < rows[n, g + 1])
+    c, span = np.zeros_like(g), R
+    while span > 1:
+        h = span // 2
+        c = np.where(rows[n, c + h] <= x, c + h, c)
+        span -= h
+    return np.where(ok, g, c)
+
+
+def _cell(rows, x, lo, s, R):
+    """The kernel's `step_cell` in numpy float32: trunc(q), q = (x - lo) *
+    s, where q's fraction is at least R 2^-20 from an integer; else the
+    step row's `_correct` of the clamped guess."""
+    with np.errstate(all="ignore"):
+        q = (x - lo) * s
+        f = q - np.trunc(q)
+    margin = f32(R) * f32(2.0 ** -20)
+    safe = (f >= margin) & (f <= f32(1.0) - margin)
+    g = _guess(q, R)
+    return np.where(safe, g, _correct(rows, x, g))
+
+
 def _walk(table, binary, occs, pts, R):
-    """Kernel 11q in numpy float32: per expert, the first level (finest
-    first) whose bounds a <= x < b hold on every axis decides; only it
-    divides, rel * R truncates and clamps; bits OR'd, values max'd."""
-    K, L = table.shape[:2]
+    """Kernel 11q in numpy float32 over `query_table`'s flat table: per
+    expert, every level's bounds a <= x < b tested and the finest that
+    holds the point kept (no early return); on each axis `_cell` with the
+    table's s = R / w; bits OR'd, values max'd."""
+    K, L = binary.shape[:2]
+    box = table[:K * L * 16].reshape(K, L, 16)
+    rows = table[K * L * 16:K * L * (16 + 3 * (R + 1))].reshape(
+        K, L, 3, R + 1)
     bits = np.zeros(pts.shape[0], bool)
     vals = np.zeros(pts.shape[0], f32)
     for k in range(K):
-        flat = np.full(pts.shape[0], -1, np.int64)
+        sel = np.full(pts.shape[0], -1, np.int64)
         for l in reversed(range(L)):  # the finest level written last wins
-            a, b, lo, w = (table[k, l, 3 * i:3 * i + 3] for i in range(4))
-            inside = ((pts >= a) & (pts < b)).all(axis=1)
-            rel = (pts - lo) / w
-            ijk = np.clip((rel * f32(R)).astype(np.int32), 0, R - 1)
-            cell = (((k * L + l) * R + ijk[:, 0]) * R + ijk[:, 1]) * R \
-                + ijk[:, 2]
-            flat = np.where(inside, cell, flat)
-        hit = flat >= 0
+            a, b = box[k, l, 0:3], box[k, l, 3:6]
+            sel = np.where(((pts >= a) & (pts < b)).all(axis=1), l, sel)
+        hit = sel >= 0
+        lev = np.where(hit, sel, 0)
+        ijk = []
+        for ax in range(3):
+            lo, s = box[k, lev, 8 + ax], box[k, lev, 11 + ax]
+            ijk.append(_cell(rows[k, lev, ax], pts[:, ax], lo, s, R))
+        flat = (((k * L + lev) * R + ijk[0]) * R + ijk[1]) * R + ijk[2]
         idx = np.where(hit, flat, 0)
         bits |= hit & binary.reshape(-1)[idx]
         vals = np.maximum(vals, np.where(hit, np.maximum(
@@ -145,18 +191,114 @@ def _walk(table, binary, occs, pts, R):
     return bits, vals
 
 
-@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("case", ALL_CASES, ids=ALL_IDS)
 def test_kernel_walk_matches_plain(case):
-    """The kernel's float-bound level test (the table of `level_bounds`)
-    selects the plain version's cells: bits and values equal."""
+    """The kernel's walk (the float-bound level test of `level_bounds`,
+    the multiply guess, and near a step its correction on the `cell_steps`
+    rows) selects the plain version's cells: bits and values equal."""
     occs, binary, boxes, pts = _inputs(case, seed=4)
-    R = occs.shape[2]
-    table = T.level_bounds(torch.from_numpy(boxes), occs.shape[1]).numpy()
+    L, R = occs.shape[1], occs.shape[2]
+    table = T.query_table(torch.from_numpy(boxes), L, R).numpy()
     bits, vals = _walk(table, binary, occs, pts, R)
     got = T.occupancy_query_plain(*(torch.from_numpy(a) for a in (
         occs, binary, boxes, pts)), "pair")
     np.testing.assert_array_equal(bits, got[0].numpy())
     np.testing.assert_array_equal(vals, got[1].numpy())
+
+
+def _plain_cell(x, lo, w, R):
+    """The plain version's cell on one axis (`_finest_level_index`'s
+    rounding), as torch float32: clamp(trunc((x - lo) / w * R), 0, R-1)."""
+    rel = (torch.from_numpy(x) - torch.from_numpy(lo)) / torch.from_numpy(w)
+    return torch.clamp((rel * R).to(torch.int32).long(), 0, R - 1).numpy()
+
+
+@pytest.mark.parametrize("R", [12, 24, 127, 128])
+def test_cell_steps_count_like_the_division(R):
+    """On random boxes, at every step point of every level and axis and
+    one ulp either side (and at random points of the level), the number of
+    step points <= x is the plain version's cell, wherever a <= x < b."""
+    rng = np.random.default_rng(R)
+    cents = rng.uniform(-3.0, 3.0, (60, 3))
+    half = rng.uniform(0.01, 2.0, (60, 3))
+    boxes = torch.from_numpy(np.stack([cents - half, cents + half],
+                                      1).astype(f32))
+    L = 3
+    la = T.level_aabbs(boxes, L)  # (60, L, 2, 3)
+    lo, hi = la[..., 0, :], la[..., 1, :]
+    rows = T.cell_steps(lo, hi, R).reshape(-1, R + 1).numpy()
+    assert np.isneginf(rows[:, 0]).all() and np.isposinf(rows[:, R]).all()
+    assert (np.diff(rows, axis=1) >= 0).all()
+    inner = rows[:, 1:R]
+    lo_n, hi_n = lo.reshape(-1, 1).numpy(), hi.reshape(-1, 1).numpy()
+    rand = (lo_n + rng.uniform(size=(len(rows), 64)).astype(f32)
+            * (hi_n - lo_n)).astype(f32)
+    x = np.concatenate([inner, np.nextafter(inner, f32(np.inf)),
+                        np.nextafter(inner, f32(-np.inf)), rand], 1)
+    ab = T.level_bounds(boxes, L)  # (60, L, 12)
+    a = ab[..., 0:3].reshape(-1, 1).numpy()
+    b = ab[..., 3:6].reshape(-1, 1).numpy()
+    count = (inner[:, None, :] <= x[:, :, None]).sum(-1)
+    want = _plain_cell(x, lo_n, hi_n - lo_n, R)
+    inside = (x >= a) & (x < b)
+    assert inside.mean() > 0.9
+    np.testing.assert_array_equal(count[inside], want[inside])
+
+
+def test_guess_correction_however_far_off():
+    """`step_cell`'s correction lands on the plain cell from any guess:
+    guesses drawn anywhere in [0, R), and the kernel's own cell on widths
+    where R / w overflows (q saturates or is NaN, the guess many cells
+    off: the margin test sends it to the row) or is tiny next to the
+    point's offset."""
+    rng = np.random.default_rng(7)
+    R = 128
+    lo = np.array([0.0, 1e-39, -1.5e38, 3.0, -2.0], f32)
+    hi = np.array([2e-38, 3e-39, 1.5e38, 3.0 + 2e-5, 2.0], f32)
+    rows = T.cell_steps(torch.from_numpy(lo), torch.from_numpy(hi),
+                        R).numpy()
+    w = hi - lo
+    for i in range(len(lo)):
+        x = (lo[i] + rng.uniform(size=4096).astype(f32) * w[i]).astype(f32)
+        x = np.concatenate([x, rows[i, 1:R]]).astype(f32)
+        x = x[(x >= lo[i]) & (x < hi[i])]
+        want = _plain_cell(x, lo[i:i + 1], w[i:i + 1], R)
+        r = np.broadcast_to(rows[i], (len(x), R + 1))
+        with np.errstate(all="ignore"):
+            s = f32(R) / w[i]
+            own = _guess((x - lo[i]) * s, R)
+        if i < 2:  # R / w overflows: the guess alone is far off
+            assert np.isinf(s) and (np.abs(own - want) > 1).any()
+        np.testing.assert_array_equal(_correct(r, x, own), want)
+        np.testing.assert_array_equal(_cell(r, x, lo[i], s, R), want)
+        far = rng.integers(0, R, size=len(x))
+        np.testing.assert_array_equal(_correct(r, x, far), want)
+
+
+def test_query_table_layout():
+    """The table is the level table, then the step rows; the K=16 arm's
+    level table fits the kernel's shared memory."""
+    occs, binary, boxes, pts = _inputs(CASES[4])
+    K, L, R = occs.shape[:3]
+    tb = torch.from_numpy(boxes)
+    table = T.query_table(tb, L, R)
+    head = table[:K * L * 16].reshape(K, L, 16)
+    lb = T.level_bounds(tb, L)
+    for cols, want in (([0, 1, 2], lb[..., 0:3]), ([3, 4, 5], lb[..., 3:6]),
+                       ([8, 9, 10], lb[..., 6:9]), ([6, 7, 14], lb[..., 9:12]),
+                       ([11, 12, 13],
+                        torch.full_like(lb[..., 9:12], float(R))
+                        / lb[..., 9:12])):
+        assert torch.equal(head[..., cols], want)
+    assert not head[..., 15].any()
+    la = T.level_aabbs(tb, L)
+    rows = T.cell_steps(la[..., 0, :], la[..., 1, :], R)
+    n = K * L * 16 + rows.numel()
+    assert torch.equal(table[K * L * 16:n], rows.reshape(-1))
+    assert table.numel() % 4 == 0 and table.numel() - n < 4
+    assert not table[n:].any()
+    assert T._cached_table(tb, L, R) is T._cached_table(tb, L, R)
+    assert T.query_smem(16, 4) <= T.QUERY_SMEM < T.query_smem(1024, 4)
 
 
 def test_edge_inputs_hit_their_cases():
