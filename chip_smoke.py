@@ -137,7 +137,8 @@ printing its result lines):
    light encoder backward) through `make_train_step`: one warm-up step,
    3 timed outer steps, then one step with the encoder's default exact
    backward (pos_grad=True). Loss finite, no step skipped, params moved,
-   every kernel's launch counter moved; one step's gradients through the
+   every kernel's launch counter moved and no second-order one (4'', 5'',
+   6''); one step's gradients through the
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one light and one exact
    step are profiled (device busy ms, idle share, kernel 6's launches x
@@ -157,6 +158,30 @@ printing its result lines):
    point queries (`occupancy_query`, kernel 11q; a profiler range around
    each) beside its busy time; then the same step with occ_probe_mask
    (the probe bits, no point query), held and profiled alike.
+   MAML (`maml:` lines): second-order MAML (`MetaConfig(algo="maml")`).
+   Kernel 4'' (the compositor's VJP differentiated again) against its
+   plain version at one inner step's shapes (4,000 x 32) with the
+   upstream of MAML's loss (rgb alone), all four upstreams, depth alone,
+   sigma_scale 25 and the edge rays of `volrend_edge_inputs` (alpha at
+   its clip, sigma exactly 0, rgb exactly 0 and 1, dt at its floor):
+   every output within 1e-5 of its max (d acc and d bg of the max over
+   rays of sum |w'| and max |G| times it: acc' cancels on opaque rays);
+   kernels 5'' and 6'' (the plane encoder's light and exact VJPs
+   differentiated again) on one expert's tables and on three draws at the
+   K=4 stack, every output within 1e-5 of its max (the tables against the
+   plain version's shares summed in float64), the light tables at least
+   twice that from the exact ones; device, back-to-back and plain times
+   beside the byte bounds (the distinct table rows read). Then
+   bench.py's step with algo="maml": its gradients through the kernels
+   against the same step through the plain versions (2^-8 of each leaf's
+   max), against the FoMAML step's from the same params and draws (they
+   must differ by more than 2^-8 of a leaf's max, and the FoMAML step
+   launches no second-order kernel), 2 timed steps (host ms), peak
+   memory, launches a step and one profiled step (device busy, idle
+   share, 4'', 4', 5'', 5 watched); one exact-backward step (6''); the
+   runner's default hash experts: row 7c'' (kernel 7a on the table
+   cotangent) on the fused and packed paths against the plain path
+   within 1e-6, its device time, and one MAML step (7a, 7c, 4'').
 8. Trainer: the runner's train op in process (`runner.main`), on a
    prepared scene that the phase writes to a temporary directory in the
    dataset layout (coordinates.pt; train|val metadata .pt and .png rgbs;
@@ -181,8 +206,11 @@ printing its result lines):
    `last` (--outer_steps 40: start step 36, best and grids restored,
    params bit-equal to the saved ones, 4 more steps) and 4 steps of the
    hash experts at the runner's default widths (7a and 7c launched),
-   both on 4 of the 16 training cameras (--cap_images 4: the host
-   rebuilds each run's rays and routing, and neither check reads them).
+   and 6 steps with `--algo maml` and an occupancy update every 2 steps
+   (loss finite, params moved, kernels 1-5, 4'' and 5'' launched, step 0
+   held to the plain path as above), all on 4 of the 16 training cameras
+   (--cap_images 4: the host rebuilds each run's rays and routing, and
+   no check reads them).
    Prints the scene's build seconds (dataset, routing, TaskDataset;
    native rays and routing) beside the numpy paths' on the same scene,
    seconds to the first step, then `native:` lines: the exact DDA router
@@ -304,7 +332,7 @@ printing its result lines):
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
 12. A JSON line listing every kernel (launches, error, times, bound):
-   17 kernels from 12 libraries.
+   20 kernels from 14 libraries.
 13. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -1919,7 +1947,8 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
     the same step through the plain versions, both through `make_train_step`
     on the card, from the same random draws (one generator seed each, or
     the generator state `gen_state`). `kernel_side`: the kernel path's
-    (meta loss, gradient leaves) when they were already recorded."""
+    (meta loss, gradient leaves) when they were already recorded. Returns
+    the kernel path's (meta loss, gradient leaves)."""
     import torch
 
     from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
@@ -1950,6 +1979,7 @@ def grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
     if abs(lk - lp) > 1e-4 * abs(lp) or not max(errs) <= tol:
         raise SystemExit(f"{label}: kernel path gradients disagree with "
                          f"the plain path")
+    return lk, gk
 
 
 def profile_device(label: str, fn, extra: str = "", watch=(),
@@ -1959,13 +1989,18 @@ def profile_device(label: str, fn, extra: str = "", watch=(),
     also the rows whose names contain every word of one `watch` entry.
     `ranges`: a dict whose keys name torch.profiler.record_function ranges
     opened inside fn (`named_range`); each value is set to (calls, device
-    ms of the kernels launched inside them). Returns the device busy ms (0
-    when the profiler saw no device events)."""
+    ms of the kernels launched inside them). Host ops are traced only for
+    `ranges` (a MAML step's tens of thousands of host ops take the
+    profiler tens of seconds to process, and tracing them lengthens the
+    wall time). Returns the device busy ms (0 when the profiler saw no
+    device events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if ranges is not None:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2063,10 +2098,16 @@ def exact_backward(cfg):
 
 
 def train(cfg, statics, params, occ, batch, device, label="train",
-          extra=(exact_backward, "exact-backward"), need=TRAIN_KERNELS):
-    """Phase 5: bench.py's FoMAML step through the port's entry point, the
-    counters zeroed just before the timed steps and read just after one
-    more step with the variant `extra` = (cfg -> cfg, its name)."""
+          extra=(exact_backward, "exact-backward"), need=TRAIN_KERNELS,
+          meta=None, timed=3):
+    """Phase 5: bench.py's step (FoMAML, or `meta`) through the port's
+    entry point: a warm-up step, the counters zeroed just before `timed`
+    steps (host ms each, ending in a host sync) and read just after one
+    more step with the variant `extra` = (cfg -> cfg, its name) when
+    given; the peak memory of the warm-up and timed steps; the kernel
+    path's gradients against the plain path's; one profiled step, and one
+    of the variant -> (launches of the timed steps, launches after the
+    variant step, the kernel path's (meta loss, gradient leaves))."""
     import math
 
     import torch
@@ -2079,18 +2120,22 @@ def train(cfg, statics, params, occ, batch, device, label="train",
     from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
     from nerfsys_tpu_torch.utils.tree import tree_leaves
 
-    meta = train_meta()
+    meta = meta or train_meta()
     opt = build_optimizer(OptimConfig(outer_steps=10000),
                           param_group_labels(params))
     step = make_train_step(meta, cfg, opt)
     gen = torch.Generator(device=device).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     state = opt.init(params)
     p, state, aux = step(params, state, statics, batch, gen, occ)  # warm-up
     float(aux["loss_out"])
 
     kernels.reset_launches()
     times, losses = [], []
-    for _ in range(3):
+    for _ in range(timed):
         t0 = time.perf_counter()
         p, state, aux = step(p, state, statics, batch, gen, occ)
         losses.append(float(aux["loss_out"]))  # host sync ends the step
@@ -2099,15 +2144,23 @@ def train(cfg, statics, params, occ, batch, device, label="train",
                 aux["skipped_nonfinite"]) != 0.0:
             raise SystemExit(f"{label}: step not finite: {aux}")
     light = kernels.launches()
-    variant, name = extra
-    step_x = make_train_step(meta, variant(cfg), opt)
-    _, _, aux_x = step_x(p, state, statics, batch, gen, occ)
-    loss_x = float(aux_x["loss_out"])
-    launches = kernels.launches()
-    print(f"{label}: launches during 3 bench steps {light}", flush=True)
-    print(f"{label}: launches after the {name} step {launches}", flush=True)
-    if not math.isfinite(loss_x) or float(aux_x["skipped_nonfinite"]):
-        raise SystemExit(f"{label}: {name} step not finite")
+    peak = torch.cuda.max_memory_allocated()
+    if meta.algo != "maml" and any(light[k] for k in MAML_NEW):
+        raise SystemExit(f"{label}: a first-order step launched a "
+                         f"second-order kernel: {light}")
+    print(f"{label}: launches during {timed} bench steps {light}",
+          flush=True)
+    launches, step_x, loss_x = light, None, None
+    if extra is not None:
+        variant, name = extra
+        step_x = make_train_step(meta, variant(cfg), opt)
+        _, _, aux_x = step_x(p, state, statics, batch, gen, occ)
+        loss_x = float(aux_x["loss_out"])
+        launches = kernels.launches()
+        print(f"{label}: launches after the {name} step {launches}",
+              flush=True)
+        if not math.isfinite(loss_x) or float(aux_x["skipped_nonfinite"]):
+            raise SystemExit(f"{label}: {name} step not finite")
     for k in need:
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} never launched")
@@ -2117,28 +2170,35 @@ def train(cfg, statics, params, occ, batch, device, label="train",
         raise SystemExit(f"{label}: {moved.count(False)} param leaves did "
                          f"not move")
 
-    grads_through_plain_match(meta, cfg, opt, statics, params, occ, batch,
-                              device, label)
-    watch = (("volume_render_bwd_kernel",), ("hash_fwd_kernel", "false"),
-             ("hash_fwd_kernel", "true"), ("sample_tvals_kernel",))
+    kernel_side = grads_through_plain_match(meta, cfg, opt, statics, params,
+                                            occ, batch, device, label)
+    watch = (("volume_render_bwd_kernel",), ("volume_render_bwd2_kernel",),
+             ("hash_fwd_kernel", "false"), ("hash_fwd_kernel", "true"),
+             ("hash_bwd_kernel",), ("sample_tvals_kernel",),
+             ("plane_encode_bwd_kernel",), ("plane_encode_bwd2_kernel",))
     profile_device(f"{label} step", lambda: float(
         step(p, state, statics, batch, gen, occ)[2]["loss_out"]),
         watch=watch)
-    profile_device(f"{label} {name} step", lambda: float(
-        step_x(p, state, statics, batch, gen, occ)[2]["loss_out"]),
-        watch=watch + (("plane_encode_bwd_kernel", "true"),
-                       ("plane_encode_bwd_kernel", "false")))
+    if step_x is not None:
+        profile_device(f"{label} {name} step", lambda: float(
+            step_x(p, state, statics, batch, gen, occ)[2]["loss_out"]),
+            watch=watch)
 
     ms = [1e3 * t for t in times]
     n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
-    print(f"{label}: fomaml K={TRAIN_K} B={TRAIN_B} S={TRAIN_S} Q={TRAIN_Q} "
-          f"inner={TRAIN_INNER} samples=32 ms_per_step="
-          f"{[round(x, 2) for x in ms]} mean_ms={sum(ms) / 3:.2f} "
-          f"rays_per_s={n_rays / (sum(times) / 3):.1f} "
+    per = {k: light[k] / timed for k in MAML_WATCHED if light[k]}
+    print(f"{label}: {meta.algo} K={TRAIN_K} B={TRAIN_B} S={TRAIN_S} "
+          f"Q={TRAIN_Q} inner={TRAIN_INNER} samples=32 ms_per_step="
+          f"{[round(x, 2) for x in ms]} mean_ms={sum(ms) / timed:.2f} "
+          f"rays_per_s={n_rays / (sum(times) / timed):.1f} "
           f"(rays/step {n_rays}) loss_out={losses} "
-          f"grad_norm={float(aux['grad_norm']):.4f} "
-          f"{name}_step_loss_out={loss_x:.6f}", flush=True)
-    return light, launches
+          f"grad_norm={float(aux['grad_norm']):.4f} peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated over the warm-up "
+          f"and timed steps, {before / 2**30:.2f} GiB held before them); "
+          f"launches per step {per}"
+          + (f"; {name}_step_loss_out={loss_x:.6f}" if extra else ""),
+          flush=True)
+    return light, launches, kernel_side
 
 
 def trunc_exp_row(cfg, statics, params, occ, batch, device):
@@ -2399,10 +2459,408 @@ def occupancy(cfg, statics, params, occ, batch, device):
     return total
 
 
+MAML_NEW = ("volume_render_bwd2", "plane_encode_bwd2_light",
+            "plane_encode_bwd2")  # kernels 4'', 5'', 6''
+MAML_WATCHED = ("volume_render_fwd", "volume_render_bwd",
+                "volume_render_bwd2", "plane_encode_fwd",
+                "plane_encode_bwd_light", "plane_encode_bwd2_light",
+                "plane_encode_bwd", "plane_encode_bwd2", "hash_encode_fwd",
+                "hash_encode_bwd")
+BWD2_TOL = 1e-5  # 4'', 5'' and 6'' against their plain versions (the
+# tables of 5'' and 6'' against the plain shares summed in float64)
+HASH_BWD2_TOL = 1e-6  # 7c'' (kernel 7a on the cotangent)
+
+
+def maml_meta():
+    """bench.py's meta configuration with algo="maml" (second order)."""
+    import dataclasses
+
+    return dataclasses.replace(train_meta(), algo="maml")
+
+
+def wdot_scale(rs, t, v_rs, scale) -> float:
+    """max over rays of sum_s |w'_s|, the weights' JVP in the direction
+    v_rs (the plain 4'''s d g_weights): the scale of acc' = sum w', which
+    cancels to rounding noise on opaque rays, and so of d acc and of
+    d bg = -G acc'."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import volrend as V
+
+    n, s = t.shape
+    _, _, du = V.volume_render_bwd2_plain(
+        rs, t, None, (None, None, torch.zeros((n, s), device=t.device),
+                      None), v_rs, None, sigma_scale=scale)
+    return float(du[2].abs().sum(1).max())
+
+
+def bwd2_errs(got, want, grads, acc_scale):
+    """(name, error over its scale) of 4'''s outputs: d rgb_sigma and each
+    d u over their own max, d acc over `acc_scale`, d bg over max |G|
+    acc_scale."""
+    d_rs, d_bg, d_u = got
+    out = [("rgb_sigma", rel_err(d_rs, want[0]))]
+    if want[1] is not None:
+        g_max = float(grads[0].abs().max()) if grads[0] is not None else 1.0
+        out.append(("bg", max_err(d_bg, want[1])
+                    / max(g_max * acc_scale, 1e-30)))
+    for i, (a, b) in enumerate(zip(d_u, want[2])):
+        if b is None:
+            continue
+        err = (max_err(a, b) / max(acc_scale, 1e-30) if i == 3
+               else rel_err(a, b))
+        out.append((("rgb", "depth", "weights", "acc")[i], err))
+    return out
+
+
+def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
+    """Phase maml, kernels: 4'', 5'' and 6'' against their plain versions
+    at one inner step's shapes (expert 0's first support set: 4,000 rays x
+    32 randomized samples from its probe CDF), every output within 1e-5
+    of its max (the tables of 5'' and 6'' against the plain shares summed
+    in float64); 4'' with the upstream of MAML's loss (rgb alone), all
+    four, depth alone, sigma_scale 25 and on the edge rays of
+    `volrend_edge_inputs`; 5'' and 6'' on one expert's tables and on three
+    draws at the K=4 stack. Times: device, back to back, the plain
+    version's, beside the byte bound."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.container import background_color
+    from nerfsys_tpu_torch.models.ngp import ngp_apply, world_to_unit
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import planes as PL
+    from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.utils.tree import tree_map
+
+    S = 32
+    rays = batch["support_rays"][0, 0]
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    near, far = rays[:, 6].contiguous(), rays[:, 7].contiguous()
+    N = rays.shape[0]
+    grid = (occ["occs"][0:1], occ["binary"][0:1], statics.expert_aabbs[0:1])
+    cdf = O.occupancy_probe_cdf(*grid, o, d, near, far, 128, importance=True,
+                                ray_floor=0.25)
+    gen = torch.Generator(device=device).manual_seed(11)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, S, generator=gen,
+                                        randomized=True)
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    expert = tree_map(lambda t: t[0], params["experts"])
+    aabb = statics.expert_aabbs[0]
+    with torch.no_grad():
+        rgb, sigma = ngp_apply(expert, cfg.expert, aabb, pts,
+                               d[:, None, :].expand(N, S, 3).reshape(-1, 3))
+        bg = background_color(params, cfg, d).contiguous()
+    rgb_sigma = torch.cat([rgb.reshape(N, S, 3), sigma.reshape(N, S, 1)],
+                          dim=-1).contiguous()
+
+    def rnd(*shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    ups = (rnd(N, 3), 0.2 * rnd(N), rnd(N, S), rnd(N))
+    v_rs, v_bg = rnd(N, S, 4), rnd(N, 3)
+    cases = [("rgb only (MAML's loss)", rgb_sigma, t_vals, bg,
+              (ups[0], None, None, None), 1.0),
+             ("all four", rgb_sigma, t_vals, bg, ups, 1.0),
+             ("depth alone", rgb_sigma, t_vals, bg,
+              (None, ups[1], None, None), 1.0),
+             ("sigma_scale 25", rgb_sigma, t_vals, bg, ups, 25.0)]
+    for seed, kind in enumerate(("clip", "zero", "rgb01", "dtfloor")):
+        rs_e, t_e, bg_e, *ups_e = volrend_edge_inputs(kind, N, S, device,
+                                                      seed)
+        cases.append((f"edge {kind}", rs_e, t_e, bg_e, tuple(ups_e), 1.0))
+    head = None
+    for label, rs, t, b, grads, scale in cases:
+        got = V.volume_render_bwd2_kernel(rs, t, b, grads, v_rs, v_bg,
+                                          sigma_scale=scale)
+        want = V.volume_render_bwd2_plain(rs, t, b, grads, v_rs, v_bg,
+                                          sigma_scale=scale)
+        torch.cuda.synchronize()
+        errs = bwd2_errs(got, want, grads, wdot_scale(rs, t, v_rs, scale))
+        abs_err = max(max_err(a, w) for a, w in zip(
+            (got[0], got[1], *got[2]), (want[0], want[1], *want[2]))
+            if w is not None)
+        dev_ms = device_ms(lambda: V.volume_render_bwd2_kernel(
+            rs, t, b, grads, v_rs, v_bg, sigma_scale=scale), 10)
+        text = (" ".join(f"{k}={e:.3e}" for k, e in errs)
+                + f" tol={BWD2_TOL:g} device_ms={dev_ms:.4f}")
+        print(f"edge volume_render_bwd2 {label}: N={N} S={S} {text}",
+              flush=True)
+        if not all(e <= BWD2_TOL for _, e in errs) or not bool(
+                torch.isfinite(got[0]).all()):
+            raise SystemExit(f"kernel volume_render_bwd2 disagrees with its "
+                             f"plain version on {label}: {errs}")
+        if head is None:
+            head = (rs, t, b, grads, got, abs_err, dev_ms, text)
+    rs, t, b, grads, got, abs_err, dev_ms, text = head
+    b2b = cuda_ms(lambda: V.volume_render_bwd2_kernel(
+        rs, t, b, grads, v_rs, v_bg), 20)
+    plain = cuda_ms(lambda: V.volume_render_bwd2_plain(
+        rs, t, b, grads, v_rs, v_bg), 3)
+    n_bytes = nbytes(rs, t, b, grads, v_rs, v_bg, got[0], got[1], got[2])
+    b_ms, b_by = bound(n_bytes, N * S * 90)
+    results["volume_render_bwd2"] = dict(
+        max_abs_err=abs_err, ms=dev_ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by,
+        text=f"(rgb upstream, MAML's loss) {text}; kernel_ms is the device "
+        f"time, back to back {b2b:.4f} ms (the host's launch path); "
+        f"plain_ms={plain:.4f} bytes={n_bytes} bound_ms={b_ms:.4f} "
+        f"({b_by}); plan "
+        f"{volrend_plan_text(V.volrend_plan(N, S, backward=True))}; tol "
+        f"{BWD2_TOL:g} of each output's max (d acc and d bg: of max_rays "
+        f"sum |w'| and max |G| times it), scans in a tree order")
+
+    # 5'' and 6'': one expert's tables and three draws at the K=4 stack
+    enc = expert["planes_enc"]
+    x01 = world_to_unit(pts, aabb, cfg.expert.enc_eps).contiguous()
+    P = x01.shape[0]
+    D = cfg.expert.planes.out_dim
+    stack = params["experts"]["planes_enc"]
+    xk = world_to_unit(pts, statics.expert_aabbs,
+                       cfg.expert.enc_eps).contiguous()
+
+    def cot(tabs):
+        return {k: [torch.randn(a.shape, device=device, generator=gen)
+                    for a in v] for k, v in tabs.items()}
+
+    sides = [("one expert", enc, x01, rnd(P, D), cot(enc))] + [
+        (f"K=4 stack draw {i}", stack, xk, rnd(xk.shape[0], P, D),
+         cot(stack)) for i in range(3)]
+    light = {}
+    for kern, pos_grad in ((kernels.PLANES_BWD2_LIGHT, False),
+                           (kernels.PLANES_BWD2, True)):
+        pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
+        for label, tabs, x, ct, v in sides:
+            got = PL.plane_encode_bwd2_kernel(tabs, x, ct, v, pc)
+            want = PL.plane_encode_bwd2_plain(tabs, x, ct, v, pc,
+                                              sum_dtype=torch.float64)
+            want32 = PL.plane_encode_bwd2_plain(tabs, x, ct, v, pc)
+            torch.cuda.synchronize()
+            outs = [("ct", got[0], want[0], want32[0])] + [
+                (f"{key}{l}", a, w, w32) for key, i in (("plane", 1),
+                                                       ("line", 2))
+                for l, (a, w, w32) in enumerate(zip(got[i], want[i],
+                                                    want32[i]))]
+            errs = [(k, rel_err(a, w)) for k, a, w, _ in outs]
+            abs_err = max(max_err(a, w) for _, a, w, _ in outs)
+            gap = ""
+            if pos_grad:
+                gap = "; light-exact gap/max " + " ".join(
+                    f"{k}={rel_err(a, w):.3e}" for (k, a, _, _), w in zip(
+                        outs, light[label]))
+            else:
+                light[label] = [w for _, _, w, _ in outs]
+            print(f"edge {kern.name} {label}: P={x.shape[-2]} "
+                  + " ".join(f"{k}={e:.3e}" for k, e in errs)
+                  + f" tol={BWD2_TOL:g}; against the float32 sums "
+                  + " ".join(f"{k}={rel_err(a, w32):.3e}"
+                             for k, a, _, w32 in outs) + gap, flush=True)
+            if not all(e <= BWD2_TOL for _, e in errs):
+                raise SystemExit(f"kernel {kern.name} disagrees with its "
+                                 f"plain version on {label}: {errs}")
+            if pos_grad and not min(rel_err(a, w) for (_, a, _, _), w in zip(
+                    outs[1:], light[label][1:])) > 2 * BWD2_TOL:
+                raise SystemExit(f"kernel {kern.name}: the light tables lie "
+                                 f"within twice the tolerance of the exact "
+                                 f"ones, so the check cannot tell them "
+                                 f"apart")
+            if label != "one expert":
+                continue
+            dev_ms = device_ms(lambda: PL.plane_encode_bwd2_kernel(
+                tabs, x, ct, v, pc), 10)
+            b2b = cuda_ms(lambda: PL.plane_encode_bwd2_kernel(
+                tabs, x, ct, v, pc), 10)
+            plain = cuda_ms(lambda: PL.plane_encode_bwd2_plain(
+                tabs, x, ct, v, pc), 3)
+            plane_rows, line_rows = plane_rows_read(x, pc)
+            row_bytes = pc.features * 4
+            n_bytes = (nbytes(x, ct, got[0], got[1], got[2])
+                       + 2 * (plane_rows + line_rows) * row_bytes)
+            b_ms, b_by = bound(n_bytes, P * 9 * pc.features * 60)
+            results[kern.name] = dict(
+                max_abs_err=abs_err, ms=dev_ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by,
+                text=f"(one expert at one inner step) err/max d ct "
+                f"{errs[0][1]:.3e}, tables "
+                f"{max(e for _, e in errs[1:]):.3e} tol {BWD2_TOL:g} "
+                f"(relative to each output's max, against the plain "
+                f"version's shares summed in float64: the kernel's fp32 "
+                f"atomics add in another order; the bf16-rounded products "
+                f"are the plain version's bit for bit under --fmad=false); "
+                f"kernel_ms is the device time, back to back {b2b:.4f} ms; "
+                f"plain_ms={plain:.4f} (float32 sums) bytes={n_bytes} "
+                f"(points, ct and d ct, the dense table gradients written "
+                f"once, the distinct rows of P, L, vP and vL read: "
+                f"{plane_rows} plane and {line_rows} line rows of "
+                f"{row_bytes} B) bound_ms={b_ms:.4f} ({b_by}) at "
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+        del got, want, want32, outs
+
+
+def plane_rows_read(x01, pc):
+    """Distinct (plane rows, line rows) of (expert, level, orientation) an
+    encode at x01 ((N, 3) or (K, N, 3)) reads: kernel 1's corners, each
+    counted once (a bitmap a level)."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import planes as PL
+
+    x = torch.clamp((x01 if x01.dim() == 3 else x01[None]).float(), 0.0, 1.0)
+    K = x.shape[0]
+    kidx = torch.arange(K, device=x.device)[:, None]
+    n_planes = n_lines = 0
+    for R in pc.level_resolutions():
+        coords = x * (R - 1)
+        seen_p = torch.zeros(K * 3 * R * R, dtype=torch.bool,
+                             device=x.device)
+        seen_l = torch.zeros(K * 3 * R, dtype=torch.bool, device=x.device)
+
+        def cell(a):
+            c0 = torch.floor(torch.clamp(coords[..., a], 0.0,
+                                         R - 1 - 1e-6)).long()
+            return c0, torch.clamp(c0 + 1, max=R - 1)
+
+        for o, (a, b, c) in enumerate(PL._ORIENTATIONS):
+            (u0, u1), (v0, v1) = cell(a), cell(b)
+            for r in (u0 * R + v0, u0 * R + v1, u1 * R + v0, u1 * R + v1):
+                seen_p[((kidx * 3 + o) * R * R + r).reshape(-1)] = True
+            if pc.include_lines:
+                for w in cell(c):
+                    seen_l[((kidx * 3 + o) * R + w).reshape(-1)] = True
+        n_planes += int(seen_p.sum())
+        n_lines += int(seen_l.sum())
+    return n_planes, n_lines
+
+
+def hash_bwd2_check(cfg, statics, params, occ, batch, device):
+    """Row 7c'' on the card: the double backward of the hash encode through
+    `HashEncodeBwd` (kernel 7a on the table cotangent), on the fused and
+    the packed path, against the same through `use_kernels=False`, at one
+    inner step's points of expert 0 (runner default widths); 7a's
+    launches counted; its device time on the cotangent."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.ops import encodings as E
+
+    hc = cfg.expert.hash
+    gen = torch.Generator(device=device).manual_seed(12)
+    x01, _ = step_points(cfg, statics, occ, batch["support_rays"][0, 0], gen)
+    table = params["experts"]["hash_table"][0].contiguous()
+    dout = torch.randn((x01.shape[0], hc.out_dim), device=device,
+                       generator=gen)
+    v = torch.randn(table.shape, device=device, generator=gen)
+    for packed in (False, True):
+        d = []
+        for use_kernels in (True, False):
+            tt = table.detach().requires_grad_(True)
+            c = dout.clone().requires_grad_(True)
+            y = E.hash_encode(tt, x01, hc, packed=packed,
+                              use_kernels=use_kernels)
+            g, = torch.autograd.grad(y, tt, c, create_graph=True)
+            n0 = kernels.HASH_FWD.launches
+            d.append(torch.autograd.grad((g * v).sum(), c)[0])
+            if use_kernels and kernels.HASH_FWD.launches != n0 + 1:
+                raise SystemExit("hash 7c'': kernel 7a did not launch once "
+                                 "on the cotangent")
+        err = rel_err(d[0], d[1])
+        path = "packed" if packed else "fused"
+        print(f"kernel hash_encode_fwd as 7c'' ({path} path): d ct err/max="
+              f"{err:.3e} tol {HASH_BWD2_TOL:g} (the fp32 encode of the "
+              f"table cotangent, 7a on the packed path too)", flush=True)
+        if not err <= HASH_BWD2_TOL:
+            raise SystemExit(f"hash 7c'' disagrees with its plain version "
+                             f"({path}): {err}")
+    dev_ms = device_ms(lambda: E.hash_encode_kernel(v, x01, hc), 10)
+    b2b = cuda_ms(lambda: E.hash_encode_kernel(v, x01, hc), 10)
+    plain = cuda_ms(lambda: E.hash_encode_plain(v, x01, hc), 3)
+    rows = hash_rows_read(x01[None], hc)
+    n = x01.shape[0]
+    n_bytes = (nbytes(x01) + n * hc.out_dim * 4
+               + rows * hc.features_per_level * 4)
+    b_ms, b_by = bound(n_bytes, n * hc.levels * (
+        18 + 8 * (8 + 2 * hc.features_per_level)))
+    print(f"kernel hash_encode_fwd as 7c'': one inner step ({n} points, one "
+          f"expert's table cotangent) device_ms={dev_ms:.4f} (back to back "
+          f"{b2b:.4f}) plain_ms={plain:.4f} bytes={n_bytes} (points read, "
+          f"output written, the distinct rows of the cotangent read: "
+          f"{rows}) bound_ms={b_ms:.4f} ({b_by}) at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s", flush=True)
+
+
+def maml_phase(cfg, statics, params, occ, batch, device, results):
+    """Phase maml: second-order MAML (`MetaConfig(algo="maml")`). Kernels
+    4'', 5'', 6'' against their plain versions (`check_maml_kernels`);
+    bench.py's step at full width with algo="maml" (K=4 planes experts,
+    B=3 tasks of 4,000 + 2,000 rays, 8 inner steps, 32 samples, the light
+    backward) through `train`: 2 timed steps with peak memory and
+    launches, one step with the exact backward (6''), one step's
+    gradients through the kernels against the same step through
+    `make_train_step(..., use_kernels=False)` (2^-8 of each leaf's max),
+    one profiled step of each; the MAML gradient against the FoMAML
+    gradient from the same params and draws (they must differ by more
+    than that gate, and the FoMAML step launches no 4'' or 5''); then the
+    runner's default hash experts: 7c'' checked and one timed MAML step
+    through `train` -> launches of the timed and exact-backward steps."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.container import param_group_labels
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+    from nerfsys_tpu_torch.utils.optim import OptimConfig, build_optimizer
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    check_maml_kernels(cfg, statics, params, occ, batch, device, results)
+    print(f"maml: kernel checks took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    _, launches, (lk, gk) = train(
+        cfg, statics, params, occ, batch, device, label="maml",
+        need=TRAIN_KERNELS + MAML_NEW, meta=maml_meta(), timed=2)
+    rec = GradRecorder(build_optimizer(OptimConfig(outer_steps=10000),
+                                       param_group_labels(params)))
+    gen = torch.Generator(device=device).manual_seed(7)
+    kernels.reset_launches()
+    _, _, aux = make_train_step(train_meta(), cfg, rec)(
+        params, rec.init(params), statics, batch, gen, occ)
+    fo = kernels.launches()
+    gaps = [rel_err(a, b) for a, b in zip(gk, tree_leaves(rec.grads[0]))]
+    print(f"maml: the MAML step's gradient against the FoMAML step's from "
+          f"the same params and draws: loss {lk:.7f} vs "
+          f"{float(aux['loss_out_meta']):.7f}; difference / leaf max: "
+          f"largest {max(gaps):.3e} median "
+          f"{sorted(gaps)[len(gaps) // 2]:.3e} smallest {min(gaps):.3e} "
+          f"over {len(gaps)} leaves; the FoMAML step launched 4'' / 5'' / "
+          f"6'' {[fo[k] for k in MAML_NEW]}", flush=True)
+    if not max(gaps) > 2.0**-8 or any(fo[k] for k in MAML_NEW):
+        raise SystemExit("maml: the MAML gradient does not differ from the "
+                         "FoMAML one beyond the kernel-vs-plain gate, or "
+                         "the FoMAML step took a second-order kernel")
+    del gk, rec
+    torch.cuda.empty_cache()
+    print(f"maml: planes steps and the FoMAML step at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    hcfg, hparams = hash_setup(device)
+    hash_bwd2_check(hcfg, statics, hparams, occ, batch, device)
+    hashed, _, _ = train(
+        hcfg, statics, hparams, occ, batch, device, label="maml hash",
+        extra=None, need=("hash_encode_fwd", "hash_encode_bwd",
+                          "volume_render_bwd2"), meta=maml_meta(), timed=1)
+    del hparams
+    torch.cuda.empty_cache()
+    print(f"maml: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: launches[k] + hashed[k] for k in launches}
+
+
 TRAINER_CAMS, TRAINER_VAL = 16, 2  # an aerial ring of training + val cameras
 TRAINER_W, TRAINER_H = 1000, 750  # a 12 MP drone photo at downscale 0.25
 TRAINER_FOCAL = 750.0
 TRAINER_STEPS, TRAINER_WARM_STEPS, TRAINER_HASH_STEPS = 36, 4, 4
+TRAINER_MAML_STEPS = 6  # --algo maml, an occupancy update every 2 steps
 TRAINER_PROFILED = 18  # a loop step with an occupancy update after it
 TRAINER_CAP = 4  # training cameras of the warm-start and hash runs (their
 # checks do not depend on the data; the host builds the scene's rays anew)
@@ -2682,8 +3140,7 @@ class LoopProbe:
         from torch.profiler import ProfilerActivity, profile
 
         torch.cuda.synchronize()
-        self.prof = profile(activities=[ProfilerActivity.CPU,
-                                        ProfilerActivity.CUDA])
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.start()
         self.t_prof = time.perf_counter()
 
@@ -2759,6 +3216,50 @@ def loop_checks(label, probe, n_steps, need):
     return losses
 
 
+def trainer_maml(base, tmp, device):
+    """The trainer phase's `--algo maml` run: TRAINER_MAML_STEPS steps on
+    the written scene (`base`: the phase's runner flags) with an occupancy
+    update every 2 steps; the losses finite, the params moved, kernels
+    1-5, 4'' and 5'' launched, step 0 held to the plain path -> its
+    launches."""
+    import torch
+
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    ctx, probe = run_runner(base + [
+        "--cap_images", str(TRAINER_CAP), "--algo", "maml",
+        "--occ_warmup", "2", "--occ_update_interval", "2",
+        "--outer_steps", str(TRAINER_MAML_STEPS),
+        "--fname", str(tmp / "maml")])
+    losses = loop_checks("maml run", probe, TRAINER_MAML_STEPS,
+                         TRAINER_KERNELS + MAML_NEW[:2])
+    meta, cfg, opt = probe.meta_cfg
+    f = probe.checked[0]
+    moved = [not torch.equal(a, b) for a, b in zip(
+        tree_leaves(probe.last_params), tree_leaves(f["params"]))]
+    if meta.algo != "maml" or not all(moved) or not probe.updates:
+        raise SystemExit(f"trainer: maml run: algo {meta.algo}, "
+                         f"{moved.count(False)} param leaves did not move, "
+                         f"occupancy updates {probe.updates}")
+    grads_through_plain_match(
+        meta, cfg, opt, f["statics"], f["params"], f["occ"], f["batch"],
+        device, "trainer maml run step 0 (stratified, the grid not yet "
+        "ready)", kernel_side=(float(probe.steps[0]["aux"]["loss_out_meta"]),
+                               tree_leaves(probe.rec.grads[0])),
+        gen_state=f["gen_state"])
+    gaps = [1e3 * (b["t"] - a["t"])
+            for a, b in zip(probe.steps, probe.steps[1:])]
+    print(f"trainer: maml run (--algo maml) {TRAINER_MAML_STEPS} steps, "
+          f"loss_out {losses}; median step ms (host clock, start to start) "
+          f"{median(gaps):.2f}; occupancy updates "
+          f"{[(s, w, int(n)) for s, w, n in probe.updates]}; launches "
+          f"{probe.launches}", flush=True)
+    launches = dict(probe.launches)
+    del ctx, probe, f
+    torch.cuda.empty_cache()
+    return launches
+
+
 def trainer(device):
     """Phase: the runner's train op (`runner.main`, configs/train.json's
     model at bench width: K=4 planes experts L=3 base 128 F=8, hidden 64,
@@ -2769,9 +3270,10 @@ def trainer(device):
     Voronoi. 36 steps with 6 occupancy updates, evals and saves every 12;
     the gradients of steps 0 (stratified) and 18 (importance sampling)
     against the same steps through the plain path; a warm start from `last` for 4 more steps; 4 steps of the hash
-    experts (the runner's default encoder at its default widths); then
+    experts (the runner's default encoder at its default widths); 6
+    steps with `--algo maml` (`trainer_maml`); then
     the eval and video phases on the main run's directory -> (launches of
-    the three runs, the eval phase's launches, the video phase's)."""
+    the four runs, the eval phase's launches, the video phase's)."""
     import json
     import shutil
     import tempfile
@@ -2930,6 +3432,9 @@ def trainer(device):
         launches = {k: v + probe.launches[k] for k, v in launches.items()}
         del ctx, probe
         torch.cuda.empty_cache()
+
+        maml = trainer_maml(base, tmp, device)
+        launches = {k: v + maml[k] for k, v in launches.items()}
         print(f"trainer: phase took {time.perf_counter() - t_phase:.1f} s",
               flush=True)
         evaluated = eval_phase(device, tmp, run)
@@ -5525,7 +6030,7 @@ def hash_phase(statics, occ, rays_np, batch, device, results):
                    need=HASH_SERVE_KERNELS,
                    idle=("hash_encode_fwd_packed", "hash_encode_bwd"))
     packed = packed_serve(cfg, statics, params, occ, device)
-    light, trained = train(
+    light, trained, _ = train(
         cfg, statics, params, occ, batch, device, label="hash train",
         extra=(lambda c: with_hash(c, packed=True), "packed"),
         need=HASH_TRAIN_KERNELS)
@@ -6700,9 +7205,10 @@ def main() -> int:
     early = early_stop(cfg, statics, params, occ, rays[:CHECK_RAYS], device,
                        results)
     baked_n = baked(cfg, statics, params, device, results)
-    light, trained = train(cfg, statics, params, occ, batch, device)
+    light, trained, _ = train(cfg, statics, params, occ, batch, device)
     trunc_exp_row(cfg, statics, params, occ, batch, device)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
+    maml_n = maml_phase(cfg, statics, params, occ, batch, device, results)
     trainer_n, eval_n, video_n = trainer(device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
@@ -6710,7 +7216,8 @@ def main() -> int:
 
     parts = (("serve", served), ("camera", cam), ("early-stop", early),
              ("baked", baked_n), ("train", trained),
-             ("occupancy", occ_n), ("trainer", trainer_n), ("eval", eval_n),
+             ("occupancy", occ_n), ("maml", maml_n), ("trainer", trainer_n),
+             ("eval", eval_n),
              ("video", video_n), ("hash serve", hash_served),
              ("hash train", hash_trained), ("moe", moe))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
@@ -6732,7 +7239,9 @@ def main() -> int:
           "interpolation weights, the hash encoder (its corner rows and "
           "weights from the points; embedding_bag would only sum rows "
           "already indexed and weighted) or its table gradient, the union "
-          "probe + CDF, the inverse-CDF sampler (torch.searchsorted gives "
+          "probe + CDF, or the second-order products of the compositor "
+          "and the encoder (autograd's double backward is many calls), the "
+          "inverse-CDF sampler (torch.searchsorted gives "
           "only the interval index, and only on rows that never decrease; "
           "the lerps and the sort are more calls), the compositor or its "
           "VJP, "

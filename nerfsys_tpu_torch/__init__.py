@@ -14,21 +14,25 @@ the soft one-shot renderer, the hard-mask two-wave renderer and the
 early-stop renderer),
 baked snapshot serving (`models.baked.bake_field` ->
 `make_baked_camera_renderer` / `make_baked_chunk_renderer`) and the
-first-order meta-training step
-(`pipelines.offline.meta_train_step.make_train_step`, fomaml and reptile,
-with `make_eval_step`). The TPU-specialised ops on those paths are
+meta-training step
+(`pipelines.offline.meta_train_step.make_train_step`: second-order maml,
+fomaml and reptile, with `make_eval_step`). The TPU-specialised ops on those paths are
 hand-written CUDA C++ kernels for `sm_90a` (`csrc/*.cu`, built at first use
 by `kernels/`), each with a plain PyTorch version beside it in the same
 module:
 
   - `ops.planes.plane_encode`                (plane/line encoder forward,
-                                              and its light and exact
-                                              backwards via `PlaneEncode`)
+                                              its light and exact
+                                              backwards via `PlaneEncode`
+                                              and their second-order
+                                              products via
+                                              `PlaneEncodeBwd`)
   - `ops.occupancy.occupancy_probe_cdf`      (union occupancy probe + CDF)
   - `ops.occupancy.sample_tvals_from_cdf`    (inverse-CDF sampler)
   - `ops.volrend.volume_render`              (volume compositor forward,
-                                              and its VJP via
-                                              `VolumeRender`)
+                                              its VJP via `VolumeRender`
+                                              and the VJP's own VJP via
+                                              `VolumeRenderBwd`)
   - `models.baked.baked_trilerp`             (packed-corner trilinear
                                               lookup in the baked grid)
   - `ops.volrend.composite_segment`          (segmented compositing with a
@@ -36,7 +40,10 @@ module:
   - `ops.encodings.hash_encode`              (multiresolution hash-grid
                                               encoder, fp32 and packed
                                               bf16 pairs, and its table
-                                              gradient via `HashEncode`)
+                                              gradient via `HashEncode`,
+                                              differentiable again through
+                                              the fp32 forward,
+                                              `HashEncodeBwd`)
 
 A kernel wrapper uses the plain version only for a tensor on the CPU; given
 a CUDA tensor it launches its kernel or raises. Entry points default to

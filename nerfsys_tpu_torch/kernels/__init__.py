@@ -60,7 +60,9 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "occ_sample": ("occ_sample.cu", ("--fmad=false",)),
     "volrend": ("volrend.cu", ()),
     "volrend_bwd": ("volrend_bwd.cu", ()),
+    "volrend_bwd2": ("volrend_bwd2.cu", ()),
     "planes_bwd": ("planes_bwd.cu", ("--fmad=false",)),
+    "planes_bwd2": ("planes_bwd2.cu", ("--fmad=false",)),
     "baked": ("baked.cu", ("--fmad=false",)),
     "composite_seg": ("composite_seg.cu", ()),
     "hash_grid": ("hash_grid.cu", ("--fmad=false",)),
@@ -313,6 +315,16 @@ VOLREND_BWD = Kernel(
     [_P] * 9 + [_I] * 3 + [_F, VolrendPlan, _P],
     replaces="nerfsys_tpu/ops/volrend.py:81 (volume_render, its VJP)",
 )
+VOLREND_BWD2 = Kernel(
+    "volume_render_bwd2", "volrend_bwd2", "volume_render_bwd2",
+    # rgb_sigma, t_vals, bg, g_rgb, g_depth, g_weights, g_acc (the last
+    # five nullable), v_rgb_sigma, v_bg (nullable), d_rgb_sigma, d_bg,
+    # d_g_rgb, d_g_depth, d_g_weights, d_g_acc (the last five nullable),
+    # N, S, scale_on, sigma_scale, plan (by value), stream
+    [_P] * 15 + [_I] * 3 + [_F, VolrendPlan, _P],
+    replaces="nerfsys_tpu/ops/volrend.py:57,81 (autodiff of volume_render's "
+             "VJP: the second derivative MAML takes)",
+)
 PLANES_BWD_LIGHT = Kernel(
     "plane_encode_bwd_light", "planes_bwd", "plane_encode_bwd_light",
     # x, ct, levels, grads (by value), K, N, F, plan (by value), stream
@@ -324,6 +336,23 @@ PLANES_BWD = Kernel(
     # x, ct, levels, grads (by value), gx, K, N, F, plan (by value), stream
     [_P, _P, PlaneLevels, PlaneGrads, _P, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:449 (_plane_encode_mm_bwd)",
+)
+
+PLANES_BWD2_LIGHT = Kernel(
+    "plane_encode_bwd2_light", "planes_bwd2", "plane_encode_bwd2_light",
+    # x, ct, tables, their cotangents (both by value), d tables (by value),
+    # d ct, K, N, F, vec, threads, stream
+    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P] + [_I] * 5 + [_P],
+    replaces="nerfsys_tpu/ops/planes.py:565 (autodiff of "
+             "_plane_encode_mm_light_bwd with its bf16 residuals :542: the "
+             "second derivative MAML takes)",
+)
+PLANES_BWD2 = Kernel(
+    "plane_encode_bwd2", "planes_bwd2", "plane_encode_bwd2",
+    # the same arguments as plane_encode_bwd2_light
+    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P] + [_I] * 5 + [_P],
+    replaces="nerfsys_tpu/ops/planes.py:449 (autodiff of "
+             "_plane_encode_mm_bwd: the second derivative MAML takes)",
 )
 
 
@@ -484,7 +513,7 @@ KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
            PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG,
            HASH_FWD, HASH_FWD_PACKED, HASH_BWD, BUCKET_DISPATCH,
            BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT,
-           OCC_QUERY)
+           OCC_QUERY, VOLREND_BWD2, PLANES_BWD2_LIGHT, PLANES_BWD2)
 
 
 def reset_launches() -> None:

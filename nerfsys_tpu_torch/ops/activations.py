@@ -24,15 +24,24 @@ def _exp_clamp(x: torch.Tensor) -> torch.Tensor:
 
 
 class _TruncExp(torch.autograd.Function):
+    """Backward g * y with y the saved output. Under create_graph (MAML's
+    inner gradient) y is recomputed from x through `clip`, so that its
+    derivative is the reference's: the residual exp(clip(x)) has slope y
+    inside the clamp, y / 2 at it and 0 beyond (the saved output's own
+    graph would give y everywhere)."""
+
     @staticmethod
     def forward(ctx, x):
         y = torch.exp(_exp_clamp(x))
-        ctx.save_for_backward(y)
+        ctx.save_for_backward(x, y)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        (y,) = ctx.saved_tensors
+        x, y = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            m = _EXP_MAX.get(x.dtype, _EXP_MAX[torch.float32])
+            y = torch.exp(clip(x, -m, m))
         return g * y
 
 

@@ -31,6 +31,9 @@ int64 masked to 2^T - 1, which gives the reference's uint32 wraparound
 bits: the lattice coordinates stay below 2^13 and the primes below 2^32.
 Gradients go through `HashEncode` to the table only: positions are ray
 geometry here, and the reference's packed VJP returns zeros for them.
+Under create_graph (the MAML inner gradient) the table gradient is
+`HashEncodeBwd`, whose own VJP is the fp32 encode (kernel 7a) of the
+table cotangent.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from nerfsys_tpu_torch import kernels
 from nerfsys_tpu_torch.utils.device import (
@@ -331,11 +335,11 @@ def hash_encode_plain(table: torch.Tensor, x01: torch.Tensor,
     K, N = x.shape[0], x.shape[1]
     F = cfg.features_per_level
     flat = tab.reshape(-1, F)
-    out = torch.empty((K, N, cfg.out_dim), dtype=torch.float32,
-                      device=x.device)
+    dtype = torch.promote_types(tab.dtype, torch.float32)  # float64 tests
+    out = torch.empty((K, N, cfg.out_dim), dtype=dtype, device=x.device)
     for level in range(cfg.levels):
         base = _level_rows(K, cfg, level, x.device)
-        acc = torch.zeros((K, N, F), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((K, N, F), dtype=dtype, device=x.device)
         for row, w in level_corners(x, cfg, level):
             v = flat[(base + row).reshape(-1)].reshape(K, N, F)
             acc = acc + (v if w is None else w[..., None] * v)
@@ -686,11 +690,45 @@ def hash_encode_bwd_planned(x01: torch.Tensor, dout: torch.Tensor,
     return dtable
 
 
+class HashEncodeBwd(torch.autograd.Function):
+    """Kernel 7c's table gradient as a differentiable function of the
+    cotangent: forward kernel 7c (or `hash_encode_bwd_plain`), backward
+    row 7c'': 7c is linear in its cotangent and its corner rows and
+    weights depend on x01 alone, so its VJP is the fp32 encode, kernel 7a
+    (or `hash_encode_plain`), of the incoming table cotangent. That holds
+    for the packed forward too: its VJP gathers in float32 (the
+    reference's `_packed_bwd` transposed), so 7a and not 7b. The table
+    gets no second-order term and x01 none. `HashEncode.backward` calls it
+    under create_graph (MAML's inner gradient)."""
+
+    @staticmethod
+    def forward(ctx, cfg, use_kernels, table_shape, x01, dout):
+        bwd = hash_encode_bwd_kernel if use_kernels else \
+            hash_encode_bwd_plain
+        ctx.cfg, ctx.use_kernels = cfg, use_kernels
+        ctx.save_for_backward(x01)
+        return bwd(x01, dout, cfg, table_shape)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v):
+        (x01,) = ctx.saved_tensors
+        if v is None or not ctx.needs_input_grad[4]:
+            return None, None, None, None, None
+        v = v.contiguous()
+        if not aligned(v):  # kernel 7a reads rows as vectors
+            v = v.clone()
+        fwd = hash_encode_kernel if ctx.use_kernels else hash_encode_plain
+        return None, None, None, None, fwd(v, x01, ctx.cfg)
+
+
 class HashEncode(torch.autograd.Function):
     """The hash encode with the reference's VJP to the table: forward
     kernel 7a or 7b (or their plain versions), backward kernel 7c (or
     `hash_encode_bwd_plain`). Inputs after the three static ones: x01,
-    then the table; x01 gets no gradient."""
+    then the table; x01 gets no gradient. Under create_graph the backward
+    is `HashEncodeBwd`, differentiable again (row 7c'', kernel 7a on the
+    table cotangent); otherwise it launches 7c itself."""
 
     @staticmethod
     def forward(ctx, cfg, packed, use_kernels, x01, table):
@@ -708,6 +746,10 @@ class HashEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         (x01,) = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            return (None, None, None, None, HashEncodeBwd.apply(
+                ctx.cfg, ctx.use_kernels, ctx.table_shape, x01,
+                dout.contiguous()))
         bwd = hash_encode_bwd_kernel if ctx.use_kernels else \
             hash_encode_bwd_plain
         return (None, None, None, None,

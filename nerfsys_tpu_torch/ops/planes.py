@@ -17,7 +17,10 @@ Kernel 1 (`csrc/planes.cu`) computes this on the card;
 through `PlaneEncode`, whose backward is `csrc/planes_bwd.cu` (light mode
 when `pos_grad=False`, exact otherwise) or `plane_encode_bwd_plain`.
 Kernels 1, 5 and 6 take their launch geometry from `plane_fwd_plan` and
-`plane_bwd_plan`, plain functions of the shapes.
+`plane_bwd_plan`, plain functions of the shapes. Under create_graph (the
+MAML inner gradient) the backward is `PlaneEncodeBwd`, whose own backward
+is kernel 5'' or 6'' (`csrc/planes_bwd2.cu`, the table gradients'
+VJP) or `plane_encode_bwd2_plain`.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from nerfsys_tpu_torch import kernels
 from nerfsys_tpu_torch.utils.device import (
@@ -474,11 +478,185 @@ def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
     return _unstack_grads(g_planes, g_lines, gx, x01, stacked)
 
 
+def plane_encode_bwd2_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
+                            v_params: Dict, cfg: PlaneEncodingConfig,
+                            sum_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of kernels 5'' (pos_grad=False) and 6''
+    (pos_grad=True): the VJP of `plane_encode_bwd_plain`'s table gradients
+    for their cotangents `v_params` ({'planes': [...], 'lines': [...]},
+    shaped like the tables) -> (d ct shaped like ct, d planes, d lines or
+    None). Positions get none.
+
+    With lines, per point and (level, orientation) block, R the bf16
+    rounding of the light mode (the identity in exact mode):
+    d ct = bval(vP) R(lval(L)) + lval(vL) R(bval(P)); the plane corners
+    take R(ct lval(vL)), the line nodes R(ct bval(vP)), scattered with the
+    interpolation weights (`index_add_`). Without lines d ct = bval(vP),
+    d P = 0. Kernel 1's arithmetic, in its order, for every value.
+    `sum_dtype`: the dtype the table gradients are summed and returned in
+    (float64: the exact sums of the same float32 shares)."""
+    planes, lines, x_raw, stacked = _as_stacked(params, x01)
+    vplanes, vlines, _, _ = _as_stacked(v_params, x01)
+    K, N = x_raw.shape[0], x_raw.shape[1]
+    F = cfg.features
+    rnd = (lambda t: t) if cfg.pos_grad else _bf16
+    ct = ct.reshape(K, N, cfg.out_dim).to(torch.float32)
+    x = torch.clamp(x_raw.to(torch.float32), 0.0, 1.0)
+    kidx = torch.arange(K, device=x.device)[:, None]
+    d_ct = torch.empty_like(ct)
+    d_planes, d_lines = [], []
+    for l, R in enumerate(cfg.level_resolutions()):
+        coords = x * (R - 1)
+        hi = R - 1 - 1e-6
+        dpl = torch.zeros((K * 3 * R * R, F), dtype=sum_dtype,
+                          device=x.device)
+        dln = torch.zeros((K * 3 * R, F), dtype=sum_dtype, device=x.device)
+        for o, (a, b, c) in enumerate(_ORIENTATIONS):
+            u, v = coords[..., a], coords[..., b]
+            u0f = torch.floor(torch.clamp(u, 0.0, hi))
+            v0f = torch.floor(torch.clamp(v, 0.0, hi))
+            fu = (u - u0f)[..., None]
+            fv = (v - v0f)[..., None]
+            au, av = 1 - fu, 1 - fv
+            u0, v0 = u0f.long(), v0f.long()
+            u1 = torch.clamp(u0 + 1, max=R - 1)
+            v1 = torch.clamp(v0 + 1, max=R - 1)
+            rows = (u0 * R + v0, u0 * R + v1, u1 * R + v0, u1 * R + v1)
+
+            def bilerp(t):
+                t00, t01, t10, t11 = (t[kidx, r] for r in rows)
+                return (t00 * au * av + t01 * au * fv + t10 * fu * av
+                        + t11 * fu * fv)
+
+            blk = slice((l * 3 + o) * F, (l * 3 + o + 1) * F)
+            bv_v = bilerp(vplanes[l][:, o])
+            if lines is None:
+                d_ct[..., blk] = bv_v
+                continue
+            bv = bilerp(planes[l][:, o])
+            w = coords[..., c]
+            w0f = torch.floor(torch.clamp(w, 0.0, hi))
+            fw = (w - w0f)[..., None]
+            w0 = w0f.long()
+            w1 = torch.clamp(w0 + 1, max=R - 1)
+            ln, vln = lines[l][:, o], vlines[l][:, o]
+            lval = ln[kidx, w0] * (1 - fw) + ln[kidx, w1] * fw
+            lval_v = vln[kidx, w0] * (1 - fw) + vln[kidx, w1] * fw
+            d_ct[..., blk] = bv_v * rnd(lval) + lval_v * rnd(bv)
+            g = ct[..., blk]
+            sp, sl = rnd(g * lval_v), rnd(g * bv_v)
+            lbase = (kidx * 3 + o) * R
+            dln.index_add_(0, (lbase + w0).reshape(-1),
+                           ((1 - fw) * sl).reshape(-1, F).to(sum_dtype))
+            dln.index_add_(0, (lbase + w1).reshape(-1),
+                           (fw * sl).reshape(-1, F).to(sum_dtype))
+            pbase = (kidx * 3 + o) * (R * R)
+            for r, wgt in zip(rows, (au * (av * sp), au * (fv * sp),
+                                     fu * (av * sp), fu * (fv * sp))):
+                dpl.index_add_(0, (pbase + r).reshape(-1),
+                               wgt.reshape(-1, F).to(sum_dtype))
+        d_planes.append(dpl.reshape(K, 3, R * R, F))
+        d_lines.append(dln.reshape(K, 3, R, F))
+    if not stacked:
+        d_planes = [t[0] for t in d_planes]
+        d_lines = [t[0] for t in d_lines]
+    return (d_ct.reshape(*x01.shape[:-1], cfg.out_dim), d_planes,
+            d_lines if lines is not None else None)
+
+
+BWD2_THREADS = 256  # kernels 5'' and 6'': 8 warps, each 32 points of one
+# (expert, level, orientation)
+
+
+def plane_encode_bwd2_kernel(params: Dict, x01: torch.Tensor,
+                             ct: torch.Tensor, v_params: Dict,
+                             cfg: PlaneEncodingConfig):
+    """Kernels 5'' / 6'' wrapper: the plain version for a CPU tensor; on a
+    CUDA tensor it launches `plane_encode_bwd2_light` (pos_grad=False:
+    bf16 rounding) or `plane_encode_bwd2` (pos_grad=True) or raises.
+    Returns what `plane_encode_bwd2_plain` returns."""
+    kernels.check_no_grad("plane_encode_bwd2", x01, ct, *_tables(params),
+                          *_tables(v_params))
+    if x01.device.type == "cpu":
+        return plane_encode_bwd2_plain(params, x01, ct, v_params, cfg)
+    if x01.device.type != "cuda":
+        raise ValueError(f"plane_encode_bwd2: unsupported device "
+                         f"{x01.device}")
+    planes, lines, x, stacked = _as_stacked(params, x01)
+    vplanes, vlines, _, _ = _as_stacked(v_params, x01)
+    if (lines is None) != (vlines is None):
+        raise ValueError("plane_encode_bwd2: the cotangents must match the "
+                         "tables (lines or none)")
+    K, N = x.shape[0], x.shape[1]
+    ct = ct.reshape(K, N, cfg.out_dim).contiguous()
+    dev = x01.device
+    kernels.check_cuda_tensors("plane_encode_bwd2", dev, x=x, ct=ct)
+    lv = _level_table(planes, lines, cfg, K, dev, "plane_encode_bwd2")
+    vv = _level_table(vplanes, vlines, cfg, K, dev, "plane_encode_bwd2")
+    gr = kernels.PlaneGrads()
+    d_planes = [torch.zeros_like(p) for p in planes]
+    d_lines = None if lines is None else [torch.zeros_like(t) for t in lines]
+    for l in range(len(d_planes)):
+        gr.planes[l] = d_planes[l].data_ptr()
+        gr.lines[l] = 0 if d_lines is None else d_lines[l].data_ptr()
+    d_ct = torch.empty_like(ct)
+    vec = cfg.features % 4 == 0 and aligned(
+        ct, d_ct, *planes, *(lines or ()), *vplanes, *(vlines or ()),
+        *d_planes, *(d_lines or ()))
+    kern = kernels.PLANES_BWD2 if cfg.pos_grad else kernels.PLANES_BWD2_LIGHT
+    kern(x.data_ptr(), ct.data_ptr(), lv, vv, gr, d_ct.data_ptr(), K, N,
+         cfg.features, int(vec), BWD2_THREADS, kernels.stream_ptr(x))
+    if not stacked:
+        d_planes = [t[0] for t in d_planes]
+        d_lines = None if d_lines is None else [t[0] for t in d_lines]
+    return d_ct.reshape(*x01.shape[:-1], cfg.out_dim), d_planes, d_lines
+
+
+class PlaneEncodeBwd(torch.autograd.Function):
+    """The table gradients of `PlaneEncode` as a differentiable function of
+    the cotangent ct and the tables: forward kernel 5 or 6 (or
+    `plane_encode_bwd_plain`), backward kernel 5'' or 6'' (or
+    `plane_encode_bwd2_plain`). Inputs after the two static ones: x01, ct,
+    then the tables, planes first; outputs: the table gradients in that
+    order. `PlaneEncode.backward` calls it under create_graph (MAML's inner
+    gradient); x01 gets no derivative and a third one raises."""
+
+    @staticmethod
+    def forward(ctx, cfg, use_kernels, x01, ct, *tables):
+        ctx.set_materialize_grads(False)
+        params = _params_of(tables, cfg)
+        bwd = (plane_encode_bwd_kernel if use_kernels
+               else plane_encode_bwd_plain)
+        g_planes, g_lines, _ = bwd(params, x01, ct, cfg)
+        ctx.cfg, ctx.use_kernels = cfg, use_kernels
+        ctx.save_for_backward(x01, ct, *tables)
+        return (*g_planes, *(g_lines or ()))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *v):
+        x01, ct, *tables = ctx.saved_tensors
+        if all(t is None for t in v):
+            return (None,) * (4 + len(tables))
+        v = [torch.zeros_like(t) if g is None else g.contiguous()
+             for g, t in zip(v, tables)]
+        bwd2 = (plane_encode_bwd2_kernel if ctx.use_kernels
+                else plane_encode_bwd2_plain)
+        d_ct, d_planes, d_lines = bwd2(
+            _params_of(tables, ctx.cfg), x01, ct, _params_of(v, ctx.cfg),
+            ctx.cfg)
+        if not ctx.needs_input_grad[3]:
+            d_ct = None
+        return (None, None, None, d_ct, *d_planes, *(d_lines or ()))
+
+
 class PlaneEncode(torch.autograd.Function):
     """plane_encode with its reference VJP: forward kernel 1 (or the plain
     forward), backward kernels 5/6 (or `plane_encode_bwd_plain`). Inputs
     after the two static ones: x01, then the level tables, planes first,
-    then lines; each gradient has its input's shape."""
+    then lines; each gradient has its input's shape. Under create_graph
+    the backward is `PlaneEncodeBwd`, differentiable again (kernels 5'' /
+    6''); otherwise it launches kernel 5 or 6 itself."""
 
     @staticmethod
     def forward(ctx, cfg, use_kernels, x01, *tables):
@@ -492,6 +670,14 @@ class PlaneEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         x01, *tables = ctx.saved_tensors
+        if torch.is_grad_enabled():  # create_graph: kernels 5'' / 6''
+            if ctx.needs_input_grad[2]:
+                raise NotImplementedError(
+                    "plane_encode: a second derivative with positions that "
+                    "require grad is not ported (on every MAML path the "
+                    "points are ray geometry)")
+            return (None, None, None, *PlaneEncodeBwd.apply(
+                ctx.cfg, ctx.use_kernels, x01, ct.contiguous(), *tables))
         params = _params_of(tables, ctx.cfg)
         bwd = (plane_encode_bwd_kernel if ctx.use_kernels
                else plane_encode_bwd_plain)

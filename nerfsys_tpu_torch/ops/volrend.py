@@ -15,9 +15,11 @@ coherent-expert test (row 10b, models/container.py) does.
 Kernel 4 (`csrc/volrend.cu`) is the compositor forward on the card;
 `volume_render_plain` is the same function in plain PyTorch. Gradients go
 through `VolumeRender`, whose backward is kernel 4's VJP
-(`csrc/volrend_bwd.cu`) or autograd through the plain version. Both
-kernels put a ray's samples on lanes of a warp and take their launch plan
-from `volrend_plan`. Every clip
+(`csrc/volrend_bwd.cu`) or autograd through the plain version; under
+create_graph (the MAML inner gradient) that VJP is `VolumeRenderBwd`,
+differentiable again through kernel 4'' (`csrc/volrend_bwd2.cu`) or
+`volume_render_bwd2_plain`. The kernels put a ray's samples on lanes of a
+warp and take their launch plan from `volrend_plan`. Every clip
 follows JAX's gradient
 rule at a tie (`jnp.clip` and `jnp.maximum` pass half the gradient where
 the operands are equal, `torch.clamp` all of it), so the plain version
@@ -30,6 +32,7 @@ import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from nerfsys_tpu_torch import kernels
 from nerfsys_tpu_torch.ops.activations import clip
@@ -253,25 +256,38 @@ def ray_lane_struct(n: int, s: int, groups: int,
 
 def volume_render_bwd_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
                             bg_rgb: Optional[torch.Tensor], grads: Grads, *,
-                            sigma_scale: float = 1.0):
+                            sigma_scale: float = 1.0,
+                            create_graph: bool = False):
     """Plain PyTorch version of kernel 4's VJP: autograd through
     `volume_render_plain` for the upstream (d rgb, d depth, d weights,
-    d acc), any of them None -> (d rgb_sigma, d bg or None)."""
+    d acc), any of them None -> (d rgb_sigma, d bg or None).
+
+    create_graph=True differentiates the inputs as given (rgb_sigma, bg_rgb
+    and the upstream must be the tensors to differentiate in, rgb_sigma
+    requiring grad) and keeps the graph of the result: the plain path of
+    kernel 4'' (`volume_render_bwd2_plain`)."""
     with torch.enable_grad():
-        rs = rgb_sigma.detach().requires_grad_(True)
-        bg = None if bg_rgb is None else bg_rgb.detach().requires_grad_(True)
+        if create_graph:
+            rs, bg = rgb_sigma, bg_rgb
+        else:
+            rs = rgb_sigma.detach().requires_grad_(True)
+            bg = (None if bg_rgb is None
+                  else bg_rgb.detach().requires_grad_(True))
         outs = volume_render_plain(rs, t_vals, bg, sigma_scale=sigma_scale)
         pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        inputs = [rs] if bg is None else [rs, bg]
+        inputs = [rs] if bg is None or not bg.requires_grad else [rs, bg]
         if not pairs:
             return torch.zeros_like(rs), (None if bg is None
                                           else torch.zeros_like(bg))
         got = torch.autograd.grad([o for o, _ in pairs],
                                   inputs, [g for _, g in pairs],
-                                  allow_unused=True)  # bg: depth alone
+                                  allow_unused=True,  # bg: depth alone
+                                  create_graph=create_graph)
         got = [torch.zeros_like(x) if g is None else g
                for g, x in zip(got, inputs)]
-    return got[0], (None if bg is None else got[1])
+    if bg is None:
+        return got[0], None
+    return got[0], got[1] if len(got) > 1 else torch.zeros_like(bg)
 
 
 def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
@@ -315,11 +331,139 @@ def volume_render_bwd_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
     return g_rs, g_bg
 
 
+Upstream = Tuple[Optional[torch.Tensor], ...]
+
+
+def volume_render_bwd2_plain(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
+                             bg_rgb: Optional[torch.Tensor], grads: Upstream,
+                             v_rs: Optional[torch.Tensor],
+                             v_bg: Optional[torch.Tensor], *,
+                             sigma_scale: float = 1.0):
+    """Plain PyTorch version of kernel 4'': the VJP of kernel 4's VJP.
+    For the upstream u = grads (d rgb, d depth, d weights, d acc; any
+    None) and the cotangents v = (v_rs, v_bg) of its outputs (None counts
+    as zero) -> (d rgb_sigma, d bg or None, d u: a tuple with a tensor
+    where u has one). d u is the compositor's JVP at rgb_sigma in the
+    direction v; d (rgb_sigma, bg) is u^T H v. Autograd through
+    `volume_render_bwd_plain(..., create_graph=True)`."""
+    with torch.enable_grad():
+        rs = rgb_sigma.detach().requires_grad_(True)
+        bg = None if bg_rgb is None else bg_rgb.detach().requires_grad_(True)
+        us = [None if g is None else g.detach().requires_grad_(True)
+              for g in grads]
+        g_rs, g_bg = volume_render_bwd_plain(rs, t_vals, bg, us,
+                                             sigma_scale=sigma_scale,
+                                             create_graph=True)
+        pairs = [(o, v) for o, v in ((g_rs, v_rs), (g_bg, v_bg))
+                 if o is not None and v is not None and o.requires_grad]
+        inputs = [rs] + ([] if bg is None else [bg]) + [
+            u for u in us if u is not None]
+        got = [None] * len(inputs)
+        if pairs:
+            got = list(torch.autograd.grad(
+                [o for o, _ in pairs], inputs, [v for _, v in pairs],
+                allow_unused=True))
+        got = [torch.zeros_like(x) if g is None else g
+               for g, x in zip(got, inputs)]
+    d_rs, rest = got[0], got[1:]
+    d_bg = None
+    if bg is not None:
+        d_bg, rest = rest[0], rest[1:]
+    it = iter(rest)
+    return d_rs, d_bg, tuple(None if u is None else next(it) for u in us)
+
+
+def volume_render_bwd2_kernel(rgb_sigma: torch.Tensor, t_vals: torch.Tensor,
+                              bg_rgb: Optional[torch.Tensor],
+                              grads: Upstream, v_rs: Optional[torch.Tensor],
+                              v_bg: Optional[torch.Tensor], *,
+                              sigma_scale: float = 1.0):
+    """Kernel 4'' wrapper: the plain version for CPU tensors; on CUDA
+    tensors it launches `volume_render_bwd2` (with kernel 4' plan) or
+    raises. Returns what `volume_render_bwd2_plain` returns."""
+    kernels.check_no_grad("volume_render_bwd2", rgb_sigma, t_vals, bg_rgb,
+                          *grads, v_rs, v_bg)
+    if rgb_sigma.device.type == "cpu":
+        return volume_render_bwd2_plain(rgb_sigma, t_vals, bg_rgb, grads,
+                                        v_rs, v_bg, sigma_scale=sigma_scale)
+    if rgb_sigma.device.type != "cuda":
+        raise ValueError(f"volume_render_bwd2: unsupported device "
+                         f"{rgb_sigma.device}")
+    dev = rgb_sigma.device
+    N, S = _check_shapes("volume_render_bwd2", rgb_sigma, t_vals, bg_rgb)
+    g_rgb, g_depth, g_w, g_acc = (None if g is None else g.contiguous()
+                                  for g in grads)
+    for g, shape in ((g_rgb, (N, 3)), (g_depth, (N,)), (g_w, (N, S)),
+                     (g_acc, (N,))):
+        if g is not None and tuple(g.shape) != shape:
+            raise ValueError("volume_render_bwd2: upstream gradient shapes "
+                             "do not match the outputs")
+    v_rs = (torch.zeros_like(rgb_sigma) if v_rs is None
+            else v_rs.contiguous())
+    if not aligned(v_rs):  # autograd's cotangent: a fresh copy is aligned
+        v_rs = v_rs.clone()
+    v_bg = None if bg_rgb is None or v_bg is None else v_bg.contiguous()
+    if tuple(v_rs.shape) != (N, S, 4) or (
+            v_bg is not None and tuple(v_bg.shape) != (N, 3)):
+        raise ValueError("volume_render_bwd2: the cotangents must be shaped "
+                         "like rgb_sigma and bg_rgb")
+    kernels.check_cuda_tensors("volume_render_bwd2", dev,
+                               rgb_sigma=rgb_sigma, t_vals=t_vals,
+                               bg_rgb=bg_rgb, g_rgb=g_rgb, g_depth=g_depth,
+                               g_weights=g_w, g_acc=g_acc, v_rs=v_rs,
+                               v_bg=v_bg)
+    if not aligned(rgb_sigma):
+        raise ValueError("volume_render_bwd2: rgb_sigma must start on a "
+                         "16-byte boundary (the kernel reads samples as "
+                         "vectors)")
+    d_rs = torch.empty_like(rgb_sigma)
+    d_bg = None if bg_rgb is None else torch.empty_like(bg_rgb)
+    d_u = tuple(None if g is None else torch.empty_like(g)
+                for g in (g_rgb, g_depth, g_w, g_acc))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    kernels.VOLREND_BWD2(
+        rgb_sigma.data_ptr(), t_vals.data_ptr(), ptr(bg_rgb), ptr(g_rgb),
+        ptr(g_depth), ptr(g_w), ptr(g_acc), v_rs.data_ptr(), ptr(v_bg),
+        d_rs.data_ptr(), ptr(d_bg), *(ptr(t) for t in d_u), N, S,
+        int(sigma_scale != 1.0), float(sigma_scale),
+        _plan_struct(N, S, True), kernels.stream_ptr(rgb_sigma))
+    return d_rs, d_bg, d_u
+
+
+class VolumeRenderBwd(torch.autograd.Function):
+    """Kernel 4's VJP as a differentiable function of (rgb_sigma, bg_rgb)
+    and the upstream: forward kernel 4', backward kernel 4'' (the plain
+    versions for CPU tensors). `VolumeRender.backward` calls it under
+    create_graph, where MAML takes its inner gradient; a third derivative
+    raises."""
+
+    @staticmethod
+    def forward(ctx, rgb_sigma, t_vals, bg_rgb, sigma_scale, *grads):
+        ctx.set_materialize_grads(False)
+        ctx.sigma_scale = sigma_scale
+        ctx.save_for_backward(rgb_sigma, t_vals, bg_rgb, *grads)
+        return volume_render_bwd_kernel(rgb_sigma, t_vals, bg_rgb, grads,
+                                        sigma_scale=sigma_scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v_rs, v_bg):
+        rgb_sigma, t_vals, bg_rgb, *grads = ctx.saved_tensors
+        if v_rs is None and v_bg is None:
+            return (None,) * (4 + len(grads))
+        d_rs, d_bg, d_u = volume_render_bwd2_kernel(
+            rgb_sigma, t_vals, bg_rgb, grads, v_rs, v_bg,
+            sigma_scale=ctx.sigma_scale)
+        return (d_rs, None, d_bg, None, *d_u)
+
+
 class VolumeRender(torch.autograd.Function):
     """volume_render with its VJP: forward kernel 4, backward its VJP
     kernel (the plain versions for CPU tensors). Gradients reach rgb_sigma
     and bg_rgb; t_vals gets none. Unused outputs send no gradient (None
-    counts as zero)."""
+    counts as zero). Under create_graph the backward is `VolumeRenderBwd`,
+    so that the VJP can be differentiated again (kernel 4''); otherwise it
+    launches kernel 4' itself."""
 
     @staticmethod
     def forward(ctx, rgb_sigma, t_vals, bg_rgb, sigma_scale):
@@ -332,8 +476,13 @@ class VolumeRender(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         rgb_sigma, t_vals, bg_rgb = ctx.saved_tensors
-        g_rs, g_bg = volume_render_bwd_kernel(
-            rgb_sigma, t_vals, bg_rgb, grads, sigma_scale=ctx.sigma_scale)
+        if torch.is_grad_enabled():
+            g_rs, g_bg = VolumeRenderBwd.apply(rgb_sigma, t_vals, bg_rgb,
+                                               ctx.sigma_scale, *grads)
+        else:
+            g_rs, g_bg = volume_render_bwd_kernel(
+                rgb_sigma, t_vals, bg_rgb, grads,
+                sigma_scale=ctx.sigma_scale)
         return g_rs, None, g_bg, None
 
 

@@ -2,8 +2,16 @@
 
 Port of nerfsys_tpu/pipelines/offline/meta_core.py (`MetaConfig` :44,
 `_expert_loss_fn` :103, `task_adapt` :174, `query_loss` :287,
-`reptile_update` :309) for the first-order algorithms:
+`reptile_update` :309):
 
+  - MAML (second order): the inner SGD differentiates through itself. Each
+    step takes `torch.autograd.grad(..., create_graph=True)` and sets
+    fast = p - lr * g without detaching, so the outer gradient flows
+    through every inner gradient: the double backwards of the encoder and
+    compositor kernels (4'', 5'' / 6'', 7c''; ops/volrend.py,
+    ops/planes.py, ops/encodings.py). The reference remats each step
+    (`jax.checkpoint`); here the graph of a task's K x inner_iter steps is
+    kept until its backward.
   - FoMAML: the inner SGD runs on a DETACHED copy of the expert; the adapted
     weights are reattached through the identity, base + (fast - base) with
     the difference detached, so the outer gradient of the expert is the
@@ -11,11 +19,10 @@ Port of nerfsys_tpu/pipelines/offline/meta_core.py (`MetaConfig` :44,
     `base + stop_gradient(f - base)`, same arithmetic).
   - Reptile: theta += lr * mean over valid tasks of (fast - theta).
 
-Second-order MAML differentiates through the inner loop, which needs a
-double backward through the encoder and compositor kernels; it raises
-NotImplementedError. Inner adaptation touches ONLY the active expert; the
-background model renders as a constant (detached) in the inner loop and is
-trained by the outer query loss alone.
+Inner adaptation touches ONLY the active expert; the background model
+renders as a constant (detached) in the inner loop and is trained by the
+outer query loss alone. The probe CDF is taken once a task, outside the
+graph.
 
 The reference's TPU scheduling knobs (expert_map, expert_unroll,
 task_unroll) have no counterpart: experts and tasks run one after the
@@ -130,20 +137,18 @@ def task_adapt(
     use_kernels: bool = True,
 ) -> Tuple[Params, torch.Tensor]:
     """Inner loop: `iterations` SGD steps on the support loss -> (fast
-    params, inner losses (iterations,)). First order: the outer gradient
-    reaches `expert_params` through the identity only."""
+    params, inner losses (iterations,)). MAML: differentiable through the
+    loop when `expert_params` require grad (under grad mode). First order:
+    the outer gradient reaches `expert_params` through the identity
+    only."""
     iterations = meta.inner_iter if iterations is None else iterations
     lr = meta.inner_lr if inner_lr is None else inner_lr
     if iterations <= 0:
         # no adaptation (tto 0): a zero inner loss keeps metric shapes
         return expert_params, torch.zeros(
             (1,), device=support_rays.device)
-    wants_outer = torch.is_grad_enabled() and any(
+    second_order = not meta.first_order and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(expert_params))
-    if not meta.first_order and wants_outer:
-        raise NotImplementedError(
-            "algo='maml' (second order) needs a double backward through the "
-            "encoder and compositor kernels, which is not ported")
     bg_const = _detach(bg_params)
 
     occ_cdf = None
@@ -163,28 +168,32 @@ def task_adapt(
             ray_floor=0.0 if meta.occ_hard_mask else meta.occ_ray_floor,
             use_kernels=use_kernels)
 
-    fast = _detach(expert_params)
+    fast = expert_params if second_order else _detach(expert_params)
     losses = []
     with torch.enable_grad():
         for _ in range(iterations):
-            p = tree_map(lambda t: t.detach().requires_grad_(True), fast)
+            p = fast if second_order else tree_map(
+                lambda t: t.detach().requires_grad_(True), fast)
             loss, _ = _expert_loss_fn(
                 meta, cfg, p, aabb, bg_const, support_rays, support_rgbs,
                 generator, meta.randomized, occ_grid, occ_on, occ_cdf,
                 use_kernels)
             leaves = tree_leaves(p)
             grads = dict(zip(map(id, leaves), torch.autograd.grad(
-                loss, leaves, allow_unused=True)))
+                loss, leaves, allow_unused=True,
+                create_graph=second_order)))
 
             def sgd(w):
                 g = grads[id(w)]
+                if second_order:  # the graph through g is the point
+                    return w if g is None else w - lr * g
                 return w.detach() if g is None else (w - lr * g).detach()
 
             fast = tree_map(sgd, p)
             losses.append(loss.detach())
     losses = torch.stack(losses)
     if not meta.first_order:
-        return fast, losses  # values only (eval): no outer gradient asked
+        return fast, losses  # second order, or values only (eval)
     return tree_map(lambda base, f: base + (f - base.detach()),
                     expert_params, fast), losses
 

@@ -2,7 +2,7 @@
 
 Port of nerfsys_tpu/pipelines/offline/meta_train_step.py (`_per_task_slice`
 :47, `_finalize_metrics` :133, `make_train_step` :148, `make_eval_step`
-:282) for fomaml and reptile. The batch is
+:282) for maml, fomaml and reptile. The batch is
 
     {'support_rays': (K, B, S, 8), 'support_rgbs': (K, B, S, 3),
      'query_rays':   (K, B, Q, 8), 'query_rgbs':   (K, B, Q, 3),
@@ -130,14 +130,12 @@ def task_value_and_grad(meta: MetaConfig, cfg: ContainerConfig,
 def make_train_step(meta: MetaConfig, cfg: ContainerConfig,
                     optimizer: Optimizer, *, use_kernels: bool = True):
     """The outer step: (params, opt_state, statics, batch, generator,
-    occ_state=None) -> (params, opt_state, metrics). use_kernels=False runs
-    the plain versions of every kernel (the card's own reference)."""
-    if meta.algo == "maml":
-        raise NotImplementedError(
-            "algo='maml' (second order) needs a double backward through the "
-            "encoder and compositor kernels, which is not ported")
+    occ_state=None) -> (params, opt_state, metrics). maml and fomaml share
+    the step body (the reference's `maml_like_step`); `task_adapt` decides
+    the order. use_kernels=False runs the plain versions of every kernel
+    (the card's own reference)."""
 
-    def fomaml_step(params, opt_state, statics, batch, generator,
+    def maml_like_step(params, opt_state, statics, batch, generator,
                     occ_state=None):
         K, B, valid, total_n = _episode(batch)
         occ_on = _occ_on(occ_state)
@@ -206,7 +204,7 @@ def make_train_step(meta: MetaConfig, cfg: ContainerConfig,
         metrics["skipped_nonfinite"] = torch.zeros((), device=valid.device)
         return new_params, opt_state, metrics
 
-    return reptile_step if meta.algo == "reptile" else fomaml_step
+    return reptile_step if meta.algo == "reptile" else maml_like_step
 
 
 def make_eval_step(meta: MetaConfig, cfg: ContainerConfig, tto: int):

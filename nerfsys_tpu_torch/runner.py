@@ -32,7 +32,7 @@ sequence when no mp4 encoder is available.
 
 Not ported, and refused at context build with the queue item that holds
 it: `--op view` (item 8), `--mesh_shape` and `--use_amp`
-(item 7), `--algo maml` (item 6), `--fim`, and the vanilla model, the
+(item 7), `--fim`, and the vanilla model, the
 frequency direction encoding and the fourier background encoding (item 7;
 the last three through the port's config classes). `--occ_probe_mask`
 (the hard mask from the probes' interval bits) runs for every op, and so
@@ -202,10 +202,6 @@ def refuse_unported(P, op: str) -> None:
     flags = (
         ("mesh_shape", getattr(P, "mesh_shape", None),
          "multi-GPU training and rendering (ROADMAP Queue 1 item 7)"),
-        # eval reads no meta-learning setting
-        ("algo maml",
-         op == "train" and getattr(P, "algo", "fomaml") == "maml",
-         "second-order MAML (ROADMAP Queue 1 item 6)"),
         ("fim", getattr(P, "fim", False),
          "the FIM model (ROADMAP Queue 1 item 7)"),
     )

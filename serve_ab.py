@@ -4,6 +4,7 @@ another one.
 
     python3 serve_ab.py OTHER_CHECKOUT [--pairs 10] [--experts planes|hash]
                         [--phase frame|step|kernels] [--exact | --packed]
+                        [--maml]
 
 OTHER_CHECKOUT is a second copy of the repository, for example the parent
 commit unpacked with `git archive`. One worker process per checkout imports
@@ -26,7 +27,10 @@ share); `--exact` gives the planes experts the encoder's exact backward
 place of the light one; `--packed` gives the hash experts the packed
 bfloat16-pair table reads (the runner's --packed_gather: each
 checkout's own `chip_smoke.with_hash(cfg, packed=True)`) for either
-phase, and implies `--experts hash`. A `--phase kernels` round times,
+phase, and implies `--experts hash`; `--maml` makes the steps
+second-order MAML (chip_smoke's bench meta configuration with
+algo="maml", which each checkout's own port must accept) with either
+experts and backward. A `--phase kernels` round times,
 through each checkout's own wrappers, kernel 3 (the inverse-CDF sampler)
 at the serve chunk (65,536 rays x 32 samples of the bench probe's cdf,
 shared targets) and at one inner step (4,000 rays, jittered targets from
@@ -76,7 +80,7 @@ SIDES = ("other", "this")
 
 
 def worker(root: Path, experts: str, phase: str, exact: bool,
-           packed: bool) -> int:
+           packed: bool, maml: bool = False) -> int:
     sys.path[0] = str(root)  # that checkout's modules, not this script's
     import torch
 
@@ -94,7 +98,8 @@ def worker(root: Path, experts: str, phase: str, exact: bool,
     if packed:
         cfg = cs.with_hash(cfg, packed=True)
     if phase == "step":
-        return step_rounds(cs, cfg, statics, params, occ, device, root)
+        return step_rounds(cs, cfg, statics, params, occ, device, root,
+                           maml)
     if phase == "kernels":
         return kernel_rounds(cs, cfg, statics, params, occ, device, root)
     return frame_rounds(cs, cfg, statics, params, occ, device)
@@ -140,7 +145,10 @@ def frame_rounds(cs, cfg, statics, params, occ, device) -> int:
     return 0
 
 
-def step_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
+def step_rounds(cs, cfg, statics, params, occ, device, root: Path,
+                maml: bool = False) -> int:
+    import dataclasses
+
     import torch
 
     from nerfsys_tpu_torch.models.container import param_group_labels
@@ -152,7 +160,10 @@ def step_rounds(cs, cfg, statics, params, occ, device, root: Path) -> int:
     batch = cs.train_batch(device)
     opt = build_optimizer(OptimConfig(outer_steps=10000),
                           param_group_labels(params))
-    step = make_train_step(cs.train_meta(), cfg, opt)
+    meta = cs.train_meta()
+    if maml:
+        meta = dataclasses.replace(meta, algo="maml")
+    step = make_train_step(meta, cfg, opt)
     state0 = opt.init(params)
     gen = torch.Generator(device=device).manual_seed(1)
     float(step(params, state0, statics, batch, gen, occ)[2]["loss_out"])
@@ -515,6 +526,8 @@ def main() -> int:
                     help="planes experts with the exact encoder backward")
     ap.add_argument("--packed", action="store_true",
                     help="hash experts reading the table as bfloat16 pairs")
+    ap.add_argument("--maml", action="store_true",
+                    help="--phase step: second-order MAML steps")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.packed and args.experts == "planes":
@@ -522,11 +535,13 @@ def main() -> int:
     args.experts = args.experts or ("hash" if args.packed else "planes")
     if args.worker:
         return worker(args.other.resolve(), args.experts, args.phase,
-                      args.exact, args.packed)
+                      args.exact, args.packed, args.maml)
     if args.pairs < 2:
         ap.error("--pairs must be at least 2 (quartiles)")
     if args.exact and (args.experts, args.phase) != ("planes", "step"):
         ap.error("--exact takes --experts planes --phase step")
+    if args.maml and args.phase != "step":
+        ap.error("--maml takes --phase step")
     import torch
 
     if not torch.cuda.is_available():
@@ -546,7 +561,8 @@ def main() -> int:
         [sys.executable, str(Path(__file__).resolve()), "--worker",
          "--experts", args.experts, "--phase", args.phase,
          *(["--exact"] if args.exact else []),
-         *(["--packed"] if args.packed else []), str(root)],
+         *(["--packed"] if args.packed else []),
+         *(["--maml"] if args.maml else []), str(root)],
         stdin=subprocess.PIPE,
         stdout=subprocess.PIPE, text=True) for name, root in roots.items()}
     try:
@@ -603,7 +619,8 @@ def main() -> int:
           f"{args.pairs} pairs")
     print(json.dumps({"serve_ab": summary, "verdict": verdict,
                       "experts": args.experts, "phase": args.phase,
-                      "exact": args.exact, "packed": args.packed}))
+                      "exact": args.exact, "packed": args.packed,
+                      "maml": args.maml}))
     print(card)
     a, b = summary["this"]["check"], summary["other"]["check"]
     if abs(a - b) > 1e-4 * max(1.0, abs(b)):

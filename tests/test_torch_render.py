@@ -281,19 +281,31 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 17
-    assert len(kernels.SOURCES) == 12
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 20
+    assert len(kernels.SOURCES) == 14
     assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
     assert kernels.KERNELS[9:12] == (kernels.HASH_FWD,
                                      kernels.HASH_FWD_PACKED,
                                      kernels.HASH_BWD)
     assert "--fmad=false" in kernels.SOURCES["hash_grid"][1]
-    assert kernels.KERNELS[12:] == (kernels.BUCKET_DISPATCH,
-                                    kernels.BUCKET_COMBINE_FWD,
-                                    kernels.BUCKET_COMBINE_BWD,
-                                    kernels.COHERENT_EXPERT,
-                                    kernels.OCC_QUERY)
+    assert kernels.KERNELS[12:17] == (kernels.BUCKET_DISPATCH,
+                                      kernels.BUCKET_COMBINE_FWD,
+                                      kernels.BUCKET_COMBINE_BWD,
+                                      kernels.COHERENT_EXPERT,
+                                      kernels.OCC_QUERY)
+    # the second-order products of second-order MAML: 4'' builds like 4'
+    # (contracted), 5'' and 6'' like 5 and 6 (--fmad=false)
+    assert kernels.KERNELS[17:] == (kernels.VOLREND_BWD2,
+                                    kernels.PLANES_BWD2_LIGHT,
+                                    kernels.PLANES_BWD2)
+    assert kernels.VOLREND_BWD2.source.endswith("csrc/volrend_bwd2.cu")
+    assert kernels.SOURCES["volrend_bwd2"][1] == kernels.SOURCES[
+        "volrend_bwd"][1]
+    for k in kernels.KERNELS[18:]:
+        assert k.source.endswith("csrc/planes_bwd2.cu")
+        assert k.replaces.startswith("nerfsys_tpu/ops/planes.py:")
+    assert "--fmad=false" in kernels.SOURCES["planes_bwd2"][1]
     assert kernels.OCC_QUERY.source.endswith("csrc/occ_query.cu")
     assert "--fmad=false" in kernels.SOURCES["occ_query"][1]
     assert kernels.OCC_QUERY.replaces.startswith(

@@ -162,7 +162,6 @@ def test_unported_ops_raise(data_root, op):
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_shape", "2"], "mesh_shape"),
     (["--use_amp"], "use_amp"),
-    (["--algo", "maml"], "maml"),
     (["--fim"], "fim"),
     (["--nerf_variant", "vanilla"], "vanilla"),
     (["--dir_encoding", "frequency"], "frequency"),

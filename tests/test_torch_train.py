@@ -292,9 +292,8 @@ def test_maml_and_unported_modes_raise():
     cfg, params, statics, occ, batch = _setup()
     tcfg = interop.container_config_from_jax(cfg)
     assert tcfg.expert.planes.pos_grad is False
-    opt = TO.build_optimizer(TO.OptimConfig(), {})
-    with pytest.raises(NotImplementedError, match="maml"):
-        TS.make_train_step(TM.MetaConfig(algo="maml"), tcfg, opt)
+    # second-order MAML is ported (tests/test_torch_maml.py,
+    # tests/test_torch_maml_step.py); an unknown algo still raises
     with pytest.raises(ValueError):
         TM.MetaConfig(algo="sgd")
     # the hard mask and its probe-bit form are ported (held to JAX in
