@@ -142,12 +142,20 @@ printing its result lines):
    kernels match the same step through the plain versions
    (`make_train_step(..., use_kernels=False)`); one light and one exact
    step are profiled (device busy ms, idle share, kernel 6's launches x
-   ms). Row 12 (`trunc_exp`, plain PyTorch): its calls in one live frame
-   and one bench step, and its forward and backward at a frame call's
-   points by device time beside their byte bound (`row 12 trunc_exp:`
-   line). Occupancy: fresh K=4 grids at the reference's defaults (R=128,
-   L=4) premarked from a ring of 8 bench cameras, one warmup update
-   (every cell) and one subset update after warmup through
+   ms). Row 12 (`trunc_exp`, csrc/activations.cu): its three kernels
+   (forward, backward, the second derivative) bit-equal to their plain
+   versions (`edge trunc_exp` lines: +-inf, NaN, -0.0, +-88.7 and the
+   floats on either side, far beyond both bounds, N(0, 40^2) at a frame
+   call's points, an unaligned tail on the scalar path; the first and
+   second derivative through autograd against `_TruncExp`, the plain
+   path, on the card); its calls and launches in one live frame, one
+   bench step and one MAML step (nothing may reach `_TruncExp` with a
+   CUDA tensor); each kernel's device time beside its plain version's
+   and its byte bound at a frame call's points and at a bench step's
+   (`row 12 trunc_exp:` and `kernel trunc_exp_*:` lines). Occupancy:
+   fresh K=4 grids at the reference's defaults (R=128, L=4) premarked
+   from a ring of 8 bench cameras, one warmup update (every cell) and one
+   subset update after warmup through
    `make_occ_update_fn` (kernel 1 launched), each timed to a synchronize
    and held against the same update through the plain versions with the
    same draws (occs within 1e-6 of their max, binary flips at most 1e-6
@@ -171,7 +179,13 @@ printing its result lines):
    K=4 stack, every output within 1e-5 of its max (the tables against the
    plain version's shares summed in float64), the light tables at least
    twice that from the exact ones; device, back-to-back and plain times
-   beside the byte bounds (the distinct table rows read). Then
+   beside the byte bounds (the distinct table rows read); and on kernel
+   5's adversarial inputs (`edge plane_encode_bwd2_light` / `edge
+   plane_encode_bwd2` lines: one cell, coordinates on and outside the
+   bounds, a tail tile, a single point, no lines, F=2 on the scalar path,
+   the K=4 stack, L=5 base 128; d ct bit-equal to the plain version, the
+   tables within 1e-5 of their max against the float64 sums, each line
+   with its plan and device time). Then
    bench.py's step with algo="maml": its gradients through the kernels
    against the same step through the plain versions (2^-8 of each leaf's
    max), against the FoMAML step's from the same params and draws (they
@@ -332,7 +346,8 @@ printing its result lines):
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
 12. A JSON line listing every kernel (launches, error, times, bound):
-   20 kernels from 14 libraries.
+   23 kernels from 15 libraries; every one must have launched in the
+   phases' runs.
 13. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -756,7 +771,7 @@ TRAIN_K, TRAIN_B, TRAIN_S, TRAIN_Q, TRAIN_INNER = 4, 3, 4000, 2000, 8
 TRAIN_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
                  "sample_tvals_from_cdf", "volume_render_fwd",
                  "volume_render_bwd", "plane_encode_bwd_light",
-                 "plane_encode_bwd")
+                 "plane_encode_bwd", "trunc_exp_fwd", "trunc_exp_bwd")
 
 
 def train_batch(device):
@@ -1764,7 +1779,8 @@ def plan_text(plan) -> str:
             f"smem={plan.smem} vec={int(plan.vec)}"
             + (f" private_line_levels={plan.private_levels}"
                if plan.line_ofs else "")
-            + (" exact" if plan.exact else ""))
+            + (" exact" if plan.exact else "")
+            + (" second-order" if plan.second else ""))
 
 
 def edge_points(kind: str, k: int, n: int, device):
@@ -2201,22 +2217,74 @@ def train(cfg, statics, params, occ, batch, device, label="train",
     return light, launches, kernel_side
 
 
-def trunc_exp_row(cfg, statics, params, occ, batch, device):
-    """Row 12 of PERF.md's kernel table, `trunc_exp` (ops/activations.py:
-    a plain autograd.Function, clamp and exp forward, a product backward;
-    no hand-written kernel): its calls in one live frame (the serve
-    renderer, 800x800) and one bench FoMAML step (a counting wrapper on
-    models.ngp's name; a backward for each call whose input needs a
-    gradient), and the device time of its forward and its backward at a
-    frame call's points (CUDA events around 20 calls queued while the card
-    sleeps: the profiler has seen no device events in so short a window),
-    beside the byte bound: the forward reads x and writes y, the backward
-    reads g and y and writes the gradient."""
+TRUNC_EXP_KERNELS = ("trunc_exp_fwd", "trunc_exp_bwd", "trunc_exp_bwd2")
+TRUNC_EXP_STEP = 128_000  # points of a bench step's call (one inner step)
+
+
+def trunc_exp_inputs(kind: str, n: int, device, seed: int):
+    """(x, g, v) float32 of n points from numpy seed `seed`: "edges" the
+    adversarial values (+-inf, NaN, -0.0, 0, +-88.7 and the floats on
+    either side, far beyond both bounds) in turn, with g and v whose
+    products with exp(88.7) overflow on some points; "random" x of
+    N(0, 40^2) (a share beyond the clamp); "unaligned" the edges one float
+    into a buffer (the scalar path)."""
+    import numpy as np
     import torch
 
+    rng = np.random.default_rng(seed)
+    m = np.float32(88.7)
+    edge = np.array([-np.inf, -1e30, -100.0, np.nextafter(-m, -200), -m,
+                     np.nextafter(-m, 0), -20.0, -1.0, -0.0, 0.0, 3.0,
+                     50.0, np.nextafter(m, 0), m, np.nextafter(m, 200),
+                     100.0, 1e30, np.inf, np.nan], np.float32)
+    if kind == "random":
+        x = (40.0 * rng.standard_normal(n)).astype(np.float32)
+    else:
+        x = np.resize(edge, n + (kind == "unaligned"))
+    g = rng.uniform(-2.0, 2.0, x.size).astype(np.float32)
+    v = rng.uniform(-2.0, 2.0, x.size).astype(np.float32)
+    out = [torch.from_numpy(a).to(device) for a in (x, g, v)]
+    if kind == "unaligned":
+        out = [t[1:] for t in out]
+    return out
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit, zero signs and infinities included, NaN where the
+    other is NaN (a NaN's payload depends on the instruction that made it:
+    PyTorch's vectorised maximum on the CPU gives 0xffffffff)."""
+    import torch
+
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    return torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def trunc_exp_check(cfg, statics, params, occ, batch, device, results):
+    """Row 12 of PERF.md's kernel table, `trunc_exp` (ops/activations.py,
+    csrc/activations.cu): the three kernels against their plain versions
+    bit for bit (`edge trunc_exp` lines: the adversarial values, N(0, 40^2)
+    at a frame call's points, an unaligned tail on the scalar path;
+    forward, backward and the second derivative's (d g, d x), and the
+    first and second derivative through autograd against `_TruncExp`, the
+    plain path, on the card); its calls and launches in one live frame
+    (the serve renderer, 800x800), one bench FoMAML step and one MAML step
+    (a counting wrapper on models.ngp's name; `_TruncExp` replaced by one
+    that raises on a CUDA tensor: nothing may reach the plain path there);
+    device times (20 calls queued while the card sleeps) of each kernel
+    and its plain version at a frame call's points and at a bench step's,
+    beside the byte bound: the forward reads x and writes y, the backward
+    reads g and y and writes gx, the second derivative reads v, g, x and
+    writes d g and d x. The backward's library call is `g * y` (one
+    PyTorch call, the plain version itself); the forward and the second
+    derivative have none."""
+    import torch
+
+    from nerfsys_tpu_torch import kernels
     from nerfsys_tpu_torch.models import ngp
     from nerfsys_tpu_torch.models.container import param_group_labels
-    from nerfsys_tpu_torch.ops.activations import trunc_exp
+    from nerfsys_tpu_torch.ops import activations as TA
     from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
         make_train_step,
     )
@@ -2231,41 +2299,150 @@ def trunc_exp_row(cfg, statics, params, occ, batch, device):
 
     def count(fn):
         def wrapped(x):
-            calls.append((x.numel(), x.requires_grad))
+            if x.numel():  # an empty call launches nothing
+                calls.append((x.numel(), x.requires_grad))
             return fn(x)
         return wrapped
+
+    plain = TA._TruncExp
+
+    class NoPlainOnCard(plain):
+        @staticmethod
+        def forward(ctx, x):
+            if x.is_cuda:
+                raise SystemExit("row 12: the plain _TruncExp ran on a CUDA "
+                                 "tensor")
+            return plain.forward(ctx, x)
+
+    def counted(run):
+        calls.clear()
+        kernels.reset_launches()
+        with patched(ngp, "trunc_exp", count), patched(
+                TA, "_TruncExp", lambda _: NoPlainOnCard):
+            run()
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        return list(calls), {k: got[k] for k in TRUNC_EXP_KERNELS}
 
     renderer = make_chunk_renderer(cfg, ray_samples=32, occ_state=occ,
                                    occ_importance=True, occ_hard_mask=False,
                                    device=device)
-    with patched(ngp, "trunc_exp", count):
-        render_image(renderer, params, statics, pose(SERVE_POSES[0]),
-                     scene_aabb=statics.global_aabb.cpu().numpy(),
-                     chunk_rays=CHUNK or default_chunk_rays(32))
-    frame = list(calls)
-    calls.clear()
+    frame, frame_l = counted(lambda: render_image(
+        renderer, params, statics, pose(SERVE_POSES[0]),
+        scene_aabb=statics.global_aabb.cpu().numpy(),
+        chunk_rays=CHUNK or default_chunk_rays(32)))
     opt = build_optimizer(OptimConfig(outer_steps=10000),
                           param_group_labels(params))
-    step = make_train_step(train_meta(), cfg, opt)
-    gen = torch.Generator(device=device).manual_seed(1)
-    with patched(ngp, "trunc_exp", count):
-        float(step(params, opt.init(params), statics, batch, gen,
-                   occ)[2]["loss_out"])
-    n = max(c[0] for c in frame)
+    steps = {}
+    for name, meta in (("bench step", train_meta()),
+                       ("MAML step", maml_meta())):
+        step = make_train_step(meta, cfg, opt)
+        gen = torch.Generator(device=device).manual_seed(1)
+        steps[name] = counted(lambda: float(step(
+            params, opt.init(params), statics, batch, gen, occ)[2][
+                "loss_out"]))
+    if not (frame_l["trunc_exp_fwd"] == len(frame) > 0
+            and all(l["trunc_exp_fwd"] == len(c) > 0
+                    and l["trunc_exp_bwd"] > 0 for c, l in steps.values())
+            and steps["MAML step"][1]["trunc_exp_bwd2"] > 0
+            and steps["bench step"][1]["trunc_exp_bwd2"] == 0):
+        seen = {k: (len(c), l) for k, (c, l) in steps.items()}
+        raise SystemExit(f"row 12: launches do not match the calls: frame "
+                         f"{len(frame)} calls {frame_l}, steps {seen}")
+    text = [f"a live frame {len(frame)} calls ({sum(c[0] for c in frame)} "
+            f"points) launches {frame_l}"] + [
+        f"a {k} {len(c)} calls ({sum(n for n, _ in c)} points, "
+        f"{sum(r for _, r in c)} needing a gradient) launches {l}"
+        for k, (c, l) in steps.items()]
+    print("row 12 trunc_exp: " + "; ".join(text), flush=True)
+
+    n_frame = max(c[0] for c in frame)
+    errs = {k: 0.0 for k in TRUNC_EXP_KERNELS}
+    for kind, n, seed in (("edges", 19 * 4096 + 3, 1),
+                          ("random", n_frame, 2), ("unaligned", 4099, 3)):
+        x, g, v = trunc_exp_inputs(kind, n, device, seed)
+        y = TA.trunc_exp_fwd_kernel(x)
+        gx = TA.trunc_exp_bwd_kernel(g, y)
+        dg, dx = TA.trunc_exp_bwd2_kernel(v, g, x)
+        want_y = TA.trunc_exp_fwd_plain(x)
+        want_dg, want_dx = TA.trunc_exp_bwd2_plain(v, g, x)
+        same = {"fwd": bit_equal(y, want_y),
+                "bwd": bit_equal(gx, TA.trunc_exp_bwd_plain(g, want_y)),
+                "bwd2 dg": bit_equal(dg, want_dg),
+                "bwd2 dx": bit_equal(dx, want_dx)}
+        # the same through autograd: trunc_exp (the kernels) against
+        # _TruncExp (the plain path) on the card
+        sides = []
+        for fn in (TA.trunc_exp, TA._TruncExp.apply):
+            xr = x.clone().requires_grad_(True)
+            gr = g.clone().requires_grad_(True)
+            first, = torch.autograd.grad(fn(xr), xr, gr, create_graph=True)
+            second = torch.autograd.grad(first, (xr, gr), v)
+            sides.append((first.detach(), *second))
+        same.update({f"autograd {k}": bit_equal(a, b) for k, a, b in zip(
+            ("gx", "d x", "d g"), *sides)})
+        for k, a, b in (("trunc_exp_fwd", y, want_y),
+                        ("trunc_exp_bwd2", dx, want_dx)):
+            ok = torch.isfinite(b)
+            if bool(ok.any()):
+                errs[k] = max(errs[k], max_err(a[ok], b[ok]))
+        print(f"edge trunc_exp {kind}: n={x.numel()} bit_equal "
+              + " ".join(f"{k}={s}" for k, s in same.items())
+              + f" (y inf {int(torch.isinf(want_y).sum())}, nan "
+              f"{int(torch.isnan(want_y).sum())}, subnormal "
+              f"{int(((want_y > 0) & (want_y < 1.1754944e-38)).sum())}; "
+              f"d x nan {int(torch.isnan(want_dx).sum())})", flush=True)
+        if not all(same.values()):
+            raise SystemExit(f"row 12: a kernel differs from its plain "
+                             f"version on {kind}: {same}")
+
     gen = torch.Generator(device=device).manual_seed(4)
-    x = (4.0 * torch.randn(n, device=device, generator=gen)
-         ).requires_grad_(True)
-    g = torch.randn(n, device=device, generator=gen)
-    y = trunc_exp(x)
-    fwd = device_ms(lambda: trunc_exp(x))
-    bwd = device_ms(lambda: torch.autograd.grad(y, x, g, retain_graph=True))
-    print(f"row 12 trunc_exp: a live frame {len(frame)} calls "
-          f"({sum(c[0] for c in frame)} points, {n} a call at most), a "
-          f"bench step {len(calls)} calls ({sum(c[0] for c in calls)} "
-          f"points) and {sum(c[1] for c in calls)} backwards; at {n} "
-          f"points: forward device_ms={fwd:.4f} (bytes {8 * n}, bound_ms "
-          f"{bound(8 * n, 0)[0]:.4f}), backward device_ms={bwd:.4f} (bytes "
-          f"{12 * n}, bound_ms {bound(12 * n, 0)[0]:.4f})", flush=True)
+    times, library = {}, {}
+    for label, n in (("frame call", n_frame), ("bench step call",
+                                                TRUNC_EXP_STEP)):
+        x = 4.0 * torch.randn(n, device=device, generator=gen)
+        g = torch.randn(n, device=device, generator=gen)
+        v = torch.randn(n, device=device, generator=gen)
+        y = TA.trunc_exp_fwd_kernel(x)
+        times[label] = {
+            "trunc_exp_fwd": (
+                device_ms(lambda: TA.trunc_exp_fwd_kernel(x)),
+                device_ms(lambda: TA.trunc_exp_fwd_plain(x)), 8 * n),
+            "trunc_exp_bwd": (
+                device_ms(lambda: TA.trunc_exp_bwd_kernel(g, y)),
+                device_ms(lambda: TA.trunc_exp_bwd_plain(g, y)), 12 * n),
+            "trunc_exp_bwd2": (
+                device_ms(lambda: TA.trunc_exp_bwd2_kernel(v, g, x)),
+                device_ms(lambda: TA.trunc_exp_bwd2_plain(v, g, x)),
+                20 * n)}
+        library[label] = device_ms(lambda: torch.mul(g, y))
+    for k in TRUNC_EXP_KERNELS:
+        parts = []
+        for label, n in (("frame call", n_frame),
+                         ("bench step call", TRUNC_EXP_STEP)):
+            ms, plain, n_bytes = times[label][k]
+            b_ms, b_by = bound(n_bytes, 0)
+            lib = (f"library_ms={library[label]:.4f} (g * y) "
+                   if k == "trunc_exp_bwd" else "")
+            parts.append(f"{label} ({n} points) device_ms={ms:.4f} "
+                         f"plain_ms={plain:.4f} {lib}bytes={n_bytes} "
+                         f"bound_ms={b_ms:.4f} ({b_by}, "
+                         f"{ms / b_ms:.2f}x)")
+        ms, plain, n_bytes = times["frame call"][k]
+        b_ms, b_by = bound(n_bytes, 0)
+        lib_ms = library["frame call"] if k == "trunc_exp_bwd" else None
+        results[k] = dict(
+            max_abs_err=errs[k], ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms,
+            text=f"(a frame call's points) bit-equal to the plain version "
+            f"on every edge line (max_abs_err over finite values); "
+            + "; ".join(parts) + "; kernel_ms, plain_ms and library_ms are "
+            "device times; "
+            + ("library_ms: g * y, one PyTorch call" if lib_ms is not None
+               else "library_ms null: no single PyTorch call (the forward's "
+               "clamp and exp are two, the second derivative's products "
+               "and the clip's slope more)"))
+        print(f"kernel {k}: " + "; ".join(parts), flush=True)
 
 
 OCC_RING = 8  # training cameras of the premark
@@ -2460,7 +2637,7 @@ def occupancy(cfg, statics, params, occ, batch, device):
 
 
 MAML_NEW = ("volume_render_bwd2", "plane_encode_bwd2_light",
-            "plane_encode_bwd2")  # kernels 4'', 5'', 6''
+            "plane_encode_bwd2", "trunc_exp_bwd2")  # 4'', 5'', 6'', 12''
 MAML_WATCHED = ("volume_render_fwd", "volume_render_bwd",
                 "volume_render_bwd2", "plane_encode_fwd",
                 "plane_encode_bwd_light", "plane_encode_bwd2_light",
@@ -2697,6 +2874,86 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
                 f"{row_bytes} B) bound_ms={b_ms:.4f} ({b_by}) at "
                 f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
         del got, want, want32, outs
+    plane_bwd2_edges(cfg, params, enc, x01, xk, device)
+
+
+def plane_bwd2_edges(cfg, params, enc, x01, xk, device):
+    """Kernels 5'' (light) and 6'' (exact) against their plain versions on
+    kernel 5's adversarial inputs at one inner step (one expert, 128,000
+    points unless stated): one cell (every lane of a warp on the same
+    rows), coordinates on and outside the bounds, a tail tile (P - 37), a
+    single point, no lines, F=2 (the scalar path), the K=4 experts
+    stacked and L=5 base 128. d ct bit-equal to the float32 plain
+    version, every table within 1e-5 of its max against the plain shares
+    summed in float64."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.ops import planes as PL
+    from nerfsys_tpu_torch.utils.device import num_sms
+
+    P = x01.shape[0]
+    gen = torch.Generator(device=device).manual_seed(15)
+    sms = num_sms(x01.device)
+
+    def rnd(*shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    def cot(tabs):
+        return {k: [rnd(*a.shape) for a in v] for k, v in tabs.items()}
+
+    for kern, exact in ((kernels.PLANES_BWD2_LIGHT.name, False),
+                        (kernels.PLANES_BWD2.name, True)):
+        pc = dataclasses.replace(cfg.expert.planes, pos_grad=exact)
+        no_lines = dataclasses.replace(pc, include_lines=False)
+        f2 = dataclasses.replace(pc, features=2)
+        l5 = dataclasses.replace(pc, levels=5)
+
+        def plan(c, k, n):
+            return PL.plane_bwd_plan(n, k, c.level_resolutions(), c.features,
+                                     c.include_lines, sms, exact=exact,
+                                     second=True)
+
+        l5_tabs, f2_tabs = edge_tables(l5, 0, device), edge_tables(f2, 0,
+                                                                   device)
+        stack = params["experts"]["planes_enc"]
+        cases = (
+            ("one cell", pc, enc, edge_points("one cell", 1, P, device)[0]),
+            ("bounds", pc, enc, edge_points("bounds", 1, P, device)[0]),
+            ("tail P-37", pc, enc, x01[:P - 37].contiguous()),
+            ("single point", pc, enc, x01[:1].contiguous()),
+            ("no lines", no_lines, {"planes": enc["planes"]}, x01),
+            ("F=2 scalar", f2, f2_tabs, x01),
+            ("stacked K=4", pc, stack, xk),
+            ("L=5 base 128", l5, l5_tabs, x01))
+        for label, c, tab, x in cases:
+            ct = rnd(*x.shape[:-1], c.out_dim)
+            v = cot(tab)
+            got = PL.plane_encode_bwd2_kernel(tab, x, ct, v, c)
+            want = PL.plane_encode_bwd2_plain(tab, x, ct, v, c,
+                                              sum_dtype=torch.float64)
+            want_ct = PL.plane_encode_bwd2_plain(tab, x, ct, v, c)[0]
+            torch.cuda.synchronize()
+            ct_equal = bit_equal(got[0], want_ct)
+            errs = [rel_err(a, b) for a, b in zip(  # 0 where both are 0
+                got[1] + (got[2] or []), want[1] + (want[2] or []))]
+            K = x.shape[0] if x.dim() == 3 else 1
+            shown = plan(c, K, x.shape[-2])
+            dev_ms = device_ms(lambda: PL.plane_encode_bwd2_kernel(
+                tab, x, ct, v, c), 5)
+            print(f"edge {kern} {label}: K={K} N={x.shape[-2]} d ct "
+                  f"bit_equal={ct_equal} table_err/max="
+                  f"{max(errs):.3e} tol={BWD2_TOL:g} "
+                  f"device_ms={dev_ms:.4f} plan {plan_text(shown)}",
+                  flush=True)
+            if not ct_equal or not max(errs) <= BWD2_TOL:
+                raise SystemExit(f"kernel {kern} disagrees with its plain "
+                                 f"version on {label}: d ct bit-equal "
+                                 f"{ct_equal}, tables {errs}")
+            del got, want
+    torch.cuda.empty_cache()
 
 
 def plane_rows_read(x01, pc):
@@ -2835,7 +3092,7 @@ def maml_phase(cfg, statics, params, occ, batch, device, results):
           f"largest {max(gaps):.3e} median "
           f"{sorted(gaps)[len(gaps) // 2]:.3e} smallest {min(gaps):.3e} "
           f"over {len(gaps)} leaves; the FoMAML step launched 4'' / 5'' / "
-          f"6'' {[fo[k] for k in MAML_NEW]}", flush=True)
+          f"6'' / 12'' {[fo[k] for k in MAML_NEW]}", flush=True)
     if not max(gaps) > 2.0**-8 or any(fo[k] for k in MAML_NEW):
         raise SystemExit("maml: the MAML gradient does not differ from the "
                          "FoMAML one beyond the kernel-vs-plain gate, or "
@@ -4231,7 +4488,8 @@ def profile_frame(renderer, params, statics, md, aabb, chunk,
 
 
 SERVE_KERNELS = ("plane_encode_fwd", "occupancy_probe_cdf",
-                 "sample_tvals_from_cdf", "volume_render_fwd")
+                 "sample_tvals_from_cdf", "volume_render_fwd",
+                 "trunc_exp_fwd")
 SERVE_POSES = ((0.0, 0.0, 2.0), (0.1, 0.0, 2.0), (0.0, -0.1, 2.1))
 NATIVE_ROUTE_RAYS = 1_000_000  # trainer-scene rays the routers are held on
 
@@ -7206,7 +7464,7 @@ def main() -> int:
                        results)
     baked_n = baked(cfg, statics, params, device, results)
     light, trained, _ = train(cfg, statics, params, occ, batch, device)
-    trunc_exp_row(cfg, statics, params, occ, batch, device)
+    trunc_exp_check(cfg, statics, params, occ, batch, device, results)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
     maml_n = maml_phase(cfg, statics, params, occ, batch, device, results)
     trainer_n, eval_n, video_n = trainer(device)
@@ -7226,6 +7484,10 @@ def main() -> int:
               + ", ".join(f"{label} {p[n]}" for label, p in parts)
               + f"; per bench train step: planes {light[n] / 3:g}, hash "
               f"{hash_light[n] / 3:g}) {results[n].pop('text')}")
+    idle = [k.name for k in kernels.KERNELS
+            if not sum(p[k.name] for _, p in parts)]
+    if idle:
+        raise SystemExit(f"kernels never launched in the phases: {idle}")
     line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces,
@@ -7234,13 +7496,16 @@ def main() -> int:
         for k in kernels.KERNELS]}
     print("library_ms: grid_sample for baked_trilerp, embedding_bag (a "
           "weighted sum of the bucket rows each point's pairs index) for "
-          "bucket_combine_fwd; null for the others: no single PyTorch call "
+          "bucket_combine_fwd, g * y for trunc_exp_bwd; null for the "
+          "others: no single PyTorch call "
           "computes the plane encoder or its table gradient with the "
           "interpolation weights, the hash encoder (its corner rows and "
           "weights from the points; embedding_bag would only sum rows "
           "already indexed and weighted) or its table gradient, the union "
           "probe + CDF, or the second-order products of the compositor "
-          "and the encoder (autograd's double backward is many calls), the "
+          "and the encoder (autograd's double backward is many calls), "
+          "trunc_exp's forward or second derivative (clamp and exp are two "
+          "calls, the products and the clip's slope more), the "
           "inverse-CDF sampler (torch.searchsorted gives "
           "only the interval index, and only on rows that never decrease; "
           "the lerps and the sort are more calls), the compositor or its "

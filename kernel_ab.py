@@ -1,14 +1,18 @@
 """Design experiments on kernel 3 (the inverse-CDF sampler), 10a-i (the
 bucket dispatch), 10a-iii (the blend's transpose), 10b (the
-coherent-expert test), row 8 (the segment compositor) and 11q (the
-occupancy point query): variants of their CUDA sources, built beside the
-shipped libraries and timed through the shipped wrappers at the real
-shapes.
+coherent-expert test), row 8 (the segment compositor), 11q (the
+occupancy point query) and 5'' / 6'' (the plane encoder's double
+backward): variants of their CUDA sources, built beside the shipped
+libraries and timed through the shipped wrappers at the real shapes.
 
-    python3 kernel_ab.py [--rounds 5] [--kernels OCC_QUERY ...]
+    python3 kernel_ab.py [--rounds 5] [--kernels OCC_QUERY ...] \
+        [--first DIR]
 
 Needs one CUDA card and nvcc. Each variant is the shipped source with a
-few lines replaced (`VARIANTS`); it is built with the shipped flags into
+few lines replaced (`VARIANTS`), or for 5'' / 6'''s first design the
+source of a checkout of commit 1334e6a given with `--first` (`git
+archive 1334e6a | tar -x -C DIR`; without it those variants are left
+out), adapted to the shipped entry points' arguments; it is built with the shipped flags into
 `nerfsys_tpu_torch/_build/variants/` (all nvcc runs at once) and swapped
 in for the shipped entry point, so the wrapper's plan, checks and launch
 path are the shipped ones. The cases are `serve_ab.py --phase kernels`'s:
@@ -19,12 +23,17 @@ on one chunk of the K=16 arm (196,608 points, E=2), 10b at the serve
 chunk's and a skew chunk's 65,536 x 32 samples, row 8 at the first
 segment (65,536 x 8) and a resume slice (16,384 x 24), 10a-iii on the
 top-2 dispatches of the serve chunk and of the K=16 chunk, 11q at the
-serve chunk in each mode, at one inner step (K=1) and on a K=16 chunk. A
-variant that keeps the outputs is first held to the plain version on
+serve chunk in each mode, at one inner step (K=1) and on a K=16 chunk,
+5'' at one inner step (128,000 points, one expert and the K=4 stack) and
+6'' at one expert, with kernels 5 and 6 timed beside them (no variants).
+A variant that keeps the outputs is first held to the plain version on
 every case of its kernel (the sampler within 1e-5, the dispatch's integer
 outputs equal and its weights within 1e-6 on two calls, 10b's ids equal,
-row 8 within 1e-5, 10a-iii and 11q equal); a timing-only variant (its
-outputs wrong or incomplete) is not. `--kernels` keeps the variants and
+row 8 within 1e-5, 10a-iii and 11q equal, 5'' / 6'' within 1e-5 of each
+output's max against the plain sums in float64); a timing-only variant
+(its outputs wrong or incomplete) is not. A variant may also change the
+Python side's plan (`bwd2_plan`: 5'' / 6'''s tile or threads a block in
+the shipped plan). `--kernels` keeps the variants and
 cases of the named kernels (the `kernels` module's attributes, as in
 `CASES_OF`). Then `--rounds` rounds time every variant and the shipped
 kernel on every case by device time (chip_smoke's `device_ms`), in turn;
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import statistics
 import subprocess
 import sys
@@ -323,14 +333,163 @@ VARIANTS["11q: four points a thread on blocks capped at the resident "
      ("    many<<<(unsigned)tiles, QUERY_THREADS, smem, stream>>>(",
       "    many<<<(unsigned)(tiles < resident ? tiles : resident), "
       "QUERY_THREADS, smem, stream>>>(")], None)
+# 5'' / 6'' (csrc/planes_bwd2.cu). The first design (a warp a 32-point
+# run, no tiles: points and cotangent read and d ct stored by each lane in
+# device memory, every line level on the global path) is read from a
+# checkout of its commit (`--first DIR`, 1334e6a) and given the shipped
+# entry points' arguments; then its parts one at a time (the split that
+# chose the shipped design), and the shipped design's.
+FIRST = [(None, None),  # the whole source: --first's planes_bwd2.cu
+         ("\n__device__ __forceinline__ float bf16_round(float v) {",
+          "\nstruct PlanePlan {  // the shipped layout; only vec is read\n"
+          "    int tile, threads, blocks, smem, vec;\n"
+          "    int line_ofs[PLANES_MAX_LEVELS];\n"
+          "    int sms;\n"
+          "};\n"
+          "\n__device__ __forceinline__ float bf16_round(float v) {"),
+         ("""                                     int F, int vec, int threads,
+                                     cudaStream_t stream) {
+    return bwd2(x, ct, lv, vv, gr, dct, K, N, F, false, vec, threads,
+                stream);""",
+          """                                     int F, PlanePlan plan,
+                                     cudaStream_t stream) {
+    return bwd2(x, ct, lv, vv, gr, dct, K, N, F, false, plan.vec, 256,
+                stream);"""),
+         ("""                               float* dct, int K, int N, int F, int vec,
+                               int threads, cudaStream_t stream) {
+    return bwd2(x, ct, lv, vv, gr, dct, K, N, F, true, vec, threads, stream);""",
+          """                               float* dct, int K, int N, int F,
+                               PlanePlan plan, cudaStream_t stream) {
+    return bwd2(x, ct, lv, vv, gr, dct, K, N, F, true, plan.vec, 256,
+                stream);""")]
+B2_SCATTER = """    reduce_peers<VEC>(peers, v, lane);
+    if (!active || (peers & ((1u << lane) - 1u))) return;  // not the leader
+    if (VEC == 4)
+        red_add4(dst, v[0], v[1], v[2], v[3]);"""
+B2_NO_RED = """    reduce_peers<VEC>(peers, v, lane);
+    if (!active || (peers & ((1u << lane) - 1u))) return;  // not the leader
+    if (VEC == 4 && __float_as_uint(v[0]) == 0x7fc00001u)  // never
+        dst[0] = v[1];
+    else if (VEC == 4)
+        return;"""
+B2_SCALAR = """    reduce_peers<VEC>(peers, v, lane);
+    if (!active || (peers & ((1u << lane) - 1u))) return;  // not the leader
+    if (VEC == 4)
+        for (int i = 0; i < VEC; ++i) atomicAdd(dst + i, v[i]);"""
+B2_NO_SCATTER = "    return;  // no match, aggregation or reduction\n" + B2_SCATTER
+B2_V_ROWS = """        load_row<VEC>(vp + rows[0] * F + f0, v00);
+        load_row<VEC>(vp + rows[1] * F + f0, v01);
+        load_row<VEC>(vp + rows[2] * F + f0, v10);
+        load_row<VEC>(vp + rows[3] * F + f0, v11);
+        load_row<VEC>(lp + w0 * F + f0, m0);
+        load_row<VEC>(lp + w1 * F + f0, m1);
+        load_row<VEC>(vl + w0 * F + f0, n0);
+        load_row<VEC>(vl + w1 * F + f0, n1);"""
+B2_REREADS = B2_V_ROWS.replace("vp + rows", "tp + rows").replace(
+    "vl + w", "lp + w")
+B2_STORE = "        if (active) {\n            if (VEC == 4)\n"
+B2_NO_STORE = ("        if (active && __float_as_uint(out[0]) == 0x7fc00001u) {"
+               "  // never\n            if (VEC == 4)\n")
+B2_ORDER = ("""    const int grp = (int)(task % groups);
+    const int lo = (int)((task / groups) % LO);  // level * 3 + orientation""",
+            """    const int lo = (int)(task % LO);  // level * 3 + orientation
+    const int grp = (int)((task / LO) % groups);""")
+VARIANTS.update({
+    f"5'': the first design{what}": ("planes_bwd2", timing, FIRST + reps,
+                                     None)
+    for what, timing, reps in (
+        (" (a warp a run, no tiles)", False, []),
+        (" without the table scatter (no match, aggregation or reduction; "
+         "timing only)", True, [(B2_SCATTER, B2_NO_SCATTER)]),
+        (", aggregation kept, no vector reductions (timing only)", True,
+         [(B2_SCATTER, B2_NO_RED)]),
+        (", scalar atomics in place of red.v4", False,
+         [(B2_SCATTER, B2_SCALAR)]),
+        (", vP / vL gathers as re-reads of P / L (timing only)", True,
+         [(B2_V_ROWS, B2_REREADS)]),
+        (" without the d ct store (timing only)", True,
+         [(B2_STORE, B2_NO_STORE)]),
+        (", (level, orientation) fastest in the task order", False,
+         [B2_ORDER]),
+        (", (level, orientation) fastest, without the table scatter "
+         "(timing only)", True, [B2_ORDER, (B2_SCATTER, B2_NO_SCATTER)]))})
+VARIANTS["6'': the first design"] = (
+    "planes_bwd2", False, FIRST, {"kernel": "PLANES_BWD2"})
+VARIANTS["6'': the first design, (level, orientation) fastest"] = (
+    "planes_bwd2", False, FIRST + [B2_ORDER], {"kernel": "PLANES_BWD2"})
+# the shipped design's parts
+B2_ADD = """    if (VEC == 4) {
+        red_add4(gdst, v[0], v[1], v[2], v[3]);"""
+B2_DCT = """                reinterpret_cast<float4*>(dg)[i] =
+                    reinterpret_cast<const float4*>(obuf)[i];"""
+VARIANTS["5'': without the table scatter (timing only)"] = (
+    "planes_bwd2", True,
+    [("    reduce_peers<VEC>(peers, v, lane);\n", "    return;\n")], None)
+VARIANTS["5'': aggregation kept, no vector reductions (timing only)"] = (
+    "planes_bwd2", True,
+    [(B2_ADD, """    if (VEC == 4 && __float_as_uint(v[0]) == 0x7fc00001u) {  // never
+        gdst[0] = v[1];
+    } else if (VEC == 4) {""")], None)
+VARIANTS["5'': scalar atomics in place of red.v4"] = (
+    "planes_bwd2", False,
+    [(B2_ADD, """    if (VEC == 4) {
+        for (int i = 0; i < VEC; ++i) atomicAdd(gdst + i, v[i]);""")], None)
+VARIANTS["5'': vP / vL gathers as re-reads of P / L (timing only)"] = (
+    "planes_bwd2", True,
+    [(B2_V_ROWS.replace("        load_row", "                load_row"),
+      B2_REREADS.replace("        load_row", "                load_row"))],
+    None)
+VARIANTS["5'': without the d ct store (timing only)"] = (
+    "planes_bwd2", True,
+    [(B2_DCT, """                if (__float_as_uint(obuf[i]) == 0x7fc00001u)  // never
+                    reinterpret_cast<float4*>(dg)[i] =
+                        reinterpret_cast<const float4*>(obuf)[i];""")], None)
+B2_ONE_LANE = ("""    const int lpp =
+        (VEC == 4 && F <= 128 && (F & (F - 1)) == 0) ? F >> 2 : 1;""",
+               "    const int lpp = 1;")
+VARIANTS["5'': one lane a point (a row's 16-byte quarters in turn)"] = (
+    "planes_bwd2", False, [B2_ONE_LANE], None)
+VARIANTS["6'': one lane a point"] = (
+    "planes_bwd2", False, [B2_ONE_LANE], {"kernel": "PLANES_BWD2"})
+VARIANTS["5'': points fastest in a tile's task order (the order before)"] = (
+    "planes_bwd2", False,
+    [("""            const int lo = task % LO;  // level * 3 + orientation""",
+      """            const int lo = task / groups;  // level * 3 + orientation"""),
+     ("""            const int p = (task / LO) * ppw + q;""",
+      """            const int p = (task - lo * groups) * ppw + q;""")], None)
+VARIANTS["6'': points fastest in a tile's task order"] = (
+    "planes_bwd2", False,
+    VARIANTS["5'': points fastest in a tile's task order (the order before)"][2],
+    {"kernel": "PLANES_BWD2"})
+VARIANTS["5'': table rows through the L1 (ld.global.nc)"] = (
+    "planes_bwd2", False,
+    [("        const float4 q = __ldcg(reinterpret_cast<const float4*>(p));",
+      "        const float4 q = __ldg(reinterpret_cast<const float4*>(p));")],
+    None)
+VARIANTS["5'': registers capped for 3 blocks an SM"] = (
+    "planes_bwd2", False,
+    [("__global__ void __launch_bounds__(BWD2_MAX_THREADS)",
+      "__global__ void __launch_bounds__(BWD2_MAX_THREADS, 3)")], None)
+VARIANTS.update({
+    f"5'': {what}": ("planes_bwd2", False, [], {"bwd2_plan": kw})
+    for what, kw in (
+        ("8 warps a block (36 tasks a tile in 4.5 rounds)",
+         {"threads": 256}),
+        ("6 warps a block (6 whole rounds)", {"threads": 192}),
+        ("tiles of 32 points", {"tile": 32}),
+        ("tiles of 96 points", {"tile": 96}),
+        ("tiles of 128 points", {"tile": 128}))})
 # the kernel a variant of each library replaces unless it names another
 KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH",
              "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG",
-             "occ_query": "OCC_QUERY"}
-# each kernel's cases in `serve_ab.kernel_cases`
+             "occ_query": "OCC_QUERY", "planes_bwd2": "PLANES_BWD2_LIGHT"}
+# each kernel's cases in `serve_ab.kernel_cases` (kernels 5 and 6 have no
+# variants: their cases time them beside 5'' / 6'')
 CASES_OF = {"OCC_SAMPLE": (0, 1), "BUCKET_DISPATCH": (2, 3, 4),
             "COHERENT_EXPERT": (5, 6), "COMPOSITE_SEG": (7, 8),
-            "BUCKET_COMBINE_BWD": (9, 10), "OCC_QUERY": (11, 12, 13, 14, 15)}
+            "BUCKET_COMBINE_BWD": (9, 10), "OCC_QUERY": (11, 12, 13, 14, 15),
+            "PLANES_BWD2_LIGHT": (16, 18), "PLANES_BWD2": (17,),
+            "PLANES_BWD_LIGHT": (19,), "PLANES_BWD": (20,)}
 
 
 def kernel_of(name: str) -> str:
@@ -339,9 +498,10 @@ def kernel_of(name: str) -> str:
     return (patch or {}).get("kernel", KERNEL_OF[stem])
 
 
-def build_variants(kernels, sms: int):
-    """Writes and builds every variant in parallel; returns name ->
-    (library path, ptxas lines)."""
+def build_variants(kernels, sms: int, first: Path = None):
+    """Writes and builds every variant in parallel (a whole-source
+    replacement reads `first`'s planes_bwd2.cu); returns name -> (library
+    path, ptxas lines)."""
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -349,8 +509,9 @@ def build_variants(kernels, sms: int):
         src_name, extra = kernels.SOURCES[stem]
         text = (kernels.CSRC / src_name).read_text()
         for old, new in reps:
-            if old is None:  # the whole source
-                text = new
+            if old is None:  # the whole source: the first design's
+                text = (first / "nerfsys_tpu_torch/csrc/planes_bwd2.cu"
+                        ).read_text()
                 continue
             if text.count(old) != 1:
                 raise SystemExit(f"kernel_ab: {name}: the shipped source "
@@ -379,8 +540,13 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--kernels", nargs="+", choices=sorted(CASES_OF),
                     default=sorted(CASES_OF))
+    ap.add_argument("--first", type=Path, default=None,
+                    help="a checkout of 1334e6a, whose planes_bwd2.cu is "
+                    "5'' / 6'''s first design (without it those variants "
+                    "are left out)")
     args = ap.parse_args()
-    for name in [n for n in VARIANTS if kernel_of(n) not in args.kernels]:
+    for name in [n for n in VARIANTS if kernel_of(n) not in args.kernels
+                 or (args.first is None and VARIANTS[n][2][:1] == FIRST[:1])]:
         del VARIANTS[name]
     sys.path.insert(0, str(ROOT))
     import torch
@@ -391,6 +557,7 @@ def main() -> int:
     import serve_ab
     from nerfsys_tpu_torch import kernels
     from nerfsys_tpu_torch.models import container as CO
+    from nerfsys_tpu_torch.ops import planes as PL
 
     print(cs.card_line(), flush=True)
     device = torch.device("cuda", 0)
@@ -401,7 +568,7 @@ def main() -> int:
         for ln in kernels.build_log.get(stem, "").splitlines():
             if "registers" in ln:
                 print(f"shipped {stem}: {ln.strip()}", flush=True)
-    built = build_variants(kernels, sms)
+    built = build_variants(kernels, sms, args.first)
     for name, (_, regs) in built.items():
         for ln in regs:
             print(f"{name}: {ln}", flush=True)
@@ -416,6 +583,7 @@ def main() -> int:
     shipped_tile = CO.dispatch_tile
     shipped_10b = {at: getattr(CO, at) for at in ("COHERENT_GROUPS",
                                                   "COHERENT_LANES")}
+    shipped_bwd2 = PL._bwd2_launch
 
     def use(name):
         """Swaps variant `name` (None: the shipped kernels) in."""
@@ -425,6 +593,7 @@ def main() -> int:
         CO._dispatch_plan.cache_clear()
         for at, v in shipped_10b.items():
             setattr(CO, at, v)
+        PL._bwd2_launch = shipped_bwd2
         if name is None:
             return
         _, _, _, patch = VARIANTS[name]
@@ -441,6 +610,19 @@ def main() -> int:
             CO.COHERENT_GROUPS = patch["groups"]
         if patch and "lanes" in patch:
             CO.COHERENT_LANES = patch["lanes"]
+        if patch and "bwd2_plan" in patch:
+            def launch(n, *shape, kw=patch["bwd2_plan"]):
+                # the shipped plan with another tile (its shared memory,
+                # 4 * tile * (3 D + 6) bytes, and grid scaled to it) or
+                # block size
+                plan, _ = shipped_bwd2.__wrapped__(n, *shape)
+                tile = kw.get("tile", plan.tile)
+                plan = dataclasses.replace(
+                    plan, tile=tile, threads=kw.get("threads", plan.threads),
+                    smem=plan.smem // plan.tile * tile,
+                    blocks=min(plan.blocks, -(-n // tile)))
+                return plan, plan.as_struct()
+            PL._bwd2_launch = launch
 
     for name, (stem, timing_only, _, _) in VARIANTS.items():
         if timing_only:

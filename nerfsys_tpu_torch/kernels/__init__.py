@@ -53,7 +53,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 # and a feature one ulp off flips a unit whose pre-activation lies within
 # rounding of zero, which moves that point's whole gradient (contracted,
 # a FoMAML step on a real scene missed the plain step's gradients by
-# 5.1e-3 of a leaf's max on an H100, chip_smoke's trainer check).
+# 5.1e-3 of a leaf's max on an H100, chip_smoke's trainer check). So
+# does trunc_exp (row 12), whose values must equal the plain version's bit
+# for bit, though none of its products meets an add.
 SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "planes": ("planes.cu", ("--fmad=false",)),
     "occ_probe": ("occ_probe.cu", ("--fmad=false",)),
@@ -69,6 +71,7 @@ SOURCES: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "bucket": ("bucket.cu", ("--fmad=false",)),
     "coherent": ("coherent.cu", ("--fmad=false",)),
     "occ_query": ("occ_query.cu", ("--fmad=false",)),
+    "activations": ("activations.cu", ("--fmad=false",)),
 }
 
 _P = ctypes.c_void_p
@@ -197,8 +200,8 @@ class PlaneLevels(ctypes.Structure):
 
 
 class PlanePlan(ctypes.Structure):
-    """A launch plan of kernels 1, 5 and 6 (csrc/planes.cu PlanePlan;
-    filled from ops/planes.py `PlaneLaunchPlan`)."""
+    """A launch plan of kernels 1, 5, 6, 5'' and 6'' (csrc/planes.cu
+    PlanePlan; filled from ops/planes.py `PlaneLaunchPlan`)."""
     _fields_ = [
         ("tile", _I),
         ("threads", _I),
@@ -341,8 +344,9 @@ PLANES_BWD = Kernel(
 PLANES_BWD2_LIGHT = Kernel(
     "plane_encode_bwd2_light", "planes_bwd2", "plane_encode_bwd2_light",
     # x, ct, tables, their cotangents (both by value), d tables (by value),
-    # d ct, K, N, F, vec, threads, stream
-    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P] + [_I] * 5 + [_P],
+    # d ct, K, N, F, plan (by value), stream
+    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P, _I, _I, _I,
+     PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:565 (autodiff of "
              "_plane_encode_mm_light_bwd with its bf16 residuals :542: the "
              "second derivative MAML takes)",
@@ -350,7 +354,8 @@ PLANES_BWD2_LIGHT = Kernel(
 PLANES_BWD2 = Kernel(
     "plane_encode_bwd2", "planes_bwd2", "plane_encode_bwd2",
     # the same arguments as plane_encode_bwd2_light
-    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P] + [_I] * 5 + [_P],
+    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P, _I, _I, _I,
+     PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:449 (autodiff of "
              "_plane_encode_mm_bwd: the second derivative MAML takes)",
 )
@@ -509,11 +514,34 @@ OCC_QUERY = Kernel(
              "ops/gather.py:40; unioned as models/occupancy.py:47-118)",
 )
 
+TRUNC_EXP_FWD = Kernel(
+    "trunc_exp_fwd", "activations", "trunc_exp_fwd",
+    # x, y, n, m, vec, sms, stream
+    [_P, _P, _L, _F, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/activations.py:32 (trunc_exp, its forward "
+             "_trunc_exp_fwd :37)",
+)
+TRUNC_EXP_BWD = Kernel(
+    "trunc_exp_bwd", "activations", "trunc_exp_bwd",
+    # g, y, gx, n, vec, sms, stream
+    [_P, _P, _P, _L, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/activations.py:43 (_trunc_exp_bwd)",
+)
+TRUNC_EXP_BWD2 = Kernel(
+    "trunc_exp_bwd2", "activations", "trunc_exp_bwd2",
+    # v, g, x, d g, d x, n, m, vec, sms, stream
+    [_P] * 5 + [_L, _F, _I, _I, _P],
+    replaces="nerfsys_tpu/ops/activations.py:32-47 (autodiff of "
+             "_trunc_exp_bwd through the residual exp(clip(x)): the second "
+             "derivative MAML takes)",
+)
+
 KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
            PLANES_BWD_LIGHT, PLANES_BWD, BAKED_TRILERP, COMPOSITE_SEG,
            HASH_FWD, HASH_FWD_PACKED, HASH_BWD, BUCKET_DISPATCH,
            BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT,
-           OCC_QUERY, VOLREND_BWD2, PLANES_BWD2_LIGHT, PLANES_BWD2)
+           OCC_QUERY, VOLREND_BWD2, PLANES_BWD2_LIGHT, PLANES_BWD2,
+           TRUNC_EXP_FWD, TRUNC_EXP_BWD, TRUNC_EXP_BWD2)
 
 
 def reset_launches() -> None:

@@ -20,11 +20,13 @@ Kernels 1, 5 and 6 take their launch geometry from `plane_fwd_plan` and
 `plane_bwd_plan`, plain functions of the shapes. Under create_graph (the
 MAML inner gradient) the backward is `PlaneEncodeBwd`, whose own backward
 is kernel 5'' or 6'' (`csrc/planes_bwd2.cu`, the table gradients'
-VJP) or `plane_encode_bwd2_plain`.
+VJP; its plan `plane_bwd_plan(..., second=True)`, cached per shape) or
+`plane_encode_bwd2_plain`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -151,6 +153,11 @@ TILE, FWD_THREADS = 128, 384  # kernel 1's points per tile (4 rays of 32
 # samples) and threads: 12 warps take a tile's 36 (level x orientation,
 # 32-point) tasks at bench width in 3 rounds
 BWD_TILE, BWD_THREADS = 64, 256  # kernels 5 and 6: 2 rays, 8 warps
+# Kernels 5'' and 6'': the same tiles; at bench width (2 lanes a point) a
+# tile is 36 (level x orientation, 16-point) tasks, which 9 warps take in 4
+# whole rounds. No private line level: measured slower on an H100 even for
+# the coarsest (PERF.md section 6).
+BWD2_TILE_THREADS = 288
 # Kernels 5 and 6's shared memory for private line gradients, by default. Float
 # adds to shared memory are compare-and-swap loops on Hopper, so a private
 # level pays only where many adds meet few rows: the coarsest level at
@@ -172,7 +179,10 @@ class PlaneLaunchPlan:
     # gradients in shared memory, or -1 for the warp-aggregated global path
     line_ofs: Tuple[int, ...] = ()
     sms: int = 0  # kernels 5 and 6: the card's SMs, the persistent cap
-    exact: bool = False  # kernel 6: smem holds the position partials
+    exact: bool = False  # kernel 6 (or 6''): the exact backward
+    # kernels 5'' and 6'': smem holds the staged d ct and no position
+    # partials (positions get no second derivative)
+    second: bool = False
 
     @property
     def private_levels(self) -> List[int]:
@@ -223,24 +233,32 @@ def plane_fwd_plan(n: int, res: Sequence[int], features: int,
 def plane_bwd_plan(n: int, k: int, res: Sequence[int], features: int,
                    has_lines: bool, num_sms: int, vec_ok: bool = True,
                    line_budget: Optional[int] = LINE_BUDGET,
-                   exact: bool = False) -> PlaneLaunchPlan:
+                   exact: bool = False,
+                   second: bool = False) -> PlaneLaunchPlan:
     """Kernel 5's plan (exact=False) or kernel 6's (exact=True) for K
-    experts of N points each.
+    experts of N points each; with second=True, kernel 5''s or 6''s (the
+    table gradients' VJP).
 
     Shared memory holds two (tile, 3*L*F) cotangent buffers and two
-    (tile, 3) point buffers, and in exact mode the (tile, 3*L, 3) position
-    partials (BWD_TILE points, halved while these exceed half a block's
-    shared memory), then the private line gradients: levels are taken from
-    the coarsest up while their 3*R*F floats fit in `line_budget` bytes
-    (None: all that is left of the block's 227 KB); the others take the
-    global path. Blocks per expert: as many as can be resident on
-    `num_sms` SMs by shared memory and threads, at most one per tile (the
-    entry point lowers it to what the occupancy calculator, registers
-    included, allows)."""
+    (tile, 3) point buffers, in exact mode the (tile, 3*L, 3) position
+    partials, and for kernels 5'' / 6'' the (tile, 3*L*F) staged d ct in
+    their place (BWD_TILE points, halved while these exceed half a block's
+    shared memory), then, for kernels 5 and 6, the private line
+    gradients: levels are taken from the coarsest up while their 3*R*F
+    floats fit in `line_budget` bytes (None: all that is left of the
+    block's 227 KB); the others take the global path, as every level of
+    5'' / 6'' does. Threads: BWD_THREADS, or BWD2_TILE_THREADS when
+    second. Blocks per expert: as many as can be resident on `num_sms` SMs
+    by shared memory and threads, at most one per tile (the entry point
+    lowers it to what the occupancy calculator, registers included,
+    allows)."""
     _check_shapes(res, features)
     d = 3 * len(res) * features
+    threads = BWD2_TILE_THREADS if second else BWD_THREADS
 
     def buffers(tile):
+        if second:
+            return 8 * tile * (d + 3) + 4 * tile * d
         return 8 * tile * (d + 3) + (4 * tile * 9 * len(res) if exact else 0)
 
     tile = BWD_TILE
@@ -254,20 +272,29 @@ def plane_bwd_plan(n: int, k: int, res: Sequence[int], features: int,
         room = min(room, line_budget)
     line_ofs = [-1] * len(res)
     used = 0  # floats
-    if has_lines:
+    if has_lines and not second:
         for l in sorted(range(len(res)), key=lambda l: res[l]):
             size = 3 * res[l] * features
             if 4 * (used + size) <= room:
                 line_ofs[l] = used
                 used += size
     smem = buffers(tile) + 4 * used
-    per_sm = max(1, min(SMEM_SM_BYTES // (smem + 1024),
-                        2048 // BWD_THREADS))
+    per_sm = max(1, min(SMEM_SM_BYTES // (smem + 1024), 2048 // threads))
     blocks = max(1, min(-(-n // tile), num_sms * per_sm // max(k, 1)))
-    return PlaneLaunchPlan(tile=tile, threads=BWD_THREADS, blocks=blocks,
+    return PlaneLaunchPlan(tile=tile, threads=threads, blocks=blocks,
                            smem=smem, vec=vec_ok and features % 4 == 0,
                            line_ofs=tuple(line_ofs), sms=num_sms,
-                           exact=exact)
+                           exact=exact, second=second)
+
+
+@functools.lru_cache(maxsize=64)
+def _bwd2_launch(n: int, k: int, res: Tuple[int, ...], features: int,
+                 has_lines: bool, sms: int, vec: bool, exact: bool):
+    """Kernel 5''s or 6''s default plan and its struct, per shape: a MAML
+    step launches it 96 times and is host-bound."""
+    plan = plane_bwd_plan(n, k, res, features, has_lines, sms, vec_ok=vec,
+                          exact=exact, second=True)
+    return plan, plan.as_struct()
 
 
 def plane_encode_kernel(params: Dict, x01: torch.Tensor,
@@ -564,17 +591,14 @@ def plane_encode_bwd2_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
             d_lines if lines is not None else None)
 
 
-BWD2_THREADS = 256  # kernels 5'' and 6'': 8 warps, each 32 points of one
-# (expert, level, orientation)
-
-
 def plane_encode_bwd2_kernel(params: Dict, x01: torch.Tensor,
                              ct: torch.Tensor, v_params: Dict,
                              cfg: PlaneEncodingConfig):
     """Kernels 5'' / 6'' wrapper: the plain version for a CPU tensor; on a
     CUDA tensor it launches `plane_encode_bwd2_light` (pos_grad=False:
-    bf16 rounding) or `plane_encode_bwd2` (pos_grad=True) or raises.
-    Returns what `plane_encode_bwd2_plain` returns."""
+    bf16 rounding) or `plane_encode_bwd2` (pos_grad=True) with
+    `plane_bwd_plan(..., second=True)`'s plan, cached per shape, or
+    raises. Returns what `plane_encode_bwd2_plain` returns."""
     kernels.check_no_grad("plane_encode_bwd2", x01, ct, *_tables(params),
                           *_tables(v_params))
     if x01.device.type == "cpu":
@@ -603,9 +627,12 @@ def plane_encode_bwd2_kernel(params: Dict, x01: torch.Tensor,
     vec = cfg.features % 4 == 0 and aligned(
         ct, d_ct, *planes, *(lines or ()), *vplanes, *(vlines or ()),
         *d_planes, *(d_lines or ()))
+    _, struct = _bwd2_launch(N, K, tuple(cfg.level_resolutions()),
+                             cfg.features, lines is not None, num_sms(dev),
+                             vec, cfg.pos_grad)
     kern = kernels.PLANES_BWD2 if cfg.pos_grad else kernels.PLANES_BWD2_LIGHT
     kern(x.data_ptr(), ct.data_ptr(), lv, vv, gr, d_ct.data_ptr(), K, N,
-         cfg.features, int(vec), BWD2_THREADS, kernels.stream_ptr(x))
+         cfg.features, struct, kernels.stream_ptr(x))
     if not stacked:
         d_planes = [t[0] for t in d_planes]
         d_lines = None if d_lines is None else [t[0] for t in d_lines]

@@ -97,10 +97,13 @@ def container_config_from_args(P) -> ContainerConfig:
         raise NotImplementedError(
             "--use_amp (bfloat16 MLP compute) is not ported (ROADMAP Queue 1 "
             "item 7)")
-    if getattr(P, "plane_lines_mm_dtype", "float32") != "float32":
+    if (getattr(P, "plane_lines_mm", False)
+            and getattr(P, "plane_lines_mm_dtype", "float32") != "float32"):
+        # the reference reads the dtype only for its line matmuls
+        # (nerfsys_tpu/ops/planes.py:236,288); float32 ones are exact
         raise NotImplementedError(
-            "--plane_lines_mm_dtype bfloat16 is not ported (ROADMAP Queue 1 "
-            "item 7)")
+            "--plane_lines_mm with --plane_lines_mm_dtype bfloat16 (bfloat16 "
+            "line matmuls) is not ported (ROADMAP Queue 1 item 7)")
     expert = NGPConfig(
         hidden=P.dim_hidden,
         sigma_depth=P.sigma_depth,

@@ -20,10 +20,11 @@ clock, ending with the frame on the host, and the host ms of `frame_rays`
 for the first pose. A `--phase step` round takes three of chip_smoke's
 bench FoMAML steps (`make_train_step`, K=4 B=3, 8 inner steps of 4,000
 rays), each ending with its loss on the host, from the same parameters
-and generator seed every round (before the rounds, each worker profiles
-one step with its chip_smoke's `profile_device`: device busy ms and idle
-share); `--exact` gives the planes experts the encoder's exact backward
-(each checkout's own `chip_smoke.exact_backward`, pos_grad=True) in
+and generator seed every round (before the rounds, each worker in turn
+profiles one step with its chip_smoke's `profile_device`: device busy ms
+and idle share, one side after the other); `--exact` gives the planes
+experts the encoder's exact backward (each checkout's own
+`chip_smoke.exact_backward`, pos_grad=True) in
 place of the light one; `--packed` gives the hash experts the packed
 bfloat16-pair table reads (the runner's --packed_gather: each
 checkout's own `chip_smoke.with_hash(cfg, packed=True)`) for either
@@ -46,15 +47,19 @@ blend's transpose) on the top-2 dispatches of the serve chunk and of the
 K=16 chunk, and 11q (the occupancy point query) at the serve chunk's
 2,097,152 samples (K=4 L=4 R=128) in its three modes, at one inner
 step's 128,000 samples (the K=1 task slice) and on the first 1,048,576
-points of the K=16 arm (K=16 L=4 R=128 grids, 5% occupied, seed 5):
-each case's device time (chip_smoke's `device_ms`) and back-to-back time;
-before the rounds
+points of the K=16 arm (K=16 L=4 R=128 grids, 5% occupied, seed 5), and
+kernels 5'' and 6'' (the plane encoder's double backward, light and
+exact) at those 128,000 samples for expert 0's tables and 5'' on the K=4
+stack, with kernels 5 and 6 at the same samples: each case's device time
+(chip_smoke's `device_ms`) and back-to-back time; before the rounds
 each worker holds every case against its plain version (the sampler
 within 1e-5, the dispatch's integer outputs equal and its weights within
 1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5, 10a-iii
-and 11q equal); then, one side after the other, each profiles ten
-dispatch calls and ten 10a-iii calls (device time by kernel launch), one soft early-stop
-frame at sigma_scale 1 and one coherent skew frame (hash experts),
+and 11q equal, 5'' / 6'' within 1e-5 of each output's max against the
+plain version's sums in float64, 5 / 6 within 1e-4); then, one side
+after the other, each profiles ten dispatch calls and ten 10a-iii calls
+(device time by kernel launch), one soft early-stop frame at sigma_scale
+1 and one coherent skew frame (hash experts),
 watching rows 8 and 10b. A worker waits on its pipe between rounds, so
 one runs at a time.
 
@@ -167,10 +172,13 @@ def step_rounds(cs, cfg, statics, params, occ, device, root: Path,
     state0 = opt.init(params)
     gen = torch.Generator(device=device).manual_seed(1)
     float(step(params, state0, statics, batch, gen, occ)[2]["loss_out"])
-    cs.profile_device(f"{root} step", lambda: float(step(
-        params, state0, statics, batch, gen, occ)[2]["loss_out"]))
     print(json.dumps({"ready": "step"}), flush=True)
     for line in sys.stdin:
+        if line.strip() == "profile":  # one side at a time
+            cs.profile_device(f"{root} step", lambda: float(step(
+                params, state0, statics, batch, gen, occ)[2]["loss_out"]))
+            print(json.dumps({"profiled": True}), flush=True)
+            continue
         if line.strip() != "run":
             break
         gen = torch.Generator(device=device).manual_seed(1)
@@ -191,7 +199,9 @@ KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
                 "composite resume slice", "combine_bwd K=4 E=2",
                 "combine_bwd K=16 E=2", "query chunk bits",
                 "query chunk values", "query chunk pair", "query step bits",
-                "query K=16 bits")
+                "query K=16 bits", "planes bwd2 light step",
+                "planes bwd2 exact step", "planes bwd2 light step K=4",
+                "planes bwd light step", "planes bwd exact step")
 QUERY_K16_PTS = 1 << 20  # the union grid build's chunk of points
 
 
@@ -378,6 +388,7 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
 
     step_pts = V.t_to_points(so, sd, O.sample_tvals_plain(
         scdf, sn, sf, su)).reshape(-1, 3).contiguous()
+    planes = plane_cases(cs, cfg, statics, params, step_pts, device)
     g16 = torch.Generator(device=device).manual_seed(5)
     bin16 = torch.rand((16, 4, 128, 128, 128), generator=g16,
                        device=device) < 0.05
@@ -405,7 +416,74 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
               for i, mode in enumerate(("bits", "values", "pair"))),
             (KERNEL_CASES[14], *query([g[0:1] for g in grids], step_pts,
                                       "bits")),
-            (KERNEL_CASES[15], *query(k16_grids, k16_qpts, "bits"))]
+            (KERNEL_CASES[15], *query(k16_grids, k16_qpts, "bits")),
+            *((KERNEL_CASES[16 + i], *case) for i, case in
+              enumerate(planes))]
+
+
+def plane_cases(cs, cfg, statics, params, pts, device):
+    """(call, check) of kernels 5'' / 6'' (the plane encoder's double
+    backward) at one inner step's 128,000 points (expert 0's support set
+    through its probe: light, exact, and the light one on the K=4 stack)
+    and of kernels 5 / 6 at the same points, with cotangents from seed
+    14. 5'' / 6'' are held to the plain version's shares summed in
+    float64 (d ct and every table within 1e-5 of its max), 5 / 6 to the
+    plain version within 1e-4 of each table's max."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch.models.ngp import world_to_unit
+    from nerfsys_tpu_torch.ops import planes as PL
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    stack = params["experts"]["planes_enc"]
+    one = {k: [t[0] for t in v] for k, v in stack.items()}
+    x1 = world_to_unit(pts, statics.expert_aabbs[0],
+                       cfg.expert.enc_eps).contiguous()
+    xk = world_to_unit(pts, statics.expert_aabbs,
+                       cfg.expert.enc_eps).contiguous()
+    D = cfg.expert.planes.out_dim
+
+    def rnd(shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    def bwd2(tabs, x, pos_grad):
+        pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
+        ct = rnd((*x.shape[:-1], D))
+        v = {k: [rnd(t.shape) for t in ts] for k, ts in tabs.items()}
+        args = (tabs, x, ct, v, pc)
+
+        def check():
+            got = PL.plane_encode_bwd2_kernel(*args)
+            want = PL.plane_encode_bwd2_plain(*args,
+                                              sum_dtype=torch.float64)
+            outs = [got[0], *got[1], *got[2]]
+            errs = [cs.rel_err(a, b) for a, b in zip(
+                outs, [want[0], *want[1], *want[2]])]
+            if not max(errs) <= 1e-5:
+                raise SystemExit(f"serve_ab: 5''/6'' error {errs}")
+            return (f"err/max d ct {errs[0]:.3e} tables {max(errs[1:]):.3e}",
+                    float(sum(t.double().sum() for t in outs)))
+        return (lambda: PL.plane_encode_bwd2_kernel(*args)), check
+
+    def bwd(tabs, x, pos_grad):
+        pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
+        args = (tabs, x, rnd((*x.shape[:-1], D)), pc)
+
+        def check():
+            got = PL.plane_encode_bwd_kernel(*args)
+            want = PL.plane_encode_bwd_plain(*args)
+            errs = [cs.rel_err(a, b) for a, b in zip(
+                got[0] + got[1], want[0] + want[1])]
+            if not max(errs) <= 1e-4:
+                raise SystemExit(f"serve_ab: kernel 5/6 error {errs}")
+            return (f"tables err/max {max(errs):.3e}",
+                    float(sum(t.double().sum() for t in got[0] + got[1])))
+        return (lambda: PL.plane_encode_bwd_kernel(*args)), check
+
+    return [bwd2(one, x1, False), bwd2(one, x1, True), bwd2(stack, xk, False),
+            bwd(one, x1, False), bwd(one, x1, True)]
 
 
 def profile_frames(cs, cfg, statics, params, occ, device, root: Path):
@@ -568,7 +646,7 @@ def main() -> int:
     try:
         for name in SIDES:
             _reply(procs[name])
-        if args.phase == "kernels":
+        if args.phase in ("kernels", "step"):
             for name in SIDES:
                 procs[name].stdin.write("profile\n")
                 procs[name].stdin.flush()

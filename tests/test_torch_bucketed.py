@@ -341,11 +341,21 @@ def test_interop_carries_bucketed_keys_and_refuses_dropped_math():
                 expert, use_bf16=True)), "expert.use_bf16"),
             (dataclasses.replace(cfg, expert=dataclasses.replace(
                 expert, planes=PlaneEncodingConfig(
-                    lines_mm_dtype="bfloat16"))),
-             "expert.planes.lines_mm_dtype"),
-            (dataclasses.replace(cfg, expert=dataclasses.replace(
-                expert, planes=PlaneEncodingConfig(bwd_dtype="float32"))),
-             "expert.planes.bwd_dtype")):
+                    lines_mm_dtype="bfloat16", lines_matmul=True))),
+             "expert.planes.lines_mm_dtype")):
         with pytest.raises(ValueError, match=key.replace(".", r"\.")):
             interop.container_config_from_jax(bad)
+    # the reference reads lines_mm_dtype only under lines_matmul, and
+    # computes its plane backward in float32 whatever bwd_dtype says on
+    # every backend but the TPU: both import as the default config does
+    for planes in (PlaneEncodingConfig(lines_mm_dtype="bfloat16"),
+                   PlaneEncodingConfig(lines_matmul=True),
+                   PlaneEncodingConfig(bwd_dtype="float32"),
+                   PlaneEncodingConfig(bwd_dtype="bfloat16")):
+        ok = dataclasses.replace(cfg, expert=dataclasses.replace(
+            expert, planes=planes))
+        assert interop.container_config_from_jax(ok) == (
+            interop.container_config_from_jax(dataclasses.replace(
+                cfg, expert=dataclasses.replace(
+                    expert, planes=PlaneEncodingConfig()))))
     assert "expert_map" in interop.DROPPED_KEYS["ContainerConfig"]

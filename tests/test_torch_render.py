@@ -281,8 +281,8 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 20
-    assert len(kernels.SOURCES) == 14
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 23
+    assert len(kernels.SOURCES) == 15
     assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
     assert kernels.KERNELS[9:12] == (kernels.HASH_FWD,
@@ -296,16 +296,25 @@ def test_kernel_registry_covers_every_source():
                                       kernels.OCC_QUERY)
     # the second-order products of second-order MAML: 4'' builds like 4'
     # (contracted), 5'' and 6'' like 5 and 6 (--fmad=false)
-    assert kernels.KERNELS[17:] == (kernels.VOLREND_BWD2,
-                                    kernels.PLANES_BWD2_LIGHT,
-                                    kernels.PLANES_BWD2)
+    assert kernels.KERNELS[17:20] == (kernels.VOLREND_BWD2,
+                                      kernels.PLANES_BWD2_LIGHT,
+                                      kernels.PLANES_BWD2)
     assert kernels.VOLREND_BWD2.source.endswith("csrc/volrend_bwd2.cu")
     assert kernels.SOURCES["volrend_bwd2"][1] == kernels.SOURCES[
         "volrend_bwd"][1]
-    for k in kernels.KERNELS[18:]:
+    for k in kernels.KERNELS[18:20]:
         assert k.source.endswith("csrc/planes_bwd2.cu")
         assert k.replaces.startswith("nerfsys_tpu/ops/planes.py:")
     assert "--fmad=false" in kernels.SOURCES["planes_bwd2"][1]
+    # row 12, trunc_exp: forward, backward and the backward's VJP, built
+    # --fmad=false (bit-equal to the plain version)
+    assert kernels.KERNELS[20:] == (kernels.TRUNC_EXP_FWD,
+                                    kernels.TRUNC_EXP_BWD,
+                                    kernels.TRUNC_EXP_BWD2)
+    for k in kernels.KERNELS[20:]:
+        assert k.source.endswith("csrc/activations.cu")
+        assert k.replaces.startswith("nerfsys_tpu/ops/activations.py:")
+    assert "--fmad=false" in kernels.SOURCES["activations"][1]
     assert kernels.OCC_QUERY.source.endswith("csrc/occ_query.cu")
     assert "--fmad=false" in kernels.SOURCES["occ_query"][1]
     assert kernels.OCC_QUERY.replaces.startswith(

@@ -57,10 +57,11 @@ def _scene_args(data_root):
 
 
 # the reference's TPU execution knobs and `explicit_keys`, which only
-# chunk_points read; the port's parser has none of them
-TPU_ONLY = {"expert_unroll", "task_unroll", "plane_lines_mm",
-            "plane_pad_rows", "line_pad_rows", "plane_scatter_bwd",
-            "chunk_points", "explicit_keys"}
+# chunk_points read; the port's parser has none of them (it takes
+# --plane_lines_mm, to refuse only bfloat16 line matmuls)
+TPU_ONLY = {"expert_unroll", "task_unroll", "plane_pad_rows",
+            "line_pad_rows", "plane_scatter_bwd", "chunk_points",
+            "explicit_keys"}
 
 
 def _both(argv):
@@ -107,7 +108,7 @@ def test_parse_args_pins_arch_keys_from_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--expert_unroll", "--task_unroll",
-                                  "--plane_lines_mm", "--plane_scatter_bwd",
+                                  "--plane_scatter_bwd",
                                   "--plane_pad_rows=8", "--line_pad_rows=8",
                                   "--chunk_points=4096"])
 def test_parse_args_refuses_tpu_only_flags(flag, tmp_path, capsys):
@@ -162,6 +163,8 @@ def test_unported_ops_raise(data_root, op):
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_shape", "2"], "mesh_shape"),
     (["--use_amp"], "use_amp"),
+    (["--plane_lines_mm", "--plane_lines_mm_dtype", "bfloat16"],
+     "plane_lines_mm_dtype"),
     (["--fim"], "fim"),
     (["--nerf_variant", "vanilla"], "vanilla"),
     (["--dir_encoding", "frequency"], "frequency"),
@@ -172,6 +175,30 @@ def test_unported_flags_raise_at_context_build(data_root, flags, match):
                        *flags])
     with pytest.raises(NotImplementedError, match=match):
         TR.build_context(P, "train")
+
+
+@pytest.mark.parametrize("flags,refused", [
+    (["--plane_lines_mm_dtype", "bfloat16"], False),
+    (["--plane_lines_mm"], False),
+    (["--plane_lines_mm", "--plane_lines_mm_dtype", "bfloat16"], True),
+])
+def test_line_matmul_dtype_refused_only_with_line_matmuls(flags, refused):
+    """The reference reads --plane_lines_mm_dtype only with
+    --plane_lines_mm (its bfloat16 line matmuls); float32 ones compute
+    the gathers' function."""
+    def parsed(extra):
+        P = TC.parse_args(["--device", "cpu", "--xyz_encoding", "planes",
+                           *extra])
+        P.boundary_margin_effective, P.cluster_2d = 1.1, True
+        return P
+
+    if refused:
+        with pytest.raises(NotImplementedError,
+                           match="plane_lines_mm_dtype"):
+            TR.container_config_from_args(parsed(flags))
+    else:
+        assert (TR.container_config_from_args(parsed(flags))
+                == TR.container_config_from_args(parsed([])))
 
 
 @pytest.mark.parametrize("op", ["train", "eval", "video"])
