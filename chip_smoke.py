@@ -146,9 +146,13 @@ printing its result lines):
    (forward, backward, the second derivative) bit-equal to their plain
    versions (`edge trunc_exp` lines: +-inf, NaN, -0.0, +-88.7 and the
    floats on either side, far beyond both bounds, N(0, 40^2) at a frame
-   call's points, an unaligned tail on the scalar path; the first and
-   second derivative through autograd against `_TruncExp`, the plain
-   path, on the card); its calls and launches in one live frame, one
+   call's points, an unaligned tail on the scalar path; 8k + 1 ... 8k + 7
+   points at k = 0 and 16,000 (the grid-stride loop, one trip a thread)
+   and 1,048,576 (the forward's exact-cover grid, whose n % 4 tail one
+   thread takes; the loop, several trips a thread, for the other two),
+   and unaligned 128,003 and 8,388,611 on both paths; the
+   first and second derivative through autograd against `_TruncExp`, the
+   plain path, on the card); its calls and launches in one live frame, one
    bench step and one MAML step (nothing may reach `_TruncExp` with a
    CUDA tensor); each kernel's device time beside its plain version's
    and its byte bound at a frame call's points and at a bench step's
@@ -171,7 +175,10 @@ printing its result lines):
    plain version at one inner step's shapes (4,000 x 32) with the
    upstream of MAML's loss (rgb alone), all four upstreams, depth alone,
    sigma_scale 25 and the edge rays of `volrend_edge_inputs` (alpha at
-   its clip, sigma exactly 0, rgb exactly 0 and 1, dt at its floor):
+   its clip, sigma exactly 0, rgb exactly 0 and 1, dt at its floor), and
+   at S = 8, 24, 48, 64 and 160 (random rays with all four upstreams,
+   alpha at its clip at sigma_scale 25; 8 lanes a ray, and 2 to 5 pieces
+   with their carries):
    every output within 1e-5 of its max (d acc and d bg of the max over
    rays of sum |w'| and max |G| times it: acc' cancels on opaque rays);
    kernels 5'' and 6'' (the plane encoder's light and exact VJPs
@@ -2278,7 +2285,10 @@ def trunc_exp_check(cfg, statics, params, occ, batch, device, results):
     reads g and y and writes gx, the second derivative reads v, g, x and
     writes d g and d x. The backward's library call is `g * y` (one
     PyTorch call, the plain version itself); the forward and the second
-    derivative have none."""
+    derivative have none. The kernels line takes each kernel at the size
+    the main path launches it at: the forward at a frame call's points,
+    the backward and the second derivative (launched only in steps) at a
+    bench step's."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -2358,8 +2368,12 @@ def trunc_exp_check(cfg, statics, params, occ, batch, device, results):
 
     n_frame = max(c[0] for c in frame)
     errs = {k: 0.0 for k in TRUNC_EXP_KERNELS}
-    for kind, n, seed in (("edges", 19 * 4096 + 3, 1),
-                          ("random", n_frame, 2), ("unaligned", 4099, 3)):
+    sizes = [("edges", 19 * 4096 + 3, 1), ("random", n_frame, 2),
+             ("unaligned", 4099, 3), ("unaligned", 8 * 16_000 + 3, 4),
+             ("unaligned", 8 * 1_048_576 + 3, 4)]
+    sizes += [("edges", 8 * k + r, 5 + r) for k in (0, 16_000, 1_048_576)
+              for r in range(1, 8)]  # both launch paths' tails
+    for kind, n, seed in sizes:
         x, g, v = trunc_exp_inputs(kind, n, device, seed)
         y = TA.trunc_exp_fwd_kernel(x)
         gx = TA.trunc_exp_bwd_kernel(g, y)
@@ -2428,13 +2442,17 @@ def trunc_exp_check(cfg, statics, params, occ, batch, device, results):
                          f"plain_ms={plain:.4f} {lib}bytes={n_bytes} "
                          f"bound_ms={b_ms:.4f} ({b_by}, "
                          f"{ms / b_ms:.2f}x)")
-        ms, plain, n_bytes = times["frame call"][k]
+        # the kernels line: the size the main path launches the kernel at
+        # (the forward a frame's calls; the backward and the second
+        # derivative only in steps)
+        size = "frame call" if k == "trunc_exp_fwd" else "bench step call"
+        ms, plain, n_bytes = times[size][k]
         b_ms, b_by = bound(n_bytes, 0)
-        lib_ms = library["frame call"] if k == "trunc_exp_bwd" else None
+        lib_ms = library[size] if k == "trunc_exp_bwd" else None
         results[k] = dict(
             max_abs_err=errs[k], ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms,
-            text=f"(a frame call's points) bit-equal to the plain version "
+            text=f"(a {size}'s points) bit-equal to the plain version "
             f"on every edge line (max_abs_err over finite values); "
             + "; ".join(parts) + "; kernel_ms, plain_ms and library_ms are "
             "device times; "
@@ -2748,8 +2766,17 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
         rs_e, t_e, bg_e, *ups_e = volrend_edge_inputs(kind, N, S, device,
                                                       seed)
         cases.append((f"edge {kind}", rs_e, t_e, bg_e, tuple(ups_e), 1.0))
+    cases = [(*c, v_rs, v_bg) for c in cases]
+    # other lanes a ray and pieces of kernel 4''s plan
+    for seed, s_other in enumerate((8, 24, 48, 64, 160)):
+        v_other = (rnd(N, s_other, 4), rnd(N, 3))
+        for kind, scale in (("rand", 1.0), ("clip", 25.0)):
+            rs_e, t_e, bg_e, *ups_e = volrend_edge_inputs(
+                kind, N, s_other, device, 20 + seed)
+            cases.append((f"{kind} S={s_other} sigma_scale {scale:g}",
+                          rs_e, t_e, bg_e, tuple(ups_e), scale, *v_other))
     head = None
-    for label, rs, t, b, grads, scale in cases:
+    for label, rs, t, b, grads, scale, v_rs, v_bg in cases:
         got = V.volume_render_bwd2_kernel(rs, t, b, grads, v_rs, v_bg,
                                           sigma_scale=scale)
         want = V.volume_render_bwd2_plain(rs, t, b, grads, v_rs, v_bg,
@@ -2763,15 +2790,17 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
             rs, t, b, grads, v_rs, v_bg, sigma_scale=scale), 10)
         text = (" ".join(f"{k}={e:.3e}" for k, e in errs)
                 + f" tol={BWD2_TOL:g} device_ms={dev_ms:.4f}")
-        print(f"edge volume_render_bwd2 {label}: N={N} S={S} {text}",
+        print(f"edge volume_render_bwd2 {label}: N={N} S={t.shape[1]} "
+              f"{text} plan "
+              f"{volrend_plan_text(V.volrend_plan(*t.shape, backward=True))}",
               flush=True)
         if not all(e <= BWD2_TOL for _, e in errs) or not bool(
                 torch.isfinite(got[0]).all()):
             raise SystemExit(f"kernel volume_render_bwd2 disagrees with its "
                              f"plain version on {label}: {errs}")
         if head is None:
-            head = (rs, t, b, grads, got, abs_err, dev_ms, text)
-    rs, t, b, grads, got, abs_err, dev_ms, text = head
+            head = (rs, t, b, grads, v_rs, v_bg, got, abs_err, dev_ms, text)
+    rs, t, b, grads, v_rs, v_bg, got, abs_err, dev_ms, text = head
     b2b = cuda_ms(lambda: V.volume_render_bwd2_kernel(
         rs, t, b, grads, v_rs, v_bg), 20)
     plain = cuda_ms(lambda: V.volume_render_bwd2_plain(

@@ -1,18 +1,21 @@
 """Design experiments on kernel 3 (the inverse-CDF sampler), 10a-i (the
 bucket dispatch), 10a-iii (the blend's transpose), 10b (the
 coherent-expert test), row 8 (the segment compositor), 11q (the
-occupancy point query) and 5'' / 6'' (the plane encoder's double
-backward): variants of their CUDA sources, built beside the shipped
+occupancy point query), 5'' / 6'' (the plane encoder's double
+backward), 4'' (the compositor's double backward) and row 12
+(`trunc_exp`): variants of their CUDA sources, built beside the shipped
 libraries and timed through the shipped wrappers at the real shapes.
 
     python3 kernel_ab.py [--rounds 5] [--kernels OCC_QUERY ...] \
         [--first DIR]
 
 Needs one CUDA card and nvcc. Each variant is the shipped source with a
-few lines replaced (`VARIANTS`), or for 5'' / 6'''s first design the
-source of a checkout of commit 1334e6a given with `--first` (`git
-archive 1334e6a | tar -x -C DIR`; without it those variants are left
-out), adapted to the shipped entry points' arguments; it is built with the shipped flags into
+few lines replaced (`VARIANTS`), or for a first design the same file of
+a checkout given with `--first` (`git archive <commit> | tar -x -C DIR`:
+1334e6a holds the first designs of 5'' / 6'' and of 4'', 4ec2f81 those
+of 4'' and of row 12's three kernels; a first design that the checkout does not hold is left out, and
+all of them without `--first`), adapted to
+the shipped entry points' arguments; it is built with the shipped flags into
 `nerfsys_tpu_torch/_build/variants/` (all nvcc runs at once) and swapped
 in for the shipped entry point, so the wrapper's plan, checks and launch
 path are the shipped ones. The cases are `serve_ab.py --phase kernels`'s:
@@ -25,15 +28,21 @@ segment (65,536 x 8) and a resume slice (16,384 x 24), 10a-iii on the
 top-2 dispatches of the serve chunk and of the K=16 chunk, 11q at the
 serve chunk in each mode, at one inner step (K=1) and on a K=16 chunk,
 5'' at one inner step (128,000 points, one expert and the K=4 stack) and
-6'' at one expert, with kernels 5 and 6 timed beside them (no variants).
+6'' at one expert, with kernels 5 and 6 timed beside them (no variants),
+4'' at one inner step (4,000 x 32, the rgb upstream), row 12's forward
+at a frame call's 8,388,608 points and all three kernels at a bench
+step's 128,000 (the backward beside `torch.mul(g, y)`, its library
+call).
 A variant that keeps the outputs is first held to the plain version on
 every case of its kernel (the sampler within 1e-5, the dispatch's integer
 outputs equal and its weights within 1e-6 on two calls, 10b's ids equal,
 row 8 within 1e-5, 10a-iii and 11q equal, 5'' / 6'' within 1e-5 of each
-output's max against the plain sums in float64); a timing-only variant
+output's max against the plain sums in float64, 4'' within 1e-5 of each
+output's max, row 12 bit for bit); a timing-only variant
 (its outputs wrong or incomplete) is not. A variant may also change the
-Python side's plan (`bwd2_plan`: 5'' / 6'''s tile or threads a block in
-the shipped plan). `--kernels` keeps the variants and
+Python side's plan (`bwd2_plan`: the tile or threads a block of the
+plan of 5'' / 6''; `act_threads`: the threads a block row 12's
+`act_launch` sizes its grid with). `--kernels` keeps the variants and
 cases of the named kernels (the `kernels` module's attributes, as in
 `CASES_OF`). Then `--rounds` rounds time every variant and the shipped
 kernel on every case by device time (chip_smoke's `device_ms`), in turn;
@@ -479,17 +488,260 @@ VARIANTS.update({
         ("tiles of 32 points", {"tile": 32}),
         ("tiles of 96 points", {"tile": 96}),
         ("tiles of 128 points", {"tile": 128}))})
+# 4'' (csrc/volrend_bwd2.cu), at one inner step. Its first design (T, T',
+# Q and P as four scans in a row) is read from a checkout of a commit that
+# holds it (`--first`, 4ec2f81 or 1334e6a); then the shipped design (the
+# forward pair as one scan) with the reverse pair fused too; and where
+# the time goes: an empty launch, the loads and d_rs store alone, without the d_rs
+# store, the lane scans or the per-ray sums, and the six per-ray sums as
+# one transposed tree.
+VR_REV = """        // Q_{s+1}: kernel 4''s suffix scan of x -> g alpha + m x
+        float qm = q.m, qb = g * q.alpha;
+        seg_suffix<W>(qm, qb, sl);
+        float qmn = __shfl_down_sync(FULL_MASK, qm, 1, W);
+        float qbn = __shfl_down_sync(FULL_MASK, qb, 1, W);
+        if (sl == W - 1) {
+            qmn = 1.0f;
+            qbn = 0.0f;
+        }
+        const float Qn = qbn + qmn * Q;
+        Q = __shfl_sync(FULL_MASK, qb + qm * Q, 0, W);
+        const float gq = g - Qn;
+
+        // P_{s+1}: the suffix scan of x -> a' (g - Q_{s+1}) + h alpha + m x
+        float pm = q.m, pb = k.ad * gq + h * q.alpha;
+        seg_suffix<W>(pm, pb, sl);
+        float pmn = __shfl_down_sync(FULL_MASK, pm, 1, W);
+        float pbn = __shfl_down_sync(FULL_MASK, pb, 1, W);
+        if (sl == W - 1) {
+            pmn = 1.0f;
+            pbn = 0.0f;
+        }
+        const float Pn = pbn + pmn * P;
+        P = __shfl_sync(FULL_MASK, pb + pm * P, 0, W);
+"""
+VR_REV_FUSED = """        // (P, Q)_{s+1}: one suffix scan of the affine maps of (P, Q)
+        float Ad = q.m, Ac = -k.ad;
+        float fp = k.ad * g + h * q.alpha, fq = g * q.alpha;
+#pragma unroll
+        for (int o = 1; o < W; o <<= 1) {
+            const float Ad2 = __shfl_down_sync(FULL_MASK, Ad, o, W);
+            const float Ac2 = __shfl_down_sync(FULL_MASK, Ac, o, W);
+            const float fp2 = __shfl_down_sync(FULL_MASK, fp, o, W);
+            const float fq2 = __shfl_down_sync(FULL_MASK, fq, o, W);
+            if (sl + o < W) {
+                fp = fp + Ad * fp2 + Ac * fq2;
+                fq = fq + Ad * fq2;
+                Ac = Ad * Ac2 + Ac * Ad2;
+                Ad = Ad * Ad2;
+            }
+        }
+        float nAd = __shfl_down_sync(FULL_MASK, Ad, 1, W);
+        float nAc = __shfl_down_sync(FULL_MASK, Ac, 1, W);
+        float nfp = __shfl_down_sync(FULL_MASK, fp, 1, W);
+        float nfq = __shfl_down_sync(FULL_MASK, fq, 1, W);
+        if (sl == W - 1) {
+            nAd = 1.0f;
+            nAc = 0.0f;
+            nfp = 0.0f;
+            nfq = 0.0f;
+        }
+        const float Pn = nfp + nAd * P + nAc * Q;
+        const float Qn = nfq + nAd * Q;
+        const float P_all = fp + Ad * P + Ac * Q;
+        const float Q_all = fq + Ad * Q;
+        P = __shfl_sync(FULL_MASK, P_all, 0, W);
+        Q = __shfl_sync(FULL_MASK, Q_all, 0, W);
+        const float gq = g - Qn;
+"""
+VR_BODY = ("    extern __shared__ float starts[];  // (warps, pieces, 2) when "
+           "pieces > 1\n")
+VR_GVB = "    const float gvb = G0 * vb0 + G1 * vb1 + G2 * vb2;\n"
+VR_COPY1 = VR_GVB + """    if (N > 0) {  // the loads and the d_rs store alone
+        for (int p = pieces - 1; p >= 0; --p) {
+            const int s = p * W + sl;
+            if (live && s < S) {
+                const float4 a =
+                    __ldg(reinterpret_cast<const float4*>(rs) + s);
+                const float4 b = __ldg(vs + s);
+                const float tt = __ldg(t + s);
+                reinterpret_cast<float4*>(d_rs + row * S * 4)[s] =
+                    make_float4(a.x * b.x + tt, a.y * b.y, a.z * b.z,
+                                a.w * b.w + gvb);
+            }
+        }
+        return;
+    }
+"""
+VR_SUMS = """    acc = seg_sum<W>(acc);
+    accd = seg_sum<W>(accd);
+    rd0 = seg_sum<W>(rd0);
+    rd1 = seg_sum<W>(rd1);
+    rd2 = seg_sum<W>(rd2);
+    dd = seg_sum<W>(dd);
+    if (live && sl == 0) {"""
+VR_SUMS_T = """    if (W >= 8) {  // one transposed tree: (acc, accd, rd0 | rd1, rd2, dd)
+        const int h1 = W >> 1, h2 = W >> 2, h3 = W >> 3;
+        const bool k1 = sl & h1, k2 = sl & h2, k3 = sl & h3;
+        float a[6] = {acc, accd, rd0, rd1, rd2, dd};
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            const float give = k1 ? a[i] : a[i + 3];
+            a[i] = (k1 ? a[i + 3] : a[i]) +
+                   __shfl_xor_sync(FULL_MASK, give, h1, W);
+        }
+        a[3] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const float give = k2 ? a[i] : a[i + 2];
+            a[i] = (k2 ? a[i + 2] : a[i]) +
+                   __shfl_xor_sync(FULL_MASK, give, h2, W);
+        }
+        {
+            const float give = k3 ? a[0] : a[1];
+            a[0] = (k3 ? a[1] : a[0]) + __shfl_xor_sync(FULL_MASK, give, h3, W);
+        }
+#pragma unroll
+        for (int d = h3 >> 1; d > 0; d >>= 1)
+            a[0] += __shfl_xor_sync(FULL_MASK, a[0], d, W);
+        // index k1 3 + k2 2 + k3: acc at lane 0, accd h3, rd0 h2, rd1 h1,
+        // rd2 h1 + h3, dd h1 + h2
+        const float acc_all = __shfl_sync(FULL_MASK, a[0], 0, W);
+        const float accd_all = __shfl_sync(FULL_MASK, a[0], h3, W);
+        if (live) {
+            if (sl == h3) {
+                if (d_acc != nullptr) d_acc[ray] = accd_all;
+                if (d_bg != nullptr) {
+                    d_bg[ray * 3 + 0] = -G0 * accd_all;
+                    d_bg[ray * 3 + 1] = -G1 * accd_all;
+                    d_bg[ray * 3 + 2] = -G2 * accd_all;
+                }
+            }
+            if (sl == h1 + h2 && d_depth != nullptr) d_depth[ray] = a[0];
+            const int c = sl == h2 ? 0 : sl == h1 ? 1 : sl == h1 + h3 ? 2
+                                                                    : -1;
+            if (c >= 0 && d_rgb != nullptr)
+                d_rgb[ray * 3 + c] =
+                    a[0] - accd_all * (c == 0 ? b0 : c == 1 ? b1 : b2) +
+                    (1.0f - acc_all) * (c == 0 ? vb0 : c == 1 ? vb1 : vb2);
+        }
+        return;
+    }
+""" + VR_SUMS
+VR_STORE = ("            reinterpret_cast<float4*>(d_rs + row * S * 4)[s] = "
+            "make_float4(")
+
+
+VARIANTS["4'': the first design (four scans in a row)"] = (
+    "volrend_bwd2", False, [(None, None)], None)
+VARIANTS["4'': the reverse pair fused too (one scan of four floats)"] = (
+    "volrend_bwd2", False, [(VR_REV, VR_REV_FUSED)], None)
+VARIANTS["4'': an empty launch (timing only)"] = (
+    "volrend_bwd2", True, [(VR_BODY, "    if (N > 0) return;\n" + VR_BODY)],
+    None)
+VARIANTS["4'': the loads and the d_rs store alone (timing only)"] = (
+    "volrend_bwd2", True, [(VR_GVB, VR_COPY1)], None)
+VARIANTS["4'': without the d_rs store (timing only)"] = (
+    "volrend_bwd2", True,
+    [(VR_STORE, "            if (__float_as_uint(d_sigma) == 0x7fc00001u)"
+                "  // never\n" + VR_STORE)], None)
+VARIANTS["4'': without the per-ray sums (timing only)"] = (
+    "volrend_bwd2", True, [(VR_SUMS, "    if (live && sl == 0) {")], None)
+VARIANTS["4'': the per-ray sums as one transposed tree"] = (
+    "volrend_bwd2", False, [(VR_SUMS, VR_SUMS_T)], None)
+# Row 12 (csrc/activations.cu). Each kernel's first design, read whole
+# from a checkout of 4ec2f81 (`--first`; its entry points take the card's
+# SMs where the shipped ones take the wrapper's launch): the same
+# grid-stride loops, launched by the source itself, so at a frame call the
+# forward's first design is the loop the exact-cover grid replaced. The
+# forward's exact-cover grid without its streaming hints. The backward at
+# a bench step's 128,000 points, where `g * y` (timed beside it in every
+# round) is as fast or faster: an empty launch, 32-bit indices, the loop's
+# back edges taken out (one trip covers the step), plain loads for
+# __ldg, and 128 threads a block (250 blocks, `g * y`'s grid).
+A_HINTS = [("if (j < nv) a[k] = __ldcs(reinterpret_cast<const float4*>(x) + j);",
+            "if (j < nv) a[k] = __ldg(reinterpret_cast<const float4*>(x) + j);"),
+           ("__stcs(reinterpret_cast<float4*>(y) + j,",
+            "reinterpret_cast<float4*>(y)[j] = ("),
+           ("if (q < n) a[k] = __ldcs(x + q);", "if (q < n) a[k] = __ldg(x + q);"),
+           ("if (q < n) __stcs(y + q, fwd1(a[k], m));",
+            "if (q < n) y[q] = fwd1(a[k], m);")]
+B_SIG = ("                     float* __restrict__ gx, long long n, int vec) "
+         "{\n")
+B_IDX = """    const long long stride = (long long)gridDim.x * blockDim.x;
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long nv = vec ? n >> 2 : 0;
+    for (long long j = i; j < nv; j += stride) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(g) + j);
+        const float4 b = __ldg(reinterpret_cast<const float4*>(y) + j);
+"""
+B_TAIL = ("    for (long long j = 4 * nv + i; j < n; j += stride) "
+          "gx[j] = g[j] * y[j];")
+B_INT = [(B_SIG + B_IDX, B_SIG + B_IDX.replace(
+    "const long long stride = (long long)gridDim.x * blockDim.x;",
+    "const int stride = gridDim.x * blockDim.x;  // n < 2^31").replace(
+    "long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;",
+    "int i = blockIdx.x * blockDim.x + threadIdx.x;").replace(
+    "const long long nv = vec ? n >> 2 : 0;",
+    "const int nv = vec ? (int)(n >> 2) : 0;").replace(
+    "for (long long j = i;", "for (int j = i;")),
+         (B_TAIL, B_TAIL.replace("for (long long j = 4 * nv + i; j < n;",
+                                 "for (int j = 4 * nv + i; j < (int)n;"))]
+B_ONE_TRIP = [
+    (B_SIG + B_IDX, B_SIG + B_IDX.replace(
+        "for (long long j = i; j < nv; j += stride)",
+        "if (long long j = i; j < nv)")),
+    (B_TAIL, B_TAIL.replace("for (long long j = 4 * nv + i; j < n; j += stride)",
+                            "if (long long j = 4 * nv + i; j < n)"))]
+B_INT_ONE_TRIP = [
+    (B_INT[0][0], B_INT[0][1].replace("for (int j = i; j < nv; j += stride)",
+                                      "if (int j = i; j < nv)")),
+    (B_INT[1][0], B_INT[1][1].replace(
+        "for (int j = 4 * nv + i; j < (int)n; j += stride)",
+        "if (int j = 4 * nv + i; j < (int)n)"))]
+B_LDG = [(B_SIG + B_IDX, B_SIG + B_IDX.replace(
+    "__ldg(reinterpret_cast<const float4*>(g) + j)",
+    "reinterpret_cast<const float4*>(g)[j]").replace(
+    "__ldg(reinterpret_cast<const float4*>(y) + j)",
+    "reinterpret_cast<const float4*>(y)[j]"))]
+B_128 = [("#define ACT_THREADS 256", "#define ACT_THREADS 128")]
+VARIANTS.update({
+    f"12 {what}: the first design": (
+        "activations", False, [(None, None)],
+        {"kernel": kern, "first_launch_args": k})
+    for what, kern, k in (("fwd", "TRUNC_EXP_FWD", 2),
+                          ("bwd", "TRUNC_EXP_BWD", 1),
+                          ("bwd2", "TRUNC_EXP_BWD2", 1))})
+VARIANTS.update({
+    "12 fwd: __ldg and plain stores (no streaming hints)": (
+        "activations", False, A_HINTS, {"kernel": "TRUNC_EXP_FWD"}),
+    "12 bwd: an empty launch (timing only)": (
+        "activations", True,
+        [(B_SIG, B_SIG + "    if (n > 0) return;\n")], None),
+    "12 bwd: 32-bit indices": ("activations", False, B_INT, None),
+    "12 bwd: no back edges (one trip a thread)": (
+        "activations", False, B_ONE_TRIP, None),
+    "12 bwd: plain loads for __ldg": ("activations", False, B_LDG, None),
+    "12 bwd: 128 threads a block": (
+        "activations", False, B_128, {"act_threads": 128}),
+    "12 bwd: 128 threads a block, 32-bit indices, no back edges": (
+        "activations", False, B_128 + B_INT_ONE_TRIP, {"act_threads": 128}),
+})
 # the kernel a variant of each library replaces unless it names another
 KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH",
              "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG",
-             "occ_query": "OCC_QUERY", "planes_bwd2": "PLANES_BWD2_LIGHT"}
+             "occ_query": "OCC_QUERY", "planes_bwd2": "PLANES_BWD2_LIGHT",
+             "volrend_bwd2": "VOLREND_BWD2", "activations": "TRUNC_EXP_BWD"}
 # each kernel's cases in `serve_ab.kernel_cases` (kernels 5 and 6 have no
-# variants: their cases time them beside 5'' / 6'')
+# variants: their cases time them beside 5'' / 6''; the backward of row 12
+# has `torch.mul(g, y)`, its library call, timed beside it)
 CASES_OF = {"OCC_SAMPLE": (0, 1), "BUCKET_DISPATCH": (2, 3, 4),
             "COHERENT_EXPERT": (5, 6), "COMPOSITE_SEG": (7, 8),
             "BUCKET_COMBINE_BWD": (9, 10), "OCC_QUERY": (11, 12, 13, 14, 15),
             "PLANES_BWD2_LIGHT": (16, 18), "PLANES_BWD2": (17,),
-            "PLANES_BWD_LIGHT": (19,), "PLANES_BWD": (20,)}
+            "PLANES_BWD_LIGHT": (19,), "PLANES_BWD": (20,),
+            "VOLREND_BWD2": (21,), "TRUNC_EXP_BWD": (22, 23),
+            "TRUNC_EXP_FWD": (24, 25), "TRUNC_EXP_BWD2": (26,)}
 
 
 def kernel_of(name: str) -> str:
@@ -498,25 +750,52 @@ def kernel_of(name: str) -> str:
     return (patch or {}).get("kernel", KERNEL_OF[stem])
 
 
+def variant_source(kernels, name: str, sms: int, first: Path = None):
+    """Variant `name`'s source: the shipped one, or for (None, text) that
+    text, for (None, None) `first`'s copy of the same file, with its
+    replacements; None when `first`'s copy does not hold a replacement's
+    text once (it holds another design than the one named)."""
+    stem, _, reps, _ = VARIANTS[name]
+    src_name = kernels.SOURCES[stem][0]
+    text = (kernels.CSRC / src_name).read_text()
+    whole = False
+    for old, new in reps:
+        if old is None:  # the whole source: given, or the first design's
+            whole = new is None
+            if new is not None:
+                text = new
+                continue
+            path = first / "nerfsys_tpu_torch/csrc" / src_name
+            if not path.is_file():
+                return None
+            text = path.read_text()
+            continue
+        if text.count(old) != 1:
+            if whole:
+                return None
+            raise SystemExit(f"kernel_ab: {name}: the shipped source "
+                             f"no longer holds {old!r} once")
+        text = text.replace(old, new.replace("{sms}", str(sms)))
+    return text
+
+
 def build_variants(kernels, sms: int, first: Path = None):
     """Writes and builds every variant in parallel (a whole-source
-    replacement reads `first`'s planes_bwd2.cu); returns name -> (library
-    path, ptxas lines)."""
+    replacement reads `first`'s copy of the file; a first design that
+    `first` does not hold is left out, with a note); returns name ->
+    (library path, ptxas lines)."""
     out_dir = kernels.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for i, (name, (stem, _, reps, _)) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(list(VARIANTS)):
+        stem = VARIANTS[name][0]
         src_name, extra = kernels.SOURCES[stem]
-        text = (kernels.CSRC / src_name).read_text()
-        for old, new in reps:
-            if old is None:  # the whole source: the first design's
-                text = (first / "nerfsys_tpu_torch/csrc/planes_bwd2.cu"
-                        ).read_text()
-                continue
-            if text.count(old) != 1:
-                raise SystemExit(f"kernel_ab: {name}: the shipped source "
-                                 f"no longer holds {old!r} once")
-            text = text.replace(old, new.replace("{sms}", str(sms)))
+        text = variant_source(kernels, name, sms, first)
+        if text is None:
+            print(f"kernel_ab: {name} left out: {first}'s {src_name} holds "
+                  f"another design", flush=True)
+            del VARIANTS[name]
+            continue
         src = out_dir / f"v{i}_{src_name}"
         src.write_text(text)
         lib = out_dir / f"libv{i}_{stem}.so"
@@ -541,12 +820,14 @@ def main() -> int:
     ap.add_argument("--kernels", nargs="+", choices=sorted(CASES_OF),
                     default=sorted(CASES_OF))
     ap.add_argument("--first", type=Path, default=None,
-                    help="a checkout of 1334e6a, whose planes_bwd2.cu is "
-                    "5'' / 6'''s first design (without it those variants "
-                    "are left out)")
+                    help="a checkout of the commit that holds a kernel's "
+                    "first design: 1334e6a for 5'' / 6'' and 4'', 4ec2f81 "
+                    "for 4'' and row 12 (without it those variants are "
+                    "left out)")
     args = ap.parse_args()
     for name in [n for n in VARIANTS if kernel_of(n) not in args.kernels
-                 or (args.first is None and VARIANTS[n][2][:1] == FIRST[:1])]:
+                 or (args.first is None
+                     and VARIANTS[n][2][:1] == [(None, None)])]:
         del VARIANTS[name]
     sys.path.insert(0, str(ROOT))
     import torch
@@ -558,6 +839,7 @@ def main() -> int:
     from nerfsys_tpu_torch import kernels
     from nerfsys_tpu_torch.models import container as CO
     from nerfsys_tpu_torch.ops import planes as PL
+    from nerfsys_tpu_torch.ops import activations as TA
 
     print(cs.card_line(), flush=True)
     device = torch.device("cuda", 0)
@@ -584,6 +866,7 @@ def main() -> int:
     shipped_10b = {at: getattr(CO, at) for at in ("COHERENT_GROUPS",
                                                   "COHERENT_LANES")}
     shipped_bwd2 = PL._bwd2_launch
+    shipped_threads = TA.ACT_THREADS
 
     def use(name):
         """Swaps variant `name` (None: the shipped kernels) in."""
@@ -594,6 +877,7 @@ def main() -> int:
         for at, v in shipped_10b.items():
             setattr(CO, at, v)
         PL._bwd2_launch = shipped_bwd2
+        TA.ACT_THREADS = shipped_threads
         if name is None:
             return
         _, _, _, patch = VARIANTS[name]
@@ -603,6 +887,13 @@ def main() -> int:
         fn.argtypes = kern.argtypes
         fn.restype = ctypes.c_int
         kern._fn = fn
+        if patch and "first_launch_args" in patch:
+            # the first design's entry point: the card's SMs in place of
+            # the wrapper's launch arguments
+            k = patch["first_launch_args"]
+            fn.argtypes = kern.argtypes[:-(k + 1)] + [ctypes.c_int,
+                                                      kern.argtypes[-1]]
+            kern._fn = lambda *a, f=fn, k=k: f(*a[:-(k + 1)], sms, a[-1])
         if patch and "tile" in patch:
             CO.dispatch_tile = (lambda e: patch["tile"] if e <= 2
                                 else shipped_tile(e))
@@ -610,6 +901,8 @@ def main() -> int:
             CO.COHERENT_GROUPS = patch["groups"]
         if patch and "lanes" in patch:
             CO.COHERENT_LANES = patch["lanes"]
+        if patch and "act_threads" in patch:
+            TA.ACT_THREADS = patch["act_threads"]
         if patch and "bwd2_plan" in patch:
             def launch(n, *shape, kw=patch["bwd2_plan"]):
                 # the shipped plan with another tile (its shared memory,
@@ -624,12 +917,18 @@ def main() -> int:
                 return plan, plan.as_struct()
             PL._bwd2_launch = launch
 
-    for name, (stem, timing_only, _, _) in VARIANTS.items():
+    for name, (stem, timing_only, _, _) in list(VARIANTS.items()):
         if timing_only:
             continue
         use(name)
         for i in CASES_OF[kernel_of(name)]:
-            text, _ = cases[i][2]()
+            try:
+                text, _ = cases[i][2]()
+            except (SystemExit, RuntimeError) as e:  # not timed, not kept
+                print(f"{name} / {cases[i][0]}: FAILS its check ({e}); "
+                      f"left out of the rounds", flush=True)
+                del VARIANTS[name]
+                break
             print(f"{name} / {cases[i][0]}: {text}", flush=True)
     use(None)
     names = [None, *VARIANTS]
@@ -642,15 +941,15 @@ def main() -> int:
             for i in idx:
                 ms = cs.device_ms(cases[i][1])
                 times[(name, i)].append(ms)
-                row.append(f"{cases[i][0]} {ms:.4f}")
+                row.append(f"{cases[i][0]} {ms:.5f}")
             print(f"round {r} {name or 'shipped'}: " + ", ".join(row),
                   flush=True)
     use(None)
     for (name, i), xs in times.items():
         if xs:
             print(f"{name or 'shipped'} / {cases[i][0]}: device_ms median "
-                  f"{statistics.median(xs):.4f} range [{min(xs):.4f}, "
-                  f"{max(xs):.4f}] over {len(xs)} rounds", flush=True)
+                  f"{statistics.median(xs):.5f} range [{min(xs):.5f}, "
+                  f"{max(xs):.5f}] over {len(xs)} rounds", flush=True)
     return 0
 
 

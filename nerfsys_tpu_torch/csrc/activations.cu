@@ -27,11 +27,21 @@
 // point), the backward reads g and y and writes gx (12), the second
 // derivative reads v, g, x and writes two outputs (20); the arithmetic is
 // a few operations a point. Design: a grid-stride loop over 16-byte
-// vectors, 4 points a thread a trip (scalar points for the tail and for
-// pointers that are not 16-byte aligned).
+// vectors, 4 points a thread a trip, for each function, on at most 8
+// blocks an SM; up to 1,081,344 points (a bench step's calls) it makes
+// one trip a thread. The forward alone, the one kernel a frame launches
+// at its 8,388,608 points, takes above that size an exact-cover grid
+// (`fwd_cover_kernel`), since the loop left its last trip a quarter of
+// the card idle: ACT_VECS vectors a thread, every load issued before the
+// first store, read and written with streaming hints (__ldcs / __stcs:
+// each byte is used once). The launch (path and blocks) is the wrapper's,
+// ops/activations.py `act_launch`; the entry points refuse a grid that
+// does not cover n. The n % 4 tail and the path for pointers that are
+// not 16-byte aligned take scalar points.
 #include "common.cuh"
 
 #define ACT_THREADS 256
+#define ACT_VECS 2  // the exact-cover grid's 16-byte vectors a thread
 
 // clamp(x, -m, m) that keeps NaN, as torch.clamp and jnp.clip do
 __device__ __forceinline__ float clamp_keep_nan(float x, float m) {
@@ -111,43 +121,87 @@ trunc_exp_bwd2_kernel(const float* __restrict__ v, const float* __restrict__ g,
         bwd2_1(v[j], g[j], x[j], m, dg[j], dx[j]);
 }
 
-// Blocks for n points: one trip a thread where the card holds that many
-// (a vector of 4 points a thread), else a grid-stride loop over the
-// blocks that fill the card (8 an SM: 2,048 threads, the SM's most).
-static unsigned act_blocks(long long n, int sms) {
-    const long long work = (n + 3) / 4;
-    const long long want = (work + ACT_THREADS - 1) / ACT_THREADS;
-    const long long cap = 8LL * (sms > 0 ? sms : 132);
-    return (unsigned)(want < 1 ? 1 : (want < cap ? want : cap));
+// The forward's exact-cover grid: block b takes vectors [b T V,
+// (b + 1) T V) (V = ACT_VECS), its thread t vectors b T V + k T + t for
+// k < V, so that each load instruction of a warp reads 512 contiguous
+// bytes; the thread whose vector is the first past the whole ones takes
+// the n % 4 points of the tail. Without vec the same span of 4 T V
+// points, scalar: point 4 b T V + k T + t for k < 4 V.
+__global__ void __launch_bounds__(ACT_THREADS)
+fwd_cover_kernel(const float* __restrict__ x, float* __restrict__ y,
+                 long long n, float m, int vec) {
+    const long long T = blockDim.x;
+    const long long b0 = (long long)blockIdx.x * T * ACT_VECS;
+    if (vec) {
+        const long long nv = n >> 2;
+        float4 a[ACT_VECS];
+#pragma unroll
+        for (int k = 0; k < ACT_VECS; ++k) {
+            const long long j = b0 + k * T + threadIdx.x;
+            if (j < nv) a[k] = __ldcs(reinterpret_cast<const float4*>(x) + j);
+        }
+#pragma unroll
+        for (int k = 0; k < ACT_VECS; ++k) {
+            const long long j = b0 + k * T + threadIdx.x;
+            if (j < nv) {
+                __stcs(reinterpret_cast<float4*>(y) + j,
+                       make_float4(fwd1(a[k].x, m), fwd1(a[k].y, m),
+                                   fwd1(a[k].z, m), fwd1(a[k].w, m)));
+            } else if (j == nv) {
+                for (long long q = 4 * nv; q < n; ++q) y[q] = fwd1(x[q], m);
+            }
+        }
+        return;
+    }
+    float a[4 * ACT_VECS];
+#pragma unroll
+    for (int k = 0; k < 4 * ACT_VECS; ++k) {
+        const long long q = 4 * b0 + k * T + threadIdx.x;
+        if (q < n) a[k] = __ldcs(x + q);
+    }
+#pragma unroll
+    for (int k = 0; k < 4 * ACT_VECS; ++k) {
+        const long long q = 4 * b0 + k * T + threadIdx.x;
+        if (q < n) __stcs(y + q, fwd1(a[k], m));
+    }
 }
 
 // Every pointer a float32 device array of n points; vec 1: all of them
-// 16-byte aligned (the 16-byte path). sms: the card's SM count.
+// 16-byte aligned (the 16-byte path). cover, blocks: the wrapper's launch
+// (ops/activations.py `act_launch`): the grid-stride loop on `blocks`
+// blocks (any count covers n), or with cover 1 (the forward only) the
+// exact-cover grid, which must span n.
 NERF_API int trunc_exp_fwd(const float* x, float* y, long long n, float m,
-                           int vec, int sms, cudaStream_t stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+                           int vec, int cover, int blocks,
+                           cudaStream_t stream) {
+    if (n < 0 || blocks < 1 ||
+        (cover && (long long)blocks * ACT_THREADS * ACT_VECS * 4 < n))
+        return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    trunc_exp_fwd_kernel<<<act_blocks(n, sms), ACT_THREADS, 0, stream>>>(
-        x, y, n, m, vec);
+    if (cover)
+        fwd_cover_kernel<<<blocks, ACT_THREADS, 0, stream>>>(x, y, n, m, vec);
+    else
+        trunc_exp_fwd_kernel<<<blocks, ACT_THREADS, 0, stream>>>(x, y, n, m,
+                                                                 vec);
     return (int)cudaGetLastError();
 }
 
 NERF_API int trunc_exp_bwd(const float* g, const float* y, float* gx,
-                           long long n, int vec, int sms,
+                           long long n, int vec, int blocks,
                            cudaStream_t stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+    if (n < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    trunc_exp_bwd_kernel<<<act_blocks(n, sms), ACT_THREADS, 0, stream>>>(
-        g, y, gx, n, vec);
+    trunc_exp_bwd_kernel<<<blocks, ACT_THREADS, 0, stream>>>(g, y, gx, n,
+                                                             vec);
     return (int)cudaGetLastError();
 }
 
 NERF_API int trunc_exp_bwd2(const float* v, const float* g, const float* x,
                             float* dg, float* dx, long long n, float m,
-                            int vec, int sms, cudaStream_t stream) {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+                            int vec, int blocks, cudaStream_t stream) {
+    if (n < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
     if (n == 0) return (int)cudaGetLastError();
-    trunc_exp_bwd2_kernel<<<act_blocks(n, sms), ACT_THREADS, 0, stream>>>(
+    trunc_exp_bwd2_kernel<<<blocks, ACT_THREADS, 0, stream>>>(
         v, g, x, dg, dx, n, m, vec);
     return (int)cudaGetLastError();
 }

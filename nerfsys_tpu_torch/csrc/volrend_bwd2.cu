@@ -40,16 +40,25 @@
 // Bound on the H100: bytes. Per sample it reads (rgb, sigma), t and the
 // (rgb, sigma) cotangent and writes the (rgb, sigma) product (52 bytes,
 // and 4 more when g_weights is given), with ~90 flops and one exp; at one
-// inner step (4,000 rays x 32) that is ~6.7 MB, ~2 us, so the kernel is
-// bound by latency, like kernel 4'. Its design is kernel 4''s (plan, lane
-// map, sample loader and segment scans from volrend_common.cuh): a ray's
-// samples on `lanes` lanes, T an exclusive product scan, T' an inclusive
-// prefix scan of the affine maps x -> m_s x - T_s a'_s, Q and P suffix
-// scans of affine maps (the composition (m1, b1) o (m2, b2) = (m1 m2,
-// b1 + m1 b2) needs no division); with several pieces a first pass keeps
-// T and T' at each piece's start (two floats a piece and warp in shared
-// memory) and the second walks the pieces last to first with Q and P
-// carried. Every output is written once: no atomics, no scratch.
+// inner step (4,000 rays x 32) that is ~6.7 MB, ~2 us. The launch runs in
+// one wave, every warp loading, computing and storing at once, so the
+// time is the launch, the loads and stores, and the arithmetic and
+// shuffles each warp issues in between (kernel_ab.py's split at one
+// inner step, PERF.md). Its design is kernel 4''s (plan, lane map, sample
+// loader and segment scans from volrend_common.cuh): a ray's samples on
+// `lanes` lanes; T and T' as one scan of the forward pair,
+// (T, T')_{s+1} = [[m_s, 0], [-a'_s, m_s]] (T, T')_s, whose
+// lower-triangular matrices with equal diagonal (d, c) compose as
+// (d1 d2, d1 c2 + c1 d2) (it commutes), an exclusive scan from (1, 0); Q
+// and P as suffix scans of affine maps (the composition (m1, b1) o (m2,
+// b2) = (m1 m2, b1 + m1 b2) needs no division), Q's first, since P's map
+// takes Q_{s+1}. (One scan of (P, Q)'s 4-float maps, and several
+// consecutive samples a lane composed in registers, measured slower: the
+// shuffles are the same or more, the loads strided.) With several pieces
+// a first pass keeps T and T' at each piece's start (two floats a piece
+// and warp in shared memory) and the second walks the pieces last to
+// first with Q and P carried. Every output is written once: no atomics,
+// no scratch.
 #include "volrend_common.cuh"
 
 // d clip(x, lo, hi) / dx under the tie rule (NaN -> 0, as in JAX)
@@ -79,17 +88,18 @@ __device__ __forceinline__ void seg_suffix(float& m, float& b, int sl) {
     }
 }
 
-// (m, b) becomes the composition of the maps of lanes 0..sl of the
-// segment, the own map applied last: x -> m x + b.
+// The forward pair (T, T'): (d, c) becomes the composition of the maps
+// (m_s, -a'_s) of lanes 0..sl of the segment (an inclusive scan; the
+// matrices commute).
 template <int W>
-__device__ __forceinline__ void seg_prefix(float& m, float& b, int sl) {
+__device__ __forceinline__ void fwd_scan(float& d, float& c, int sl) {
 #pragma unroll
-    for (int d = 1; d < W; d <<= 1) {
-        const float m2 = __shfl_up_sync(FULL_MASK, m, d, W);
-        const float b2 = __shfl_up_sync(FULL_MASK, b, d, W);
-        if (sl >= d) {
-            b = b + m * b2;
-            m = m * m2;
+    for (int k = 1; k < W; k <<= 1) {
+        const float d2 = __shfl_up_sync(FULL_MASK, d, k, W);
+        const float c2 = __shfl_up_sync(FULL_MASK, c, k, W);
+        if (sl >= k) {
+            c = d2 * c + c2 * d;
+            d = d2 * d;
         }
     }
 }
@@ -173,19 +183,16 @@ __global__ void __launch_bounds__(256) volume_render_bwd2_kernel(
             const bool on = live && s < S;
             const Tangent k = sample_tangent(q, on ? __ldg(vs + s).w : 0.0f,
                                              on, sigma_scale, scale_on, hi);
-            const float incl = seg_prod<W>(q.m, sl);
-            float ex = __shfl_up_sync(FULL_MASK, incl, 1, W);
-            if (sl == 0) ex = 1.0f;
-            float mm = q.m, bb = -(T * ex) * k.ad;
-            seg_prefix<W>(mm, bb, sl);
+            float d = q.m, c = -k.ad;
+            fwd_scan<W>(d, c, sl);
             if (sl == 0) {
                 st[2 * p] = T;
                 st[2 * p + 1] = Td;
             }
-            const float m_all = __shfl_sync(FULL_MASK, mm, W - 1, W);
-            const float b_all = __shfl_sync(FULL_MASK, bb, W - 1, W);
-            Td = b_all + m_all * Td;
-            T = T * __shfl_sync(FULL_MASK, incl, W - 1, W);
+            const float D = __shfl_sync(FULL_MASK, d, W - 1, W);
+            const float C = __shfl_sync(FULL_MASK, c, W - 1, W);
+            Td = C * T + D * Td;
+            T = D * T;
         }
         __syncwarp();
     }
@@ -202,17 +209,20 @@ __global__ void __launch_bounds__(256) volume_render_bwd2_kernel(
         const float4 v = on ? __ldg(vs + s) : make_float4(0.f, 0.f, 0.f, 0.f);
         const Tangent k = sample_tangent(q, v.w, on, sigma_scale, scale_on,
                                          hi);
-        const float incl = seg_prod<W>(q.m, sl);
-        float ex = __shfl_up_sync(FULL_MASK, incl, 1, W);
-        if (sl == 0) ex = 1.0f;
+        // (T, T') at the sample: the lanes before, exclusive, after the
+        // pieces before
+        float fd = q.m, fc = -k.ad;
+        fwd_scan<W>(fd, fc, sl);
+        float ex = __shfl_up_sync(FULL_MASK, fd, 1, W);
+        float ec = __shfl_up_sync(FULL_MASK, fc, 1, W);
+        if (sl == 0) {
+            ex = 1.0f;
+            ec = 0.0f;
+        }
         const float T0 = pieces > 1 ? st[2 * p] : 1.0f;
         const float Td0 = pieces > 1 ? st[2 * p + 1] : 0.0f;
         const float Ts = T0 * ex;
-        float mm = q.m, bb = -Ts * k.ad;
-        seg_prefix<W>(mm, bb, sl);
-        float bp = __shfl_up_sync(FULL_MASK, bb, 1, W);
-        if (sl == 0) bp = 0.0f;
-        const float Tds = bp + ex * Td0;
+        const float Tds = ec * T0 + ex * Td0;
 
         const float w = q.alpha * Ts;
         const float wd = k.ad * Ts + q.alpha * Tds;

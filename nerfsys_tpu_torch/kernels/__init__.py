@@ -516,20 +516,20 @@ OCC_QUERY = Kernel(
 
 TRUNC_EXP_FWD = Kernel(
     "trunc_exp_fwd", "activations", "trunc_exp_fwd",
-    # x, y, n, m, vec, sms, stream
-    [_P, _P, _L, _F, _I, _I, _P],
+    # x, y, n, m, vec, cover, blocks, stream
+    [_P, _P, _L, _F, _I, _I, _I, _P],
     replaces="nerfsys_tpu/ops/activations.py:32 (trunc_exp, its forward "
              "_trunc_exp_fwd :37)",
 )
 TRUNC_EXP_BWD = Kernel(
     "trunc_exp_bwd", "activations", "trunc_exp_bwd",
-    # g, y, gx, n, vec, sms, stream
+    # g, y, gx, n, vec, blocks, stream
     [_P, _P, _P, _L, _I, _I, _P],
     replaces="nerfsys_tpu/ops/activations.py:43 (_trunc_exp_bwd)",
 )
 TRUNC_EXP_BWD2 = Kernel(
     "trunc_exp_bwd2", "activations", "trunc_exp_bwd2",
-    # v, g, x, d g, d x, n, m, vec, sms, stream
+    # v, g, x, d g, d x, n, m, vec, blocks, stream
     [_P] * 5 + [_L, _F, _I, _I, _P],
     replaces="nerfsys_tpu/ops/activations.py:32-47 (autodiff of "
              "_trunc_exp_bwd through the residual exp(clip(x)): the second "

@@ -30,6 +30,24 @@ _EXP_MAX = {
 }
 
 
+ACT_THREADS = 256  # threads a block of csrc/activations.cu's kernels
+ACT_VECS = 2  # 16-byte vectors a thread of the forward's exact-cover grid
+
+
+def act_launch(n: int, sms: int, cover: bool = False) -> Tuple[bool, int]:
+    """(exact cover, blocks) of row 12's launch for n > 0 points on `sms`
+    SMs, which the wrapper passes to the entry point: the grid-stride loop
+    on blocks of a 16-byte vector a thread, at most 8 an SM (one trip a
+    thread up to 1,081,344 points on 132 SMs: a bench step's calls); with
+    `cover` (the forward) and above that size, the exact-cover grid of
+    ACT_VECS vectors a thread (a frame's calls)."""
+    cap = 8 * (sms if sms > 0 else 132)
+    want = -(-n // (4 * ACT_THREADS))  # blocks at a vector a thread
+    if not cover or want <= cap:
+        return False, max(1, min(want, cap))
+    return True, -(-n // (4 * ACT_VECS * ACT_THREADS))
+
+
 def _exp_clamp(x: torch.Tensor) -> torch.Tensor:
     m = _EXP_MAX.get(x.dtype, _EXP_MAX[torch.float32])
     return torch.clamp(x, -m, m)
@@ -114,8 +132,10 @@ def trunc_exp_fwd_kernel(x: torch.Tensor) -> torch.Tensor:
     n, vec, sms, stream = _launch_args("trunc_exp", x, y)
     if n == 0:
         return y
+    cover, blocks = act_launch(n, sms, cover=True)
     kernels.TRUNC_EXP_FWD(x.data_ptr(), y.data_ptr(), n,
-                          _EXP_MAX[torch.float32], vec, sms, stream)
+                          _EXP_MAX[torch.float32], vec, int(cover), blocks,
+                          stream)
     return y
 
 
@@ -130,7 +150,7 @@ def trunc_exp_bwd_kernel(g: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return gx
     kernels.TRUNC_EXP_BWD(g.data_ptr(), y.data_ptr(), gx.data_ptr(), n, vec,
-                          sms, stream)
+                          act_launch(n, sms)[1], stream)
     return gx
 
 
@@ -149,7 +169,8 @@ def trunc_exp_bwd2_kernel(v: torch.Tensor, g: torch.Tensor,
         return dg, dx
     kernels.TRUNC_EXP_BWD2(v.data_ptr(), g.data_ptr(), x.data_ptr(),
                            dg.data_ptr(), dx.data_ptr(), n,
-                           _EXP_MAX[torch.float32], vec, sms, stream)
+                           _EXP_MAX[torch.float32], vec,
+                           act_launch(n, sms)[1], stream)
     return dg, dx
 
 

@@ -50,13 +50,20 @@ step's 128,000 samples (the K=1 task slice) and on the first 1,048,576
 points of the K=16 arm (K=16 L=4 R=128 grids, 5% occupied, seed 5), and
 kernels 5'' and 6'' (the plane encoder's double backward, light and
 exact) at those 128,000 samples for expert 0's tables and 5'' on the K=4
-stack, with kernels 5 and 6 at the same samples: each case's device time
+stack, with kernels 5 and 6 at the same samples, kernel 4'' (the
+compositor's double backward) at one inner step (expert 0's support set,
+4,000 x 32, the rgb upstream of MAML's loss), and row 12 (`trunc_exp`) at
+the sizes the main path launches it: the backward at a bench step's
+128,000 points beside `torch.mul(g, y)`, its library call, timed in the
+same worker, the forward at a frame call's 8,388,608 points and at a
+step's, the second derivative at a step's: each case's device time
 (chip_smoke's `device_ms`) and back-to-back time; before the rounds
 each worker holds every case against its plain version (the sampler
 within 1e-5, the dispatch's integer outputs equal and its weights within
 1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5, 10a-iii
 and 11q equal, 5'' / 6'' within 1e-5 of each output's max against the
-plain version's sums in float64, 5 / 6 within 1e-4); then, one side
+plain version's sums in float64, 5 / 6 within 1e-4, 4'' within 1e-5 of
+each output's max, row 12 bit for bit); then, one side
 after the other, each profiles ten dispatch calls and ten 10a-iii calls
 (device time by kernel launch), one soft early-stop frame at sigma_scale
 1 and one coherent skew frame (hash experts),
@@ -201,7 +208,11 @@ KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
                 "query chunk values", "query chunk pair", "query step bits",
                 "query K=16 bits", "planes bwd2 light step",
                 "planes bwd2 exact step", "planes bwd2 light step K=4",
-                "planes bwd light step", "planes bwd exact step")
+                "planes bwd light step", "planes bwd exact step",
+                "volrend bwd2 step", "trunc_exp bwd step", "g * y step",
+                "trunc_exp fwd frame call", "trunc_exp fwd step",
+                "trunc_exp bwd2 step")
+TRUNC_EXP_FRAME = 8_388_608  # a live frame's call: 65,536 x 32 x K=4
 QUERY_K16_PTS = 1 << 20  # the union grid build's chunk of points
 
 
@@ -418,7 +429,95 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
                                       "bits")),
             (KERNEL_CASES[15], *query(k16_grids, k16_qpts, "bits")),
             *((KERNEL_CASES[16 + i], *case) for i, case in
-              enumerate(planes))]
+              enumerate(planes)),
+            (KERNEL_CASES[21], *bwd2_case(cs, cfg, statics, params, sn, sf,
+                                          so, sd, scdf, su, device)),
+            *((KERNEL_CASES[22 + i], *case) for i, case in
+              enumerate(trunc_exp_cases(cs, device)))]
+
+
+def bwd2_case(cs, cfg, statics, params, near, far, o, d, cdf, u, device):
+    """(call, check) of kernel 4'' (the compositor's double backward) at
+    one inner step, as chip_smoke's MAML phase takes it: expert 0's first
+    support set (4,000 rays x 32 samples through its probe's cdf, jittered
+    targets) through expert 0, the rgb upstream of MAML's loss and random
+    cotangents from seed 15; held to the plain version within 1e-5 of
+    each output's max (chip_smoke's `bwd2_errs`)."""
+    import torch
+
+    from nerfsys_tpu_torch.models.container import background_color
+    from nerfsys_tpu_torch.models.ngp import ngp_apply
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.utils.tree import tree_map
+
+    t_vals = O.sample_tvals_plain(cdf, near, far, u).contiguous()
+    N, S = t_vals.shape
+    pts = V.t_to_points(o, d, t_vals).reshape(-1, 3)
+    expert = tree_map(lambda t: t[0], params["experts"])
+    with torch.no_grad():
+        rgb, sigma = ngp_apply(expert, cfg.expert, statics.expert_aabbs[0],
+                               pts, d[:, None, :].expand(N, S, 3)
+                               .reshape(-1, 3))
+        bg = background_color(params, cfg, d).contiguous()
+    rs = torch.cat([rgb.reshape(N, S, 3), sigma.reshape(N, S, 1)],
+                   dim=-1).contiguous()
+    gen = torch.Generator(device=device).manual_seed(15)
+    grads = (torch.randn((N, 3), device=device, generator=gen), None, None,
+             None)
+    v_rs = torch.randn((N, S, 4), device=device, generator=gen)
+    v_bg = torch.randn((N, 3), device=device, generator=gen)
+    args = (rs, t_vals, bg, grads, v_rs, v_bg)
+
+    def check():
+        got = V.volume_render_bwd2_kernel(*args)
+        errs = cs.bwd2_errs(got, V.volume_render_bwd2_plain(*args), grads,
+                            cs.wdot_scale(rs, t_vals, v_rs, 1.0))
+        if not all(e <= 1e-5 for _, e in errs):
+            raise SystemExit(f"serve_ab: 4'' error {errs}")
+        return (" ".join(f"{k}={e:.3e}" for k, e in errs),
+                float(sum(x.double().sum() for x in (got[0], got[1],
+                                                     got[2][0]))))
+    return (lambda: V.volume_render_bwd2_kernel(*args)), check
+
+
+def trunc_exp_cases(cs, device):
+    """(call, check) of row 12 at the sizes the main path launches it (x =
+    4 N(0, 1), g and v N(0, 1), from seed 16): the backward beside its
+    library call `torch.mul(g, y)` at a bench step's 128,000 points, the
+    forward at a frame call's 8,388,608 and at a step's, the second
+    derivative at a step's; each kernel held to its plain version bit for
+    bit."""
+    import torch
+
+    from nerfsys_tpu_torch.ops import activations as TA
+
+    def case(kernel, plain, *args):
+        def check():
+            got, want = kernel(*args), plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(cs.bit_equal(a, b) for a, b in zip(got, want)):
+                raise SystemExit(f"serve_ab: {kernel.__name__} differs "
+                                 f"from its plain version")
+            return ("bit-equal to the plain version",
+                    float(sum(a.double().nansum() for a in got)))
+        return (lambda: kernel(*args)), check
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    inputs = {}
+    for n in (TRUNC_EXP_FRAME, cs.TRUNC_EXP_STEP):
+        x = 4.0 * torch.randn(n, device=device, generator=gen)
+        g = torch.randn(n, device=device, generator=gen)
+        v = torch.randn(n, device=device, generator=gen)
+        inputs[n] = (x, g, v, TA.trunc_exp_fwd_plain(x))
+    x, g, v, y = inputs[cs.TRUNC_EXP_STEP]
+    return [case(TA.trunc_exp_bwd_kernel, TA.trunc_exp_bwd_plain, g, y),
+            case(torch.mul, TA.trunc_exp_bwd_plain, g, y),
+            *(case(TA.trunc_exp_fwd_kernel, TA.trunc_exp_fwd_plain,
+                   inputs[n][0])
+              for n in (TRUNC_EXP_FRAME, cs.TRUNC_EXP_STEP)),
+            case(TA.trunc_exp_bwd2_kernel, TA.trunc_exp_bwd2_plain, v, g, x)]
 
 
 def plane_cases(cs, cfg, statics, params, pts, device):

@@ -16,8 +16,9 @@ no background, sigma_scale 25). Tolerance 1e-5 of each output's max
 cancels to rounding noise on opaque rays, so it is held relative to the
 max over rays of sum |w'| (times max |G|) instead.
 
-Kernel 4'' is also walked in numpy as its lanes compute it (scans in a
-tree order, the card's tolerance 1e-5), on the same cases. The plain
+Kernel 4'' is also walked as its lanes compute it on its plan
+(tests/test_torch_volrend_bwd2_scan.py's scans in their tree order, the
+card's tolerance 1e-5), on the same cases. The plain
 compositor has a float64 `torch.autograd.gradgradcheck`.
 """
 import jax
@@ -28,14 +29,8 @@ import torch
 
 from nerfsys_tpu.ops import volrend as JV
 from nerfsys_tpu_torch.ops import volrend as TV
-from test_torch_volrend_edges import (
-    CASES,
-    IDS,
-    N,
-    _clip_grad,
-    _inputs,
-    _seg_shift,
-)
+from test_torch_volrend_bwd2_scan import lane_bwd2
+from test_torch_volrend_edges import CASES, IDS, N, _inputs
 
 TOL = 1e-5  # of each output's max
 WALK_TOL = 1e-5  # the lane walk: tree-order scans (the card's tolerance)
@@ -182,141 +177,15 @@ def test_compositor_bwd2_matches_jax(kind, s, used, with_bg, scale):
 
 
 def _lane_bwd2(rs, t, bg, grads, v_rs, v_bg, scale):
-    """Kernel 4'' as its lanes compute it (csrc/volrend_bwd2.cu), in
-    float32 numpy: each ray's samples on `lanes` lanes, pieces with T and
-    T' carried forward and Q and P backward, Kogge-Stone scans (the
-    product scan for T, the prefix scan of the affine maps for T', the
-    suffix scans for Q and P), segment sums for the per-ray outputs."""
+    """Kernel 4'' as its lanes compute it (csrc/volrend_bwd2.cu) on its
+    plan, kernel 4''s `volrend_plan`: the forward pair as one scan, Q and
+    P as two (tests/test_torch_volrend_bwd2_scan.py), in float32 torch."""
     n, S = t.shape
     plan = TV.volrend_plan(n, S, backward=True)
-    W, P = plan.lanes, plan.pieces
-    f32 = np.float32
-    hi = f32(1.0) - f32(1e-7)
-    lane = np.arange(W)
-    z3 = np.zeros((n, 3), f32)
-    G = grads[0] if grads[0] is not None else z3
-    gd = grads[1] if grads[1] is not None else np.zeros(n, f32)
-    ga = grads[3] if grads[3] is not None else np.zeros(n, f32)
-    b = bg if bg is not None else z3
-    vb = v_bg if bg is not None and v_bg is not None else z3
-    gvb = G[:, 0] * vb[:, 0] + G[:, 1] * vb[:, 1] + G[:, 2] * vb[:, 2]
-
-    def load(p):
-        s = p * W + lane
-        on = s < S
-        sc = np.minimum(s, S - 1)
-        v = np.where(on[None, :, None], rs[:, sc], f32(0))
-        vv = np.where(on[None, :, None], v_rs[:, sc], f32(0))
-        tt = np.where(on, t[:, sc], f32(0))
-        nxt = np.where(sc < S - 1, t[:, np.minimum(sc + 1, S - 1)] - tt,
-                       tt - t[:, np.maximum(sc - 1, 0)])
-        dt = np.where(on, np.maximum(nxt, f32(1e-4)), f32(0))
-        sigma = np.maximum(v[..., 3], f32(0))
-        if scale != 1.0:
-            sigma = sigma * f32(scale)
-        e = np.where(on, np.exp(-sigma * dt).astype(f32), f32(0))
-        alpha = np.where(on, np.minimum(np.maximum(f32(1) - e, f32(0)), hi),
-                         f32(0))
-        m = np.where(on, f32(1) - alpha + f32(1e-10), f32(1))
-        ap = np.where(on, _clip_grad(f32(1) - e, f32(0), hi) * e * dt,
-                      f32(0))
-        sd = np.where(on, _clip_grad(v[..., 3], f32(0), np.inf) * vv[..., 3],
-                      f32(0))
-        if scale != 1.0:
-            sd = sd * f32(scale)
-        incl = m.copy()
-        d = 1
-        while d < W:
-            incl = np.where(lane >= d, incl * _seg_shift(incl, d, 1, True),
-                            incl)
-            d *= 2
-        ex = _seg_shift(incl, 1, 1, True)
-        return s, on, v, vv, tt, dt, e, alpha, m, ap, ap * sd, incl, ex
-
-    def prefix(mm, bb):
-        d = 1
-        while d < W:
-            m2, b2 = _seg_shift(mm, d, 1, True), _seg_shift(bb, d, 0, True)
-            bb, mm = bb + mm * b2, mm * m2
-            d *= 2
-        return mm, bb
-
-    def suffix(mm, bb):
-        d = 1
-        while d < W:
-            m2, b2 = _seg_shift(mm, d, 1, False), _seg_shift(bb, d, 0, False)
-            bb, mm = bb + mm * b2, mm * m2
-            d *= 2
-        return mm, bb
-
-    starts = []
-    T, Td = np.ones(n, f32), np.zeros(n, f32)
-    for p in range(P):
-        *_, m, ap, ad, incl, ex = load(p)
-        mm, bb = prefix(m.copy(), -(T[:, None] * ex) * ad)
-        starts.append((T, Td))
-        Td = bb[:, W - 1] + mm[:, W - 1] * Td
-        T = T * incl[:, W - 1]
-    d_rs = np.zeros((n, S, 4), f32)
-    d_w = np.zeros((n, S), f32)
-    Q, Pc = np.zeros(n, f32), np.zeros(n, f32)
-    acc, accd, rd, dd = (np.zeros((n, W), f32), np.zeros((n, W), f32),
-                         np.zeros((n, W, 3), f32), np.zeros((n, W), f32))
-    for p in range(P - 1, -1, -1):
-        s, on, v, vv, tt, dt, e, alpha, m, ap, ad, incl, ex = load(p)
-        T0, Td0 = starts[p] if P > 1 else (np.ones(n, f32),
-                                           np.zeros(n, f32))
-        Ts = T0[:, None] * ex
-        mm, bb = prefix(m.copy(), -Ts * ad)
-        Tds = _seg_shift(bb, 1, 0, True) + ex * Td0[:, None]
-        w = alpha * Ts
-        wd = ad * Ts + alpha * Tds
-        cg = np.stack([_clip_grad(v[..., c], f32(0), f32(1))
-                       for c in range(3)], -1)
-        r = np.minimum(np.maximum(v[..., :3], f32(0)), f32(1))
-        acc, accd, dd = acc + w, accd + wd, dd + wd * tt
-        rd = rd + (wd[..., None] * r + w[..., None] * (cg * vv[..., :3]))
-        g = ((G[:, None, 0] * (r[..., 0] - b[:, None, 0])
-              + G[:, None, 1] * (r[..., 1] - b[:, None, 1])
-              + G[:, None, 2] * (r[..., 2] - b[:, None, 2]))
-             + gd[:, None] * tt + ga[:, None])
-        if grads[2] is not None:
-            g = g + grads[2][:, np.minimum(s, S - 1)]
-        cv = cg * vv[..., :3]
-        h = (G[:, None, 0] * cv[..., 0] + G[:, None, 1] * cv[..., 1]
-             + G[:, None, 2] * cv[..., 2]) - gvb[:, None]
-        g, h = np.where(on, g, f32(0)), np.where(on, h, f32(0))
-        qm, qb = suffix(m.copy(), g * alpha)
-        Qn = (_seg_shift(qb, 1, 0, False)
-              + _seg_shift(qm, 1, 1, False) * Q[:, None])
-        Q = qb[:, 0] + qm[:, 0] * Q
-        gq = g - Qn
-        pm, pb = suffix(m.copy(), ad * gq + h * alpha)
-        Pn = (_seg_shift(pb, 1, 0, False)
-              + _seg_shift(pm, 1, 1, False) * Pc[:, None])
-        Pc = pb[:, 0] + pm[:, 0] * Pc
-        d_sigma = ap * (Tds * gq + Ts * (h - Pn)) - dt * ad * Ts * gq
-        if scale != 1.0:
-            d_sigma = d_sigma * f32(scale)
-        out = np.stack([wd * G[:, None, c] * cg[..., c] for c in range(3)]
-                       + [d_sigma * _clip_grad(v[..., 3], f32(0), np.inf)],
-                       -1).astype(f32)
-        d_rs[:, s[on]] = out[:, on]
-        d_w[:, s[on]] = wd[:, on]
-
-    def seg_sum(x):
-        d = W // 2
-        while d >= 1:
-            x = x + x[:, lane ^ d]
-            d //= 2
-        return x[:, 0]
-
-    acc, accd, dd = seg_sum(acc), seg_sum(accd), seg_sum(dd)
-    rd = np.stack([seg_sum(rd[..., c]) for c in range(3)], -1)
-    d_rgb = rd - accd[:, None] * b + (f32(1) - acc)[:, None] * vb
-    d_u = [d_rgb, dd, d_w, accd]
-    return (d_rs, None if bg is None else -G * accd[:, None],
-            [None if g is None else x for g, x in zip(grads, d_u)])
+    got = lane_bwd2(_t(rs), _t(t), _t(bg), tuple(_t(g) for g in grads),
+                    _t(v_rs), _t(v_bg), scale, plan.lanes, plan.pieces)
+    return (got[0].numpy(), None if got[1] is None else got[1].numpy(),
+            [None if u is None else u.numpy() for u in got[2]])
 
 
 @pytest.mark.parametrize("kind,s,used,with_bg,scale", CASES, ids=IDS)
