@@ -2032,6 +2032,9 @@ def profile_device(label: str, fn, extra: str = "", watch=(),
 
 
 PROFILES = {}  # label -> (wall ms, device busy ms) of each profile_report
+# words of cuBLAS's matrix-product kernel names (sm80_xmma_gemm_*,
+# cutlass_*_sgemm_*, gemv*, and the nvjet_* kernels of newer cuBLAS)
+MATMUL_WORDS = ("gemm", "gemv", "nvjet")
 WATCHED = {}  # (label, watch words) -> (launches, device ms) of its rows
 
 
@@ -2073,6 +2076,10 @@ def profile_report(label: str, prof, wall_ms: float, extra: str = "",
                           flush=True)
                     n, ms = WATCHED.get((label, words), (0, 0.0))
                     WATCHED[label, words] = (n + count, ms + dev_ms)
+        mm = [r for r in rows if any(w in r[1].lower() for w in MATMUL_WORDS)]
+        print(f"profile: {label} matrix products (the MLPs' GEMMs and "
+              f"GEMVs) {sum(r[2] for r in mm)}x {sum(r[0] for r in mm):.3f} "
+              f"ms", flush=True)
         dtoh = [r for r in rows if "DtoH" in r[1]]
         print(f"profile: device-to-host copies {sum(r[2] for r in dtoh)}x "
               f"{sum(r[0] for r in dtoh):.3f} ms (each a host sync)",
@@ -2461,6 +2468,303 @@ def trunc_exp_check(cfg, statics, params, occ, batch, device, results):
                "clamp and exp are two, the second derivative's products "
                "and the clip's slope more)"))
         print(f"kernel {k}: " + "; ".join(parts), flush=True)
+
+
+AMP_SERVE_KERNELS = ("plane_encode_fwd_lines_bf16", "occupancy_probe_cdf",
+                     "sample_tvals_from_cdf", "volume_render_fwd",
+                     "trunc_exp_fwd")
+AMP_TRAIN_KERNELS = AMP_SERVE_KERNELS + ("volume_render_bwd",
+                                         "plane_encode_bwd_light_lines_bf16",
+                                         "trunc_exp_bwd")
+AMP_IDLE = ("plane_encode_fwd", "plane_encode_bwd_light")  # their fp32 kin
+AMP_FLAGS = ("--use_amp", "--plane_lines_mm", "--plane_lines_mm_dtype",
+             "bfloat16")
+AMP_STEPS = 6  # the runner's --op train steps with the precision options
+AMP_FRAME_TOL = 0.05  # mean |amp - fp32| of a frame's rgb and acc
+
+
+def amp_cfg(cfg):
+    """The precision options: bfloat16 MLPs (--use_amp) and bfloat16 line
+    matmuls (--plane_lines_mm --plane_lines_mm_dtype bfloat16)."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, expert=dataclasses.replace(
+        cfg.expert, use_bf16=True, planes=dataclasses.replace(
+            cfg.expert.planes, lines_matmul=True,
+            lines_mm_dtype="bfloat16")))
+
+
+def amp_kernels(cfg, statics, params, occ, rays_np, batch, device, results):
+    """Kernels 1b and 5b (the bfloat16 line matmuls) against their plain
+    versions: 1b bit-equal at a serve chunk (K=4, 2,097,152 points an
+    expert) and at a step (128,000 points), 5b within kernel 5's 1e-4 of
+    each table's max at the step and at the serve chunk (K=4 stacked);
+    both also on coordinates on and outside the bounds and with F=2 (the
+    scalar variant) at the step. 5b must differ from kernel 5 (the float32
+    lines' residuals) by more than twice its tolerance."""
+    import dataclasses
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels
+    from nerfsys_tpu_torch.models.ngp import world_to_unit
+    from nerfsys_tpu_torch.models.occupancy import _ray_validity
+    from nerfsys_tpu_torch.ops import occupancy as O
+    from nerfsys_tpu_torch.ops import planes as PL
+    from nerfsys_tpu_torch.ops import volrend as V
+    from nerfsys_tpu_torch.utils.device import num_sms
+
+    pc = amp_cfg(cfg).expert.planes
+    pc32 = cfg.expert.planes
+    enc_k = params["experts"]["planes_enc"]
+    enc = {k: [t[0] for t in v] for k, v in enc_k.items()}
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    # the serve chunk's sample points (kernel 1's check inputs), K=4
+    rays = torch.from_numpy(rays_np).to(device)
+    o, d = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous()
+    _, near, far = _ray_validity(rays)
+    cdf = O.occupancy_probe_cdf(occ["occs"], occ["binary"],
+                                statics.expert_aabbs, o, d, near, far, 128,
+                                importance=True, uniform_frac=0.25,
+                                ray_floor=0.25)
+    t_vals, _ = O.sample_tvals_from_cdf(cdf, near, far, 32)
+    x_serve = world_to_unit(V.t_to_points(o, d, t_vals).reshape(-1, 3),
+                            statics.expert_aabbs, cfg.expert.enc_eps)
+    del cdf, t_vals
+    # a step's: expert 0's first support set, its K=1 probe, randomized
+    srays = batch["support_rays"][0, 0]
+    so, sd = srays[:, 0:3].contiguous(), srays[:, 3:6].contiguous()
+    sn, sf = srays[:, 6].contiguous(), srays[:, 7].contiguous()
+    scdf = O.occupancy_probe_cdf(occ["occs"][0:1], occ["binary"][0:1],
+                                 statics.expert_aabbs[0:1], so, sd, sn, sf,
+                                 128, importance=True, ray_floor=0.25)
+    st, _ = O.sample_tvals_from_cdf(scdf, sn, sf, 32, generator=gen,
+                                    randomized=True)
+    x_step = world_to_unit(V.t_to_points(so, sd, st).reshape(-1, 3),
+                           statics.expert_aabbs[0],
+                           cfg.expert.enc_eps).contiguous()
+    P = x_step.shape[0]
+    f2 = dataclasses.replace(pc, features=2)
+    enc_f2 = edge_tables(f2, 0, device)
+    x_bounds = edge_points("bounds", 1, P, device)[0]
+
+    def fwd_line(label, tab, x, c):
+        got = PL.plane_encode_kernel(tab, x, c)
+        want = PL.plane_encode_plain(tab, x, c)
+        f32 = PL.plane_encode_plain(tab, x, dataclasses.replace(
+            c, lines_mm_dtype="float32"))
+        err = max_err(got, want)
+        moved = float((want != f32).float().mean())
+        ms = cuda_ms(lambda: PL.plane_encode_kernel(tab, x, c), 10)
+        plan = PL.plane_fwd_plan(x.shape[-2], c.level_resolutions(),
+                                 c.features)
+        K = x.shape[0] if x.dim() == 3 else 1
+        print(f"edge plane_encode_fwd_lines_bf16 {label}: K={K} "
+              f"N={x.shape[-2]} max_abs_err={err:.3e} tol=0 "
+              f"kernel_ms={ms:.4f} (share of values the bfloat16 lines "
+              f"move from the float32 lines' {moved:.4f}) plan "
+              f"{plan_text(plan)}", flush=True)
+        if not err <= 0.0 or not moved > 0.1:
+            raise SystemExit(f"kernel plane_encode_fwd_lines_bf16 on "
+                             f"{label}: error {err}, moved {moved}")
+        return got, want, ms
+
+    got, want, ms = fwd_line("serve chunk", enc_k, x_serve, pc)
+    n_out = got.numel()
+    b_ms, b_by = bound(nbytes(x_serve, enc_k["planes"], enc_k["lines"], got),
+                       n_out * 15 + (n_out // pc.features) * 24)
+    plain_ms = cuda_ms(lambda: PL.plane_encode_plain(enc_k, x_serve, pc), 3)
+    dev = device_ms(lambda: PL.plane_encode_kernel(enc_k, x_serve, pc))
+    results["plane_encode_fwd_lines_bf16"] = dict(
+        max_abs_err=max_err(got, want), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, text=(
+            f"max_abs_err={max_err(got, want):.3e} tol=0 (bit-equal: "
+            f"products of bfloat16 values are exact, one rounding in the "
+            f"sum, --fmad=false) kernel_ms={ms:.4f} device_ms={dev:.4f} "
+            f"plain_ms={plain_ms:.4f} bytes="
+            f"{nbytes(x_serve, enc_k['planes'], enc_k['lines'], got)} "
+            f"(kernel 1's count) bound_ms={b_ms:.4f} ({b_by}) at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s; kernel 1 on the same points "
+            f"{cuda_ms(lambda: PL.plane_encode_kernel(enc_k, x_serve, pc32), 10):.4f}"
+            f" ms in this call"))
+    del got, want
+    fwd_line("step", enc, x_step, pc)
+    fwd_line("bounds (step)", enc, x_bounds, pc)
+    fwd_line("F=2 scalar (step)", enc_f2, x_step, f2)
+
+    def bwd_line(label, tab, x, c):
+        ct = torch.randn((*x.shape[:-1], c.out_dim), device=device,
+                         generator=gen)
+        got = PL.plane_encode_bwd_kernel(tab, x, ct, c)
+        want = PL.plane_encode_bwd_plain(tab, x, ct, c)
+        f32 = PL.plane_encode_bwd_plain(tab, x, ct, dataclasses.replace(
+            c, lines_mm_dtype="float32"))
+        errs = [rel_err(a, b) for a, b in zip(got[0] + got[1],
+                                              want[0] + want[1])]
+        gap = max(rel_err(a, b) for a, b in zip(want[0], f32[0]))
+        ms = cuda_ms(lambda: PL.plane_encode_bwd_kernel(tab, x, ct, c), 10)
+        K = x.shape[0] if x.dim() == 3 else 1
+        plan = PL.plane_bwd_plan(x.shape[-2], K, c.level_resolutions(),
+                                 c.features, True, num_sms(device))
+        print(f"edge plane_encode_bwd_light_lines_bf16 {label}: K={K} "
+              f"N={x.shape[-2]} table_err/max={max(errs):.3e} tol=0.0001 "
+              f"(the float32 lines' plane tables differ by {gap:.3e}) "
+              f"kernel_ms={ms:.4f} plan {plan_text(plan)}", flush=True)
+        if not max(errs) <= 1e-4 or not gap > 2e-4:
+            raise SystemExit(f"kernel plane_encode_bwd_light_lines_bf16 on "
+                             f"{label}: errors {errs}, gap {gap}")
+        return ct, got, want, ms
+
+    ct, got, want, ms = bwd_line("step", enc, x_step, pc)
+    tables = list(enc["planes"]) + list(enc["lines"])
+    n_bytes = nbytes(x_step, ct, tables, got[0], got[1])
+    b_ms, b_by = bound(n_bytes, P * 9 * pc.features * 24
+                       + sum(t.numel() for t in got[0] + got[1]))
+    errs = [rel_err(a, b) for a, b in zip(got[0] + got[1], want[0] + want[1])]
+    abs_err = max(max_err(a, b) for a, b in zip(got[0] + got[1],
+                                                want[0] + want[1]))
+    plain_ms = cuda_ms(lambda: PL.plane_encode_bwd_plain(enc, x_step, ct, pc),
+                       3)
+    dev = device_ms(lambda: PL.plane_encode_bwd_kernel(enc, x_step, ct, pc))
+    k5 = device_ms(lambda: PL.plane_encode_bwd_kernel(enc, x_step, ct, pc32))
+    results["plane_encode_bwd_light_lines_bf16"] = dict(
+        max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, text=(
+            f"table_err/max={max(errs):.3e} tol=0.0001 max_abs_err="
+            f"{abs_err:.3e} (relative to each table's max: kernel 5's "
+            f"tolerance; the line values recomputed from bfloat16 operands "
+            f"round alike, fp32 atomics add in another order) kernel_ms="
+            f"{ms:.4f} device_ms={dev:.4f} plain_ms={plain_ms:.4f} bytes="
+            f"{n_bytes} (kernel 5's count) bound_ms={b_ms:.4f} ({b_by}) at "
+            f"{HBM_BYTES_PER_S / 1e12:g} TB/s; kernel 5 on the same inputs "
+            f"device_ms={k5:.4f} in this call"))
+    del ct, got, want
+    bwd_line("bounds (step)", enc, x_bounds, pc)
+    bwd_line("F=2 scalar (step)", enc_f2, x_step, f2)
+    bwd_line("serve chunk (K=4 stacked)", enc_k, x_serve, pc)
+    del x_serve
+    torch.cuda.empty_cache()
+
+
+def amp_phase(cfg, statics, params, occ, rays_np, batch, device, results):
+    """Phase: the precision options (--use_amp: bfloat16 MLPs; bfloat16
+    line matmuls) at bench width. Kernels 1b and 5b against their plain
+    versions (`amp_kernels`); 3 live 800x800 frames through render_image
+    (`serve`: kernel 1b launched, kernel 1 not; one chunk against the
+    plain path; ms, device busy, idle share and the MLP GEMMs' ms from
+    the profile), the frame against the float32 frame of the same pose;
+    bench.py's FoMAML step with both options (`train`: kernels 1b and 5b
+    launched, 1 and 5 not; its gradients against the plain path's) ->
+    the launches of the frames and of the steps."""
+    import numpy as np
+    import torch
+
+    from nerfsys_tpu_torch.pipelines.online.runtime_adapt import (
+        default_chunk_rays,
+        make_chunk_renderer,
+        render_image,
+    )
+
+    t_phase = time.perf_counter()
+    amp_kernels(cfg, statics, params, occ, rays_np, batch, device, results)
+    acfg = amp_cfg(cfg)
+    served = serve(acfg, statics, params, occ, device, label="amp serve",
+                   need=AMP_SERVE_KERNELS, idle=AMP_IDLE)
+    aabb = statics.global_aabb.cpu().numpy()
+    md = pose(SERVE_POSES[0])
+    frames = []
+    for c in (acfg, cfg):
+        ren = make_chunk_renderer(c, ray_samples=32, occ_state=occ,
+                                  occ_importance=True, occ_hard_mask=False,
+                                  device=device)
+        frames.append(render_image(ren, params, statics, md,
+                                   scene_aabb=aabb,
+                                   chunk_rays=CHUNK or default_chunk_rays(32)))
+    diffs = [np.abs(a.astype(np.float64) - b) for a, b in zip(*frames)]
+    print(f"amp serve: the frame against the float32 frame of the same "
+          f"pose: mean / max |diff| rgb {diffs[0].mean():.3e} / "
+          f"{diffs[0].max():.3e}, depth {diffs[1].mean():.3e} / "
+          f"{diffs[1].max():.3e}, acc {diffs[2].mean():.3e} / "
+          f"{diffs[2].max():.3e} (tol: mean rgb and acc {AMP_FRAME_TOL}, "
+          f"the same scene; bfloat16 MLPs and lines round apart)", flush=True)
+    if not (diffs[0].mean() <= AMP_FRAME_TOL
+            and diffs[2].mean() <= AMP_FRAME_TOL and diffs[0].max() > 0):
+        raise SystemExit("amp serve: the frame is not the float32 frame's "
+                         "scene")
+    del frames, diffs
+    light, _, _ = train(acfg, statics, params, occ, batch, device,
+                        label="amp train", extra=None,
+                        need=AMP_TRAIN_KERNELS, timed=2)
+    launched = [k for k in AMP_IDLE if light[k]]
+    if launched:
+        raise SystemExit(f"amp train: the float32 kernels {launched} "
+                         f"launched")
+    torch.cuda.empty_cache()
+    print(f"amp: phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {k: served[k] + light[k] for k in served}
+
+
+def amp_runner(base, tmp, device):
+    """The trainer phase's run with the precision options: AMP_STEPS steps
+    of `--op train --use_amp --plane_lines_mm --plane_lines_mm_dtype
+    bfloat16` on the written scene, then `--op eval --tto 0,1` from its
+    `last` over one val camera; kernels 1b and 5b launched, 1 and 5 not
+    -> the two runs' launches."""
+    import math
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels, runner
+
+    ctx, probe = run_runner(base + [
+        "--cap_images", str(TRAINER_CAP), *AMP_FLAGS,
+        "--occ_warmup", "2", "--occ_update_interval", "2",
+        "--outer_steps", str(AMP_STEPS), "--fname", str(tmp / "amp")])
+    losses = loop_checks("amp run", probe, AMP_STEPS, AMP_TRAIN_KERNELS)
+    e = ctx["cfg"].expert
+    gaps = [1e3 * (b["t"] - a["t"])
+            for a, b in zip(probe.steps, probe.steps[1:])]
+    train_launches = dict(probe.launches)
+    del ctx, probe
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    ev = runner.main([
+        "--op", "eval", "--configPath",
+        str(Path(__file__).resolve().parent / "configs" / "eval.json"),
+        "--data_path", str(tmp), "--data_dirname", "scene",
+        "--mask_dirname", "g22", "--downscale", "1.0",
+        "--checkpoint_path", str(tmp / "amp"), "--prefix", "last",
+        "--tto", "0,1", "--cap_images", "1", *AMP_FLAGS,
+        "--device", str(device), "--fname", str(tmp / "amp_eval"),
+        *REHEARSAL_EXTRA])
+    eval_launches = kernels.launches()
+    rows = [(r["tto"], r["psnr"], r["ssim"]) for r in ev["rows"]]
+    ee = ev["cfg"].expert
+    launches = {k: v + eval_launches[k] for k, v in train_launches.items()}
+    print(f"trainer: amp run ({' '.join(AMP_FLAGS)}) {AMP_STEPS} steps, "
+          f"loss_out {losses}; median step ms (host clock, start to start) "
+          f"{median(gaps):.2f}; use_bf16 {e.use_bf16} lines_bf16 "
+          f"{e.planes.lines_bf16}; eval --tto 0,1 (tto, psnr, ssim) {rows}; "
+          f"launches: train {train_launches}, eval {eval_launches}",
+          flush=True)
+    if not (e.use_bf16 and e.planes.lines_bf16 and ee.use_bf16
+            and ee.planes.lines_bf16) or [r[0] for r in rows] != [0, 1] or \
+            not all(math.isfinite(r[1]) for r in rows):
+        raise SystemExit("trainer: amp run: options not carried or eval "
+                         "rows not finite")
+    for k in ("plane_encode_fwd_lines_bf16",
+              "plane_encode_bwd_light_lines_bf16"):
+        if not eval_launches[k]:
+            raise SystemExit(f"trainer: amp eval: kernel {k} never launched")
+    launched = [k for k in AMP_IDLE if launches[k]]
+    if launched:
+        raise SystemExit(f"trainer: amp run: the float32 kernels {launched} "
+                         f"launched")
+    del ev
+    torch.cuda.empty_cache()
+    return launches
 
 
 OCC_RING = 8  # training cameras of the premark
@@ -3557,9 +3861,11 @@ def trainer(device):
     the gradients of steps 0 (stratified) and 18 (importance sampling)
     against the same steps through the plain path; a warm start from `last` for 4 more steps; 4 steps of the hash
     experts (the runner's default encoder at its default widths); 6
-    steps with `--algo maml` (`trainer_maml`); then
-    the eval and video phases on the main run's directory -> (launches of
-    the four runs, the eval phase's launches, the video phase's)."""
+    steps with `--algo maml` (`trainer_maml`); 6 steps with the
+    precision options and an eval from them (`amp_runner`); then the eval
+    and video phases on the main run's directory -> (launches of the four
+    runs, the eval phase's launches, the video phase's, the precision
+    runs')."""
     import json
     import shutil
     import tempfile
@@ -3721,13 +4027,14 @@ def trainer(device):
 
         maml = trainer_maml(base, tmp, device)
         launches = {k: v + maml[k] for k, v in launches.items()}
+        amp_run = amp_runner(base, tmp, device)
         print(f"trainer: phase took {time.perf_counter() - t_phase:.1f} s",
               flush=True)
         evaluated = eval_phase(device, tmp, run)
         filmed = video_phase(device, tmp, run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, evaluated, filmed
+    return launches, evaluated, filmed, amp_run
 
 
 EVAL_TTO = "0,1,10"  # configs/eval.json's --tto
@@ -7494,9 +7801,11 @@ def main() -> int:
     baked_n = baked(cfg, statics, params, device, results)
     light, trained, _ = train(cfg, statics, params, occ, batch, device)
     trunc_exp_check(cfg, statics, params, occ, batch, device, results)
+    amp_n = amp_phase(cfg, statics, params, occ, rays[:CHECK_RAYS], batch,
+                      device, results)
     occ_n = occupancy(cfg, statics, params, occ, batch, device)
     maml_n = maml_phase(cfg, statics, params, occ, batch, device, results)
-    trainer_n, eval_n, video_n = trainer(device)
+    trainer_n, eval_n, video_n, amp_run_n = trainer(device)
     hash_served, hash_light, hash_trained = hash_phase(
         statics, occ, rays[:CHECK_RAYS], batch, device, results)
     moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
@@ -7506,7 +7815,8 @@ def main() -> int:
              ("occupancy", occ_n), ("maml", maml_n), ("trainer", trainer_n),
              ("eval", eval_n),
              ("video", video_n), ("hash serve", hash_served),
-             ("hash train", hash_trained), ("moe", moe))
+             ("hash train", hash_trained), ("moe", moe), ("amp", amp_n),
+             ("amp runner", amp_run_n))
     for k in kernels.KERNELS:  # one line per kernel, with its launches
         n = k.name
         print(f"kernel {n}: launches={sum(p[n] for _, p in parts)} ("

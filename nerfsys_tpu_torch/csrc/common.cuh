@@ -6,6 +6,7 @@
 // never synchronise, allocate nothing, and return cudaGetLastError().
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +83,14 @@ static cudaError_t cached_resident(LaunchCache& cache, Kern kern, int threads,
     }
     *blocks = per_sm * it->second;
     return cudaSuccess;
+}
+
+// Round a float to bfloat16 (nearest even) and back: the reference's bf16
+// operands and residuals (planes.cu 1b, planes_bwd.cu 5 / 5b, planes_bwd2.cu
+// 5'', hash_grid.cu 7b). Under --fmad=false a product of two such values is
+// exact in float32.
+__device__ __forceinline__ float bf16_round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // ---------------------------------------------------------------------------

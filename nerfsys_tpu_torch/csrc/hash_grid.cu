@@ -83,8 +83,6 @@
 //     one level group of persistent blocks.
 #include "common.cuh"
 
-#include <cuda_bf16.h>
-
 #define HASH_MAX_LEVELS 32
 #define HASH_PRIME_Y 2654435761u
 #define HASH_PRIME_Z 805459861u
@@ -172,10 +170,6 @@ __device__ __forceinline__ float corner_weight(const float (&fr)[3], int i) {
 __device__ __forceinline__ long long slab_row(const HashLevels& lv, int k,
                                               int l) {
     return ((long long)k * lv.levels + l) << lv.log2_size;
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // One table row of F floats (the table 16-byte aligned, rows F*4 bytes).

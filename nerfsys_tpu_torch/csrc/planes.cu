@@ -41,6 +41,18 @@
 //     evict the tables from L2.
 // The launch plan (tile, threads, shared bytes, variant) is computed in
 // Python: nerfsys_tpu_torch/ops/planes.py `plane_fwd_plan`.
+//
+// Kernel 1b (`plane_encode_fwd_lines_bf16`) is the same body built with
+// LINES_BF16: the reference's bfloat16 line matmuls (`_linear_rows_mm` with
+// lines_mm_dtype='bfloat16', :224-266, reached from :288 under
+// lines_matmul) contract the (N, R) hat stencil, rounded to bfloat16,
+// against the line table rounded to bfloat16, in float32. A stencil row
+// has two nonzeros, so each line value is
+//   bf16(1 - fw) * bf16(l0) + bf16(fw) * bf16(l1)
+// where both products of 8-bit significands are exact in float32 and the
+// sum rounds once: the plain version's order gives the same bits. The
+// plane lookups are kernel 1's. Float32 line matmuls compute kernel 1's
+// function and run kernel 1.
 #include "common.cuh"
 
 #define PLANES_MAX_LEVELS 8
@@ -75,7 +87,7 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[VEC]) {
     }
 }
 
-template <int VEC>
+template <int VEC, bool LINES_BF16>
 __global__ void __launch_bounds__(512)
 plane_encode_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                         PlaneLevels lv, int N, int F, int tile) {
@@ -150,7 +162,8 @@ plane_encode_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
             l0 = lt + w0 * F;
             l1 = lt + w1 * F;
         }
-        const float aw = 1.0f - fw;
+        const float aw = LINES_BF16 ? bf16_round(1.0f - fw) : 1.0f - fw;
+        if (LINES_BF16) fw = bf16_round(fw);
 
         float* dst = os + p * D + lo * F;
         for (int f0 = 0; f0 < F; f0 += VEC) {
@@ -167,6 +180,13 @@ plane_encode_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
                 float m0[VEC], m1[VEC];
                 load_row<VEC>(l0 + f0, m0);
                 load_row<VEC>(l1 + f0, m1);
+                if (LINES_BF16) {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        m0[i] = bf16_round(m0[i]);
+                        m1[i] = bf16_round(m1[i]);
+                    }
+                }
 #pragma unroll
                 for (int i = 0; i < VEC; ++i)
                     r[i] = r[i] * (m0[i] * aw + m1[i] * fw);
@@ -194,29 +214,45 @@ plane_encode_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     }
 }
 
-template <int VEC>
+template <int VEC, bool LINES_BF16>
 static int launch_fwd(const float* x, float* out, PlaneLevels lv, int K,
                       int N, int F, PlanePlan plan, cudaStream_t stream) {
     cudaError_t e = cudaFuncSetAttribute(
-        plane_encode_fwd_kernel<VEC>,
+        plane_encode_fwd_kernel<VEC, LINES_BF16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
     if (e != cudaSuccess) return (int)e;
-    plane_encode_fwd_kernel<VEC>
+    plane_encode_fwd_kernel<VEC, LINES_BF16>
         <<<dim3(plan.blocks, K), plan.threads, plan.smem, stream>>>(
             x, out, lv, N, F, plan.tile);
     return (int)cudaGetLastError();
 }
 
-// x: (K, N, 3) unit-cube points; out: (K, N, 3 * levels * F).
-NERF_API int plane_encode_fwd(const float* x, float* out, PlaneLevels lv,
-                              int K, int N, int F, PlanePlan plan,
-                              cudaStream_t stream) {
+template <bool LINES_BF16>
+static int plane_fwd(const float* x, float* out, PlaneLevels lv, int K,
+                     int N, int F, PlanePlan plan, cudaStream_t stream) {
     if ((long long)K * N == 0 || lv.levels == 0)
         return (int)cudaGetLastError();
     if (plan.tile % 32 || plan.threads % 32 || plan.threads > 512 ||
         (long long)plan.blocks * plan.tile < N ||
         (plan.vec && F % 4))
         return (int)cudaErrorInvalidValue;
-    return plan.vec ? launch_fwd<4>(x, out, lv, K, N, F, plan, stream)
-                    : launch_fwd<1>(x, out, lv, K, N, F, plan, stream);
+    return plan.vec
+               ? launch_fwd<4, LINES_BF16>(x, out, lv, K, N, F, plan, stream)
+               : launch_fwd<1, LINES_BF16>(x, out, lv, K, N, F, plan, stream);
+}
+
+// x: (K, N, 3) unit-cube points; out: (K, N, 3 * levels * F).
+NERF_API int plane_encode_fwd(const float* x, float* out, PlaneLevels lv,
+                              int K, int N, int F, PlanePlan plan,
+                              cudaStream_t stream) {
+    return plane_fwd<false>(x, out, lv, K, N, F, plan, stream);
+}
+
+// Kernel 1b: as plane_encode_fwd, the line lerp from bfloat16 weights and
+// rows (the reference's bfloat16 line matmuls).
+NERF_API int plane_encode_fwd_lines_bf16(const float* x, float* out,
+                                         PlaneLevels lv, int K, int N, int F,
+                                         PlanePlan plan,
+                                         cudaStream_t stream) {
+    return plane_fwd<true>(x, out, lv, K, N, F, plan, stream);
 }

@@ -61,6 +61,15 @@
 //     more spinning).
 // A scalar variant (VEC=1) serves F % 4 != 0 and unaligned tables.
 //
+// Kernel 5b (`plane_encode_bwd_light_lines_bf16`) is kernel 5 built with
+// LINES_BF16, for the reference's bfloat16 line matmuls (`_linear_rows_mm`
+// :224-266): its light residuals are the forward's line values, which
+// that forward forms as bf16(1 - fw) * bf16(l0) + bf16(fw) * bf16(l1)
+// (kernel 1b's arithmetic), so the recomputed line value takes the same
+// rounding before its own bfloat16 rounding. The line nodes' weights stay
+// float32 (the one-hot contraction's, :375-379). The exact VJP regathers its
+// line values in float32 (:492-497), so kernel 6 serves either dtype.
+//
 // EXACT (kernel 6) keeps the recomputed plane and line values in float32
 // (the light mode rounds them to bfloat16) and also forms the position
 // gradient: each warp writes its 32 points' partials d/dfu, d/dfv, d/dfw
@@ -71,8 +80,6 @@
 // gx once per point, coalesced: no atomics and no zero fill. The wrapper
 // zeroes the (K, 3, R^2, F) and (K, 3, R, F) gradient tables.
 #include "common.cuh"
-
-#include <cuda_bf16.h>
 
 #define PLANES_MAX_LEVELS 8
 
@@ -101,10 +108,6 @@ struct PlanePlan {  // same layout as csrc/planes.cu
                                       // -1: the global path
     int sms;       // the card's SMs (the persistent-block cap)
 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // ---------------------------------------------------------------------------
 // Kernels 5 and 6: one body.
@@ -153,7 +156,7 @@ static __host__ __device__ __forceinline__ int partials_floats(
     return exact ? tile * LO * 3 : 0;
 }
 
-template <int VEC, bool EXACT>
+template <int VEC, bool EXACT, bool LINES_BF16>
 __global__ void __launch_bounds__(512)
 plane_encode_bwd_kernel(const float* __restrict__ x,
                         const float* __restrict__ ct, PlaneLevels lv,
@@ -270,6 +273,9 @@ plane_encode_bwd_kernel(const float* __restrict__ x,
                 sl = plan.line_ofs[l] + o * R * F;
             }
             const float aw = 1.0f - fw;
+            // 5b: the forward's bfloat16 stencil weights
+            const float awb = LINES_BF16 ? bf16_round(aw) : aw;
+            const float fwb = LINES_BF16 ? bf16_round(fw) : fw;
 
             const float* g = cs + (active ? p : 0) * D + lo * F;
             float dfu = 0.0f, dfv = 0.0f, dfw = 0.0f;  // EXACT: d/dfrac
@@ -291,7 +297,10 @@ plane_encode_bwd_kernel(const float* __restrict__ x,
                     for (int i = 0; i < VEC; ++i) {
                         const float bv = t00[i] * au * av + t01[i] * au * fv
                                        + t10[i] * fu * av + t11[i] * fu * fv;
-                        const float lval = m0[i] * aw + m1[i] * fw;
+                        const float lval =
+                            LINES_BF16 ? bf16_round(m0[i]) * awb
+                                             + bf16_round(m1[i]) * fwb
+                                       : m0[i] * aw + m1[i] * fw;
                         gp[i] = gv[i] * (EXACT ? lval : bf16_round(lval));
                         const float gl = gv[i] * (EXACT ? bv : bf16_round(bv));
                         c0[i] = aw * gl;
@@ -370,12 +379,12 @@ plane_encode_bwd_kernel(const float* __restrict__ x,
     }
 }
 
-template <int VEC, bool EXACT>
+template <int VEC, bool EXACT, bool LINES_BF16>
 static int launch_bwd(const float* x, const float* ct, PlaneLevels lv,
                       PlaneGrads gr, float* gx, int K, int N, int F,
                       PlanePlan plan, cudaStream_t stream) {
     static LaunchCache cache;
-    auto kern = plane_encode_bwd_kernel<VEC, EXACT>;
+    auto kern = plane_encode_bwd_kernel<VEC, EXACT, LINES_BF16>;
     int per_sm = 0;
     const cudaError_t e =
         cached_occupancy(cache, kern, plan.threads, plan.smem, &per_sm);
@@ -389,7 +398,7 @@ static int launch_bwd(const float* x, const float* ct, PlaneLevels lv,
     return (int)cudaGetLastError();
 }
 
-template <bool EXACT>
+template <bool EXACT, bool LINES_BF16>
 static int plane_bwd(const float* x, const float* ct, PlaneLevels lv,
                      PlaneGrads gr, float* gx, int K, int N, int F,
                      PlanePlan plan, cudaStream_t stream) {
@@ -409,10 +418,10 @@ static int plane_bwd(const float* x, const float* ct, PlaneLevels lv,
             need = max(need, lines_at + plan.line_ofs[l] +
                                  3LL * lv.res[l] * F);
     if (4 * need > plan.smem) return (int)cudaErrorInvalidValue;
-    return plan.vec
-               ? launch_bwd<4, EXACT>(x, ct, lv, gr, gx, K, N, F, plan, stream)
-               : launch_bwd<1, EXACT>(x, ct, lv, gr, gx, K, N, F, plan,
-                                      stream);
+    return plan.vec ? launch_bwd<4, EXACT, LINES_BF16>(x, ct, lv, gr, gx, K,
+                                                       N, F, plan, stream)
+                    : launch_bwd<1, EXACT, LINES_BF16>(x, ct, lv, gr, gx, K,
+                                                       N, F, plan, stream);
 }
 
 // x: (K, N, 3) unit-cube points; ct: (K, N, 3 * levels * F) cotangent.
@@ -421,7 +430,20 @@ NERF_API int plane_encode_bwd_light(const float* x, const float* ct,
                                     PlaneLevels lv, PlaneGrads gr, int K,
                                     int N, int F, PlanePlan plan,
                                     cudaStream_t stream) {
-    return plane_bwd<false>(x, ct, lv, gr, nullptr, K, N, F, plan, stream);
+    return plane_bwd<false, false>(x, ct, lv, gr, nullptr, K, N, F, plan,
+                                   stream);
+}
+
+// Kernel 5b: kernel 5's inputs; the line values recomputed from bfloat16
+// stencil weights and rows, as the bfloat16 line matmuls formed them.
+NERF_API int plane_encode_bwd_light_lines_bf16(const float* x,
+                                               const float* ct,
+                                               PlaneLevels lv, PlaneGrads gr,
+                                               int K, int N, int F,
+                                               PlanePlan plan,
+                                               cudaStream_t stream) {
+    return plane_bwd<false, true>(x, ct, lv, gr, nullptr, K, N, F, plan,
+                                  stream);
 }
 
 // As kernel 5's inputs, with an exact plan (its smem counts the position
@@ -431,5 +453,5 @@ NERF_API int plane_encode_bwd(const float* x, const float* ct,
                               PlaneLevels lv, PlaneGrads gr, float* gx, int K,
                               int N, int F, PlanePlan plan,
                               cudaStream_t stream) {
-    return plane_bwd<true>(x, ct, lv, gr, gx, K, N, F, plan, stream);
+    return plane_bwd<true, false>(x, ct, lv, gr, gx, K, N, F, plan, stream);
 }

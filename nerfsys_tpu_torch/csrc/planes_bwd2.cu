@@ -74,8 +74,6 @@
 // unaligned tables.
 #include "common.cuh"
 
-#include <cuda_bf16.h>
-
 #define PLANES_MAX_LEVELS 8
 #define BWD2_MAX_THREADS 288
 
@@ -102,10 +100,6 @@ struct PlanePlan {  // same layout as csrc/planes.cu
     int line_ofs[PLANES_MAX_LEVELS];  // kernels 5 and 6 only: unread here
     int sms;       // the card's SMs (the persistent-block cap)
 };
-
-__device__ __forceinline__ float bf16_round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // a table row's VEC floats, through the L2 alone
 template <int VEC>

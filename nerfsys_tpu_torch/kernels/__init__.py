@@ -227,6 +227,13 @@ PLANES_FWD = Kernel(
     [_P, _P, PlaneLevels, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:269 (_plane_encode_parts)",
 )
+PLANES_FWD_LINES_BF16 = Kernel(  # kernel 1b
+    "plane_encode_fwd_lines_bf16", "planes", "plane_encode_fwd_lines_bf16",
+    # the same arguments as plane_encode_fwd
+    [_P, _P, PlaneLevels, _I, _I, _I, PlanePlan, _P],
+    replaces="nerfsys_tpu/ops/planes.py:224-266 (_linear_rows_mm with "
+             "lines_mm_dtype='bfloat16', from _plane_encode_parts :288)",
+)
 
 
 class ProbePlan(ctypes.Structure):
@@ -333,6 +340,14 @@ PLANES_BWD_LIGHT = Kernel(
     # x, ct, levels, grads (by value), K, N, F, plan (by value), stream
     [_P, _P, PlaneLevels, PlaneGrads, _I, _I, _I, PlanePlan, _P],
     replaces="nerfsys_tpu/ops/planes.py:565 (_plane_encode_mm_light_bwd)",
+)
+PLANES_BWD_LIGHT_LINES_BF16 = Kernel(  # kernel 5b
+    "plane_encode_bwd_light_lines_bf16", "planes_bwd",
+    "plane_encode_bwd_light_lines_bf16",
+    # the same arguments as plane_encode_bwd_light
+    [_P, _P, PlaneLevels, PlaneGrads, _I, _I, _I, PlanePlan, _P],
+    replaces="nerfsys_tpu/ops/planes.py:565 (_plane_encode_mm_light_bwd on "
+             "the residuals of the bfloat16 line matmuls, :547-560)",
 )
 PLANES_BWD = Kernel(
     "plane_encode_bwd", "planes_bwd", "plane_encode_bwd",
@@ -541,7 +556,8 @@ KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
            HASH_FWD, HASH_FWD_PACKED, HASH_BWD, BUCKET_DISPATCH,
            BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT,
            OCC_QUERY, VOLREND_BWD2, PLANES_BWD2_LIGHT, PLANES_BWD2,
-           TRUNC_EXP_FWD, TRUNC_EXP_BWD, TRUNC_EXP_BWD2)
+           TRUNC_EXP_FWD, TRUNC_EXP_BWD, TRUNC_EXP_BWD2,
+           PLANES_FWD_LINES_BF16, PLANES_BWD_LIGHT_LINES_BF16)
 
 
 def reset_launches() -> None:

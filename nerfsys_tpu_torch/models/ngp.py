@@ -16,7 +16,11 @@ Parameters are a plain dict of tensors with the reference's layout. They
 may carry the K experts stacked on a leading axis (as the JAX pytree does);
 then `aabb` is (K, 2, 3), shared points (N, 3) map to (K, N, 3) unit
 coordinates and every output gains the leading K. The MLPs stay
-`torch.matmul`, as the reference leaves them to XLA.
+`torch.matmul`, as the reference leaves them to XLA. With `use_bf16` (the
+runner's --use_amp) they compute in bfloat16 as the reference's do
+(:154-165, :192-212): input, weights and biases cast to bfloat16, the bias
+added in bfloat16; the sigma and geo heads and the color MLP return
+float32 before trunc_exp and the sigmoid. Params stay float32.
 """
 from __future__ import annotations
 
@@ -61,6 +65,8 @@ class NGPConfig:
     planes: PlaneEncodingConfig = dataclasses.field(
         default_factory=PlaneEncodingConfig)
     enc_eps: float = 1e-6
+    # bfloat16 MLP compute (the reference's analogue of AMP autocast)
+    use_bf16: bool = False
 
     def __post_init__(self):
         if self.xyz_encoding not in ("hash", "planes"):
@@ -139,10 +145,20 @@ def world_to_unit(x: torch.Tensor, aabb: torch.Tensor,
     return torch.clamp(x01, eps, 1.0 - eps)
 
 
-def _mlp(x: torch.Tensor, layers, activate_last: bool = False):
+def _linear(x: torch.Tensor, lyr, dtype=None) -> torch.Tensor:
+    """x @ w + b; with `dtype`, w and b cast to it first."""
+    w, b = lyr["w"], lyr["b"]
+    if dtype is not None:
+        w, b = w.to(dtype), b.to(dtype)
+    return torch.matmul(x, w) + b.unsqueeze(-2)
+
+
+def _mlp(x: torch.Tensor, layers, activate_last: bool = False, dtype=None):
+    if dtype is not None:
+        x = x.to(dtype)
     n = len(layers)
     for i, lyr in enumerate(layers):
-        x = torch.matmul(x, lyr["w"]) + lyr["b"].unsqueeze(-2)
+        x = _linear(x, lyr, dtype)
         if activate_last or i < n - 1:
             x = torch.relu(x)
     return x
@@ -178,14 +194,14 @@ def ngp_density(params: Params, cfg: NGPConfig, aabb: torch.Tensor,
                   and hc.interpolation != "Nearest")
         h = hash_encode(params["hash_table"], x01, hc, packed=packed,
                         use_kernels=use_kernels)
-    h = _mlp(h, params["sigma_trunk"], activate_last=True)
-    sh = params["sigma_head"]
-    sigma_raw = torch.matmul(h, sh["w"]) + sh["b"].unsqueeze(-2)
+    dt = torch.bfloat16 if cfg.use_bf16 else None
+    h = _mlp(h, params["sigma_trunk"], activate_last=True, dtype=dt)
+    # exp needs float32's range
+    sigma_raw = _linear(h, params["sigma_head"], dt).float()
     sigma = trunc_exp(sigma_raw[..., 0])
     geo = None
     if return_feats:
-        gh = params["geo_head"]
-        geo = torch.matmul(h, gh["w"]) + gh["b"].unsqueeze(-2)
+        geo = _linear(h, params["geo_head"], dt).float()
     if lead is not None:
         sigma = sigma.reshape(lead)
         geo = None if geo is None else geo.reshape(*lead, -1)
@@ -199,7 +215,8 @@ def ngp_color(params: Params, cfg: NGPConfig, d: torch.Tensor,
     d_enc = encode_dir(d, cfg)
     d_enc = d_enc.expand(*geo_feat.shape[:-1], d_enc.shape[-1])
     h = torch.cat([geo_feat, d_enc], dim=-1)
-    rgb = _mlp(h, params["color_mlp"], activate_last=False)
+    rgb = _mlp(h, params["color_mlp"], activate_last=False,
+               dtype=torch.bfloat16 if cfg.use_bf16 else None).float()
     if cfg.use_sigmoid_rgb:
         rgb = torch.sigmoid(rgb)
     return rgb

@@ -106,9 +106,9 @@ def _launch_args(name: str, *tensors: torch.Tensor):
     x = tensors[0]
     for t in tensors:
         if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only on the card (every path "
-                            f"is float32; --use_amp is not ported), got "
-                            f"{t.dtype}")
+            raise TypeError(f"{name}: float32 only on the card (--use_amp "
+                            f"returns the sigma head to float32 before "
+                            f"trunc_exp), got {t.dtype}")
         if t.device != x.device or t.shape != x.shape:
             raise ValueError(f"{name}: inputs differ in device or shape")
     return (x.numel(), int(aligned(*tensors)), num_sms(x.device),

@@ -13,9 +13,13 @@ K experts' stacked on a leading axis, planes (K, 3, R^2, F) with points
 (K, N, 3) (each expert encodes its own unit-cube coordinates).
 
 Kernel 1 (`csrc/planes.cu`) computes this on the card;
-`plane_encode_plain` is the same function in plain PyTorch. Gradients go
-through `PlaneEncode`, whose backward is `csrc/planes_bwd.cu` (light mode
-when `pos_grad=False`, exact otherwise) or `plane_encode_bwd_plain`.
+`plane_encode_plain` is the same function in plain PyTorch. Under the
+reference's bfloat16 line matmuls (`lines_matmul` with
+`lines_mm_dtype='bfloat16'`, `_linear_rows_mm` :224) the line lerp takes
+bfloat16 weights and rows: kernel 1b, the same source's other
+instantiation. Gradients go through `PlaneEncode`, whose backward is
+`csrc/planes_bwd.cu` (light mode when `pos_grad=False`, kernel 5b under
+bfloat16 line matmuls; exact otherwise) or `plane_encode_bwd_plain`.
 Kernels 1, 5 and 6 take their launch geometry from `plane_fwd_plan` and
 `plane_bwd_plan`, plain functions of the shapes. Under create_graph (the
 MAML inner gradient) the backward is `PlaneEncodeBwd`, whose own backward
@@ -48,9 +52,9 @@ _ORIENTATIONS = ((0, 1, 2), (0, 2, 1), (1, 2, 0))
 
 @dataclasses.dataclass(frozen=True)
 class PlaneEncodingConfig:
-    """Static hyperparameters of the factorized plane/line encoder (the
-    architecture keys of the reference config; its TPU execution knobs have
-    no counterpart here)."""
+    """Static hyperparameters of the factorized plane/line encoder: the
+    architecture keys of the reference config and its line matmuls; its
+    other TPU execution knobs have no counterpart here."""
 
     levels: int = 3
     base_res: int = 128
@@ -62,6 +66,24 @@ class PlaneEncodingConfig:
     # False: the light backward (table gradients from bfloat16-rounded plane
     # and line values, zero position gradients); True: the exact backward
     pos_grad: bool = True
+    # The reference's line lookups as hat-stencil matmuls. In float32 they
+    # compute the gathers' function (kernel 1); in bfloat16 the two line
+    # weights and the two line rows are rounded to bfloat16 and their exact
+    # products summed in float32 (kernels 1b and 5b)
+    lines_matmul: bool = False
+    lines_mm_dtype: str = "float32"  # 'float32' | 'bfloat16'
+
+    def __post_init__(self):
+        if self.lines_mm_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"lines_mm_dtype={self.lines_mm_dtype!r}: "
+                             f"expected 'float32' or 'bfloat16'")
+
+    @property
+    def lines_bf16(self) -> bool:
+        """True when the line lookups round to bfloat16 (the reference reads
+        lines_mm_dtype only under lines_matmul)."""
+        return (self.lines_matmul and self.include_lines
+                and self.lines_mm_dtype == "bfloat16")
 
     def level_resolutions(self) -> List[int]:
         return [max(2, int(round(self.base_res * self.growth**l)))
@@ -109,9 +131,21 @@ def _as_stacked(params: Dict, x01: torch.Tensor):
     return planes, lines, x01.reshape(1, -1, 3), False
 
 
+def _line_value(ln: torch.Tensor, kidx, w0, w1, fw: torch.Tensor,
+                lines_bf16: bool) -> torch.Tensor:
+    """The line lerp l0 (1 - fw) + l1 fw; with lines_bf16 the reference's
+    bfloat16 hat-stencil matmul: both weights and both rows rounded to
+    bfloat16, their products exact in float32, one rounding in the sum."""
+    l0, l1 = ln[kidx, w0], ln[kidx, w1]
+    if lines_bf16:
+        return _bf16(1 - fw) * _bf16(l0) + _bf16(fw) * _bf16(l1)
+    return l0 * (1 - fw) + l1 * fw
+
+
 def plane_encode_plain(params: Dict, x01: torch.Tensor,
                        cfg: PlaneEncodingConfig) -> torch.Tensor:
-    """Plain PyTorch version of kernel 1 (same math, same float order)."""
+    """Plain PyTorch version of kernels 1 and 1b (same math, same float
+    order)."""
     lead = x01.shape[:-1]
     planes, lines, x, stacked = _as_stacked(params, x01)
     x = torch.clamp(x.to(torch.float32), 0.0, 1.0)
@@ -142,8 +176,8 @@ def plane_encode_plain(params: Dict, x01: torch.Tensor,
                 fw = (w - w0f)[..., None]
                 w0 = w0f.long()
                 w1 = torch.clamp(w0 + 1, max=R - 1)
-                ln = lines[l][:, o]  # (K, R, F)
-                bv = bv * (ln[kidx, w0] * (1 - fw) + ln[kidx, w1] * fw)
+                bv = bv * _line_value(lines[l][:, o], kidx, w0, w1, fw,
+                                      cfg.lines_bf16)
             feats.append(bv)
     out = torch.cat(feats, dim=-1)
     return out if stacked else out[0].reshape(*lead, cfg.out_dim)
@@ -300,8 +334,10 @@ def _bwd2_launch(n: int, k: int, res: Tuple[int, ...], features: int,
 def plane_encode_kernel(params: Dict, x01: torch.Tensor,
                         cfg: PlaneEncodingConfig) -> torch.Tensor:
     """Kernel 1's wrapper: the plain version for a CPU tensor; on a CUDA
-    tensor it launches `plane_encode_fwd` or raises. Not differentiable:
-    it raises under grad mode with inputs that require grad."""
+    tensor it launches `plane_encode_fwd` (kernel 1b,
+    `plane_encode_fwd_lines_bf16`, under bfloat16 line matmuls) or raises.
+    Not differentiable: it raises under grad mode with inputs that require
+    grad."""
     kernels.check_no_grad("plane_encode", x01, *_tables(params))
     if x01.device.type == "cpu":
         return plane_encode_plain(params, x01, cfg)
@@ -316,8 +352,10 @@ def plane_encode_kernel(params: Dict, x01: torch.Tensor,
                       device=x01.device)
     plan = plane_fwd_plan(N, cfg.level_resolutions(), cfg.features,
                           vec_ok=aligned(*planes, *(lines or ())))
-    kernels.PLANES_FWD(x.data_ptr(), out.data_ptr(), lv, K, N, cfg.features,
-                       plan.as_struct(), kernels.stream_ptr(x))
+    kern = (kernels.PLANES_FWD_LINES_BF16 if cfg.lines_bf16
+            else kernels.PLANES_FWD)
+    kern(x.data_ptr(), out.data_ptr(), lv, K, N, cfg.features,
+         plan.as_struct(), kernels.stream_ptr(x))
     return out if stacked else out[0].reshape(*lead, cfg.out_dim)
 
 
@@ -362,12 +400,15 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def plane_encode_bwd_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
                            cfg: PlaneEncodingConfig) -> GradTables:
-    """Plain PyTorch version of kernels 5 and 6: the VJP of plane_encode for
-    the cotangent `ct` (..., out_dim) -> (grad planes, grad lines or None,
-    grad x01), each shaped like its input.
+    """Plain PyTorch version of kernels 5, 5b and 6: the VJP of plane_encode
+    for the cotangent `ct` (..., out_dim) -> (grad planes, grad lines or
+    None, grad x01), each shaped like its input.
 
     pos_grad=False (light): table gradients from the plane and line values
-    rounded to bfloat16, grad x01 = 0. pos_grad=True (exact): float32 table
+    rounded to bfloat16 (the line values as the forward formed them, so
+    under bfloat16 line matmuls from bfloat16 operands: kernel 5b), grad
+    x01 = 0. pos_grad=True (exact; line values regathered in float32
+    whatever the forward's dtype, as the reference does): float32 table
     gradients and the position gradient, masked by 0 <= x <= 1 (inclusive).
     The table gradient is a scatter-add (`index_add_`) of the 4 corner and 2
     node contributions per point."""
@@ -410,10 +451,11 @@ def plane_encode_bwd_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
                 w1 = torch.clamp(w0 + 1, max=R - 1)
                 ln = lines[l][:, o]  # (K, R, F)
                 l0, l1 = ln[kidx, w0], ln[kidx, w1]
-                lval = l0 * (1 - fw) + l1 * fw
-                if cfg.pos_grad:
+                if cfg.pos_grad:  # the exact VJP regathers float32 lines
+                    lval = l0 * (1 - fw) + l1 * fw
                     gp, gl = g * lval, g * bv
-                else:
+                else:  # the forward's line values, as residuals
+                    lval = _line_value(ln, kidx, w0, w1, fw, cfg.lines_bf16)
                     gp, gl = g * _bf16(lval), g * _bf16(bv)
                 lbase = (kidx * 3 + o) * R
                 gln.index_add_(0, (lbase + w0).reshape(-1),
@@ -453,9 +495,10 @@ def _unstack_grads(g_planes, g_lines, gx, x01, stacked: bool) -> GradTables:
 def plane_encode_bwd_kernel(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
                             cfg: PlaneEncodingConfig) -> GradTables:
     """Kernels 5/6's wrapper: the plain version for a CPU tensor; on a CUDA
-    tensor it launches `plane_encode_bwd_light` (pos_grad=False) or
-    `plane_encode_bwd` (pos_grad=True) with `plane_bwd_plan`'s plan, or
-    raises."""
+    tensor it launches `plane_encode_bwd_light` (pos_grad=False; kernel 5b,
+    `plane_encode_bwd_light_lines_bf16`, under bfloat16 line matmuls) or
+    `plane_encode_bwd` (pos_grad=True, either line dtype) with
+    `plane_bwd_plan`'s plan, or raises."""
     kernels.check_no_grad("plane_encode_bwd", x01, ct, *_tables(params))
     if x01.device.type == "cpu":
         return plane_encode_bwd_plain(params, x01, ct, cfg)
@@ -500,8 +543,10 @@ def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
                            K, N, cfg.features, plan.as_struct(), stream)
     else:
         gx = torch.zeros_like(x)
-        kernels.PLANES_BWD_LIGHT(x.data_ptr(), ct.data_ptr(), lv, gr, K, N,
-                                 cfg.features, plan.as_struct(), stream)
+        kern = (kernels.PLANES_BWD_LIGHT_LINES_BF16 if cfg.lines_bf16
+                else kernels.PLANES_BWD_LIGHT)
+        kern(x.data_ptr(), ct.data_ptr(), lv, gr, K, N, cfg.features,
+             plan.as_struct(), stream)
     return _unstack_grads(g_planes, g_lines, gx, x01, stacked)
 
 
@@ -650,6 +695,11 @@ class PlaneEncodeBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, use_kernels, x01, ct, *tables):
+        if cfg.lines_bf16:
+            raise NotImplementedError(
+                "plane_encode: the second derivative under bfloat16 line "
+                "matmuls (kernel 5''b) is not ported (ROADMAP Queue 2 item "
+                "1, with MAML under these options, Queue 1 item 3)")
         ctx.set_materialize_grads(False)
         params = _params_of(tables, cfg)
         bwd = (plane_encode_bwd_kernel if use_kernels

@@ -127,13 +127,33 @@ def task_value_and_grad(meta: MetaConfig, cfg: ContainerConfig,
     return contrib.detach(), ((qloss * v).detach(), inner_last * v, v)
 
 
+def refuse_maml_precision(meta: MetaConfig, cfg: ContainerConfig) -> None:
+    """NotImplementedError for second-order MAML under a precision option
+    (bfloat16 MLPs, bfloat16 line matmuls): its second derivatives are not
+    held against the reference yet, and the encoder's needs kernel 5''b."""
+    if meta.algo != "maml":
+        return
+    planes = cfg.expert.xyz_encoding == "planes" and cfg.expert.planes
+    for name, on in (("--use_amp (bfloat16 MLPs)", cfg.expert.use_bf16),
+                     ("bfloat16 line matmuls (--plane_lines_mm "
+                      "--plane_lines_mm_dtype bfloat16)",
+                      bool(planes) and planes.lines_bf16)):
+        if on:
+            raise NotImplementedError(
+                f"--algo maml with {name} is not ported (ROADMAP Queue 1 "
+                f"item 7: MAML under the precision options, with kernel "
+                f"5''b)")
+
+
 def make_train_step(meta: MetaConfig, cfg: ContainerConfig,
                     optimizer: Optimizer, *, use_kernels: bool = True):
     """The outer step: (params, opt_state, statics, batch, generator,
     occ_state=None) -> (params, opt_state, metrics). maml and fomaml share
     the step body (the reference's `maml_like_step`); `task_adapt` decides
     the order. use_kernels=False runs the plain versions of every kernel
-    (the card's own reference)."""
+    (the card's own reference). MAML under a precision option raises
+    (`refuse_maml_precision`)."""
+    refuse_maml_precision(meta, cfg)
 
     def maml_like_step(params, opt_state, statics, batch, generator,
                     occ_state=None):

@@ -327,13 +327,16 @@ def _pack_cost_ratio(cfg: ContainerConfig, ray_samples: int,
     """The reference's probe-to-field cost ratio that decides between chunk
     skipping and ray packing (runtime_adapt.py:614-632 over
     `analytic_render_gather_rows_per_ray`, utils/flops.py:157, at its
-    defaults: 3 plane levels of packed corners, gathered lines, 128
-    probes; the union grid probes one row per probe point). It counts
-    gather rows per ray; the port keeps it so that its dispatcher picks
-    the reference's mode, not as a model of the H100."""
+    defaults: 3 plane levels of packed corners, 128 probes; the union grid
+    probes one row per probe point). Lines count 3 gathered rows a point,
+    or none under `lines_matmul` (hat-stencil matmuls, either dtype,
+    flops.py:192-194). It counts gather rows per ray; the port keeps it so
+    that its dispatcher picks the reference's mode, not as a model of the
+    H100."""
     g = 1 if active_expert is not None else cfg.num_experts
     probe_rows = 128.0 * (1 if union_probe else g)
-    rows = float(ray_samples * 3 * (3 + 3) * g) + probe_rows
+    line_rows = 0 if cfg.expert.planes.lines_matmul else 3
+    rows = float(ray_samples * 3 * (3 + line_rows) * g) + probe_rows
     if hard_mask:
         rows += ray_samples * g
     return probe_rows / max(rows - probe_rows, 1.0)

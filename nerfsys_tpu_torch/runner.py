@@ -31,12 +31,16 @@ the camera path and writes `<run_dir>/video_<path>.mp4`, or a PNG
 sequence when no mp4 encoder is available.
 
 Not ported, and refused at context build with the queue item that holds
-it: `--op view` (item 8), `--mesh_shape` and `--use_amp`
-(item 7), `--fim`, and the vanilla model, the
-frequency direction encoding and the fourier background encoding (item 7;
-the last three through the port's config classes). `--occ_probe_mask`
-(the hard mask from the probes' interval bits) runs for every op, and so
-does a checkpoint whose stored config sets it.
+it: `--op view` (item 8), `--mesh_shape` and `--fim` (item 7), the vanilla
+model, the frequency direction encoding and the fourier background
+encoding (item 7; the last three through the port's config classes), and
+for `--op train`, `--algo maml` together with a precision option (item 7,
+with kernel 5''b). `--occ_probe_mask` (the hard mask from the probes'
+interval bits) runs for every op, and so does a checkpoint whose stored
+config sets it. So do the precision options: `--use_amp` (bfloat16 MLPs)
+and `--plane_lines_mm` (line lookups as the reference's hat-stencil
+matmuls: in float32 kernel 1's function, with `--plane_lines_mm_dtype
+bfloat16` kernels 1b and 5b).
 """
 from __future__ import annotations
 
@@ -73,6 +77,7 @@ from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
 from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
     make_eval_step,
     make_train_step,
+    refuse_maml_precision,
 )
 from nerfsys_tpu_torch.pipelines.offline.trainer import meta_trainer
 from nerfsys_tpu_torch.pipelines.online.runtime_adapt import runtime_evaluate
@@ -93,23 +98,13 @@ def container_config_from_args(P) -> ContainerConfig:
     """The flat flag namespace onto the static model config; the port's
     config classes refuse what is not ported (the vanilla model, the
     frequency direction and fourier background encodings)."""
-    if getattr(P, "use_amp", False):
-        raise NotImplementedError(
-            "--use_amp (bfloat16 MLP compute) is not ported (ROADMAP Queue 1 "
-            "item 7)")
-    if (getattr(P, "plane_lines_mm", False)
-            and getattr(P, "plane_lines_mm_dtype", "float32") != "float32"):
-        # the reference reads the dtype only for its line matmuls
-        # (nerfsys_tpu/ops/planes.py:236,288); float32 ones are exact
-        raise NotImplementedError(
-            "--plane_lines_mm with --plane_lines_mm_dtype bfloat16 (bfloat16 "
-            "line matmuls) is not ported (ROADMAP Queue 1 item 7)")
     expert = NGPConfig(
         hidden=P.dim_hidden,
         sigma_depth=P.sigma_depth,
         color_hidden=P.color_hidden,
         color_depth=P.color_depth,
         dir_encoding=P.dir_encoding,
+        use_bf16=bool(getattr(P, "use_amp", False)),
         xyz_encoding="planes" if P.xyz_encoding == "planes" else "hash",
         hash=HashGridConfig(
             levels=getattr(P, "high_levels", 16),
@@ -130,6 +125,10 @@ def container_config_from_args(P) -> ContainerConfig:
             # positions never depend on trainable params on any runner
             # path, so the light backward is always valid here
             pos_grad=bool(getattr(P, "plane_pos_grad", False)),
+            # line lookups as hat-stencil matmuls (an execution strategy in
+            # float32; bfloat16 operands with the bfloat16 dtype)
+            lines_matmul=bool(getattr(P, "plane_lines_mm", False)),
+            lines_mm_dtype=getattr(P, "plane_lines_mm_dtype", "float32"),
         ),
     )
     return ContainerConfig(
@@ -245,6 +244,8 @@ def build_context(P, op: str) -> dict:
     P.cluster_2d = bool(clustering["cluster_2d"])
 
     cfg = container_config_from_args(P)
+    if op == "train":  # before the datasets: MAML under a precision option
+        refuse_maml_precision(meta_config_from_args(P), cfg)
     statics = ContainerStatics(
         centroids=torch.tensor(np.asarray(clustering["centroids"]),
                                dtype=torch.float32, device=device),

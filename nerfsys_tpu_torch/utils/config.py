@@ -17,10 +17,10 @@ trains; the tests pass `cpu`. The reference's TPU execution knobs
 `--line_pad_rows`, `--plane_scatter_bwd`, `--chunk_points`) and its
 `explicit_keys`, which only `chunk_points` read, have no counterpart: the
 parser does not take them, and a JSON or checkpoint config that sets them
-loads with those keys skipped. `--plane_lines_mm` is taken so that the
-runner can tell it set from unset: it refuses `--plane_lines_mm_dtype
-bfloat16` only together with it, the one case where the reference reads
-the dtype.
+loads with those keys skipped. `--plane_lines_mm` and
+`--plane_lines_mm_dtype` are taken and carried into the plane config (the
+reference reads the dtype only under `--plane_lines_mm`: its bfloat16
+line matmuls); `--use_amp` sets the experts' bfloat16 MLPs.
 
 Checkpoint configs are JSON ({tag}.config.json, utils.checkpoint); the
 loader also accepts the original implementation's pickled-argparse `.P`
@@ -274,9 +274,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plane_features", type=int, default=8)
     p.add_argument("--plane_no_lines", action="store_true")
     p.add_argument("--plane_lines_mm", action="store_true",
-                   help="the reference's line lookups as matmuls (an "
-                        "execution strategy); read only to refuse its "
-                        "bfloat16 form with --plane_lines_mm_dtype")
+                   help="line lookups as hat-stencil matmuls (in float32 "
+                        "the gathers' function; bfloat16 operands with "
+                        "--plane_lines_mm_dtype bfloat16)")
     p.add_argument("--plane_lines_mm_dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--plane_pos_grad", action="store_true",

@@ -90,48 +90,39 @@ def _fields(obj: Any, cls) -> Dict:
 # reference documents as computing the same function (nerfsys_tpu/models/
 # container.py:79-88 expert_map: lax.map vs vmap over the expert axis;
 # nerfsys_tpu/ops/planes.py:56-115: the matmul backward and its chunking,
-# zero-padded gather rows, the scatter backward, packed corner rows, float32
-# line matmuls and their chunking); and the occupancy grid's alpha-threshold
-# anneal and cone_angle (nerfsys_tpu/ops/occupancy.py:42-66): no renderer,
-# update or trainer of the reference reads them (only `anneal_alpha_thre`
-# :111, which nothing calls). `bwd_dtype` is the precision of the plane
+# zero-padded gather rows, the scatter backward, packed corner rows, the
+# line matmuls' chunking); and the occupancy grid's alpha-threshold anneal
+# and cone_angle (nerfsys_tpu/ops/occupancy.py:42-66): no renderer, update
+# or trainer of the reference reads them (only `anneal_alpha_thre` :111,
+# which nothing calls). `bwd_dtype` is the precision of the plane
 # backward's one-hot contraction: the reference forces it to float32 on
 # every backend but the TPU (nerfsys_tpu/ops/planes.py:461-465,576-578), and
-# the port computes that float32 math for either value. Every other key the
-# port lacks must hold the reference's default, or the import raises: it
-# would change the math.
+# the port computes that float32 math for either value. The line matmuls
+# themselves (`lines_matmul`, `lines_mm_dtype`) and the bfloat16 MLPs
+# (`use_bf16`) are carried. Every other key the port lacks must hold the
+# reference's default, or the import raises: it would change the math.
 DROPPED_KEYS = {
     "ContainerConfig": ("expert_map",),
     "NGPConfig": (),
     "PlaneEncodingConfig": ("matmul_bwd", "bwd_chunk", "bwd_dtype",
                             "pad_plane_rows", "pad_line_rows",
                             "bwd_scatter_min_res", "packed_corners",
-                            "lines_matmul", "lines_mm_chunk"),
+                            "lines_mm_chunk"),
     "HashGridConfig": (),
     "OccGridConfig": ("alpha_thre", "alpha_thre_start", "alpha_thre_end",
                       "cosine_anneal", "cone_angle"),
 }
 
-# Reference keys read only while another key is set: the line matmuls'
-# dtype, which only `_linear_rows_mm` reads, and only under `lines_matmul`
-# (nerfsys_tpu/ops/planes.py:236,288). Such a key is held to its default
-# only while its gate is set.
-GATED_KEYS = {"PlaneEncodingConfig": {"lines_mm_dtype": "lines_matmul"}}
-
 
 def _ported_fields(obj: Any, cls, path: str) -> Dict:
     """_fields, raising ValueError for a key of the reference config `obj`
-    that the port's `cls` lacks, that is not in DROPPED_KEYS, whose gate
-    in GATED_KEYS (if any) is set, and whose value differs from the
-    reference class's own default."""
+    that the port's `cls` lacks, that is not in DROPPED_KEYS, and whose
+    value differs from the reference class's own default."""
     have = {f.name for f in dataclasses.fields(cls)}
     dropped = DROPPED_KEYS[cls.__name__]
-    gates = GATED_KEYS.get(cls.__name__, {})
     if dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
             if f.name in have or f.name in dropped:
-                continue
-            if f.name in gates and not getattr(obj, gates[f.name]):
                 continue
             if f.default is not dataclasses.MISSING:
                 default = f.default
@@ -154,14 +145,22 @@ def container_config_from_jax(cfg: Any) -> ContainerConfig:
     the whole hash config (packed, tcnn_layout and interpolation included),
     bucketed routing with experts_per_point, capacity_factor and
     bucket_overflow_dense. Raises ValueError, naming the key, for a key
-    the port lacks whose value is not the reference's default (e.g.
-    expert.use_bf16=True, expert.planes.lines_mm_dtype='bfloat16' with
-    lines_matmul=True), except the execution knobs of DROPPED_KEYS
-    (expert_map and bwd_dtype among them), which are dropped on purpose,
-    and the keys of GATED_KEYS while their gate is off."""
+    the port lacks whose value is not the reference's default, except
+    the execution knobs of DROPPED_KEYS (expert_map and bwd_dtype among
+    them), which are dropped on purpose. The precision options
+    (expert.use_bf16, expert.planes.lines_matmul and lines_mm_dtype) are
+    carried; bfloat16 line matmuls with matmul_bwd=False raise ValueError:
+    that backward is autodiff of the bfloat16 dot, whose rounding no CPU
+    run of the reference shows (nerfsys_tpu/ops/planes.py:237-240)."""
     ek = _ported_fields(cfg.expert, NGPConfig, "expert")
     ek["planes"] = PlaneEncodingConfig(**_ported_fields(
         cfg.expert.planes, PlaneEncodingConfig, "expert.planes"))
+    if ek["planes"].lines_bf16 and not getattr(cfg.expert.planes,
+                                               "matmul_bwd", True):
+        raise ValueError(
+            "expert.planes.matmul_bwd=False with bfloat16 line matmuls: the "
+            "port has no counterpart (that backward is autodiff of the "
+            "bfloat16 dot)")
     ek["hash"] = HashGridConfig(**_ported_fields(
         cfg.expert.hash, HashGridConfig, "expert.hash"))
     ck = _ported_fields(cfg, ContainerConfig, "cfg")

@@ -336,26 +336,40 @@ def test_interop_carries_bucketed_keys_and_refuses_dropped_math():
     t = interop.container_config_from_jax(cfg)
     assert (t.bucketed, t.experts_per_point, t.capacity_factor,
             t.bucket_overflow_dense) == (True, 1, 1.3, False)
-    for bad, key in (
-            (dataclasses.replace(cfg, expert=dataclasses.replace(
-                expert, use_bf16=True)), "expert.use_bf16"),
-            (dataclasses.replace(cfg, expert=dataclasses.replace(
-                expert, planes=PlaneEncodingConfig(
-                    lines_mm_dtype="bfloat16", lines_matmul=True))),
-             "expert.planes.lines_mm_dtype")):
-        with pytest.raises(ValueError, match=key.replace(".", r"\.")):
-            interop.container_config_from_jax(bad)
-    # the reference reads lines_mm_dtype only under lines_matmul, and
-    # computes its plane backward in float32 whatever bwd_dtype says on
-    # every backend but the TPU: both import as the default config does
+    # the precision options import: bfloat16 MLPs and line matmuls of
+    # either dtype are carried (the port computes them)
+    amp = interop.container_config_from_jax(dataclasses.replace(
+        cfg, expert=dataclasses.replace(expert, use_bf16=True,
+                                        planes=PlaneEncodingConfig(
+                                            lines_mm_dtype="bfloat16",
+                                            lines_matmul=True))))
+    assert amp.expert.use_bf16 and amp.expert.planes.lines_bf16
+    # except bfloat16 line matmuls under the autodiff backward
+    # (matmul_bwd=False: the gradient of the bfloat16 dot)
+    bad = dataclasses.replace(cfg, expert=dataclasses.replace(
+        expert, planes=PlaneEncodingConfig(
+            lines_mm_dtype="bfloat16", lines_matmul=True, matmul_bwd=False)))
+    with pytest.raises(ValueError, match=r"expert\.planes\.matmul_bwd"):
+        interop.container_config_from_jax(bad)
+    # the reference reads lines_mm_dtype only under lines_matmul, float32
+    # line matmuls compute the gathers' function, and its plane backward
+    # runs in float32 whatever bwd_dtype says on every backend but the TPU:
+    # these import to configs that compute what the default one does
+    default = interop.container_config_from_jax(dataclasses.replace(
+        cfg, expert=dataclasses.replace(expert,
+                                        planes=PlaneEncodingConfig())))
     for planes in (PlaneEncodingConfig(lines_mm_dtype="bfloat16"),
                    PlaneEncodingConfig(lines_matmul=True),
+                   PlaneEncodingConfig(lines_matmul=True, matmul_bwd=False),
                    PlaneEncodingConfig(bwd_dtype="float32"),
                    PlaneEncodingConfig(bwd_dtype="bfloat16")):
-        ok = dataclasses.replace(cfg, expert=dataclasses.replace(
-            expert, planes=planes))
-        assert interop.container_config_from_jax(ok) == (
-            interop.container_config_from_jax(dataclasses.replace(
-                cfg, expert=dataclasses.replace(
-                    expert, planes=PlaneEncodingConfig()))))
+        ok = interop.container_config_from_jax(dataclasses.replace(
+            cfg, expert=dataclasses.replace(expert, planes=planes)))
+        assert (ok.expert.planes.lines_matmul, ok.expert.planes.lines_mm_dtype
+                ) == (planes.lines_matmul, planes.lines_mm_dtype)
+        assert not ok.expert.planes.lines_bf16
+        assert ok == dataclasses.replace(default, expert=dataclasses.replace(
+            default.expert, planes=dataclasses.replace(
+                default.expert.planes, lines_matmul=planes.lines_matmul,
+                lines_mm_dtype=planes.lines_mm_dtype)))
     assert "expert_map" in interop.DROPPED_KEYS["ContainerConfig"]

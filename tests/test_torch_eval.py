@@ -1,10 +1,13 @@
 """The port's eval op as a whole, against the JAX package's, on the
 prepared COLMAP test scene (tests/test_torch_data.py's `prepare_scene`).
 
-The JAX runner trains configs/train.json's model at test widths (K=4
+The port's runner trains configs/train.json's model at test widths (K=4
 planes experts L=1 base 8 F=4, hidden 8, soft importance occupancy R=16
-L=2, ready after the first update) for 2 steps and writes flax
-checkpoints; then both runners evaluate its `last` with configs/eval.json,
+L=2, ready after the first update) for 2 steps (held to the JAX runner's
+training in tests/test_torch_runner.py and test_torch_trainer.py); the
+JAX package writes its `last` params and grids as flax checkpoints with
+the JAX runner's config snapshot; then both runners evaluate that `last`
+with configs/eval.json,
 `--tto 0,1 --cap_images 1 --ray_samples 8 --support_rays 64` and LPIPS
 weights from `random_weights` (the JAX one through `evaluate`, the port
 through `runner.main(["--op", "eval", "--device", "cpu", ...])`).
@@ -47,11 +50,49 @@ def _scene_args(data_root):
             "--mask_dirname", "g22"]
 
 
+def _jax_checkpoint(port_run: Path, run_dir: Path, train_argv) -> None:
+    """The port run's trained `last` params and grids written by the JAX
+    package (flax msgpack), with the JAX runner's own config snapshot of
+    the same train flags."""
+    from nerfsys_tpu.ops.occupancy import OccGridConfig, init_occ_state
+    from nerfsys_tpu.utils import checkpoint as JCK
+    from nerfsys_tpu.utils.config import namespace_to_dict, parse_args
+
+    from nerfsys_tpu_torch.utils import interop
+
+    params = torch.load(port_run / "last.model", weights_only=True)
+    occ = torch.load(port_run / "last.occ", weights_only=True)
+    P = parse_args(train_argv)
+    JCK.save_checkpoint(run_dir, "last", interop.tree_to_numpy(params),
+                        config=namespace_to_dict(P), step=2)
+    jocc = init_occ_state(OccGridConfig(resolution=P.occ_resolution,
+                                        levels=P.occ_levels),
+                          P.num_submodules)
+    JCK.save_aux_state(run_dir, "last", "occ", {
+        k: np.asarray(occ[k].numpy(), np.asarray(v).dtype)
+        for k, v in jocc.items()})
+
+
+def _skip_jax_init(mp, params) -> None:
+    """The checkpoint replaces the JAX runner's init params: hand it these
+    (the same tree) instead of drawing them (eager JAX compiles each init
+    op), as tests/test_torch_video_runner.py does."""
+    import jax
+    import jax.numpy as jnp
+    from nerfsys_tpu import runner as JR
+
+    from nerfsys_tpu_torch.utils import interop
+
+    host = interop.tree_to_numpy(params)
+    mp.setattr(JR, "init_container_params", lambda key, cfg:
+               jax.tree_util.tree_map(jnp.asarray, host))
+
+
 @pytest.fixture(scope="module")
 def evals(colmap_scene, tmp_path_factory):  # noqa: F811
-    """(JAX rows, the port's ctx with its results, scene args, JAX run
-    dir, work dir)."""
-    from nerfsys_tpu.runner import build_context, evaluate, train
+    """(JAX rows, the port's ctx with its results, scene args, the JAX
+    checkpoint's dir, work dir)."""
+    from nerfsys_tpu.runner import build_context, evaluate
     from nerfsys_tpu.scripts.convert_lpips_weights import random_weights
     from nerfsys_tpu.utils.config import parse_args
 
@@ -65,13 +106,15 @@ def evals(colmap_scene, tmp_path_factory):  # noqa: F811
     with pytest.MonkeyPatch.context() as mp:
         mp.chdir(work)  # logs/ land in the work dir
         mp.setenv("NERFSYS_LPIPS_WEIGHTS", str(lpips_npz))
-        ctx = build_context(parse_args([
-            "--op", "train", "--configPath",
-            str(REPO / "configs" / "train.json"), *scene, *SMALL,
-            "--outer_steps", "2", "--save_step", "2", "--fname", "jax_run"]),
-            "train")
-        train(ctx)
-        run_dir = Path(ctx["run_dir"]).resolve()
+        train_argv = ["--op", "train", "--configPath",
+                      str(REPO / "configs" / "train.json"), *scene, *SMALL,
+                      "--outer_steps", "2", "--save_step", "2"]
+        port_run = Path(TR.main(train_argv + [
+            "--fname", "port_run", "--device", "cpu"])["run_dir"]).resolve()
+        run_dir = work / "jax_ckpt"
+        _jax_checkpoint(port_run, run_dir, train_argv)
+        _skip_jax_init(mp, torch.load(port_run / "last.model",
+                                      weights_only=True))
         argv = ["--op", "eval", *scene, *EVAL, "--checkpoint_path",
                 str(run_dir)]
         jrows = evaluate(build_context(parse_args(
@@ -170,6 +213,7 @@ def test_eval_with_probe_masks_matches_jax(evals, tmp_path, monkeypatch):
     monkeypatch.chdir(work)
     monkeypatch.setenv("NERFSYS_LPIPS_WEIGHTS", str(work /
                                                    "alex_random.npz"))
+    _skip_jax_init(monkeypatch, tctx["params"])
     j = evaluate(build_context(parse_args(argv + ["--fname", "jax_bits"]),
                                "eval"))[0]
     ctx = TR.main(argv + ["--fname", "port_bits", "--device", "cpu"])

@@ -281,7 +281,7 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 23
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 25
     assert len(kernels.SOURCES) == 15
     assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
@@ -308,13 +308,22 @@ def test_kernel_registry_covers_every_source():
     assert "--fmad=false" in kernels.SOURCES["planes_bwd2"][1]
     # row 12, trunc_exp: forward, backward and the backward's VJP, built
     # --fmad=false (bit-equal to the plain version)
-    assert kernels.KERNELS[20:] == (kernels.TRUNC_EXP_FWD,
-                                    kernels.TRUNC_EXP_BWD,
-                                    kernels.TRUNC_EXP_BWD2)
-    for k in kernels.KERNELS[20:]:
+    assert kernels.KERNELS[20:23] == (kernels.TRUNC_EXP_FWD,
+                                      kernels.TRUNC_EXP_BWD,
+                                      kernels.TRUNC_EXP_BWD2)
+    for k in kernels.KERNELS[20:23]:
         assert k.source.endswith("csrc/activations.cu")
         assert k.replaces.startswith("nerfsys_tpu/ops/activations.py:")
     assert "--fmad=false" in kernels.SOURCES["activations"][1]
+    # kernels 1b and 5b, the bfloat16 line matmuls: kernels 1 and 5's
+    # sources, built --fmad=false (products of bfloat16 values are exact)
+    assert kernels.KERNELS[23:] == (kernels.PLANES_FWD_LINES_BF16,
+                                    kernels.PLANES_BWD_LIGHT_LINES_BF16)
+    assert kernels.PLANES_FWD_LINES_BF16.source == kernels.PLANES_FWD.source
+    assert (kernels.PLANES_BWD_LIGHT_LINES_BF16.source
+            == kernels.PLANES_BWD_LIGHT.source)
+    for k in kernels.KERNELS[23:]:
+        assert k.replaces.startswith("nerfsys_tpu/ops/planes.py:")
     assert kernels.OCC_QUERY.source.endswith("csrc/occ_query.cu")
     assert "--fmad=false" in kernels.SOURCES["occ_query"][1]
     assert kernels.OCC_QUERY.replaces.startswith(

@@ -12,8 +12,11 @@ config; the port's `*_config_from_args` equal `interop.*_from_jax` of
 the JAX package's. The runner trains 2 steps of configs/train.json's
 model at test widths with soft importance occupancy (R=16, L=2), writes
 `last.*`, and its premarked grids equal the JAX package's premark of the
-same training cameras bit for bit.
+same training cameras bit for bit. The precision options (`--use_amp`,
+bfloat16 line matmuls, both) run train, eval and video from the
+checkpoint's stored config; `--algo maml` with either raises.
 """
+import dataclasses
 import json
 from pathlib import Path
 
@@ -162,9 +165,11 @@ def test_unported_ops_raise(data_root, op):
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_shape", "2"], "mesh_shape"),
-    (["--use_amp"], "use_amp"),
-    (["--plane_lines_mm", "--plane_lines_mm_dtype", "bfloat16"],
-     "plane_lines_mm_dtype"),
+    # the precision options are ported; MAML under them is not (item 7,
+    # with kernel 5''b)
+    (["--use_amp", "--algo", "maml"], r"use_amp.*item 7.*5''b"),
+    (["--plane_lines_mm", "--plane_lines_mm_dtype", "bfloat16", "--algo",
+      "maml", "--xyz_encoding", "planes"], r"plane_lines_mm_dtype.*item 7"),
     (["--fim"], "fim"),
     (["--nerf_variant", "vanilla"], "vanilla"),
     (["--dir_encoding", "frequency"], "frequency"),
@@ -184,21 +189,133 @@ def test_unported_flags_raise_at_context_build(data_root, flags, match):
 ])
 def test_line_matmul_dtype_refused_only_with_line_matmuls(flags, refused):
     """The reference reads --plane_lines_mm_dtype only with
-    --plane_lines_mm (its bfloat16 line matmuls); float32 ones compute
-    the gathers' function."""
+    --plane_lines_mm (its bfloat16 line matmuls, kernels 1b and 5b);
+    float32 ones compute the gathers' function. The flags are carried as
+    the JAX runner's container_config_from_args carries them; MAML refuses
+    the bfloat16 pair alone."""
+    from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        refuse_maml_precision,
+    )
+
     def parsed(extra):
         P = TC.parse_args(["--device", "cpu", "--xyz_encoding", "planes",
                            *extra])
         P.boundary_margin_effective, P.cluster_2d = 1.1, True
         return P
 
+    cfg = TR.container_config_from_args(parsed(flags))
+    planes = cfg.expert.planes
+    assert planes.lines_matmul == ("--plane_lines_mm" in flags)
+    assert planes.lines_mm_dtype == ("bfloat16" if "bfloat16" in flags
+                                     else "float32")
+    assert planes.lines_bf16 == refused
+    Pj = JC.parse_args(["--xyz_encoding", "planes", *flags])
+    Pj.boundary_margin_effective, Pj.cluster_2d = 1.1, True
+    jplanes = JR.container_config_from_args(Pj).expert.planes
+    assert (jplanes.lines_matmul, jplanes.lines_mm_dtype) == (
+        planes.lines_matmul, planes.lines_mm_dtype)
+    refuse_maml_precision(MetaConfig(algo="fomaml"), cfg)
     if refused:
         with pytest.raises(NotImplementedError,
-                           match="plane_lines_mm_dtype"):
-            TR.container_config_from_args(parsed(flags))
+                           match="plane_lines_mm_dtype bfloat16"):
+            refuse_maml_precision(MetaConfig(algo="maml"), cfg)
     else:
-        assert (TR.container_config_from_args(parsed(flags))
-                == TR.container_config_from_args(parsed([])))
+        refuse_maml_precision(MetaConfig(algo="maml"), cfg)
+        assert dataclasses.replace(planes, lines_matmul=False,
+                                   lines_mm_dtype="float32") == (
+            TR.container_config_from_args(parsed([])).expert.planes)
+
+
+PRECISION = {"amp": ["--use_amp"],
+             "lines_bf16": ["--plane_lines_mm", "--plane_lines_mm_dtype",
+                            "bfloat16"],
+             "both": ["--use_amp", "--plane_lines_mm",
+                      "--plane_lines_mm_dtype", "bfloat16"]}
+
+
+@pytest.fixture
+def one_thread():
+    """PyTorch's intra-op threads at 1 while the test runs: its tensors are
+    tiny, and under a loaded multi-worker run the 8-thread pool's parallel
+    regions cost far more than the work (46-65 s a case, against ~2 s on
+    one core)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("option", sorted(PRECISION))
+def test_precision_options_run_train_eval_video(data_root, tmp_path,
+                                               monkeypatch, option,
+                                               one_thread):
+    """--use_amp, bfloat16 line matmuls and both: a train run, then eval
+    (tto 0 and 1) and a video from its checkpoint. The options are not
+    architecture keys: eval takes them from the stored config under
+    --use_stored_args, the video from its own flags. Eval and video render
+    in chunks of 1,024 rays: the default pads a 64x48 image to ~3.1M
+    sample points a chunk, seconds of plain-version work on the CPU."""
+    from nerfsys_tpu_torch.pipelines import video_gen
+    from nerfsys_tpu_torch.pipelines.online import runtime_adapt
+    from nerfsys_tpu_torch.utils import checkpoint as ckpt
+    from nerfsys_tpu_torch.utils.tree import tree_leaves
+
+    monkeypatch.chdir(tmp_path)  # logs/ land in the tmp dir
+    for mod in (runtime_adapt, video_gen):
+        monkeypatch.setattr(mod, "default_chunk_rays", lambda *a, **k: 1024)
+    scene = [*_scene_args(data_root), *SMALL, "--xyz_encoding", "planes",
+             "--device", "cpu"]
+    ctx = TR.main(["--op", "train", "--configPath",
+                   str(REPO / "configs" / "train.json"), *scene,
+                   *PRECISION[option], "--outer_steps", "1", "--save_step",
+                   "1", "--fname", "run"])
+    run = Path(ctx["run_dir"])
+    want = (option != "lines_bf16", option != "amp")
+    assert (ctx["cfg"].expert.use_bf16,
+            ctx["cfg"].expert.planes.lines_bf16) == want
+    stored = json.loads((run / "last.config.json").read_text())
+    assert (stored["use_amp"], stored["plane_lines_mm"]) == want
+    params, _, _ = ckpt.load_checkpoint(run, "last", ctx["params"])
+    assert all(torch.isfinite(t).all() for t in tree_leaves(params))
+    ev = TR.main(["--op", "eval", *scene, "--checkpoint_path", str(run),
+                  "--prefix", "last", "--tto", "0,1", "--cap_images", "1",
+                  "--support_rays", "64", "--use_stored_args", "--fname",
+                  "eval"])
+    assert (ev["cfg"].expert.use_bf16,
+            ev["cfg"].expert.planes.lines_bf16) == want
+    assert [r["tto"] for r in ev["rows"]] == [0, 1]
+    assert all(np.isfinite(r["psnr"]) for r in ev["rows"])
+    if option == "both":
+        # the same params and grids as the JAX package writes them, with
+        # the JAX runner's own config snapshot of the same flags: they
+        # evaluate alike
+        from nerfsys_tpu.utils import checkpoint as JCK
+
+        jrun = tmp_path / "jax_ckpt"
+        Pj = JC.parse_args(["--op", "train", "--configPath",
+                            str(REPO / "configs" / "train.json"),
+                            *scene[:scene.index("--device")],
+                            *PRECISION[option], "--outer_steps", "1"])
+        JCK.save_checkpoint(jrun, "last", interop.tree_to_numpy(params),
+                            config=JC.namespace_to_dict(Pj), step=1)
+        occ = ckpt.load_aux_state(run, "occ", ev["occ_state"])
+        JCK.save_aux_state(jrun, "last", "occ", interop.tree_to_numpy(occ))
+        jev = TR.main(["--op", "eval", *scene, "--checkpoint_path",
+                       str(jrun), "--prefix", "last", "--tto", "0",
+                       "--cap_images", "1", "--support_rays", "64",
+                       "--use_stored_args", "--fname", "jax_eval"])
+        assert (jev["cfg"].expert.use_bf16,
+                jev["cfg"].expert.planes.lines_bf16) == want
+        assert jev["rows"][0]["psnr"] == ev["rows"][0]["psnr"]
+    vid = TR.main(["--op", "video", *scene, "--checkpoint_path", str(run),
+                   "--prefix", "last", "--camera_path", "turntable",
+                   "--video_frames", "2", "--cap_images", "1",
+                   "--downscale", "0.25", "--ray_samples", "4",
+                   *PRECISION[option], "--fname", "video"])
+    assert (vid["cfg"].expert.use_bf16,
+            vid["cfg"].expert.planes.lines_bf16) == want
+    assert Path(vid["video_path"]).exists()
 
 
 @pytest.mark.parametrize("op", ["train", "eval", "video"])
@@ -275,6 +392,11 @@ def test_runner_trains_on_the_cpu_and_premarks_like_jax(data_root, tmp_path,
     got, _ = TR.build_occupancy(tctx)
     Pj = JC.parse_args(argv[:argv.index("--device")]
                        + argv[argv.index("--device") + 2:])
+    # the premark reads no params: skip the JAX runner's init draw (eager
+    # JAX compiles each init op), as tests/test_torch_video_runner.py does
+    host = interop.tree_to_numpy(tctx["params"])
+    monkeypatch.setattr(JR, "init_container_params", lambda key, cfg:
+                        jax.tree_util.tree_map(jax.numpy.asarray, host))
     jctx = JR.build_context(Pj, "train")
     md = jctx["bundle"].train_metadata
     ocfg = JR.occ_config_from_args(Pj)

@@ -12,7 +12,8 @@ CPU fuses multiply-adds and moves probe cells.
 
 Tolerances: losses 1e-5 relative; gradients 1e-4 of each leaf's max (the
 inner loop feeds float32 rounding differences of the reverse sums through
-two SGD steps and the MLPs).
+two SGD steps and the MLPs). The step with bfloat16 MLPs (--use_amp) has
+its own, stated in its test.
 """
 from types import SimpleNamespace
 
@@ -213,6 +214,45 @@ def test_fomaml_steps_match_jax():
         for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
             assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= 1e-5
     assert {int(c) for c in ts["count"].values()} == {2}
+
+
+def test_fomaml_step_with_bf16_mlps_matches_jax():
+    """One outer step with --use_amp (NGPConfig.use_bf16: bfloat16 MLPs),
+    eager on both sides. Metrics within 1e-5 relative (measured equal: the
+    forward casts the fast weights to bfloat16, which absorbs the inner
+    steps' float32 differences); gradients within 2^-7 of each leaf's max
+    (measured <= 5.4e-3 on the biases, 2.3e-3 on a weight, tables 9.6e-5,
+    other weights equal): JAX on the CPU sums each bias's bfloat16
+    cotangent in bfloat16 (`lax.reduce`), PyTorch in float32, and the
+    inner SGD carries that into the query's gradients; grad_norm within
+    2e-3 relative (measured 1.1e-3); params after Adam within 1e-4
+    (measured 5.4e-5)."""
+    import dataclasses
+
+    cfg, params, statics, occ, batch = _setup()
+    cfg = dataclasses.replace(cfg, expert=dataclasses.replace(
+        cfg.expert, use_bf16=True))
+    meta = _meta()
+    jcfg = JO.OptimConfig(outer_steps=100)
+    tx = _Recording(JO.build_optimizer(jcfg, JCo.param_group_labels(params)))
+    opt = _Recording(TO.build_optimizer(interop.optim_config_from_jax(jcfg),
+                                        TCo.param_group_labels(params)))
+    (jp, jst, jocc, jb), (tcfg, tp, tst, tocc, tb) = _sides(
+        cfg, params, statics, occ, batch)
+    assert tcfg.expert.use_bf16
+    with jax.disable_jit():
+        jp, _, jm = JS.make_train_step(meta, cfg, tx)(
+            jp, tx.init(jp), jst, jb, jax.random.PRNGKey(0), jocc)
+    tp, _, tm = TS.make_train_step(interop.meta_config_from_jax(meta), tcfg,
+                                   opt)(tp, opt.init(tp), tst, tb,
+                                        torch.Generator(), tocc)
+    _metrics_close(tm, jm)
+    np.testing.assert_allclose(float(tm["grad_norm"]),
+                               float(jm["grad_norm"]), rtol=2e-3)
+    _close_rel(opt.grads[0], tx.grads[0], 2.0 ** -7)
+    assert all(float(g.abs().max()) > 0 for g in tree_leaves(opt.grads[0]))
+    for a, b in zip(tree_leaves(tp), jax.tree_util.tree_leaves(jp)):
+        assert float(np.abs(a.numpy() - np.asarray(b)).max()) <= 1e-4
 
 
 def test_train_step_plain_path_matches_kernel_path():
