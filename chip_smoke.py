@@ -181,28 +181,36 @@ printing its result lines):
    with their carries):
    every output within 1e-5 of its max (d acc and d bg of the max over
    rays of sum |w'| and max |G| times it: acc' cancels on opaque rays);
-   kernels 5'' and 6'' (the plane encoder's light and exact VJPs
-   differentiated again) on one expert's tables and on three draws at the
-   K=4 stack, every output within 1e-5 of its max (the tables against the
-   plain version's shares summed in float64), the light tables at least
-   twice that from the exact ones; device, back-to-back and plain times
-   beside the byte bounds (the distinct table rows read); and on kernel
-   5's adversarial inputs (`edge plane_encode_bwd2_light` / `edge
-   plane_encode_bwd2` lines: one cell, coordinates on and outside the
-   bounds, a tail tile, a single point, no lines, F=2 on the scalar path,
-   the K=4 stack, L=5 base 128; d ct bit-equal to the plain version, the
-   tables within 1e-5 of their max against the float64 sums, each line
-   with its plan and device time). Then
+   kernels 5'', 6'' and 5''b (the plane encoder's light and exact VJPs
+   differentiated again; 5''b the light one under bfloat16 line matmuls)
+   on one expert's tables and on three draws at the K=4 stack, every
+   output within 1e-5 of its max (the tables against the plain version's
+   shares summed in float64), the light tables at least twice that from
+   the exact ones, 5''b at least twice that from 5''; device,
+   back-to-back and plain times beside the byte bounds (the distinct
+   table rows read), 5''b and 5'' in turns on the same inputs; and on
+   kernel 5's adversarial inputs (`edge plane_encode_bwd2_light` / `edge
+   plane_encode_bwd2` / `edge plane_encode_bwd2_light_lines_bf16` lines:
+   one cell, coordinates on and outside the bounds, a tail tile, a single
+   point, no lines (not 5''b), F=2 on the scalar path, the K=4 stack, L=5
+   base 128; d ct bit-equal to the plain version, the tables within 1e-5
+   of their max against the float64 sums, each line with its plan and
+   device time). Then
    bench.py's step with algo="maml": its gradients through the kernels
    against the same step through the plain versions (2^-8 of each leaf's
    max), against the FoMAML step's from the same params and draws (they
    must differ by more than 2^-8 of a leaf's max, and the FoMAML step
-   launches no second-order kernel), 2 timed steps (host ms), peak
+   launches no second-order kernel), 1 timed step (host ms), peak
    memory, launches a step and one profiled step (device busy, idle
    share, 4'', 4', 5'', 5 watched); one exact-backward step (6''); the
-   runner's default hash experts: row 7c'' (kernel 7a on the table
-   cotangent) on the fused and packed paths against the plain path
-   within 1e-6, its device time, and one MAML step (7a, 7c, 4'').
+   same under both precision options (`maml amp` lines: kernels 1b, 5b,
+   5''b, 4, 4', 4'' and row 12's three launched, none of 1, 5, 5''; held
+   to the plain path within 2^-8; ms, peak memory, device busy, idle
+   share and the matrix products' ms; one exact-backward step, 6'' under
+   bfloat16 lines, profiled alike); the runner's default hash experts: row 7c'' (kernel
+   7a on the table cotangent) on the fused and packed paths against the
+   plain path within 1e-6, its device time, and one MAML step (7a, 7c,
+   4'').
 8. Trainer: the runner's train op in process (`runner.main`), on a
    prepared scene that the phase writes to a temporary directory in the
    dataset layout (coordinates.pt; train|val metadata .pt and .png rgbs;
@@ -227,9 +235,12 @@ printing its result lines):
    `last` (--outer_steps 40: start step 36, best and grids restored,
    params bit-equal to the saved ones, 4 more steps) and 4 steps of the
    hash experts at the runner's default widths (7a and 7c launched),
-   and 6 steps with `--algo maml` and an occupancy update every 2 steps
-   (loss finite, params moved, kernels 1-5, 4'' and 5'' launched, step 0
-   held to the plain path as above), all on 4 of the 16 training cameras
+   and 4 steps with `--algo maml` under both precision options
+   (`--use_amp --plane_lines_mm --plane_lines_mm_dtype bfloat16`) and an
+   occupancy update every 2 steps (loss finite, params moved, kernels 1b,
+   2-4, 5b, 4'', 5''b and row 12's launched, none of 1, 5, 5'', step 0
+   held to the plain path as above), then `--op eval --tto 0,1` from its
+   `last` over one val camera, all on 4 of the 16 training cameras
    (--cap_images 4: the host rebuilds each run's rays and routing, and
    no check reads them).
    Prints the scene's build seconds (dataset, routing, TaskDataset;
@@ -353,8 +364,9 @@ printing its result lines):
    times, peak memory and the dense-fallback count, and one chunk's
    gradient through the bucketed container against the plain path.
 12. A JSON line listing every kernel (launches, error, times, bound):
-   23 kernels from 15 libraries; every one must have launched in the
-   phases' runs.
+   26 kernels from 15 libraries; every one must have launched in the
+   phases' runs. Each phase prints its seconds (`phase <name>:` lines,
+   then one `phases (s):` line).
 13. The card line, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 
@@ -2038,13 +2050,12 @@ MATMUL_WORDS = ("gemm", "gemv", "nvjet")
 WATCHED = {}  # (label, watch words) -> (launches, device ms) of its rows
 
 
-def profile_report(label: str, prof, wall_ms: float, extra: str = "",
-                   watch=(), ranges=None) -> float:
-    """profile_device's report of a finished torch.profiler session that
-    spanned `wall_ms` of host time; returns the device busy ms."""
+def averaged_rows(prof, names=()):
+    """(device ms, name, launches) of every device event name with time in
+    a finished torch.profiler session, from `key_averages` (the profiler's
+    event tree), leaving out the ranges `names`."""
     from torch.autograd import DeviceType
 
-    names = set(ranges or ())
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.key in names:
@@ -2054,7 +2065,60 @@ def profile_report(label: str, prof, wall_ms: float, extra: str = "",
             dev_us = getattr(ev, "self_cuda_time_total", 0)
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.key, ev.count))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def device_rows(prof):
+    """`averaged_rows` summed straight from the session's kineto events:
+    a device event has no children, so its self time is its duration.
+    Building the event tree that `key_averages` reads took about 15 s a
+    profiled MAML step (tens of thousands of device events) on an H100
+    host, most of chip_smoke's time in profiles."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    sums = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or _filter_name(ev.name()) \
+                or ev.is_hidden_event():
+            continue
+        key = _rewrite_name(name=ev.name(), with_wildcard=True)
+        n, ns = sums.get(key, (0, 0))
+        sums[key] = (n + 1, ns + ev.end_ns() - ev.start_ns())
+    return sorted(((ns / 1e6, key, n) for key, (n, ns) in sums.items()
+                   if ns > 0), reverse=True)
+
+
+ROWS_HELD = []  # the label whose device_rows were held to averaged_rows
+
+
+def profile_report(label: str, prof, wall_ms: float, extra: str = "",
+                   watch=(), ranges=None) -> float:
+    """profile_device's report of a finished torch.profiler session that
+    spanned `wall_ms` of host time; returns the device busy ms. With
+    `ranges` the rows come from `averaged_rows` (the ranges' kernels need
+    the event tree), else from `device_rows`, held once to
+    `averaged_rows` (the same names and launches, ms within 1e-6)."""
+    from torch.autograd import DeviceType
+
+    names = set(ranges or ())
+    if ranges is not None:
+        rows = averaged_rows(prof, names)
+    else:
+        rows = device_rows(prof)
+        if not ROWS_HELD:
+            slow = averaged_rows(prof)
+            fast = {key: (n, ms) for ms, key, n in rows}
+            bad = [(key, n, ms, fast.get(key)) for ms, key, n in slow
+                   if key not in fast or fast[key][0] != n
+                   or abs(fast[key][1] - ms) > 1e-6 * max(ms, 1.0)]
+            if bad or len(slow) != len(rows):
+                raise SystemExit(f"profile: {label}: the kineto events' "
+                                 f"sums disagree with key_averages: {bad}")
+            print(f"profile: {label}: device rows summed from the kineto "
+                  f"events equal key_averages' ({len(rows)} names, "
+                  f"{sum(r[2] for r in rows)} launches)", flush=True)
+            ROWS_HELD.append(label)
     busy_ms = sum(r[0] for r in rows)
     for name in names:
         evs = [ev for ev in prof.events()
@@ -2153,15 +2217,21 @@ def train(cfg, statics, params, occ, batch, device, label="train",
     meta = meta or train_meta()
     opt = build_optimizer(OptimConfig(outer_steps=10000),
                           param_group_labels(params))
-    step = make_train_step(meta, cfg, opt)
-    gen = torch.Generator(device=device).manual_seed(1)
+    # the warm-up step is also the kernel side of the plain-path check
+    # (grads_through_plain_match's seed); its gradients wait on the host
+    rec = GradRecorder(opt, keep=(0,))
+    step = make_train_step(meta, cfg, rec)
+    gen = torch.Generator(device=device).manual_seed(7)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    state = opt.init(params)
+    t_start = time.perf_counter()
+    state = rec.init(params)
     p, state, aux = step(params, state, statics, batch, gen, occ)  # warm-up
-    float(aux["loss_out"])
+    first = (float(aux["loss_out_meta"]),
+             [g.cpu() for g in tree_leaves(rec.grads.pop(0))])
+    secs = {"warm-up": time.perf_counter() - t_start}
 
     kernels.reset_launches()
     times, losses = [], []
@@ -2173,6 +2243,7 @@ def train(cfg, statics, params, occ, batch, device, label="train",
         if not math.isfinite(losses[-1]) or float(
                 aux["skipped_nonfinite"]) != 0.0:
             raise SystemExit(f"{label}: step not finite: {aux}")
+    secs["timed"] = sum(times)
     light = kernels.launches()
     peak = torch.cuda.max_memory_allocated()
     if meta.algo != "maml" and any(light[k] for k in MAML_NEW):
@@ -2183,6 +2254,7 @@ def train(cfg, statics, params, occ, batch, device, label="train",
     launches, step_x, loss_x = light, None, None
     if extra is not None:
         variant, name = extra
+        t1 = time.perf_counter()
         step_x = make_train_step(meta, variant(cfg), opt)
         _, _, aux_x = step_x(p, state, statics, batch, gen, occ)
         loss_x = float(aux_x["loss_out"])
@@ -2191,6 +2263,7 @@ def train(cfg, statics, params, occ, batch, device, label="train",
               flush=True)
         if not math.isfinite(loss_x) or float(aux_x["skipped_nonfinite"]):
             raise SystemExit(f"{label}: {name} step not finite")
+        secs[name] = time.perf_counter() - t1
     for k in need:
         if launches[k] <= 0:
             raise SystemExit(f"{label}: kernel {k} never launched")
@@ -2200,8 +2273,13 @@ def train(cfg, statics, params, occ, batch, device, label="train",
         raise SystemExit(f"{label}: {moved.count(False)} param leaves did "
                          f"not move")
 
-    kernel_side = grads_through_plain_match(meta, cfg, opt, statics, params,
-                                            occ, batch, device, label)
+    t1 = time.perf_counter()
+    kernel_side = grads_through_plain_match(
+        meta, cfg, opt, statics, params, occ, batch, device, label,
+        kernel_side=(first[0], [g.to(device) for g in first[1]]))
+    del first
+    secs["plain-path step"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     watch = (("volume_render_bwd_kernel",), ("volume_render_bwd2_kernel",),
              ("hash_fwd_kernel", "false"), ("hash_fwd_kernel", "true"),
              ("hash_bwd_kernel",), ("sample_tvals_kernel",),
@@ -2213,6 +2291,8 @@ def train(cfg, statics, params, occ, batch, device, label="train",
         profile_device(f"{label} {name} step", lambda: float(
             step_x(p, state, statics, batch, gen, occ)[2]["loss_out"]),
             watch=watch)
+    secs["profiles"] = time.perf_counter() - t1
+    secs["in all"] = time.perf_counter() - t_start
 
     ms = [1e3 * t for t in times]
     n_rays = TRAIN_K * TRAIN_B * (TRAIN_S * TRAIN_INNER + TRAIN_Q)
@@ -2226,7 +2306,8 @@ def train(cfg, statics, params, occ, batch, device, label="train",
           f"{peak / 2**30:.2f} GiB (max_memory_allocated over the warm-up "
           f"and timed steps, {before / 2**30:.2f} GiB held before them); "
           f"launches per step {per}"
-          + (f"; {name}_step_loss_out={loss_x:.6f}" if extra else ""),
+          + (f"; {name}_step_loss_out={loss_x:.6f}" if extra else "")
+          + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()),
           flush=True)
     return light, launches, kernel_side
 
@@ -2479,7 +2560,7 @@ AMP_TRAIN_KERNELS = AMP_SERVE_KERNELS + ("volume_render_bwd",
 AMP_IDLE = ("plane_encode_fwd", "plane_encode_bwd_light")  # their fp32 kin
 AMP_FLAGS = ("--use_amp", "--plane_lines_mm", "--plane_lines_mm_dtype",
              "bfloat16")
-AMP_STEPS = 6  # the runner's --op train steps with the precision options
+AMP_STEPS = 4  # the runner's --op train steps with the precision options
 AMP_FRAME_TOL = 0.05  # mean |amp - fp32| of a frame's rgb and acc
 
 
@@ -2712,11 +2793,7 @@ def amp_runner(base, tmp, device):
     bfloat16` on the written scene, then `--op eval --tto 0,1` from its
     `last` over one val camera; kernels 1b and 5b launched, 1 and 5 not
     -> the two runs' launches."""
-    import math
-
     import torch
-
-    from nerfsys_tpu_torch import kernels, runner
 
     ctx, probe = run_runner(base + [
         "--cap_images", str(TRAINER_CAP), *AMP_FLAGS,
@@ -2729,19 +2806,7 @@ def amp_runner(base, tmp, device):
     train_launches = dict(probe.launches)
     del ctx, probe
     torch.cuda.empty_cache()
-    kernels.reset_launches()
-    ev = runner.main([
-        "--op", "eval", "--configPath",
-        str(Path(__file__).resolve().parent / "configs" / "eval.json"),
-        "--data_path", str(tmp), "--data_dirname", "scene",
-        "--mask_dirname", "g22", "--downscale", "1.0",
-        "--checkpoint_path", str(tmp / "amp"), "--prefix", "last",
-        "--tto", "0,1", "--cap_images", "1", *AMP_FLAGS,
-        "--device", str(device), "--fname", str(tmp / "amp_eval"),
-        *REHEARSAL_EXTRA])
-    eval_launches = kernels.launches()
-    rows = [(r["tto"], r["psnr"], r["ssim"]) for r in ev["rows"]]
-    ee = ev["cfg"].expert
+    rows, eval_launches = options_eval("amp", tmp, device)
     launches = {k: v + eval_launches[k] for k, v in train_launches.items()}
     print(f"trainer: amp run ({' '.join(AMP_FLAGS)}) {AMP_STEPS} steps, "
           f"loss_out {losses}; median step ms (host clock, start to start) "
@@ -2749,22 +2814,51 @@ def amp_runner(base, tmp, device):
           f"{e.planes.lines_bf16}; eval --tto 0,1 (tto, psnr, ssim) {rows}; "
           f"launches: train {train_launches}, eval {eval_launches}",
           flush=True)
-    if not (e.use_bf16 and e.planes.lines_bf16 and ee.use_bf16
-            and ee.planes.lines_bf16) or [r[0] for r in rows] != [0, 1] or \
-            not all(math.isfinite(r[1]) for r in rows):
-        raise SystemExit("trainer: amp run: options not carried or eval "
-                         "rows not finite")
-    for k in ("plane_encode_fwd_lines_bf16",
-              "plane_encode_bwd_light_lines_bf16"):
-        if not eval_launches[k]:
-            raise SystemExit(f"trainer: amp eval: kernel {k} never launched")
+    if not (e.use_bf16 and e.planes.lines_bf16):
+        raise SystemExit("trainer: amp run: options not carried")
     launched = [k for k in AMP_IDLE if launches[k]]
     if launched:
         raise SystemExit(f"trainer: amp run: the float32 kernels {launched} "
                          f"launched")
+    return launches
+
+
+def options_eval(name, tmp, device):
+    """`--op eval --tto 0,1` over one val camera from the `last` of the
+    precision-options run `tmp / name`, the options carried -> ((tto, psnr,
+    ssim) rows, its launches); kernels 1b and 5b launched."""
+    import math
+
+    import torch
+
+    from nerfsys_tpu_torch import kernels, runner
+
+    kernels.reset_launches()
+    ev = runner.main([
+        "--op", "eval", "--configPath",
+        str(Path(__file__).resolve().parent / "configs" / "eval.json"),
+        "--data_path", str(tmp), "--data_dirname", "scene",
+        "--mask_dirname", "g22", "--downscale", "1.0",
+        "--checkpoint_path", str(tmp / name), "--prefix", "last",
+        "--tto", "0,1", "--cap_images", "1", *AMP_FLAGS,
+        "--device", str(device), "--fname", str(tmp / f"{name}_eval"),
+        *REHEARSAL_EXTRA])
+    launches = kernels.launches()
+    rows = [(r["tto"], r["psnr"], r["ssim"]) for r in ev["rows"]]
+    ee = ev["cfg"].expert
+    if not (ee.use_bf16 and ee.planes.lines_bf16) or [
+            r[0] for r in rows] != [0, 1] or not all(
+                math.isfinite(r[1]) for r in rows):
+        raise SystemExit(f"trainer: {name} eval: options not carried or "
+                         f"rows not finite: {rows}")
+    for k in ("plane_encode_fwd_lines_bf16",
+              "plane_encode_bwd_light_lines_bf16"):
+        if not launches[k]:
+            raise SystemExit(f"trainer: {name} eval: kernel {k} never "
+                             f"launched")
     del ev
     torch.cuda.empty_cache()
-    return launches
+    return rows, launches
 
 
 OCC_RING = 8  # training cameras of the premark
@@ -2959,12 +3053,22 @@ def occupancy(cfg, statics, params, occ, batch, device):
 
 
 MAML_NEW = ("volume_render_bwd2", "plane_encode_bwd2_light",
-            "plane_encode_bwd2", "trunc_exp_bwd2")  # 4'', 5'', 6'', 12''
+            "plane_encode_bwd2", "trunc_exp_bwd2",
+            "plane_encode_bwd2_light_lines_bf16")  # 4'', 5'', 6'', 12'', 5''b
+MAML_F32 = MAML_NEW[:4]  # those a float32 MAML step launches
+# the MAML step under both precision options: 1b, 5b, 5''b, 4, 4', 4'' and
+# row 12's three (and kernels 2, 3)
+AMP_MAML_KERNELS = AMP_TRAIN_KERNELS + (
+    "volume_render_bwd2", "plane_encode_bwd2_light_lines_bf16",
+    "trunc_exp_bwd2")
+AMP_MAML_IDLE = AMP_IDLE + ("plane_encode_bwd2_light",)  # float32 kin
 MAML_WATCHED = ("volume_render_fwd", "volume_render_bwd",
                 "volume_render_bwd2", "plane_encode_fwd",
                 "plane_encode_bwd_light", "plane_encode_bwd2_light",
                 "plane_encode_bwd", "plane_encode_bwd2", "hash_encode_fwd",
-                "hash_encode_bwd")
+                "hash_encode_bwd", "plane_encode_fwd_lines_bf16",
+                "plane_encode_bwd_light_lines_bf16",
+                "plane_encode_bwd2_light_lines_bf16")
 BWD2_TOL = 1e-5  # 4'', 5'' and 6'' against their plain versions (the
 # tables of 5'' and 6'' against the plain shares summed in float64)
 HASH_BWD2_TOL = 1e-6  # 7c'' (kernel 7a on the cotangent)
@@ -3139,9 +3243,14 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
         (f"K=4 stack draw {i}", stack, xk, rnd(xk.shape[0], P, D),
          cot(stack)) for i in range(3)]
     light = {}
-    for kern, pos_grad in ((kernels.PLANES_BWD2_LIGHT, False),
-                           (kernels.PLANES_BWD2, True)):
-        pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
+    pc16 = amp_cfg(cfg).expert.planes  # bfloat16 line matmuls
+    for kern, pc in ((kernels.PLANES_BWD2_LIGHT, dataclasses.replace(
+                          cfg.expert.planes, pos_grad=False)),
+                     (kernels.PLANES_BWD2, dataclasses.replace(
+                         cfg.expert.planes, pos_grad=True)),
+                     (kernels.PLANES_BWD2_LIGHT_LINES_BF16,
+                      dataclasses.replace(pc16, pos_grad=False))):
+        pos_grad = pc.pos_grad
         for label, tabs, x, ct, v in sides:
             got = PL.plane_encode_bwd2_kernel(tabs, x, ct, v, pc)
             want = PL.plane_encode_bwd2_plain(tabs, x, ct, v, pc,
@@ -3155,11 +3264,13 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
                                                     want32[i]))]
             errs = [(k, rel_err(a, w)) for k, a, w, _ in outs]
             abs_err = max(max_err(a, w) for _, a, w, _ in outs)
-            gap = ""
-            if pos_grad:
-                gap = "; light-exact gap/max " + " ".join(
-                    f"{k}={rel_err(a, w):.3e}" for (k, a, _, _), w in zip(
-                        outs, light[label]))
+            gap, vs = "", []
+            if pos_grad or pc.lines_bf16:  # against 5'''s plain version
+                vs = [rel_err(a, w) for (_, a, _, _), w in zip(
+                    outs, light[label])]
+                gap = ("; light-exact" if pos_grad else "; 5''b-5''") + (
+                    " gap/max " + " ".join(f"{k}={e:.3e}" for (
+                        k, _, _, _), e in zip(outs, vs)))
             else:
                 light[label] = [w for _, _, w, _ in outs]
             print(f"edge {kern.name} {label}: P={x.shape[-2]} "
@@ -3170,11 +3281,15 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
             if not all(e <= BWD2_TOL for _, e in errs):
                 raise SystemExit(f"kernel {kern.name} disagrees with its "
                                  f"plain version on {label}: {errs}")
-            if pos_grad and not min(rel_err(a, w) for (_, a, _, _), w in zip(
-                    outs[1:], light[label][1:])) > 2 * BWD2_TOL:
+            if pos_grad and not min(vs[1:]) > 2 * BWD2_TOL:
                 raise SystemExit(f"kernel {kern.name}: the light tables lie "
                                  f"within twice the tolerance of the exact "
                                  f"ones, so the check cannot tell them "
+                                 f"apart")
+            if pc.lines_bf16 and not max(vs) > 2 * BWD2_TOL:
+                raise SystemExit(f"kernel {kern.name}: 5''b lies within "
+                                 f"twice the tolerance of 5'' (the float32 "
+                                 f"lines), so the check cannot tell them "
                                  f"apart")
             if label != "one expert":
                 continue
@@ -3189,6 +3304,18 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
             n_bytes = (nbytes(x, ct, got[0], got[1], got[2])
                        + 2 * (plane_rows + line_rows) * row_bytes)
             b_ms, b_by = bound(n_bytes, P * 9 * pc.features * 60)
+            beside = ""
+            if pc.lines_bf16:  # 5''b and 5'' on the same inputs, in turns
+                p32 = dataclasses.replace(pc, lines_mm_dtype="float32")
+                turns = [(device_ms(lambda: PL.plane_encode_bwd2_kernel(
+                    tabs, x, ct, v, pc), 10),
+                          device_ms(lambda: PL.plane_encode_bwd2_kernel(
+                              tabs, x, ct, v, p32), 10)) for _ in range(3)]
+                beside = ("; device ms in turns (5''b, 5'') "
+                          + " ".join(f"({a:.4f}, {b:.4f})" for a, b in turns)
+                          + " in this call")
+                print(f"kernel {kern.name}: one expert at one inner step"
+                      f"{beside}", flush=True)
             results[kern.name] = dict(
                 max_abs_err=abs_err, ms=dev_ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by,
@@ -3205,20 +3332,21 @@ def check_maml_kernels(cfg, statics, params, occ, batch, device, results):
                 f"once, the distinct rows of P, L, vP and vL read: "
                 f"{plane_rows} plane and {line_rows} line rows of "
                 f"{row_bytes} B) bound_ms={b_ms:.4f} ({b_by}) at "
-                f"{HBM_BYTES_PER_S / 1e12:g} TB/s")
+                f"{HBM_BYTES_PER_S / 1e12:g} TB/s{beside}")
         del got, want, want32, outs
     plane_bwd2_edges(cfg, params, enc, x01, xk, device)
 
 
 def plane_bwd2_edges(cfg, params, enc, x01, xk, device):
-    """Kernels 5'' (light) and 6'' (exact) against their plain versions on
-    kernel 5's adversarial inputs at one inner step (one expert, 128,000
-    points unless stated): one cell (every lane of a warp on the same
-    rows), coordinates on and outside the bounds, a tail tile (P - 37), a
-    single point, no lines, F=2 (the scalar path), the K=4 experts
-    stacked and L=5 base 128. d ct bit-equal to the float32 plain
-    version, every table within 1e-5 of its max against the plain shares
-    summed in float64."""
+    """Kernels 5'' (light), 6'' (exact) and 5''b (light, bfloat16 line
+    matmuls) against their plain versions on kernel 5's adversarial inputs
+    at one inner step (one expert, 128,000 points unless stated): one
+    cell (every lane of a warp on the same rows), coordinates on and
+    outside the bounds, a tail tile (P - 37), a single point, no lines
+    (not for 5''b: without lines there is no line matmul), F=2 (the
+    scalar path), the K=4 experts stacked and L=5 base 128. d ct
+    bit-equal to the float32 plain version, every table within 1e-5 of
+    its max against the plain shares summed in float64."""
     import dataclasses
 
     import torch
@@ -3237,9 +3365,12 @@ def plane_bwd2_edges(cfg, params, enc, x01, xk, device):
     def cot(tabs):
         return {k: [rnd(*a.shape) for a in v] for k, v in tabs.items()}
 
-    for kern, exact in ((kernels.PLANES_BWD2_LIGHT.name, False),
-                        (kernels.PLANES_BWD2.name, True)):
-        pc = dataclasses.replace(cfg.expert.planes, pos_grad=exact)
+    for kern, exact, base in (
+            (kernels.PLANES_BWD2_LIGHT.name, False, cfg.expert.planes),
+            (kernels.PLANES_BWD2.name, True, cfg.expert.planes),
+            (kernels.PLANES_BWD2_LIGHT_LINES_BF16.name, False,
+             amp_cfg(cfg).expert.planes)):
+        pc = dataclasses.replace(base, pos_grad=exact)
         no_lines = dataclasses.replace(pc, include_lines=False)
         f2 = dataclasses.replace(pc, features=2)
         l5 = dataclasses.replace(pc, levels=5)
@@ -3262,6 +3393,8 @@ def plane_bwd2_edges(cfg, params, enc, x01, xk, device):
             ("stacked K=4", pc, stack, xk),
             ("L=5 base 128", l5, l5_tabs, x01))
         for label, c, tab, x in cases:
+            if pc.lines_bf16 and not c.lines_bf16:
+                continue  # no lines: no line matmul, kernel 5'' serves it
             ct = rnd(*x.shape[:-1], c.out_dim)
             v = cot(tab)
             got = PL.plane_encode_bwd2_kernel(tab, x, ct, v, c)
@@ -3385,15 +3518,18 @@ def maml_phase(cfg, statics, params, occ, batch, device, results):
     4'', 5'', 6'' against their plain versions (`check_maml_kernels`);
     bench.py's step at full width with algo="maml" (K=4 planes experts,
     B=3 tasks of 4,000 + 2,000 rays, 8 inner steps, 32 samples, the light
-    backward) through `train`: 2 timed steps with peak memory and
+    backward) through `train`: 1 timed step with peak memory and
     launches, one step with the exact backward (6''), one step's
     gradients through the kernels against the same step through
     `make_train_step(..., use_kernels=False)` (2^-8 of each leaf's max),
     one profiled step of each; the MAML gradient against the FoMAML
     gradient from the same params and draws (they must differ by more
-    than that gate, and the FoMAML step launches no 4'' or 5''); then the
-    runner's default hash experts: 7c'' checked and one timed MAML step
-    through `train` -> launches of the timed and exact-backward steps."""
+    than that gate, and the FoMAML step launches no 4'' or 5''); the same
+    MAML step under both precision options (`amp_cfg`: kernels 1b, 5b,
+    5''b; none of 1, 5, 5'' launched), held, timed and profiled alike with
+    its exact-backward step under bfloat16 lines (6 and 6'', no 5''b); then
+    the runner's default hash experts: 7c'' checked and one timed MAML step through
+    `train` -> launches of the timed and exact-backward steps."""
     import torch
 
     from nerfsys_tpu_torch import kernels
@@ -3410,7 +3546,9 @@ def maml_phase(cfg, statics, params, occ, batch, device, results):
           flush=True)
     _, launches, (lk, gk) = train(
         cfg, statics, params, occ, batch, device, label="maml",
-        need=TRAIN_KERNELS + MAML_NEW, meta=maml_meta(), timed=2)
+        need=TRAIN_KERNELS + MAML_F32, meta=maml_meta(), timed=1)
+    if launches["plane_encode_bwd2_light_lines_bf16"]:
+        raise SystemExit("maml: the float32 step launched kernel 5''b")
     rec = GradRecorder(build_optimizer(OptimConfig(outer_steps=10000),
                                        param_group_labels(params)))
     gen = torch.Generator(device=device).manual_seed(7)
@@ -3434,6 +3572,22 @@ def maml_phase(cfg, statics, params, occ, batch, device, results):
     torch.cuda.empty_cache()
     print(f"maml: planes steps and the FoMAML step at "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    amp, after, _ = train(amp_cfg(cfg), statics, params, occ, batch,
+                          device, label="maml amp", need=AMP_MAML_KERNELS,
+                          meta=maml_meta(), timed=1)
+    # its exact backward under bfloat16 lines: 6 and 6'', not 5''b
+    exact = {k: after[k] - amp[k] for k in after}
+    missed = [k for k in AMP_MAML_KERNELS if not amp[k]]
+    launched = [k for k in AMP_MAML_IDLE if after[k]]
+    if missed or launched or not (exact["plane_encode_bwd"] and exact[
+            "plane_encode_bwd2"]) or exact["plane_encode_bwd2_light_lines_bf16"]:
+        raise SystemExit(f"maml amp: the timed step missed {missed}, the "
+                         f"float32 kernels {launched} launched, or the exact "
+                         f"step did not take 6 and 6'' alone: {exact}")
+    amp = after
+    torch.cuda.empty_cache()
+    print(f"maml: the precision options' steps at "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     hcfg, hparams = hash_setup(device)
     hash_bwd2_check(hcfg, statics, hparams, occ, batch, device)
     hashed, _, _ = train(
@@ -3443,14 +3597,14 @@ def maml_phase(cfg, statics, params, occ, batch, device, results):
     del hparams
     torch.cuda.empty_cache()
     print(f"maml: phase took {time.perf_counter() - t0:.1f} s", flush=True)
-    return {k: launches[k] + hashed[k] for k in launches}
+    return {k: launches[k] + amp[k] + hashed[k] for k in launches}
 
 
 TRAINER_CAMS, TRAINER_VAL = 16, 2  # an aerial ring of training + val cameras
 TRAINER_W, TRAINER_H = 1000, 750  # a 12 MP drone photo at downscale 0.25
 TRAINER_FOCAL = 750.0
 TRAINER_STEPS, TRAINER_WARM_STEPS, TRAINER_HASH_STEPS = 36, 4, 4
-TRAINER_MAML_STEPS = 6  # --algo maml, an occupancy update every 2 steps
+TRAINER_MAML_STEPS = 4  # --algo maml, an occupancy update every 2 steps
 TRAINER_PROFILED = 18  # a loop step with an occupancy update after it
 TRAINER_CAP = 4  # training cameras of the warm-start and hash runs (their
 # checks do not depend on the data; the host builds the scene's rays anew)
@@ -3807,47 +3961,57 @@ def loop_checks(label, probe, n_steps, need):
 
 
 def trainer_maml(base, tmp, device):
-    """The trainer phase's `--algo maml` run: TRAINER_MAML_STEPS steps on
-    the written scene (`base`: the phase's runner flags) with an occupancy
-    update every 2 steps; the losses finite, the params moved, kernels
-    1-5, 4'' and 5'' launched, step 0 held to the plain path -> its
-    launches."""
+    """The trainer phase's `--algo maml` run on the written scene (`base`:
+    the phase's runner flags) under both precision options (AMP_FLAGS),
+    TRAINER_MAML_STEPS steps with an occupancy update every 2 steps: the
+    losses finite, the params moved, kernels 1b-5b, 4'', 5''b and row
+    12's second derivative launched and none of 1, 5, 5'', step 0 held to
+    the plain path; then `--op eval --tto 0,1` from its `last` (the
+    options from its flags) -> the run's and the eval's launches. The
+    float32 second-order path is driven by the maml phase's bench step."""
     import torch
 
     from nerfsys_tpu_torch.utils.tree import tree_leaves
 
+    name, n_steps = "maml", TRAINER_MAML_STEPS
     ctx, probe = run_runner(base + [
-        "--cap_images", str(TRAINER_CAP), "--algo", "maml",
+        "--cap_images", str(TRAINER_CAP), "--algo", "maml", *AMP_FLAGS,
         "--occ_warmup", "2", "--occ_update_interval", "2",
-        "--outer_steps", str(TRAINER_MAML_STEPS),
-        "--fname", str(tmp / "maml")])
-    losses = loop_checks("maml run", probe, TRAINER_MAML_STEPS,
-                         TRAINER_KERNELS + MAML_NEW[:2])
+        "--outer_steps", str(n_steps), "--fname", str(tmp / name)])
+    losses = loop_checks(f"{name} run", probe, n_steps, AMP_MAML_KERNELS)
     meta, cfg, opt = probe.meta_cfg
     f = probe.checked[0]
     moved = [not torch.equal(a, b) for a, b in zip(
         tree_leaves(probe.last_params), tree_leaves(f["params"]))]
-    if meta.algo != "maml" or not all(moved) or not probe.updates:
-        raise SystemExit(f"trainer: maml run: algo {meta.algo}, "
+    launched = [k for k in AMP_MAML_IDLE if probe.launches[k]]
+    if meta.algo != "maml" or not all(moved) or not probe.updates or (
+            cfg.expert.use_bf16, cfg.expert.planes.lines_bf16) != (
+            True, True) or launched:
+        raise SystemExit(f"trainer: {name} run: algo {meta.algo}, "
                          f"{moved.count(False)} param leaves did not move, "
-                         f"occupancy updates {probe.updates}")
+                         f"occupancy updates {probe.updates}, options "
+                         f"{cfg.expert.use_bf16} / "
+                         f"{cfg.expert.planes.lines_bf16}, float32 kernels "
+                         f"launched {launched}")
     grads_through_plain_match(
         meta, cfg, opt, f["statics"], f["params"], f["occ"], f["batch"],
-        device, "trainer maml run step 0 (stratified, the grid not yet "
+        device, f"trainer {name} run step 0 (stratified, the grid not yet "
         "ready)", kernel_side=(float(probe.steps[0]["aux"]["loss_out_meta"]),
                                tree_leaves(probe.rec.grads[0])),
         gen_state=f["gen_state"])
     gaps = [1e3 * (b["t"] - a["t"])
             for a, b in zip(probe.steps, probe.steps[1:])]
-    print(f"trainer: maml run (--algo maml) {TRAINER_MAML_STEPS} steps, "
-          f"loss_out {losses}; median step ms (host clock, start to start) "
-          f"{median(gaps):.2f}; occupancy updates "
-          f"{[(s, w, int(n)) for s, w, n in probe.updates]}; launches "
-          f"{probe.launches}", flush=True)
     launches = dict(probe.launches)
+    updates = [(s, w, int(n)) for s, w, n in probe.updates]
     del ctx, probe, f
     torch.cuda.empty_cache()
-    return launches
+    rows, evaled = options_eval(name, tmp, device)
+    print(f"trainer: {name} run (--algo maml {' '.join(AMP_FLAGS)}) {n_steps} "
+          f"steps, loss_out {losses}; median step ms (host clock, start to "
+          f"start) {median(gaps):.2f}; occupancy updates {updates}; eval "
+          f"--tto 0,1 from its last (tto, psnr, ssim) {rows}; launches: "
+          f"train {launches}, eval {evaled}", flush=True)
+    return {k: v + evaled[k] for k, v in launches.items()}
 
 
 def trainer(device):
@@ -3859,10 +4023,12 @@ def trainer(device):
     1000x750 cameras over a textured ground, 4 experts on a 2x2 ground
     Voronoi. 36 steps with 6 occupancy updates, evals and saves every 12;
     the gradients of steps 0 (stratified) and 18 (importance sampling)
-    against the same steps through the plain path; a warm start from `last` for 4 more steps; 4 steps of the hash
-    experts (the runner's default encoder at its default widths); 6
-    steps with `--algo maml` (`trainer_maml`); 6 steps with the
-    precision options and an eval from them (`amp_runner`); then the eval
+    against the same steps through the plain path; a warm start from
+    `last` for 4 more steps; 4 steps of the hash experts (the runner's
+    default encoder at its default widths); 4 steps with `--algo maml`
+    under both precision options and an eval from them (`trainer_maml`);
+    4 FoMAML steps with the precision options and an eval from them
+    (`amp_runner`); then the eval
     and video phases on the main run's directory -> (launches of the four
     runs, the eval phase's launches, the video phase's, the precision
     runs')."""
@@ -7783,6 +7949,15 @@ def main() -> int:
                                        "spill")):
                 print(f"build[{stem}]: {line.strip()}")
 
+    seconds = {}  # phase -> seconds, printed as each ends
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
     device = torch.device("cuda", 0)
     torch.manual_seed(SEED)
     cfg, statics, params, occ = bench_setup(device)
@@ -7790,25 +7965,37 @@ def main() -> int:
     md = pose((0.0, 0.0, 2.0))
     rays, _ = frame_rays(md.H, md.W, md.intrinsics, md.c2w,
                          aabb=statics.global_aabb.cpu().numpy())
-    results = check_kernels(cfg, statics, params, occ, rays[:CHECK_RAYS],
-                            device)
+    results = phase("check kernels", check_kernels, cfg, statics, params,
+                    occ, rays[:CHECK_RAYS], device)
     batch = train_batch(device)
-    check_train_kernels(cfg, statics, params, occ, batch, device, results)
-    served = serve(cfg, statics, params, occ, device)
-    cam = camera(cfg, statics, params, occ, device)
-    early = early_stop(cfg, statics, params, occ, rays[:CHECK_RAYS], device,
-                       results)
-    baked_n = baked(cfg, statics, params, device, results)
-    light, trained, _ = train(cfg, statics, params, occ, batch, device)
-    trunc_exp_check(cfg, statics, params, occ, batch, device, results)
-    amp_n = amp_phase(cfg, statics, params, occ, rays[:CHECK_RAYS], batch,
-                      device, results)
-    occ_n = occupancy(cfg, statics, params, occ, batch, device)
-    maml_n = maml_phase(cfg, statics, params, occ, batch, device, results)
-    trainer_n, eval_n, video_n, amp_run_n = trainer(device)
-    hash_served, hash_light, hash_trained = hash_phase(
-        statics, occ, rays[:CHECK_RAYS], batch, device, results)
-    moe = moe_phase(statics, occ, rays[:CHECK_RAYS], device, results)
+    phase("check train kernels", check_train_kernels, cfg, statics, params,
+          occ, batch, device, results)
+    served = phase("serve", serve, cfg, statics, params, occ, device)
+    cam = phase("camera", camera, cfg, statics, params, occ, device)
+    early = phase("early-stop", early_stop, cfg, statics, params, occ,
+                  rays[:CHECK_RAYS], device, results)
+    baked_n = phase("baked", baked, cfg, statics, params, device, results)
+    light, trained, _ = phase("train", train, cfg, statics, params, occ,
+                              batch, device)
+    phase("trunc_exp", trunc_exp_check, cfg, statics, params, occ, batch,
+          device, results)
+    amp_n = phase("amp", amp_phase, cfg, statics, params, occ,
+                  rays[:CHECK_RAYS], batch, device, results)
+    occ_n = phase("occupancy", occupancy, cfg, statics, params, occ, batch,
+                  device)
+    maml_n = phase("maml", maml_phase, cfg, statics, params, occ, batch,
+                   device, results)
+    trainer_n, eval_n, video_n, amp_run_n = phase("trainer", trainer,
+                                                  device)
+    hash_served, hash_light, hash_trained = phase(
+        "hash", hash_phase, statics, occ, rays[:CHECK_RAYS], batch, device,
+        results)
+    moe = phase("moe", moe_phase, statics, occ, rays[:CHECK_RAYS], device,
+                results)
+    print("phases (s): " + ", ".join(f"{k} {v:.1f}"
+                                     for k, v in seconds.items())
+          + f"; in all {sum(seconds.values()):.1f} s after the build",
+          flush=True)
 
     parts = (("serve", served), ("camera", cam), ("early-stop", early),
              ("baked", baked_n), ("train", trained),

@@ -2,9 +2,9 @@
 bucket dispatch), 10a-iii (the blend's transpose), 10b (the
 coherent-expert test), row 8 (the segment compositor), 11q (the
 occupancy point query), 5'' / 6'' (the plane encoder's double
-backward), 4'' (the compositor's double backward) and row 12
-(`trunc_exp`): variants of their CUDA sources, built beside the shipped
-libraries and timed through the shipped wrappers at the real shapes.
+backward), 4'' (the compositor's double backward), row 12
+(`trunc_exp`) and 5''b (5'' under bfloat16 line matmuls): variants of
+their CUDA sources, built beside the shipped libraries and timed through the shipped wrappers at the real shapes.
 
     python3 kernel_ab.py [--rounds 5] [--kernels OCC_QUERY ...] \
         [--first DIR]
@@ -32,7 +32,7 @@ serve chunk in each mode, at one inner step (K=1) and on a K=16 chunk,
 4'' at one inner step (4,000 x 32, the rgb upstream), row 12's forward
 at a frame call's 8,388,608 points and all three kernels at a bench
 step's 128,000 (the backward beside `torch.mul(g, y)`, its library
-call).
+call), 5''b at one inner step for one expert (5'' timed beside it).
 A variant that keeps the outputs is first held to the plain version on
 every case of its kernel (the sampler within 1e-5, the dispatch's integer
 outputs equal and its weights within 1e-6 on two calls, 10b's ids equal,
@@ -727,6 +727,46 @@ VARIANTS.update({
     "12 bwd: 128 threads a block, 32-bit indices, no back edges": (
         "activations", False, B_128 + B_INT_ONE_TRIP, {"act_threads": 128}),
 })
+# Kernel 5''b (5'''s body built with LINES_BF16), 1.47x 5'''s device time
+# on the same inputs: its two terms one at a time as 5'''s (timing only),
+# the rows rounded once at load, and 5'''s whole body behind 5''b's entry
+# point (timing only; the same wrapper, plan and inputs).
+B2B = {"kernel": "PLANES_BWD2_LIGHT_LINES_BF16"}
+B2B_LL = """                    const float lL =
+                        LINES_BF16 ? bf16_round(m0[i]) * awb
+                                         + bf16_round(m1[i]) * fwb
+                                   : m0[i] * aw + m1[i] * fw;"""
+B2B_ROWS = """                load_row<VEC>(lp + w0 * F + f0, m0);
+                load_row<VEC>(lp + w1 * F + f0, m1);
+"""
+VARIANTS.update({
+    "5''b: lval(L) from float32 rows and weights (timing only)": (
+        "planes_bwd2", True,
+        [(B2B_LL, "                    const float lL = m0[i] * aw + "
+                  "m1[i] * fw;")], B2B),
+    "5''b: the line scatter with float32 weights (timing only)": (
+        "planes_bwd2", True,
+        [("""                    c0[i] = awb * sl_[i];
+                    c1[i] = fwb * sl_[i];""",
+          """                    c0[i] = aw * sl_[i];
+                    c1[i] = fw * sl_[i];""")], B2B),
+    "5''b: the line rows rounded once at load": (
+        "planes_bwd2", False,
+        [(B2B_ROWS, B2B_ROWS + """                if (LINES_BF16)
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) {
+                        m0[i] = bf16_round(m0[i]);
+                        m1[i] = bf16_round(m1[i]);
+                    }
+"""),
+         (B2B_LL, """                    const float lL = LINES_BF16
+                        ? m0[i] * awb + m1[i] * fwb : m0[i] * aw + m1[i] * fw;""")],
+        B2B),
+    "5''b: 5'''s body behind its entry point (timing only)": (
+        "planes_bwd2", True,
+        [("    return bwd2<false, true>(", "    return bwd2<false, false>(")],
+        B2B),
+})
 # the kernel a variant of each library replaces unless it names another
 KERNEL_OF = {"occ_sample": "OCC_SAMPLE", "bucket": "BUCKET_DISPATCH",
              "coherent": "COHERENT_EXPERT", "composite_seg": "COMPOSITE_SEG",
@@ -741,7 +781,8 @@ CASES_OF = {"OCC_SAMPLE": (0, 1), "BUCKET_DISPATCH": (2, 3, 4),
             "PLANES_BWD2_LIGHT": (16, 18), "PLANES_BWD2": (17,),
             "PLANES_BWD_LIGHT": (19,), "PLANES_BWD": (20,),
             "VOLREND_BWD2": (21,), "TRUNC_EXP_BWD": (22, 23),
-            "TRUNC_EXP_FWD": (24, 25), "TRUNC_EXP_BWD2": (26,)}
+            "TRUNC_EXP_FWD": (24, 25), "TRUNC_EXP_BWD2": (26,),
+            "PLANES_BWD2_LIGHT_LINES_BF16": (27, 16)}
 
 
 def kernel_of(name: str) -> str:

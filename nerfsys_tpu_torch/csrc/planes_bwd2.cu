@@ -19,7 +19,17 @@
 // float32 values) and for kernel 5'' (light) the rounding to bfloat16: its
 // VJP multiplies by the bf16 residuals, and the cotangent that flows back
 // through their float32 -> bfloat16 conversion is itself rounded to
-// bfloat16 before it reaches the tables. Without lines G = scatter(ct)
+// bfloat16 before it reaches the tables. Kernel 5''b (LINES_BF16: the
+// light VJP on the residuals of the reference's bfloat16 line matmuls,
+// `_linear_rows_mm` :224-266) forms lval(L) as kernel 5b does, from
+// bfloat16 stencil weights and rows, and so scatters d L to the line nodes
+// with the bfloat16 weights bf16(1 - fw), bf16(fw): the transpose of that
+// stencil. The table's own rounding passes its cotangent straight through
+// and d L sums in float32 (the reference's TPU rounds that cotangent to
+// bfloat16 per 32,768-point chunk; ROADMAP Queue 3). lval(vL) keeps the
+// float32 weights: the light VJP scatters its line cotangent with float32
+// fractions. 6'' serves the exact VJP under either line dtype: it
+// regathers float32 lines. Without lines G = scatter(ct)
 // does not depend on the tables: d ct = bval(vP), d P = 0 (the wrapper's
 // zeros). Positions get no derivative: on every MAML path the points are
 // ray geometry (the wrapper refuses a second derivative when they require
@@ -128,7 +138,7 @@ __device__ __forceinline__ void add_row(unsigned peers, float (&v)[VEC],
     }
 }
 
-template <int VEC, bool EXACT>
+template <int VEC, bool EXACT, bool LINES_BF16>
 __global__ void __launch_bounds__(BWD2_MAX_THREADS)
 plane_encode_bwd2_kernel(const float* __restrict__ x,
                          const float* __restrict__ ct, PlaneLevels lv,
@@ -255,6 +265,9 @@ plane_encode_bwd2_kernel(const float* __restrict__ x,
             const int w0 = (int)w0f;
             const int w1 = min(w0 + 1, R - 1);
             const float aw = 1.0f - fw;
+            // 5''b: the bfloat16 stencil weights of the line matmul
+            const float awb = LINES_BF16 ? bf16_round(aw) : aw;
+            const float fwb = LINES_BF16 ? bf16_round(fw) : fw;
             const unsigned lm0 = __match_any_sync(
                 FULL_MASK, active ? w0 * lpp + h : dead);
             const unsigned lm1 = __match_any_sync(
@@ -295,7 +308,10 @@ plane_encode_bwd2_kernel(const float* __restrict__ x,
                                    + t10[i] * fu * av + t11[i] * fu * fv;
                     const float bV = v00[i] * au * av + v01[i] * au * fv
                                    + v10[i] * fu * av + v11[i] * fu * fv;
-                    const float lL = m0[i] * aw + m1[i] * fw;
+                    const float lL =
+                        LINES_BF16 ? bf16_round(m0[i]) * awb
+                                         + bf16_round(m1[i]) * fwb
+                                   : m0[i] * aw + m1[i] * fw;
                     const float lV = n0[i] * aw + n1[i] * fw;
                     out[i] = bV * (EXACT ? lL : bf16_round(lL))
                            + lV * (EXACT ? bP : bf16_round(bP));
@@ -313,8 +329,8 @@ plane_encode_bwd2_kernel(const float* __restrict__ x,
                 float c0[VEC], c1[VEC];
 #pragma unroll
                 for (int i = 0; i < VEC; ++i) {
-                    c0[i] = aw * sl_[i];
-                    c1[i] = fw * sl_[i];
+                    c0[i] = awb * sl_[i];
+                    c1[i] = fwb * sl_[i];
                 }
                 add_row<VEC>(lm0, c0, glp + w0 * F + f0, active, lane);
                 add_row<VEC>(lm1, c1, glp + w1 * F + f0, active, lane);
@@ -346,12 +362,12 @@ plane_encode_bwd2_kernel(const float* __restrict__ x,
     }
 }
 
-template <int VEC, bool EXACT>
+template <int VEC, bool EXACT, bool LINES_BF16>
 static int launch_bwd2(const float* x, const float* ct, PlaneLevels lv,
                        PlaneLevels vv, PlaneGrads gr, float* dct, int K,
                        int N, int F, PlanePlan plan, cudaStream_t stream) {
     static LaunchCache cache;
-    auto kern = plane_encode_bwd2_kernel<VEC, EXACT>;
+    auto kern = plane_encode_bwd2_kernel<VEC, EXACT, LINES_BF16>;
     int per_sm = 0;
     const cudaError_t e =
         cached_occupancy(cache, kern, plan.threads, plan.smem, &per_sm);
@@ -365,9 +381,10 @@ static int launch_bwd2(const float* x, const float* ct, PlaneLevels lv,
     return (int)cudaGetLastError();
 }
 
+template <bool EXACT, bool LINES_BF16>
 static int bwd2(const float* x, const float* ct, PlaneLevels lv,
                 PlaneLevels vv, PlaneGrads gr, float* dct, int K, int N,
-                int F, bool exact, PlanePlan plan, cudaStream_t stream) {
+                int F, PlanePlan plan, cudaStream_t stream) {
     if ((long long)K * N == 0 || lv.levels == 0)
         return (int)cudaGetLastError();
     if (plan.tile % 32 || plan.tile < 32 || plan.threads % 32 ||
@@ -379,15 +396,10 @@ static int bwd2(const float* x, const float* ct, PlaneLevels lv,
     const int D = 3 * lv.levels * F;
     if (4LL * plan.tile * (3LL * D + 6) > plan.smem)
         return (int)cudaErrorInvalidValue;
-    if (plan.vec)
-        return exact ? launch_bwd2<4, true>(x, ct, lv, vv, gr, dct, K, N, F,
-                                            plan, stream)
-                     : launch_bwd2<4, false>(x, ct, lv, vv, gr, dct, K, N, F,
-                                             plan, stream);
-    return exact ? launch_bwd2<1, true>(x, ct, lv, vv, gr, dct, K, N, F,
-                                        plan, stream)
-                 : launch_bwd2<1, false>(x, ct, lv, vv, gr, dct, K, N, F,
-                                         plan, stream);
+    return plan.vec ? launch_bwd2<4, EXACT, LINES_BF16>(
+                          x, ct, lv, vv, gr, dct, K, N, F, plan, stream)
+                    : launch_bwd2<1, EXACT, LINES_BF16>(
+                          x, ct, lv, vv, gr, dct, K, N, F, plan, stream);
 }
 
 // x: (K, N, 3) unit-cube points; ct and dct: (K, N, 3 * levels * F); lv:
@@ -402,7 +414,18 @@ NERF_API int plane_encode_bwd2_light(const float* x, const float* ct,
                                      PlaneGrads gr, float* dct, int K, int N,
                                      int F, PlanePlan plan,
                                      cudaStream_t stream) {
-    return bwd2(x, ct, lv, vv, gr, dct, K, N, F, false, plan, stream);
+    return bwd2<false, false>(x, ct, lv, vv, gr, dct, K, N, F, plan,
+                              stream);
+}
+
+// Kernel 5''b (the light VJP's derivative under bfloat16 line matmuls):
+// kernel 5'''s inputs; lval(L) and the line-node weights of d L from
+// bfloat16 stencil weights and rows, as kernel 5b recomputes them.
+NERF_API int plane_encode_bwd2_light_lines_bf16(
+    const float* x, const float* ct, PlaneLevels lv, PlaneLevels vv,
+    PlaneGrads gr, float* dct, int K, int N, int F, PlanePlan plan,
+    cudaStream_t stream) {
+    return bwd2<false, true>(x, ct, lv, vv, gr, dct, K, N, F, plan, stream);
 }
 
 // Kernel 6'' (the exact VJP's derivative):
@@ -410,5 +433,6 @@ NERF_API int plane_encode_bwd2(const float* x, const float* ct,
                                PlaneLevels lv, PlaneLevels vv, PlaneGrads gr,
                                float* dct, int K, int N, int F,
                                PlanePlan plan, cudaStream_t stream) {
-    return bwd2(x, ct, lv, vv, gr, dct, K, N, F, true, plan, stream);
+    return bwd2<true, false>(x, ct, lv, vv, gr, dct, K, N, F, plan,
+                             stream);
 }

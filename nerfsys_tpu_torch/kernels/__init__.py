@@ -366,6 +366,17 @@ PLANES_BWD2_LIGHT = Kernel(
              "_plane_encode_mm_light_bwd with its bf16 residuals :542: the "
              "second derivative MAML takes)",
 )
+PLANES_BWD2_LIGHT_LINES_BF16 = Kernel(  # kernel 5''b
+    "plane_encode_bwd2_light_lines_bf16", "planes_bwd2",
+    "plane_encode_bwd2_light_lines_bf16",
+    # the same arguments as plane_encode_bwd2_light
+    [_P, _P, PlaneLevels, PlaneLevels, PlaneGrads, _P, _I, _I, _I,
+     PlanePlan, _P],
+    replaces="nerfsys_tpu/ops/planes.py:565 (autodiff of "
+             "_plane_encode_mm_light_bwd through the bfloat16 line matmuls "
+             "_linear_rows_mm :224-266 that form its residuals :542-561: "
+             "the second derivative MAML takes under bfloat16 line matmuls)",
+)
 PLANES_BWD2 = Kernel(
     "plane_encode_bwd2", "planes_bwd2", "plane_encode_bwd2",
     # the same arguments as plane_encode_bwd2_light
@@ -557,7 +568,8 @@ KERNELS = (PLANES_FWD, OCC_PROBE_CDF, OCC_SAMPLE, VOLREND_FWD, VOLREND_BWD,
            BUCKET_COMBINE_FWD, BUCKET_COMBINE_BWD, COHERENT_EXPERT,
            OCC_QUERY, VOLREND_BWD2, PLANES_BWD2_LIGHT, PLANES_BWD2,
            TRUNC_EXP_FWD, TRUNC_EXP_BWD, TRUNC_EXP_BWD2,
-           PLANES_FWD_LINES_BF16, PLANES_BWD_LIGHT_LINES_BF16)
+           PLANES_FWD_LINES_BF16, PLANES_BWD_LIGHT_LINES_BF16,
+           PLANES_BWD2_LIGHT_LINES_BF16)
 
 
 def reset_launches() -> None:

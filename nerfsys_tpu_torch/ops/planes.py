@@ -24,7 +24,8 @@ Kernels 1, 5 and 6 take their launch geometry from `plane_fwd_plan` and
 `plane_bwd_plan`, plain functions of the shapes. Under create_graph (the
 MAML inner gradient) the backward is `PlaneEncodeBwd`, whose own backward
 is kernel 5'' or 6'' (`csrc/planes_bwd2.cu`, the table gradients'
-VJP; its plan `plane_bwd_plan(..., second=True)`, cached per shape) or
+VJP; kernel 5''b under bfloat16 line matmuls; its plan
+`plane_bwd_plan(..., second=True)`, cached per shape) or
 `plane_encode_bwd2_plain`.
 """
 from __future__ import annotations
@@ -553,18 +554,25 @@ def plane_encode_bwd_planned(params: Dict, x01: torch.Tensor,
 def plane_encode_bwd2_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
                             v_params: Dict, cfg: PlaneEncodingConfig,
                             sum_dtype: torch.dtype = torch.float32):
-    """Plain PyTorch version of kernels 5'' (pos_grad=False) and 6''
-    (pos_grad=True): the VJP of `plane_encode_bwd_plain`'s table gradients
-    for their cotangents `v_params` ({'planes': [...], 'lines': [...]},
-    shaped like the tables) -> (d ct shaped like ct, d planes, d lines or
-    None). Positions get none.
+    """Plain PyTorch version of kernels 5'' (pos_grad=False), 5''b
+    (pos_grad=False under bfloat16 line matmuls) and 6'' (pos_grad=True):
+    the VJP of `plane_encode_bwd_plain`'s table gradients for their
+    cotangents `v_params` ({'planes': [...], 'lines': [...]}, shaped like
+    the tables) -> (d ct shaped like ct, d planes, d lines or None).
+    Positions get none.
 
     With lines, per point and (level, orientation) block, R the bf16
     rounding of the light mode (the identity in exact mode):
     d ct = bval(vP) R(lval(L)) + lval(vL) R(bval(P)); the plane corners
     take R(ct lval(vL)), the line nodes R(ct bval(vP)), scattered with the
     interpolation weights (`index_add_`). Without lines d ct = bval(vP),
-    d P = 0. Kernel 1's arithmetic, in its order, for every value.
+    d P = 0. Kernel 1's arithmetic, in its order, for every value. 5''b:
+    lval(L) is the bfloat16 line matmul's (`_line_value`), and the line
+    nodes take its stencil weights bf16(1 - fw), bf16(fw) (the transpose
+    of the matmul; the table's rounding passes its cotangent straight
+    through, summed in float32); lval(vL) keeps float32 weights, as the
+    light VJP scatters with them. The exact mode regathers float32 lines
+    under either dtype.
     `sum_dtype`: the dtype the table gradients are summed and returned in
     (float64: the exact sums of the same float32 shares)."""
     planes, lines, x_raw, stacked = _as_stacked(params, x01)
@@ -572,6 +580,7 @@ def plane_encode_bwd2_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
     K, N = x_raw.shape[0], x_raw.shape[1]
     F = cfg.features
     rnd = (lambda t: t) if cfg.pos_grad else _bf16
+    mm_bf16 = cfg.lines_bf16 and not cfg.pos_grad  # 5''b
     ct = ct.reshape(K, N, cfg.out_dim).to(torch.float32)
     x = torch.clamp(x_raw.to(torch.float32), 0.0, 1.0)
     kidx = torch.arange(K, device=x.device)[:, None]
@@ -612,16 +621,18 @@ def plane_encode_bwd2_plain(params: Dict, x01: torch.Tensor, ct: torch.Tensor,
             w0 = w0f.long()
             w1 = torch.clamp(w0 + 1, max=R - 1)
             ln, vln = lines[l][:, o], vlines[l][:, o]
-            lval = ln[kidx, w0] * (1 - fw) + ln[kidx, w1] * fw
+            lval = _line_value(ln, kidx, w0, w1, fw, mm_bf16)
             lval_v = vln[kidx, w0] * (1 - fw) + vln[kidx, w1] * fw
             d_ct[..., blk] = bv_v * rnd(lval) + lval_v * rnd(bv)
             g = ct[..., blk]
             sp, sl = rnd(g * lval_v), rnd(g * bv_v)
             lbase = (kidx * 3 + o) * R
+            aw, bw = ((_bf16(1 - fw), _bf16(fw)) if mm_bf16
+                      else (1 - fw, fw))
             dln.index_add_(0, (lbase + w0).reshape(-1),
-                           ((1 - fw) * sl).reshape(-1, F).to(sum_dtype))
+                           (aw * sl).reshape(-1, F).to(sum_dtype))
             dln.index_add_(0, (lbase + w1).reshape(-1),
-                           (fw * sl).reshape(-1, F).to(sum_dtype))
+                           (bw * sl).reshape(-1, F).to(sum_dtype))
             pbase = (kidx * 3 + o) * (R * R)
             for r, wgt in zip(rows, (au * (av * sp), au * (fv * sp),
                                      fu * (av * sp), fu * (fv * sp))):
@@ -641,7 +652,9 @@ def plane_encode_bwd2_kernel(params: Dict, x01: torch.Tensor,
                              cfg: PlaneEncodingConfig):
     """Kernels 5'' / 6'' wrapper: the plain version for a CPU tensor; on a
     CUDA tensor it launches `plane_encode_bwd2_light` (pos_grad=False:
-    bf16 rounding) or `plane_encode_bwd2` (pos_grad=True) with
+    bf16 rounding; kernel 5''b, `plane_encode_bwd2_light_lines_bf16`,
+    under bfloat16 line matmuls) or `plane_encode_bwd2` (pos_grad=True,
+    either line dtype) with
     `plane_bwd_plan(..., second=True)`'s plan, cached per shape, or
     raises. Returns what `plane_encode_bwd2_plain` returns."""
     kernels.check_no_grad("plane_encode_bwd2", x01, ct, *_tables(params),
@@ -675,7 +688,12 @@ def plane_encode_bwd2_kernel(params: Dict, x01: torch.Tensor,
     _, struct = _bwd2_launch(N, K, tuple(cfg.level_resolutions()),
                              cfg.features, lines is not None, num_sms(dev),
                              vec, cfg.pos_grad)
-    kern = kernels.PLANES_BWD2 if cfg.pos_grad else kernels.PLANES_BWD2_LIGHT
+    if cfg.pos_grad:
+        kern = kernels.PLANES_BWD2
+    elif cfg.lines_bf16:
+        kern = kernels.PLANES_BWD2_LIGHT_LINES_BF16
+    else:
+        kern = kernels.PLANES_BWD2_LIGHT
     kern(x.data_ptr(), ct.data_ptr(), lv, vv, gr, d_ct.data_ptr(), K, N,
          cfg.features, struct, kernels.stream_ptr(x))
     if not stacked:
@@ -686,8 +704,8 @@ def plane_encode_bwd2_kernel(params: Dict, x01: torch.Tensor,
 
 class PlaneEncodeBwd(torch.autograd.Function):
     """The table gradients of `PlaneEncode` as a differentiable function of
-    the cotangent ct and the tables: forward kernel 5 or 6 (or
-    `plane_encode_bwd_plain`), backward kernel 5'' or 6'' (or
+    the cotangent ct and the tables: forward kernel 5, 5b or 6 (or
+    `plane_encode_bwd_plain`), backward kernel 5'', 5''b or 6'' (or
     `plane_encode_bwd2_plain`). Inputs after the two static ones: x01, ct,
     then the tables, planes first; outputs: the table gradients in that
     order. `PlaneEncode.backward` calls it under create_graph (MAML's inner
@@ -695,11 +713,6 @@ class PlaneEncodeBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, use_kernels, x01, ct, *tables):
-        if cfg.lines_bf16:
-            raise NotImplementedError(
-                "plane_encode: the second derivative under bfloat16 line "
-                "matmuls (kernel 5''b) is not ported (ROADMAP Queue 2 item "
-                "1, with MAML under these options, Queue 1 item 3)")
         ctx.set_materialize_grads(False)
         params = _params_of(tables, cfg)
         bwd = (plane_encode_bwd_kernel if use_kernels
@@ -733,7 +746,8 @@ class PlaneEncode(torch.autograd.Function):
     after the two static ones: x01, then the level tables, planes first,
     then lines; each gradient has its input's shape. Under create_graph
     the backward is `PlaneEncodeBwd`, differentiable again (kernels 5'' /
-    6''); otherwise it launches kernel 5 or 6 itself."""
+    6'', 5''b under bfloat16 line matmuls); otherwise it launches kernel
+    5, 5b or 6 itself."""
 
     @staticmethod
     def forward(ctx, cfg, use_kernels, x01, *tables):

@@ -33,14 +33,14 @@ sequence when no mp4 encoder is available.
 Not ported, and refused at context build with the queue item that holds
 it: `--op view` (item 8), `--mesh_shape` and `--fim` (item 7), the vanilla
 model, the frequency direction encoding and the fourier background
-encoding (item 7; the last three through the port's config classes), and
-for `--op train`, `--algo maml` together with a precision option (item 7,
-with kernel 5''b). `--occ_probe_mask` (the hard mask from the probes'
-interval bits) runs for every op, and so does a checkpoint whose stored
-config sets it. So do the precision options: `--use_amp` (bfloat16 MLPs)
-and `--plane_lines_mm` (line lookups as the reference's hat-stencil
-matmuls: in float32 kernel 1's function, with `--plane_lines_mm_dtype
-bfloat16` kernels 1b and 5b).
+encoding (item 7; the last three through the port's config classes).
+`--occ_probe_mask` (the hard mask from the probes' interval bits) runs for
+every op, and so does a checkpoint whose stored config sets it. So do the
+precision options, with every `--algo` (second-order MAML included):
+`--use_amp` (bfloat16 MLPs) and `--plane_lines_mm` (line lookups as the
+reference's hat-stencil matmuls: in float32 kernel 1's function, with
+`--plane_lines_mm_dtype bfloat16` kernels 1b and 5b, and 5''b under
+`--algo maml`).
 """
 from __future__ import annotations
 
@@ -77,7 +77,6 @@ from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
 from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
     make_eval_step,
     make_train_step,
-    refuse_maml_precision,
 )
 from nerfsys_tpu_torch.pipelines.offline.trainer import meta_trainer
 from nerfsys_tpu_torch.pipelines.online.runtime_adapt import runtime_evaluate
@@ -244,8 +243,6 @@ def build_context(P, op: str) -> dict:
     P.cluster_2d = bool(clustering["cluster_2d"])
 
     cfg = container_config_from_args(P)
-    if op == "train":  # before the datasets: MAML under a precision option
-        refuse_maml_precision(meta_config_from_args(P), cfg)
     statics = ContainerStatics(
         centroids=torch.tensor(np.asarray(clustering["centroids"]),
                                dtype=torch.float32, device=device),

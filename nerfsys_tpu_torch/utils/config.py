@@ -20,7 +20,8 @@ parser does not take them, and a JSON or checkpoint config that sets them
 loads with those keys skipped. `--plane_lines_mm` and
 `--plane_lines_mm_dtype` are taken and carried into the plane config (the
 reference reads the dtype only under `--plane_lines_mm`: its bfloat16
-line matmuls); `--use_amp` sets the experts' bfloat16 MLPs.
+line matmuls); `--use_amp` sets the experts' bfloat16 MLPs. Both run
+with every `--algo`, second-order MAML included.
 
 Checkpoint configs are JSON ({tag}.config.json, utils.checkpoint); the
 loader also accepts the original implementation's pickled-argparse `.P`

@@ -56,12 +56,13 @@ compositor's double backward) at one inner step (expert 0's support set,
 the sizes the main path launches it: the backward at a bench step's
 128,000 points beside `torch.mul(g, y)`, its library call, timed in the
 same worker, the forward at a frame call's 8,388,608 points and at a
-step's, the second derivative at a step's: each case's device time
+step's, the second derivative at a step's, and 5'' under bfloat16 line
+matmuls (5''b) for expert 0's tables: each case's device time
 (chip_smoke's `device_ms`) and back-to-back time; before the rounds
 each worker holds every case against its plain version (the sampler
 within 1e-5, the dispatch's integer outputs equal and its weights within
 1e-6 on two successive calls, 10b's ids equal, row 8 within 1e-5, 10a-iii
-and 11q equal, 5'' / 6'' within 1e-5 of each output's max against the
+and 11q equal, 5'' / 6'' / 5''b within 1e-5 of each output's max against the
 plain version's sums in float64, 5 / 6 within 1e-4, 4'' within 1e-5 of
 each output's max, row 12 bit for bit); then, one side
 after the other, each profiles ten dispatch calls and ten 10a-iii calls
@@ -211,7 +212,7 @@ KERNEL_CASES = ("sample chunk", "sample step", "dispatch K=4 E=1",
                 "planes bwd light step", "planes bwd exact step",
                 "volrend bwd2 step", "trunc_exp bwd step", "g * y step",
                 "trunc_exp fwd frame call", "trunc_exp fwd step",
-                "trunc_exp bwd2 step")
+                "trunc_exp bwd2 step", "planes bwd2 light lines_bf16 step")
 TRUNC_EXP_FRAME = 8_388_608  # a live frame's call: 65,536 x 32 x K=4
 QUERY_K16_PTS = 1 << 20  # the union grid build's chunk of points
 
@@ -429,11 +430,12 @@ def kernel_cases(cs, cfg, statics, params, occ, device):
                                       "bits")),
             (KERNEL_CASES[15], *query(k16_grids, k16_qpts, "bits")),
             *((KERNEL_CASES[16 + i], *case) for i, case in
-              enumerate(planes)),
+              enumerate(planes[:5])),
             (KERNEL_CASES[21], *bwd2_case(cs, cfg, statics, params, sn, sf,
                                           so, sd, scdf, su, device)),
             *((KERNEL_CASES[22 + i], *case) for i, case in
-              enumerate(trunc_exp_cases(cs, device)))]
+              enumerate(trunc_exp_cases(cs, device))),
+            (KERNEL_CASES[27], *planes[5])]
 
 
 def bwd2_case(cs, cfg, statics, params, near, far, o, d, cdf, u, device):
@@ -525,7 +527,8 @@ def plane_cases(cs, cfg, statics, params, pts, device):
     backward) at one inner step's 128,000 points (expert 0's support set
     through its probe: light, exact, and the light one on the K=4 stack)
     and of kernels 5 / 6 at the same points, with cotangents from seed
-    14. 5'' / 6'' are held to the plain version's shares summed in
+    14; last 5''b (the light one under bfloat16 line matmuls) on one
+    expert. 5'' / 6'' are held to the plain version's shares summed in
     float64 (d ct and every table within 1e-5 of its max), 5 / 6 to the
     plain version within 1e-4 of each table's max."""
     import dataclasses
@@ -547,8 +550,11 @@ def plane_cases(cs, cfg, statics, params, pts, device):
     def rnd(shape):
         return torch.randn(shape, device=device, generator=gen)
 
-    def bwd2(tabs, x, pos_grad):
+    def bwd2(tabs, x, pos_grad, lines_bf16=False):
         pc = dataclasses.replace(cfg.expert.planes, pos_grad=pos_grad)
+        if lines_bf16:
+            pc = dataclasses.replace(pc, lines_matmul=True,
+                                     lines_mm_dtype="bfloat16")
         ct = rnd((*x.shape[:-1], D))
         v = {k: [rnd(t.shape) for t in ts] for k, ts in tabs.items()}
         args = (tabs, x, ct, v, pc)
@@ -582,7 +588,8 @@ def plane_cases(cs, cfg, statics, params, pts, device):
         return (lambda: PL.plane_encode_bwd_kernel(*args)), check
 
     return [bwd2(one, x1, False), bwd2(one, x1, True), bwd2(stack, xk, False),
-            bwd(one, x1, False), bwd(one, x1, True)]
+            bwd(one, x1, False), bwd(one, x1, True),
+            bwd2(one, x1, False, lines_bf16=True)]
 
 
 def profile_frames(cs, cfg, statics, params, occ, device, root: Path):

@@ -47,6 +47,7 @@ from nerfsys_tpu_torch.models import ngp as TN
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 N = 500
 

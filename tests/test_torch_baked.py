@@ -34,6 +34,7 @@ from nerfsys_tpu_torch.ops import rays as TRays
 from nerfsys_tpu_torch.ops.scene_box import SceneBox
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 GBOX = np.array([[-2.5] * 3, [2.5] * 3], np.float32)
 

@@ -28,6 +28,7 @@ import torch
 from nerfsys_tpu.models import baked as JB
 from nerfsys_tpu_torch.models import baked as TB
 from test_torch_baked import _to_jax_table
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 LO = np.array([-1.0, -0.5, -1.5], np.float32)
 HI = np.array([1.0, 1.5, 0.5], np.float32)

@@ -38,6 +38,7 @@ import torch
 import chip_smoke as cs
 from nerfsys_tpu.models import container as JCo
 from nerfsys_tpu_torch.models import container as TCo
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 W_TOL = 1e-6
 

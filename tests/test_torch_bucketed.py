@@ -32,6 +32,7 @@ from nerfsys_tpu.ops.planes import PlaneEncodingConfig
 from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils.tree import tree_leaves
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _np_params(rng, cfg):

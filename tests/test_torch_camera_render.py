@@ -36,6 +36,7 @@ from nerfsys_tpu.models import occupancy as JMO
 from nerfsys_tpu.pipelines.online import runtime_adapt as JR
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from test_torch_baked import GBOX, _camera, _setup
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 SIDE = 16
 CHUNK = 100  # several chunks and a padded tail (256 = 2 x 100 + 56)

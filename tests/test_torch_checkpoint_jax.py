@@ -31,6 +31,7 @@ from nerfsys_tpu_torch.ops import occupancy as TOC
 from nerfsys_tpu_torch.utils import checkpoint as TCK
 from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils.tree import tree_leaves
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 K = 2
 

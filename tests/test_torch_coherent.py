@@ -30,6 +30,7 @@ from nerfsys_tpu.pipelines.online import runtime_adapt as JR
 from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 S = 8
 CHUNK = 128

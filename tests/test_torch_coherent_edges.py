@@ -29,6 +29,7 @@ import chip_smoke as cs
 from nerfsys_tpu.models import container as JCo
 from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.ops import volrend as TV
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 CASES = cs.coherent_edge_cases()
 IDS = [c[0].replace(" ", "_").replace(",", "") for c in CASES]

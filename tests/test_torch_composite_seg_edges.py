@@ -28,6 +28,7 @@ import chip_smoke as cs
 from nerfsys_tpu.ops import volrend as JV
 from nerfsys_tpu_torch.ops import volrend as TV
 from test_torch_volrend_edges import _seg_shift
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 JAX_TOL = 1e-6
 WALK_TOL = 1e-5

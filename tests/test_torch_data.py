@@ -26,6 +26,7 @@ from nerfsys_tpu_torch.data import dataset as TD
 from nerfsys_tpu_torch.data import loaders as TL
 from nerfsys_tpu_torch.data import ram_rays as TR
 from nerfsys_tpu_torch.data import task_dataset as TT
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 S, Q = 64, 32
 

@@ -33,6 +33,7 @@ from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import volrend as TV
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 S = 12  # samples per ray; the early-stop renderers split 3 + 9
 

@@ -38,6 +38,7 @@ from test_torch_runner import SMALL
 from nerfsys_tpu_torch import runner as TR
 from nerfsys_tpu_torch.utils import checkpoint as TCK
 from nerfsys_tpu_torch.utils.tree import tree_leaves
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 EVAL = ["--configPath", str(REPO / "configs" / "eval.json"),

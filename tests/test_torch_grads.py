@@ -29,6 +29,7 @@ from nerfsys_tpu_torch.ops import activations as TA
 from nerfsys_tpu_torch.ops import color_space as TC
 from nerfsys_tpu_torch.ops import planes as TP
 from nerfsys_tpu_torch.ops import volrend as TV
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _ties(seed=0, n=48, s=8):

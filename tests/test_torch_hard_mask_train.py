@@ -46,6 +46,7 @@ from test_torch_train import (
     _setup,
     _sides,
 )
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _render_pair(importance, k=1, cdf=False, probe_mask=False):

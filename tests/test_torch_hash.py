@@ -42,6 +42,7 @@ from nerfsys_tpu_torch.models import ngp as TN
 from nerfsys_tpu_torch.ops import encodings as TE
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 SMALL = dict(levels=4, min_res=4, max_res=32, log2_hashmap_size=10)
 FWD_TOL = 1e-6  # of the output's max: XLA's corner-sum order

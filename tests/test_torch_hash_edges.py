@@ -39,6 +39,7 @@ import torch
 
 from nerfsys_tpu.ops import encodings as JE
 from nerfsys_tpu_torch.ops import encodings as TE
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 SMALL = dict(levels=4, min_res=4, max_res=64, log2_hashmap_size=12)
 # the runner's default grid (container_config_from_args's flag defaults)

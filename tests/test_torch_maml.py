@@ -34,6 +34,7 @@ from nerfsys_tpu_torch.pipelines.offline import meta_core as TM
 from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
 from test_torch_train import _close_rel, _meta, _setup, _sides
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 GRAD_TOL = 1e-4  # of each leaf's max
 

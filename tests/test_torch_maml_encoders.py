@@ -34,6 +34,7 @@ from nerfsys_tpu_torch.ops import encodings as TE
 from nerfsys_tpu_torch.ops import planes as TP
 from test_torch_grads import _planes, _x
 from test_torch_hash import SMALL, _cfgs, _points
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 TOL = 1e-5  # of each output's max
 
@@ -217,6 +218,57 @@ def test_plane_bwd2_plain_is_autograd_of_bwd_plain(pos_grad, lines, stacked):
         b = torch.zeros_like(a) if b is None else b
         assert _rel(a.numpy(), b.numpy()) <= 1e-6
     assert (d_ln is None) == (not lines)
+
+
+def _straight_line_value(ln, kidx, w0, w1, fw, lines_bf16):
+    """`ops.planes._line_value` with the line rows rounded by a
+    straight-through (the same values; their cotangent unrounded)."""
+    l0, l1 = ln[kidx, w0], ln[kidx, w1]
+    if not lines_bf16:
+        return l0 * (1 - fw) + l1 * fw
+
+    def st(t):
+        return t + (TP._bf16(t) - t).detach()
+
+    return TP._bf16(1 - fw) * st(l0) + TP._bf16(fw) * st(l1)
+
+
+def _autograd_bwd2(tcfg, params, x, ct, v):
+    """d (tables, ct) of <v, plane_encode_bwd_plain(ct)> by autograd."""
+    tabs = {k: [_t(a, grad=True) for a in params[k]] for k in params}
+    c = _t(ct, grad=True)
+    with torch.enable_grad():
+        gp, gl, _ = TP.plane_encode_bwd_plain(tabs, _t(x), c, tcfg)
+        vs = [_t(a) for k in KEYS if k in v for a in v[k]]
+        leaves = [a for k in KEYS if k in tabs for a in tabs[k]]
+        return torch.autograd.grad(
+            sum((a * b).sum() for a, b in zip(gp + gl, vs)), leaves + [c])
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["K1", "K2"])
+def test_plane_bwd2_plain_is_autograd_of_bwd_plain_under_bf16_lines(
+        stacked, monkeypatch):
+    """Kernel 5''b's plain version (the light mode under bfloat16 line
+    matmuls) equals autograd through kernel 5b's plain version with the
+    line table's rounding a straight-through, the port's decision (its
+    cotangent sums in float32): within 1e-6 of each output's max. With
+    the cast's own autograd (which rounds that cotangent to bfloat16) the
+    line tables differ by more."""
+    _, tcfg, params, x, ct, v = _plane_setup(False, True, stacked, seed=3)
+    tcfg = dataclasses.replace(tcfg, lines_matmul=True,
+                               lines_mm_dtype="bfloat16")
+    d_ct, d_pl, d_ln = TP.plane_encode_bwd2_plain(
+        {k: [_t(a) for a in params[k]] for k in params}, _t(x), _t(ct),
+        {k: [_t(a) for a in v[k]] for k in v}, tcfg)
+    cast = _autograd_bwd2(tcfg, params, x, ct, v)
+    monkeypatch.setattr(TP, "_line_value", _straight_line_value)
+    d = _autograd_bwd2(tcfg, params, x, ct, v)
+    assert _rel(d_ct.numpy(), d[-1].numpy()) <= 1e-6
+    for a, b in zip(d_pl + d_ln, d[:-1]):
+        assert _rel(a.numpy(), b.numpy()) <= 1e-6
+    L = len(d_pl)
+    assert max(_rel(a.numpy(), b.numpy())
+               for a, b in zip(d_ln, cast[L:-1])) > 1e-4
 
 
 @pytest.mark.parametrize("pos_grad,lines,stacked", PLANE_CASES,

@@ -17,6 +17,7 @@ from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils import optim as TO
 from nerfsys_tpu_torch.utils.tree import tree_leaves
 from test_torch_train import _meta, _Recording, _setup, _sides
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from nerfsys_tpu.ops import volrend as JV
 from nerfsys_tpu_torch.ops import volrend as TV
 from test_torch_volrend_bwd2_scan import lane_bwd2
 from test_torch_volrend_edges import CASES, IDS, N, _inputs
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 TOL = 1e-5  # of each output's max
 WALK_TOL = 1e-5  # the lane walk: tree-order scans (the card's tolerance)

@@ -25,6 +25,7 @@ from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils import optim as TO
 from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
 from test_torch_train import _meta, _Recording, _setup, _sides
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def test_maml_plain_path_matches_kernel_path():

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from nerfsys_tpu.scripts.convert_lpips_weights import random_weights
 from nerfsys_tpu.utils import metrics as JM
 from nerfsys_tpu_torch.utils import metrics as TM
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 C2 = 0.03 ** 2
 

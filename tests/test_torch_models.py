@@ -19,6 +19,7 @@ from nerfsys_tpu.ops.planes import PlaneEncodingConfig
 from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.models import ngp as TN
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 ATOL = 1e-5
 

@@ -34,6 +34,7 @@ from nerfsys_tpu.data import task_dataset as JT
 from nerfsys_tpu_torch.data import native as TN
 from nerfsys_tpu_torch.data import ram_rays as TR
 from nerfsys_tpu_torch.data import task_dataset as TT
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX = np.array([[-1.5, -1.5, -1.5], [1.5, 1.5, 1.5]], np.float32)

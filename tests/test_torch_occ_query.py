@@ -32,6 +32,7 @@ from nerfsys_tpu.models import occupancy as JMO
 from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import occupancy as T
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 M = 1024 + 13  # a tail past whole 256-point blocks
 ALL_CASES = [(label, kind, min(m, M), k, l, r)

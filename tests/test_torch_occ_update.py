@@ -33,6 +33,7 @@ from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import occupancy as T
 from nerfsys_tpu_torch.utils import interop
 from test_torch_train import _setup, _sides
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 R, L = 16, 2
 CFG = dict(resolution=R, levels=L, warmup_steps=32, update_interval=4)

@@ -20,6 +20,7 @@ from nerfsys_tpu.ops import occupancy as J
 from nerfsys_tpu_torch.models import occupancy as TM
 from nerfsys_tpu_torch.ops import occupancy as T
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _setup(seed=0, K=2, R=16, L=2):

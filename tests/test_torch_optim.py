@@ -21,6 +21,7 @@ from nerfsys_tpu_torch.models import container as TCo
 from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils import optim as TO
 from nerfsys_tpu_torch.utils.tree import tree_leaves, tree_map
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _params(seed=0):

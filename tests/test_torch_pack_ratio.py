@@ -24,6 +24,7 @@ from nerfsys_tpu_torch.models.container import ContainerConfig
 from nerfsys_tpu_torch.models.ngp import NGPConfig
 from nerfsys_tpu_torch.ops.planes import PlaneEncodingConfig
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _reference_ratio(S, K, active_expert, hard_mask, union_probe,

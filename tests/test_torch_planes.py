@@ -13,6 +13,7 @@ import torch
 
 from nerfsys_tpu.ops import planes as J
 from nerfsys_tpu_torch.ops import planes as T
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 ATOL = 1e-6
 

@@ -15,6 +15,7 @@ import pytest
 
 from nerfsys_tpu_torch.ops import planes as PL
 from nerfsys_tpu_torch.utils.device import SMEM_BLOCK_BYTES
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 BENCH = PL.PlaneEncodingConfig(levels=3, base_res=128, growth=2.0,
                                features=8, pos_grad=False)

@@ -31,6 +31,7 @@ import torch
 from nerfsys_tpu.ops import planes as JP
 from nerfsys_tpu_torch.ops import planes as TP
 from test_torch_grads import _jax_plane_vjp, _rel
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 # (levels, base, F, lines): a vector config, no lines, the scalar variant's
 # F=2, and base 128 (float32(R-1-1e-6) == R-1: x = 1 selects u0 = R-1)

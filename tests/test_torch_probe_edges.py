@@ -33,6 +33,7 @@ import chip_smoke as cs
 from nerfsys_tpu.models.occupancy import union_pair_fn as j_union_pair_fn
 from nerfsys_tpu.ops import occupancy as J
 from nerfsys_tpu_torch.ops import occupancy as T
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 JAX_TOL = 1e-6
 WALK_TOL = 1e-5

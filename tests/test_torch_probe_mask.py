@@ -39,6 +39,7 @@ from nerfsys_tpu.models import occupancy as JMO
 from nerfsys_tpu_torch.data import ram_rays as TRays
 from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import occupancy as T
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 N = 133  # a tail past whole 4-ray blocks
 f32 = np.float32

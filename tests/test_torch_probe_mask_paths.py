@@ -32,6 +32,7 @@ from nerfsys_tpu_torch.pipelines.offline import meta_train_step as TS
 from nerfsys_tpu_torch.utils import interop
 from nerfsys_tpu_torch.utils import optim as TOpt
 from nerfsys_tpu_torch.utils.tree import tree_leaves
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def test_fomaml_step_with_probe_masks_matches_jax():

@@ -22,6 +22,7 @@ from test_torch_early_stop import _layout, _world
 
 from nerfsys_tpu.pipelines.online import runtime_adapt as JR
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _close(got, want, atol):

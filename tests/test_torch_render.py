@@ -34,6 +34,7 @@ from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import occupancy as TO
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -281,7 +282,7 @@ def test_kernel_registry_covers_every_source():
     assert srcs == {s for s, _ in kernels.SOURCES.values()}
     assert "baked.cu" in srcs and kernels.BAKED_TRILERP in kernels.KERNELS
     assert "--fmad=false" in kernels.SOURCES["baked"][1]
-    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 25
+    assert "composite_seg.cu" in srcs and len(kernels.KERNELS) == 26
     assert len(kernels.SOURCES) == 15
     assert kernels.KERNELS[8] is kernels.COMPOSITE_SEG
     assert kernels.COMPOSITE_SEG.source.endswith("csrc/composite_seg.cu")
@@ -317,11 +318,15 @@ def test_kernel_registry_covers_every_source():
     assert "--fmad=false" in kernels.SOURCES["activations"][1]
     # kernels 1b and 5b, the bfloat16 line matmuls: kernels 1 and 5's
     # sources, built --fmad=false (products of bfloat16 values are exact)
+    # and 5''b, their second derivative under MAML: kernel 5'''s source
     assert kernels.KERNELS[23:] == (kernels.PLANES_FWD_LINES_BF16,
-                                    kernels.PLANES_BWD_LIGHT_LINES_BF16)
+                                    kernels.PLANES_BWD_LIGHT_LINES_BF16,
+                                    kernels.PLANES_BWD2_LIGHT_LINES_BF16)
     assert kernels.PLANES_FWD_LINES_BF16.source == kernels.PLANES_FWD.source
     assert (kernels.PLANES_BWD_LIGHT_LINES_BF16.source
             == kernels.PLANES_BWD_LIGHT.source)
+    assert (kernels.PLANES_BWD2_LIGHT_LINES_BF16.source
+            == kernels.PLANES_BWD2_LIGHT.source)
     for k in kernels.KERNELS[23:]:
         assert k.replaces.startswith("nerfsys_tpu/ops/planes.py:")
     assert kernels.OCC_QUERY.source.endswith("csrc/occ_query.cu")

@@ -29,6 +29,7 @@ from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.ops import rays as TRo
 from nerfsys_tpu_torch.ops import scene_box as TSb
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _lin(rng, i, o, lead):

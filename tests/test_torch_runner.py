@@ -14,7 +14,8 @@ model at test widths with soft importance occupancy (R=16, L=2), writes
 `last.*`, and its premarked grids equal the JAX package's premark of the
 same training cameras bit for bit. The precision options (`--use_amp`,
 bfloat16 line matmuls, both) run train, eval and video from the
-checkpoint's stored config; `--algo maml` with either raises.
+checkpoint's stored config, with FoMAML and with `--algo maml` (on the
+default hash experts with `--use_amp`, on planes with both).
 """
 import dataclasses
 import json
@@ -33,6 +34,7 @@ from nerfsys_tpu.utils import config as JC
 from nerfsys_tpu_torch import runner as TR
 from nerfsys_tpu_torch.utils import config as TC
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").glob(
@@ -165,11 +167,6 @@ def test_unported_ops_raise(data_root, op):
 
 @pytest.mark.parametrize("flags,match", [
     (["--mesh_shape", "2"], "mesh_shape"),
-    # the precision options are ported; MAML under them is not (item 7,
-    # with kernel 5''b)
-    (["--use_amp", "--algo", "maml"], r"use_amp.*item 7.*5''b"),
-    (["--plane_lines_mm", "--plane_lines_mm_dtype", "bfloat16", "--algo",
-      "maml", "--xyz_encoding", "planes"], r"plane_lines_mm_dtype.*item 7"),
     (["--fim"], "fim"),
     (["--nerf_variant", "vanilla"], "vanilla"),
     (["--dir_encoding", "frequency"], "frequency"),
@@ -182,6 +179,35 @@ def test_unported_flags_raise_at_context_build(data_root, flags, match):
         TR.build_context(P, "train")
 
 
+@pytest.mark.parametrize("flags", [
+    ["--use_amp", "--algo", "maml"],
+    ["--plane_lines_mm", "--plane_lines_mm_dtype", "bfloat16", "--algo",
+     "maml", "--xyz_encoding", "planes"],
+], ids=["use_amp", "lines_bf16"])
+def test_maml_under_precision_options_builds(data_root, flags):
+    """Second-order MAML under either precision option builds its train
+    context and step (kernel 5''b under bfloat16 line matmuls)."""
+    from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
+        make_train_step,
+    )
+
+    P = TC.parse_args(["--device", "cpu", *_scene_args(data_root), *SMALL,
+                       *flags])
+    ctx = TR.build_context(P, "train")
+    try:
+        meta, cfg = TR.meta_config_from_args(ctx["P"]), ctx["cfg"]
+        assert meta.algo == "maml" and not meta.first_order
+        assert (cfg.expert.use_bf16, bool(cfg.expert.planes
+                                          and cfg.expert.planes.lines_bf16)
+                ) == ("--use_amp" in flags, "bfloat16" in flags)
+        make_train_step(meta, cfg, TR.build_optimizer(
+            TR.optim_config_from_args(ctx["P"]), TR.param_group_labels(
+                ctx["params"])))
+    finally:
+        for name in ("train_loader", "eval_loader"):
+            ctx[name].close()
+
+
 @pytest.mark.parametrize("flags,refused", [
     (["--plane_lines_mm_dtype", "bfloat16"], False),
     (["--plane_lines_mm"], False),
@@ -189,13 +215,14 @@ def test_unported_flags_raise_at_context_build(data_root, flags, match):
 ])
 def test_line_matmul_dtype_refused_only_with_line_matmuls(flags, refused):
     """The reference reads --plane_lines_mm_dtype only with
-    --plane_lines_mm (its bfloat16 line matmuls, kernels 1b and 5b);
-    float32 ones compute the gathers' function. The flags are carried as
-    the JAX runner's container_config_from_args carries them; MAML refuses
-    the bfloat16 pair alone."""
+    --plane_lines_mm (its bfloat16 line matmuls, kernels 1b and 5b, and
+    5''b under MAML); float32 ones compute the gathers' function. The
+    flags are carried as the JAX runner's container_config_from_args
+    carries them (`refused`: the config's lines_bf16); every algorithm
+    builds its step under them."""
     from nerfsys_tpu_torch.pipelines.offline.meta_core import MetaConfig
     from nerfsys_tpu_torch.pipelines.offline.meta_train_step import (
-        refuse_maml_precision,
+        make_train_step,
     )
 
     def parsed(extra):
@@ -215,13 +242,9 @@ def test_line_matmul_dtype_refused_only_with_line_matmuls(flags, refused):
     jplanes = JR.container_config_from_args(Pj).expert.planes
     assert (jplanes.lines_matmul, jplanes.lines_mm_dtype) == (
         planes.lines_matmul, planes.lines_mm_dtype)
-    refuse_maml_precision(MetaConfig(algo="fomaml"), cfg)
-    if refused:
-        with pytest.raises(NotImplementedError,
-                           match="plane_lines_mm_dtype bfloat16"):
-            refuse_maml_precision(MetaConfig(algo="maml"), cfg)
-    else:
-        refuse_maml_precision(MetaConfig(algo="maml"), cfg)
+    for algo in ("fomaml", "maml", "reptile"):
+        make_train_step(MetaConfig(algo=algo), cfg, None)
+    if not refused:
         assert dataclasses.replace(planes, lines_matmul=False,
                                    lines_mm_dtype="float32") == (
             TR.container_config_from_args(parsed([])).expert.planes)
@@ -232,30 +255,26 @@ PRECISION = {"amp": ["--use_amp"],
                             "bfloat16"],
              "both": ["--use_amp", "--plane_lines_mm",
                       "--plane_lines_mm_dtype", "bfloat16"]}
+# second-order MAML under the options: --use_amp on the default hash
+# experts (a small table), both options on planes (kernel 5''b)
+PRECISION_MAML = {
+    "maml-amp-hash": ["--use_amp", "--algo", "maml", "--log2_hashmap_size",
+                      "12", "--max_res", "64"],
+    "maml-both": PRECISION["both"] + ["--algo", "maml"]}
 
 
-@pytest.fixture
-def one_thread():
-    """PyTorch's intra-op threads at 1 while the test runs: its tensors are
-    tiny, and under a loaded multi-worker run the 8-thread pool's parallel
-    regions cost far more than the work (46-65 s a case, against ~2 s on
-    one core)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-@pytest.mark.parametrize("option", sorted(PRECISION))
+@pytest.mark.parametrize("option", sorted(PRECISION) + sorted(
+    PRECISION_MAML))
 def test_precision_options_run_train_eval_video(data_root, tmp_path,
-                                               monkeypatch, option,
-                                               one_thread):
-    """--use_amp, bfloat16 line matmuls and both: a train run, then eval
-    (tto 0 and 1) and a video from its checkpoint. The options are not
-    architecture keys: eval takes them from the stored config under
-    --use_stored_args, the video from its own flags. Eval and video render
-    in chunks of 1,024 rays: the default pads a 64x48 image to ~3.1M
-    sample points a chunk, seconds of plain-version work on the CPU."""
+                                               monkeypatch, option):
+    """--use_amp, bfloat16 line matmuls and both, with FoMAML, and
+    second-order MAML with --use_amp (hash experts) and with both
+    (planes): a train run, then eval (tto 0 and 1) and a video from its
+    checkpoint. The options are not architecture keys: eval takes them
+    from the stored config under --use_stored_args, the video from its own
+    flags. Eval and video render in chunks of 1,024 rays: the default pads
+    a 64x48 image to ~3.1M sample points a chunk, seconds of plain-version
+    work on the CPU."""
     from nerfsys_tpu_torch.pipelines import video_gen
     from nerfsys_tpu_torch.pipelines.online import runtime_adapt
     from nerfsys_tpu_torch.utils import checkpoint as ckpt
@@ -264,16 +283,24 @@ def test_precision_options_run_train_eval_video(data_root, tmp_path,
     monkeypatch.chdir(tmp_path)  # logs/ land in the tmp dir
     for mod in (runtime_adapt, video_gen):
         monkeypatch.setattr(mod, "default_chunk_rays", lambda *a, **k: 1024)
-    scene = [*_scene_args(data_root), *SMALL, "--xyz_encoding", "planes",
-             "--device", "cpu"]
+    flags = PRECISION.get(option) or PRECISION_MAML[option]
+    enc = ["--xyz_encoding", "hash" if "hash" in option else "planes"]
+    scene = [*_scene_args(data_root), *SMALL, *enc, "--device", "cpu"]
     ctx = TR.main(["--op", "train", "--configPath",
                    str(REPO / "configs" / "train.json"), *scene,
-                   *PRECISION[option], "--outer_steps", "1", "--save_step",
+                   *flags, "--outer_steps", "1", "--save_step",
                    "1", "--fname", "run"])
     run = Path(ctx["run_dir"])
-    want = (option != "lines_bf16", option != "amp")
-    assert (ctx["cfg"].expert.use_bf16,
-            ctx["cfg"].expert.planes.lines_bf16) == want
+    want = ("--use_amp" in flags, "bfloat16" in flags)
+
+    def options(c):
+        return c.expert.use_bf16, bool(c.expert.planes
+                                       and c.expert.planes.lines_bf16)
+
+    assert options(ctx["cfg"]) == want
+    assert (ctx["cfg"].expert.xyz_encoding == "hash") == ("hash" in option)
+    assert TR.meta_config_from_args(ctx["P"]).algo == (
+        "maml" if option in PRECISION_MAML else "fomaml")
     stored = json.loads((run / "last.config.json").read_text())
     assert (stored["use_amp"], stored["plane_lines_mm"]) == want
     params, _, _ = ckpt.load_checkpoint(run, "last", ctx["params"])
@@ -282,8 +309,7 @@ def test_precision_options_run_train_eval_video(data_root, tmp_path,
                   "--prefix", "last", "--tto", "0,1", "--cap_images", "1",
                   "--support_rays", "64", "--use_stored_args", "--fname",
                   "eval"])
-    assert (ev["cfg"].expert.use_bf16,
-            ev["cfg"].expert.planes.lines_bf16) == want
+    assert options(ev["cfg"]) == want
     assert [r["tto"] for r in ev["rows"]] == [0, 1]
     assert all(np.isfinite(r["psnr"]) for r in ev["rows"])
     if option == "both":
@@ -296,7 +322,7 @@ def test_precision_options_run_train_eval_video(data_root, tmp_path,
         Pj = JC.parse_args(["--op", "train", "--configPath",
                             str(REPO / "configs" / "train.json"),
                             *scene[:scene.index("--device")],
-                            *PRECISION[option], "--outer_steps", "1"])
+                            *flags, "--outer_steps", "1"])
         JCK.save_checkpoint(jrun, "last", interop.tree_to_numpy(params),
                             config=JC.namespace_to_dict(Pj), step=1)
         occ = ckpt.load_aux_state(run, "occ", ev["occ_state"])
@@ -305,16 +331,14 @@ def test_precision_options_run_train_eval_video(data_root, tmp_path,
                        str(jrun), "--prefix", "last", "--tto", "0",
                        "--cap_images", "1", "--support_rays", "64",
                        "--use_stored_args", "--fname", "jax_eval"])
-        assert (jev["cfg"].expert.use_bf16,
-                jev["cfg"].expert.planes.lines_bf16) == want
+        assert options(jev["cfg"]) == want
         assert jev["rows"][0]["psnr"] == ev["rows"][0]["psnr"]
     vid = TR.main(["--op", "video", *scene, "--checkpoint_path", str(run),
                    "--prefix", "last", "--camera_path", "turntable",
                    "--video_frames", "2", "--cap_images", "1",
                    "--downscale", "0.25", "--ray_samples", "4",
-                   *PRECISION[option], "--fname", "video"])
-    assert (vid["cfg"].expert.use_bf16,
-            vid["cfg"].expert.planes.lines_bf16) == want
+                   *flags, "--fname", "video"])
+    assert options(vid["cfg"]) == want
     assert Path(vid["video_path"]).exists()
 
 

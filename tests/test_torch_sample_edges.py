@@ -26,6 +26,7 @@ import torch
 import chip_smoke as cs
 from nerfsys_tpu.ops import occupancy as J
 from nerfsys_tpu_torch.ops import occupancy as T
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 JAX_TOL = 1e-6
 N = 133  # a tail past whole 4-ray blocks

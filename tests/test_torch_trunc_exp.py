@@ -16,6 +16,7 @@ import torch
 from nerfsys_tpu.ops import activations as JA
 from nerfsys_tpu_torch import kernels
 from nerfsys_tpu_torch.ops import activations as TA
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 M = np.float32(88.7)
 X = np.array([-np.inf, -1e30, -100.0, np.nextafter(-M, np.float32(-200)),

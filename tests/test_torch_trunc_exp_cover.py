@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from nerfsys_tpu_torch.ops import activations as TA
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 SMS = 132  # the H100's SMs
 T = TA.ACT_THREADS

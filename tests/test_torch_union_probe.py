@@ -25,6 +25,7 @@ from nerfsys_tpu.models import occupancy as JMO
 from nerfsys_tpu.pipelines.online import runtime_adapt as JR
 from nerfsys_tpu_torch.models import occupancy as TMO
 from nerfsys_tpu_torch.pipelines.online import runtime_adapt as TR
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 S = 12
 

@@ -43,6 +43,7 @@ from nerfsys_tpu_torch.data.image_metadata import ImageMetadata as TM
 from nerfsys_tpu_torch.pipelines import video_gen as TV
 from nerfsys_tpu_torch.utils import config as TC
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 U8_SHARE = 0.005  # pixels allowed more than 1 level apart
 

@@ -22,6 +22,7 @@ from test_torch_video import _frames, _u8_close
 from nerfsys_tpu.utils import config as JC
 from nerfsys_tpu_torch.utils import config as TC
 from nerfsys_tpu_torch.utils import interop
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def test_runner_video_matches_jax_runner(colmap_scene, tmp_path,  # noqa: F811

@@ -22,6 +22,7 @@ from nerfsys_tpu_torch.ops import color_space as TC
 from nerfsys_tpu_torch.ops import encodings as TE
 from nerfsys_tpu_torch.ops import losses as TL
 from nerfsys_tpu_torch.ops import volrend as TV
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 
 def _samples(seed=0, n=64, s=8):

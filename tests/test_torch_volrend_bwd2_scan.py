@@ -23,6 +23,7 @@ import torch
 
 import chip_smoke as cs
 from nerfsys_tpu_torch.ops import volrend as TV
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 N = 12  # rays a case
 TOL = 1e-5  # of each output's max: the scans' tree order (the card's)

@@ -31,6 +31,7 @@ import torch
 
 from nerfsys_tpu.ops import volrend as JV
 from nerfsys_tpu_torch.ops import volrend as TV
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 N = 24
 JAX_TOL = 1e-6  # of each gradient's max: the same operations, other orders

@@ -29,6 +29,7 @@ import torch
 from nerfsys_tpu.ops import volrend as JV
 from nerfsys_tpu_torch.ops import volrend as TV
 from test_torch_volrend_edges import _inputs, _seg_shift
+from test_torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse)
 
 JAX_TOL = 1e-6  # the same operations, sums in other orders
 WALK_TOL = 1e-5  # a product tree for T, butterfly sums (the card's)
